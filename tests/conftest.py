@@ -29,6 +29,10 @@ def pytest_configure(config):
         "markers",
         "slow: long-running benchmark/smoke runs (tier-1 excludes them "
         "via -m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the port's CUDA kernels); skips "
+        "without one")
 
 
 # --------------------------------------------------------------------------

@@ -1,0 +1,148 @@
+"""Package rules of the PyTorch port, checked on a host with no GPU.
+
+- ``import mxnet_tpu_torch`` loads neither ``jax`` nor ``mxnet_tpu``, and
+  no module of the package (nor ``chip_smoke.py``) imports them;
+- entry points run on the card by default and raise ``MXNetError``
+  when there is none, unless the caller asks for ``cpu()``;
+- the kernel wrapper takes its plain version only for CPU tensors, and
+  ``kernels/_build.py`` imports without ``nvcc`` and raises when it must build.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as onp
+import pytest
+import torch
+
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import serving
+from mxnet_tpu_torch.kernels import _build
+from mxnet_tpu_torch.models import DecoderBlockLM
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "mxnet_tpu_torch")
+
+
+def _forbidden(name):
+    return name is not None and (
+        name.split(".")[0] == "jax" or name == "mxnet_tpu"
+        or name.startswith("mxnet_tpu."))
+
+
+def test_import_loads_neither_jax_nor_the_jax_package():
+    code = ("import sys\n"
+            "import mxnet_tpu_torch, mxnet_tpu_torch.tools.profile_decode\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax'"
+            " or m == 'mxnet_tpu' or m.startswith('mxnet_tpu.'))\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def _python_files():
+    for base, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(base, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    offenders = []
+    files = list(_python_files())
+    assert len(files) > 20
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            offenders += [f"{os.path.relpath(path, ROOT)}: {n}"
+                          for n in names if _forbidden(n)]
+    assert offenders == []
+
+
+def test_entry_points_need_a_card_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a host without a CUDA device")
+    assert mx.current_context() == mx.gpu(0)
+    net = DecoderBlockLM(16, embed_dim=8, num_layers=1, num_heads=2,
+                         max_len=4)
+    with pytest.raises(mx.MXNetError, match="CUDA"):
+        net.initialize()
+    with pytest.raises(mx.MXNetError, match="CUDA"):
+        mx.nd.zeros((2, 2))
+    with pytest.raises(mx.MXNetError, match="CUDA"):
+        serving.SessionStateStore(net.state_row_shapes(),
+                                  net.state_row_dtypes())
+    net.initialize(ctx=mx.cpu())
+    with pytest.raises(mx.MXNetError, match="CUDA"):
+        serving.InferenceSession(
+            net, input_shapes=[(1, 1)], input_dtypes=["int32"],
+            state_shapes=net.state_row_shapes(),
+            state_dtypes=net.state_row_dtypes())
+    # a session on the CPU, asked for explicitly, works; a store on
+    # another device than the session is refused
+    store = serving.SessionStateStore(
+        net.state_row_shapes(), net.state_row_dtypes(), max_sessions=2,
+        ctx=mx.cpu())
+    try:
+        sess = serving.InferenceSession(
+            net, input_shapes=[(1, 1)], input_dtypes=["int32"],
+            state_store=store, buckets=[1], ctx=mx.cpu())
+        out, _ = sess.step(onp.zeros((1, 1), "int32"), states=[
+            onp.zeros((1,) + s, dt) for s, dt in
+            zip(net.state_row_shapes(), net.state_row_dtypes())])
+        assert out.shape == (1, 16) and out.context == mx.cpu()
+    finally:
+        store.close()
+
+
+def test_cuda_impl_on_cpu_tensors_takes_the_plain_path():
+    mx.random.seed(1)
+    rows = lambda net: [mx.nd.zeros((2,) + s, ctx=mx.cpu(), dtype=dt)
+                        for s, dt in zip(net.state_row_shapes(),
+                                         net.state_row_dtypes())]
+    outs = []
+    for impl in ("cuda", "torch"):
+        mx.random.seed(1)
+        net = DecoderBlockLM(16, embed_dim=8, num_layers=1, num_heads=2,
+                             max_len=4, impl=impl)
+        net.initialize(ctx=mx.cpu())
+        _build.reset_launch_counts()
+        with mx.autograd.pause():
+            outs.append(net(mx.nd.array(onp.array([[1], [2]], "int32"),
+                                        ctx=mx.cpu()), *rows(net))[0])
+        assert _build.launch_counts() == {}
+    assert onp.array_equal(outs[0].asnumpy(), outs[1].asnumpy())
+    with pytest.raises(ValueError, match="impl"):
+        DecoderBlockLM(16, embed_dim=8, num_layers=1, num_heads=2,
+                       max_len=4, impl="pallas")
+
+
+def test_build_module_imports_without_nvcc_and_raises_when_it_must_build(
+        tmp_path, monkeypatch):
+    assert "decode_attention" in _build.sources()
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(mx.MXNetError, match="nvcc"):
+        _build.build_all()
+
+
+def test_launch_counter_counts_and_resets():
+    _build.reset_launch_counts()
+    _build.count_launch("k")
+    _build.count_launch("k")
+    assert _build.launch_counts() == {"k": 2}
+    _build.reset_launch_counts()
+    assert _build.launch_counts() == {}
