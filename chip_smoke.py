@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``mxnet_tpu_torch``) on one GPU.
 
-Drives the port's main path — stateful decode serving of
-``DecoderBlockLM`` at GPT-2-small widths through ``InferenceSession``,
-``SessionStateStore`` and ``DynamicBatcher`` — and holds its
-hand-written CUDA kernel (K2, decode attention) against the plain
-PyTorch version. Run from the root of a checkout, on a machine with one
-NVIDIA H100:
+Drives the port's two main paths and holds their hand-written CUDA
+kernels against the plain PyTorch versions:
+
+- stateful decode serving of ``DecoderBlockLM`` at GPT-2-small widths
+  through ``InferenceSession``, ``SessionStateStore`` and
+  ``DynamicBatcher``, with the decode-attention kernel K2;
+- training ``TransformerLM`` at GPT-2 small's published widths and
+  depth (``autograd.record``, softmax cross-entropy, ``backward``,
+  Adam ``Trainer``), with the flash-attention forward kernel K1.
+
+Run from the root of a checkout, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
@@ -14,19 +19,38 @@ Phases (any failure exits non-zero and prints no result):
 
 1. device: require CUDA, print the card's name and power limit, turn
    TF32 off for float32 matmuls;
-2. build: compile every ``mxnet_tpu_torch/csrc/*.cu`` with nvcc;
-3. kernel check: K2 against ``_decode_flash_ref`` on the card, within
+2. build: compile every ``mxnet_tpu_torch/csrc/*.cu`` with nvcc, one
+   process per source, all started together;
+3. K2 check: K2 against ``_decode_flash_ref`` on the card, within
    rtol = atol = 1e-5, at the serving shapes and at other head dims;
-4. kernel times: K2, its plain version and
-   ``scaled_dot_product_attention`` (a yardstick only; the port never
-   calls it) at B in {1, 32}, S = 1024, L2 flushed before each launch,
-   beside the bound (the bytes of the visible K and V, q and out at
-   3.35 TB/s);
+4. K2 times: K2, its plain version and ``scaled_dot_product_attention``
+   (a yardstick only; the port never calls it) at B in {1, 32},
+   S = 1024, L2 flushed before each launch, beside the bound (the bytes
+   of the visible K and V, q and out at 3.35 TB/s);
 5. serving: 8 greedy-decode streams of 8-48 tokens through the batcher;
    every future resolves, K2 launches = layers x decode steps, and the
    three longest streams' final logits match the session's own
    explicit-state step loop within rtol = atol = 1e-4;
-6. report: one JSON line of kernels, then the device line last.
+6. K1 check: K1 against ``_flash_ref`` on the card within rtol = atol =
+   1e-5 in float32 at the training shape (8, 12, 1024, 1024, 64,
+   causal), the JAX tests' shapes, D in {128, 256} and a strided view;
+   within two bfloat16 ulps in bfloat16; dq/dk/dv through the
+   ``autograd.Function`` against autograd of ``_flash_ref`` within 1e-4;
+7. K1 times: K1, ``_flash_ref`` and ``scaled_dot_product_attention(
+   is_causal=True)`` (a yardstick only) at the training shape, L2
+   flushed before each launch, beside the bound (its flops at the fp32
+   rate of 67 TFLOP/s);
+8. training: ``TransformerLM`` at GPT-2 small's widths and depth, tied
+   embedding, Xavier weights from a seed, one fixed batch of 8 x 1024
+   tokens, Adam at 3e-4: 2 warm-up and 10 timed steps; every loss
+   finite and the last below the first, every gradient finite after
+   step 1, K1 launches = 12 layers x 10 timed steps; tokens/s, step ms,
+   forward/backward/optimizer ms and peak memory;
+9. training against the CPU: one record/backward at 1 x 128 tokens,
+   full width, on the card (through K1) and on the CPU (the plain path)
+   from the same weights; the loss and three gradients agree within
+   rtol 1e-3;
+10. report: one JSON line of kernels, then the device line last.
 
 Needs no network; imports nothing of JAX.
 """
@@ -47,21 +71,40 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 import mxnet_tpu_torch as mx  # noqa: E402
-from mxnet_tpu_torch import serving  # noqa: E402
+from mxnet_tpu_torch import autograd, convert, gluon, nd, serving  # noqa: E402
 from mxnet_tpu_torch.kernels import _build  # noqa: E402
 from mxnet_tpu_torch.kernels.flash_attention import (  # noqa: E402
-    KERNEL, _decode_flash, _decode_flash_ref)
-from mxnet_tpu_torch.models import DecoderBlockLM  # noqa: E402
+    FLASH_KERNEL, KERNEL, _decode_flash, _decode_flash_ref, _flash_fwd_cuda,
+    _flash_ref, flash_attention)
+from mxnet_tpu_torch.models import DecoderBlockLM, TransformerLM  # noqa: E402
 
 SEED = 20240917
 # GPT-2 small (n_embd 768, n_head 12, n_layer 12, n_positions 1024,
 # vocab_size 50257, FFN 4 x 768) in the block's own architecture
 GPT2_SMALL = dict(vocab_size=50257, embed_dim=768, num_layers=12,
                   num_heads=12, ffn_dim=3072, max_len=1024)
+# TransformerLM at the same published widths and depth, with GPT-2's tied
+# embedding; dropout 0.0 (the JAX default) instead of GPT-2's 0.1, so the
+# run is deterministic: the one cut
+GPT2_SMALL_LM = dict(vocab_size=50257, embed_dim=768, num_layers=12,
+                     num_heads=12, ffn_dim=3072, max_len=1024,
+                     tie_weights=True, dropout=0.0)
+TRAIN_B, TRAIN_S, TRAIN_LR = 8, 1024, 3e-4
+WARMUP_STEPS, TIMED_STEPS = 2, 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 KERNEL_RTOL = KERNEL_ATOL = 1e-5
 SERVE_RTOL = SERVE_ATOL = 1e-4
+# K1 in bfloat16 against the plain version in float32 from the same
+# bfloat16 inputs: the kernel rounds once, at the output; two ulps
+BF16_RTOL = 2.0 ** -6
+# dq/dk/dv: the recompute backward against autograd through the plain
+# version, two different fp32 computations over up to 1024 keys
+GRAD_TOL = 1e-4
+# float32 through different summation orders over 12 layers and a
+# 50257-way softmax: the card's cuBLAS and K1 against the CPU's BLAS and
+# plain attention
+CPU_RTOL = 1e-3
 REPS = 25
 
 
@@ -108,7 +151,7 @@ def attention_inputs(gen, B, H, S, D, lengths):
 
 
 def kernel_check_phase(gen):
-    phase("3 kernel check")
+    phase("3 K2 check")
     S, H, D = GPT2_SMALL["max_len"], GPT2_SMALL["num_heads"], 64
     cases = [
         (8, H, S, D, [1, 7, S, 333, 512, 2, S - 1, 64]),
@@ -173,7 +216,7 @@ def attention_bound(B, H, D, lengths):
 
 
 def kernel_times_phase(gen):
-    phase("4 kernel times")
+    phase("4 K2 times")
     S, H, D = GPT2_SMALL["max_len"], GPT2_SMALL["num_heads"], 64
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     rows = []
@@ -321,22 +364,283 @@ def serving_phase():
     return launches, result
 
 
+def flash_inputs(gen, B, H, S_q, S_k, D, dtype=torch.float32):
+    dev = torch.device("cuda")
+    q = torch.randn(B, H, S_q, D, device=dev, generator=gen)
+    k = torch.randn(B, H, S_k, D, device=dev, generator=gen)
+    v = torch.randn(B, H, S_k, D, device=dev, generator=gen)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def k1_check_phase(gen):
+    phase("6 K1 check")
+    H, S = GPT2_SMALL_LM["num_heads"], TRAIN_S
+    # (B, H, S_q, S_k, D, causal): the training shape; the JAX tests'
+    # (tests/test_attention.py:26-78); causal S_q < S_k; D 128 and 256
+    cases = [
+        (TRAIN_B, H, S, S, 64, True),
+        (2, 3, 64, 64, 16, False),
+        (2, 3, 64, 64, 16, True),
+        (1, 2, 100, 70, 24, False),
+        (1, 2, 1, 40, 8, True),
+        (2, 4, 100, 300, 64, True),
+        (2, 4, 333, 333, 128, True),
+        (2, 4, 200, 200, 256, True),
+    ]
+    worst = 0.0
+    for B, H_, S_q, S_k, D, causal in cases:
+        q, k, v = flash_inputs(gen, B, H_, S_q, S_k, D)
+        got = _flash_fwd_cuda(q, k, v, D ** -0.5, causal)
+        want = _flash_ref(q, k, v, D ** -0.5, causal)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        print(f"  B={B} H={H_} S_q={S_q} S_k={S_k} D={D} causal={causal}: "
+              f"max_abs_err={err:.3e}")
+        if not torch.allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
+            raise RuntimeError(f"K1 disagrees with its plain version at "
+                               f"{(B, H_, S_q, S_k, D, causal)}: {err}")
+        worst = max(worst, err)
+    # the model's own layout: q, k, v strided views of one projection
+    qkv = torch.randn(2, S, 3, H, 64, device="cuda", generator=gen)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    got = _flash_fwd_cuda(q, k, v, 0.125, True)
+    want = _flash_ref(q.contiguous(), k.contiguous(), v.contiguous(), 0.125,
+                      True)
+    err = (got - want).abs().max().item()
+    print(f"  strided views of (2, {S}, 3, {H}, 64): max_abs_err={err:.3e}")
+    if not torch.allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
+        raise RuntimeError(f"K1 disagrees on strided views: {err}")
+    worst = max(worst, err)
+    q, k, v = flash_inputs(gen, 2, H, 512, 512, 64, torch.bfloat16)
+    got = _flash_fwd_cuda(q, k, v, 0.125, True).float()
+    want = _flash_ref(q.float(), k.float(), v.float(), 0.125, True)
+    bf_err = (got - want.to(torch.bfloat16).float()).abs().max().item()
+    print(f"  bfloat16 (2, {H}, 512, 512, 64): max_abs_err={bf_err:.3e} "
+          f"against the float32 plain version rounded to bfloat16")
+    if not torch.allclose(got, want.to(torch.bfloat16).float(),
+                          rtol=BF16_RTOL, atol=KERNEL_ATOL):
+        raise RuntimeError(f"K1 in bfloat16 is off by {bf_err}")
+    q, k, v = flash_inputs(gen, 2, H, S, S, 64)
+    do = torch.randn(q.shape, device="cuda", generator=gen)
+    grads = []
+    for fn in (lambda a, b, c: flash_attention(a, b, c, causal=True),
+               lambda a, b, c: _flash_ref(a, b, c, 0.125, True)):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        fn(*leaves).backward(do)
+        grads.append([t.grad for t in leaves])
+    gerr = max((a - b).abs().max().item() for a, b in zip(*grads))
+    print(f"  dq/dk/dv at (2, {H}, {S}, {S}, 64) causal: max_abs_err="
+          f"{gerr:.3e} against autograd of _flash_ref")
+    if not all(torch.allclose(a, b, rtol=GRAD_TOL, atol=GRAD_TOL)
+               for a, b in zip(*grads)):
+        raise RuntimeError(f"K1's gradients are off by {gerr}")
+    print(f"K1 matches _flash_ref within rtol=atol={KERNEL_RTOL} in float32; "
+          f"worst max_abs_err {worst:.3e}")
+    return worst
+
+
+def flash_bound(B, H, S_q, S_k, D, causal, itemsize=4):
+    """Least ms for one K1 call: the larger of its bytes (q, k, v read,
+    out written) over the memory rate and its flops (2*D for q.k and
+    2*D for p.v per visible query-key pair) over the fp32 rate."""
+    if causal:  # row i sees keys 0 .. i + S_k - S_q
+        pairs = S_q * (S_q + 1) // 2 + S_q * (S_k - S_q)
+    else:
+        pairs = S_q * S_k
+    flops = 4 * D * B * H * pairs
+    nbytes = (2 * B * H * S_q * D + 2 * B * H * S_k * D) * itemsize
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations"), flops, nbytes
+
+
+def k1_times_phase(gen):
+    phase("7 K1 times")
+    B, H, S, D = TRAIN_B, GPT2_SMALL_LM["num_heads"], TRAIN_S, 64
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    q, k, v = flash_inputs(gen, B, H, S, S, D)
+    scale = D ** -0.5
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale)
+
+    lib_err = (library() - _flash_ref(q, k, v, scale, True)).abs().max()
+    row = {"B": B, "H": H, "S_q": S, "S_k": S, "D": D, "causal": True,
+           "ms": time_ms(lambda: _flash_fwd_cuda(q, k, v, scale, True),
+                         flush),
+           "plain_ms": time_ms(lambda: _flash_ref(q, k, v, scale, True),
+                               flush),
+           "library_ms": time_ms(library, flush),
+           "library_max_abs_err": lib_err.item()}
+    row["bound_ms"], row["bound_by"], row["flops"], row["bytes"] = \
+        flash_bound(B, H, S, S, D, True)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["achieved_tflops"] = row["flops"] / row["ms"] / 1e9
+    print("  " + json.dumps(row))
+    del flush
+    return row
+
+
+def training_phase():
+    phase("8 training")
+    ctx = mx.gpu(0)
+    cfg = GPT2_SMALL_LM
+    vocab = cfg["vocab_size"]
+    mx.random.seed(SEED)
+    net = TransformerLM(**cfg)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    toks = nd.array(onp.random.RandomState(SEED).randint(
+        0, vocab, (TRAIN_B, TRAIN_S)).astype("int32"), ctx=ctx)
+    labels = toks[:, 1:].reshape(-1)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": TRAIN_LR})
+
+    def step():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        with autograd.record():
+            logits = net(toks)
+            # next-token loss, as tests/test_attention.py's training test
+            loss = loss_fn(logits[:, :-1].reshape(-1, vocab), labels).mean()
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        trainer.step(TRAIN_B)
+        ev[3].record()
+        return loss, ev
+
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(WARMUP_STEPS):
+        loss, _ = step()
+        losses.append(loss.asscalar())
+        if i == 0:
+            bad = [name for name, p in net.collect_params().items()
+                   if not torch.isfinite(p.grad().data).all()]
+            if bad:
+                raise RuntimeError(f"non-finite gradients after step 1: "
+                                   f"{bad[:5]}")
+    torch.cuda.synchronize()
+    n_params = sum(p.data().size for p in net.collect_params().values())
+    print(f"TransformerLM {cfg}: {n_params} parameters; batch {TRAIN_B} x "
+          f"{TRAIN_S} tokens, Adam lr {TRAIN_LR}; {WARMUP_STEPS} warm-up "
+          f"steps done")
+    _build.reset_launch_counts()
+    step_ms, parts = [], []
+    t_all = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        loss, ev = step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        parts.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+        losses.append(loss.asscalar())
+    wall = time.perf_counter() - t_all
+    launches = _build.launch_counts().get(FLASH_KERNEL, 0)
+    print(f"losses {[round(x, 4) for x in losses]}")
+    if not all(onp.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"training did not go down: {losses}")
+    want = cfg["num_layers"] * TIMED_STEPS
+    if launches != want:
+        raise RuntimeError(f"K1 launched {launches} times in {TIMED_STEPS} "
+                           f"steps of {cfg['num_layers']} layers")
+    print(f"K1 launches {launches} = {cfg['num_layers']} layers x "
+          f"{TIMED_STEPS} timed steps")
+    fwd, bwd, opt = (statistics.mean(p[i] for p in parts) for i in range(3))
+    result = {"tokens_per_s": TRAIN_B * TRAIN_S * TIMED_STEPS / wall,
+              "mean_step_ms": statistics.mean(step_ms),
+              "median_step_ms": statistics.median(step_ms),
+              "forward_ms": fwd, "backward_ms": bwd, "optimizer_ms": opt,
+              "first_loss": losses[0], "last_loss": losses[-1],
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print("training " + json.dumps(result))
+    return net, launches, result
+
+
+def training_vs_cpu_phase(net):
+    phase("9 training against the CPU")
+    cfg = GPT2_SMALL_LM
+    vocab = cfg["vocab_size"]
+    arrays = {name: p.data().asnumpy()
+              for name, p in net._collect_params_with_prefix().items()}
+    cpu_net = convert.params_from_numpy(TransformerLM(**cfg), arrays,
+                                        ctx=mx.cpu())
+    toks = onp.random.RandomState(SEED + 1).randint(0, vocab, (1, 128))
+    watched = ["embed.weight",
+               f"blocks.{cfg['num_layers'] // 2}.attn.qkv.weight",
+               "ln_f.gamma"]
+    results = []
+    for model, ctx in ((net, mx.gpu(0)), (cpu_net, mx.cpu())):
+        t = nd.array(toks.astype("int32"), ctx=ctx)
+        _build.reset_launch_counts()
+        with autograd.record():
+            logits = model(t)
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()(
+                logits[:, :-1].reshape(-1, vocab),
+                t[:, 1:].reshape(-1)).mean()
+        loss.backward()
+        params = model._collect_params_with_prefix()
+        results.append((loss.asscalar(),
+                        {n: params[n].grad().asnumpy() for n in watched},
+                        _build.launch_counts().get(FLASH_KERNEL, 0)))
+    (gl, gg, glaunch), (cl, cg, claunch) = results
+    if glaunch != cfg["num_layers"] or claunch != 0:
+        raise RuntimeError(f"K1 launches: card {glaunch}, CPU {claunch}")
+    print(f"loss card {gl:.6f} cpu {cl:.6f}")
+    if not onp.isclose(gl, cl, rtol=CPU_RTOL, atol=0):
+        raise RuntimeError(f"loss differs: card {gl}, CPU {cl}")
+    worst = {}
+    for n in watched:
+        # rtol against the gradient's own scale: entries near zero keep
+        # no relative precision through the reordered sums
+        scale = float(onp.abs(cg[n]).max())
+        err = float(onp.abs(gg[n] - cg[n]).max())
+        worst[n] = err / scale
+        print(f"  grad {n}: max_abs_err {err:.3e}, {err / scale:.3e} of its "
+              f"largest entry {scale:.3e}")
+        if not onp.allclose(gg[n], cg[n], rtol=CPU_RTOL,
+                            atol=CPU_RTOL * scale):
+            raise RuntimeError(f"gradient of {n} differs from the CPU's")
+    print(f"card matches CPU within rtol {CPU_RTOL}")
+    return {"loss_card": gl, "loss_cpu": cl, "grad_rel_err": worst}
+
+
 def main():
     smi = device_phase()
     build_phase()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    worst = kernel_check_phase(gen)
-    rows = kernel_times_phase(gen)
-    launches, _ = serving_phase()
-    phase("6 report")
-    big = rows[-1]
+    k2_worst = kernel_check_phase(gen)
+    k2_rows = kernel_times_phase(gen)
+    k2_launches, _ = serving_phase()
+    k1_worst = k1_check_phase(gen)
+    k1_row = k1_times_phase(gen)
+    net, k1_launches, _ = training_phase()
+    training_vs_cpu_phase(net)
+    phase("10 report")
+    big = k2_rows[-1]
     print(json.dumps({"kernels": [{
+        "name": FLASH_KERNEL,
+        "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "mxnet_tpu/kernels/flash_attention.py:48",
+        "launches": k1_launches,
+        "max_abs_err": k1_worst,
+        "ms": k1_row["ms"],
+        "plain_ms": k1_row["plain_ms"],
+        "bound_ms": k1_row["bound_ms"],
+        "bound_by": k1_row["bound_by"],
+        "library_ms": k1_row["library_ms"],
+        "shape": f"B={k1_row['B']} H={k1_row['H']} S_q={k1_row['S_q']} "
+                 f"S_k={k1_row['S_k']} D={k1_row['D']} causal fp32",
+        "card": smi}, {
         "name": KERNEL,
         "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/decode_attention.cu",
         "replaces": "mxnet_tpu/kernels/flash_attention.py:137",
-        "launches": launches,
-        "max_abs_err": worst,
+        "launches": k2_launches,
+        "max_abs_err": k2_worst,
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"],

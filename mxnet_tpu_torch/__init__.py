@@ -4,13 +4,19 @@ A second package beside the JAX one, with the same module layout and
 public names, built on PyTorch for an NVIDIA H100. Plain tensor code is
 PyTorch; every kernel the JAX package wrote in Pallas for the TPU is a
 kernel written by hand in CUDA C++ under ``csrc/``, built with ``nvcc``
-at first use (``kernels/_build.py``). This slice covers stateful decode
-serving of :class:`~.models.DecoderBlockLM`:
+at first use (``kernels/_build.py``). Two slices are ported: stateful
+decode serving of :class:`~.models.DecoderBlockLM`, and training
+:class:`~.models.TransformerLM`:
 
-- ``mx.nd`` — NDArray over a ``torch.Tensor`` and the ops the decoder
-  uses;
-- ``mx.gluon`` — Block/HybridBlock as ``torch.nn.Module``s;
-- ``mx.kernels`` — the decode-attention kernel K2 and its plain version;
+- ``mx.nd`` — NDArray over a ``torch.Tensor`` and the ops both paths
+  use;
+- ``mx.autograd`` — recording scopes and the tape (torch's autograd
+  graph, with MXNet's ``grad_req`` rules);
+- ``mx.gluon`` — Block/HybridBlock as ``torch.nn.Module``s, the losses
+  and the Trainer;
+- ``mx.optimizer`` — SGD and Adam, updating parameters in place;
+- ``mx.kernels`` — the flash-attention kernel K1, the decode-attention
+  kernel K2 and their plain versions;
 - ``mx.serving`` — InferenceSession, SessionStateStore, DynamicBatcher;
 - ``mx.convert`` — loading weights carried over as numpy arrays.
 
@@ -33,6 +39,7 @@ from . import initializer as init
 from . import ndarray
 from . import ndarray as nd
 from . import random
+from . import optimizer
 from . import gluon
 from . import kernels
 from . import models
@@ -41,4 +48,5 @@ from . import convert
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "autograd", "initializer", "init", "ndarray", "nd",
-           "random", "gluon", "kernels", "models", "serving", "convert"]
+           "random", "optimizer", "gluon", "kernels", "models", "serving",
+           "convert"]

@@ -1,20 +1,40 @@
-"""Autograd scopes.
+"""Autograd: recording scopes and the tape.
 
-The PyTorch counterpart of ``mxnet_tpu/autograd.py:76-129``: the
-training flag and the recording scopes the serving and model code
-reads. ``pause`` stops recording, which here means torch's grad mode
-is off inside it. The tape (``record``, ``backward``) comes with the
-training slice.
+The PyTorch counterpart of ``mxnet_tpu/autograd.py`` (reference:
+python/mxnet/autograd.py). The tape is torch's own autograd graph:
+``record()`` turns recording on, and with it torch's grad mode, so the
+ops run inside it build a graph; outside ``record()`` (and inside
+``pause()``) blocks, registered ops and NDArray arithmetic run with grad
+mode off, so a serving step holds no activations.
+
+What stays MXNet's is how gradients land. :func:`mark_variables` (and
+``NDArray.attach_grad``, ``Parameter`` initialization) gives a leaf a
+gradient buffer and a ``grad_req``; :func:`backward` computes the
+gradients of the heads with respect to every marked leaf with
+``torch.autograd.grad`` and then writes them:
+
+- ``"write"`` overwrites the buffer on each ``backward``;
+- ``"add"`` accumulates into it;
+- ``"null"`` never gets one;
+- a marked leaf that a ``backward`` does not reach keeps its old value.
+
+A leaf reached along several paths (the tied embedding of
+``TransformerLM(tie_weights=True)``) gets the sum once. Nothing goes
+through ``tensor.grad``: torch's accumulate-by-default is not MXNet's
+``write``.
 """
 from __future__ import annotations
 
 import threading
+import weakref
 from contextlib import contextmanager
 
 import torch
 
-__all__ = ["is_recording", "is_training", "pause", "train_mode",
-           "predict_mode"]
+from .base import MXNetError
+
+__all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
+           "is_training", "mark_variables", "backward"]
 
 
 class _AutogradState(threading.local):
@@ -24,6 +44,10 @@ class _AutogradState(threading.local):
 
 
 _STATE = _AutogradState()
+
+# guards: _MARKED
+_MARK_LOCK = threading.Lock()
+_MARKED = weakref.WeakSet()  # NDArrays given a gradient buffer
 
 
 def is_recording():
@@ -36,6 +60,12 @@ def is_training():
     return _STATE.training
 
 
+def _grad_mode(differentiable=True):
+    """torch's grad mode for running one op: on only while recording,
+    and only for a differentiable op."""
+    return torch.set_grad_enabled(_STATE.recording and differentiable)
+
+
 @contextmanager
 def _scope(recording=None, training=None):
     prev_r, prev_t = _STATE.recording, _STATE.training
@@ -44,13 +74,19 @@ def _scope(recording=None, training=None):
     if training is not None:
         _STATE.training = training
     try:
-        if recording is False:
-            with torch.no_grad():
-                yield
-        else:
+        if recording is None:
             yield
+        else:
+            with torch.set_grad_enabled(recording):
+                yield
     finally:
         _STATE.recording, _STATE.training = prev_r, prev_t
+
+
+def record(train_mode=True):
+    """Scope in which the ops run are recorded for :func:`backward`
+    (reference: python/mxnet/autograd.py:122 record())."""
+    return _scope(recording=True, training=train_mode)
 
 
 def pause(train_mode=False):
@@ -66,3 +102,82 @@ def train_mode():
 def predict_mode():
     """Reference: python/mxnet/autograd.py:181."""
     return _scope(training=False)
+
+
+def mark_variables(variables, gradients, grad_reqs="write"):
+    """Mark NDArrays as leaves with gradient buffers ``gradients``
+    (reference: python/mxnet/autograd.py mark_variables). A buffer may
+    be None: the first ``backward`` that reaches the variable allocates
+    it. A variable whose tensor already has a history is cut from it
+    and becomes a leaf, as MXNet's ``attach_grad`` does."""
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for var, grad, req in zip(variables, gradients, grad_reqs):
+        if req not in ("write", "add", "null"):
+            raise MXNetError(f"grad_req must be 'write', 'add' or 'null', "
+                             f"got {req!r}")
+        data = var._data
+        if not data.is_leaf:
+            data = var._data = data.detach()
+        if req != "null" and not data.is_floating_point():
+            raise MXNetError(f"cannot attach a gradient to a {data.dtype} "
+                             "array")
+        data.requires_grad_(req != "null")
+        var._grad = grad  # under "null", a buffer no backward writes
+        var._grad_req = req
+        with _MARK_LOCK:
+            if req == "null":
+                _MARKED.discard(var)
+            else:
+                _MARKED.add(var)
+
+
+def backward(heads, head_grads=None, retain_graph=False):
+    """Compute the gradients of ``heads`` with respect to every marked
+    variable and write them into the variables' buffers by their
+    ``grad_req`` (reference: python/mxnet/autograd.py:246 backward).
+    ``head_grads`` default to ones. The graph is freed unless
+    ``retain_graph``."""
+    from .ndarray import NDArray
+
+    if isinstance(heads, NDArray):
+        heads = [heads]
+        if head_grads is not None and not isinstance(head_grads,
+                                                     (list, tuple)):
+            head_grads = [head_grads]
+    outs, seeds = [], []
+    for i, h in enumerate(heads):
+        t = h.data if isinstance(h, NDArray) else h
+        if not t.requires_grad:
+            raise MXNetError(
+                "backward: a head was not computed inside autograd.record() "
+                "from a variable with a gradient buffer")
+        hg = None if head_grads is None else head_grads[i]
+        if hg is None:
+            hg = torch.ones_like(t)
+        elif isinstance(hg, NDArray):
+            hg = hg.data
+        else:
+            hg = torch.as_tensor(hg, dtype=t.dtype, device=t.device)
+        outs.append(t)
+        seeds.append(hg)
+    with _MARK_LOCK:
+        marked = [a for a in _MARKED
+                  if a._grad_req != "null" and a._data.requires_grad]
+    if not marked:
+        return
+    grads = torch.autograd.grad(outs, [a._data for a in marked],
+                                grad_outputs=seeds, retain_graph=retain_graph,
+                                allow_unused=True)
+    with torch.no_grad():
+        for var, g in zip(marked, grads):
+            if g is None:  # not reached: keeps its old gradient
+                continue
+            if var._grad is None:
+                var._grad = NDArray(torch.empty_like(var._data,
+                                                     requires_grad=False))
+                var._grad._data.copy_(g)
+            elif var._grad_req == "add":
+                var._grad._data.add_(g)
+            else:
+                var._grad._data.copy_(g)

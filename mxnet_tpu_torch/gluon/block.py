@@ -9,6 +9,8 @@ prefixes, ``collect_params`` and the structural names of
 ``_collect_params_with_prefix`` — so checkpoints and carried weights
 line up with the JAX package. ``hybrid_forward(F, ...)`` runs with
 ``F`` = the port's ``nd`` module, so model files port line for line.
+A block's forward builds an autograd graph only inside
+``autograd.record()``; outside it, grad mode is off for the call.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import threading
 
 import torch
 
+from .. import autograd
 from .. import ndarray as nd
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
@@ -139,6 +142,10 @@ class Block(torch.nn.Module):
     def hybridize(self, active=True, **kwargs):
         for child in self._children.values():
             child.hybridize(active, **kwargs)
+
+    def __call__(self, *args, **kwargs):
+        with autograd._grad_mode():
+            return super().__call__(*args, **kwargs)
 
     def forward(self, *args):
         raise NotImplementedError

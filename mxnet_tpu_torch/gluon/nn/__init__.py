@@ -1,6 +1,7 @@
-"""``gluon.nn``: the layers the decoder is built from."""
-from .basic_layers import (Activation, Dense, Embedding, HybridSequential,
-                           LayerNorm)
+"""``gluon.nn``: the layers the decoder and the transformer are built
+from."""
+from .basic_layers import (Activation, Dense, Dropout, Embedding,
+                           HybridSequential, LayerNorm)
 
-__all__ = ["Activation", "Dense", "Embedding", "HybridSequential",
+__all__ = ["Activation", "Dense", "Dropout", "Embedding", "HybridSequential",
            "LayerNorm"]

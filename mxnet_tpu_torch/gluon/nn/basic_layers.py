@@ -1,8 +1,8 @@
 """Basic Gluon layers.
 
 The PyTorch counterparts of ``mxnet_tpu/gluon/nn/basic_layers.py:56,89,
-253,308`` (reference: python/mxnet/gluon/nn/basic_layers.py):
-HybridSequential, Dense, Activation, LayerNorm and Embedding.
+146,253,308`` (reference: python/mxnet/gluon/nn/basic_layers.py):
+HybridSequential, Dense, Activation, Dropout, LayerNorm and Embedding.
 """
 from __future__ import annotations
 
@@ -10,8 +10,8 @@ import math
 
 from ..block import HybridBlock
 
-__all__ = ["HybridSequential", "Dense", "Activation", "LayerNorm",
-           "Embedding"]
+__all__ = ["HybridSequential", "Dense", "Activation", "Dropout",
+           "LayerNorm", "Embedding"]
 
 
 class HybridSequential(HybridBlock):
@@ -87,6 +87,21 @@ class Activation(HybridBlock):
 
     def extra_repr(self):
         return self._act_type
+
+
+class Dropout(HybridBlock):
+    """Reference: basic_layers.py Dropout. The identity at ``rate`` 0 and
+    outside training."""
+
+    def __init__(self, rate, axes=(), prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._rate = rate
+        self._axes = axes
+
+    def hybrid_forward(self, F, x):
+        if self._rate > 0:
+            return F.dropout(x, p=self._rate, axes=self._axes)
+        return x
 
 
 class LayerNorm(HybridBlock):

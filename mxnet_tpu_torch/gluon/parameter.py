@@ -6,7 +6,13 @@ MXNet's naming, deferred shape inference (``Dense(in_units=0)``) and
 initializer dispatch; once its shape is known it owns one
 ``torch.nn.Parameter`` on one device, which it also registers on every
 block that holds it, so ``Block.named_parameters()`` and
-``state_dict()`` see it.
+``state_dict()`` see it. That tensor is the parameter for its whole
+life: ``set_data`` and the optimizer write into it in place, never
+replace it. Unless ``grad_req`` is ``"null"`` it is an autograd leaf
+with a gradient buffer (``grad()``) that ``autograd.backward`` writes
+by MXNet's ``grad_req`` rules. The buffer is allocated by the first
+``backward`` (or ``grad()``), so a model that only serves never holds
+one.
 """
 from __future__ import annotations
 
@@ -16,12 +22,14 @@ import numpy as onp
 import torch
 
 from ..base import MXNetError
-from .. import initializer
+from .. import autograd, initializer
 from ..context import resolve_device
 from ..ndarray import NDArray
 from ..ndarray.ndarray import torch_dtype
 
 __all__ = ["DeferredInitializationError", "Parameter", "ParameterDict"]
+
+_GRAD_REQS = ("write", "add", "null")
 
 
 class DeferredInitializationError(MXNetError):
@@ -33,9 +41,15 @@ class Parameter:
     """A Block parameter (reference: gluon/parameter.py:48)."""
 
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
-                 init=None, allow_deferred_init=False):
+                 lr_mult=1.0, wd_mult=1.0, init=None,
+                 allow_deferred_init=False):
         self.name = name
-        self.grad_req = grad_req
+        if grad_req not in _GRAD_REQS:
+            raise ValueError(f"grad_req must be one of {_GRAD_REQS}, got "
+                             f"{grad_req!r}")
+        self._grad_req = grad_req
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
         if isinstance(shape, int):
             shape = (shape,)
         self._shape = tuple(shape) if shape is not None else None
@@ -48,6 +62,28 @@ class Parameter:
 
     def __repr__(self):
         return f"Parameter {self.name} (shape={self.shape}, dtype={self.dtype})"
+
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        """Change how ``backward`` treats this parameter: ``"null"``
+        drops its gradient buffer and stops recording its gradient;
+        ``"write"``/``"add"`` give it a zero buffer (reference:
+        gluon/parameter.py grad_req)."""
+        if req not in _GRAD_REQS:
+            raise ValueError(f"grad_req must be one of {_GRAD_REQS}, got "
+                             f"{req!r}")
+        self._grad_req = req
+        if self._ndarray is not None:
+            self._mark()
+
+    def _mark(self):
+        """Mark the tensor as a leaf by ``grad_req``, its gradient
+        buffer (re)set to zero: not yet allocated."""
+        autograd.mark_variables([self._ndarray], [None], self._grad_req)
 
     @property
     def shape(self):
@@ -118,7 +154,8 @@ class Parameter:
                 actual = init if init is not None else (
                     self.init if self.init is not None else default_init)
                 initializer.create(actual)(self.name, arr)
-        self._ndarray = arr
+            self._ndarray = arr
+            self._mark()
         self._deferred_init = None
         for block, attr in self._owners:
             block._parameters[attr] = var
@@ -144,6 +181,32 @@ class Parameter:
     def data(self, ctx=None):
         self._check_initialized()
         return self._ndarray
+
+    def grad(self, ctx=None):
+        """The gradient buffer ``backward`` writes; zeros before the first
+        ``backward`` (reference: gluon/parameter.py grad)."""
+        self._check_initialized()
+        if self._grad_req == "null":
+            raise RuntimeError(
+                f"Cannot get gradient array for Parameter {self.name} "
+                "because grad_req='null'")
+        arr = self._ndarray
+        if arr.grad is None:
+            # a normal tensor even inside inference mode: backward writes
+            # it later
+            with torch.inference_mode(False):
+                arr._grad = NDArray(torch.zeros_like(arr.data,
+                                                     requires_grad=False))
+        return arr.grad
+
+    def list_grad(self):
+        return [self.grad()]
+
+    def zero_grad(self):
+        """Set the gradient buffer to zero, in place."""
+        if self._ndarray is not None and self._ndarray.grad is not None:
+            with torch.no_grad():
+                self._ndarray.grad.data.zero_()
 
     def set_data(self, data, ctx=None):
         """Copy ``data`` (NDArray, tensor or array-like) into the

@@ -9,11 +9,14 @@ JAX package's threefry draws, so parity tests carry weights across.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from . import random as _random
 
-__all__ = ["Initializer", "Uniform", "One", "Zero", "Constant", "create"]
+__all__ = ["Initializer", "Uniform", "Xavier", "One", "Zero", "Constant",
+           "create"]
 
 
 class Initializer:
@@ -52,6 +55,41 @@ class Uniform(Initializer):
                    generator=_random.generator(t.device))
 
 
+class Xavier(Initializer):
+    """Xavier/Glorot: U(-s, s) or N(0, s) with s = sqrt(magnitude /
+    factor), the factor being fan-in, fan-out or their mean (reference:
+    initializer.py Xavier, rnd_type/factor_type/magnitude)."""
+
+    def __init__(self, rnd_type="uniform", factor_type="avg", magnitude=3):
+        if rnd_type not in ("uniform", "gaussian"):
+            raise ValueError(f"Xavier: unknown rnd_type {rnd_type!r}")
+        if factor_type not in ("avg", "in", "out"):
+            raise ValueError(f"Xavier: unknown factor_type {factor_type!r}")
+        self.rnd_type = rnd_type
+        self.factor_type = factor_type
+        self.magnitude = float(magnitude)
+
+    def _init_weight(self, desc, t):
+        shape = tuple(t.shape)
+        if len(shape) < 2:
+            raise ValueError(f"Xavier requires ndim>=2, got {shape} for "
+                             f"{desc}")
+        hw_scale = math.prod(shape[2:])
+        fan_in, fan_out = shape[1] * hw_scale, shape[0] * hw_scale
+        factor = {"avg": (fan_in + fan_out) / 2.0, "in": fan_in,
+                  "out": fan_out}[self.factor_type]
+        scale = math.sqrt(self.magnitude / factor)
+        gen = _random.generator(t.device)
+        if self.rnd_type == "uniform":
+            t.uniform_(-scale, scale, generator=gen)
+        else:
+            t.normal_(0.0, scale, generator=gen)
+
+    def __repr__(self):
+        return (f"Xavier(rnd_type={self.rnd_type!r}, factor_type="
+                f"{self.factor_type!r}, magnitude={self.magnitude})")
+
+
 class Constant(Initializer):
     def __init__(self, value=0.0):
         self.value = value
@@ -70,7 +108,7 @@ class One(Constant):
         super().__init__(1.0)
 
 
-_BY_NAME = {"uniform": Uniform, "constant": Constant,
+_BY_NAME = {"uniform": Uniform, "xavier": Xavier, "constant": Constant,
             "zero": Zero, "zeros": Zero, "one": One, "ones": One}
 
 

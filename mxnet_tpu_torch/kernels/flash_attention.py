@@ -1,31 +1,207 @@
-"""Decode attention: the CUDA kernel K2 and its plain PyTorch version.
+"""Flash attention: the CUDA kernels K1 and K2 and their plain versions.
 
-The decode half of ``mxnet_tpu/kernels/flash_attention.py``: one query
-row per (batch, head) attends against its KV cache, masked to a
-per-row visible length. :func:`_decode_flash` is the wrapper of the
-hand-written kernel ``csrc/decode_attention.cu`` (the port of the TPU
-kernel ``_dec_kernel``, ``flash_attention.py:137-191``);
-:func:`_decode_flash_ref` is its plain version. The training half
-(``_fa_kernel``, K1) comes with the transformer-training slice.
+The PyTorch counterpart of ``mxnet_tpu/kernels/flash_attention.py``.
 
-Unlike the TPU path, both functions take the caches in the decoder's
-own layout, (B, S, H, D), so no transpose copy precedes the call.
+Training half (K1): :func:`flash_attention` is scaled dot-product
+attention over (B, H, S, D) tensors, with the JAX function's contract
+(``flash_attention.py:251-272``): optional bottom-right-aligned causal
+mask, ``sm_scale`` defaulting to ``1/sqrt(D)``. Its forward is
+:func:`_flash_fwd_cuda`, the wrapper of the hand-written kernel
+``csrc/flash_attention.cu`` (the port of the TPU kernel ``_fa_kernel``,
+``flash_attention.py:48-134``), or :func:`_flash_ref`, its plain
+version. Its backward is :func:`_flash_bwd`, the q-chunk recompute of
+``flash_attention.py:206-245`` in torch; the JAX package has no
+backward kernel, so neither has the port.
+
+Decode half (K2): one query row per (batch, head) attends against its
+KV cache, masked to a per-row visible length. :func:`_decode_flash` is
+the wrapper of ``csrc/decode_attention.cu`` (the port of ``_dec_kernel``,
+``flash_attention.py:137-191``); :func:`_decode_flash_ref` is its plain
+version. Unlike the TPU path, both take the caches in the decoder's own
+layout, (B, S, H, D), so no transpose copy precedes the call.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from ..base import MXNetError
 from . import _build
 
-__all__ = ["_decode_flash", "_decode_flash_ref"]
+__all__ = ["flash_attention", "_flash_ref", "_flash_fwd_cuda", "_flash_bwd",
+           "_decode_flash", "_decode_flash_ref"]
 
 _NEG = -1e30
 _MAX_D = 256
-KERNEL = "decode_attention"
+KERNEL = "decode_attention"  # K2
+FLASH_KERNEL = "flash_attention"  # K1
+_BWD_CHUNK = 512
+_FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# -- training half: K1 ------------------------------------------------------
+
+def _flash_ref(q, k, v, sm_scale, causal):
+    """Plain version of K1: q (B, H, S_q, D) against k, v (B, H, S_k, D).
+    The arithmetic of the JAX package's ``_ref_attention``
+    (``flash_attention.py:29-45``): fp32 scores, keys masked with -1e30
+    (bottom-right causal alignment: query row i sits at i + S_k - S_q),
+    softmax in fp32, then the weights cast to v's dtype."""
+    S_q, S_k = q.shape[2], k.shape[2]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * float(sm_scale)
+    if causal:
+        kid = torch.arange(S_k, device=q.device)[None, :]
+        qid = torch.arange(S_q, device=q.device)[:, None] + (S_k - S_q)
+        s = torch.where(kid <= qid, s, torch.full_like(s, _NEG))
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p.to(v.dtype), v)
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_entry():
+    fn = _build.load(FLASH_KERNEL).mxtt_flash_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
+        [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _flash_fwd_cuda(q, k, v, sm_scale, causal):
+    """K1: the attention forward, same contract as :func:`_flash_ref`;
+    returns a fresh contiguous (B, H, S_q, D) tensor of q's dtype.
+
+    On CPU tensors this is the plain version. On CUDA tensors it
+    launches the K1 kernel on the current stream, without synchronizing,
+    or raises: q, k and v must be float32 or bfloat16 alike, on one
+    device, 4-d with matching (B, H, D), D <= 256 and contiguous (the
+    other axes may be strided: views of one fused qkv are read in
+    place), and ``causal`` needs S_q <= S_k."""
+    devs = {t.device for t in (q, k, v)}
+    if len(devs) != 1:
+        raise MXNetError(f"_flash_fwd_cuda: inputs on several devices {devs}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return _flash_ref(q, k, v, sm_scale, causal)
+    if dev.type != "cuda":
+        raise MXNetError(f"_flash_fwd_cuda: unsupported device {dev}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise MXNetError(
+            f"_flash_fwd_cuda: q, k, v must be (B, H, S, D), k and v alike; "
+            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, S_q, D = q.shape
+    S_k = k.shape[2]
+    if k.shape[:2] != q.shape[:2] or k.shape[3] != D:
+        raise MXNetError(f"_flash_fwd_cuda: q {tuple(q.shape)} does not "
+                         f"match k {tuple(k.shape)}")
+    if q.dtype not in _FLASH_DTYPES or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
+        raise MXNetError(
+            "_flash_fwd_cuda: the kernel takes float32 or bfloat16 q, k, v "
+            f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not 0 < D <= _MAX_D:
+        raise MXNetError(f"_flash_fwd_cuda: head dim {D} not in [1, {_MAX_D}]")
+    if min(B, H, S_q, S_k) < 1 or max(B, H) > 65535:
+        raise MXNetError(f"_flash_fwd_cuda: unsupported shape q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise MXNetError("_flash_fwd_cuda: the head dim (last axis) of q, k "
+                         "and v must be contiguous")
+    if causal and S_q > S_k:
+        raise MXNetError(f"_flash_fwd_cuda: causal needs S_q <= S_k, got "
+                         f"S_q={S_q} S_k={S_k}")
+    out = torch.empty((B, H, S_q, D), dtype=q.dtype, device=dev)
+    strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v)
+                                        for i in range(3)))
+    with torch.cuda.device(dev):
+        err = _flash_entry()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _FLASH_DTYPES[q.dtype], B, H, S_q, S_k, D,
+            ctypes.cast(strides, ctypes.c_void_p), float(sm_scale),
+            int(bool(causal)), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise MXNetError(f"_flash_fwd_cuda: kernel launch failed with CUDA "
+                         f"error {err}")
+    _build.count_launch(FLASH_KERNEL)
+    return out
+
+
+def _flash_bwd(q, k, v, do, sm_scale, causal):
+    """Gradients (dq, dk, dv) of the attention at (q, k, v) for the
+    output gradient ``do``: the JAX package's q-chunk recompute
+    (``_flash_bwd``, ``flash_attention.py:206-245``) in torch. Chunks of
+    ``min(512, S_q)`` query rows recompute their softmax in fp32 against
+    all keys, so the extra memory is O(chunk * S_k), never S_q * S_k."""
+    S_q, S_k = q.shape[2], k.shape[2]
+    kf, vf = k.float(), v.float()
+    chunk = min(_BWD_CHUNK, S_q)
+    off = S_k - S_q  # bottom-right causal alignment
+    kid = torch.arange(S_k, device=q.device)[None, :]
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for c0 in range(0, S_q, chunk):
+        qb = q[:, :, c0:c0 + chunk].float()
+        dob = do[:, :, c0:c0 + chunk].float()
+        s = torch.matmul(qb, kf.transpose(-1, -2)) * sm_scale
+        if causal:
+            qid = c0 + torch.arange(qb.shape[2], device=q.device)[:, None] \
+                + off
+            s = torch.where(kid <= qid, s, torch.full_like(s, _NEG))
+        p = torch.softmax(s, dim=-1)
+        dv += torch.matmul(p.transpose(-1, -2), dob)
+        dp = torch.matmul(dob, vf.transpose(-1, -2))
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        dq[:, :, c0:c0 + chunk] = torch.matmul(ds, kf) * sm_scale
+        dk += torch.matmul(ds.transpose(-1, -2), qb) * sm_scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Ties the forward (K1 or its plain version) to the recompute
+    backward, as ``jax.custom_vjp`` ties ``_flash`` to ``_flash_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale, causal, use_kernel):
+        ctx.save_for_backward(q, k, v)
+        ctx.sm_scale, ctx.causal = sm_scale, causal
+        if use_kernel:
+            return _flash_fwd_cuda(q, k, v, sm_scale, causal)
+        return _flash_ref(q, k, v, sm_scale, causal)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, do, ctx.sm_scale, ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, sm_scale=None, causal=False, use_kernel=None):
+    """Scaled dot-product attention over (B, H, S, D) tensors,
+    differentiable in q, k and v.
+
+    ``use_kernel``: None (the default) launches K1 on CUDA tensors and
+    runs the plain version on CPU tensors; True always goes through the
+    K1 wrapper (which itself takes the plain version only for CPU
+    tensors); False runs the plain version. The backward is always the
+    recompute :func:`_flash_bwd`. ``causal`` with S_q > S_k raises
+    ``ValueError``, as the JAX function does: rows with no visible key
+    would come out as an unnormalized average of V."""
+    if causal and q.shape[-2] > k.shape[-2]:
+        raise ValueError(
+            "flash_attention(causal=True) requires S_q <= S_k, got "
+            f"S_q={q.shape[-2]} S_k={k.shape[-2]}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if use_kernel is None:
+        use_kernel = q.device.type == "cuda"
+    return _FlashAttention.apply(q, k, v, float(sm_scale), bool(causal),
+                                 bool(use_kernel))
+
+
+# -- decode half: K2 --------------------------------------------------------
 
 
 def _decode_flash_ref(q, k, v, lengths, sm_scale):

@@ -1,4 +1,6 @@
-"""Models the port serves."""
+"""Models the port serves and trains."""
 from .decoder import DecoderBlockLM
+from .transformer import MultiHeadSelfAttention, TransformerBlock, TransformerLM
 
-__all__ = ["DecoderBlockLM"]
+__all__ = ["DecoderBlockLM", "TransformerLM", "TransformerBlock",
+           "MultiHeadSelfAttention"]

@@ -8,7 +8,7 @@ module.
 from __future__ import annotations
 
 from . import registry
-from . import ops_nn  # noqa: F401 — registers the ops
+from . import ops_basic, ops_index, ops_nn, ops_optim  # noqa: F401 — register the ops
 from .ndarray import NDArray, arange, array, expand_dims, zeros
 
 __all__ = ["NDArray", "array", "zeros", "arange", "expand_dims",

@@ -4,12 +4,17 @@ The PyTorch counterpart of ``mxnet_tpu/ndarray/registry.py:32-65,599``.
 Each op is a plain function on ``torch.Tensor`` arguments plus
 metadata; :func:`invoke` unwraps NDArray arguments, runs the op and
 wraps tensor results. Ops registered with the ``"nd"`` namespace also
-appear as ``mx.nd.<name>``. The AMP cast hook and the autograd tape of
-the reference's dispatch come with the training slice.
+appear as ``mx.nd.<name>``. The tape is torch's autograd graph: an op
+runs with grad mode on only inside ``autograd.record()`` and only if it
+is differentiable, so ops outside the graph (``differentiable=False``:
+the optimizer updates, the decode-cache writes) record nothing. The AMP
+cast hook of the reference's dispatch comes with a later slice.
 """
 from __future__ import annotations
 
 import torch
+
+from .. import autograd
 
 __all__ = ["OpDef", "register", "get_op", "list_ops", "invoke"]
 
@@ -59,8 +64,9 @@ def invoke(opdef, args, kwargs):
     def unwrap(x):
         return x._data if isinstance(x, NDArray) else x
 
-    result = opdef.fn(*[unwrap(a) for a in args],
-                      **{k: unwrap(v) for k, v in kwargs.items()})
+    with autograd._grad_mode(opdef.differentiable):
+        result = opdef.fn(*[unwrap(a) for a in args],
+                          **{k: unwrap(v) for k, v in kwargs.items()})
     if isinstance(result, tuple):
         return [NDArray(r) if isinstance(r, torch.Tensor) else r
                 for r in result]

@@ -1,5 +1,7 @@
-"""The port on the card: the CUDA kernel K2 and the decode path that
-launches it. Every test here needs an NVIDIA GPU and skips without one.
+"""The port on the card: the CUDA kernels K1 (flash-attention forward)
+and K2 (decode attention) and the paths that launch them: decode
+serving and one TransformerLM training step. Every test here needs an
+NVIDIA GPU and skips without one.
 
 These tests import neither JAX nor the JAX package, so they run on a
 machine that has only PyTorch for CUDA. From the repo root:
@@ -8,9 +10,12 @@ machine that has only PyTorch for CUDA. From the repo root:
         -o "markers=cuda: needs a CUDA device" -m cuda tests/test_torch_cuda.py
 
 (``--noconftest``: the suite's conftest sets up JAX.) K2 is held against
-its plain version within rtol = atol = 1e-5, the bound the JAX package
-puts on its Pallas kernel against the lax path: both sum the softmax in
-fp32, in different orders.
+its plain version within rtol = atol = 1e-5, and so is K1 in float32:
+the bound the JAX package puts on its Pallas kernels against the lax
+path; both sum the softmax in fp32, in different orders. K1 in bfloat16
+is held within two bfloat16 ulps (rtol 2**-6) of the plain version
+computed in float32 from the same bfloat16 inputs: the kernel rounds
+once, at the output.
 """
 import numpy as onp
 import pytest
@@ -19,9 +24,10 @@ import torch
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import convert, serving
 from mxnet_tpu_torch.kernels import _build
-from mxnet_tpu_torch.kernels.flash_attention import (KERNEL, _decode_flash,
-                                                     _decode_flash_ref)
-from mxnet_tpu_torch.models import DecoderBlockLM
+from mxnet_tpu_torch.kernels.flash_attention import (
+    FLASH_KERNEL, KERNEL, _decode_flash, _decode_flash_ref, _flash_fwd_cuda,
+    _flash_ref, flash_attention)
+from mxnet_tpu_torch.models import DecoderBlockLM, TransformerLM
 
 pytestmark = pytest.mark.cuda
 
@@ -33,8 +39,8 @@ SMALL = dict(vocab_size=32, embed_dim=16, num_layers=2, num_heads=2,
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: K2 is a CUDA kernel with no CPU "
-                    "mode")
+        pytest.skip("needs a CUDA device: K1 and K2 are CUDA kernels with "
+                    "no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda", 0)
 
@@ -170,3 +176,138 @@ def test_batcher_on_card_matches_step_loop(cuda):
             onp.testing.assert_allclose(g, out.asnumpy(), rtol=TOL, atol=TOL)
     sess.close()
     store.close()
+
+
+# -- K1: the flash-attention forward ----------------------------------------
+
+def _qkv(dev, B, H, S_q, S_k, D, dtype=torch.float32, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, H, S_q, D, device=dev, generator=gen)
+    k = torch.randn(B, H, S_k, D, device=dev, generator=gen)
+    v = torch.randn(B, H, S_k, D, device=dev, generator=gen)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+# (B, H, S_q, S_k, D, causal): the D sweep up to 256 (one per tile
+# configuration, and 100, not a multiple of 32); the JAX tests' ragged
+# 100 x 70 at D = 24 and S_q = 1 decode alignment; causal S_q < S_k
+@pytest.mark.parametrize("B,H,S_q,S_k,D,causal", [
+    (2, 3, 64, 64, 16, False),
+    (2, 3, 64, 64, 16, True),
+    (1, 2, 100, 70, 24, False),
+    (1, 2, 1, 40, 8, True),
+    (2, 2, 37, 130, 64, True),
+    (1, 2, 200, 200, 64, True),
+    (1, 2, 77, 77, 100, True),
+    (1, 2, 90, 90, 128, False),
+    (1, 2, 70, 70, 256, True),
+])
+def test_k1_on_card_matches_plain(cuda, B, H, S_q, S_k, D, causal):
+    q, k, v = _qkv(cuda, B, H, S_q, S_k, D)
+    _build.reset_launch_counts()
+    got = _flash_fwd_cuda(q, k, v, D ** -0.5, causal)
+    want = _flash_ref(q, k, v, D ** -0.5, causal)
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {FLASH_KERNEL: 1}
+    assert got.shape == (B, H, S_q, D) and got.is_contiguous()
+    assert torch.allclose(got, want, rtol=TOL, atol=TOL)
+
+
+def test_k1_reads_strided_views_in_place(cuda):
+    """q, k, v as the model makes them: views of one fused (B, S, 3, H, D)
+    projection, strided in every axis but D."""
+    B, S, H, D = 2, 150, 3, 32
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    qkv = torch.randn(B, S, 3, H, D, device=cuda, generator=gen)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    assert not q.is_contiguous()
+    got = _flash_fwd_cuda(q, k, v, 0.3, True)
+    want = _flash_ref(q.contiguous(), k.contiguous(), v.contiguous(), 0.3,
+                      True)
+    assert torch.allclose(got, want, rtol=TOL, atol=TOL)
+
+
+def test_k1_bfloat16_within_two_ulps(cuda):
+    q, k, v = _qkv(cuda, 2, 4, 130, 130, 64, dtype=torch.bfloat16)
+    got = _flash_fwd_cuda(q, k, v, 0.125, True)
+    want = _flash_ref(q.float(), k.float(), v.float(), 0.125, True)
+    assert got.dtype == torch.bfloat16
+    assert torch.allclose(got.float(), want.to(torch.bfloat16).float(),
+                          rtol=2 ** -6, atol=1e-5)
+
+
+def test_k1_gradients_match_autograd_of_plain(cuda):
+    """dq/dk/dv through the autograd.Function (K1 forward, recompute
+    backward) against torch autograd through the plain version; 1e-4:
+    two different fp32 backward computations over 130 keys."""
+    q, k, v = _qkv(cuda, 1, 2, 100, 130, 32)
+    do = torch.randn(1, 2, 100, 32, device=cuda)
+    grads = []
+    for fn in (lambda a, b, c: flash_attention(a, b, c, causal=True),
+               lambda a, b, c: _flash_ref(a, b, c, 32 ** -0.5, True)):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        fn(*leaves).backward(do)
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        assert torch.allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_k1_wrapper_refuses_what_the_kernel_cannot_take(cuda):
+    q, k, v = _qkv(cuda, 1, 2, 8, 8, 16)
+    bad = [
+        (q.double(), k.double(), v.double(), False),  # not f32 / bf16
+        (q, k.to(torch.bfloat16), v, False),          # mixed dtypes
+        (q.cpu(), k, v, False),                       # two devices
+        (q.transpose(2, 3).contiguous().transpose(2, 3), k, v,
+         False),                                      # D strided
+        (torch.cat([q, q], 2), k, v, True),           # causal S_q > S_k
+        (*_qkv(cuda, 1, 1, 4, 4, 264), False),        # D > 256
+    ]
+    _build.reset_launch_counts()
+    for q_, k_, v_, causal in bad:
+        with pytest.raises(mx.MXNetError, match="_flash_fwd_cuda"):
+            _flash_fwd_cuda(q_, k_, v_, 0.25, causal)
+    assert _build.launch_counts() == {}
+
+
+def test_transformer_training_step_on_card_launches_k1(cuda):
+    """One record/backward/Adam step of a small TransformerLM on the card
+    against the same step on the CPU from the same weights: K1 launches
+    once per layer, the loss and every gradient agree within 1e-4 (fp32
+    matmuls summed in other orders), and the update keeps each
+    parameter's tensor."""
+    cfg = dict(vocab_size=64, embed_dim=64, num_layers=2, num_heads=4,
+               max_len=128, tie_weights=True)
+    mx.random.seed(5)
+    src = TransformerLM(**cfg)
+    src.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    toks = onp.random.RandomState(6).randint(0, 64, (2, 100))
+    with mx.autograd.pause():
+        src(mx.nd.array(toks, ctx=mx.cpu()))
+    arrays = {k: p.data().asnumpy()
+              for k, p in src._collect_params_with_prefix().items()}
+    runs = {}
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        net = convert.params_from_numpy(TransformerLM(**cfg), arrays,
+                                        ctx=ctx)
+        t = mx.nd.array(toks.astype("int32"), ctx=ctx)
+        tensors = {n: p.data().data for n, p in net.collect_params().items()}
+        _build.reset_launch_counts()
+        with mx.autograd.record():
+            logits = net(t)
+            loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()(
+                logits[:, :-1].reshape(-1, 64), t[:, 1:].reshape(-1)).mean()
+        loss.backward()
+        launches = _build.launch_counts().get(FLASH_KERNEL, 0)
+        grads = {n: p.grad().asnumpy()
+                 for n, p in net._collect_params_with_prefix().items()}
+        mx.gluon.Trainer(net.collect_params(), "adam",
+                         {"learning_rate": 1e-3}).step(2)
+        assert all(p.data().data is tensors[n]
+                   for n, p in net.collect_params().items())
+        runs[ctx.device_type] = (loss.asscalar(), grads, launches)
+    assert runs["gpu"][2] == cfg["num_layers"] and runs["cpu"][2] == 0
+    onp.testing.assert_allclose(runs["gpu"][0], runs["cpu"][0], rtol=1e-4)
+    for name, want in runs["cpu"][1].items():
+        onp.testing.assert_allclose(runs["gpu"][1][name], want, rtol=1e-4,
+                                    atol=1e-4, err_msg=name)

@@ -34,6 +34,7 @@ def _forbidden(name):
 def test_import_loads_neither_jax_nor_the_jax_package():
     code = ("import sys\n"
             "import mxnet_tpu_torch, mxnet_tpu_torch.tools.profile_decode\n"
+            "import mxnet_tpu_torch.tools.profile_train\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax'"
             " or m == 'mxnet_tpu' or m.startswith('mxnet_tpu.'))\n"
             "print(bad)\n")
@@ -51,10 +52,22 @@ def _python_files():
     yield os.path.join(ROOT, "chip_smoke.py")
 
 
+# the modules of the training slice, which the scan below must cover
+TRAINING_MODULES = [
+    "autograd.py", "initializer.py", "ndarray/ndarray.py",
+    "ndarray/registry.py", "ndarray/ops_basic.py", "ndarray/ops_index.py",
+    "ndarray/ops_nn.py", "ndarray/ops_optim.py", "gluon/parameter.py",
+    "gluon/nn/basic_layers.py", "gluon/loss.py", "gluon/trainer.py",
+    "kernels/flash_attention.py", "models/transformer.py",
+    "optimizer/optimizer.py", "tools/profile_train.py"]
+
+
 def test_no_module_imports_jax_or_the_jax_package():
     offenders = []
     files = list(_python_files())
     assert len(files) > 20
+    scanned = {os.path.relpath(f, PKG) for f in files}
+    assert set(TRAINING_MODULES) <= scanned
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -130,7 +143,7 @@ def test_cuda_impl_on_cpu_tensors_takes_the_plain_path():
 
 def test_build_module_imports_without_nvcc_and_raises_when_it_must_build(
         tmp_path, monkeypatch):
-    assert "decode_attention" in _build.sources()
+    assert {"decode_attention", "flash_attention"} <= set(_build.sources())
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
