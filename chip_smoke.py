@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``mxnet_tpu_torch``) on one GPU.
 
-Drives the port's two main paths and holds their hand-written CUDA
+Drives the port's three main paths and holds their hand-written CUDA
 kernels against the plain PyTorch versions:
 
 - stateful decode serving of ``DecoderBlockLM`` at GPT-2-small widths
@@ -9,7 +9,12 @@ kernels against the plain PyTorch versions:
   ``DynamicBatcher``, with the decode-attention kernel K2;
 - training ``TransformerLM`` at GPT-2 small's published widths and
   depth (``autograd.record``, softmax cross-entropy, ``backward``,
-  Adam ``Trainer``), with the flash-attention forward kernel K1.
+  Adam ``Trainer``), with the flash-attention forward kernel K1;
+- serving an exported symbol graph, wav2vec2-large-lv60 CTC at its
+  published widths and depth, through ``InferenceSession.load`` under
+  ``MXNET_GRAPH_OPT=1``: the fusion pass lowers its seven
+  LayerNorm→GELU pairs onto the fused LayerNorm→activation kernel K3 and
+  its 24 attentions onto K1.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100:
 
@@ -50,7 +55,26 @@ Phases (any failure exits non-zero and prints no result):
    full width, on the card (through K1) and on the CPU (the plain path)
    from the same weights; the loss and three gradients agree within
    rtol 1e-3;
-10. report: one JSON line of kernels, then the device line last.
+10. K3 check: K3 against ``_norm_act_ref`` on the card within rtol =
+    atol = 1e-5 in float32 at the seven LayerNorm→GELU shapes of a
+    bucket-8 forward of 10 s clips, a ragged row count, C in {100, 768,
+    1024, 1030, 4096}, every activation code, and within one bfloat16
+    ulp in bfloat16;
+11. K3 times: K3, its plain version and ``F.layer_norm`` then
+    ``F.gelu`` (two PyTorch calls, a yardstick only) at the seven path
+    shapes, L2 flushed before each launch, beside the bound (input read
+    and output written once at 3.35 TB/s);
+12. K1 on the fusion route: K1 against ``_flash_ref`` at (128, 1, 499,
+    64), not causal, within 1e-5, and its times as in phase 7;
+13. symbolic serving: wav2vec2-large-lv60 CTC exported with ``sym.save``
+    and ``nd.save``, loaded by ``InferenceSession.load`` with buckets 1,
+    2, 4, 8; every bucket's optimized graph holds 7 ``_fused_norm_act``
+    and 24 ``_fused_attention`` nodes at ``impl="cuda"``; requests of 1,
+    3, 8, 5 and 2 clips of 10 s; K3 launches = 7 and K1 launches = 24
+    per bucket execution; one bucket's logits within 1e-4 (of the
+    largest logit) of the same export served under ``MXNET_FUSION=0``,
+    and a 1 s clip within rtol 1e-3 of the CPU port;
+14. report: one JSON line of kernels, then the device line last.
 
 Needs no network; imports nothing of JAX.
 """
@@ -61,6 +85,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import FIRST_COMPLETED, wait
 
@@ -76,7 +101,11 @@ from mxnet_tpu_torch.kernels import _build  # noqa: E402
 from mxnet_tpu_torch.kernels.flash_attention import (  # noqa: E402
     FLASH_KERNEL, KERNEL, _decode_flash, _decode_flash_ref, _flash_fwd_cuda,
     _flash_ref, flash_attention)
+from mxnet_tpu_torch.kernels.norm_act import (  # noqa: E402
+    KERNEL as NORM_ACT_KERNEL, _norm_act_cuda, _norm_act_ref)
 from mxnet_tpu_torch.models import DecoderBlockLM, TransformerLM  # noqa: E402
+from mxnet_tpu_torch.tools.profile_predict import (  # noqa: E402
+    SAMPLE_RATE, WAV2VEC2_LARGE_LV60, export_wav2vec2, frames)
 
 SEED = 20240917
 # GPT-2 small (n_embd 768, n_head 12, n_layer 12, n_positions 1024,
@@ -124,8 +153,11 @@ def device_phase():
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print("float32 matmuls in full float32: "
-          "torch.backends.cuda.matmul.allow_tf32 = False")
+    print("float32 matmuls and convolutions in full float32: "
+          f"torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}, "
+          f"torch.backends.cudnn.allow_tf32 = "
+          f"{torch.backends.cudnn.allow_tf32}")
     return smi
 
 
@@ -607,7 +639,289 @@ def training_vs_cpu_phase(net):
     return {"loss_card": gl, "loss_cpu": cl, "grad_rel_err": worst}
 
 
+# -- the symbolic-serving path: K3 and K1 behind the fusion pass ----------
+
+W2V_CFG = WAV2VEC2_LARGE_LV60
+W2V_SECONDS = 10
+W2V_BUCKETS = (1, 2, 4, 8)
+W2V_REQUESTS = (1, 3, 8, 5, 2)  # clips per request
+# activation codes of csrc/norm_act.cu and the slope each takes
+K3_ACTS = {"relu": (0, 0.0), "sigmoid": (1, 0.0), "tanh": (2, 0.0),
+           "softrelu": (3, 0.0), "softsign": (4, 0.0), "leaky": (5, 0.25),
+           "elu": (6, 1.0), "selu": (7, 0.0), "gelu": (8, 0.0),
+           "rrelu": (9, (0.125 + 0.334) / 2)}
+GELU = K3_ACTS["gelu"]
+LN_EPS = W2V_CFG["layer_norm_eps"]
+# one bfloat16 ulp (8 significant bits) at the output's scale
+BF16_ULP = 2.0 ** -7
+# float32 logits through ~700 reordered ops: the fused graph (K3's and
+# K1's sums) against the unfused one on the card, scaled by the largest
+# logit
+FUSION_TOL = 1e-4
+
+
+def k3_path_shapes():
+    """(rows, C) of the seven K3 launches of one bucket-8 forward."""
+    b = W2V_BUCKETS[-1]
+    return [(b * t, c) for t, c in zip(frames(W2V_CFG, W2V_SECONDS *
+                                              SAMPLE_RATE),
+                                       W2V_CFG["conv_dim"])]
+
+
+def k3_inputs(gen, rows, C, dtype=torch.float32):
+    dev = torch.device("cuda")
+    x = torch.randn(rows, C, device=dev, generator=gen) * 2 + 0.5
+    g = 1 + 0.1 * torch.randn(C, device=dev, generator=gen)
+    b = 0.1 * torch.randn(C, device=dev, generator=gen)
+    return x.to(dtype), g.to(dtype), b.to(dtype)
+
+
+def k3_check_phase(gen):
+    phase("10 K3 check")
+    cases = [(rows, C, "gelu") for rows, C in k3_path_shapes()]
+    cases += [(1001, 512, "gelu"), (3, 100, "gelu"), (517, 768, "gelu"),
+              (64, 1024, "gelu"), (33, 1030, "gelu"), (250, 4096, "gelu")]
+    cases += [(999, C, act) for act in K3_ACTS for C in (512, 100, 4096)]
+    worst = 0.0
+    for rows, C, act in cases:
+        code, slope = K3_ACTS[act]
+        x, g, b = k3_inputs(gen, rows, C)
+        got = _norm_act_cuda(x, g, b, LN_EPS, code, slope)
+        want = _norm_act_ref(x, g, b, LN_EPS, code, slope)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if act == "gelu" or C == 512:
+            print(f"  rows={rows} C={C} {act}: max_abs_err={err:.3e}")
+        if not torch.allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
+            raise RuntimeError(f"K3 disagrees with its plain version at "
+                               f"rows={rows} C={C} {act}: {err}")
+        worst = max(worst, err)
+    for rows, C in ((8 * 499, 512), (999, 100), (77, 4096)):
+        x, g, b = k3_inputs(gen, rows, C, torch.bfloat16)
+        got = _norm_act_cuda(x, g, b, LN_EPS, *GELU).float()
+        want = _norm_act_ref(x, g, b, LN_EPS, *GELU).float()
+        err = (got - want).abs().max().item()
+        print(f"  bfloat16 rows={rows} C={C} gelu: max_abs_err={err:.3e}")
+        if not torch.allclose(got, want, rtol=BF16_ULP, atol=KERNEL_ATOL):
+            raise RuntimeError(f"K3 in bfloat16 is off by {err} at "
+                               f"rows={rows} C={C}")
+    print(f"K3 matches _norm_act_ref within rtol=atol={KERNEL_RTOL} in "
+          f"float32 over {len(cases)} cases; worst max_abs_err {worst:.3e}")
+    return worst
+
+
+def k3_bound(rows, C, itemsize=4):
+    """Least ms for one K3 call: x read and out written once, gamma and
+    beta once (bytes at 3.35 TB/s), against ~12 fp32 operations per
+    element at 67 TFLOP/s."""
+    nbytes = 2 * rows * C * itemsize + 2 * C * itemsize
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 12 * rows * C / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes
+
+
+def k3_times_phase(gen):
+    phase("11 K3 times")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    F = torch.nn.functional
+    rows_out = []
+    for rows, C in k3_path_shapes():
+        x, g, b = k3_inputs(gen, rows, C)
+
+        def library():
+            return F.gelu(F.layer_norm(x, (C,), g, b, LN_EPS))
+
+        row = {"rows": rows, "C": C,
+               "ms": time_ms(lambda: _norm_act_cuda(x, g, b, LN_EPS, *GELU),
+                             flush),
+               "plain_ms": time_ms(
+                   lambda: _norm_act_ref(x, g, b, LN_EPS, *GELU), flush),
+               "library_ms": time_ms(library, flush)}
+        row["bound_ms"], row["bound_by"], row["bytes"] = k3_bound(rows, C)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        print("  " + json.dumps(row))
+        rows_out.append(row)
+        del x, g, b
+    total = {k: sum(r[k] for r in rows_out)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes")}
+    print("  seven launches of one bucket-8 forward: " + json.dumps(total))
+    del flush
+    return rows_out, total
+
+
+def k1_route_phase(gen):
+    phase("12 K1 on the fusion route")
+    B, S = W2V_BUCKETS[-1] * W2V_CFG["num_attention_heads"], \
+        frames(W2V_CFG, W2V_SECONDS * SAMPLE_RATE)[-1]
+    D = W2V_CFG["hidden_size"] // W2V_CFG["num_attention_heads"]
+    q, k, v = flash_inputs(gen, B, 1, S, S, D)
+    scale = D ** -0.5
+    got = _flash_fwd_cuda(q, k, v, scale, False)
+    want = _flash_ref(q, k, v, scale, False)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    print(f"  B={B} H=1 S={S} D={D} not causal: max_abs_err={err:.3e}")
+    if not torch.allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
+        raise RuntimeError(f"K1 disagrees with its plain version on the "
+                           f"fusion route: {err}")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, scale=scale)
+
+    row = {"B": B, "H": 1, "S_q": S, "S_k": S, "D": D, "causal": False,
+           "max_abs_err": err,
+           "ms": time_ms(lambda: _flash_fwd_cuda(q, k, v, scale, False),
+                         flush),
+           "plain_ms": time_ms(lambda: _flash_ref(q, k, v, scale, False),
+                               flush),
+           "library_ms": time_ms(library, flush)}
+    row["bound_ms"], row["bound_by"], row["flops"], row["bytes"] = \
+        flash_bound(B, 1, S, S, D, False)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    print("  " + json.dumps(row))
+    del flush
+    return row
+
+
+def _fused_nodes(block, batch):
+    g = block._optimized_outputs(nd.zeros(
+        (batch, W2V_SECONDS * SAMPLE_RATE, 1), ctx=mx.gpu(0)))
+    out = {}
+    for s in g._walk():
+        if s._op in ("_fused_norm_act", "_fused_attention"):
+            out.setdefault(s._op, []).append(s._kwargs["impl"])
+    return out
+
+
+def symbolic_phase():
+    phase("13 symbolic serving")
+    os.environ["MXNET_GRAPH_OPT"] = "1"
+    cfg = W2V_CFG
+    samples = W2V_SECONDS * SAMPLE_RATE
+    n_layers = cfg["num_hidden_layers"]
+    n_ln_act = len(cfg["conv_dim"])
+    print(f"torch.backends.cudnn.allow_tf32 = "
+          f"{torch.backends.cudnn.allow_tf32}, "
+          f"torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "wav2vec2-large-lv60")
+        t0 = time.perf_counter()
+        n_params = export_wav2vec2(prefix, mx.sym, nd, cfg, SEED)
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sess = serving.InferenceSession.load(
+            prefix, input_shapes=[(1, samples, 1)], buckets=list(W2V_BUCKETS),
+            ctx=mx.gpu(0))
+        t_load = time.perf_counter() - t0
+        print(f"wav2vec2-large-lv60 CTC {cfg}: {n_params} parameters "
+              f"({n_params * 4 / 1e9:.3f} GB fp32); exported in "
+              f"{t_export:.2f} s, loaded and warmed at buckets "
+              f"{list(W2V_BUCKETS)} in {t_load:.2f} s")
+        for b in W2V_BUCKETS:
+            fused = _fused_nodes(sess._block, b)
+            na = fused.get("_fused_norm_act", [])
+            att = fused.get("_fused_attention", [])
+            if len(na) != n_ln_act or len(att) != n_layers or \
+                    set(na + att) != {"cuda"}:
+                raise RuntimeError(f"bucket {b}: optimized graph holds "
+                                   f"norm_act {na}, attention {att}")
+        print(f"every bucket's optimized graph: {n_ln_act} _fused_norm_act "
+              f"and {n_layers} _fused_attention, all impl='cuda'")
+        rng = onp.random.default_rng(SEED)
+        reqs = [rng.standard_normal((n, samples, 1), dtype=onp.float32)
+                for n in W2V_REQUESTS]
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        serving.METRICS.reset()
+        torch.cuda.reset_peak_memory_stats()
+        outs, req_ms = [], []
+        t_all = time.perf_counter()
+        for x in reqs:
+            t0 = time.perf_counter()
+            outs.append(sess.predict(x).asnumpy())
+            req_ms.append((time.perf_counter() - t0) * 1e3)
+        wall = time.perf_counter() - t_all
+        counts = _build.launch_counts()
+        snap = serving.METRICS.snapshot()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        execs = snap["bucket_execs"]
+        k3 = counts.get(NORM_ACT_KERNEL, 0)
+        k1 = counts.get(FLASH_KERNEL, 0)
+        if k3 != n_ln_act * execs or k1 != n_layers * execs:
+            raise RuntimeError(f"K3 launched {k3}, K1 {k1} times in {execs} "
+                               "bucket executions")
+        print(f"K3 launches {k3} = {n_ln_act} x {execs} bucket executions; "
+              f"K1 launches {k1} = {n_layers} x {execs}")
+        T = frames(cfg, samples)[-1]
+        for n, o in zip(W2V_REQUESTS, outs):
+            if o.shape != (n, T, cfg["vocab_size"]) or \
+                    not onp.isfinite(o).all():
+                raise RuntimeError(f"bad logits {o.shape} for {n} clips")
+        buckets = [min(b for b in W2V_BUCKETS if b >= n)
+                   for n in W2V_REQUESTS]
+        clips = sum(W2V_REQUESTS)
+        result = {"clips_per_s": clips / wall,
+                  "audio_seconds_per_s": clips * W2V_SECONDS / wall,
+                  "mean_request_ms": statistics.mean(req_ms),
+                  "request_ms": dict(zip(
+                      [f"{n} clips (bucket {b})"
+                       for n, b in zip(W2V_REQUESTS, buckets)], req_ms)),
+                  "bucket_execs": execs, "padded_rows": snap["padded_rows"],
+                  "true_rows": snap["true_rows"],
+                  "peak_memory_gb": peak_gb}
+        print("symbolic serving " + json.dumps(result))
+        # the same export with the fusion pass off: every node 1:1
+        big = W2V_REQUESTS.index(W2V_BUCKETS[-1])
+        os.environ["MXNET_FUSION"] = "0"
+        try:
+            plain = sess.predict(reqs[big]).asnumpy()
+        finally:
+            del os.environ["MXNET_FUSION"]
+        scale = float(onp.abs(plain).max())
+        ferr = float(onp.abs(outs[big] - plain).max())
+        print(f"fused against MXNET_FUSION=0 at bucket {W2V_BUCKETS[-1]}: "
+              f"max_abs_err {ferr:.3e}, {ferr / scale:.3e} of the largest "
+              f"logit {scale:.3e}")
+        if ferr > FUSION_TOL * scale:
+            raise RuntimeError(f"fused logits differ from the unfused graph "
+                               f"by {ferr}")
+        # one 1 s clip on the card and on the CPU port, same export
+        short = SAMPLE_RATE
+        clip = rng.standard_normal((1, short, 1), dtype=onp.float32)
+        card = serving.InferenceSession(
+            sess._block, input_shapes=[(1, short, 1)], buckets=[1],
+            ctx=mx.gpu(0)).predict(clip).asnumpy()
+        cpu = serving.InferenceSession.load(
+            prefix, input_shapes=[(1, short, 1)], buckets=[1],
+            ctx=mx.cpu()).predict(clip).asnumpy()
+    cscale = float(onp.abs(cpu).max())
+    cerr = float(onp.abs(card - cpu).max())
+    print(f"1 s clip, card against the CPU port: max_abs_err {cerr:.3e}, "
+          f"{cerr / cscale:.3e} of the largest logit {cscale:.3e}")
+    if not onp.allclose(card, cpu, rtol=CPU_RTOL, atol=CPU_RTOL * cscale):
+        raise RuntimeError(f"card logits differ from the CPU's by {cerr}")
+    result.update(n_params=n_params, fused_rel_err=ferr / scale,
+                  cpu_rel_err=cerr / cscale, k3_launches=k3, k1_launches=k1)
+    return result
+
+
+def kernel_entry(name, source, replaces, launches, worst, row, shape, smi,
+                 **extra):
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": worst, "ms": row["ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+             "shape": shape, "card": smi}
+    entry.update(extra)
+    return entry
+
+
 def main():
+    t_start = time.perf_counter()
     smi = device_phase()
     build_phase()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -616,39 +930,43 @@ def main():
     k2_launches, _ = serving_phase()
     k1_worst = k1_check_phase(gen)
     k1_row = k1_times_phase(gen)
-    net, k1_launches, _ = training_phase()
+    net, k1_training, _ = training_phase()
     training_vs_cpu_phase(net)
-    phase("10 report")
+    del net
+    k3_worst = k3_check_phase(gen)
+    k3_rows, k3_total = k3_times_phase(gen)
+    route = k1_route_phase(gen)
+    sym_result = symbolic_phase()
     big = k2_rows[-1]
-    print(json.dumps({"kernels": [{
-        "name": FLASH_KERNEL,
-        "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "mxnet_tpu/kernels/flash_attention.py:48",
-        "launches": k1_launches,
-        "max_abs_err": k1_worst,
-        "ms": k1_row["ms"],
-        "plain_ms": k1_row["plain_ms"],
-        "bound_ms": k1_row["bound_ms"],
-        "bound_by": k1_row["bound_by"],
-        "library_ms": k1_row["library_ms"],
-        "shape": f"B={k1_row['B']} H={k1_row['H']} S_q={k1_row['S_q']} "
-                 f"S_k={k1_row['S_k']} D={k1_row['D']} causal fp32",
-        "card": smi}, {
-        "name": KERNEL,
-        "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/decode_attention.cu",
-        "replaces": "mxnet_tpu/kernels/flash_attention.py:137",
-        "launches": k2_launches,
-        "max_abs_err": k2_worst,
-        "ms": big["ms"],
-        "plain_ms": big["plain_ms"],
-        "bound_ms": big["bound_ms"],
-        "bound_by": big["bound_by"],
-        "library_ms": big["library_ms"],
-        "shape": f"B={big['B']} H={big['H']} S={big['S']} D={big['D']} "
-                 f"visible={big['visible']} fp32",
-        "card": smi}]}))
+    k3_big = k3_rows[0]
+    kernels = [
+        kernel_entry(
+            KERNEL, "mxnet_tpu_torch/csrc/decode_attention.cu",
+            "mxnet_tpu/kernels/flash_attention.py:137", k2_launches,
+            k2_worst, big, f"B={big['B']} H={big['H']} S={big['S']} "
+            f"D={big['D']} visible={big['visible']} fp32", smi),
+        # K1's headline numbers are the training shape's; the fusion
+        # route's shape has its own row under "fusion_route"
+        kernel_entry(
+            FLASH_KERNEL, "mxnet_tpu_torch/csrc/flash_attention.cu",
+            "mxnet_tpu/kernels/flash_attention.py:48",
+            k1_training + sym_result["k1_launches"],
+            max(k1_worst, route["max_abs_err"]), k1_row,
+            f"B={k1_row['B']} H={k1_row['H']} S_q={k1_row['S_q']} "
+            f"S_k={k1_row['S_k']} D={k1_row['D']} causal fp32", smi,
+            launches_by_path={"training": k1_training,
+                              "symbolic_serving": sym_result["k1_launches"]},
+            fusion_route=route),
+        kernel_entry(
+            NORM_ACT_KERNEL, "mxnet_tpu_torch/csrc/norm_act.cu",
+            "mxnet_tpu/kernels/norm_act.py:45", sym_result["k3_launches"],
+            k3_worst, k3_big, f"rows={k3_big['rows']} C={k3_big['C']} gelu "
+            "fp32 (bucket 8, feature layer 1)", smi,
+            library_calls="F.layer_norm then F.gelu", per_forward=k3_total),
+    ]
+    phase("14 report")
+    print(f"all phases in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,9 +4,10 @@ A second package beside the JAX one, with the same module layout and
 public names, built on PyTorch for an NVIDIA H100. Plain tensor code is
 PyTorch; every kernel the JAX package wrote in Pallas for the TPU is a
 kernel written by hand in CUDA C++ under ``csrc/``, built with ``nvcc``
-at first use (``kernels/_build.py``). Two slices are ported: stateful
-decode serving of :class:`~.models.DecoderBlockLM`, and training
-:class:`~.models.TransformerLM`:
+at first use (``kernels/_build.py``). Three slices are ported: stateful
+decode serving of :class:`~.models.DecoderBlockLM`, training
+:class:`~.models.TransformerLM`, and serving an exported symbol graph
+through the graph optimizer and its fusion pass:
 
 - ``mx.nd`` — NDArray over a ``torch.Tensor`` and the ops both paths
   use;
@@ -15,9 +16,15 @@ decode serving of :class:`~.models.DecoderBlockLM`, and training
 - ``mx.gluon`` — Block/HybridBlock as ``torch.nn.Module``s, the losses
   and the Trainer;
 - ``mx.optimizer`` — SGD and Adam, updating parameters in place;
+- ``mx.sym`` — symbol graphs, their JSON, shape inference;
+- ``mx.analysis`` — the graph verifier and optimizer (``MXNET_GRAPH_OPT``)
+  with the fusion pass;
 - ``mx.kernels`` — the flash-attention kernel K1, the decode-attention
-  kernel K2 and their plain versions;
-- ``mx.serving`` — InferenceSession, SessionStateStore, DynamicBatcher;
+  kernel K2, the fused LayerNorm→activation kernel K3, their plain
+  versions and the fused cluster ops;
+- ``mx.serving`` — InferenceSession (stateless ``predict`` and
+  ``load`` of an export, or stateful ``step``), SessionStateStore,
+  DynamicBatcher;
 - ``mx.convert`` — loading weights carried over as numpy arrays.
 
 Entry points run on the card: the default context is ``gpu(0)``, and
@@ -42,11 +49,15 @@ from . import random
 from . import optimizer
 from . import gluon
 from . import kernels
+from . import name
+from . import symbol
+from . import symbol as sym
+from . import analysis
 from . import models
 from . import serving
 from . import convert
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "autograd", "initializer", "init", "ndarray", "nd",
-           "random", "optimizer", "gluon", "kernels", "models", "serving",
-           "convert"]
+           "random", "optimizer", "gluon", "kernels", "name", "symbol", "sym",
+           "analysis", "models", "serving", "convert"]

@@ -1,0 +1,30 @@
+"""mxnet_tpu_torch.analysis — graph verification and the graph optimizer.
+
+The PyTorch counterpart of ``mxnet_tpu/analysis``, cut to the symbol
+graph path: the verifier passes and their fact cache (``passes``,
+``diagnostics``), the rewrite pipeline ``optimize_symbol``
+(``graph_opt``: fold, cse, transpose elision, fusion, dce, gated by
+``MXNET_GRAPH_OPT``) and the fusion clustering pass (``fusion``). Trace
+verification, donation and sharding checks and the quantization passes
+come with the slices that need them.
+"""
+from __future__ import annotations
+
+from .diagnostics import (CODES, Diagnostic, DiagnosticReport, SEV_ERROR,
+                          SEV_WARNING)
+from .passes import (FactError, PASSES, PassContext, register_fact,
+                     run_passes)
+from .graph_opt import (AnalysisPass, DEFAULT_REWRITE_PIPELINE,
+                        PIPELINE_VERSION, PassManager, REWRITE_PASSES,
+                        RewritePass, op_is_pure, opt_level, optimize_symbol)
+from .graph_opt import counters as graph_opt_counters
+from .graph_opt import reset_counters as reset_graph_opt_counters
+
+__all__ = [
+    "CODES", "Diagnostic", "DiagnosticReport", "SEV_ERROR", "SEV_WARNING",
+    "FactError", "PASSES", "PassContext", "register_fact", "run_passes",
+    "AnalysisPass", "RewritePass", "PassManager", "PIPELINE_VERSION",
+    "DEFAULT_REWRITE_PIPELINE", "REWRITE_PASSES", "opt_level",
+    "optimize_symbol", "op_is_pure", "graph_opt_counters",
+    "reset_graph_opt_counters",
+]

@@ -1,9 +1,9 @@
-"""``mx.gluon``: Block, HybridBlock, Parameter, the ``nn`` layers, the
-losses and the Trainer."""
+"""``mx.gluon``: Block, HybridBlock, SymbolBlock, Parameter, the ``nn``
+layers, the losses and the Trainer."""
 from . import loss, nn
-from .block import Block, HybridBlock
+from .block import Block, HybridBlock, SymbolBlock
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 from .trainer import Trainer
 
-__all__ = ["nn", "loss", "Block", "HybridBlock", "Parameter", "ParameterDict",
-           "DeferredInitializationError", "Trainer"]
+__all__ = ["nn", "loss", "Block", "HybridBlock", "SymbolBlock", "Parameter",
+           "ParameterDict", "DeferredInitializationError", "Trainer"]

@@ -11,6 +11,8 @@ line up with the JAX package. ``hybrid_forward(F, ...)`` runs with
 ``F`` = the port's ``nd`` module, so model files port line for line.
 A block's forward builds an autograd graph only inside
 ``autograd.record()``; outside it, grad mode is off for the call.
+:class:`SymbolBlock` runs a symbol graph (an export loaded with
+:meth:`SymbolBlock.imports`) through the graph optimizer.
 """
 from __future__ import annotations
 
@@ -21,9 +23,10 @@ import torch
 
 from .. import autograd
 from .. import ndarray as nd
+from ..base import MXNetError
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
 
 class _BlockScope(threading.local):
@@ -186,3 +189,113 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+
+class SymbolBlock(HybridBlock):
+    """A block over a symbol graph (reference: gluon/block.py:1190; the
+    JAX package's ``block.py:655-742``). Every free variable of
+    ``outputs`` that is not one of ``inputs`` becomes a parameter of
+    that name.
+
+    Each forward evaluates the graph as ``MXNET_GRAPH_OPT`` optimizes
+    it. The optimized graph is cached per (level, pipeline version,
+    fusion configuration, device, input shapes and dtypes): the fusion
+    pass picks each cluster's implementation for the device and the
+    shapes it sees, so a graph optimized for the CPU (the replays) is
+    never run on the card, and a bucket's shapes are checked against
+    what the kernels take. (The JAX package optimizes without shapes;
+    here the kernel choice depends on them.)"""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="", params=params)
+        self._outputs = outputs
+        self._inputs = list(inputs) if isinstance(inputs, (list, tuple)) \
+            else [inputs]
+        self._graph_opt_cache = {}
+        input_names = {i.name for i in self._inputs}
+        for s in outputs._walk():
+            if s._op is None and not s._group \
+                    and s._name not in input_names \
+                    and s._name not in self._reg_params:
+                p = self.params.get(s._name, allow_deferred_init=True)
+                self._reg_params[s._name] = p
+                p._attach(self, s._name)
+
+    @staticmethod
+    def imports(symbol_file, input_names=None, param_file=None, ctx=None):
+        """A SymbolBlock from an export: ``symbol_file`` (nnvm JSON) and
+        ``param_file`` (``nd.save`` format, keys optionally ``arg:``/
+        ``aux:``-prefixed), with the parameters on ``ctx`` (default: the
+        current context). ``input_names=None`` takes the data inputs to
+        be the graph's free variables the params file does not hold."""
+        from .. import cpu
+        from .. import symbol as sym
+
+        outputs = sym.load(symbol_file)
+        loaded = None
+        if param_file is not None:
+            # host arrays first: each parameter then lands on ctx once
+            loaded = {k.split(":", 1)[1] if k.startswith(("arg:", "aux:"))
+                      else k: v for k, v in
+                      nd.load(param_file, ctx=cpu()).items()}
+        if input_names is None:
+            if loaded is None:
+                raise MXNetError(
+                    "SymbolBlock.imports(input_names=None) needs param_file "
+                    "to tell data inputs from parameters")
+            input_names = [n for n in outputs.list_arguments()
+                           if n not in loaded]
+            if not input_names:
+                raise MXNetError(
+                    f"no free variables of {symbol_file!r} remain after "
+                    f"binding {param_file!r}; pass input_names explicitly")
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        ret = SymbolBlock(outputs, [sym.var(n) for n in input_names])
+        if loaded is not None:
+            params = dict(ret.collect_params().items())
+            missing = sorted(set(params) - set(loaded))
+            extra = sorted(set(loaded) - set(params))
+            if missing or extra:
+                raise IOError(f"{param_file!r} does not match the graph: "
+                              f"missing {missing[:5]}, extra {extra[:5]}")
+            for name, arr in loaded.items():
+                params[name].set_data(arr, ctx=ctx)
+        return ret
+
+    def _feed(self, args):
+        feed = {i.name: a for i, a in zip(self._inputs, args)}
+        for name, p in self.collect_params().items():
+            feed[name] = p.data()
+        return feed
+
+    def _optimized_outputs(self, *args):
+        """The output graph as ``MXNET_GRAPH_OPT`` rewrites it for the
+        device, shapes and dtypes of ``args`` (the forward's inputs) and
+        the parameters; cached (see the class docstring)."""
+        return self._optimized_for(self._feed(args))
+
+    def _optimized_for(self, feed):
+        from ..analysis import graph_opt
+
+        level = graph_opt.opt_level()
+        if level <= 0:
+            return self._outputs
+        device = next(iter(feed.values())).data.device if feed else None
+        shapes = {k: tuple(v.shape) for k, v in feed.items()}
+        dtypes = {k: v.data.dtype for k, v in feed.items()}
+        tag = (graph_opt.fingerprint_salt(level), str(device),
+               tuple((i.name, shapes.get(i.name), str(dtypes.get(i.name)))
+                     for i in self._inputs))
+        opt = self._graph_opt_cache.get(tag)
+        if opt is None:
+            opt, _ = graph_opt.optimize_symbol(
+                self._outputs, shapes=shapes, dtypes=dtypes, level=level,
+                subject=f"hybridize:{self.name or 'symbol_block'}",
+                device=device)
+            self._graph_opt_cache[tag] = opt
+        return opt
+
+    def forward(self, *args):
+        feed = self._feed(args)
+        return self._optimized_for(feed).eval_with(feed)

@@ -1,9 +1,15 @@
-"""Decode-mode attention ops: ``_cache_append`` and ``_attention_decode``.
+"""Attention cluster ops: ``_fused_attention``, ``_cache_append`` and
+``_attention_decode``.
 
-The PyTorch counterparts of ``mxnet_tpu/kernels/attention.py:76-128``,
-the two registered ops a KV-cache decoder block threads through the
-stateful serving stack:
+The PyTorch counterparts of ``mxnet_tpu/kernels/attention.py:37-128``:
 
+- ``_fused_attention`` is the op the fusion pass emits for the composed
+  ``batch_dot(softmax(batch_dot(q, k, T) [*/ scale]), v)`` over (B, S, D)
+  operands. ``impl="torch"`` replays the registered batch_dot, scalar
+  scale and softmax bodies (bit-identical to the unfused subgraph), the
+  counterpart of ``"lax"``; ``impl="cuda"`` runs the flash-attention
+  kernel K1 on ``q[:, None]`` views (a singleton head axis), as the JAX
+  op rides its Pallas flash kernel.
 - ``_cache_append`` writes one step's projected K (or V) row into the
   cache at the row's position. The JAX op is an exact XLA scatter that
   returns a new cache; this one writes the row **in place** and returns
@@ -21,8 +27,45 @@ from __future__ import annotations
 
 import torch
 
-from ..ndarray.registry import register
-from .flash_attention import _decode_flash, _decode_flash_ref
+from ..ndarray.registry import get_op, register
+from .flash_attention import _decode_flash, _decode_flash_ref, flash_attention
+
+
+def _replay(q, k, v, scale_op, scale, softmax_kw):
+    """The unfused subgraph, replayed body for body."""
+    bd = get_op("batch_dot").fn
+    s = bd(q, k, transpose_b=True)
+    if scale_op == "mul":
+        s = get_op("broadcast_mul_scalar").fn(s, scalar=scale)
+    elif scale_op == "div":
+        s = get_op("broadcast_div_scalar").fn(s, scalar=scale)
+    p = get_op("softmax").fn(s, **dict(softmax_kw))
+    return bd(p, v)
+
+
+@register("_fused_attention", namespaces=())
+def _fused_attention(q, k, v, scale_op="none", scale=1.0, softmax_kw=(),
+                     impl="torch"):
+    """Fused score→softmax→weighted-sum attention cluster over (B, S, D)
+    operands, emitted by the fusion pass. ``impl="torch"`` replays the
+    registered bodies (bit-identical to the unfused subgraph);
+    ``impl="cuda"`` runs K1 (online softmax in fp32; documented-ulp
+    against the replay). (Reference: the composed
+    src/operator/tensor/dot.cc + nn/softmax.cc subgraph.)"""
+    if impl == "cuda":
+        sm_scale = (float(scale) if scale_op == "mul"
+                    else 1.0 / float(scale) if scale_op == "div" else 1.0)
+        # K1 reads every axis through its stride but the last: a
+        # permuted view (the port's transpose) is copied, not refused
+        q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (q, k, v))
+        out = flash_attention(q[:, None], k[:, None], v[:, None],
+                              sm_scale=sm_scale, use_kernel=True)
+        return out[:, 0]
+    if impl != "torch":
+        raise ValueError(f"_fused_attention: unknown impl {impl!r} "
+                         "(expected 'torch' or 'cuda')")
+    return _replay(q, k, v, scale_op, scale, softmax_kw)
 
 
 @register("_cache_append", differentiable=False, namespaces=())

@@ -73,18 +73,21 @@ def _flash_fwd_cuda(q, k, v, sm_scale, causal):
     """K1: the attention forward, same contract as :func:`_flash_ref`;
     returns a fresh contiguous (B, H, S_q, D) tensor of q's dtype.
 
-    On CPU tensors this is the plain version. On CUDA tensors it
-    launches the K1 kernel on the current stream, without synchronizing,
-    or raises: q, k and v must be float32 or bfloat16 alike, on one
-    device, 4-d with matching (B, H, D), D <= 256 and contiguous (the
-    other axes may be strided: views of one fused qkv are read in
-    place), and ``causal`` needs S_q <= S_k."""
+    On CPU tensors this is the plain version; on meta tensors an empty
+    result (shape inference). On CUDA tensors it launches the K1 kernel
+    on the current stream, without synchronizing, or raises: q, k and v
+    must be float32 or bfloat16 alike, on one device, 4-d with matching
+    (B, H, D), D <= 256 and contiguous (the other axes may be strided:
+    views of one fused qkv are read in place), and ``causal`` needs
+    S_q <= S_k."""
     devs = {t.device for t in (q, k, v)}
     if len(devs) != 1:
         raise MXNetError(f"_flash_fwd_cuda: inputs on several devices {devs}")
     dev = devs.pop()
     if dev.type == "cpu":
         return _flash_ref(q, k, v, sm_scale, causal)
+    if dev.type == "meta":
+        return q.new_empty(tuple(q.shape[:3]) + (v.shape[3],))
     if dev.type != "cuda":
         raise MXNetError(f"_flash_fwd_cuda: unsupported device {dev}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:

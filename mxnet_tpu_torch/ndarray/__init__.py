@@ -1,18 +1,46 @@
-"""``mx.nd``: NDArray, creation functions and the registered ops.
+"""``mx.nd``: NDArray, creation functions, save/load and the registered ops.
 
 The PyTorch counterpart of ``mxnet_tpu/ndarray/__init__.py``. Every op
 registered with the ``"nd"`` namespace is exposed here as a function of
 NDArrays, so a block's ``hybrid_forward(F, ...)`` runs with ``F`` = this
-module.
+module. ``_CAMEL_ALIASES`` maps the reference's legacy CamelCase op
+names (symbol JSON) to the registered ones, as in the JAX package.
 """
 from __future__ import annotations
 
 from . import registry
 from . import ops_basic, ops_index, ops_nn, ops_optim  # noqa: F401 — register the ops
-from .ndarray import NDArray, arange, array, expand_dims, zeros
+from .ndarray import (NDArray, arange, array, expand_dims, load,
+                      load_frombuffer, save, zeros)
 
-__all__ = ["NDArray", "array", "zeros", "arange", "expand_dims",
-           "registry"]
+__all__ = ["NDArray", "array", "zeros", "arange", "expand_dims", "save",
+           "load", "load_frombuffer", "registry"]
+
+# the JAX package's table (``mxnet_tpu/ndarray/__init__.py:41-85``); the
+# first alias per target is the name ``Symbol.tojson`` writes
+_CAMEL_ALIASES = {
+    "Convolution": "convolution", "Deconvolution": "deconvolution",
+    "FullyConnected": "fully_connected", "Activation": "activation",
+    "Pooling": "pooling", "BatchNorm": "batch_norm", "LayerNorm": "layer_norm",
+    "InstanceNorm": "instance_norm", "GroupNorm": "group_norm",
+    "Dropout": "dropout", "Embedding": "embedding", "Flatten": "flatten",
+    "Concat": "concat", "Reshape": "reshape", "Cast": "cast",
+    "SoftmaxOutput": "softmax_output", "LeakyReLU": "leaky_relu",
+    "RNN": "rnn", "SequenceMask": "sequence_mask",
+    "SequenceLast": "sequence_last", "SequenceReverse": "sequence_reverse",
+    "SliceChannel": "slice_channel", "UpSampling": "upsampling",
+    "LRN": "lrn", "Pad": "pad", "SwapAxis": "swapaxes",
+    "L2Normalization": "l2_normalization", "MakeLoss": "make_loss",
+    "SoftmaxActivation": "softmax",
+    "LinearRegressionOutput": "linear_regression_output",
+    "MAERegressionOutput": "mae_regression_output",
+    "LogisticRegressionOutput": "logistic_regression_output",
+    "SVMOutput": "svm_output", "ROIPooling": "roi_pooling",
+    "SpatialTransformer": "spatial_transformer",
+    "BilinearSampler": "bilinear_sampler", "GridGenerator": "grid_generator",
+    "Correlation": "correlation", "Crop": "crop",
+    "BatchNorm_v1": "batch_norm",
+}
 
 
 def _make_op_function(opdef):

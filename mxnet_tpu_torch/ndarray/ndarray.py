@@ -23,7 +23,7 @@ from ..base import MXNetError
 from ..context import Context, resolve_device
 
 __all__ = ["NDArray", "array", "zeros", "arange", "expand_dims",
-           "torch_dtype"]
+           "torch_dtype", "save", "load", "load_frombuffer"]
 
 _TORCH_DTYPES = {
     "float32": torch.float32, "float16": torch.float16,
@@ -240,3 +240,139 @@ def arange(start, stop=None, step=1.0, ctx=None, dtype="float32"):
 
 def expand_dims(data, axis):
     return NDArray(data.data.unsqueeze(axis))
+
+
+# -- serialization ----------------------------------------------------------
+# The reference's binary .params format (src/ndarray/ndarray.cc:1596-1860),
+# as the JAX package writes and reads it (``ndarray.py:723-921``): uint64
+# 0x112 list magic, uint64 reserved, uint64 count; per array uint32 V2
+# magic, int32 storage type 0, int32 ndim then int64 dims, int32 dev_type
+# and dev_id (cpu 0), int32 mshadow type flag, the raw little-endian data;
+# then uint64 key count and per key uint64 length and bytes. The same
+# dict writes the same bytes from either package.
+
+_LIST_MAGIC = 0x112
+_ND_V1_MAGIC = 0xF993FAC8
+_ND_V2_MAGIC = 0xF993FAC9
+_ND_V3_MAGIC = 0xF993FACA
+_TYPE_FLAG_TO_DTYPE = {0: "float32", 1: "float64", 2: "float16",
+                       3: "uint8", 4: "int32", 5: "int8", 6: "int64",
+                       7: "bool"}
+_DTYPE_TO_TYPE_FLAG = {v: k for k, v in _TYPE_FLAG_TO_DTYPE.items()}
+
+
+def _host_array(a):
+    """A host numpy array of ``a``, widened to the nearest lossless
+    type flag the format has (bfloat16 to float32, as the JAX package
+    does)."""
+    if isinstance(a, NDArray):
+        a = a.data
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu()
+        if a.dtype == torch.bfloat16:
+            a = a.float()
+        a = a.numpy()
+    arr = onp.ascontiguousarray(onp.asarray(a))
+    if str(arr.dtype) in _DTYPE_TO_TYPE_FLAG:
+        return arr
+    if arr.dtype.kind == "i" or (arr.dtype.kind == "u"
+                                 and arr.dtype.itemsize < 8):
+        return arr.astype("int64")
+    if arr.dtype.kind == "f" and arr.dtype.itemsize <= 4:
+        return arr.astype("float32")
+    raise TypeError(f"cannot save dtype {arr.dtype}: no lossless type flag "
+                    "in the format")
+
+
+def save(fname, data):
+    """Save an NDArray, a list of them, a dict name -> NDArray or a list
+    of (name, NDArray) pairs in the reference's binary format."""
+    import struct
+
+    if isinstance(data, NDArray):
+        data = [data]
+    if isinstance(data, dict):
+        names, arrays = [str(k) for k in data], list(data.values())
+    elif isinstance(data, (list, tuple)) and data and all(
+            isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], str)
+            for x in data):
+        names, arrays = [k for k, _ in data], [v for _, v in data]
+    elif isinstance(data, (list, tuple)):
+        names, arrays = [], list(data)
+    else:
+        raise TypeError("save expects NDArray, list or dict")
+    with open(fname, "wb") as f:
+        f.write(struct.pack("<QQQ", _LIST_MAGIC, 0, len(arrays)))
+        for a in arrays:
+            arr = _host_array(a)
+            f.write(struct.pack("<Ii", _ND_V2_MAGIC, 0))
+            f.write(struct.pack(f"<i{arr.ndim}q", arr.ndim, *arr.shape))
+            f.write(struct.pack("<iii", 1, 0,
+                                _DTYPE_TO_TYPE_FLAG[str(arr.dtype)]))
+            if arr.dtype.byteorder == ">":
+                arr = arr.byteswap().view(arr.dtype.newbyteorder("<"))
+            f.write(arr.tobytes())
+        f.write(struct.pack("<Q", len(names)))
+        for n in names:
+            b = n.encode()
+            f.write(struct.pack("<Q", len(b)) + b)
+
+
+def load(fname, ctx=None):
+    """Load a file :func:`save` (or the JAX package, or the reference)
+    wrote: a dict name -> NDArray, or a list when it holds no names.
+    The arrays land on ``ctx`` (default: the current context)."""
+    with open(fname, "rb") as f:
+        return load_frombuffer(f.read(), ctx=ctx)
+
+
+def load_frombuffer(buf, ctx=None):
+    """:func:`load` from bytes in memory."""
+    import struct
+
+    buf = bytes(buf)
+    if len(buf) < 8 or struct.unpack_from("<Q", buf)[0] != _LIST_MAGIC:
+        raise MXNetError("not an NDArray file in the reference's binary "
+                         "format (no 0x112 list magic)")
+    dev = resolve_device(ctx)
+    off = 16
+    (count,) = struct.unpack_from("<Q", buf, off)
+    off += 8
+    arrays = []
+    for _ in range(count):
+        (magic,) = struct.unpack_from("<I", buf, off)
+        off += 4
+        if magic in (_ND_V2_MAGIC, _ND_V3_MAGIC):
+            (stype,) = struct.unpack_from("<i", buf, off)
+            off += 4
+            if stype != 0:
+                raise MXNetError("only dense NDArrays can be loaded")
+        if magic in (_ND_V1_MAGIC, _ND_V2_MAGIC, _ND_V3_MAGIC):
+            (ndim,) = struct.unpack_from("<i", buf, off)
+            off += 4
+            shape = struct.unpack_from(f"<{ndim}q", buf, off)
+            off += 8 * ndim
+        else:  # the oldest format: the magic word is the ndim
+            ndim = magic
+            shape = struct.unpack_from(f"<{ndim}I", buf, off)
+            off += 4 * ndim
+        off += 8  # the saved context: placement is the caller's
+        (flag,) = struct.unpack_from("<i", buf, off)
+        off += 4
+        dtype = onp.dtype(_TYPE_FLAG_TO_DTYPE[flag])
+        n = int(onp.prod(shape)) if ndim else 1
+        host = onp.frombuffer(buf, dtype.newbyteorder("<"), n, off)
+        off += dtype.itemsize * n
+        host = host.reshape(shape).astype(dtype)  # a writable copy
+        arrays.append(NDArray(torch.from_numpy(host).to(dev)))
+    (nkeys,) = struct.unpack_from("<Q", buf, off)
+    off += 8
+    names = []
+    for _ in range(nkeys):
+        (ln,) = struct.unpack_from("<Q", buf, off)
+        off += 8
+        names.append(buf[off:off + ln].decode())
+        off += ln
+    if not names:
+        return arrays
+    return dict(zip(names, arrays))

@@ -1,17 +1,311 @@
-"""Basic tensor ops the transformer and its loss use.
+"""Basic tensor ops: elementwise, scalar, broadcast, reduce, shape, matrix.
 
-The PyTorch counterparts of ``mxnet_tpu/ndarray/ops_basic.py`` (``dot``
-:666, ``transpose`` :377, the reductions :254, the elementwise table
-:28-32 and ``broadcast_mul`` :159), cut to what this slice's path
-calls. The JAX package left them to XLA; the port leaves them to torch.
+The PyTorch counterparts of ``mxnet_tpu/ndarray/ops_basic.py`` (the
+unary table :27-42, the broadcast table :157-185, the scalar forms
+:199-228, the reductions :254, ``reshape`` :336, ``transpose`` :377,
+``slice_axis`` :456, the constant nodes :618-638, ``dot`` :666 and
+``batch_dot`` :677), cut to what the ported paths and the symbol graphs
+they serve call. The JAX package left them to XLA; the port leaves them
+to torch. MXNet's conventions hold: comparisons return 0/1 in the input
+dtype, a scalar op keeps a float input's dtype, ``reshape`` honors the
+0/-1/-2/-3/-4 codes.
 """
 from __future__ import annotations
 
 import torch
 
-from .ndarray import _reduce
+from .ndarray import _reduce, torch_dtype
 from .registry import register
 
+# -- unary ---------------------------------------------------------------
+
+_UNARY = {
+    "abs": torch.abs, "sign": torch.sign, "rint": torch.round,
+    "round": torch.round, "ceil": torch.ceil, "floor": torch.floor,
+    "trunc": torch.trunc, "fix": torch.trunc, "exp": torch.exp,
+    "expm1": torch.expm1, "log": torch.log, "log10": torch.log10,
+    "log2": torch.log2, "log1p": torch.log1p, "sqrt": torch.sqrt,
+    "square": torch.square,
+    "cbrt": lambda x: torch.sign(x) * torch.abs(x).pow(1.0 / 3.0),
+    "reciprocal": torch.reciprocal, "negative": torch.neg,
+    "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+    "arcsin": torch.asin, "arccos": torch.acos, "arctan": torch.atan,
+    "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
+    "arcsinh": torch.asinh, "arccosh": torch.acosh, "arctanh": torch.atanh,
+    "degrees": torch.rad2deg, "radians": torch.deg2rad,
+    "erf": torch.erf, "erfinv": torch.erfinv, "gammaln": torch.lgamma,
+    "logical_not": lambda x: (x == 0).to(x.dtype),
+}
+
+
+def _make_unary(name, fn):
+    def op(data):
+        return fn(data)
+
+    op.__name__ = name
+    op.__doc__ = (f"Elementwise {name} (reference: src/operator/tensor/"
+                  "elemwise_unary_op_basic.cc).")
+    register(name)(op)
+
+
+for _n, _f in _UNARY.items():
+    _make_unary(_n, _f)
+
+
+@register()
+def rsqrt(data):
+    """Elementwise 1/sqrt(x)."""
+    return torch.rsqrt(data)
+
+
+@register()
+def rcbrt(data):
+    """Elementwise 1/cbrt(x)."""
+    return 1.0 / _UNARY["cbrt"](data)
+
+
+@register(name="gamma")
+def _gamma_fn(data):
+    """Elementwise gamma function, exp(lgamma(x))."""
+    return torch.exp(torch.lgamma(data))
+
+
+@register()
+def relu(data):
+    """max(x, 0) (reference: activation-inl.h kReLU)."""
+    return torch.relu(data)
+
+
+@register()
+def sigmoid(data):
+    """1/(1+exp(-x)) (reference: activation-inl.h kSigmoid)."""
+    return torch.sigmoid(data)
+
+
+@register()
+def hard_sigmoid(data, alpha=0.2, beta=0.5):
+    """clip(alpha*x + beta, 0, 1)."""
+    return torch.clamp(alpha * data + beta, 0.0, 1.0)
+
+
+@register()
+def softsign(data):
+    """x/(1+|x|) (reference: activation-inl.h kSoftSign)."""
+    return data / (1 + torch.abs(data))
+
+
+@register()
+def clip(data, a_min=None, a_max=None):
+    """Clamp into [a_min, a_max]."""
+    return torch.clamp(data, a_min, a_max)
+
+
+# -- binary --------------------------------------------------------------
+
+def _bcast_pair(name, fn):
+    def op(lhs, rhs):
+        r = fn(lhs, rhs)
+        if r.dtype == torch.bool:
+            r = r.to(lhs.dtype)
+        return r
+
+    op.__name__ = name
+    op.__doc__ = (f"Broadcasting {name} (reference: src/operator/tensor/"
+                  "elemwise_binary_broadcast_op*.cc).")
+    register(name)(op)
+
+
+def _nonzero_pair(fn):
+    return lambda a, b: fn(a != 0, b != 0)
+
+
+_BINARY = {
+    "broadcast_add": torch.add, "broadcast_sub": torch.sub,
+    "broadcast_mul": torch.mul, "broadcast_div": torch.div,
+    "broadcast_mod": torch.remainder, "broadcast_power": torch.pow,
+    "broadcast_maximum": torch.maximum, "broadcast_minimum": torch.minimum,
+    "broadcast_hypot": torch.hypot,
+    "broadcast_equal": torch.eq, "broadcast_not_equal": torch.ne,
+    "broadcast_greater": torch.gt, "broadcast_greater_equal": torch.ge,
+    "broadcast_lesser": torch.lt, "broadcast_lesser_equal": torch.le,
+    "broadcast_logical_and": _nonzero_pair(torch.logical_and),
+    "broadcast_logical_or": _nonzero_pair(torch.logical_or),
+    "broadcast_logical_xor": _nonzero_pair(torch.logical_xor),
+    # the non-broadcast spellings (the reference requires equal shapes)
+    "elemwise_add": torch.add, "elemwise_sub": torch.sub,
+    "elemwise_mul": torch.mul, "elemwise_div": torch.div,
+    "maximum": torch.maximum, "minimum": torch.minimum,
+    "logical_and": _nonzero_pair(torch.logical_and),
+    "logical_or": _nonzero_pair(torch.logical_or),
+    "logical_xor": _nonzero_pair(torch.logical_xor),
+}
+
+for _n, _f in _BINARY.items():
+    _bcast_pair(_n, _f)
+
+
+@register()
+def add_n(*args):
+    """Sum of n arrays (reference: src/operator/tensor/elemwise_sum.cc)."""
+    out = args[0]
+    for a in args[1:]:
+        out = out + a
+    return out
+
+
+# -- scalar --------------------------------------------------------------
+
+def _scalar_pair(name, fn):
+    def op(data, scalar=0.0, reverse=False):
+        # Python operators keep the scalar a weak "wrapped number", as
+        # JAX keeps a Python scalar weakly typed: a float input keeps
+        # its dtype
+        r = fn(scalar, data) if reverse else fn(data, scalar)
+        if r.dtype == torch.bool:
+            r = r.to(data.dtype)
+        if r.dtype != data.dtype and data.is_floating_point():
+            r = r.to(data.dtype)
+        return r
+
+    op.__name__ = name
+    op.__doc__ = (f"Scalar form of {name.replace('_scalar', '')}; "
+                  "``reverse`` swaps the operands (reference: "
+                  "elemwise_binary_scalar_op*.cc).")
+    register(name)(op)
+
+
+def _extreme(pick):
+    def fn(a, b):
+        t, s = (a, b) if isinstance(a, torch.Tensor) else (b, a)
+        return pick(t, s)
+    return fn
+
+
+for _n, _f in {
+    "broadcast_add_scalar": lambda a, b: a + b,
+    "broadcast_sub_scalar": lambda a, b: a - b,
+    "broadcast_mul_scalar": lambda a, b: a * b,
+    "broadcast_div_scalar": lambda a, b: a / b,
+    "broadcast_mod_scalar": lambda a, b: a % b,
+    "broadcast_power_scalar": lambda a, b: a ** b,
+    "broadcast_equal_scalar": lambda a, b: a == b,
+    "broadcast_not_equal_scalar": lambda a, b: a != b,
+    "broadcast_greater_scalar": lambda a, b: a > b,
+    "broadcast_greater_equal_scalar": lambda a, b: a >= b,
+    "broadcast_lesser_scalar": lambda a, b: a < b,
+    "broadcast_lesser_equal_scalar": lambda a, b: a <= b,
+    "maximum_scalar": _extreme(torch.clamp_min),
+    "minimum_scalar": _extreme(torch.clamp_max),
+}.items():
+    _scalar_pair(_n, _f)
+
+
+# -- reduce --------------------------------------------------------------
+
+@register()
+def sum(data, axis=None, keepdims=False):
+    """Reference: broadcast_reduce_op_value.cc sum."""
+    return _reduce(torch.sum, data, axis, keepdims)
+
+
+@register()
+def mean(data, axis=None, keepdims=False):
+    """Reference: broadcast_reduce_op_value.cc mean."""
+    return _reduce(torch.mean, data, axis, keepdims)
+
+
+# -- shape ---------------------------------------------------------------
+
+def reshape_target(src, shape):
+    """The target shape of MXNet's ``reshape`` codes 0 (keep), -1
+    (infer), -2 (copy the rest), -3 (merge two), -4 (split one in two)
+    (reference: src/operator/tensor/matrix_op-inl.h InferReshapeShape)."""
+    src = list(src)
+    out, i, j = [], 0, 0
+    shape = list(shape)
+    while j < len(shape):
+        d = shape[j]
+        if d == 0:
+            out.append(src[i])
+            i += 1
+        elif d == -1:
+            out.append(-1)
+            i += 1
+        elif d == -2:
+            out.extend(src[i:])
+            i = len(src)
+        elif d == -3:
+            out.append(src[i] * src[i + 1])
+            i += 2
+        elif d == -4:
+            a, b = shape[j + 1], shape[j + 2]
+            if a == -1:
+                a = src[i] // b
+            if b == -1:
+                b = src[i] // a
+            out.extend([a, b])
+            i += 1
+            j += 2
+        else:
+            out.append(d)
+            i += 1
+        j += 1
+    return tuple(out)
+
+
+@register()
+def reshape(data, shape=None, reverse=False):
+    """MXNet reshape with the special codes 0/-1/-2/-3/-4."""
+    if shape is None:
+        return data
+    return data.reshape(reshape_target(data.shape, shape))
+
+
+@register()
+def transpose(data, axes=None):
+    """Permute axes (default: reverse them) (reference: matrix_op.cc
+    transpose)."""
+    if not axes:
+        axes = tuple(reversed(range(data.dim())))
+    return data.permute(*axes)
+
+
+@register()
+def slice_axis(data, axis, begin, end):
+    """[begin, end) along one axis; ``end`` None runs to the end
+    (reference: matrix_op.cc slice_axis)."""
+    idx = [slice(None)] * data.dim()
+    idx[axis] = slice(begin, end)
+    return data[tuple(idx)]
+
+
+# literal-shaped constant nodes: sym.zeros / sym.ones and the literals
+# the graph optimizer's constant folding bakes in
+
+def _sym_zeros_body(shape=None, dtype="float32"):
+    """Literal-shaped zeros constant node (sym.zeros)."""
+    return torch.zeros(tuple(shape), dtype=torch_dtype(dtype))
+
+
+def _sym_ones_body(shape=None, dtype="float32"):
+    """Literal-shaped ones constant node (sym.ones)."""
+    return torch.ones(tuple(shape), dtype=torch_dtype(dtype))
+
+
+def _sym_constant_body(value=None, shape=None, dtype="float32"):
+    """Literal constant node made by constant folding: ``value`` is a
+    nested-list literal baked into the node's kwargs."""
+    return torch.tensor(value, dtype=torch_dtype(dtype)).reshape(
+        tuple(shape))
+
+
+register("_sym_zeros", differentiable=False, namespaces=())(_sym_zeros_body)
+register("_sym_ones", differentiable=False, namespaces=())(_sym_ones_body)
+register("_sym_constant", differentiable=False,
+         namespaces=())(_sym_constant_body)
+
+
+# -- matrix --------------------------------------------------------------
 
 @register()
 def dot(lhs, rhs, transpose_a=False, transpose_b=False):
@@ -28,36 +322,11 @@ def dot(lhs, rhs, transpose_a=False, transpose_b=False):
 
 
 @register()
-def transpose(data, axes=None):
-    """Permute axes (default: reverse them) (reference: matrix_op.cc
-    transpose)."""
-    if not axes:
-        axes = tuple(reversed(range(data.dim())))
-    return data.permute(*axes)
-
-
-@register()
-def sum(data, axis=None, keepdims=False):
-    """Reference: broadcast_reduce_op_value.cc sum."""
-    return _reduce(torch.sum, data, axis, keepdims)
-
-
-@register()
-def mean(data, axis=None, keepdims=False):
-    """Reference: broadcast_reduce_op_value.cc mean."""
-    return _reduce(torch.mean, data, axis, keepdims)
-
-
-@register()
-def abs(data):
-    return torch.abs(data)
-
-
-@register()
-def square(data):
-    return torch.square(data)
-
-
-@register()
-def broadcast_mul(lhs, rhs):
-    return torch.mul(lhs, rhs)
+def batch_dot(lhs, rhs, transpose_a=False, transpose_b=False):
+    """Batched matrix product over the leading axes, either operand's
+    last two axes swapped on request (reference: dot.cc batch_dot)."""
+    if transpose_a:
+        lhs = lhs.transpose(-1, -2)
+    if transpose_b:
+        rhs = rhs.transpose(-1, -2)
+    return torch.matmul(lhs, rhs)

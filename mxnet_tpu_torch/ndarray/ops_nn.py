@@ -1,11 +1,14 @@
-"""Neural-network ops the decoder and the transformer use.
+"""Neural-network ops.
 
-The PyTorch counterparts of ``mxnet_tpu/ndarray/ops_nn.py:33,206,247,276,
-338,393,411,420,727``. The JAX package left these to XLA, so the port
-leaves them to torch (``F.linear``, ``F.layer_norm``, softmax,
-indexing), with one exception: ``flash_attention`` runs the
-hand-written CUDA kernel K1 (``kernels/flash_attention.py``), as the
-JAX op runs the Pallas kernel.
+The PyTorch counterparts of ``mxnet_tpu/ndarray/ops_nn.py:33-87,206-349,
+393,411,420,727``: dense, convolution, the activations, softmax, the
+norms, embedding, dropout and the losses. The JAX package left these to
+XLA, so the port leaves them to torch (``F.linear``, ``F.conv1d`` and
+``F.conv2d``, ``F.layer_norm``, softmax, indexing), with one exception:
+``flash_attention`` runs the hand-written CUDA kernel K1
+(``kernels/flash_attention.py``), as the JAX op runs the Pallas kernel.
+Signatures are the JAX ops', so symbol graphs written for the JAX
+package load and run here with the same keyword arguments.
 """
 from __future__ import annotations
 
@@ -14,7 +17,15 @@ import torch.nn.functional as F
 
 from .. import autograd
 from .. import random as _random
+from ..base import MXNetError
 from .registry import register
+
+
+def _tup(v, n):
+    if isinstance(v, int):
+        return (v,) * n
+    t = tuple(v)
+    return t if len(t) == n else t + t[-1:] * (n - len(t))
 
 
 @register()
@@ -27,28 +38,183 @@ def fully_connected(data, weight, bias=None, num_hidden=0, no_bias=False,
     return F.linear(data, weight, None if no_bias else bias)
 
 
+# channel-last layouts: the weight rides as (O, *spatial, I/g), as in the
+# JAX package (``_conv_dims``: rhs spec "O" + spatial + "I")
+_CHANNEL_LAST = ("NWC", "NHWC")
+
+
+@register()
+def convolution(data, weight, bias=None, kernel=None, stride=None, dilate=None,
+                pad=None, num_filter=0, num_group=1, no_bias=False,
+                layout=None):
+    """Reference: src/operator/nn/convolution-inl.h. 1-D and 2-D, in the
+    channel-first layouts (NCW, NCHW; weight (O, I/g, *k)) or the
+    channel-last ones the JAX package added (NWC, NHWC; weight
+    (O, *k, I/g)). torch convolves channel-first, so a channel-last call
+    moves the channel axis in and out; its output is contiguous in the
+    channel-last layout, ready for a norm over the last axis."""
+    if isinstance(kernel, int):
+        kernel = (kernel,)
+    nd = len(kernel) if kernel is not None else data.dim() - 2
+    if nd not in (1, 2) or data.dim() != nd + 2:
+        raise MXNetError(f"convolution: the port takes 1-D and 2-D "
+                         f"convolutions, got data {tuple(data.shape)} "
+                         f"kernel {kernel}")
+    channel_last = layout in _CHANNEL_LAST
+    if channel_last:
+        data = data.movedim(-1, 1)
+        weight = weight.movedim(-1, 1)
+    conv = F.conv1d if nd == 1 else F.conv2d
+    out = conv(data, weight, None if no_bias else bias,
+               _tup(stride or 1, nd), _tup(pad or 0, nd),
+               _tup(dilate or 1, nd), num_group)
+    if channel_last:
+        out = out.movedim(1, -1).contiguous()
+    return out
+
+
+# -- activations ----------------------------------------------------------
+
+def _softplus(x):
+    """jax.nn.softplus: logaddexp(x, 0)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+_ACTIVATIONS = {
+    "relu": torch.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
+    "softrelu": _softplus, "softsign": lambda x: x / (1 + torch.abs(x)),
+}
+
+
 @register()
 def activation(data, act_type="relu"):
-    """Reference: src/operator/nn/activation-inl.h. Only ``relu``, the
-    decoder's activation, is ported yet."""
-    if act_type == "relu":
-        return torch.relu(data)
-    raise ValueError(f"act_type {act_type!r} is not ported yet (relu is)")
+    """Reference: src/operator/nn/activation-inl.h: relu, sigmoid, tanh,
+    softrelu (softplus) and softsign."""
+    fn = _ACTIVATIONS.get(act_type)
+    if fn is None:
+        raise ValueError(f"unknown act_type {act_type}")
+    return fn(data)
+
+
+SELU_ALPHA, SELU_SCALE = 1.6732632423543772, 1.0507009873554805
 
 
 @register()
-def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
+def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334):
+    """Reference: src/operator/leaky_relu-inl.h: leaky, prelu, elu,
+    selu, gelu (the erf form, ``jax.nn.gelu(approximate=False)``) and
+    rrelu (eval mode: the slope is the bounds' midpoint)."""
+    pos = data > 0
+    if act_type == "leaky":
+        return torch.where(pos, data, slope * data)
+    if act_type == "prelu":
+        g = gamma
+        if g.dim() < data.dim() and g.dim() == 1:
+            g = g.reshape((1, -1) + (1,) * (data.dim() - 2))
+        return torch.where(pos, data, g * data)
+    if act_type == "elu":
+        return torch.where(pos, data, slope * torch.expm1(data))
+    if act_type == "selu":
+        return SELU_SCALE * torch.where(pos, data,
+                                        SELU_ALPHA * torch.expm1(data))
+    if act_type == "gelu":
+        return F.gelu(data)
+    if act_type == "rrelu":
+        mid = (lower_bound + upper_bound) / 2.0
+        return torch.where(pos, data, mid * data)
+    raise ValueError(f"unknown act_type {act_type}")
+
+
+@register()
+def softmax(data, length=None, axis=-1, temperature=None, use_length=False,
+            dtype=None):
+    """Reference: src/operator/nn/softmax.cc: optional ``length`` mask
+    (with ``use_length=True``), ``temperature`` and output ``dtype``."""
+    from .ndarray import torch_dtype
+
+    if dtype is not None:
+        data = data.to(torch_dtype(dtype))
+    if temperature is not None and temperature != 1.0:
+        data = data / temperature
+    if length is not None and not use_length:
+        raise ValueError("softmax: `length` provided without "
+                         "use_length=True")
+    if length is not None:
+        axis = axis % data.dim()
+        shape = [1] * data.dim()
+        shape[axis] = data.shape[axis]
+        pos = torch.arange(data.shape[axis], device=data.device)
+        mask = pos.reshape(shape) < length.reshape(
+            tuple(length.shape) + (1,) * (data.dim() - length.dim()))
+        data = torch.where(mask, data, torch.full_like(data, float("-inf")))
+        return torch.where(mask, torch.softmax(data, dim=axis),
+                           torch.zeros_like(data))
+    return torch.softmax(data, dim=axis)
+
+
+@register()
+def log_softmax(data, axis=-1):
+    """log(softmax(x)) along ``axis``, computed stably (reference:
+    softmax.cc log_softmax)."""
+    return torch.log_softmax(data, dim=axis)
+
+
+# -- norms ----------------------------------------------------------------
+
+@register()
+def layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
     """Reference: src/operator/nn/layer_norm.cc — population variance,
-    ``(x - mean) * rsqrt(var + eps) * gamma + beta`` over ``axis``."""
+    ``(x - mean) * rsqrt(var + eps) * gamma + beta`` over ``axis``; with
+    ``output_mean_var`` also the mean and variance, the axis dropped."""
     axis = axis % data.dim()
-    if axis == data.dim() - 1:
+    if axis == data.dim() - 1 and not output_mean_var:
         return F.layer_norm(data, (data.shape[-1],), gamma, beta, eps)
     mean = data.mean(dim=axis, keepdim=True)
     var = data.var(dim=axis, keepdim=True, unbiased=False)
     bshape = [1] * data.dim()
     bshape[axis] = data.shape[axis]
-    return (data - mean) * torch.rsqrt(var + eps) * gamma.reshape(bshape) \
+    out = (data - mean) * torch.rsqrt(var + eps) * gamma.reshape(bshape) \
         + beta.reshape(bshape)
+    if output_mean_var:
+        return out, mean.squeeze(axis), var.squeeze(axis)
+    return out
+
+
+@register()
+def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+               momentum=0.9, fix_gamma=True, use_global_stats=False,
+               output_mean_var=False, axis=1, use_batch_stats=None):
+    """Functional BatchNorm (reference: src/operator/nn/batch_norm.cc):
+    batch statistics in training (``use_batch_stats`` None follows
+    ``autograd.is_training()``), the moving ones otherwise; half inputs
+    compute in float32. The running-stat write-back is the caller's, as
+    in the JAX package, so the body stays pure."""
+    if use_batch_stats is None:
+        use_batch_stats = autograd.is_training()
+    axis = axis % data.dim()
+    red = tuple(i for i in range(data.dim()) if i != axis)
+    bshape = [1] * data.dim()
+    bshape[axis] = data.shape[axis]
+    if fix_gamma:
+        gamma = torch.ones_like(gamma)
+    half = data.dtype in (torch.bfloat16, torch.float16)
+    xf = data.float() if half else data
+    if use_batch_stats and not use_global_stats:
+        mean = xf.mean(dim=red)
+        var = xf.var(dim=red, unbiased=False)
+    else:
+        mean = moving_mean.to(xf.dtype)
+        var = moving_var.to(xf.dtype)
+    out = (xf - mean.reshape(bshape)) * torch.rsqrt(var + eps).reshape(
+        bshape) * gamma.to(xf.dtype).reshape(bshape) + \
+        beta.to(xf.dtype).reshape(bshape)
+    if half:
+        out = out.to(data.dtype)
+    if output_mean_var:
+        return out, mean, var
+    return out
 
 
 @register()
@@ -68,20 +234,6 @@ def embedding(data, weight, input_dim=0, output_dim=0, dtype="float32",
         out = torch.where(valid.unsqueeze(-1), out,
                           torch.full_like(out, float("nan")))
     return out
-
-
-@register()
-def softmax(data, axis=-1):
-    """Reference: src/operator/nn/softmax.cc (without the ``length``
-    mask, temperature and output dtype, which no ported path uses)."""
-    return torch.softmax(data, dim=axis)
-
-
-@register()
-def log_softmax(data, axis=-1):
-    """log(softmax(x)) along ``axis``, computed stably (reference:
-    softmax.cc log_softmax)."""
-    return torch.log_softmax(data, dim=axis)
 
 
 @register()

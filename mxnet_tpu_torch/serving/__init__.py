@@ -1,11 +1,11 @@
-"""mxnet_tpu_torch.serving — stateful decode serving.
+"""mxnet_tpu_torch.serving — bucketed predict and stateful decode serving.
 
-The PyTorch counterpart of ``mxnet_tpu.serving``, cut to the stateful
-decode path:
+The PyTorch counterpart of ``mxnet_tpu.serving``, cut to two paths:
 
-- :class:`~.session.InferenceSession` — eval-mode decode step padded to
-  occupancy buckets; :meth:`~.session.InferenceSession.step` with
-  explicit states.
+- :class:`~.session.InferenceSession` — stateless ``predict`` padded to
+  batch buckets (``InferenceSession.load`` serves an export), or the
+  eval-mode decode step padded to occupancy buckets,
+  :meth:`~.session.InferenceSession.step` with explicit states.
 - :class:`~.state.SessionStateStore` — one preallocated device tensor
   per state row, slot-indexed; TTL + LRU eviction
   (:class:`~.state.SessionEvicted`).

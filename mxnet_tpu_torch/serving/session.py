@@ -1,8 +1,20 @@
-"""InferenceSession: a Block as a stateful decode-serving engine.
+"""InferenceSession: a Block as a bucketed serving engine.
 
-The PyTorch counterpart of the stateful half of
-``mxnet_tpu/serving/session.py:137-246,1053-1143``. A session built with
-``state_store=`` (or ``state_shapes=``) runs the block's decode step
+The PyTorch counterpart of ``mxnet_tpu/serving/session.py:137-302,
+938-1014,1053-1188``. Without states a session serves stateless
+:meth:`~InferenceSession.predict`: each request is cut into chunks of at
+most ``max_batch`` rows, and each chunk runs the block's forward once,
+eagerly, in eval mode under ``torch.inference_mode()``, padded with zero
+rows to the smallest **batch bucket** that covers it; the padded rows'
+outputs are sliced off. Host (numpy) inputs are padded in numpy and
+uploaded once; device inputs are padded on the device
+(``kernels/serving_fused.pad_all``). :meth:`InferenceSession.load`
+builds a session from an export (``{prefix}-symbol.json`` and
+``{prefix}-{epoch:04d}.params``) through ``SymbolBlock.imports``, so
+``MXNET_GRAPH_OPT`` and the fusion pass apply to what it serves.
+
+A session built with ``state_store=`` (or ``state_shapes=``) runs the
+block's decode step
 
     forward(*inputs, *states) -> (*outputs, *new_states)
 
@@ -19,9 +31,9 @@ handed, in place. So the session only ever hands it tensors it owns: a
 fresh copy of a caller's explicit states (the caller's tensors are never
 written), or the state store's gather output.
 
-Not ported yet: stateless ``predict`` batching, AOT step artifacts and
-their disk cache (PyTorch runs eagerly; a CUDA graph is the later tool),
-circuit breakers, fault seams and sharded serving.
+Not ported yet: AOT artifacts and their disk cache (PyTorch runs
+eagerly; a CUDA graph is the later tool), circuit breakers, fault seams,
+sharded sessions and AMP.
 """
 from __future__ import annotations
 
@@ -35,6 +47,7 @@ from ..base import MXNetError
 from ..context import Context, resolve_device
 from ..ndarray import NDArray
 from ..ndarray.ndarray import torch_dtype
+from ..kernels import serving_fused as _sf
 from .metrics import METRICS
 
 __all__ = ["InferenceSession"]
@@ -67,24 +80,30 @@ class _InputSpec:
 
 
 class InferenceSession:
-    """Eval-mode, occupancy-bucketed decode step over a Block.
+    """Eval-mode, bucketed forward (stateless) or decode step (stateful)
+    over a Block.
 
     Parameters
     ----------
     block : gluon.Block
         The model. Parameters must be initialized on the session's
         device, or initializable from one forward over zeros.
-    input_shapes : sequence of shape tuples
+    example : NDArray / numpy array / tuple of them, optional
+        Example input(s), batch axis first, giving each input's row
+        shape and dtype. Exactly one of ``example``/``input_shapes``.
+    input_shapes : sequence of shape tuples, optional
         Full input shapes INCLUDING a placeholder batch axis, e.g.
         ``[(1, 1)]``; dtype float32 unless ``input_dtypes`` is given.
     input_dtypes : sequence of dtypes, optional
     buckets : sequence of int, optional
-        Occupancy buckets (default: powers of two up to ``max_batch``).
+        Batch (or occupancy) buckets (default: powers of two up to
+        ``max_batch``).
     max_batch : int, optional (default 32)
     warm : bool
         Run :meth:`warmup` in the constructor.
     state_shapes / state_dtypes : per-state ROW shapes and dtypes; the
-        session then owns a :class:`~.state.SessionStateStore`.
+        session is then stateful and owns a
+        :class:`~.state.SessionStateStore`.
     state_store : SessionStateStore, optional
         Use this store (its shapes and dtypes) instead.
     ctx : Context, optional
@@ -94,9 +113,10 @@ class InferenceSession:
         :class:`MXNetError`.
     """
 
-    def __init__(self, block, input_shapes, input_dtypes=None, buckets=None,
-                 max_batch=None, warm=True, state_shapes=None,
-                 state_dtypes=None, state_store=None, ctx=None):
+    def __init__(self, block, example=None, input_shapes=None,
+                 input_dtypes=None, buckets=None, max_batch=None, warm=True,
+                 state_shapes=None, state_dtypes=None, state_store=None,
+                 ctx=None):
         self._block = block
         self.device = resolve_device(ctx)
         max_batch = int(max_batch or (max(buckets) if buckets else 32))
@@ -106,39 +126,75 @@ class InferenceSession:
         if not self.buckets or self.buckets[0] < 1:
             raise MXNetError("buckets must be a non-empty set of positive "
                              f"batch sizes (got {buckets})")
-        input_dtypes = input_dtypes or ["float32"] * len(input_shapes)
-        self._input_specs = []
-        for k, (shape, dt) in enumerate(zip(input_shapes, input_dtypes)):
-            if len(shape) < 1:
-                raise MXNetError("input_shapes entries must include the "
-                                 "batch axis")
-            self._input_specs.append(_InputSpec(f"data{k}", shape[1:], dt))
-        if state_store is None and state_shapes is None:
-            raise MXNetError(
-                "the port serves stateful decode only: pass state_store= "
-                "or state_shapes= (stateless predict() is not ported yet)")
-        self._owns_store = state_store is None
-        if state_store is None:
-            from .state import SessionStateStore
+        self._input_specs = self._resolve_input_specs(example, input_shapes,
+                                                      input_dtypes)
+        self._owns_store = False
+        self.state_store = None
+        self._state_specs = []
+        if state_store is not None or state_shapes is not None:
+            self._owns_store = state_store is None
+            if state_store is None:
+                from .state import SessionStateStore
 
-            state_store = SessionStateStore(
-                state_shapes, state_dtypes,
-                ctx=Context.from_device(self.device))
-        elif state_store.device != self.device:
-            raise MXNetError(
-                f"state store lives on {state_store.device} but the "
-                f"session runs on {self.device}; pass the same ctx= to "
-                "both")
-        self.state_store = state_store
-        self._state_specs = [
-            _InputSpec(f"state{i}", s, dt) for i, (s, dt) in enumerate(
-                zip(state_store.state_shapes, state_store.state_dtypes))]
+                state_store = SessionStateStore(
+                    state_shapes, state_dtypes,
+                    ctx=Context.from_device(self.device))
+            elif state_store.device != self.device:
+                raise MXNetError(
+                    f"state store lives on {state_store.device} but the "
+                    f"session runs on {self.device}; pass the same ctx= "
+                    "to both")
+            self.state_store = state_store
+            self._state_specs = [
+                _InputSpec(f"state{i}", s, dt) for i, (s, dt) in enumerate(
+                    zip(state_store.state_shapes, state_store.state_dtypes))]
         self._num_outputs = None
         self._ensure_initialized()
         if warm:
             self.warmup()
 
     # -- construction helpers -----------------------------------------
+
+    @classmethod
+    def load(cls, prefix, input_names=None, epoch=0, input_shapes=None,
+             ctx=None, **kwargs):
+        """A session over an export: ``{prefix}-symbol.json`` and
+        ``{prefix}-{epoch:04d}.params``, loaded by
+        ``SymbolBlock.imports`` with the parameters on ``ctx`` (default:
+        the current context). ``input_names=None`` takes the data inputs
+        to be the graph variables the params file does not hold."""
+        import os
+
+        from ..gluon.block import SymbolBlock
+
+        param_file = f"{prefix}-{epoch:04d}.params"
+        if not os.path.exists(param_file):
+            raise MXNetError(f"params file {param_file!r} not found (an "
+                             "export writes {prefix}-{epoch:04d}.params; "
+                             "check prefix and epoch)")
+        block = SymbolBlock.imports(f"{prefix}-symbol.json", input_names,
+                                    param_file, ctx=ctx)
+        return cls(block, input_shapes=input_shapes, ctx=ctx, **kwargs)
+
+    def _resolve_input_specs(self, example, input_shapes, input_dtypes):
+        if (example is None) == (input_shapes is None):
+            raise MXNetError("exactly one of example= / input_shapes= is "
+                             "required")
+        names = [i.name for i in getattr(self._block, "_inputs", [])]
+        if example is not None:
+            if not isinstance(example, (list, tuple)):
+                example = [example]
+            rows = [(ex.shape, ex.dtype) for ex in example]
+        else:
+            input_dtypes = input_dtypes or ["float32"] * len(input_shapes)
+            rows = list(zip(input_shapes, input_dtypes))
+        specs = []
+        for k, (shape, dt) in enumerate(rows):
+            if len(shape) < 1:
+                raise MXNetError("input shapes must include the batch axis")
+            name = names[k] if k < len(names) else f"data{k}"
+            specs.append(_InputSpec(name, tuple(shape)[1:], dt))
+        return specs
 
     def _zeros(self, specs, rows):
         return [torch.zeros((rows,) + s.row_shape,
@@ -170,7 +226,7 @@ class InferenceSession:
                                *[NDArray(d) for d in state_datas])
         flat = [outs] if isinstance(outs, NDArray) else list(outs)
         n_states = len(self._state_specs)
-        if len(flat) <= n_states:
+        if n_states and len(flat) <= n_states:
             raise MXNetError(
                 f"stateful forward returned {len(flat)} value(s); expected "
                 f"outputs followed by {n_states} new state(s)")
@@ -179,7 +235,7 @@ class InferenceSession:
         return flat[:self._num_outputs], flat[self._num_outputs:]
 
     def warmup(self, buckets=None):
-        """Run one zero step at every occupancy bucket (state store
+        """Run one zero forward (or step) at every bucket (state store
         untouched, metrics not counted). On the card this builds the
         CUDA kernels and brings up cuBLAS before the first request.
         Returns ``{"buckets": [...], "seconds": s}``."""
@@ -203,7 +259,11 @@ class InferenceSession:
 
     @property
     def stateful(self):
-        return True
+        return bool(self._state_specs)
+
+    @property
+    def input_specs(self):
+        return list(self._input_specs)
 
     def _check_array(self, x, spec, kind):
         if isinstance(x, NDArray):
@@ -274,6 +334,62 @@ class InferenceSession:
         dst[:src.shape[0]].copy_(src)
         return dst
 
+    def _run_bucket(self, arrs, n):
+        """One chunk of at most ``max_batch`` rows through its bucket;
+        returns the output tensors cut back to ``n`` rows. Host inputs
+        are padded in numpy and uploaded once; device inputs are padded
+        on the device (``pad_all``)."""
+        bucket = self._bucket_for(n)
+        datas = [None] * len(arrs)
+        dev_idx, dev_arrs = [], []
+        for i, a in enumerate(arrs):
+            if isinstance(a, NDArray):
+                dev_idx.append(i)
+                dev_arrs.append(a.data.to(self.device))
+                continue
+            if a.shape[0] != bucket:
+                padded = onp.zeros((bucket,) + a.shape[1:], a.dtype)
+                padded[:a.shape[0]] = a
+                a = padded
+            datas[i] = torch.from_numpy(onp.ascontiguousarray(a)).to(
+                self.device)
+        if dev_arrs:
+            for i, p in zip(dev_idx, _sf.pad_all(dev_arrs, bucket)):
+                datas[i] = p
+        outs, _ = self._forward(datas, [])
+        METRICS.bump("bucket_execs")
+        METRICS.bump("padded_rows", bucket - n)
+        METRICS.bump("true_rows", n)
+        return _sf.slice_all(outs, bucket, n)
+
+    def predict(self, *inputs):
+        """Eval-mode inference: inputs are NDArrays or anything
+        ``numpy.asarray`` takes, batch axis first. A batch above
+        ``max_batch`` is chunked. Returns an NDArray (one output) or a
+        tuple of NDArrays, on the session's device."""
+        if self._state_specs:
+            raise MXNetError("predict() is stateless; this session threads "
+                             "state — use step() or a stateful "
+                             "DynamicBatcher")
+        arrs, batch = self.validate(*inputs)
+        t0 = time.perf_counter()
+        chunks = []
+        for start in range(0, batch, self.max_batch):
+            n = min(self.max_batch, batch - start)
+            chunk = arrs if n == batch else [
+                NDArray(a.data[start:start + n]) if isinstance(a, NDArray)
+                else a[start:start + n] for a in arrs]
+            chunks.append(self._run_bucket(chunk, n))
+        outs = chunks[0] if len(chunks) == 1 else [
+            torch.cat([c[i] for c in chunks]) for i in range(len(chunks[0]))]
+        self._synchronize()
+        METRICS.observe_batch(batch, time.perf_counter() - t0)
+        result = tuple(NDArray(o) for o in outs)
+        return result[0] if len(result) == 1 else result
+
+    def __call__(self, *inputs):
+        return self.predict(*inputs)
+
     def _run_step(self, arrs, states, n, adopted=False):
         """One decode step at occupancy ``n``, padded to its bucket;
         returns ``(outputs, new_states)`` as tensors of ``n`` rows.
@@ -311,6 +427,9 @@ class InferenceSession:
         served traffic goes through a stateful ``DynamicBatcher``.
         Occupancy above ``max_batch`` is rejected (a decode step is
         never chunked)."""
+        if not self._state_specs:
+            raise MXNetError("step() threads state; this session is "
+                             "stateless — use predict()")
         arrs, batch = self.validate(*inputs)
         if batch > self.max_batch:
             raise ValueError(f"step occupancy {batch} exceeds max_batch "
@@ -327,7 +446,7 @@ class InferenceSession:
 
     def close(self):
         """Release the state store this session made for itself."""
-        if self._owns_store:
+        if self._owns_store and self.state_store is not None:
             self.state_store.close()
 
     def __repr__(self):

@@ -1,6 +1,7 @@
-"""The port on the card: the CUDA kernels K1 (flash-attention forward)
-and K2 (decode attention) and the paths that launch them: decode
-serving and one TransformerLM training step. Every test here needs an
+"""The port on the card: the CUDA kernels K1 (flash-attention forward),
+K2 (decode attention) and K3 (fused LayerNorm→activation) and the paths
+that launch them: decode serving, one TransformerLM training step and a
+served predict of an exported wav2vec2 graph. Every test here needs an
 NVIDIA GPU and skips without one.
 
 These tests import neither JAX nor the JAX package, so they run on a
@@ -15,7 +16,9 @@ the bound the JAX package puts on its Pallas kernels against the lax
 path; both sum the softmax in fp32, in different orders. K1 in bfloat16
 is held within two bfloat16 ulps (rtol 2**-6) of the plain version
 computed in float32 from the same bfloat16 inputs: the kernel rounds
-once, at the output.
+once, at the output. K3 is held against its plain version within 1e-5
+in float32 and one bfloat16 ulp in bfloat16 (both compute in float32
+and round once).
 """
 import numpy as onp
 import pytest
@@ -27,7 +30,11 @@ from mxnet_tpu_torch.kernels import _build
 from mxnet_tpu_torch.kernels.flash_attention import (
     FLASH_KERNEL, KERNEL, _decode_flash, _decode_flash_ref, _flash_fwd_cuda,
     _flash_ref, flash_attention)
+from mxnet_tpu_torch.kernels.norm_act import (
+    KERNEL as NORM_ACT_KERNEL, MAX_C, _norm_act_cuda, _norm_act_ref)
 from mxnet_tpu_torch.models import DecoderBlockLM, TransformerLM
+from mxnet_tpu_torch.tools.profile_predict import (
+    SAMPLE_RATE, WAV2VEC2_LARGE_LV60, export_wav2vec2, frames)
 
 pytestmark = pytest.mark.cuda
 
@@ -42,6 +49,7 @@ def cuda():
         pytest.skip("needs a CUDA device: K1 and K2 are CUDA kernels with "
                     "no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
 
 
@@ -311,3 +319,119 @@ def test_transformer_training_step_on_card_launches_k1(cuda):
     for name, want in runs["cpu"][1].items():
         onp.testing.assert_allclose(runs["gpu"][1][name], want, rtol=1e-4,
                                     atol=1e-4, err_msg=name)
+
+
+# -- K3 and the symbolic-serving path ----------------------------------------
+
+def _k3_inputs(dev, rows, C, dtype=torch.float32, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(rows, C, device=dev, generator=gen) * 2 + 0.5
+    g = 1 + 0.1 * torch.randn(C, device=dev, generator=gen)
+    b = 0.1 * torch.randn(C, device=dev, generator=gen)
+    return x.to(dtype), g.to(dtype), b.to(dtype)
+
+
+# the seven LayerNorm->GELU shapes of a bucket-8 forward of 10 s clips at
+# wav2vec2-large-lv60's widths, then ragged rows and widths on each of
+# the kernel's paths (scalar loads, a warp per row, a block per row)
+_K3_SHAPES = [(8 * t, 512) for t in frames(WAV2VEC2_LARGE_LV60,
+                                           10 * SAMPLE_RATE)] + [
+    (1, 1), (3, 100), (517, 768), (64, 1024), (33, 1030), (250, MAX_C)]
+
+
+@pytest.mark.parametrize("rows,C", _K3_SHAPES)
+def test_k3_on_card_matches_plain(cuda, rows, C):
+    x, g, b = _k3_inputs(cuda, rows, C)
+    got = _norm_act_cuda(x, g, b, 1e-5, 8, 0.0)
+    want = _norm_act_ref(x, g, b, 1e-5, 8, 0.0)
+    torch.cuda.synchronize()
+    assert torch.allclose(got, want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("code,slope", [(c, 0.3) for c in range(10)])
+def test_k3_every_activation_code(cuda, code, slope):
+    x, g, b = _k3_inputs(cuda, 301, 200)
+    got = _norm_act_cuda(x, g, b, 1e-3, code, slope)
+    want = _norm_act_ref(x, g, b, 1e-3, code, slope)
+    assert torch.allclose(got, want, rtol=TOL, atol=TOL)
+
+
+def test_k3_bfloat16_within_one_ulp(cuda):
+    x, g, b = _k3_inputs(cuda, 999, 512, torch.bfloat16)
+    got = _norm_act_cuda(x, g, b, 1e-5, 8, 0.0).float()
+    want = _norm_act_ref(x, g, b, 1e-5, 8, 0.0).float()
+    assert torch.allclose(got, want, rtol=2.0 ** -7, atol=TOL)
+
+
+def test_k3_wrapper_refuses_what_the_kernel_cannot_take(cuda):
+    x, g, b = _k3_inputs(cuda, 4, 16)
+    bad = [(x.double(), g.double(), b.double()), (x, g.double(), b),
+           (x.t().contiguous().t(), g, b), (x[:, :8], g, b),
+           _k3_inputs(cuda, 2, MAX_C + 4)]
+    for args in bad:
+        with pytest.raises(mx.MXNetError):
+            _norm_act_cuda(*args, 1e-5, 8, 0.0)
+    with pytest.raises(mx.MXNetError, match="several devices"):
+        _norm_act_cuda(x, g.cpu(), b, 1e-5, 8, 0.0)
+
+
+def test_symbolic_predict_on_card_launches_k3_and_k1(cuda, tmp_path,
+                                                     monkeypatch):
+    """A small wav2vec2 export served on the card: every fused cluster
+    runs its kernel, each bucket execution launches K3 once per
+    feature-encoder layer and K1 once per encoder layer, and the logits
+    match the CPU port's within 1e-4 of the largest."""
+    monkeypatch.setenv("MXNET_GRAPH_OPT", "1")
+    cfg = dict(WAV2VEC2_LARGE_LV60, conv_dim=(32,) * 3,
+               conv_kernel=(10, 3, 3), conv_stride=(5, 4, 4), hidden_size=64,
+               num_hidden_layers=2, num_attention_heads=4,
+               intermediate_size=128, num_conv_pos_embeddings=16,
+               num_conv_pos_embedding_groups=4)
+    samples = SAMPLE_RATE // 4
+    prefix = str(tmp_path / "w")
+    export_wav2vec2(prefix, mx.sym, mx.nd, cfg, 3)
+    sess = serving.InferenceSession.load(
+        prefix, input_shapes=[(1, samples, 1)], buckets=[1, 4], ctx=mx.gpu(0))
+    x = onp.random.RandomState(2).randn(3, samples, 1).astype("float32")
+    _build.reset_launch_counts()
+    got = sess.predict(x).asnumpy()
+    counts = _build.launch_counts()
+    assert counts.get(NORM_ACT_KERNEL) == 3
+    assert counts.get(FLASH_KERNEL) == 2
+    graph = sess._block._optimized_outputs(mx.nd.zeros((4, samples, 1),
+                                                       ctx=mx.gpu(0)))
+    impls = [s._kwargs["impl"] for s in graph._walk()
+             if s._op in ("_fused_norm_act", "_fused_attention")]
+    assert impls == ["cuda"] * 5
+    cpu = serving.InferenceSession.load(
+        prefix, input_shapes=[(1, samples, 1)], buckets=[4],
+        ctx=mx.cpu()).predict(x).asnumpy()
+    scale = float(onp.abs(cpu).max())
+    assert onp.allclose(got, cpu, rtol=1e-4, atol=1e-4 * scale)
+
+
+def test_fused_attention_on_transposed_keys_launches_k1(cuda):
+    """A graph whose keys are a transposed input (a permuted view, last
+    axis strided) is fused onto K1 on the card: the op copies the
+    operand contiguous, K1 launches once, and the result matches the
+    unfused graph within 1e-5."""
+    from mxnet_tpu_torch import nd, sym
+    from mxnet_tpu_torch.analysis.graph_opt import optimize_symbol
+
+    q, kt, v = sym.var("q"), sym.var("kt"), sym.var("v")
+    k = sym.transpose(kt, axes=(0, 2, 1))
+    sc = sym.broadcast_mul_scalar(sym.batch_dot(q, k, transpose_b=True),
+                                  scalar=0.125)
+    out = sym.batch_dot(sym.softmax(sc), v)
+    shapes = {"q": (4, 70, 64), "kt": (4, 64, 70), "v": (4, 70, 64)}
+    opt, st = optimize_symbol(out, shapes=shapes, level=1, device=cuda)
+    assert not st["rejected"] and opt._op == "_fused_attention"
+    assert opt._kwargs["impl"] == "cuda"
+    rs = onp.random.RandomState(5)
+    feed = {n: nd.array(rs.randn(*s).astype("float32"), ctx=mx.gpu(0))
+            for n, s in shapes.items()}
+    _build.reset_launch_counts()
+    got = opt.eval_with(feed).asnumpy()
+    assert _build.launch_counts().get(FLASH_KERNEL) == 1
+    want = out.eval_with(feed).asnumpy()
+    assert onp.allclose(got, want, rtol=TOL, atol=TOL)
