@@ -4,17 +4,20 @@ A second package beside the JAX one, with the same module layout and
 public names, built on PyTorch for an NVIDIA H100. Plain tensor code is
 PyTorch; every kernel the JAX package wrote in Pallas for the TPU is a
 kernel written by hand in CUDA C++ under ``csrc/``, built with ``nvcc``
-at first use (``kernels/_build.py``). Three slices are ported: stateful
-decode serving of :class:`~.models.DecoderBlockLM`, training
-:class:`~.models.TransformerLM`, and serving an exported symbol graph
-through the graph optimizer and its fusion pass:
+at first use (``kernels/_build.py``), and the runtime-kernel launcher
+``rtc.CudaModule`` compiles a user's CUDA C++ with NVRTC. Four slices
+are ported: stateful decode serving of :class:`~.models.DecoderBlockLM`,
+training :class:`~.models.TransformerLM`, serving an exported symbol
+graph through the graph optimizer and its fusion pass, and training
+ResNet-50 v1 with a custom-op loss head whose kernels ``rtc`` compiles:
 
 - ``mx.nd`` — NDArray over a ``torch.Tensor`` and the ops both paths
   use;
 - ``mx.autograd`` — recording scopes and the tape (torch's autograd
   graph, with MXNet's ``grad_req`` rules);
-- ``mx.gluon`` — Block/HybridBlock as ``torch.nn.Module``s, the losses
-  and the Trainer;
+- ``mx.gluon`` — Block/HybridBlock as ``torch.nn.Module``s, the layers
+  (dense, conv, pooling, norms), the losses, the Trainer and the model
+  zoo's ResNet V1;
 - ``mx.optimizer`` — SGD and Adam, updating parameters in place;
 - ``mx.sym`` — symbol graphs, their JSON, shape inference;
 - ``mx.analysis`` — the graph verifier and optimizer (``MXNET_GRAPH_OPT``)
@@ -25,6 +28,9 @@ through the graph optimizer and its fusion pass:
 - ``mx.serving`` — InferenceSession (stateless ``predict`` and
   ``load`` of an export, or stateful ``step``), SessionStateStore,
   DynamicBatcher;
+- ``mx.rtc`` — ``CudaModule``: CUDA C++ compiled at run time (NVRTC)
+  and launched through the driver API on torch's stream (K4);
+- ``mx.operator`` — ``CustomOp``/``CustomOpProp`` and ``nd.Custom``;
 - ``mx.convert`` — loading weights carried over as numpy arrays.
 
 Entry points run on the card: the default context is ``gpu(0)``, and
@@ -56,8 +62,10 @@ from . import analysis
 from . import models
 from . import serving
 from . import convert
+from . import operator
+from . import rtc
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "autograd", "initializer", "init", "ndarray", "nd",
            "random", "optimizer", "gluon", "kernels", "name", "symbol", "sym",
-           "analysis", "models", "serving", "convert"]
+           "analysis", "models", "serving", "convert", "operator", "rtc"]

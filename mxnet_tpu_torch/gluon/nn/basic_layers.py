@@ -1,17 +1,20 @@
 """Basic Gluon layers.
 
 The PyTorch counterparts of ``mxnet_tpu/gluon/nn/basic_layers.py:56,89,
-146,253,308`` (reference: python/mxnet/gluon/nn/basic_layers.py):
-HybridSequential, Dense, Activation, Dropout, LayerNorm and Embedding.
+146,160-226,253,308,331`` (reference:
+python/mxnet/gluon/nn/basic_layers.py): HybridSequential, Dense,
+Activation, Dropout, BatchNorm, LayerNorm, Embedding and Flatten.
 """
 from __future__ import annotations
 
 import math
 
+import torch
+
 from ..block import HybridBlock
 
 __all__ = ["HybridSequential", "Dense", "Activation", "Dropout",
-           "LayerNorm", "Embedding"]
+           "BatchNorm", "LayerNorm", "Embedding", "Flatten"]
 
 
 class HybridSequential(HybridBlock):
@@ -104,6 +107,78 @@ class Dropout(HybridBlock):
         return x
 
 
+class BatchNorm(HybridBlock):
+    """Batch normalization with running statistics (reference:
+    basic_layers.py BatchNorm, src/operator/nn/batch_norm.cc).
+
+    ``running_mean`` and ``running_var`` are ``grad_req="null"``
+    parameters. Under ``autograd.is_training()`` (and without
+    ``use_global_stats``) the layer normalizes with the batch's mean and
+    biased variance and then writes the running statistics back, in
+    place: ``m * running + (1 - m) * batch`` with MXNet's ``momentum``
+    (0.9 keeps 90% of the old value; torch's own momentum means the
+    opposite). Otherwise it normalizes with the running statistics and
+    writes nothing. Half-precision inputs compute their statistics in
+    float32 (the op's rule)."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._axis = axis
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._center = center
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
+            self.running_mean = self.params.get(
+                "running_mean", grad_req="null", shape=(in_channels,),
+                init=running_mean_initializer, allow_deferred_init=True)
+            self.running_var = self.params.get(
+                "running_var", grad_req="null", shape=(in_channels,),
+                init=running_variance_initializer, allow_deferred_init=True)
+
+    def infer_param_shapes(self, x, *args):
+        c = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean, self.running_var):
+            p.shape = (c,)
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        from ... import autograd
+
+        if autograd.is_training() and not self._use_global_stats:
+            out, mean, var = F.batch_norm(
+                x, gamma, beta, running_mean, running_var,
+                eps=self._epsilon, momentum=self._momentum,
+                fix_gamma=not self._scale, output_mean_var=True,
+                axis=self._axis, use_batch_stats=True)
+            m = self._momentum
+            with torch.no_grad():
+                for run, batch in ((running_mean, mean), (running_var, var)):
+                    run.data.mul_(m).add_(batch.data.to(run.data.dtype),
+                                          alpha=1 - m)
+            return out
+        return F.batch_norm(
+            x, gamma, beta, running_mean, running_var, eps=self._epsilon,
+            momentum=self._momentum, fix_gamma=not self._scale,
+            use_global_stats=True, axis=self._axis, use_batch_stats=False)
+
+    def extra_repr(self):
+        return f"axis={self._axis}, eps={self._epsilon}, " \
+               f"momentum={self._momentum}"
+
+
 class LayerNorm(HybridBlock):
     """Reference: basic_layers.py LayerNorm."""
 
@@ -150,3 +225,10 @@ class Embedding(HybridBlock):
 
     def extra_repr(self):
         return f"{self._input_dim} -> {self._output_dim}"
+
+
+class Flatten(HybridBlock):
+    """Reference: basic_layers.py Flatten: (N, ...) to (N, -1)."""
+
+    def hybrid_forward(self, F, x):
+        return F.flatten(x)

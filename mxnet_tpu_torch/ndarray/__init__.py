@@ -14,7 +14,7 @@ from .ndarray import (NDArray, arange, array, expand_dims, load,
                       load_frombuffer, save, zeros)
 
 __all__ = ["NDArray", "array", "zeros", "arange", "expand_dims", "save",
-           "load", "load_frombuffer", "registry"]
+           "load", "load_frombuffer", "registry", "Custom"]
 
 # the JAX package's table (``mxnet_tpu/ndarray/__init__.py:41-85``); the
 # first alias per target is the name ``Symbol.tojson`` writes
@@ -41,6 +41,17 @@ _CAMEL_ALIASES = {
     "Correlation": "correlation", "Crop": "crop",
     "BatchNorm_v1": "batch_norm",
 }
+
+
+def Custom(*args, op_type=None, **kwargs):
+    """Run the custom op registered as ``op_type`` (``operator.register``)
+    on NDArrays ``args`` (reference: the autogen ``Custom`` op of
+    src/operator/custom/custom.cc)."""
+    if op_type is None:
+        raise ValueError("op_type is required")
+    from ..operator import invoke_custom
+
+    return invoke_custom(op_type, args, kwargs)
 
 
 def _make_op_function(opdef):

@@ -3,10 +3,10 @@
 The PyTorch counterpart of ``mxnet_tpu/ndarray/ndarray.py``, cut to what
 the decoder, the serving stack and the transformer's training loop
 touch: creation (``array``, ``zeros``, ``arange``, ``expand_dims``),
-``reshape``, ``transpose``, basic indexing, arithmetic, ``sum``/``mean``,
-``astype``, ``asnumpy``/``asscalar``, ``context``, ``dtype``,
-``wait_to_read``, and the autograd surface (``attach_grad``, ``grad``,
-``backward``, ``detach``). The device is always explicit: creation
+``reshape``, ``transpose``, basic indexing and assignment, arithmetic,
+``sum``/``mean``, ``astype``, ``asnumpy``/``asscalar``, ``context``,
+``dtype``, ``wait_to_read``, and the autograd surface (``attach_grad``,
+``grad``, ``backward``, ``detach``). The device is always explicit: creation
 functions take ``ctx=`` and default to the current context, which is
 ``gpu(0)`` unless a scope says otherwise.
 
@@ -158,6 +158,22 @@ class NDArray:
                              f"..., got {key!r}")
         return self._apply(self._data.__getitem__, key)
 
+    def __setitem__(self, key, value):
+        """Write ``value`` (an NDArray, tensor, number or array-like) into
+        the region basic indexing selects, in place and outside any
+        recorded graph, as ``CustomOp.assign`` does (``dst[:] = src``)."""
+        items = key if isinstance(key, tuple) else (key,)
+        if not all(k is None or k is Ellipsis or isinstance(k, (int, slice))
+                   for k in items):
+            raise MXNetError(f"NDArray indexing takes ints, slices, None and "
+                             f"..., got {key!r}")
+        if isinstance(value, NDArray):
+            value = value._data
+        elif not isinstance(value, (torch.Tensor, int, float, bool)):
+            value = torch.from_numpy(onp.array(value))
+        with torch.no_grad():
+            self._data[key] = value
+
     # -- arithmetic --------------------------------------------------------
 
     @staticmethod
@@ -172,6 +188,9 @@ class NDArray:
     def __sub__(self, other):
         return self._apply(torch.sub, self._data, self._other(other))
 
+    def __rsub__(self, other):
+        return self._apply(torch.rsub, self._data, self._other(other))
+
     def __mul__(self, other):
         return self._apply(torch.mul, self._data, self._other(other))
 
@@ -179,6 +198,9 @@ class NDArray:
 
     def __truediv__(self, other):
         return self._apply(torch.div, self._data, self._other(other))
+
+    def __rtruediv__(self, other):
+        return self._apply(self._data.__rtruediv__, self._other(other))
 
     def __neg__(self):
         return self._apply(torch.neg, self._data)
@@ -221,7 +243,9 @@ def array(source_array, ctx=None, dtype=None):
         arr = arr.astype(_numpy_dtype(dtype), copy=False)
     elif arr.dtype == onp.float64:
         arr = arr.astype(onp.float32)
-    return NDArray(torch.from_numpy(onp.ascontiguousarray(arr)).to(dev))
+    # a copy even on the CPU: the array must not alias the caller's buffer
+    return NDArray(torch.from_numpy(onp.ascontiguousarray(arr)).to(
+        dev, copy=True))
 
 
 def zeros(shape, ctx=None, dtype="float32"):

@@ -2,13 +2,13 @@
 
 The PyTorch counterparts of ``mxnet_tpu/ndarray/ops_basic.py`` (the
 unary table :27-42, the broadcast table :157-185, the scalar forms
-:199-228, the reductions :254, ``reshape`` :336, ``transpose`` :377,
-``slice_axis`` :456, the constant nodes :618-638, ``dot`` :666 and
-``batch_dot`` :677), cut to what the ported paths and the symbol graphs
-they serve call. The JAX package left them to XLA; the port leaves them
-to torch. MXNet's conventions hold: comparisons return 0/1 in the input
-dtype, a scalar op keeps a float input's dtype, ``reshape`` honors the
-0/-1/-2/-3/-4 codes.
+:199-228, the reductions :254, ``reshape`` :336, ``flatten`` :370,
+``transpose`` :377, ``slice_axis`` :456, the constant nodes :618-638,
+``dot`` :666 and ``batch_dot`` :677), cut to what the ported paths and
+the symbol graphs they serve call. The JAX package left them to XLA; the
+port leaves them to torch. MXNet's conventions hold: comparisons return
+0/1 in the input dtype, a scalar op keeps a float input's dtype,
+``reshape`` honors the 0/-1/-2/-3/-4 codes.
 """
 from __future__ import annotations
 
@@ -259,6 +259,13 @@ def reshape(data, shape=None, reverse=False):
     if shape is None:
         return data
     return data.reshape(reshape_target(data.shape, shape))
+
+
+@register()
+def flatten(data):
+    """Collapse every axis after the first into one (reference:
+    matrix_op.cc Flatten)."""
+    return data.reshape(data.shape[0], -1)
 
 
 @register()

@@ -1,16 +1,19 @@
 """Neural-network ops.
 
-The PyTorch counterparts of ``mxnet_tpu/ndarray/ops_nn.py:33-87,206-349,
-393,411,420,727``: dense, convolution, the activations, softmax, the
-norms, embedding, dropout and the losses. The JAX package left these to
-XLA, so the port leaves them to torch (``F.linear``, ``F.conv1d`` and
-``F.conv2d``, ``F.layer_norm``, softmax, indexing), with one exception:
+The PyTorch counterparts of ``mxnet_tpu/ndarray/ops_nn.py:33-87,137-191,
+206-349,393,411,420,727``: dense, convolution, pooling, the activations,
+softmax, the norms, embedding, dropout and the losses. The JAX package
+left these to XLA, so the port leaves them to torch (``F.linear``,
+``F.conv1d``-``F.conv3d``, the pooling functions, ``F.batch_norm``,
+``F.layer_norm``, softmax, indexing), with one exception:
 ``flash_attention`` runs the hand-written CUDA kernel K1
 (``kernels/flash_attention.py``), as the JAX op runs the Pallas kernel.
 Signatures are the JAX ops', so symbol graphs written for the JAX
 package load and run here with the same keyword arguments.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -40,34 +43,109 @@ def fully_connected(data, weight, bias=None, num_hidden=0, no_bias=False,
 
 # channel-last layouts: the weight rides as (O, *spatial, I/g), as in the
 # JAX package (``_conv_dims``: rhs spec "O" + spatial + "I")
-_CHANNEL_LAST = ("NWC", "NHWC")
+_CHANNEL_LAST = ("NWC", "NHWC", "NDHWC")
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 
 @register()
 def convolution(data, weight, bias=None, kernel=None, stride=None, dilate=None,
                 pad=None, num_filter=0, num_group=1, no_bias=False,
                 layout=None):
-    """Reference: src/operator/nn/convolution-inl.h. 1-D and 2-D, in the
-    channel-first layouts (NCW, NCHW; weight (O, I/g, *k)) or the
-    channel-last ones the JAX package added (NWC, NHWC; weight
+    """Reference: src/operator/nn/convolution-inl.h. 1-D, 2-D and 3-D, in
+    the channel-first layouts (NCW, NCHW, NCDHW; weight (O, I/g, *k)) or
+    the channel-last ones the JAX package added (NWC, NHWC, NDHWC; weight
     (O, *k, I/g)). torch convolves channel-first, so a channel-last call
     moves the channel axis in and out; its output is contiguous in the
     channel-last layout, ready for a norm over the last axis."""
     if isinstance(kernel, int):
         kernel = (kernel,)
     nd = len(kernel) if kernel is not None else data.dim() - 2
-    if nd not in (1, 2) or data.dim() != nd + 2:
-        raise MXNetError(f"convolution: the port takes 1-D and 2-D "
+    if nd not in _CONV or data.dim() != nd + 2:
+        raise MXNetError(f"convolution: the port takes 1-D, 2-D and 3-D "
                          f"convolutions, got data {tuple(data.shape)} "
                          f"kernel {kernel}")
     channel_last = layout in _CHANNEL_LAST
     if channel_last:
         data = data.movedim(-1, 1)
         weight = weight.movedim(-1, 1)
-    conv = F.conv1d if nd == 1 else F.conv2d
-    out = conv(data, weight, None if no_bias else bias,
-               _tup(stride or 1, nd), _tup(pad or 0, nd),
-               _tup(dilate or 1, nd), num_group)
+    out = _CONV[nd](data, weight, None if no_bias else bias,
+                    _tup(stride or 1, nd), _tup(pad or 0, nd),
+                    _tup(dilate or 1, nd), num_group)
+    if channel_last:
+        out = out.movedim(1, -1).contiguous()
+    return out
+
+
+# -- pooling --------------------------------------------------------------
+
+_POOL = {"max": (F.max_pool1d, F.max_pool2d, F.max_pool3d),
+         "avg": (F.avg_pool1d, F.avg_pool2d, F.avg_pool3d)}
+
+
+@register()
+def pooling(data, kernel=None, pool_type="max", global_pool=False,
+            stride=None, pad=None, pooling_convention="valid",
+            count_include_pad=True, layout=None):
+    """Reference: src/operator/nn/pooling-inl.h; the JAX op's
+    ``reduce_window`` semantics (``mxnet_tpu/ndarray/ops_nn.py:137-191``):
+    ``max`` (padding is -inf), ``avg`` and ``sum`` (padding is 0; ``avg``
+    divides by the window size, or with ``count_include_pad=False`` by
+    the real elements in it), ``lp`` (the 2-norm of the window);
+    ``global_pool`` reduces every spatial axis to size 1 by max, or else
+    by the mean (for ``sum`` and ``lp`` too, as the JAX op does);
+    ``pooling_convention="full"`` (ceil mode) pads the high side so the
+    last partial window counts. Channel-first layouts, or NWC/NHWC/NDHWC
+    (the channel axis moved in and out)."""
+    channel_last = layout in _CHANNEL_LAST
+    nd = data.dim() - 2
+    if global_pool:
+        # the JAX op's rule: max, else the mean, whatever the pool type
+        axes = tuple(range(1, data.dim() - 1)) if channel_last \
+            else tuple(range(2, data.dim()))
+        if pool_type == "max":
+            return data.amax(dim=axes, keepdim=True)
+        return data.mean(dim=axes, keepdim=True)
+    if nd not in (1, 2, 3):
+        raise MXNetError(f"pooling: 1-D, 2-D or 3-D windows, got data "
+                         f"{tuple(data.shape)}")
+    if pool_type not in ("max", "avg", "sum", "lp"):
+        raise ValueError(f"unknown pool_type {pool_type}")
+    kernel = _tup(kernel, nd)
+    stride = _tup(stride or 1, nd)
+    pad = _tup(pad or 0, nd)
+    x = data.movedim(-1, 1) if channel_last else data
+    spatial = x.shape[2:]
+    hi = list(pad)
+    if pooling_convention == "full":
+        for i in range(nd):
+            rem = (spatial[i] + 2 * pad[i] - kernel[i]) % stride[i]
+            hi[i] += stride[i] - rem if rem else 0
+    # pad explicitly (torch's own padding is symmetric and capped at half
+    # a window), then pool with none
+    widths = []
+    for lo, h in zip(reversed(pad), reversed(hi)):
+        widths += [lo, h]
+    if pool_type == "max":
+        fill = float("-inf") if x.is_floating_point() \
+            else torch.iinfo(x.dtype).min
+        out = _POOL["max"][nd - 1](F.pad(x, widths, value=fill), kernel,
+                                   stride)
+    else:
+        src = x.square() if pool_type == "lp" else x
+        window = math.prod(kernel)
+        mean = _POOL["avg"][nd - 1](F.pad(src, widths), kernel, stride)
+        if pool_type == "avg" and count_include_pad:
+            out = mean
+        else:
+            out = mean * window  # the window's sum
+            if pool_type == "lp":
+                out = out.sqrt()
+            elif pool_type == "avg":
+                ones = F.pad(torch.ones((1, 1) + tuple(spatial),
+                                        dtype=x.dtype, device=x.device),
+                             widths)
+                out = out / (_POOL["avg"][nd - 1](ones, kernel, stride)
+                             * window)
     if channel_last:
         out = out.movedim(1, -1).contiguous()
     return out
@@ -188,33 +266,44 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                output_mean_var=False, axis=1, use_batch_stats=None):
     """Functional BatchNorm (reference: src/operator/nn/batch_norm.cc):
     batch statistics in training (``use_batch_stats`` None follows
-    ``autograd.is_training()``), the moving ones otherwise; half inputs
-    compute in float32. The running-stat write-back is the caller's, as
-    in the JAX package, so the body stays pure."""
+    ``autograd.is_training()``; the variance is the biased one, as
+    ``jnp.var``), the moving ones otherwise; half inputs compute in
+    float32. The normalization itself is ``F.batch_norm`` (cuDNN on the
+    card) with the channel axis moved to 1 and no running statistics
+    passed, so torch updates nothing: the running-stat write-back is the
+    caller's, as in the JAX package, whose momentum means the opposite
+    of torch's and whose variance is not torch's unbiased one. With
+    ``output_mean_var`` the batch mean and biased variance (or the moving
+    ones) come back too."""
     if use_batch_stats is None:
         use_batch_stats = autograd.is_training()
     axis = axis % data.dim()
-    red = tuple(i for i in range(data.dim()) if i != axis)
-    bshape = [1] * data.dim()
-    bshape[axis] = data.shape[axis]
     if fix_gamma:
         gamma = torch.ones_like(gamma)
     half = data.dtype in (torch.bfloat16, torch.float16)
     xf = data.float() if half else data
-    if use_batch_stats and not use_global_stats:
-        mean = xf.mean(dim=red)
-        var = xf.var(dim=red, unbiased=False)
-    else:
+    x1 = xf.movedim(axis, 1) if axis != 1 else xf
+    g, b = gamma.to(xf.dtype), beta.to(xf.dtype)
+    batch = use_batch_stats and not use_global_stats
+    if not batch:
         mean = moving_mean.to(xf.dtype)
         var = moving_var.to(xf.dtype)
-    out = (xf - mean.reshape(bshape)) * torch.rsqrt(var + eps).reshape(
-        bshape) * gamma.to(xf.dtype).reshape(bshape) + \
-        beta.to(xf.dtype).reshape(bshape)
+        out = F.batch_norm(x1, mean, var, g, b, False, 0.0, eps)
+    elif x1.numel() > x1.shape[1]:
+        out = F.batch_norm(x1, None, None, g, b, True, 0.0, eps)
+    else:  # one value per channel, which torch refuses: x - mean is 0
+        out = torch.zeros_like(x1) * g.reshape(1, -1, *[1] * (x1.dim() - 2)) \
+            + b.reshape(1, -1, *[1] * (x1.dim() - 2))
+    if axis != 1:
+        out = out.movedim(1, axis)
     if half:
         out = out.to(data.dtype)
-    if output_mean_var:
-        return out, mean, var
-    return out
+    if not output_mean_var:
+        return out
+    if batch:
+        red = tuple(i for i in range(data.dim()) if i != axis)
+        var, mean = torch.var_mean(xf, dim=red, unbiased=False)
+    return out, mean, var
 
 
 @register()

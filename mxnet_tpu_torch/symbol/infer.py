@@ -21,7 +21,7 @@ from ..ndarray import registry as _registry
 from ..ndarray.ndarray import torch_dtype
 
 _META = torch.device("meta")
-_CHANNEL_LAST = ("NWC", "NHWC")
+_CHANNEL_LAST = ("NWC", "NHWC", "NDHWC")
 _CONST_OPS = ("_sym_zeros", "_sym_ones", "_sym_constant")
 
 

@@ -1,8 +1,10 @@
 """The port on the card: the CUDA kernels K1 (flash-attention forward),
-K2 (decode attention) and K3 (fused LayerNorm→activation) and the paths
-that launch them: decode serving, one TransformerLM training step and a
-served predict of an exported wav2vec2 graph. Every test here needs an
-NVIDIA GPU and skips without one.
+K2 (decode attention) and K3 (fused LayerNorm→activation), the
+runtime-kernel launcher K4 (``rtc.CudaModule`` over NVRTC) with the
+``rtc_softmax`` loss head it compiles, and the paths that launch them:
+decode serving, one TransformerLM training step, a served predict of an
+exported wav2vec2 graph and ResNet training steps with the custom head.
+Every test here needs an NVIDIA GPU and skips without one.
 
 These tests import neither JAX nor the JAX package, so they run on a
 machine that has only PyTorch for CUDA. From the repo root:
@@ -18,14 +20,17 @@ is held within two bfloat16 ulps (rtol 2**-6) of the plain version
 computed in float32 from the same bfloat16 inputs: the kernel rounds
 once, at the output. K3 is held against its plain version within 1e-5
 in float32 and one bfloat16 ulp in bfloat16 (both compute in float32
-and round once).
+and round once). K4's ``double`` and ``axpy`` match torch exactly (one
+rounding each, the same one); the ``rtc_softmax`` kernels match their
+plain versions within rtol = atol = 1e-6 (the same fp32 arithmetic,
+sums in another order).
 """
 import numpy as onp
 import pytest
 import torch
 
 import mxnet_tpu_torch as mx
-from mxnet_tpu_torch import convert, serving
+from mxnet_tpu_torch import convert, rtc, serving
 from mxnet_tpu_torch.kernels import _build
 from mxnet_tpu_torch.kernels.flash_attention import (
     FLASH_KERNEL, KERNEL, _decode_flash, _decode_flash_ref, _flash_fwd_cuda,
@@ -35,6 +40,8 @@ from mxnet_tpu_torch.kernels.norm_act import (
 from mxnet_tpu_torch.models import DecoderBlockLM, TransformerLM
 from mxnet_tpu_torch.tools.profile_predict import (
     SAMPLE_RATE, WAV2VEC2_LARGE_LV60, export_wav2vec2, frames)
+from mxnet_tpu_torch.tools import profile_resnet as pr
+from mxnet_tpu_torch.gluon.model_zoo import vision
 
 pytestmark = pytest.mark.cuda
 
@@ -435,3 +442,241 @@ def test_fused_attention_on_transposed_keys_launches_k1(cuda):
     assert _build.launch_counts().get(FLASH_KERNEL) == 1
     want = out.eval_with(feed).asnumpy()
     assert onp.allclose(got, want, rtol=TOL, atol=TOL)
+
+
+# -- K4: rtc.CudaModule and the rtc_softmax head ------------------------------
+
+DOUBLE_SRC = r"""
+extern "C" __global__ void double_kernel(const float* x, float* y, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = x[i] * 2.0f;
+}
+extern "C" __global__ void axpy(const float* x, float* y, float a, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] += a * x[i];
+}
+template <class T>
+__global__ void scale(T* x, T a, long long n) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) x[i] *= a;
+}
+extern "C" __global__ void big_shared(const float* x, float* y, int n) {
+  extern __shared__ float buf[];
+  for (int i = threadIdx.x; i < n; i += blockDim.x) buf[i] = x[i];
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) y[i] = buf[n - 1 - i];
+}
+"""
+
+
+@pytest.fixture
+def rtc_module(cuda):
+    return rtc.CudaModule(DOUBLE_SRC, exports=["scale<float>",
+                                               "scale<double>"])
+
+
+def test_rtc_double_and_axpy_match_torch_exactly(rtc_module):
+    n = 2 ** 20 + 3
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(n, device="cuda", generator=gen)
+    y = mx.nd.zeros((n,), ctx=mx.gpu(0))
+    k = rtc_module.get_kernel("double_kernel", "const float* x, float* y, int n")
+    _build.reset_launch_counts()
+    assert k.launch([mx.nd.NDArray(x), y, n], mx.gpu(0),
+                    ((n + 255) // 256, 1, 1), (256, 1, 1)) is None
+    assert torch.equal(y.data, x * 2)
+    y0 = torch.randn(n, device="cuda", generator=gen)
+    y = mx.nd.NDArray(y0.clone())
+    ax = rtc_module.get_kernel("axpy", "const float* x, float* y, float a, "
+                                       "int n")
+    ax.launch([x, y, 0.75, n], mx.gpu(0), ((n + 255) // 256, 1, 1),
+              (256, 1, 1))
+    assert torch.equal(y.data, torch.addcmul(y0, x, torch.tensor(
+        0.75, device="cuda")))
+    assert _build.launch_counts() == {"double_kernel": 1, "axpy": 1}
+
+
+def test_rtc_exported_templates_in_float_and_double(rtc_module):
+    for dtype, ctype in ((torch.float32, "float"), (torch.float64, "double")):
+        x = torch.arange(1000, dtype=dtype, device="cuda")
+        k = rtc_module.get_kernel(f"scale<{ctype}>",
+                                  f"{ctype}* x, {ctype} a, int64_t n")
+        k.launch([x, 0.5, 1000], mx.gpu(0), (4, 1, 1), (256, 1, 1))
+        assert torch.equal(x, torch.arange(1000, dtype=dtype,
+                                           device="cuda") * 0.5)
+
+
+def test_rtc_dynamic_shared_memory_above_48k(rtc_module):
+    n = 20000  # 80,000 bytes of dynamic shared memory
+    x = torch.randn(n, device="cuda")
+    y = torch.empty_like(x)
+    k = rtc_module.get_kernel("big_shared", "const float* x, float* y, int n")
+    k.launch([x, y, n], mx.gpu(0), (1, 1, 1), (256, 1, 1), shared_mem=4 * n)
+    assert torch.equal(y, x.flip(0))
+
+
+def test_rtc_launches_in_order_on_torch_stream(rtc_module):
+    """Launches ride torch's current stream: work queued before is seen,
+    work queued after sees the result, on a side stream too."""
+    k = rtc_module.get_kernel("double_kernel", "const float* x, float* y, int n")
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        x = torch.full((1 << 22,), 3.0, device="cuda")
+        x.mul_(2.0)  # queued before the launch
+        y = torch.empty_like(x)
+        k.launch([x, y, x.numel()], mx.gpu(0), (x.numel() // 256, 1, 1),
+                 (256, 1, 1))
+        z = y + 1.0  # queued after
+    s.synchronize()
+    assert torch.equal(z, torch.full_like(x, 13.0))
+
+
+def test_rtc_launch_from_a_fresh_thread(rtc_module):
+    """A thread that never touched CUDA has no current context; the
+    launcher makes torch's primary context current first."""
+    import threading
+
+    x = torch.randn(4096, device="cuda")
+    y = torch.zeros_like(x)
+    k = rtc_module.get_kernel("double_kernel", "const float* x, float* y, int n")
+    errors = []
+
+    def run():
+        try:
+            k.launch([x, y, 4096], mx.gpu(0), (16, 1, 1), (256, 1, 1))
+            torch.cuda.synchronize()
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive() and errors == []
+    assert torch.equal(y, x * 2)
+
+
+def test_rtc_failures_raise_on_card(rtc_module):
+    with pytest.raises(mx.MXNetError, match="undefined_name"):
+        rtc.CudaModule('extern "C" __global__ void f(float* x) '
+                       '{ x[0] = undefined_name; }')
+    k = rtc_module.get_kernel("double_kernel", "const float* x, float* y, int n")
+    x = torch.zeros(8, device="cuda")
+    with pytest.raises(mx.MXNetError, match="float64"):
+        k.launch([x.double(), x, 8], mx.gpu(0), (1, 1, 1), (32, 1, 1))
+    with pytest.raises(mx.MXNetError, match="GPU context"):
+        k.launch([x, x, 8], mx.cpu(), (1, 1, 1), (32, 1, 1))
+    with pytest.raises(mx.MXNetError, match="lies on cpu"):
+        k.launch([x.cpu(), x, 8], mx.gpu(0), (1, 1, 1), (32, 1, 1))
+    with pytest.raises(mx.MXNetError, match="contiguous"):
+        k.launch([torch.zeros(8, 2, device="cuda")[:, 0], x, 8], mx.gpu(0),
+                 (1, 1, 1), (32, 1, 1))
+    with pytest.raises(mx.MXNetError, match="takes 3 arguments"):
+        k.launch([x, x], mx.gpu(0), (1, 1, 1), (32, 1, 1))
+    with pytest.raises(mx.MXNetError, match="cuLaunchKernel"):
+        k.launch([x, x, 8], mx.gpu(0), (1, 1, 1), (2048, 1, 1))
+    with pytest.raises(mx.MXNetError, match="cuModuleGetFunction"):
+        rtc_module.get_kernel("no_such_kernel", "int n").launch(
+            [1], mx.gpu(0), (1, 1, 1), (1, 1, 1))
+
+
+@pytest.mark.parametrize("B,C", [(128, 1000), (64, 1001), (8, 4097),
+                                 (3, 7)])
+def test_rtc_softmax_kernels_match_plain(cuda, B, C):
+    gen = torch.Generator(device="cuda").manual_seed(B + C)
+    x = torch.randn(B, C, device="cuda", generator=gen) * 4
+    label = torch.randint(0, C, (B,), device="cuda", generator=gen).float()
+    y = torch.zeros_like(x)
+    _build.reset_launch_counts()
+    pr.softmax_fwd(x, y)
+    p = pr.softmax_fwd_plain(x)
+    torch.testing.assert_close(y, p, rtol=1e-6, atol=1e-6)
+    dx = torch.zeros_like(x)
+    pr.softmax_bwd(label, y, dx)
+    torch.testing.assert_close(dx, pr.softmax_bwd_plain(label, y), rtol=1e-6,
+                               atol=1e-6)
+    pr.softmax_bwd(label, y, dx, "add")
+    torch.testing.assert_close(dx, 2 * pr.softmax_bwd_plain(label, y),
+                               rtol=1e-6, atol=1e-6)
+    assert _build.launch_counts() == {pr.FWD_KERNEL: 1, pr.BWD_KERNEL: 2}
+    xd = x.double()
+    yd = torch.zeros_like(xd)
+    pr.softmax_fwd(xd, yd)
+    torch.testing.assert_close(yd, pr.softmax_fwd_plain(xd), rtol=1e-12,
+                               atol=1e-12)
+
+
+def test_resnet_steps_on_card_with_rtc_head_match_cpu(cuda):
+    """SGD-momentum steps (lr 0.01) of resnet18_v1(thumbnail) with the
+    rtc_softmax head, from the same weights, on the card and on the CPU:
+    two K4 launches per step on the card (the head's double kernels in
+    float64) and none on the CPU. Two steps in float64: the card's
+    training matches the CPU's, losses within rtol 1e-6, every parameter
+    and running statistic within 1e-6 of its scale. One step in float32:
+    the loss within rtol 1e-5 and the classifier within 1e-3 of its
+    scale. The deeper float32 parameters, and every later loss, carry the
+    rounding of batch statistics over few values, which batch norm
+    amplifies (the card sums them in float32, torch's CPU kernels in
+    float64: up to 7% of an element, 2e-4 of the second loss here). The
+    two heads' gradients on the card agree within 1e-4 of the largest
+    entry."""
+    mx.random.seed(3)
+    src = vision.resnet18_v1(thumbnail=True, classes=10)
+    src.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    rs = onp.random.RandomState(4)
+    x = rs.randn(8, 3, 64, 64).astype("float32")
+    y = rs.randint(0, 10, 8).astype("float32")
+    with mx.autograd.pause():
+        src(mx.nd.array(x, ctx=mx.cpu()))
+    arrays = {k: p.data().asnumpy()
+              for k, p in src._collect_params_with_prefix().items()}
+    runs = {}
+    for ctx, dtype in ((mx.cpu(), "float32"), (mx.cpu(), "float64"),
+                       (mx.gpu(0), "float32"), (mx.gpu(0), "float64")):
+        net = vision.resnet18_v1(thumbnail=True, classes=10)
+        for p in net.collect_params().values():
+            p.dtype = dtype
+        convert.params_from_numpy(
+            net, {k: v.astype(dtype) for k, v in arrays.items()}, ctx=ctx)
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": 0.01, "momentum": 0.9,
+                                    "wd": 1e-4})
+        xs = mx.nd.array(x, ctx=ctx, dtype=dtype)
+        ys = mx.nd.array(y, ctx=ctx, dtype=dtype)
+        _build.reset_launch_counts()
+        losses = [pr.train_step(net, trainer, xs, ys).asscalar()
+                  for _ in range(2 if dtype == "float64" else 1)]
+        runs[ctx.device_type, dtype] = (losses, _build.launch_counts(), {
+            k: p.data().asnumpy()
+            for k, p in net._collect_params_with_prefix().items()})
+    assert runs["gpu", "float32"][1] == {pr.FWD_KERNEL: 1, pr.BWD_KERNEL: 1}
+    assert runs["gpu", "float64"][1] == {"rtc_softmax_fwd<double>": 2,
+                                         "rtc_softmax_bwd<double>": 2}
+    assert runs["cpu", "float32"][1] == {}
+    card, cpu = runs["gpu", "float64"], runs["cpu", "float64"]
+    onp.testing.assert_allclose(card[0], cpu[0], rtol=1e-6)
+    for k, want in cpu[2].items():
+        scale = float(onp.abs(want).max()) or 1.0
+        onp.testing.assert_allclose(card[2][k], want, rtol=0,
+                                    atol=1e-6 * scale, err_msg=k)
+    card, cpu = runs["gpu", "float32"], runs["cpu", "float32"]
+    onp.testing.assert_allclose(card[0], cpu[0], rtol=1e-5)
+    for k in ("output.weight", "output.bias"):
+        scale = float(onp.abs(cpu[2][k]).max())
+        onp.testing.assert_allclose(card[2][k], cpu[2][k], rtol=0,
+                                    atol=1e-3 * scale, err_msg=k)
+    net = convert.params_from_numpy(
+        vision.resnet18_v1(thumbnail=True, classes=10), arrays, ctx=mx.gpu(0))
+    xs, ys = mx.nd.array(x, ctx=mx.gpu(0)), mx.nd.array(y, ctx=mx.gpu(0))
+    grads = []
+    for head in ("rtc", "loss"):
+        with mx.autograd.record():
+            out = net(xs)
+            h = pr.rtc_softmax(out, ys) if head == "rtc" else \
+                mx.gluon.loss.SoftmaxCrossEntropyLoss()(out, ys)
+        h.backward()
+        grads.append({k: p.grad().asnumpy() for k, p in
+                      net._collect_params_with_prefix().items()
+                      if p.grad_req != "null"})
+    scale = max(float(onp.abs(g).max()) for g in grads[1].values())
+    for k, want in grads[1].items():
+        assert onp.abs(grads[0][k] - want).max() <= 1e-4 * scale, k

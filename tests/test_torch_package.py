@@ -36,6 +36,9 @@ def test_import_loads_neither_jax_nor_the_jax_package():
             "import mxnet_tpu_torch, mxnet_tpu_torch.tools.profile_decode\n"
             "import mxnet_tpu_torch.tools.profile_train\n"
             "import mxnet_tpu_torch.tools.profile_predict\n"
+            "import mxnet_tpu_torch.tools.profile_resnet\n"
+            "import mxnet_tpu_torch.rtc, mxnet_tpu_torch.operator\n"
+            "import mxnet_tpu_torch.gluon.model_zoo.vision\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax'"
             " or m == 'mxnet_tpu' or m.startswith('mxnet_tpu.'))\n"
             "print(bad)\n")
@@ -69,6 +72,11 @@ SYMBOLIC_MODULES = [
     "kernels/norm_act.py", "kernels/attention.py",
     "kernels/serving_fused.py", "gluon/block.py", "serving/session.py",
     "tools/profile_predict.py"]
+# and those of the ResNet-50 slice with the runtime-kernel launcher (K4)
+RESNET_MODULES = [
+    "rtc.py", "kernels/_nvrtc.py", "operator.py", "gluon/nn/conv_layers.py",
+    "gluon/model_zoo/__init__.py", "gluon/model_zoo/vision/__init__.py",
+    "gluon/model_zoo/vision/resnet.py", "tools/profile_resnet.py"]
 
 
 def test_no_module_imports_jax_or_the_jax_package():
@@ -76,7 +84,8 @@ def test_no_module_imports_jax_or_the_jax_package():
     files = list(_python_files())
     assert len(files) > 20
     scanned = {os.path.relpath(f, PKG) for f in files}
-    assert set(TRAINING_MODULES) | set(SYMBOLIC_MODULES) <= scanned
+    assert set(TRAINING_MODULES) | set(SYMBOLIC_MODULES) | \
+        set(RESNET_MODULES) <= scanned
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
