@@ -25,31 +25,42 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero and prints no result):
+Phases (any failure exits non-zero and prints no result). Every kernel
+time is the median of 25 launches timed alone with CUDA events, each
+after a write that evicts the L2 and a ~200 us spin that keeps the
+stream busy until the launch is enqueued, so it is the device's time:
 
 1. device: require CUDA, print the card's name and power limit, turn
    TF32 off for float32 matmuls;
 2. build: compile every ``mxnet_tpu_torch/csrc/*.cu`` with nvcc, one
    process per source, all started together;
 3. K2 check: K2 against ``_decode_flash_ref`` on the card, within
-   rtol = atol = 1e-5, at the serving shapes and at other head dims;
+   rtol = atol = 1e-5, at the serving shapes, at other head dims, and
+   where the key sweep is split: B = 1 at lengths 0, 1, 63, 64, 65, 1000
+   and S, the seven in one batch of 7, a length past S; each case prints
+   its ``(splits, chunk)``;
 4. K2 times: K2, its plain version and ``scaled_dot_product_attention``
-   (a yardstick only; the port never calls it) at B in {1, 32},
-   S = 1024, L2 flushed before each launch, beside the bound (the bytes
-   of the visible K and V, q and out at 3.35 TB/s);
+   (a yardstick only; the port never calls it) at B in {1, 8, 32},
+   S = 1024, beside the bound (the bytes of the visible K and V, q and
+   out at 3.35 TB/s) and the splits;
 5. serving: 8 greedy-decode streams of 8-48 tokens through the batcher;
    every future resolves, K2 launches = layers x decode steps, and the
    three longest streams' final logits match the session's own
    explicit-state step loop within rtol = atol = 1e-4;
 6. K1 check: K1 against ``_flash_ref`` on the card within rtol = atol =
    1e-5 in float32 at the training shape (8, 12, 1024, 1024, 64,
-   causal), the JAX tests' shapes, D in {128, 256} and a strided view;
-   within two bfloat16 ulps in bfloat16; dq/dk/dv through the
-   ``autograd.Function`` against autograd of ``_flash_ref`` within 1e-4;
+   causal), the JAX tests' shapes, D in {128, 256}, a strided view and
+   the fusion route's (128, 1, 499, 499, 64); within two bfloat16 ulps
+   in bfloat16; rows that are not 16-byte aligned (bf16 rows of 40 and
+   42 bytes, fp32 rows of 12 bytes, an odd s-stride in fp32 and bf16),
+   each case printing the bytes per K/V copy its load path took;
+   dq/dk/dv through the ``autograd.Function`` against autograd of
+   ``_flash_ref`` within 1e-4;
 7. K1 times: K1, ``_flash_ref`` and ``scaled_dot_product_attention(
    is_causal=True)`` (a yardstick only) at the training shape, L2
-   flushed before each launch, beside the bound (its flops at the fp32
-   rate of 67 TFLOP/s);
+   flushed before each launch, beside two bounds: its flops at the fp32
+   rate of 67 TFLOP/s, and three times its flops at the TF32 rate of
+   495 TFLOP/s (K1's 3xTF32 products);
 8. training: ``TransformerLM`` at GPT-2 small's widths and depth, tied
    embedding, Xavier weights from a seed, one fixed batch of 8 x 1024
    tokens, Adam at 3e-4: 2 warm-up and 10 timed steps; every loss
@@ -70,7 +81,7 @@ Phases (any failure exits non-zero and prints no result):
     shapes, L2 flushed before each launch, beside the bound (input read
     and output written once at 3.35 TB/s);
 12. K1 on the fusion route: K1 against ``_flash_ref`` at (128, 1, 499,
-    64), not causal, within 1e-5, and its times as in phase 7;
+    64), not causal, within 1e-5, and its times and bounds as in phase 7;
 13. symbolic serving: wav2vec2-large-lv60 CTC exported with ``sym.save``
     and ``nd.save``, loaded by ``InferenceSession.load`` with buckets 1,
     2, 4, 8; every bucket's optimized graph holds 7 ``_fused_norm_act``
@@ -133,8 +144,8 @@ import mxnet_tpu_torch as mx  # noqa: E402
 from mxnet_tpu_torch import autograd, convert, gluon, nd, rtc, serving  # noqa: E402
 from mxnet_tpu_torch.kernels import _build, _nvrtc  # noqa: E402
 from mxnet_tpu_torch.kernels.flash_attention import (  # noqa: E402
-    FLASH_KERNEL, KERNEL, _decode_flash, _decode_flash_ref, _flash_fwd_cuda,
-    _flash_ref, flash_attention)
+    FLASH_KERNEL, KERNEL, _decode_flash, _decode_flash_ref, _decode_splits,
+    _flash_fwd_cuda, _flash_load_width, _flash_ref, flash_attention)
 from mxnet_tpu_torch.kernels.norm_act import (  # noqa: E402
     KERNEL as NORM_ACT_KERNEL, _norm_act_cuda, _norm_act_ref)
 from mxnet_tpu_torch.models import DecoderBlockLM, TransformerLM  # noqa: E402
@@ -158,6 +169,10 @@ TRAIN_B, TRAIN_S, TRAIN_LR = 8, 1024, 3e-4
 WARMUP_STEPS, TIMED_STEPS = 2, 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+TF32_FLOPS = 495e12  # H100 SXM TF32 on the tensor cores, dense
+# ~200 us at the H100's 1.98 GHz boost clock: longer than a kernel
+# wrapper's host cost, so every kernel time below is the device's alone
+BUSY_CYCLES = 400_000
 KERNEL_RTOL = KERNEL_ATOL = 1e-5
 SERVE_RTOL = SERVE_ATOL = 1e-4
 # K1 in bfloat16 against the plain version in float32 from the same
@@ -232,6 +247,12 @@ def kernel_check_phase(gen):
         (2, 4, 77, 128, [77, 3]),
         (2, 2, 50, 256, [50, 17]),
     ]
+    # the split sweep's edges: an empty row, one key, a chunk's edges, a
+    # long and a full cache, alone and all in one batch; a length past S
+    edges = [0, 1, 63, 64, 65, 1000, S]
+    cases += [(1, H, S, D, [n]) for n in edges]
+    cases += [(7, H, S, D, edges), (2, H, S, D, [S + 500, 700])]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     worst = 0.0
     for B, H_, S_, D_, lengths in cases:
         q, k, v, n = attention_inputs(gen, B, H_, S_, D_, lengths)
@@ -241,8 +262,10 @@ def kernel_check_phase(gen):
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         ok = torch.allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+        splits, chunk = _decode_splits(B, H_, S_, n_sm)
         print(f"  B={B} H={H_} S={S_} D={D_} lengths={lengths[:4]}"
-              f"{'...' if len(lengths) > 4 else ''}: max_abs_err={err:.3e}")
+              f"{'...' if len(lengths) > 4 else ''} splits={splits} "
+              f"chunk={chunk}: max_abs_err={err:.3e}")
         if not ok:
             raise RuntimeError(f"K2 disagrees with its plain version at "
                                f"B={B} H={H_} S={S_} D={D_}: {err}")
@@ -252,20 +275,19 @@ def kernel_check_phase(gen):
     return worst
 
 
-def time_ms(fn, flush, busy_cycles=0):
+def time_ms(fn, flush):
     """Median device ms of ``fn`` over REPS launches, each timed alone
     with CUDA events after ``flush`` evicts the 50 MB L2 — a decode step
-    reaches attention with its caches cold. ``busy_cycles`` keeps the
-    stream busy that long (``torch.cuda._sleep``) after the flush, so the
-    host has enqueued ``fn`` before the start event runs and a launch's
-    host cost is not counted as device time."""
+    reaches attention with its caches cold. The stream is then kept busy
+    for BUSY_CYCLES (``torch.cuda._sleep``), so the host has enqueued
+    ``fn`` before the start event runs and a launch's host cost is not
+    counted as device time."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(REPS):
         flush.zero_()
-        if busy_cycles:
-            torch.cuda._sleep(busy_cycles)
+        torch.cuda._sleep(BUSY_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -292,8 +314,9 @@ def kernel_times_phase(gen):
     phase("4 K2 times")
     S, H, D = GPT2_SMALL["max_len"], GPT2_SMALL["num_heads"], 64
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
-    for B in (1, 32):
+    for B in (1, 8, 32):
         q, k, v, n = attention_inputs(gen, B, H, S, D, [S] * B)
         scale = D ** -0.5
         mask = (torch.arange(S, device="cuda")[None, :]
@@ -307,6 +330,7 @@ def kernel_times_phase(gen):
         lib_err = (library() - _decode_flash_ref(q, k, v, n, scale)) \
             .abs().max().item()
         row = {"B": B, "H": H, "S": S, "D": D, "visible": S,
+               "splits": _decode_splits(B, H, S, n_sm)[0],
                "ms": time_ms(lambda: _decode_flash(q, k, v, n, scale),
                              flush),
                "plain_ms": time_ms(
@@ -459,6 +483,8 @@ def k1_check_phase(gen):
         (2, 4, 100, 300, 64, True),
         (2, 4, 333, 333, 128, True),
         (2, 4, 200, 200, 256, True),
+        (128, 1, 499, 499, 64, False),  # the fusion route's shape
+        (1, 1, 5, 9, 3, False),  # 12-byte rows: 4-byte copies
     ]
     worst = 0.0
     for B, H_, S_q, S_k, D, causal in cases:
@@ -467,8 +493,8 @@ def k1_check_phase(gen):
         want = _flash_ref(q, k, v, D ** -0.5, causal)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        print(f"  B={B} H={H_} S_q={S_q} S_k={S_k} D={D} causal={causal}: "
-              f"max_abs_err={err:.3e}")
+        print(f"  B={B} H={H_} S_q={S_q} S_k={S_k} D={D} causal={causal} "
+              f"copies={_flash_load_width(k, v)} B: max_abs_err={err:.3e}")
         if not torch.allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
             raise RuntimeError(f"K1 disagrees with its plain version at "
                                f"{(B, H_, S_q, S_k, D, causal)}: {err}")
@@ -480,10 +506,30 @@ def k1_check_phase(gen):
     want = _flash_ref(q.contiguous(), k.contiguous(), v.contiguous(), 0.125,
                       True)
     err = (got - want).abs().max().item()
-    print(f"  strided views of (2, {S}, 3, {H}, 64): max_abs_err={err:.3e}")
+    print(f"  strided views of (2, {S}, 3, {H}, 64) copies="
+          f"{_flash_load_width(k, v)} B: max_abs_err={err:.3e}")
     if not torch.allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
         raise RuntimeError(f"K1 disagrees on strided views: {err}")
     worst = max(worst, err)
+    # an odd s-stride (65 elements): 4-byte copies in float32, element
+    # loads in bfloat16
+    for dtype in (torch.float32, torch.bfloat16):
+        base = torch.randn(3, 2, 3, 90, 65, device="cuda",
+                           generator=gen).to(dtype)
+        q, k, v = (base[i, ..., :64] for i in range(3))
+        got = _flash_fwd_cuda(q, k, v, 0.125, True).float()
+        want = _flash_ref(q.float(), k.float(), v.float(), 0.125, True)
+        tol = KERNEL_RTOL if dtype == torch.float32 else BF16_RTOL
+        want = want.to(dtype).float()
+        err = (got - want).abs().max().item()
+        print(f"  {str(dtype)[6:]} s-stride {k.stride(2)} (2, 3, 90, 90, 64) "
+              f"causal copies={_flash_load_width(k, v)} B: "
+              f"max_abs_err={err:.3e}")
+        if not torch.allclose(got, want, rtol=tol, atol=KERNEL_ATOL):
+            raise RuntimeError(f"K1 disagrees at an odd s-stride in {dtype}: "
+                               f"{err}")
+        if dtype == torch.float32:
+            worst = max(worst, err)
     q, k, v = flash_inputs(gen, 2, H, 512, 512, 64, torch.bfloat16)
     got = _flash_fwd_cuda(q, k, v, 0.125, True).float()
     want = _flash_ref(q.float(), k.float(), v.float(), 0.125, True)
@@ -493,6 +539,21 @@ def k1_check_phase(gen):
     if not torch.allclose(got, want.to(torch.bfloat16).float(),
                           rtol=BF16_RTOL, atol=KERNEL_ATOL):
         raise RuntimeError(f"K1 in bfloat16 is off by {bf_err}")
+    # bfloat16 rows that are not 16-byte aligned: 40 bytes (4-byte
+    # copies) and 42 bytes (element loads)
+    for B, H_, S_q, S_k, D, causal in ((1, 2, 77, 77, 20, False),
+                                       (1, 2, 33, 50, 21, True)):
+        q, k, v = flash_inputs(gen, B, H_, S_q, S_k, D, torch.bfloat16)
+        got = _flash_fwd_cuda(q, k, v, D ** -0.5, causal).float()
+        want = _flash_ref(q.float(), k.float(), v.float(), D ** -0.5,
+                          causal).to(torch.bfloat16).float()
+        err = (got - want).abs().max().item()
+        print(f"  bfloat16 B={B} H={H_} S_q={S_q} S_k={S_k} D={D} "
+              f"causal={causal} copies={_flash_load_width(k, v)} B: "
+              f"max_abs_err={err:.3e}")
+        if not torch.allclose(got, want, rtol=BF16_RTOL, atol=KERNEL_ATOL):
+            raise RuntimeError(f"K1 in bfloat16 is off by {err} at "
+                               f"{(B, H_, S_q, S_k, D, causal)}")
     q, k, v = flash_inputs(gen, 2, H, S, S, 64)
     do = torch.randn(q.shape, device="cuda", generator=gen)
     grads = []
@@ -527,6 +588,17 @@ def flash_bound(B, H, S_q, S_k, D, causal, itemsize=4):
                                        else "operations"), flops, nbytes
 
 
+def add_k1_rates(row):
+    """The 3xTF32 bound (three TF32 products per fp32 product, at 495
+    TFLOP/s, or the bytes if larger), both bounds' shares and the
+    achieved fp32-equivalent TFLOP/s of a phase-7 or -12 row."""
+    row["bound_3xtf32_ms"] = max(row["bytes"] / HBM_BYTES_PER_S,
+                                 3 * row["flops"] / TF32_FLOPS) * 1e3
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["bound_3xtf32_share"] = row["bound_3xtf32_ms"] / row["ms"]
+    row["achieved_tflops"] = row["flops"] / row["ms"] / 1e9
+
+
 def k1_times_phase(gen):
     phase("7 K1 times")
     B, H, S, D = TRAIN_B, GPT2_SMALL_LM["num_heads"], TRAIN_S, 64
@@ -548,8 +620,7 @@ def k1_times_phase(gen):
            "library_max_abs_err": lib_err.item()}
     row["bound_ms"], row["bound_by"], row["flops"], row["bytes"] = \
         flash_bound(B, H, S, S, D, True)
-    row["bound_share"] = row["bound_ms"] / row["ms"]
-    row["achieved_tflops"] = row["flops"] / row["ms"] / 1e9
+    add_k1_rates(row)
     print("  " + json.dumps(row))
     del flush
     return row
@@ -811,8 +882,9 @@ def k1_route_phase(gen):
         return torch.nn.functional.scaled_dot_product_attention(
             q, k, v, scale=scale)
 
+    lib_err = (library() - want).abs().max().item()
     row = {"B": B, "H": 1, "S_q": S, "S_k": S, "D": D, "causal": False,
-           "max_abs_err": err,
+           "max_abs_err": err, "library_max_abs_err": lib_err,
            "ms": time_ms(lambda: _flash_fwd_cuda(q, k, v, scale, False),
                          flush),
            "plain_ms": time_ms(lambda: _flash_ref(q, k, v, scale, False),
@@ -820,7 +892,7 @@ def k1_route_phase(gen):
            "library_ms": time_ms(library, flush)}
     row["bound_ms"], row["bound_by"], row["flops"], row["bytes"] = \
         flash_bound(B, 1, S, S, D, False)
-    row["bound_share"] = row["bound_ms"] / row["ms"]
+    add_k1_rates(row)
     print("  " + json.dumps(row))
     del flush
     return row
@@ -967,9 +1039,6 @@ extern "C" __global__ void axpy(const float* x, float* y, float a,
 }
 """
 K4_N = 2 ** 26
-# ~200 us at the H100's 1.98 GHz boost clock: longer than a launch's host
-# cost, so K4's times (phase 15) are the device's alone
-K4_BUSY_CYCLES = 400_000
 # the softmax kernels against their plain versions: the same fp32
 # arithmetic, the row sums in another order
 SOFTMAX_TOL = 1e-6
@@ -1078,7 +1147,7 @@ def k4_times_phase(gen, double):
     pr.softmax_fwd(x, p)
 
     def t(fn):
-        return time_ms(fn, flush, K4_BUSY_CYCLES)
+        return time_ms(fn, flush)
 
     fwd = {"B": B, "C": C, "ms": t(lambda: pr.softmax_fwd(x, p)),
            "plain_ms": t(lambda: pr.softmax_fwd_plain(x)),
@@ -1341,7 +1410,8 @@ def main():
             KERNEL, "mxnet_tpu_torch/csrc/decode_attention.cu",
             "mxnet_tpu/kernels/flash_attention.py:137", k2_launches,
             k2_worst, big, f"B={big['B']} H={big['H']} S={big['S']} "
-            f"D={big['D']} visible={big['visible']} fp32", smi),
+            f"D={big['D']} visible={big['visible']} fp32", smi,
+            splits=big["splits"], by_batch=k2_rows),
         # K1's headline numbers are the training shape's; the fusion
         # route's shape has its own row under "fusion_route"
         kernel_entry(
@@ -1351,6 +1421,7 @@ def main():
             max(k1_worst, route["max_abs_err"]), k1_row,
             f"B={k1_row['B']} H={k1_row['H']} S_q={k1_row['S_q']} "
             f"S_k={k1_row['S_k']} D={k1_row['D']} causal fp32", smi,
+            bound_3xtf32_ms=k1_row["bound_3xtf32_ms"],
             launches_by_path={"training": k1_training,
                               "symbolic_serving": sym_result["k1_launches"]},
             fusion_route=route),

@@ -8,7 +8,8 @@ attention over (B, H, S, D) tensors, with the JAX function's contract
 mask, ``sm_scale`` defaulting to ``1/sqrt(D)``. Its forward is
 :func:`_flash_fwd_cuda`, the wrapper of the hand-written kernel
 ``csrc/flash_attention.cu`` (the port of the TPU kernel ``_fa_kernel``,
-``flash_attention.py:48-134``), or :func:`_flash_ref`, its plain
+``flash_attention.py:48-134``; its products run on the tensor cores in
+3xTF32, which keeps fp32's accuracy), or :func:`_flash_ref`, its plain
 version. Its backward is :func:`_flash_bwd`, the q-chunk recompute of
 ``flash_attention.py:206-245`` in torch; the JAX package has no
 backward kernel, so neither has the port.
@@ -18,7 +19,9 @@ KV cache, masked to a per-row visible length. :func:`_decode_flash` is
 the wrapper of ``csrc/decode_attention.cu`` (the port of ``_dec_kernel``,
 ``flash_attention.py:137-191``); :func:`_decode_flash_ref` is its plain
 version. Unlike the TPU path, both take the caches in the decoder's own
-layout, (B, S, H, D), so no transpose copy precedes the call.
+layout, (B, S, H, D), so no transpose copy precedes the call. The
+kernel splits each row's key sweep over several blocks as
+:func:`_decode_splits` plans it, and combines their partial softmaxes.
 """
 from __future__ import annotations
 
@@ -32,7 +35,8 @@ from ..base import MXNetError
 from . import _build
 
 __all__ = ["flash_attention", "_flash_ref", "_flash_fwd_cuda", "_flash_bwd",
-           "_decode_flash", "_decode_flash_ref"]
+           "_flash_load_width", "_decode_flash", "_decode_flash_ref",
+           "_decode_splits"]
 
 _NEG = -1e30
 _MAX_D = 256
@@ -64,9 +68,28 @@ def _flash_ref(q, k, v, sm_scale, causal):
 def _flash_entry():
     fn = _build.load(FLASH_KERNEL).mxtt_flash_attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
-        [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+         ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _flash_load_width(k, v):
+    """Bytes per copy of K1's K/V tiles into shared memory: 16 where every
+    row start of k and v (base pointer and (b, h, s) strides) and the row
+    length are 16-byte aligned, else 4 where they are 4-byte aligned, else
+    the element size (bf16 rows of odd length or odd strides, read
+    element by element). A variant chosen from dtypes, shapes and
+    strides, not a fallback."""
+    size = k.element_size()
+    row = k.shape[3] * size
+    for width in (16, 4):
+        if row % width == 0 and all(
+                t.data_ptr() % width == 0 and
+                all(t.stride(i) * size % width == 0 for i in range(3))
+                for t in (k, v)):
+            return width
+    return size
 
 
 def _flash_fwd_cuda(q, k, v, sm_scale, causal):
@@ -79,7 +102,8 @@ def _flash_fwd_cuda(q, k, v, sm_scale, causal):
     must be float32 or bfloat16 alike, on one device, 4-d with matching
     (B, H, D), D <= 256 and contiguous (the other axes may be strided:
     views of one fused qkv are read in place), and ``causal`` needs
-    S_q <= S_k."""
+    S_q <= S_k. K/V rows that are not 16-byte aligned are copied into
+    shared memory in narrower pieces (:func:`_flash_load_width`)."""
     devs = {t.device for t in (q, k, v)}
     if len(devs) != 1:
         raise MXNetError(f"_flash_fwd_cuda: inputs on several devices {devs}")
@@ -123,7 +147,8 @@ def _flash_fwd_cuda(q, k, v, sm_scale, causal):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _FLASH_DTYPES[q.dtype], B, H, S_q, S_k, D,
             ctypes.cast(strides, ctypes.c_void_p), float(sm_scale),
-            int(bool(causal)), torch.cuda.current_stream(dev).cuda_stream)
+            int(bool(causal)), torch.cuda.current_stream(dev).cuda_stream,
+            _flash_load_width(k, v))
     if err:
         raise MXNetError(f"_flash_fwd_cuda: kernel launch failed with CUDA "
                          f"error {err}")
@@ -225,9 +250,35 @@ def _decode_flash_ref(q, k, v, lengths, sm_scale):
 def _entry():
     fn = _build.load(KERNEL).mxtt_decode_attention_f32
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
-        [ctypes.c_float, ctypes.c_void_p]
+        [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn
+
+
+_MIN_CHUNK = 64  # keys per block of K2's split sweep, at least
+_CHUNK_ALIGN = 64  # a block's eight warps take 8 keys each per step
+
+
+def _decode_splits(B, H, S, n_sm):
+    """K2's split of the key sweep, from shapes alone (never from
+    ``lengths``, which lies on the device): ``(splits, chunk)`` such that
+    block c of each (b, h) sweeps keys [c*chunk, (c+1)*chunk) of [0, S).
+    It aims at B*H*splits >= 2 blocks per SM with chunks of at least 64
+    keys (a multiple of 64): 16 splits at B = 1, H = 12, S = 1024 on 132
+    SMs, 3 at B = 8, 1 at B = 32."""
+    want = -(-2 * n_sm // (B * H))
+    if want <= 1:
+        return 1, S
+    chunk = max(_MIN_CHUNK, -(-S // want))
+    chunk = -(-chunk // _CHUNK_ALIGN) * _CHUNK_ALIGN
+    splits = -(-S // chunk)
+    return splits, (chunk if splits > 1 else S)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _decode_flash(q, k, v, lengths, sm_scale):
@@ -237,7 +288,10 @@ def _decode_flash(q, k, v, lengths, sm_scale):
     On CPU tensors this is the plain version. On CUDA tensors it
     launches the K2 kernel on the current stream, without synchronizing,
     or raises: inputs must be float32 (``lengths`` int32), contiguous,
-    on one device, with D <= 256."""
+    on one device, with D <= 256. The key sweep runs in the blocks that
+    :func:`_decode_splits` plans; when it is split, a second kernel
+    combines the blocks' partials, and the call still counts as one
+    launch of K2."""
     devs = {t.device for t in (q, k, v, lengths)}
     if len(devs) != 1:
         raise MXNetError(f"_decode_flash: inputs on several devices {devs}")
@@ -265,11 +319,17 @@ def _decode_flash(q, k, v, lengths, sm_scale):
     if D > _MAX_D:
         raise MXNetError(f"_decode_flash: head dim {D} > {_MAX_D}")
     out = torch.empty_like(q)
+    splits, chunk = _decode_splits(B, H, S, _sm_count(dev.index))
+    # the blocks' partial (m, l, acc[D]) when the sweep is split
+    partial = torch.empty(B * H * splits * (D + 2), dtype=torch.float32,
+                          device=dev) if splits > 1 else None
     with torch.cuda.device(dev):
         err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        lengths.data_ptr(), out.data_ptr(), B, H, S, D,
                        float(sm_scale),
-                       torch.cuda.current_stream(dev).cuda_stream)
+                       torch.cuda.current_stream(dev).cuda_stream,
+                       None if partial is None else partial.data_ptr(),
+                       splits, chunk)
     if err:
         raise MXNetError(f"_decode_flash: kernel launch failed with CUDA "
                          f"error {err}")

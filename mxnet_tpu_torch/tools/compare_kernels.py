@@ -1,0 +1,153 @@
+"""K1 and K2 of two checkouts of the port, timed in turns on one card.
+
+Each tree named on the command line is timed in its own child process,
+in the order given (for a before/after comparison: parent, change,
+change, parent). A child imports ``mxnet_tpu_torch`` from its tree, so
+it builds and launches that tree's kernels through that tree's wrappers
+(``_flash_fwd_cuda``, ``_decode_flash``), and times, at the shapes of
+``chip_smoke.py``'s phases 4, 7 and 12:
+
+- K1 at the training shape (8, 12, 1024, 1024, 64, causal) and on the
+  fusion route's (128, 1, 499, 499, 64), with
+  ``scaled_dot_product_attention`` beside it (a yardstick only);
+- K2 at B in {1, 8, 32}, H 12, S 1024, D 64, every key visible, with
+  SDPA under a boolean mask beside it.
+
+Every time is the median device ms of 25 launches, each alone between
+CUDA events after a 256 MB write that evicts the L2 and a
+``torch.cuda._sleep`` that keeps the stream busy until the launch is
+enqueued. Each child also checks its kernels against the plain versions
+(1e-5). Prints one JSON line per turn, then the card's name and power
+limit and one JSON summary with the medians over the turns of each
+tree. Run from the root of a checkout, on a machine with one NVIDIA GPU:
+
+    python3 -m mxnet_tpu_torch.tools.compare_kernels \
+        build/parent . . build/parent
+
+It needs no network and writes only the trees' kernel builds.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+REPS = 25
+BUSY_CYCLES = 400_000  # ~200 us at 1.98 GHz: longer than a launch's host cost
+K1_SHAPES = {"training": (8, 12, 1024, 1024, 64, True),
+             "route": (128, 1, 499, 499, 64, False)}
+K2_BATCHES = (1, 8, 32)
+K2_H, K2_S, K2_D = 12, 1024, 64
+TOL = 1e-5
+
+
+def _time_ms(torch, fn, flush):
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(REPS):
+        flush.zero_()
+        torch.cuda._sleep(BUSY_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def child(tree):
+    """Time one tree's K1 and K2; print one JSON line."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+    from mxnet_tpu_torch.kernels import _build
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+
+    if not torch.cuda.is_available():
+        raise SystemExit("compare_kernels: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert os.path.abspath(fa.__file__).startswith(os.path.abspath(tree))
+    _build.build_all([fa.FLASH_KERNEL, fa.KERNEL])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20240917)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {"tree": tree}
+    for name, (B, H, S_q, S_k, D, causal) in K1_SHAPES.items():
+        q, k, v = (torch.randn(B, H, s, D, device=dev, generator=gen)
+                   for s in (S_q, S_k, S_k))
+        scale = D ** -0.5
+        err = (fa._flash_fwd_cuda(q, k, v, scale, causal)
+               - fa._flash_ref(q, k, v, scale, causal)).abs().max().item()
+        if err > TOL:
+            raise RuntimeError(f"{tree}: K1 off by {err} at {name}")
+        out[f"k1_{name}_ms"] = _time_ms(
+            torch, lambda: fa._flash_fwd_cuda(q, k, v, scale, causal), flush)
+        out[f"sdpa_{name}_ms"] = _time_ms(
+            torch, lambda: sdpa(q, k, v, is_causal=causal, scale=scale),
+            flush)
+        out[f"k1_{name}_max_abs_err"] = err
+        del q, k, v
+    for B in K2_BATCHES:
+        H, S, D = K2_H, K2_S, K2_D
+        q = torch.randn(B, H, D, device=dev, generator=gen)
+        k, v = (torch.randn(B, S, H, D, device=dev, generator=gen)
+                for _ in range(2))
+        n = torch.full((B,), S, dtype=torch.int32, device=dev)
+        scale = D ** -0.5
+        err = (fa._decode_flash(q, k, v, n, scale)
+               - fa._decode_flash_ref(q, k, v, n, scale)).abs().max().item()
+        if err > TOL:
+            raise RuntimeError(f"{tree}: K2 off by {err} at B={B}")
+        mask = torch.ones(B, 1, 1, S, dtype=torch.bool, device=dev)
+        out[f"k2_b{B}_ms"] = _time_ms(
+            torch, lambda: fa._decode_flash(q, k, v, n, scale), flush)
+        out[f"sdpa_decode_b{B}_ms"] = _time_ms(
+            torch, lambda: sdpa(q[:, :, None], k.transpose(1, 2),
+                                v.transpose(1, 2), attn_mask=mask,
+                                scale=scale), flush)
+        out[f"k2_b{B}_max_abs_err"] = err
+    print(json.dumps(out), flush=True)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs="*", help="checkouts, timed in this order")
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.child:
+        return child(args.child)
+    if not args.trees:
+        ap.error("name at least one tree")
+    turns = []
+    for tree in args.trees:
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--child", tree], capture_output=True,
+                             text=True, timeout=900)
+        sys.stderr.write(res.stderr[-4000:])
+        if res.returncode:
+            raise SystemExit(f"compare_kernels: the turn of {tree} failed "
+                             f"({res.returncode})")
+        line = res.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        turns.append(json.loads(line))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi)
+    summary = {}
+    for tree in dict.fromkeys(args.trees):
+        rows = [t for t in turns if t["tree"] == tree]
+        summary[tree] = {key: statistics.median(r[key] for r in rows)
+                         for key in rows[0] if key.endswith("_ms")}
+    print(json.dumps({"card": smi, "medians_over_turns": summary}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -25,6 +25,11 @@ rounding each, the same one); the ``rtc_softmax`` kernels match their
 plain versions within rtol = atol = 1e-6 (the same fp32 arithmetic,
 sums in another order).
 """
+import os
+import re
+import shutil
+import subprocess
+
 import numpy as onp
 import pytest
 import torch
@@ -33,8 +38,8 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import convert, rtc, serving
 from mxnet_tpu_torch.kernels import _build
 from mxnet_tpu_torch.kernels.flash_attention import (
-    FLASH_KERNEL, KERNEL, _decode_flash, _decode_flash_ref, _flash_fwd_cuda,
-    _flash_ref, flash_attention)
+    FLASH_KERNEL, KERNEL, _decode_flash, _decode_flash_ref, _decode_splits,
+    _flash_fwd_cuda, _flash_load_width, _flash_ref, flash_attention)
 from mxnet_tpu_torch.kernels.norm_act import (
     KERNEL as NORM_ACT_KERNEL, MAX_C, _norm_act_cuda, _norm_act_ref)
 from mxnet_tpu_torch.models import DecoderBlockLM, TransformerLM
@@ -114,6 +119,36 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(cuda):
         with pytest.raises(mx.MXNetError, match="_decode_flash"):
             _decode_flash(*args, 0.5)
     assert _build.launch_counts() == {}
+
+
+def _n_sm(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+# the split sweep: batch 1 at GPT-2 widths at each edge length (an empty
+# row, one key, a chunk's edges, a long and a full cache); the seven in one
+# batch of 7; a length past S; a short cache of two chunks; D = 24
+_K2_EDGE = [0, 1, 63, 64, 65, 1000, 1024]
+
+
+@pytest.mark.parametrize("B,S,H,D,lengths", [
+    *[(1, 1024, 12, 64, [n]) for n in _K2_EDGE],
+    (7, 1024, 12, 64, _K2_EDGE),
+    (2, 1024, 12, 64, [1500, 700]),
+    (1, 65, 12, 64, [65]),
+    (3, 300, 2, 24, [-3, 130, 400]),
+])
+def test_k2_split_sweep_matches_plain(cuda, B, S, H, D, lengths):
+    splits, chunk = _decode_splits(B, H, S, _n_sm(cuda))
+    assert splits > 1
+    q, k, v, n = _inputs(cuda, B, S, H, D, lengths, seed=B + S)
+    _build.reset_launch_counts()
+    got = _decode_flash(q, k, v, n, D ** -0.5)
+    want = _decode_flash_ref(q, k, v, n, D ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {KERNEL: 1}  # two kernels, one call
+    assert torch.isfinite(got).all()
+    assert torch.allclose(got, want, rtol=TOL, atol=TOL)
 
 
 def _carried_net(impl, ctx):
@@ -283,6 +318,59 @@ def test_k1_wrapper_refuses_what_the_kernel_cannot_take(cuda):
         with pytest.raises(mx.MXNetError, match="_flash_fwd_cuda"):
             _flash_fwd_cuda(q_, k_, v_, 0.25, causal)
     assert _build.launch_counts() == {}
+
+
+# the second load path: rows that are not 16-byte aligned. (B, H, S_q,
+# S_k, D, causal, dtype, bytes per copy); the route's shape beside them
+@pytest.mark.parametrize("B,H,S_q,S_k,D,causal,dtype,width", [
+    (128, 1, 499, 499, 64, False, torch.float32, 16),
+    (1, 2, 77, 77, 20, False, torch.bfloat16, 4),    # 40-byte rows
+    (1, 2, 33, 50, 21, True, torch.bfloat16, 2),     # 42-byte rows
+    (1, 1, 5, 9, 3, False, torch.float32, 4),        # 12-byte rows
+    (2, 3, 64, 64, 32, True, torch.bfloat16, 16),
+])
+def test_k1_load_paths_match_plain(cuda, B, H, S_q, S_k, D, causal, dtype,
+                                   width):
+    q, k, v = _qkv(cuda, B, H, S_q, S_k, D, dtype=dtype, seed=D)
+    assert _flash_load_width(k, v) == width
+    got = _flash_fwd_cuda(q, k, v, D ** -0.5, causal)
+    want = _flash_ref(q.float(), k.float(), v.float(), D ** -0.5, causal)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        assert torch.allclose(got, want, rtol=TOL, atol=TOL)
+    else:
+        assert torch.allclose(got.float(), want.to(dtype).float(),
+                              rtol=2 ** -6, atol=TOL)
+
+
+@pytest.mark.parametrize("dtype,width", [(torch.float32, 4),
+                                         (torch.bfloat16, 2)])
+def test_k1_reads_an_odd_s_stride(cuda, dtype, width):
+    """q, k, v with an s-stride of 65 elements: 4-byte copies in fp32,
+    element loads in bf16."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    base = torch.randn(3, 2, 3, 90, 65, device=cuda,
+                       generator=gen).to(dtype)
+    q, k, v = (base[i, ..., :64] for i in range(3))
+    assert k.stride(2) == 65 and _flash_load_width(k, v) == width
+    got = _flash_fwd_cuda(q, k, v, 0.125, True)
+    want = _flash_ref(q.float(), k.float(), v.float(), 0.125, True)
+    tol = TOL if dtype == torch.float32 else 2 ** -6
+    assert torch.allclose(got.float(), want.to(dtype).float(), rtol=tol,
+                          atol=TOL)
+
+
+def test_k1_sass_holds_tf32_tensor_core_products(cuda):
+    """The built library issues its products as TF32 HMMA instructions."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        pytest.skip("the CUDA toolkit here has no cuobjdump")
+    _build.load(FLASH_KERNEL)
+    sass = subprocess.run([tool, "-sass", _build._library_path(FLASH_KERNEL)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    assert re.search(r"HMMA\.\S*TF32", sass), "no TF32 HMMA in K1's SASS"
 
 
 def test_transformer_training_step_on_card_launches_k1(cuda):
@@ -680,3 +768,26 @@ def test_resnet_steps_on_card_with_rtc_head_match_cpu(cuda):
     scale = max(float(onp.abs(g).max()) for g in grads[1].values())
     for k, want in grads[1].items():
         assert onp.abs(grads[0][k] - want).max() <= 1e-4 * scale, k
+
+
+def test_decode_step_at_batch_one_splits_and_counts_per_layer(cuda):
+    """One decode step of GPT-2-small widths at batch 1: K2 splits its
+    key sweep there, and its counter still rises by one per layer."""
+    cfg = dict(vocab_size=50257, embed_dim=768, num_layers=12,
+               num_heads=12, ffn_dim=3072, max_len=1024)
+    assert _decode_splits(1, 12, 1024, _n_sm(cuda))[0] > 1
+    ctx = mx.gpu(0)
+    mx.random.seed(0)
+    net = DecoderBlockLM(**cfg)
+    net.initialize(ctx=ctx)
+    states = [mx.nd.zeros((1,) + s, ctx=ctx, dtype=dt) for s, dt in
+              zip(net.state_row_shapes(), net.state_row_dtypes())]
+    tok = mx.nd.array(onp.array([[17]], "int32"), ctx=ctx)
+    with mx.autograd.pause():
+        out, *states = net(tok, *states)  # finishes the deferred shapes
+        _build.reset_launch_counts()
+        out, *states = net(tok, *states)
+    torch.cuda.synchronize()
+    assert _build.launch_counts().get(KERNEL, 0) == cfg["num_layers"]
+    assert out.shape == (1, cfg["vocab_size"])
+    assert onp.isfinite(out.asnumpy()).all()

@@ -20,7 +20,8 @@ from mxnet_tpu.ndarray import registry as jregistry
 from mxnet_tpu_torch.kernels import _build
 from mxnet_tpu_torch.kernels.attention import _attention_decode, _cache_append
 from mxnet_tpu_torch.kernels.flash_attention import (KERNEL, _decode_flash,
-                                                     _decode_flash_ref)
+                                                     _decode_flash_ref,
+                                                     _decode_splits)
 
 TOL = 1e-5
 
@@ -153,3 +154,112 @@ def test_cache_append_pins_the_jax_edge_rule():
     t = torch.zeros(B, S, E)
     _cache_append(t, torch.ones(B, E), torch.tensor([[S]], dtype=torch.int32))
     assert not t.any()
+
+
+# -- K2's split key sweep (flash-decoding): the plan and the combine --------
+
+# (B, H, S) of the paths: decode serving at GPT-2 widths (buckets 1-8 and
+# the smoke's B = 32), the card tests' and the smoke's check shapes
+_PATH_SHAPES = [(b, 12, 1024) for b in (1, 2, 4, 7, 8, 32)] + [
+    (2, 3, 40), (3, 2, 100), (2, 4, 77), (2, 2, 50), (1, 2, 33),
+    (2, 2, 17), (1, 1, 33)]
+
+
+def _chunks(S, splits, chunk):
+    return [(c * chunk, min((c + 1) * chunk, S)) for c in range(splits)]
+
+
+@pytest.mark.parametrize("B,H,S", _PATH_SHAPES + [
+    (1, 12, 1), (1, 12, 63), (1, 12, 64), (1, 12, 65), (4, 2, 63),
+    (1, 1, 65), (1, 1, 100000)])
+@pytest.mark.parametrize("n_sm", [132, 114, 8])
+def test_decode_splits_cover_the_keys_once(B, H, S, n_sm):
+    splits, chunk = _decode_splits(B, H, S, n_sm)
+    seen = onp.zeros(S, int)
+    for lo, hi in _chunks(S, splits, chunk):
+        assert lo < hi  # no block is planned past S
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    if splits > 1:
+        assert chunk >= 64 and chunk % 64 == 0
+        # no more blocks than 2 per SM asks for
+        assert B * H * (splits - 1) < 2 * n_sm
+
+
+def test_decode_splits_at_the_serving_shapes():
+    """The plan the smoke reports on 132 SMs: 16 chunks of 64 at batch 1,
+    3 at the serving bucket 8, none at 32."""
+    assert _decode_splits(1, 12, 1024, 132) == (16, 64)
+    assert _decode_splits(8, 12, 1024, 132) == (3, 384)
+    assert _decode_splits(32, 12, 1024, 132) == (1, 1024)
+
+
+def _split_decode(q, k, v, lengths, sm_scale, splits, chunk):
+    """K2 with a split sweep, in torch: each chunk's (m, l, acc) over its
+    visible keys (m = -inf, l = 0 when it has none), then the combine,
+    weight exp(m_c - M) for chunks with l_c > 0."""
+    B, S, H, D = k.shape
+    out = torch.empty(B, H, D)
+    for b in range(B):
+        n = int(lengths[b])
+        all_masked = n <= 0
+        n = S if all_masked else min(n, S)
+        parts = []
+        for lo, hi in _chunks(S, splits, chunk):
+            hi = min(hi, n)
+            if hi <= lo:
+                parts.append((torch.full((H,), -float("inf")),
+                               torch.zeros(H), torch.zeros(H, D)))
+                continue
+            s = torch.einsum("hd,jhd->hj", q[b], k[b, lo:hi]) * sm_scale
+            if all_masked:
+                s = torch.zeros_like(s)
+            m = s.amax(-1)
+            p = torch.exp(s - m[:, None])
+            parts.append((m, p.sum(-1),
+                          torch.einsum("hj,jhd->hd", p, v[b, lo:hi])))
+        ms = torch.stack([m for m, _, _ in parts])
+        ls = torch.stack([l for _, l, _ in parts])
+        M = torch.where(ls > 0, ms, torch.full_like(ms, -float("inf")))
+        M = M.amax(0)
+        w = torch.where(ls > 0, torch.exp(ms - M), torch.zeros_like(ms))
+        assert torch.isfinite(w).all()
+        acc = sum(wc[:, None] * a for wc, (_, _, a) in zip(w, parts))
+        out[b] = acc / (w * ls).sum(0).clamp_min(1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("B,H,S,D", [(7, 2, 300, 16), (7, 2, 1024, 32)])
+def test_split_combine_matches_plain_and_jax(B, H, S, D):
+    """Partials plus combine against ``_decode_flash_ref`` and the JAX op
+    (``impl="lax"``, lengths = pos + 1) within 1e-6, at lengths <= 0, 1,
+    chunk - 1, chunk, chunk + 1, S and > S in one batch: chunks that see
+    no visible key included."""
+    splits, chunk = _decode_splits(B, H, S, 132)
+    assert splits > 2
+    lengths = onp.array([-3, 1, chunk - 1, chunk, chunk + 1, S, S + 50],
+                        "int32")
+    q, kc, vc = _inputs(13, B, S, H * D)
+    qt = torch.from_numpy(q).reshape(B, H, D)
+    kt = torch.from_numpy(kc).reshape(B, S, H, D)
+    vt = torch.from_numpy(vc).reshape(B, S, H, D)
+    got = _split_decode(qt, kt, vt, lengths, D ** -0.5, splits, chunk)
+    plain = _decode_flash_ref(qt, kt, vt, torch.from_numpy(lengths),
+                              D ** -0.5)
+    assert float((got - plain).abs().max()) < 1e-6
+    want = _jax_decode(q, kc, vc, (lengths - 1)[:, None], H, "lax")
+    assert onp.abs(got.reshape(B, H * D).numpy() - want).max() < 1e-6
+
+
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 65, 1000, 1024])
+def test_split_combine_at_batch_one(n):
+    S, H, D = 1024, 12, 64
+    splits, chunk = _decode_splits(1, H, S, 132)
+    q, kc, vc = _inputs(n + 1, 1, S, H * D)
+    args = (torch.from_numpy(q).reshape(1, H, D),
+            torch.from_numpy(kc).reshape(1, S, H, D),
+            torch.from_numpy(vc).reshape(1, S, H, D))
+    lengths = torch.tensor([n], dtype=torch.int32)
+    got = _split_decode(*args, lengths, D ** -0.5, splits, chunk)
+    assert float((got - _decode_flash_ref(*args, lengths, D ** -0.5))
+                 .abs().max()) < 1e-6

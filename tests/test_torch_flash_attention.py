@@ -24,12 +24,14 @@ import torch
 
 from mxnet_tpu.kernels.flash_attention import \
     flash_attention as jax_flash_attention
+from mxnet_tpu.kernels.flash_attention import _ref_attention as jax_ref
 
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import autograd, nd
 from mxnet_tpu_torch.kernels import _build
 from mxnet_tpu_torch.kernels.flash_attention import (_flash_bwd,
                                                      _flash_fwd_cuda,
+                                                     _flash_load_width,
                                                      _flash_ref,
                                                      flash_attention)
 
@@ -170,3 +172,141 @@ def test_nd_op_on_the_tape():
     onp.testing.assert_allclose(loss.asscalar(), jloss.asscalar(),
                                 rtol=TOL, atol=TOL)
     assert float(onp.abs(q.grad.asnumpy() - jq.grad.asnumpy()).max()) < TOL
+
+
+# -- K1's arithmetic on the tensor cores, emulated ---------------------------
+#
+# The kernel takes both products in 3xTF32 (csrc/flash_attention.cu): each
+# fp32 operand x splits as big = tf32(x), small = tf32(x - big), and a.b is
+# a_small.b_big + a_big.b_small + a_big.b_big with fp32 sums, over
+# 128-row query tiles and 64-key tiles (D <= 64) with a base-2 online
+# softmax.
+# The emulation below repeats that arithmetic in torch on the CPU, so the
+# 1e-5 parity bound is shown to hold for the design before any card runs
+# it; one-pass TF32 at the same inputs does not hold it.
+
+_LOG2E = 1.4426950408889634
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: round to 10 mantissa bits, to nearest, ties
+    away from zero, on the int32 view of the float32 bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _mm_1xtf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _emulate_k1(q, k, v, sm_scale, causal, mm, BQ=128, BK=64):
+    """K1's forward in its tile order at D <= 64: per tile of 128 query
+    rows, key tiles of BK up to the last one the tile can see, scores
+    scaled into base 2, masked with -1e30, folded into a running max and
+    sum, each tile's P.V summed apart and added to the accumulator."""
+    S_q, S_k = q.shape[2], k.shape[2]
+    off = S_k - S_q
+    out = torch.empty_like(q)
+    for q0 in range(0, S_q, BQ):
+        qt = q[:, :, q0:q0 + BQ]
+        rows = torch.arange(q0, q0 + qt.shape[2])[:, None]
+        m = torch.full(qt.shape[:3] + (1,), -1e30)
+        l = torch.zeros(qt.shape[:3] + (1,))
+        acc = torch.zeros(qt.shape)
+        kend = min(S_k, q0 + BQ + off) if causal else S_k
+        for k0 in range(0, kend, BK):
+            kt, vt = k[:, :, k0:k0 + BK], v[:, :, k0:k0 + BK]
+            s = mm(qt, kt.transpose(-1, -2)) * (sm_scale * _LOG2E)
+            if causal:
+                keys = torch.arange(k0, k0 + kt.shape[2])[None, :]
+                s = torch.where(keys <= rows + off, s,
+                                torch.full_like(s, -1e30))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + mm(p, vt)  # the tile's P.V, then one add
+            m = m_new
+        out[:, :, q0:q0 + BQ] = acc / l.clamp_min(1e-30)
+    return out
+
+
+# the training shape at B = 1, H = 2; the fusion route's shape at B = 2
+EMULATED = [
+    pytest.param(1, 2, 1024, 1024, 64, True, 11, id="training-causal"),
+    pytest.param(2, 1, 499, 499, 64, False, 12, id="route"),
+]
+
+
+@pytest.mark.parametrize("B,H,S_q,S_k,D,causal,seed", EMULATED)
+def test_3xtf32_emulation_within_1e5_of_plain_and_jax(B, H, S_q, S_k, D,
+                                                      causal, seed):
+    arrays = _inputs(B, H, S_q, S_k, D, seed)
+    q, k, v = _torch(arrays)
+    scale = D ** -0.5
+    got = _emulate_k1(q, k, v, scale, causal, _mm_3xtf32)
+    plain = _flash_ref(q, k, v, scale, causal)
+    jq, jk, jv = (jnp.asarray(a) for a in arrays)
+    want = onp.asarray(jax_ref(jq, jk, jv, scale, causal, S_k))
+    assert float((got - plain).abs().max()) < TOL
+    assert float(onp.abs(got.numpy() - want).max()) < TOL
+
+
+@pytest.mark.parametrize("B,H,S_q,S_k,D,causal,seed", EMULATED)
+def test_one_pass_tf32_breaks_the_bound(B, H, S_q, S_k, D, causal, seed):
+    """Why three passes: one TF32 pass keeps ~3 digits."""
+    q, k, v = _torch(_inputs(B, H, S_q, S_k, D, seed))
+    scale = D ** -0.5
+    got = _emulate_k1(q, k, v, scale, causal, _mm_1xtf32)
+    plain = _flash_ref(q, k, v, scale, causal)
+    assert float((got - plain).abs().max()) > 10 * TOL
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10  # representable in TF32
+    half_ulp = 2.0 ** -11
+    x = torch.tensor([1.0 + half_ulp, -(1.0 + half_ulp), one + half_ulp,
+                      1.0 + half_ulp * 0.99, 3.0], dtype=torch.float32)
+    got = _tf32(x).tolist()
+    assert got == [one, -one, 1.0 + 2.0 ** -9, 1.0, 3.0]
+
+
+# bytes per K/V copy into shared memory (the kernel's load path), as the
+# wrapper picks it for the card's check cases: (B, H, S_q, S_k, D, dtype)
+_WIDTH_CASES = [
+    pytest.param((8, 12, 64, 64, 64), torch.float32, 16, id="f32-d64"),
+    pytest.param((1, 2, 77, 77, 20), torch.bfloat16, 4, id="bf16-40B-rows"),
+    pytest.param((1, 2, 33, 50, 21), torch.bfloat16, 2, id="bf16-42B-rows"),
+    pytest.param((1, 1, 5, 9, 3), torch.float32, 4, id="f32-12B-rows"),
+    pytest.param((2, 3, 64, 64, 32), torch.bfloat16, 16, id="bf16-d32"),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,width", _WIDTH_CASES)
+def test_load_width_follows_alignment(shape, dtype, width):
+    B, H, S_q, S_k, D = shape
+    k = torch.zeros(B, H, S_k, D, dtype=dtype)
+    assert _flash_load_width(k, k.clone()) == width
+
+
+def test_load_width_of_strided_views():
+    """The model's views of one (B, S, 3, H, D) projection keep 16-byte
+    rows; an odd s-stride drops to 4-byte copies in fp32 and to element
+    loads in bf16; a view that starts 4 bytes into its storage does too."""
+    qkv = torch.zeros(2, 40, 3, 4, 64)
+    _, k, v = qkv.permute(2, 0, 3, 1, 4)
+    assert _flash_load_width(k, v) == 16
+    odd = torch.zeros(2, 4, 40 * 65)[..., :40 * 65].reshape(2, 4, 40, 65)
+    k = odd[..., :64]
+    assert k.stride(2) == 65
+    assert _flash_load_width(k, k) == 4
+    kb = torch.zeros(2, 4, 40, 65, dtype=torch.bfloat16)[..., :64]
+    assert _flash_load_width(kb, kb) == 2
+    shifted = torch.zeros(2 * 4 * 40 * 64 + 1)[1:].reshape(2, 4, 40, 64)
+    assert _flash_load_width(shifted, shifted) == 4
