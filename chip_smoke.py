@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``mxnet_tpu_torch``) on one GPU.
 
-Drives the port's four main paths and holds their hand-written CUDA
+Drives the port's five main paths and holds their hand-written CUDA
 kernels against the plain PyTorch versions:
 
 - stateful decode serving of ``DecoderBlockLM`` at GPT-2-small widths
@@ -19,7 +19,12 @@ kernels against the plain PyTorch versions:
   (``autograd.record``, SGD-momentum ``Trainer``) with a custom-op loss
   head, ``rtc_softmax``, whose forward and backward are CUDA C kernels
   that the runtime-kernel launcher K4 (``rtc.CudaModule``) compiles with
-  NVRTC and launches.
+  NVRTC and launches;
+- decode serving as the JAX package serves it: the paged KV store, one
+  captured CUDA graph per occupancy bucket (K2 inside each), SLO
+  classes through the batcher, and a ``ModelServer`` over a
+  ``ModelRepository`` on a local port, with a canary promote that
+  migrates live streams.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100:
 
@@ -31,7 +36,9 @@ after a write that evicts the L2 and a ~200 us spin that keeps the
 stream busy until the launch is enqueued, so it is the device's time:
 
 1. device: require CUDA, print the card's name and power limit, turn
-   TF32 off for float32 matmuls;
+   TF32 off for float32 matmuls (torch's default too); cuDNN's global
+   flags stay at torch's defaults: the port scopes its own convolutions
+   to float32;
 2. build: compile every ``mxnet_tpu_torch/csrc/*.cu`` with nvcc, one
    process per source, all started together;
 3. K2 check: K2 against ``_decode_flash_ref`` on the card, within
@@ -43,10 +50,11 @@ stream busy until the launch is enqueued, so it is the device's time:
    (a yardstick only; the port never calls it) at B in {1, 8, 32},
    S = 1024, beside the bound (the bytes of the visible K and V, q and
    out at 3.35 TB/s) and the splits;
-5. serving: 8 greedy-decode streams of 8-48 tokens through the batcher;
-   every future resolves, K2 launches = layers x decode steps, and the
-   three longest streams' final logits match the session's own
-   explicit-state step loop within rtol = atol = 1e-4;
+5. serving: 8 greedy-decode streams of 8-48 tokens through the batcher
+   (row-slot store, buckets 1-8, one graph per bucket); every future
+   resolves, K2 launches = layers x decode steps (counted through graph
+   replays), and the three longest streams' final logits match the
+   session's own explicit-state step loop within rtol = atol = 1e-4;
 6. K1 check: K1 against ``_flash_ref`` on the card within rtol = atol =
    1e-5 in float32 at the training shape (8, 12, 1024, 1024, 64,
    causal), the JAX tests' shapes, D in {128, 256}, a strided view and
@@ -119,7 +127,35 @@ stream busy until the launch is enqueued, so it is the device's time:
     batch 128 with the trained weights: ``rtc_softmax``'s gradients
     against ``SoftmaxCrossEntropyLoss``'s within 1e-4 of the largest
     entry;
-18. report: one JSON line of kernels, then the device line last.
+18. paged decode serving: GPT-2 small on a paged store (16-token pages),
+    buckets 1-32 captured as graphs; 32 greedy streams of 16-256 tokens
+    arriving open-loop (seeded exponential gaps) through the stateful
+    batcher as SLO class ``standard``: tokens/s, mean step ms, p50/p99
+    per-token latency from the serving histograms, pages at the peak
+    against the row-slot bytes of the same sessions, captures and
+    replays per bucket, K2 launches = layers x steps; then 8 of the
+    streams rerun on a row-slot store, step for step at the buckets
+    they ran at, give bitwise-equal logits;
+19. graph against eager at 8 rows: one step from the same random
+    states through a captured graph and eagerly, bitwise or within
+    1e-5; each mode's host ms per step, device busy ms, idle share and
+    launches per step (``tools/profile_decode.py``'s measure, 10
+    profiled steps);
+20. HTTP: a ``ModelServer`` over a ``ModelRepository`` serves the
+    decoder on a local port; 4 streams with ``X-Session-Id``; v2 (the
+    same weights) deployed and promoted while a round is in flight; the
+    streams' logits bitwise equal to a run with no promote,
+    ``resumed_sessions`` = 4; under ``faults.inject("serving_admission",
+    every=1)`` best_effort gets 503 with ``Retry-After`` and critical
+    200; ``/metrics`` carries the ``slo_class`` families;
+21. convolution at torch's default flags: phase 17's eval- and
+    training-mode comparison rerun with ``cudnn.allow_tf32`` and
+    ``cudnn.benchmark`` at torch's defaults, each deviation logged
+    against rtol 1e-3;
+22. K4's launch floor: an empty kernel through ``rtc.CudaModule``,
+    timed as every kernel here (median of 25 launches, CUDA events, the
+    stream kept busy);
+23. report: one JSON line of kernels, then the device line last.
 
 Needs no network; imports nothing of JAX.
 """
@@ -152,7 +188,10 @@ from mxnet_tpu_torch.models import DecoderBlockLM, TransformerLM  # noqa: E402
 from mxnet_tpu_torch.tools.profile_predict import (  # noqa: E402
     SAMPLE_RATE, WAV2VEC2_LARGE_LV60, export_wav2vec2, frames)
 from mxnet_tpu_torch.tools import profile_resnet as pr  # noqa: E402
+from mxnet_tpu_torch.tools.profile_decode import (  # noqa: E402
+    build as decode_stack, profile_steps)
 from mxnet_tpu_torch.gluon.model_zoo import vision  # noqa: E402
+from mxnet_tpu_torch.resilience import faults  # noqa: E402
 
 SEED = 20240917
 # GPT-2 small (n_embd 768, n_head 12, n_layer 12, n_positions 1024,
@@ -203,12 +242,12 @@ def device_phase():
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print("float32 matmuls and convolutions in full float32: "
+    print("float32 matmuls in full float32: "
           f"torch.backends.cuda.matmul.allow_tf32 = "
-          f"{torch.backends.cuda.matmul.allow_tf32}, "
-          f"torch.backends.cudnn.allow_tf32 = "
-          f"{torch.backends.cudnn.allow_tf32}")
+          f"{torch.backends.cuda.matmul.allow_tf32}; cuDNN's global flags "
+          f"at torch's defaults: torch.backends.cudnn.allow_tf32 = "
+          f"{torch.backends.cudnn.allow_tf32} (the port scopes its "
+          "convolutions to float32)")
     return smi
 
 
@@ -395,6 +434,7 @@ def serving_phase():
         snap = serving.METRICS.snapshot()
     finally:
         bat.close()
+    print(f"graphs per bucket: {sess.graph_stats()}")
     n_tokens = sum(lengths)
     steps = snap["decode_steps"]
     print(f"{len(sids)} streams, lengths {lengths}: {n_tokens} tokens in "
@@ -447,7 +487,7 @@ def serving_phase():
     copy_bytes = 2 * len(recs) * store.bytes_per_session
     result = {"tokens_per_s": n_tokens / wall,
               "decode_steps": steps,
-              "mean_step_ms": snap["exec_mean_s"] * 1e3,
+              "mean_step_ms": mean_step_ms(),
               "mean_rows_per_step": snap["true_rows"] / max(steps, 1),
               "padded_rows": snap["padded_rows"],
               "gather_scatter_ms_at_8": copy_ms,
@@ -459,6 +499,13 @@ def serving_phase():
     sess.close()
     store.close()
     return launches, result
+
+
+def mean_step_ms():
+    """Mean host-timed step of the serving registry's execution
+    histogram, ms."""
+    hist = serving.METRICS.exec_latency
+    return hist.sum / max(hist.total, 1) * 1e3
 
 
 def flash_inputs(gen, B, H, S_q, S_k, D, dtype=torch.float32):
@@ -1288,8 +1335,12 @@ def resnet_phase():
     return net, (fwd_n, bwd_n), result
 
 
-def resnet_vs_cpu_phase(net):
-    phase("17 ResNet-50 against the CPU, and head against head")
+def resnet_cpu_compare():
+    """One record/backward of ResNet-50 at batch 2 on the card (K4) and
+    on the CPU (the plain head) from the same fresh weights, in eval and
+    training mode: the loss and the watched gradients within rtol 1e-3.
+    Returns each watched value's deviation relative to its largest
+    entry."""
     # fresh weights from the seed (running statistics at their initial
     # values), on the card and, carried across, on the CPU
     fresh = pr.build_resnet50(mx.gpu(0), seed=SEED + 1)
@@ -1347,6 +1398,12 @@ def resnet_vs_cpu_phase(net):
         report[f"{mode}:loss"] = (gl, cl)
     del fresh, cpu_net
     print(f"card matches CPU within rtol {CPU_RTOL}")
+    return report
+
+
+def resnet_vs_cpu_phase(net):
+    phase("17 ResNet-50 against the CPU, and head against head")
+    report = resnet_cpu_compare()
     # head against head on the card, at the training batch
     x, y = pr.synthetic_batch(RESNET_B, mx.gpu(0), seed=SEED + 2)
     heads = []
@@ -1367,6 +1424,378 @@ def resnet_vs_cpu_phase(net):
         raise RuntimeError(f"the two heads' gradients differ by {herr}")
     report["head_rel_err"] = herr / scale
     return report
+
+
+# -- slice 5: decode serving as the JAX package serves it -------------------
+
+PAGE_TOKENS = 16
+PAGED_BUCKETS = [1, 2, 4, 8, 16, 32]
+PAGED_STREAMS, PAGED_MIN, PAGED_MAX = 32, 16, 256
+PAGED_GAP_S = 0.025  # mean gap between stream arrivals (open loop)
+PAGED_BUDGET = 2 ** 30  # KV page pool, bytes: 910 pages of 16 tokens
+RERUN_STREAMS = 8
+# one eager step against one replayed step of the same states: the same
+# kernels, so bitwise unless cuBLAS picks another algorithm under capture
+GRAPH_TOL = 1e-5
+HTTP_STREAMS, HTTP_STEPS, HTTP_PROMOTE_AT = 4, 12, 6
+
+
+def decode_net():
+    mx.random.seed(SEED)
+    net = DecoderBlockLM(**GPT2_SMALL)
+    net.initialize(ctx=mx.gpu(0))
+    return net
+
+
+def paged_serving_phase(net):
+    phase("18 paged decode serving")
+    cfg = GPT2_SMALL
+    t0 = time.perf_counter()
+    store, sess = decode_stack(net, PAGED_STREAMS, PAGE_TOKENS,
+                               PAGED_BUCKETS, budget=PAGED_BUDGET)
+    capture_s = time.perf_counter() - t0
+    print(f"paged store: {store.num_pages} pages of {PAGE_TOKENS} tokens, "
+          f"{store.stats()['page_bytes']} bytes each; {len(PAGED_BUCKETS)} "
+          f"buckets captured in {capture_s:.2f} s")
+    rs = onp.random.RandomState(SEED + 18)
+    lengths = [int(n) for n in rs.randint(PAGED_MIN, PAGED_MAX + 1,
+                                          PAGED_STREAMS)]
+    arrivals = onp.cumsum(rs.exponential(PAGED_GAP_S, PAGED_STREAMS))
+    sids = [f"p{i}" for i in range(PAGED_STREAMS)]
+    first = {sid: int(rs.randint(cfg["vocab_size"])) for sid in sids}
+    rerun = set(sids[:RERUN_STREAMS])
+    # the step log, for the row-slot rerun: per step its sessions, its
+    # bucket, its tokens and the rerun streams' logits
+    log = []
+    run_store_step = sess._run_store_step
+
+    def logged(arrs, recs, bucket=None):
+        host = run_store_step(arrs, recs, bucket)
+        ids = [r.sid for r in recs]
+        log.append((ids, sess._bucket_for(len(recs)), arrs[0].copy(),
+                    {i: host[0][i].copy() for i, sid in enumerate(ids)
+                     if sid in rerun}))
+        return host
+
+    sess._run_store_step = logged
+    bat = serving.DynamicBatcher(sess, max_batch_size=PAGED_BUCKETS[-1],
+                                 max_latency_ms=2.0, timeout_ms=600000,
+                                 admission=False)
+    toks = {sid: [first[sid]] for sid in sids}
+    try:
+        _build.reset_launch_counts()
+        serving.METRICS.reset()
+        pending, started = {}, 0
+        t0 = time.perf_counter()
+        while pending or started < PAGED_STREAMS:
+            now = time.perf_counter() - t0
+            while started < PAGED_STREAMS and arrivals[started] <= now:
+                sid = sids[started]
+                pending[bat.submit(onp.array([[first[sid]]], "int32"),
+                                   session_id=sid,
+                                   slo_class="standard")] = sid
+                started += 1
+            wait_s = (arrivals[started] - now if started < PAGED_STREAMS
+                      else 600)
+            done, _ = wait(pending, timeout=max(wait_s, 0.0),
+                           return_when=FIRST_COMPLETED)
+            if not done and started == PAGED_STREAMS:
+                raise RuntimeError("paged serving stalled: no step "
+                                   "resolved in 600 s")
+            for fut in done:
+                sid = pending.pop(fut)
+                logits = onp.asarray(fut.result())
+                if logits.shape != (1, cfg["vocab_size"]) or \
+                        not onp.isfinite(logits).all():
+                    raise RuntimeError(f"{sid}: bad logits {logits.shape}")
+                if len(toks[sid]) < lengths[sids.index(sid)]:
+                    nxt = int(logits.argmax())
+                    toks[sid].append(nxt)
+                    pending[bat.submit(onp.array([[nxt]], "int32"),
+                                       session_id=sid,
+                                       slo_class="standard")] = sid
+        wall = time.perf_counter() - t0
+        launches = _build.launch_counts().get(KERNEL, 0)
+        snap = serving.METRICS.snapshot()
+        stats = store.stats()
+        graphs = sess.graph_stats()
+        step_ms = mean_step_ms()
+    finally:
+        bat.close()
+        sess._run_store_step = run_store_step
+    n_tokens = sum(lengths)
+    steps = snap["decode_steps"]
+    if snap["responses:standard"] != n_tokens or snap["failures"] or \
+            snap["evictions"]:
+        raise RuntimeError(f"not every step resolved cleanly: {snap}")
+    if launches != cfg["num_layers"] * steps:
+        raise RuntimeError(f"K2 launched {launches} times in {steps} decode "
+                           f"steps of {cfg['num_layers']} layers")
+    replays = sum(g["replays"] for g in graphs.values())
+    if not all(g["graph"] for g in graphs.values()) or replays != steps:
+        raise RuntimeError(f"steps did not all replay graphs: {graphs}, "
+                           f"{steps} steps")
+    result = {
+        "streams": PAGED_STREAMS, "tokens": n_tokens, "wall_s": wall,
+        "tokens_per_s": n_tokens / wall, "decode_steps": steps,
+        "mean_rows_per_step": snap["true_rows"] / max(steps, 1),
+        "mean_step_ms": step_ms,
+        "token_latency_p50_ms": snap["latency_p50_ms"],
+        "token_latency_p99_ms": snap["latency_p99_ms"],
+        "pages_used_peak": stats["pages_used"],
+        "kv_bytes_peak": stats["pages_used"] * stats["page_bytes"],
+        "row_slot_bytes": PAGED_STREAMS * store.bytes_per_session,
+        "graphs": {str(b): g for b, g in graphs.items()},
+        "capture_s": capture_s, "k2_launches": launches}
+    result["kv_bytes_share"] = result["kv_bytes_peak"] / \
+        result["row_slot_bytes"]
+    print("paged serving " + json.dumps(result))
+    print(f"K2 launches {launches} = {cfg['num_layers']} layers x {steps} "
+          f"graph replays")
+    sess.close()
+    store.close()
+    del sess, store
+    torch.cuda.empty_cache()
+    # the rerun: the first 8 streams on a row-slot store, each logged step
+    # restricted to them and run at the bucket it ran at
+    rstore, rsess = decode_stack(net, RERUN_STREAMS, 0, PAGED_BUCKETS)
+    worst, compared = 0.0, 0
+    for ids, bucket, tok, want in log:
+        rows = [i for i, sid in enumerate(ids) if sid in rerun]
+        if not rows:
+            continue
+        recs = []
+        for i in rows:
+            if not rstore.has(ids[i]):
+                rstore.open(ids[i])
+            recs.append(rstore.acquire(ids[i]))
+        try:
+            got = rsess._run_store_step([tok[rows]], recs, bucket)[0]
+        finally:
+            for rec in recs:
+                rstore.release(rec)
+        for k, i in enumerate(rows):
+            err = float(onp.abs(got[k] - want[i]).max())
+            worst = max(worst, err)
+            compared += 1
+            if not onp.array_equal(got[k], want[i]):
+                raise RuntimeError(
+                    f"{ids[i]}: the row-slot rerun differs from the paged "
+                    f"run at bucket {bucket} by {err}")
+    print(f"{RERUN_STREAMS} streams rerun on a row-slot store: {compared} "
+          f"steps' logits bitwise equal (max_abs_err {worst})")
+    rsess.close()
+    rstore.close()
+    torch.cuda.empty_cache()
+    result["rerun_bitwise_steps"] = compared
+    return launches, result
+
+
+def graph_vs_eager_phase(net):
+    phase("19 graph against eager")
+    rows = 8
+    rs = onp.random.RandomState(SEED + 19)
+    states = []
+    for s, dt in zip(net.state_row_shapes(), net.state_row_dtypes()):
+        if dt == "int32":  # positions inside the cache
+            states.append(rs.randint(0, GPT2_SMALL["max_len"] - 1,
+                                     (rows,) + s).astype(dt))
+        else:
+            states.append(rs.standard_normal((rows,) + s).astype(dt))
+    tok = rs.randint(GPT2_SMALL["vocab_size"], size=(rows, 1)).astype("int32")
+    out, numbers = {}, {}
+    for graphs in (False, True):
+        store, sess = decode_stack(net, rows, PAGE_TOKENS, [1, 2, 4, 8],
+                                   graphs=graphs)
+        logits, news = sess.step(tok, states=states)
+        out[graphs] = [logits.asnumpy()] + [n.asnumpy() for n in news]
+        sids = [f"g{i}" for i in range(rows)]
+        for sid in sids:
+            store.open(sid)
+        numbers["graphs" if graphs else "eager"] = profile_steps(
+            store, sess, sids, 10, SEED)
+        sess.close()
+        store.close()
+        del sess, store
+        torch.cuda.empty_cache()
+    errs = [float(onp.abs(a.astype("float64") - b).max())
+            for a, b in zip(out[False], out[True])]
+    bitwise = all(onp.array_equal(a, b) for a, b in zip(out[False],
+                                                          out[True]))
+    print(f"one step at {rows} rows, eager against replayed graph: "
+          f"{'bitwise equal' if bitwise else 'not bitwise'}; max_abs_err "
+          f"logits {errs[0]:.3e}, states {max(errs[1:]):.3e}")
+    if not all(onp.isfinite(a).all() for a in out[True]) or \
+            not max(errs) <= GRAPH_TOL:
+        raise RuntimeError(f"graph replay differs from the eager step by "
+                           f"{max(errs)} (> {GRAPH_TOL})")
+    for mode, row in numbers.items():
+        print(f"  {mode} " + json.dumps({
+            k: row[k] for k in (
+                "wall_ms_per_step", "device_busy_ms_per_step",
+                "device_idle_share", "device_ops_per_step",
+                "host_launches_per_step")}))
+    return {"bitwise": bitwise, "max_abs_err": max(errs), **numbers}
+
+
+def _http(port, method, path, body=None, headers=None):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def _http_step(port, sid, tok, slo_class="standard"):
+    code, hdr, body = _http(
+        port, "POST", "/models/lm/predict",
+        json.dumps({"data": [[int(tok)]]}).encode(),
+        {"Content-Type": "application/json", "X-Session-Id": sid,
+         "X-SLO-Class": slo_class, "X-Request-Id": f"{sid}-{tok}"})
+    return code, hdr, body
+
+
+def _http_round(port, streams, k):
+    """Step k of every stream, concurrently over HTTP; returns
+    {sid: logits}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(streams)) as ex:
+        futs = {sid: ex.submit(_http_step, port, sid, toks[k])
+                for sid, toks in streams.items()}
+        out = {}
+        for sid, f in futs.items():
+            code, hdr, body = f.result()
+            if code != 200:
+                raise RuntimeError(f"{sid} step {k}: HTTP {code} {body!r}")
+            out[sid] = onp.asarray(json.loads(body)["outputs"][0],
+                                   "float32")
+    return out
+
+
+def http_phase(net):
+    phase("20 HTTP")
+    rs = onp.random.RandomState(SEED + 20)
+    streams = {f"h{i}": [int(t) for t in rs.randint(
+        GPT2_SMALL["vocab_size"], size=HTTP_STEPS)]
+        for i in range(HTTP_STREAMS)}
+
+    def version():
+        # one bucket: every step runs the same shapes whichever streams
+        # share it, so the two runs are comparable bit for bit
+        return decode_stack(net, HTTP_STREAMS, PAGE_TOKENS,
+                            [HTTP_STREAMS])[1]
+
+    # the admission controllers' latency signal reads each version's p99
+    # against this SLO; the shed checked here is the forced one
+    os.environ["MXNET_SERVING_SLO_MS"] = "10000"
+    runs = {}
+    for promote in (False, True):
+        repo = serving.ModelRepository(max_latency_ms=2.0,
+                                       timeout_ms=300000,
+                                       canary_min_requests=10 ** 9)
+        repo.deploy("lm", version())
+        srv = serving.ModelServer(repository=repo, port=0).start()
+        try:
+            got = {sid: [] for sid in streams}
+            for k in range(HTTP_STEPS):
+                if promote and k == HTTP_PROMOTE_AT:
+                    repo.deploy("lm", version())
+                    serving.METRICS.reset()
+                    # promote while this round is in flight: it waits
+                    # for the incumbent's accepted steps, then migrates
+                    import threading
+
+                    t = threading.Thread(target=repo.promote, args=("lm",))
+                    t.start()
+                    step = _http_round(srv.port, streams, k)
+                    t.join(300)
+                    resumed = serving.METRICS.snapshot()["resumed_sessions"]
+                else:
+                    step = _http_round(srv.port, streams, k)
+                for sid, v in step.items():
+                    got[sid].append(v)
+            if promote:
+                with faults.inject("serving_admission", every=1):
+                    shed = _http_step(srv.port, "shed-me", 1, "best_effort")
+                    kept = _http_step(srv.port, "keep-me", 1, "critical")
+                code, _, body = _http(srv.port, "GET", "/metrics")
+                metrics = body.decode()
+                _, _, health = _http(srv.port, "GET", "/healthz")
+                states = repo.model_states()["lm"]
+        finally:
+            srv.stop()
+        runs[promote] = got
+    del os.environ["MXNET_SERVING_SLO_MS"]
+    for sid in streams:
+        for k, (a, b) in enumerate(zip(runs[False][sid], runs[True][sid])):
+            if not onp.array_equal(a, b):
+                raise RuntimeError(
+                    f"{sid} step {k}: logits after the promote differ from "
+                    f"the run without one by {onp.abs(a - b).max()}")
+    if resumed != HTTP_STREAMS or states["active_version"] != 2:
+        raise RuntimeError(f"promote migrated {resumed} sessions, active "
+                           f"v{states['active_version']}")
+    print(f"{HTTP_STREAMS} streams x {HTTP_STEPS} steps over HTTP; v2 "
+          f"promoted at step {HTTP_PROMOTE_AT} with a round in flight: "
+          f"resumed_sessions {resumed}, every logit bitwise equal to the "
+          "run without a promote")
+    code, hdr, body = shed
+    if code != 503 or float(hdr.get("Retry-After", 0)) <= 0:
+        raise RuntimeError(f"best_effort under an admission fault: HTTP "
+                           f"{code} {hdr}")
+    if kept[0] != 200:
+        raise RuntimeError(f"critical under an admission fault: HTTP "
+                           f"{kept[0]} {kept[2]!r}")
+    print(f"under faults.inject('serving_admission', every=1): best_effort "
+          f"HTTP {code}, Retry-After {hdr['Retry-After']}; critical HTTP "
+          f"{kept[0]}")
+    fams = sorted({line.split("{")[0] for line in metrics.splitlines()
+                   if 'slo_class="' in line})
+    if not fams:
+        raise RuntimeError("/metrics carries no slo_class family")
+    print(f"/metrics slo_class families: {fams}")
+    print(f"/healthz: {json.loads(health)['status']}")
+    torch.cuda.empty_cache()
+    return {"resumed_sessions": resumed, "shed_status": code,
+            "critical_status": kept[0], "slo_class_families": len(fams)}
+
+
+def conv_default_flags_phase():
+    phase("21 convolution at torch's default flags")
+    # torch's defaults, whatever an earlier phase set: the port must hold
+    # float32 convolutions to float32 on its own
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.benchmark = False
+    print(f"torch.backends.cudnn.allow_tf32 = "
+          f"{torch.backends.cudnn.allow_tf32}, torch.backends.cudnn."
+          f"benchmark = {torch.backends.cudnn.benchmark}")
+    report = resnet_cpu_compare()
+    worst = max(v for k, v in report.items() if not k.endswith(":loss"))
+    print(f"worst gradient deviation {worst:.3e} of its largest entry "
+          f"(allowed rtol {CPU_RTOL})")
+    return report
+
+
+def k4_floor_phase():
+    phase("22 K4 launch floor")
+    mod = rtc.CudaModule('extern "C" __global__ void mxtt_empty() {}')
+    kernel = mod.get_kernel("mxtt_empty", "")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+
+    def launch():
+        kernel.launch([], mx.gpu(0), (1, 1, 1), (32, 1, 1))
+
+    ms = time_ms(launch, flush)
+    del flush
+    row = {"ms": ms, "bound_ms": 0.0, "bound_by": "bytes",
+           "note": "an empty kernel: the device time of one launch"}
+    print("  empty rtc kernel " + json.dumps(row))
+    return row
 
 
 def kernel_entry(name, source, replaces, launches, worst, row, shape, smi,
@@ -1403,15 +1832,27 @@ def main():
     net, (k4_fwd_n, k4_bwd_n), _ = resnet_phase()
     resnet_vs_cpu_phase(net)
     del net
+    torch.cuda.empty_cache()
+    net = decode_net()
+    k2_paged_launches, _ = paged_serving_phase(net)
+    graph_vs_eager_phase(net)
+    http_phase(net)
+    del net
+    torch.cuda.empty_cache()
+    conv_default_flags_phase()
+    k4_floor = k4_floor_phase()
     big = k2_rows[-1]
     k3_big = k3_rows[0]
     kernels = [
         kernel_entry(
             KERNEL, "mxnet_tpu_torch/csrc/decode_attention.cu",
-            "mxnet_tpu/kernels/flash_attention.py:137", k2_launches,
-            k2_worst, big, f"B={big['B']} H={big['H']} S={big['S']} "
+            "mxnet_tpu/kernels/flash_attention.py:137",
+            k2_launches + k2_paged_launches, k2_worst, big,
+            f"B={big['B']} H={big['H']} S={big['S']} "
             f"D={big['D']} visible={big['visible']} fp32", smi,
-            splits=big["splits"], by_batch=k2_rows),
+            splits=big["splits"], by_batch=k2_rows,
+            launches_by_path={"serving": k2_launches,
+                              "paged_serving": k2_paged_launches}),
         # K1's headline numbers are the training shape's; the fusion
         # route's shape has its own row under "fusion_route"
         kernel_entry(
@@ -1438,7 +1879,8 @@ def main():
             "(FWD_SRC, via mxnet_tpu_torch/rtc.py)", "mxnet_tpu/rtc.py:19",
             k4_fwd_n, k4_worst, k4_fwd, f"B={k4_fwd['B']} C={k4_fwd['C']} "
             "fp32", smi, route_detail="NVRTC sm_90a, cuLaunchKernel",
-            library_calls="torch.softmax", launcher=k4_double),
+            library_calls="torch.softmax", launcher=k4_double,
+            launch_floor=k4_floor),
         kernel_entry(
             pr.BWD_KERNEL, "mxnet_tpu_torch/tools/profile_resnet.py "
             "(BWD_SRC, via mxnet_tpu_torch/rtc.py)", "mxnet_tpu/rtc.py:19",
@@ -1446,7 +1888,7 @@ def main():
             "fp32", smi, route_detail="NVRTC sm_90a, cuLaunchKernel",
             library_calls=None),
     ]
-    phase("18 report")
+    phase("23 report")
     print(f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -166,9 +166,13 @@ def backward(heads, head_grads=None, retain_graph=False):
                   if a._grad_req != "null" and a._data.requires_grad]
     if not marked:
         return
-    grads = torch.autograd.grad(outs, [a._data for a in marked],
-                                grad_outputs=seeds, retain_graph=retain_graph,
-                                allow_unused=True)
+    from .ndarray.ops_nn import cudnn_fp32
+
+    with cudnn_fp32():  # convolutions' backward in float32, as forward
+        grads = torch.autograd.grad(outs, [a._data for a in marked],
+                                    grad_outputs=seeds,
+                                    retain_graph=retain_graph,
+                                    allow_unused=True)
     with torch.no_grad():
         for var, g in zip(marked, grads):
             if g is None:  # not reached: keeps its old gradient

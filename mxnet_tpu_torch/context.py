@@ -114,3 +114,13 @@ def resolve_device(ctx=None):
     elif not isinstance(ctx, Context):
         ctx = Context.from_device(ctx)
     return ctx.torch_device
+
+
+def host_to_device(t, device):
+    """A host tensor on ``device``. To a CUDA device the copy goes through
+    pinned memory without blocking the host (a copy from pageable memory
+    waits for the stream); torch keeps the pinned block until the copy
+    has run."""
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

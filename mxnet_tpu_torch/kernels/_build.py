@@ -20,6 +20,7 @@ with no CUDA toolkit.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -31,7 +32,8 @@ import time
 from ..base import MXNetError
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "sources", "build_all",
-           "load", "count_launch", "launch_counts", "reset_launch_counts"]
+           "load", "count_launch", "launch_counts", "reset_launch_counts",
+           "recording_launches", "count_replay"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -49,6 +51,8 @@ _LIBS = {}  # source name -> ctypes.CDLL
 # guards: _LAUNCHES
 _COUNT_LOCK = threading.Lock()
 _LAUNCHES = {}  # kernel name -> launches since the last reset
+# a thread's launch record while it captures a CUDA graph (None otherwise)
+_RECORDING = threading.local()
 
 
 def sources():
@@ -139,9 +143,38 @@ def load(name):
 
 def count_launch(name):
     """Record one launch of kernel ``name`` (called by its wrapper right
-    where the kernel is launched, and nowhere else)."""
+    where the kernel is launched, and nowhere else). Inside
+    :func:`recording_launches` the launch goes into the graph being
+    captured, not to the device, so it is noted in that record instead;
+    :func:`count_replay` counts it each time the graph runs."""
+    rec = getattr(_RECORDING, "launches", None)
+    if rec is not None:
+        rec[name] = rec.get(name, 0) + 1
+        return
     with _COUNT_LOCK:
         _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Around a CUDA-graph capture on this thread: yields the dict
+    ``{kernel name: launches}`` that the captured work recorded, and
+    counts none of them as launched."""
+    if getattr(_RECORDING, "launches", None) is not None:
+        raise MXNetError("recording_launches does not nest")
+    _RECORDING.launches = rec = {}
+    try:
+        yield rec
+    finally:
+        _RECORDING.launches = None
+
+
+def count_replay(record):
+    """Count one replay of a captured graph whose capture recorded
+    ``record`` (from :func:`recording_launches`)."""
+    with _COUNT_LOCK:
+        for name, n in record.items():
+            _LAUNCHES[name] = _LAUNCHES.get(name, 0) + n
 
 
 def launch_counts():

@@ -13,6 +13,7 @@ package load and run here with the same keyword arguments.
 """
 from __future__ import annotations
 
+import inspect
 import math
 
 import torch
@@ -20,7 +21,7 @@ import torch.nn.functional as F
 
 from .. import autograd
 from .. import random as _random
-from ..base import MXNetError
+from ..base import MXNetError, getenv
 from .registry import register
 
 
@@ -39,6 +40,26 @@ def fully_connected(data, weight, bias=None, num_hidden=0, no_bias=False,
     if flatten and data.dim() > 2:
         data = data.reshape(data.shape[0], -1)
     return F.linear(data, weight, None if no_bias else bias)
+
+
+# torch versions that have the fp32_precision settings take "ieee" for
+# float32 as float32; the older ones only know allow_tf32
+_IEEE = {"fp32_precision": "ieee"} if "fp32_precision" in \
+    inspect.signature(torch.backends.cudnn.flags).parameters else {}
+
+
+def cudnn_fp32():
+    """The scope the port's cuDNN work runs in, forward (``convolution``)
+    and backward (``autograd.backward``): float32 stays float32 — no
+    TF32, whatever torch's global ``cudnn.allow_tf32`` says (its default
+    is True) — and cuDNN autotunes its algorithms as
+    ``MXNET_CUDNN_AUTOTUNE_DEFAULT`` says: 0 off, 1 or 2 on (MXNet's
+    default, 1). cuDNN's other flags keep their global values."""
+    return torch.backends.cudnn.flags(
+        enabled=torch.backends.cudnn.enabled,
+        benchmark=getenv("MXNET_CUDNN_AUTOTUNE_DEFAULT", 1, int) > 0,
+        deterministic=torch.backends.cudnn.deterministic,
+        allow_tf32=False, **_IEEE)
 
 
 # channel-last layouts: the weight rides as (O, *spatial, I/g), as in the
@@ -68,9 +89,10 @@ def convolution(data, weight, bias=None, kernel=None, stride=None, dilate=None,
     if channel_last:
         data = data.movedim(-1, 1)
         weight = weight.movedim(-1, 1)
-    out = _CONV[nd](data, weight, None if no_bias else bias,
-                    _tup(stride or 1, nd), _tup(pad or 0, nd),
-                    _tup(dilate or 1, nd), num_group)
+    with cudnn_fp32():
+        out = _CONV[nd](data, weight, None if no_bias else bias,
+                        _tup(stride or 1, nd), _tup(pad or 0, nd),
+                        _tup(dilate or 1, nd), num_group)
     if channel_last:
         out = out.movedim(1, -1).contiguous()
     return out

@@ -1,32 +1,44 @@
-"""Continuous batching of decode steps over a stateful InferenceSession.
+"""Dynamic batching over an InferenceSession, with SLO classes.
 
-The PyTorch counterpart of the stateful half of
-``mxnet_tpu/serving/batcher.py:204-296,627-819``. Each ``submit`` is ONE
-decode step of the stream named by ``session_id``; a single step-loop
-thread keeps per-session FIFO queues and, between decode steps,
-re-forms the executing batch from the head step of every live session:
-streams JOIN the batch the moment they arrive and LEAVE the moment
-their queue empties. One fused step per iteration: acquire each
-stream's slot in the session's :class:`~.state.SessionStateStore`,
-gather the slots, run the occupancy-bucket step, scatter the new states
-back, release the slots, resolve each step's future with its output row
-as host numpy.
+The PyTorch counterpart of ``mxnet_tpu/serving/batcher.py``. Requests
+land on per-SLO-class priority lanes (:class:`_ClassQueues`: ``critical``
+before ``standard`` before ``best_effort``, each lane bounded on its
+own; a full lane raises :class:`ServerBusy`). An
+:class:`~.admission.AdmissionController` may shed sheddable classes at
+``submit`` before they take a queue slot.
 
-Failure isolation: a failure tied to one session (an evicted slot, a
-full pool) rejects only that session's future; a failure of the step
-itself rejects every member of that step and leaves every state at its
-last completed step. A step that outlives its deadline (``timeout_ms``)
-fails with :class:`RequestTimeout` without executing; its session state
-stays put, so it can be retried.
+Two disciplines, chosen by the session:
 
-``close()`` drains every accepted step to its boundary; a submit after
-close runs inline. SLO classes, admission control and telemetry come
-with a later slice.
+- **Stateless** (``predict`` sessions): workers pop the highest lane,
+  coalesce requests until ``max_batch_size`` rows or the oldest
+  request's ``max_latency_ms`` (never past the earliest member deadline
+  less the execution estimate), run ONE ``session.predict`` over the
+  concatenated rows and slice each request's rows back.
+- **Stateful** (decode sessions, ``state_store=``): each ``submit`` is
+  ONE decode step of the stream named by ``session_id``. A single
+  step-loop thread keeps per-session FIFO queues and, between steps,
+  re-forms the batch from the head step of every live session: streams
+  JOIN the moment they arrive and LEAVE when their queue empties. Under
+  contention higher classes win membership. Each step acquires the
+  streams' slots, runs the session's store step (gather, the bucket's
+  step, scatter), releases the slots and resolves each future with its
+  output row as host numpy.
+
+Failure isolation: a malformed request fails alone at ``submit``
+(``ValueError``); a failure tied to one session (an evicted slot, a full
+pool) rejects only that session's future; a failure of the step itself
+rejects every member and leaves every state at its last completed step.
+A request that outlives its deadline fails with :class:`RequestTimeout`
+without executing (its session state stays put, so it can be retried).
+
+``close()`` stops accepting queued work, drains every accepted request
+to its boundary and joins the workers; afterwards, or with
+``MXNET_SERVING=0``, ``submit`` runs inline. Telemetry spans and the
+session-state checkpoint at close come with a later slice.
 """
 from __future__ import annotations
 
 import logging
-import os
 import queue
 import threading
 import time
@@ -35,109 +47,235 @@ from concurrent.futures import Future
 
 import numpy as onp
 
-from ..base import MXNetError
+from ..base import MXNetError, getenv
 from ..ndarray import NDArray
-from .metrics import METRICS
+from .metrics import METRICS, SLO_CLASSES
 
 __all__ = ["DynamicBatcher", "ServerBusy", "RequestTimeout"]
 
 
 class ServerBusy(MXNetError):
-    """The request queue or the state pool is full; retry later."""
+    """The request queue or the state pool is full; retry later (HTTP
+    503)."""
 
 
 class RequestTimeout(MXNetError):
-    """The request outlived its deadline before execution."""
+    """The request outlived its deadline before execution (HTTP 504)."""
 
 
-_STOP = object()  # queue sentinel, put once at close()
+_STOP = object()  # queue sentinel, one per worker at close()
 
 
 class _Request:
-    __slots__ = ("arrs", "future", "t_submit", "deadline", "session_id")
+    __slots__ = ("arrs", "rows", "future", "t_submit", "deadline",
+                 "slo_class", "session_id")
 
-    def __init__(self, arrs, deadline, session_id):
-        self.arrs = arrs  # list of host arrays, one row each
+    def __init__(self, arrs, rows, deadline, slo_class="standard",
+                 session_id=None):
+        self.arrs = arrs  # list of host arrays, one per session input
+        self.rows = rows
         self.future = Future()
         self.t_submit = time.monotonic()
         self.deadline = deadline
-        self.session_id = session_id
+        self.slo_class = slo_class
+        self.session_id = session_id  # stateful: one step of this stream
 
     def expired(self, now=None):
         return self.deadline is not None and \
             (now if now is not None else time.monotonic()) > self.deadline
 
 
-def _env_float(name, default):
-    raw = os.environ.get(name)
-    return float(raw) if raw not in (None, "") else default
+class _ClassQueues:
+    """Per-SLO-class priority lanes behind one condition variable.
+
+    The slice of the ``queue.Queue`` API the batcher uses (``put`` /
+    ``put_nowait`` / ``get`` / ``get_nowait`` / ``qsize`` / ``maxsize``,
+    raising ``queue.Full`` / ``queue.Empty``), but ``get`` pops the
+    highest-priority non-empty lane, each lane is bounded on its own
+    (``maxsize`` per class: a best-effort flood never crowds critical
+    requests out), and ``_STOP`` sentinels ride an unbounded control
+    lane delivered only once every data lane is empty — so ``close()``
+    drains all accepted work, whatever its class."""
+
+    __slots__ = ("maxsize", "_order", "_lanes", "_ctrl", "_cond")
+
+    def __init__(self, maxsize, classes=SLO_CLASSES):
+        self.maxsize = int(maxsize)
+        self._order = {c: i for i, c in enumerate(classes)}
+        self._lanes = [deque() for _ in classes]
+        self._ctrl = deque()
+        # guards: _lanes, _ctrl
+        self._cond = threading.Condition()
+
+    def _lane_locked(self, item):
+        cls = getattr(item, "slo_class", "standard")
+        return self._lanes[self._order.get(cls, 1)]
+
+    def put(self, item, timeout=None):
+        """Append to the item's class lane; ``timeout=None`` blocks,
+        ``timeout=0`` is the non-blocking put."""
+        with self._cond:
+            if item is _STOP:
+                self._ctrl.append(item)
+                self._cond.notify_all()
+                return
+            lane = self._lane_locked(item)
+            deadline = None if timeout is None else \
+                time.monotonic() + timeout
+            while len(lane) >= self.maxsize:
+                if deadline is None:
+                    self._cond.wait()
+                else:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        raise queue.Full
+                    self._cond.wait(remaining)
+            lane.append(item)
+            self._cond.notify_all()
+
+    def put_nowait(self, item):
+        self.put(item, timeout=0)
+
+    def get(self, timeout=None):
+        """Pop the highest-priority non-empty lane; sentinels only when
+        every data lane is empty."""
+        with self._cond:
+            deadline = None if timeout is None else \
+                time.monotonic() + timeout
+            while True:
+                for lane in self._lanes:
+                    if lane:
+                        item = lane.popleft()
+                        self._cond.notify_all()
+                        return item
+                if self._ctrl:
+                    return self._ctrl.popleft()
+                if deadline is None:
+                    self._cond.wait()
+                else:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        raise queue.Empty
+                    self._cond.wait(remaining)
+
+    def get_nowait(self):
+        return self.get(timeout=0)
+
+    def qsize(self):
+        with self._cond:
+            return sum(len(lane) for lane in self._lanes)
+
+    def qsize_by_class(self):
+        with self._cond:
+            return {c: len(self._lanes[i]) for c, i in self._order.items()}
+
+    def capacity(self):
+        return self.maxsize * len(self._lanes)
 
 
 class DynamicBatcher:
-    """Continuous batcher over a stateful InferenceSession.
+    """Bounded-queue dynamic batcher over an InferenceSession.
 
     Parameters (defaults from their ``MXNET_SERVING_*`` knobs)
     ----------
-    session : a stateful InferenceSession (``state_store=`` or
-        ``state_shapes=``)
-    max_batch_size : int — most sessions in one step (capped at the
-        session's ``max_batch``; default 32)
-    max_latency_ms : float — how long an under-occupied step waits for
-        joiners, from its oldest member's submit (default 5)
-    max_queue : int — bound on queued steps (default 256)
-    timeout_ms : float — per-step deadline; <= 0 disables (default 2000)
-    admission : None or False — SLO admission control is not ported
-        yet; ``True`` raises
+    session : InferenceSession (or any object with ``validate`` /
+        ``predict`` and a ``max_batch`` property); a stateful session
+        gets the continuous-batching step loop
+    max_batch_size : int — rows per execution (capped at the session's
+        ``max_batch``; default 32)
+    max_latency_ms : float — how long a forming batch waits for company,
+        from its oldest member's submit (default 5)
+    max_queue : int — bound on queued requests PER SLO class (default
+        256)
+    timeout_ms : float — default per-request deadline; <= 0 disables
+        (default 2000)
+    num_workers : int — batch-forming threads of a stateless batcher
+        (default 1; a stateful one always has one step loop)
+    admission : bool | None — SLO admission control (None reads
+        ``MXNET_SERVING_ADMISSION``, default on)
     """
 
     def __init__(self, session, max_batch_size=None, max_latency_ms=None,
-                 max_queue=None, timeout_ms=None, admission=None):
-        if not getattr(session, "stateful", False):
-            raise MXNetError("DynamicBatcher needs a stateful session "
-                             "(state_store= or state_shapes=); stateless "
-                             "batching is not ported yet")
-        if admission:
-            raise MXNetError("admission control is not ported yet; pass "
-                             "admission=False")
+                 max_queue=None, timeout_ms=None, num_workers=None,
+                 admission=None):
+        from . import serving_enabled
+
         self.session = session
-        self._max_batch = min(
-            int(max_batch_size or _env_float("MXNET_SERVING_MAX_BATCH", 32)),
-            int(session.max_batch))
+        self._stateful = bool(getattr(session, "stateful", False))
+        self._max_batch = int(max_batch_size or getenv(
+            "MXNET_SERVING_MAX_BATCH", 32, int))
+        sess_max = getattr(session, "max_batch", None)
+        if sess_max:
+            self._max_batch = min(self._max_batch, int(sess_max))
         self._max_latency_s = float(
             max_latency_ms if max_latency_ms is not None else
-            _env_float("MXNET_SERVING_MAX_LATENCY_MS", 5.0)) / 1e3
+            getenv("MXNET_SERVING_MAX_LATENCY_MS", 5.0, float)) / 1e3
         self._timeout_s = float(
             timeout_ms if timeout_ms is not None else
-            _env_float("MXNET_SERVING_TIMEOUT_MS", 2000.0)) / 1e3
-        self._queue = queue.Queue(int(
-            max_queue or _env_float("MXNET_SERVING_QUEUE_DEPTH", 256)))
-        # guards: _closed
-        self._lock = threading.Lock()
+            getenv("MXNET_SERVING_TIMEOUT_MS", 2000.0, float)) / 1e3
+        nworkers = 1 if self._stateful else int(
+            num_workers or getenv("MXNET_SERVING_WORKERS", 1, int))
+        self._queue = _ClassQueues(int(
+            max_queue or getenv("MXNET_SERVING_QUEUE_DEPTH", 256, int)))
+        # guards: _closed, _outstanding
+        self._lock = threading.Condition()
         self._closed = False
-        # continuous batching is a single-scheduler discipline: one
-        # step-loop thread owns batch membership, which is what makes
-        # session affinity hold by construction
-        self._worker = threading.Thread(target=self._step_loop,
-                                        name="mxnet-serving-step-loop",
-                                        daemon=True)
-        self._worker.start()
+        self._outstanding = 0  # queued requests not yet resolved
+        self._pass_through = not serving_enabled()
+        self._admission = None
+        self._workers = []
+        if not self._pass_through:
+            from .admission import AdmissionController
+
+            self._admission = AdmissionController(self, enabled=admission)
+            # continuous batching is a single-scheduler discipline: one
+            # step-loop thread owns batch membership, which is what
+            # makes session affinity hold by construction
+            loop = self._step_loop if self._stateful else self._worker_loop
+            for i in range(max(nworkers, 1)):
+                t = threading.Thread(target=loop,
+                                     name=f"mxnet-serving-batcher-{i}",
+                                     daemon=True)
+                t.start()
+                self._workers.append(t)
+        self._depth_token = METRICS.register_depth_probe(
+            self._queue.qsize)
 
     # -- client side ---------------------------------------------------
 
-    def submit(self, *inputs, session_id=None, timeout_ms=None):
-        """Validate and enqueue one decode step of ``session_id`` (one
-        row per input); returns a ``concurrent.futures.Future`` resolving
-        to the step's output row(s) as host numpy arrays. Validation
-        failures raise ``ValueError`` here; a full queue raises
-        :class:`ServerBusy`. After ``close()`` the step runs inline."""
+    def submit(self, *inputs, timeout_ms=None, block=False,
+               slo_class=None, session_id=None):
+        """Validate and enqueue one request; returns a
+        ``concurrent.futures.Future`` resolving to the request's output
+        rows as host numpy arrays (one array, or a tuple for
+        multi-output models). Validation failures raise ``ValueError``
+        here. ``slo_class`` is one of :data:`SLO_CLASSES` (default
+        "standard"); when SLO headroom says the protected class is at
+        risk, sheddable classes raise :class:`~.admission.ShedLoad`
+        before taking a queue slot. A full class lane raises
+        :class:`ServerBusy` (or blocks with ``block=True``). After
+        ``close()`` / under ``MXNET_SERVING=0`` the request runs inline.
+
+        Stateful batchers: every submit is ONE decode step of the
+        stream ``session_id`` (required, one row); the future resolves
+        to that step's output row(s), and a reclaimed slot rejects with
+        :class:`~.state.SessionEvicted` on exactly this stream."""
+        from .admission import normalize_class
+
+        cls = normalize_class(slo_class)
         METRICS.bump("requests")
+        METRICS.bump_class("requests", cls)
         try:
-            if session_id is None:
-                raise ValueError("stateful serving: submit needs "
-                                 "session_id= (one decode step of one "
-                                 "session)")
+            if self._stateful:
+                if session_id is None:
+                    raise ValueError("stateful serving: submit needs "
+                                     "session_id= (one decode step of one "
+                                     "session)")
+            elif session_id is not None:
+                raise ValueError("session_id= requires a stateful "
+                                 "session (state_shapes=)")
             arrs, rows = self.session.validate(*inputs)
-            if rows != 1:
+            if self._stateful and rows != 1:
                 raise ValueError(
                     f"stateful serving: one decode step is one row (got "
                     f"{rows}); stream steps, not batches")
@@ -146,32 +284,229 @@ class DynamicBatcher:
         except ValueError:
             METRICS.bump("invalid")
             raise
+        if rows > self._max_batch:
+            METRICS.bump("invalid")
+            raise ValueError(f"request batch {rows} exceeds max_batch_size "
+                             f"{self._max_batch}; split the request")
         t = self._timeout_s if timeout_ms is None else \
             float(timeout_ms) / 1e3
-        req = _Request(arrs, time.monotonic() + t if t > 0 else None,
-                       str(session_id))
+        req = _Request(arrs, rows, time.monotonic() + t if t > 0 else None,
+                       cls, None if session_id is None else str(session_id))
         with self._lock:
-            inline = self._closed
-            if not inline:
+            inline = self._closed or self._pass_through
+        if inline:
+            METRICS.bump("inline")
+            self._run_inline(req)
+            return req.future
+        if self._admission is not None:
+            # a step that must ALLOCATE a state slot competes for pool
+            # space; steps of live sessions never pay the slot term
+            allocates = self._stateful and \
+                not self.session.state_store.has(req.session_id)
+            self._admission.check(cls, allocates_state=allocates)
+        with self._lock:
+            self._outstanding += 1
+        try:
+            if block:
+                # bounded waits that re-check _closed: a blocking put on
+                # a full queue whose consumers close() just joined would
+                # otherwise wait forever
+                while True:
+                    try:
+                        self._queue.put(req, timeout=0.05)
+                        break
+                    except queue.Full:
+                        with self._lock:
+                            closed = self._closed
+                        if closed:
+                            self._settle(1)
+                            METRICS.bump("inline")
+                            self._run_inline(req)
+                            return req.future
+            else:
                 try:
                     self._queue.put_nowait(req)
                 except queue.Full:
                     METRICS.bump("rejected")
                     raise ServerBusy(
-                        f"serving queue full ({self._queue.maxsize} "
-                        "steps); backpressure — retry later") from None
-        if inline:
-            METRICS.bump("inline")
-            self._execute_step_batch([req])
+                        f"serving queue full ({self._queue.maxsize} {cls} "
+                        "requests); backpressure — retry later") from None
+        except BaseException:
+            self._settle(1)
+            raise
+        # close() may have finished between the _closed check and the
+        # put: nobody would consume this request, so drain it here
+        # (get_nowait is atomic: racing drains never double-execute)
+        with self._lock:
+            orphaned = self._closed
+        if orphaned:
+            self._drain_queue()
         return req.future
 
-    # -- the step loop -------------------------------------------------
+    def predict(self, *inputs, timeout_ms=None, slo_class=None,
+                session_id=None):
+        """Blocking ``submit(...).result()``, the wait bounded by the
+        request deadline plus execution slack."""
+        fut = self.submit(*inputs, timeout_ms=timeout_ms,
+                          slo_class=slo_class, session_id=session_id)
+        t = self._timeout_s if timeout_ms is None else \
+            float(timeout_ms) / 1e3
+        return fut.result(timeout=(t + 60.0) if t > 0 else None)
+
+    def qsize(self):
+        return self._queue.qsize()
+
+    def qsize_by_class(self):
+        """Live queue depth per SLO class (``/healthz``)."""
+        return self._queue.qsize_by_class()
+
+    def queue_capacity(self):
+        """Queued-request capacity across the class lanes (the admission
+        controller's queue-headroom denominator)."""
+        return self._queue.capacity()
+
+    @property
+    def admission(self):
+        """The batcher's AdmissionController (None when pass-through)."""
+        return self._admission
+
+    def wait_idle(self, timeout=None):
+        """Wait until every queued request has resolved (the repository
+        quiesces an incumbent this way before migrating its sessions).
+        Returns False if ``timeout`` seconds passed first."""
+        with self._lock:
+            return self._lock.wait_for(lambda: self._outstanding == 0,
+                                       timeout)
+
+    # -- resolving requests --------------------------------------------
+
+    def _settle(self, n):
+        with self._lock:
+            self._outstanding -= n
+            if self._outstanding == 0:
+                self._lock.notify_all()
+
+    def _fail(self, r, err, now=None, timed_out=False):
+        if r.future.set_running_or_notify_cancel():
+            r.future.set_exception(err)
+        METRICS.observe_request(
+            (now or time.monotonic()) - r.t_submit, failed=True,
+            timed_out=timed_out, slo_class=r.slo_class, met_deadline=False)
+
+    def _succeed(self, r, rows, now):
+        if r.future.set_running_or_notify_cancel():
+            r.future.set_result(rows[0] if len(rows) == 1 else rows)
+        METRICS.observe_request(
+            now - r.t_submit, slo_class=r.slo_class,
+            met_deadline=r.deadline is None or now <= r.deadline)
+
+    def _fail_timeout(self, req):
+        budget_ms = (req.deadline - req.t_submit) * 1e3
+        self._fail(req, RequestTimeout(
+            f"request expired after {budget_ms:.0f} ms in queue"),
+            timed_out=True)
+
+    def _run_inline(self, req):
+        if self._stateful:
+            self._execute_step_batch([req])
+        else:
+            self._execute([req])
+
+    # -- stateless workers ---------------------------------------------
+
+    def _worker_loop(self):
+        holdover = None
+        while True:
+            req = holdover if holdover is not None else self._queue.get()
+            holdover = None
+            if req is _STOP:
+                break
+            if req.expired():
+                self._fail_timeout(req)
+                self._settle(1)
+                continue
+            batch, rows = [req], req.rows
+            # the flush deadline runs from the oldest request's SUBMIT:
+            # past it the worker stops waiting but still drains what is
+            # queued; never past the earliest member deadline less the
+            # execution estimate
+            margin = METRICS.exec_estimate_s()
+            flush_at = req.t_submit + self._max_latency_s
+            if req.deadline is not None:
+                flush_at = min(flush_at, req.deadline - margin)
+            while rows < self._max_batch:
+                remaining = flush_at - time.monotonic()
+                try:
+                    nxt = self._queue.get_nowait() if remaining <= 0 \
+                        else self._queue.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if nxt is _STOP:
+                    holdover = nxt  # finish the formed batch first
+                    break
+                if nxt.expired():
+                    self._fail_timeout(nxt)
+                    self._settle(1)
+                    continue
+                if rows + nxt.rows > self._max_batch:
+                    holdover = nxt  # opens the next batch
+                    break
+                batch.append(nxt)
+                rows += nxt.rows
+                if nxt.deadline is not None:
+                    flush_at = min(flush_at, nxt.deadline - margin)
+            METRICS.observe_flush(time.monotonic() - batch[0].t_submit)
+            try:
+                self._execute(batch)
+            finally:
+                self._settle(len(batch))
+
+    def _execute(self, batch):
+        """One session execution over the batch's concatenated rows;
+        one device-to-host copy per output, numpy slices back per
+        request. A failure here is systemic (inputs were validated at
+        submit): it fails the whole batch."""
+        try:
+            arrs = batch[0].arrs if len(batch) == 1 else [
+                onp.concatenate([r.arrs[i] for r in batch], axis=0)
+                for i in range(len(batch[0].arrs))]
+            outs = self.session.predict(*arrs)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            host = [o.asnumpy() if isinstance(o, NDArray)
+                    else onp.asarray(o) for o in outs]
+            if len(batch) > 1:
+                # every output must be batch-major over exactly the
+                # coalesced rows, or slicing would hand one request
+                # another's data
+                total = sum(r.rows for r in batch)
+                bad = [i for i, h in enumerate(host)
+                       if not (h.ndim and h.shape[0] == total)]
+                if bad:
+                    raise MXNetError(
+                        f"output(s) {bad} are not batch-major over "
+                        f"{total} coalesced rows (shapes "
+                        f"{[host[i].shape for i in bad]}); batched serving "
+                        "needs row-independent outputs — use "
+                        "max_batch_size=1 or a direct InferenceSession")
+        except Exception as e:  # noqa: BLE001 — delivered per future
+            now = time.monotonic()
+            for r in batch:
+                self._fail(r, e, now)
+            return
+        offset, now = 0, time.monotonic()
+        for r in batch:
+            rows = tuple(host) if len(batch) == 1 else \
+                tuple(h[offset:offset + r.rows] for h in host)
+            offset += r.rows
+            self._succeed(r, rows, now)
+
+    # -- continuous batching (stateful sessions) -----------------------
 
     def _step_loop(self):
-        """Between decode steps, re-form the batch from the HEAD step
-        of every live session. Per-session FIFO queues keep each
-        stream's steps in order; one head per session per step keeps a
-        stream from ever sharing a step with itself."""
+        """Between decode steps, re-form the batch from the HEAD step of
+        every live session. Per-session FIFO queues keep each stream's
+        steps in order; one head per session per step keeps a stream
+        from ever sharing a step with itself."""
         pending = {}  # session_id -> deque[_Request] (FIFO per stream)
         arrival = deque()  # session_ids in join order
         stop = False
@@ -209,6 +544,7 @@ class DynamicBatcher:
                 q = pending[sid]
                 while q and q[0].expired(now):
                     self._fail_timeout(q.popleft())
+                    self._settle(1)
                 if not q:
                     del pending[sid]
                     arrival.remove(sid)
@@ -216,7 +552,12 @@ class DynamicBatcher:
                     heads.append(q[0])
             if not heads:
                 continue
-            heads = heads[:self._max_batch]
+            if len(heads) > self._max_batch:
+                # contention: higher SLO classes win membership; the
+                # stable sort keeps join order within a class
+                order = {c: i for i, c in enumerate(SLO_CLASSES)}
+                heads.sort(key=lambda r: order.get(r.slo_class, 1))
+                heads = heads[:self._max_batch]
             # coalescing window: an under-occupied step waits for
             # joiners until its oldest member's flush time (or deadline
             # less the expected step time), unless every live session
@@ -236,7 +577,12 @@ class DynamicBatcher:
                         continue  # re-form with the joiner aboard
                     except queue.Empty:
                         pass
-            self._execute_step_batch(heads)
+            METRICS.observe_flush(
+                time.monotonic() - min(r.t_submit for r in heads))
+            try:
+                self._execute_step_batch(heads)
+            finally:
+                self._settle(len(heads))
             for r in heads:
                 q = pending.get(r.session_id)
                 if q and q[0] is r:
@@ -244,11 +590,6 @@ class DynamicBatcher:
                 if q is not None and not q:
                     del pending[r.session_id]
                     arrival.remove(r.session_id)
-
-    def _reject(self, r, err):
-        if r.future.set_running_or_notify_cancel():
-            r.future.set_exception(err)
-        METRICS.observe_request(failed=True)
 
     def _execute_step_batch(self, batch):
         """One fused decode step over the batch's sessions. A failure
@@ -265,57 +606,69 @@ class DynamicBatcher:
                 recs.append(store.acquire(r.session_id))
                 live.append(r)
             except Exception as e:  # noqa: BLE001 — delivered per future
-                self._reject(r, e)
+                self._fail(r, e)
         if not live:
             return
         t0 = time.perf_counter()
         try:
-            arrs = [onp.concatenate([r.arrs[i] for r in live], axis=0)
-                    for i in range(len(live[0].arrs))]
-            states = store.gather(
-                recs, pad_to=self.session._bucket_for(len(live)))
-            outs, news = self.session._run_step(arrs, states, len(live),
-                                                adopted=True)
-            store.scatter(recs, news)
-            # one device->host copy per output; it also waits for the
-            # step, so a device fault surfaces here
-            host = [o.cpu().numpy() for o in outs]
+            arrs = live[0].arrs if len(live) == 1 else [
+                onp.concatenate([r.arrs[i] for r in live], axis=0)
+                for i in range(len(live[0].arrs))]
+            host = self.session._run_store_step(arrs, recs)
         except Exception as e:  # noqa: BLE001 — delivered per future
             logging.exception("serving: decode step failed for %d "
                               "session(s)", len(live))
             for rec in recs:
                 store.release(rec, stepped=False)
+            now = time.monotonic()
             for r in live:
-                self._reject(r, e)
+                self._fail(r, e, now)
             return
         for rec in recs:
             store.release(rec)
         METRICS.bump("decode_steps")
         METRICS.observe_batch(len(live), time.perf_counter() - t0)
+        now = time.monotonic()
         for i, r in enumerate(live):
-            rows = tuple(h[i:i + 1] for h in host)
-            if r.future.set_running_or_notify_cancel():
-                r.future.set_result(rows[0] if len(rows) == 1 else rows)
-            METRICS.observe_request()
-
-    def _fail_timeout(self, req):
-        if req.future.set_running_or_notify_cancel():
-            budget_ms = (req.deadline - req.t_submit) * 1e3
-            req.future.set_exception(RequestTimeout(
-                f"request expired after {budget_ms:.0f} ms in queue"))
-        METRICS.observe_request(failed=True, timed_out=True)
+            self._succeed(r, tuple(h[i:i + 1] for h in host), now)
 
     # -- lifecycle -----------------------------------------------------
 
     def close(self):
-        """Stop accepting queued work, run every accepted step to its
-        boundary, join the step loop. Idempotent."""
+        """Stop accepting queued work, run every accepted request to its
+        boundary, join the workers. Idempotent; later submits run
+        inline."""
         with self._lock:
             if self._closed:
                 return
             self._closed = True
+        for _ in self._workers:
             self._queue.put(_STOP)
-        self._worker.join()
+        for t in self._workers:
+            t.join()
+        self._workers = []
+        self._drain_queue()  # what a racing submit slipped in
+        METRICS.unregister_depth_probe(self._depth_token)
+        if self._admission is not None:
+            self._admission.close()
+
+    def _drain_queue(self):
+        """Pop and execute everything queued (skipping stray sentinels);
+        expired requests fail with RequestTimeout here too."""
+        while True:
+            try:
+                item = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if item is _STOP:
+                continue
+            try:
+                if item.expired():
+                    self._fail_timeout(item)
+                else:
+                    self._run_inline(item)
+            finally:
+                self._settle(1)
 
     def __enter__(self):
         return self

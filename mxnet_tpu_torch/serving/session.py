@@ -1,67 +1,129 @@
 """InferenceSession: a Block as a bucketed serving engine.
 
-The PyTorch counterpart of ``mxnet_tpu/serving/session.py:137-302,
-938-1014,1053-1188``. Without states a session serves stateless
-:meth:`~InferenceSession.predict`: each request is cut into chunks of at
-most ``max_batch`` rows, and each chunk runs the block's forward once,
-eagerly, in eval mode under ``torch.inference_mode()``, padded with zero
-rows to the smallest **batch bucket** that covers it; the padded rows'
-outputs are sliced off. Host (numpy) inputs are padded in numpy and
-uploaded once; device inputs are padded on the device
-(``kernels/serving_fused.pad_all``). :meth:`InferenceSession.load`
-builds a session from an export (``{prefix}-symbol.json`` and
-``{prefix}-{epoch:04d}.params``) through ``SymbolBlock.imports``, so
-``MXNET_GRAPH_OPT`` and the fusion pass apply to what it serves.
+The PyTorch counterpart of ``mxnet_tpu/serving/session.py``. Without
+states a session serves stateless :meth:`~InferenceSession.predict`:
+each request is cut into chunks of at most ``max_batch`` rows, and each
+chunk runs the block's forward once, eagerly, in eval mode under
+``torch.inference_mode()``, padded with zero rows to the smallest
+**batch bucket** that covers it (:func:`parse_buckets`,
+``MXNET_SERVING_BUCKETS``); the padded rows' outputs are sliced off.
+:meth:`InferenceSession.load` builds a session from an export through
+``SymbolBlock.imports``, so ``MXNET_GRAPH_OPT`` and the fusion pass
+apply to what it serves.
 
 A session built with ``state_store=`` (or ``state_shapes=``) runs the
 block's decode step
 
     forward(*inputs, *states) -> (*outputs, *new_states)
 
-eagerly, in eval mode under ``torch.inference_mode()``, padded to the
-smallest **occupancy bucket** that covers the live rows, as the
-reference pads to its step executables' buckets. Padding rows are zero
-inputs and zero states; they are sliced off before anyone reads them.
-:meth:`step` is the single-process API with explicit states;
-:class:`~.batcher.DynamicBatcher` drives :meth:`_run_step` with slots
-gathered from the session's :class:`~.state.SessionStateStore`.
+padded to the smallest **occupancy bucket** that covers the live rows.
+The reference compiles one step executable per occupancy bucket; the
+port's counterpart on a CUDA device is one **CUDA graph per bucket**,
+captured at :meth:`warmup` (or on first use) over static input tensors
+the session owns: one set of ``max_batch``-row buffers, whose leading
+``bucket`` rows each bucket's graph reads. A step loads its inputs into
+the buffers, gathers the live sessions' states into them
+(``SessionStateStore.gather(out=)``), replays the graph and scatters the
+new states back. The step never falls back: a capture or replay that
+fails raises, as the reference's step path is breaker-free. On a CPU
+context the step runs eagerly over the same buffers: the plain path the
+tests use. Padding rows are zero inputs and zero states, sliced off
+before anyone reads them.
 
 The port's decoder appends each step's K/V into the cache tensors it is
-handed, in place. So the session only ever hands it tensors it owns: a
-fresh copy of a caller's explicit states (the caller's tensors are never
-written), or the state store's gather output.
+handed, in place: here, the session's own buffers. Explicit states
+(:meth:`step`) are copied into them first, and what a step returns is
+copied out, so the caller's tensors are never written and never alias
+the buffers.
 
-Not ported yet: AOT artifacts and their disk cache (PyTorch runs
-eagerly; a CUDA graph is the later tool), circuit breakers, fault seams,
-sharded sessions and AMP.
+Python-side work inside the forward runs at capture only, not at
+replay: the session counts the kernel launches a capture recorded
+(``kernels._build.recording_launches``) once per replay, and its
+metrics are bumped around the replay.
+
+Not ported yet: AOT artifacts and their disk cache, the per-bucket
+circuit breakers of the stateless path, graphs for the stateless
+buckets (with ``CachedOp``), sharded sessions and AMP.
 """
 from __future__ import annotations
 
+import threading
 import time
 
 import numpy as onp
 import torch
 
 from .. import autograd
-from ..base import MXNetError
-from ..context import Context, resolve_device
+from ..base import MXNetError, getenv
+from ..context import Context, host_to_device, resolve_device
 from ..ndarray import NDArray
 from ..ndarray.ndarray import torch_dtype
+from ..kernels import _build
 from ..kernels import serving_fused as _sf
+from ..resilience import faults as _faults
 from .metrics import METRICS
 
-__all__ = ["InferenceSession"]
+__all__ = ["InferenceSession", "parse_buckets"]
 
 
-def _pow2_buckets(max_batch):
-    """Powers of two below ``max_batch``, and ``max_batch`` itself: the
-    reference's default ``MXNET_SERVING_BUCKETS=pow2`` policy."""
-    buckets = {max_batch}
-    b = 1
-    while b < max_batch:
-        buckets.add(b)
-        b <<= 1
-    return sorted(buckets)
+def parse_buckets(raw, max_batch):
+    """Batch-size buckets from an ``MXNET_SERVING_BUCKETS``-style spec:
+    ``pow2`` (default) — powers of two up to ``max_batch``; ``mult:N`` —
+    multiples of N up to ``max_batch``; or an explicit comma list
+    ("1,4,16,64"). Always includes ``max_batch`` itself and is returned
+    sorted ascending."""
+    raw = (raw or "pow2").strip()
+    buckets = set()
+    if raw == "pow2":
+        b = 1
+        while b < max_batch:
+            buckets.add(b)
+            b <<= 1
+    elif raw.startswith("mult:"):
+        try:
+            n = int(raw.split(":", 1)[1])
+        except ValueError:
+            n = 0
+        if n < 1:
+            raise MXNetError(
+                f"invalid bucket spec {raw!r} (expected mult:N, N >= 1)")
+        buckets.update(range(n, max_batch, n))
+    else:
+        try:
+            buckets.update(int(tok) for tok in raw.split(",") if tok.strip())
+        except ValueError:
+            raise MXNetError(
+                f"invalid bucket spec {raw!r} (expected pow2 | mult:N | "
+                "comma list)") from None
+        if any(b < 1 for b in buckets):
+            raise MXNetError(f"bucket sizes must be >= 1 (got {raw!r})")
+        # explicit lists fail fast instead of silently dropping entries
+        too_big = sorted(b for b in buckets if b > max_batch)
+        if too_big:
+            raise MXNetError(
+                f"explicit bucket(s) {too_big} exceed max_batch "
+                f"{max_batch}; raise MXNET_SERVING_MAX_BATCH or drop "
+                "them")
+    buckets.add(int(max_batch))
+    return sorted(b for b in buckets if b <= max_batch)
+
+
+class _StepBucket:
+    """One occupancy bucket of the decode step: views of the session's
+    static buffers and, on a CUDA device, the graph captured over them
+    with its static outputs and the launches its capture recorded."""
+
+    __slots__ = ("bucket", "inputs", "states", "graph", "outs", "news",
+                 "launches", "replays")
+
+    def __init__(self, bucket, inputs, states):
+        self.bucket = bucket
+        self.inputs = inputs
+        self.states = states
+        self.graph = None
+        self.outs = self.news = None
+        self.launches = {}
+        self.replays = 0
 
 
 class _InputSpec:
@@ -96,16 +158,28 @@ class InferenceSession:
         ``[(1, 1)]``; dtype float32 unless ``input_dtypes`` is given.
     input_dtypes : sequence of dtypes, optional
     buckets : sequence of int, optional
-        Batch (or occupancy) buckets (default: powers of two up to
+        Batch (or occupancy) buckets (default: the
+        ``MXNET_SERVING_BUCKETS`` policy, :func:`parse_buckets`, over
         ``max_batch``).
-    max_batch : int, optional (default 32)
+    max_batch : int, optional (default: the largest bucket, else
+        ``MXNET_SERVING_MAX_BATCH``, 32)
     warm : bool
-        Run :meth:`warmup` in the constructor.
+        Run :meth:`warmup` in the constructor (on a CUDA device: capture
+        every bucket's decode-step graph).
+    label : str, optional
+        Display tag (repository healthz, the owned store's logs).
     state_shapes / state_dtypes : per-state ROW shapes and dtypes; the
         session is then stateful and owns a
-        :class:`~.state.SessionStateStore`.
+        :class:`~.state.SessionStateStore`, whose pageable rows follow
+        the block's ``state_row_pageable()`` (paged when
+        ``MXNET_SERVING_STATE_PAGE_TOKENS`` is set).
     state_store : SessionStateStore, optional
         Use this store (its shapes and dtypes) instead.
+    graphs : bool, optional
+        Run the decode step as one captured CUDA graph per bucket
+        (default: on a CUDA device). ``False`` runs it eagerly there, as
+        the measurement tools do to compare the two; ``True`` on the CPU
+        raises.
     ctx : Context, optional
         The device the session runs on (default: the current context,
         ``gpu(0)``). It must be the store's device. With no CUDA device
@@ -115,17 +189,26 @@ class InferenceSession:
 
     def __init__(self, block, example=None, input_shapes=None,
                  input_dtypes=None, buckets=None, max_batch=None, warm=True,
-                 state_shapes=None, state_dtypes=None, state_store=None,
-                 ctx=None):
+                 label=None, state_shapes=None, state_dtypes=None,
+                 state_store=None, graphs=None, ctx=None):
         self._block = block
+        self.label = label
         self.device = resolve_device(ctx)
-        max_batch = int(max_batch or (max(buckets) if buckets else 32))
+        max_batch = int(max_batch or (max(buckets) if buckets else
+                                      getenv("MXNET_SERVING_MAX_BATCH", 32,
+                                             int)))
         if buckets is None:
-            buckets = _pow2_buckets(max_batch)
+            buckets = parse_buckets(getenv("MXNET_SERVING_BUCKETS", None),
+                                    max_batch)
         self.buckets = sorted(int(b) for b in set(buckets))
         if not self.buckets or self.buckets[0] < 1:
             raise MXNetError("buckets must be a non-empty set of positive "
                              f"batch sizes (got {buckets})")
+        on_cuda = self.device.type == "cuda"
+        if graphs and not on_cuda:
+            raise MXNetError("graphs=True needs a CUDA device; the decode "
+                             f"step runs eagerly on {self.device}")
+        self.graphs = on_cuda if graphs is None else bool(graphs)
         self._input_specs = self._resolve_input_specs(example, input_shapes,
                                                       input_dtypes)
         self._owns_store = False
@@ -136,9 +219,17 @@ class InferenceSession:
             if state_store is None:
                 from .state import SessionStateStore
 
+                # blocks that declare KV-cache rows opt them into paged
+                # storage, active only when MXNET_SERVING_STATE_PAGE_TOKENS
+                # is set
+                proto = getattr(block, "state_row_pageable", None)
+                pageable = list(proto()) if callable(proto) else None
+                if pageable is not None and \
+                        len(pageable) != len(state_shapes):
+                    pageable = None
                 state_store = SessionStateStore(
-                    state_shapes, state_dtypes,
-                    ctx=Context.from_device(self.device))
+                    state_shapes, state_dtypes, pageable=pageable,
+                    label=label, ctx=Context.from_device(self.device))
             elif state_store.device != self.device:
                 raise MXNetError(
                     f"state store lives on {state_store.device} but the "
@@ -149,6 +240,12 @@ class InferenceSession:
                 _InputSpec(f"state{i}", s, dt) for i, (s, dt) in enumerate(
                     zip(state_store.state_shapes, state_store.state_dtypes))]
         self._num_outputs = None
+        # guards: _steps, _buffers and the buffers' contents (one decode
+        # step at a time)
+        self._lock = threading.RLock()
+        self._steps = {}  # occupancy bucket -> _StepBucket
+        self._buffers = None  # (inputs, states) of max_batch rows
+        self._ready = set()  # stateless buckets that have run
         self._ensure_initialized()
         if warm:
             self.warmup()
@@ -235,17 +332,123 @@ class InferenceSession:
         return flat[:self._num_outputs], flat[self._num_outputs:]
 
     def warmup(self, buckets=None):
-        """Run one zero forward (or step) at every bucket (state store
-        untouched, metrics not counted). On the card this builds the
-        CUDA kernels and brings up cuBLAS before the first request.
-        Returns ``{"buckets": [...], "seconds": s}``."""
+        """Make every bucket ready before the first request (metrics not
+        counted). A stateless session runs one zero forward per bucket;
+        a stateful one builds each occupancy bucket's step, which on a
+        CUDA device captures its graph (the reference's per-bucket step
+        executables). Either way the CUDA kernels are built and cuBLAS
+        is up. Returns ``{"buckets": [...], "graphs": n captured,
+        "seconds": s}``."""
         t0 = time.perf_counter()
         todo = [int(b) for b in (buckets or self.buckets)]
+        graphs = 0
         for b in todo:
-            self._forward(self._zeros(self._input_specs, b),
-                          self._zeros(self._state_specs, b))
+            if self._state_specs:
+                with self._lock:
+                    ent = self._step_bucket(b)
+                    if ent.graph is None:  # eager: bring up the kernels
+                        self._forward(ent.inputs, ent.states)
+                graphs += ent.graph is not None
+            else:
+                self._forward(self._zeros(self._input_specs, b), [])
+                self._ready.add(b)
         self._synchronize()
-        return {"buckets": todo, "seconds": time.perf_counter() - t0}
+        return {"buckets": todo, "graphs": graphs,
+                "seconds": time.perf_counter() - t0}
+
+    # -- the decode step: static buffers and one graph per bucket -------
+
+    def _step_bucket(self, bucket):
+        """The :class:`_StepBucket` of ``bucket``, built at first use: a
+        view of the static buffers' leading ``bucket`` rows and, with
+        graphs, the step captured over it. A failed capture raises and
+        leaves no entry behind, so the next use tries again."""
+        with self._lock:
+            ent = self._steps.get(bucket)
+            if ent is not None:
+                return ent
+            if self._buffers is None:
+                self._buffers = (self._zeros(self._input_specs,
+                                             self.max_batch),
+                                 self._zeros(self._state_specs,
+                                             self.max_batch))
+            ent = _StepBucket(bucket,
+                              [t[:bucket] for t in self._buffers[0]],
+                              [t[:bucket] for t in self._buffers[1]])
+            if self.graphs:
+                self._capture(ent)
+            self._steps[bucket] = ent
+            return ent
+
+    def _capture(self, ent):
+        """Capture one decode step at ``ent.bucket`` into a CUDA graph.
+        One eager step on a side stream first brings up what a capture
+        may not (cuBLAS handles, the kernels' modules); its launches are
+        real and count. The capture's own launches do not: they are
+        recorded, and each replay counts them."""
+        dev = self.device
+        try:
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self._forward(ent.inputs, ent.states)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            # thread-local capture: other sessions may serve on other
+            # threads meanwhile (a repository deploys while it serves)
+            with _build.recording_launches() as rec:
+                with torch.cuda.graph(graph,
+                                      capture_error_mode="thread_local"):
+                    outs, news = self._forward(ent.inputs, ent.states)
+        except Exception as e:
+            raise MXNetError(
+                f"capturing the decode step at bucket {ent.bucket} as a "
+                f"CUDA graph failed ({type(e).__name__}: {e}); a CUDA "
+                "session runs its step only as a graph (graphs=False "
+                "runs it eagerly)") from e
+        ent.graph, ent.outs, ent.news, ent.launches = graph, outs, news, rec
+
+    def _execute(self, ent):
+        """One decode step over ``ent``'s buffers (inputs and states
+        loaded): ``(outputs, new_states)`` at bucket rows. A graph's
+        outputs are its static outputs, valid until the next replay."""
+        _faults.maybe_fail("serving_execute")
+        if ent.graph is None:
+            return self._forward(ent.inputs, ent.states)
+        ent.graph.replay()
+        ent.replays += 1
+        _build.count_replay(ent.launches)
+        return ent.outs, ent.news
+
+    def _load_rows(self, dsts, srcs, n):
+        """Copy ``n`` rows of each source (NDArray or host array) into the
+        leading rows of its buffer view and zero the rest."""
+        with torch.inference_mode():
+            for dst, x in zip(dsts, srcs):
+                src = x.data if isinstance(x, NDArray) else host_to_device(
+                    torch.from_numpy(onp.ascontiguousarray(x)), dst.device)
+                dst[:n].copy_(src)
+                dst[n:].zero_()
+
+    def graph_stats(self):
+        """``{bucket: {"graph": captured?, "replays": n}}`` for every
+        built occupancy bucket."""
+        with self._lock:
+            return {b: {"graph": ent.graph is not None,
+                        "replays": ent.replays}
+                    for b, ent in sorted(self._steps.items())}
+
+    def health_snapshot(self):
+        """The ``/healthz`` view, in the reference's keys: ``warm`` once
+        every bucket is ready (stateless: it has run; stateful: its step
+        is built, captured on a CUDA device). The port's session has no
+        per-bucket breakers yet, so nothing is degraded or open."""
+        with self._lock:
+            ready = self._steps if self._state_specs else self._ready
+            warm = all(b in ready for b in self.buckets)
+        return {"warm": warm, "buckets": list(self.buckets),
+                "degraded_buckets": [], "breaker_states": {},
+                "open_buckets": []}
 
     def _synchronize(self):
         if self.device.type == "cuda":
@@ -324,16 +527,6 @@ class InferenceSession:
                 return b
         return self.buckets[-1]
 
-    def _owned_padded(self, x, spec, bucket):
-        """A fresh device tensor of ``bucket`` rows holding ``x`` (NDArray
-        or host array) in its first rows and zeros after."""
-        src = x.data if isinstance(x, NDArray) else torch.from_numpy(
-            onp.ascontiguousarray(x))
-        dst = torch.zeros((bucket,) + spec.row_shape,
-                          dtype=torch_dtype(spec.dtype), device=self.device)
-        dst[:src.shape[0]].copy_(src)
-        return dst
-
     def _run_bucket(self, arrs, n):
         """One chunk of at most ``max_batch`` rows through its bucket;
         returns the output tensors cut back to ``n`` rows. Host inputs
@@ -356,7 +549,9 @@ class InferenceSession:
         if dev_arrs:
             for i, p in zip(dev_idx, _sf.pad_all(dev_arrs, bucket)):
                 datas[i] = p
+        _faults.maybe_fail("serving_execute")
         outs, _ = self._forward(datas, [])
+        self._ready.add(bucket)
         METRICS.bump("bucket_execs")
         METRICS.bump("padded_rows", bucket - n)
         METRICS.bump("true_rows", n)
@@ -390,35 +585,52 @@ class InferenceSession:
     def __call__(self, *inputs):
         return self.predict(*inputs)
 
-    def _run_step(self, arrs, states, n, adopted=False):
-        """One decode step at occupancy ``n``, padded to its bucket;
-        returns ``(outputs, new_states)`` as tensors of ``n`` rows.
+    def _run_step(self, arrs, states, n):
+        """One decode step of explicit ``states`` at occupancy ``n``:
+        inputs and states are copied into the bucket's buffers (the
+        caller's tensors are never written), and the outputs and new
+        states come back as fresh tensors of ``n`` rows."""
+        with self._lock:
+            ent = self._step_bucket(self._bucket_for(n))
+            self._load_rows(ent.inputs, arrs, n)
+            self._load_rows(ent.states, states, n)
+            outs, news = self._execute(ent)
+            with torch.inference_mode():
+                outs = [o[:n].clone() for o in outs]
+                news = [s[:n].clone() for s in news]
+        self._count_step(ent.bucket, n)
+        return outs, news
 
-        ``adopted=True`` is the batcher's path: ``states`` are the state
-        store's gather output, owned by this step, already on the device
-        (at ``n`` or at bucket rows). Otherwise ``states`` are a caller's
-        explicit states, copied first so the caller's tensors are never
-        written."""
-        bucket = self._bucket_for(n)
-        with torch.inference_mode():
-            datas = [self._owned_padded(a, s, bucket)
-                     for a, s in zip(arrs, self._input_specs)]
-            if adopted:
-                sdatas = [s if s.shape[0] == bucket else
-                          torch.cat([s, s.new_zeros((bucket - s.shape[0],)
-                                                    + s.shape[1:])])
-                          for s in states]
-            else:
-                sdatas = [self._owned_padded(s, spec, bucket)
-                          for s, spec in zip(states, self._state_specs)]
-        outs, news = self._forward(datas, sdatas)
+    def _run_store_step(self, arrs, recs, bucket=None):
+        """The batcher's decode step: the sessions of slot records
+        ``recs`` (acquired from the state store) step once together.
+        Their states are gathered into the bucket's buffers, the step
+        runs, the new states are scattered back, and the outputs come
+        back as host arrays of ``len(recs)`` rows. The copy to the host
+        waits for the step, so a device fault surfaces here. ``bucket``
+        pins the occupancy bucket (at least ``len(recs)``; default the
+        smallest that covers it)."""
+        n = len(recs)
+        bucket = self._bucket_for(n) if bucket is None else int(bucket)
+        if bucket not in self.buckets or bucket < n:
+            raise MXNetError(f"bucket {bucket} is not a bucket of this "
+                             f"session that holds {n} rows")
+        store = self.state_store
+        with self._lock:
+            ent = self._step_bucket(bucket)
+            self._load_rows(ent.inputs, arrs, n)
+            store.gather(recs, out=ent.states)
+            outs, news = self._execute(ent)
+            store.scatter(recs, news)
+            host = [o[:n].cpu().numpy() for o in outs]
+        self._count_step(bucket, n)
+        return host
+
+    @staticmethod
+    def _count_step(bucket, n):
         METRICS.bump("bucket_execs")
         METRICS.bump("padded_rows", bucket - n)
         METRICS.bump("true_rows", n)
-        if bucket != n:
-            outs = [o[:n] for o in outs]
-            news = [s[:n] for s in news]
-        return outs, news
 
     def step(self, *inputs, states):
         """One decode step with EXPLICIT states: ``(one row-batch of
@@ -452,4 +664,4 @@ class InferenceSession:
     def __repr__(self):
         return (f"InferenceSession({type(self._block).__name__}, "
                 f"inputs={self._input_specs}, buckets={self.buckets}, "
-                f"device={self.device})")
+                f"graphs={self.graphs}, device={self.device})")

@@ -1,15 +1,21 @@
 """Where one batched decode step's time goes, on the card.
 
 Builds ``DecoderBlockLM`` at GPT-2-small widths (random weights from a
-seed) behind a ``SessionStateStore`` and an ``InferenceSession``, opens
-``--rows`` sessions, and runs the batcher's step body — gather, step,
-scatter, read the logits back — for ``--steps`` steps under
-``torch.profiler``. Prints one JSON object: host wall ms per step, device
-busy ms per step (the sum of CUDA kernel and copy times), the device's
-idle share, kernel launches per step, and the device time per step of
-the heaviest kernels. Run on a machine with one NVIDIA GPU:
+seed) behind a ``SessionStateStore`` (row-slot, or paged with
+``--paged PAGE_TOKENS``) and an ``InferenceSession`` whose step runs as
+one captured CUDA graph per occupancy bucket (``--graphs``, the
+default) or eagerly (``--eager``); ``--both`` measures the two, eager
+then graphs, on one card. It opens ``--rows`` sessions and runs the
+batcher's step body — acquire, gather, step, scatter, read the logits
+back, release — for ``--steps`` steps under ``torch.profiler``. Prints
+one JSON object per mode: host wall ms per step, device busy ms per
+step (the sum of CUDA kernel and copy times), the device's idle share,
+device operations and host launch calls (kernels, or one graph) per
+step, and the heaviest kernels. Run on a machine
+with one NVIDIA GPU:
 
     python3 -m mxnet_tpu_torch.tools.profile_decode [--rows 8]
+        [--paged 16] [--graphs | --eager | --both]
 
 It needs no network and writes nothing unless ``--trace PATH`` is given
 (a Chrome trace of the profiled window).
@@ -30,6 +36,9 @@ from ..models import DecoderBlockLM
 
 GPT2_SMALL = dict(vocab_size=50257, embed_dim=768, num_layers=12,
                   num_heads=12, ffn_dim=3072, max_len=1024)
+# the runtime calls that put work on the device: a kernel, or a whole graph
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cudaGraphLaunch")
 
 
 def _card():
@@ -39,44 +48,37 @@ def _card():
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rows", type=int, default=8,
-                    help="live sessions in every step (default 8)")
-    ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--seed", type=int, default=20240917)
-    ap.add_argument("--trace", default=None)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_decode: needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
+def build(net, rows, page_tokens=0, buckets=None, graphs=True, budget=0):
+    """A store of ``rows`` sessions (paged when ``page_tokens`` > 0, its
+    page pool capped at ``budget`` bytes when > 0) and a session over
+    ``net`` on ``gpu(0)``; returns ``(store, session)``."""
     ctx = gpu(0)
-    mxrandom.seed(args.seed)
-    net = DecoderBlockLM(**GPT2_SMALL)
-    net.initialize(ctx=ctx)
     store = serving.SessionStateStore(
-        net.state_row_shapes(), net.state_row_dtypes(),
-        max_sessions=args.rows, byte_budget=0, ttl_s=0, ctx=ctx)
-    buckets = sorted({1, 2, 4, 8, args.rows})
+        net.state_row_shapes(), net.state_row_dtypes(), max_sessions=rows,
+        byte_budget=budget, ttl_s=0, pageable=net.state_row_pageable(),
+        page_tokens=page_tokens, ctx=ctx)
     sess = serving.InferenceSession(
         net, input_shapes=[(1, 1)], input_dtypes=["int32"],
-        state_store=store, buckets=buckets, ctx=ctx)
-    sids = [f"s{i}" for i in range(args.rows)]
-    for sid in sids:
-        store.open(sid)
-    rs = onp.random.RandomState(args.seed)
-    bucket = sess._bucket_for(args.rows)
+        state_store=store, buckets=buckets or sorted({1, 2, 4, 8, rows}),
+        graphs=graphs, ctx=ctx)
+    return store, sess
+
+
+def profile_steps(store, sess, sids, steps, seed, trace=None):
+    """Profile ``steps`` batched decode steps of the live sessions
+    ``sids`` (three warm-up steps first) as the batcher runs them.
+    Returns the per-step numbers as a dict."""
+    rs = onp.random.RandomState(seed)
+    vocab = sess._block.embed.weight.shape[0]
 
     def one_step():
         recs = [store.acquire(sid) for sid in sids]
-        toks = rs.randint(GPT2_SMALL["vocab_size"],
-                          size=(args.rows, 1)).astype("int32")
-        states = store.gather(recs, pad_to=bucket)
-        outs, news = sess._run_step([toks], states, args.rows, adopted=True)
-        store.scatter(recs, news)
-        logits = outs[0].cpu().numpy()  # waits for the step
-        for rec in recs:
-            store.release(rec)
+        toks = rs.randint(vocab, size=(len(sids), 1)).astype("int32")
+        try:
+            logits = sess._run_store_step([toks], recs)[0]
+        finally:
+            for rec in recs:
+                store.release(rec)
         return logits
 
     for _ in range(3):
@@ -86,12 +88,12 @@ def main(argv=None):
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.steps):
+        for _ in range(steps):
             one_step()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    if trace:
+        prof.export_chrome_trace(trace)
     by_name = collections.defaultdict(lambda: [0.0, 0])
     busy_us = 0.0
     for ev in prof.events():
@@ -101,27 +103,68 @@ def main(argv=None):
             by_name[ev.name][0] += dur
             by_name[ev.name][1] += 1
             busy_us += dur
-    busy_ms = busy_us / 1e3 / args.steps
+    busy_ms = busy_us / 1e3 / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    cpu_top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
-    cpu_ops = {e.key[:60]: {"self_ms": e.self_cpu_time_total / 1e3
-                            / args.steps, "per_step": e.count / args.steps}
-               for e in cpu_top[:10]}
-    print(json.dumps({
-        "card": _card(), "rows": args.rows, "bucket": bucket,
-        "steps": args.steps, "wall_ms_per_step": wall_ms,
+    cpu_top = sorted(prof.key_averages(),
+                     key=lambda e: -e.self_cpu_time_total)
+    host_launches = sum(e.count for e in cpu_top if e.key in _LAUNCH_CALLS)
+    return {
+        "rows": len(sids), "bucket": sess._bucket_for(len(sids)),
+        "graphs": sess.graphs, "paged": store.paged,
+        "page_tokens": store.page_tokens, "steps": steps,
+        "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": (max(0.0, 1 - busy_ms / wall_ms)
                               if wall_ms else None),
-        "device_ops_per_step": sum(c for _, c in by_name.values())
-        / args.steps,
+        "device_ops_per_step": sum(c for _, c in by_name.values()) / steps,
+        "host_launches_per_step": host_launches / steps,
         "top_device_ms_per_step": {
-            name[:80]: {"ms": us / 1e3 / args.steps,
-                        "per_step": cnt / args.steps}
+            name[:80]: {"ms": us / 1e3 / steps, "per_step": cnt / steps}
             for name, (us, cnt) in top},
-        "top_host_self_ms_per_step": cpu_ops}))
-    sess.close()
-    store.close()
+        "top_host_self_ms_per_step": {
+            e.key[:60]: {"self_ms": e.self_cpu_time_total / 1e3 / steps,
+                         "per_step": e.count / steps}
+            for e in cpu_top[:10]}}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rows", type=int, default=8,
+                    help="live sessions in every step (default 8)")
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--paged", type=int, default=0, metavar="PAGE_TOKENS",
+                    help="store KV caches as pages of this many tokens "
+                         "(default 0: row slots)")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--graphs", dest="modes", action="store_const",
+                      const=(True,), help="one CUDA graph per bucket "
+                                          "(default)")
+    mode.add_argument("--eager", dest="modes", action="store_const",
+                      const=(False,), help="the step run eagerly")
+    mode.add_argument("--both", dest="modes", action="store_const",
+                      const=(False, True), help="eager, then graphs")
+    ap.add_argument("--seed", type=int, default=20240917)
+    ap.add_argument("--trace", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_decode: needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mxrandom.seed(args.seed)
+    net = DecoderBlockLM(**GPT2_SMALL)
+    net.initialize(ctx=gpu(0))
+    card = _card()
+    for graphs in args.modes or (True,):
+        store, sess = build(net, args.rows, args.paged, graphs=graphs)
+        sids = [f"s{i}" for i in range(args.rows)]
+        for sid in sids:
+            store.open(sid)
+        row = profile_steps(store, sess, sids, args.steps, args.seed,
+                            trace=args.trace)
+        print(json.dumps({"card": card, **row}))
+        sess.close()
+        store.close()
+        del store, sess
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

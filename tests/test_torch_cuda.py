@@ -791,3 +791,192 @@ def test_decode_step_at_batch_one_splits_and_counts_per_layer(cuda):
     assert _build.launch_counts().get(KERNEL, 0) == cfg["num_layers"]
     assert out.shape == (1, cfg["vocab_size"])
     assert onp.isfinite(out.asnumpy()).all()
+
+
+# -- slice 5: graphs per occupancy bucket, paged store, conv precision ------
+
+def _decode_stack(net, ctx, page_tokens, buckets, graphs=None, rows=4):
+    store = serving.SessionStateStore(
+        net.state_row_shapes(), net.state_row_dtypes(), max_sessions=rows,
+        byte_budget=0, ttl_s=0, pageable=net.state_row_pageable(),
+        page_tokens=page_tokens, ctx=ctx)
+    sess = serving.InferenceSession(
+        net, input_shapes=[(1, 1)], input_dtypes=["int32"],
+        state_store=store, buckets=buckets, graphs=graphs, ctx=ctx)
+    return store, sess
+
+
+def test_graph_replay_matches_eager_at_every_bucket(cuda):
+    """At every occupancy bucket, one step from the same random states:
+    the captured graph's replay against the eager step. The same kernels
+    run, so they are expected bitwise equal; held within 1e-5 in case
+    cuBLAS picks another algorithm under capture. K2 counts one launch
+    per layer per replay, none for the capture."""
+    ctx = mx.gpu(0)
+    net = _carried_net(None, ctx)
+    rs = onp.random.RandomState(11)
+    got = {}
+    for graphs in (False, True):
+        store, sess = _decode_stack(net, ctx, 4, [1, 2, 4], graphs=graphs)
+        assert sess.graphs is graphs
+        for b in (1, 2, 3, 4):
+            states = [rs.randint(0, 12, (b,) + s).astype(dt)
+                      if dt == "int32" else
+                      rs.standard_normal((b,) + s).astype(dt)
+                      for s, dt in zip(net.state_row_shapes(),
+                                       net.state_row_dtypes())]
+            tok = rs.randint(0, SMALL["vocab_size"], (b, 1)).astype("int32")
+            _build.reset_launch_counts()
+            out, news = sess.step(tok, states=states)
+            torch.cuda.synchronize()
+            assert _build.launch_counts() == {KERNEL: SMALL["num_layers"]}
+            got[graphs, b] = [out.asnumpy()] + [n.asnumpy() for n in news]
+        stats = sess.graph_stats()
+        assert all(g["graph"] is graphs for g in stats.values())
+        if graphs:
+            assert [stats[b]["replays"] for b in (1, 2, 4)] == [1, 1, 2]
+        sess.close()
+        store.close()
+        rs = onp.random.RandomState(11)
+    for b in (1, 2, 3, 4):
+        for e, g in zip(got[False, b], got[True, b]):
+            onp.testing.assert_allclose(g, e, rtol=TOL, atol=TOL)
+
+
+def test_paged_matches_row_slot_on_card(cuda):
+    """The same streams through the batcher on a paged and on a row-slot
+    store, one bucket (4), graphs on: bitwise-equal logits, since both
+    stores hand the step the same dense rows."""
+    ctx = mx.gpu(0)
+    net = _carried_net(None, ctx)
+    rs = onp.random.RandomState(12)
+    streams = {sid: [rs.randint(0, SMALL["vocab_size"], (1, 1))
+                     .astype("int32") for _ in range(n)]
+               for sid, n in (("a", 3), ("b", 9), ("c", 16))}
+    got = {}
+    for pt in (4, 0):
+        store, sess = _decode_stack(net, ctx, pt, [4])
+        bat = serving.DynamicBatcher(sess, max_batch_size=4,
+                                     max_latency_ms=2.0, timeout_ms=120000,
+                                     admission=False)
+        try:
+            futs = {sid: [bat.submit(t, session_id=sid) for t in toks]
+                    for sid, toks in streams.items()}
+            got[pt] = {sid: [onp.asarray(f.result(timeout=300))
+                             for f in fs] for sid, fs in futs.items()}
+            if pt:
+                assert store.stats()["pages_used"] == 1 + 3 + 4
+        finally:
+            bat.close()
+            sess.close()
+            store.close()
+    for sid in streams:
+        for a, b in zip(got[4][sid], got[0][sid]):
+            assert onp.array_equal(a, b)
+
+
+class _Syncs(mx.gluon.HybridBlock):
+    """A step that waits on the host: legal eagerly, not in a capture."""
+
+    def hybrid_forward(self, F, tok, state):
+        float(state.data.sum())  # a device-to-host read
+        return tok * 2, state + 1
+
+
+def test_failed_capture_raises_without_fallback(cuda):
+    ctx = mx.gpu(0)
+    store = serving.SessionStateStore([(3,)], ["float32"], max_sessions=2,
+                                      byte_budget=0, ctx=ctx)
+    sess = serving.InferenceSession(_Syncs(), input_shapes=[(1, 1)],
+                                    state_store=store, buckets=[2],
+                                    warm=False, ctx=ctx)
+    try:
+        for _ in range(2):  # no entry is left behind: it fails again
+            with pytest.raises(mx.MXNetError, match="CUDA graph failed"):
+                sess.warmup()
+            assert sess.graph_stats() == {}
+        with pytest.raises(mx.MXNetError, match="CUDA graph failed"):
+            sess.step(onp.ones((1, 1), "float32"),
+                      states=[onp.zeros((1, 3), "float32")])
+        torch.cuda.synchronize()
+        # the same block runs eagerly when asked to, on a fresh session
+        eager = serving.InferenceSession(_Syncs(), input_shapes=[(1, 1)],
+                                         state_store=store, buckets=[2],
+                                         graphs=False, ctx=ctx)
+        out, news = eager.step(onp.ones((1, 1), "float32"),
+                               states=[onp.zeros((1, 3), "float32")])
+        assert out.asnumpy().tolist() == [[2.0]]
+        assert news[0].asnumpy().tolist() == [[1.0, 1.0, 1.0]]
+    finally:
+        sess.close()
+        store.close()
+
+
+def test_fp32_convolution_at_default_flags_matches_cpu(cuda):
+    """With cuDNN's global flags at torch's defaults (``allow_tf32``
+    True, ``benchmark`` False), the port's convolutions stay float32.
+    Three stacked 3x3 convolutions of 256 channels (4.6 k-term sums, no
+    activation: nothing but the convolutions' arithmetic) on the card
+    and on the CPU: the output and the gradients of the input and of
+    every weight within 1e-4 of their largest entry, where one TF32
+    pass (10 mantissa bits, ~5e-4 of each product) lands above it; and
+    a resnet18_v1 (thumbnail) eval forward and its classifier's gradient
+    within rtol 1e-3 of the CPU. (Deeper gradients of the ReLU network
+    are left out: an activation that flips sign between the two
+    computations moves them by more than the precision does.)"""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        rs = onp.random.RandomState(21)
+        x = rs.standard_normal((2, 256, 14, 14)).astype("float32")
+        ws = [rs.standard_normal((256, 256, 3, 3)).astype("float32") / 48
+              for _ in range(3)]
+        runs = []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            xs = mx.nd.array(x, ctx=ctx)
+            wn = [mx.nd.array(w, ctx=ctx) for w in ws]
+            for t in [xs] + wn:
+                t.attach_grad()
+            with mx.autograd.record():
+                h = xs
+                for w in wn:
+                    h = mx.nd.convolution(h, w, kernel=(3, 3), pad=(1, 1),
+                                          num_filter=256, no_bias=True)
+            h.backward(mx.nd.array(onp.linspace(
+                -1, 1, h.size, dtype="float32").reshape(h.shape), ctx=ctx))
+            runs.append([h.asnumpy(), xs.grad.asnumpy()] +
+                        [w.grad.asnumpy() for w in wn])
+        for card, cpu in zip(*runs):
+            scale = float(onp.abs(cpu).max())
+            assert onp.abs(card - cpu).max() <= 1e-4 * scale
+        assert torch.backends.cudnn.allow_tf32  # the global flag untouched
+        mx.random.seed(5)
+        src = vision.resnet18_v1(thumbnail=True, classes=10)
+        src.initialize(mx.init.Xavier(), ctx=mx.cpu())
+        xb = rs.standard_normal((2, 3, 32, 32)).astype("float32")
+        yb = rs.randint(0, 10, 2).astype("float32")
+        with mx.autograd.pause():
+            src(mx.nd.array(xb, ctx=mx.cpu()))
+        arrays = {k: p.data().asnumpy()
+                  for k, p in src._collect_params_with_prefix().items()}
+        runs = []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            net = convert.params_from_numpy(
+                vision.resnet18_v1(thumbnail=True, classes=10), arrays,
+                ctx=ctx)
+            xs, ys = mx.nd.array(xb, ctx=ctx), mx.nd.array(yb, ctx=ctx)
+            with mx.autograd.record(train_mode=False):
+                logits = net(xs)
+                loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()(logits, ys)
+            loss.backward()
+            params = net._collect_params_with_prefix()
+            runs.append([logits.asnumpy(),
+                         params["output.weight"].grad().asnumpy()])
+        for card, cpu in zip(*runs):
+            scale = float(onp.abs(cpu).max())
+            onp.testing.assert_allclose(card, cpu, rtol=1e-3,
+                                        atol=1e-3 * scale)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark = \
+            saved
