@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``mxnet_tpu_torch``) on one GPU.
 
-Drives the port's five main paths and holds their hand-written CUDA
+Drives the port's six main paths and holds their hand-written CUDA
 kernels against the plain PyTorch versions:
 
 - stateful decode serving of ``DecoderBlockLM`` at GPT-2-small widths
@@ -24,7 +24,11 @@ kernels against the plain PyTorch versions:
   captured CUDA graph per occupancy bucket (K2 inside each), SLO
   classes through the batcher, and a ``ModelServer`` over a
   ``ModelRepository`` on a local port, with a canary promote that
-  migrates live streams.
+  migrates live streams;
+- training ResNet-50 v1 (with K4's head) and the GPT-2-small LM (with
+  K1 on bf16 operands) in bf16 AMP: ``amp.init("bfloat16")``,
+  ``amp.init_trainer`` (a dynamic loss scaler), ``amp.scale_loss`` and
+  the Trainer's fused step, captured as one CUDA graph.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100:
 
@@ -73,8 +77,11 @@ stream busy until the launch is enqueued, so it is the device's time:
    embedding, Xavier weights from a seed, one fixed batch of 8 x 1024
    tokens, Adam at 3e-4: 2 warm-up and 10 timed steps; every loss
    finite and the last below the first, every gradient finite after
-   step 1, K1 launches = 12 layers x 10 timed steps; tokens/s, step ms,
-   forward/backward/optimizer ms and peak memory;
+   step 1, K1 launches = 12 layers x 10 timed steps, the fused step one
+   captured graph replayed every step; tokens/s, step ms,
+   forward/backward/optimizer ms and peak memory; then 5 steps of the
+   eager loop (``MXNET_FUSED_STEP=0``), whose step and optimizer ms
+   print beside;
 9. training against the CPU: one record/backward at 1 x 128 tokens,
    full width, on the card (through K1) and on the CPU (the plain path)
    from the same weights; the loss and three gradients agree within
@@ -114,9 +121,10 @@ stream busy until the launch is enqueued, so it is the device's time:
     a seed, SGD lr 0.1, momentum 0.9, wd 1e-4, the ``rtc_softmax`` head:
     2 warm-up and 10 timed steps, then 28 more on the same batch; every
     loss finite and the 40th below the first, every gradient finite,
-    every running statistic moved, K4 launches = 2 x 10 timed steps;
-    img/s, step ms (forward, backward, optimizer), peak memory, and the
-    eval forward's img/s at batch 128;
+    every running statistic moved, K4 launches = 2 x 10 timed steps, the
+    fused step one graph replayed every step; img/s, step ms (forward,
+    backward, optimizer), peak memory, the eval forward's img/s at batch
+    128, and the eager loop's step and optimizer ms beside;
 17. ResNet-50 against the CPU: one record/backward at batch 2 on the
     card (K4) and on the CPU (the plain head) from the same fresh
     weights: the loss and three gradients within rtol 1e-3 in eval mode
@@ -155,12 +163,40 @@ stream busy until the launch is enqueued, so it is the device's time:
 22. K4's launch floor: an empty kernel through ``rtc.CudaModule``,
     timed as every kernel here (median of 25 launches, CUDA events, the
     stream kept busy);
-23. report: one JSON line of kernels, then the device line last.
+23. K1 in bfloat16 at the LM's shape (8, 12, 1024, 1024, 64, causal):
+    within two bf16 ulps of the plain version, its time beside the plain
+    version's, ``scaled_dot_product_attention`` in bf16 (a yardstick
+    only) and its bound (bytes at 3.35 TB/s, flops at 989 TFLOP/s);
+24. ResNet-50 in bf16 AMP, as phase 16 (batch 128, SGD, the
+    ``rtc_softmax`` head on the logits cast to float32, with the loss
+    scale as its ``grad_scale``), in NCHW and in NHWC: 2 warm-up, 10
+    timed and 28 more steps; the loss finite and the 40th below the
+    first, K4 launches = 2 x 10, one graph capture and a replay per
+    step; img/s, step ms, peak memory, skipped steps; the faster layout
+    is the headline;
+25. the GPT-2-small LM in bf16 AMP, as phase 8 (Adam, ``scale_loss``):
+    the loss falls, the logits are bf16, K1 launches = 12 x 10 (on bf16
+    q, k, v), one graph and a replay per step; tokens/s, step ms, peak
+    memory;
+26. AMP on the card against the CPU port: ResNet-50 at batch 2 (eval
+    mode, fresh weights) and the LM at 1 x 128 tokens, one
+    record/backward each in bf16 and in float32 on both: the card's bf16
+    deviation from its float32 (L2 of the logits and of the gradients)
+    within 1.5 x the CPU's plus 1e-3, and the bf16 losses within rtol
+    2e-2 (``tests/test_torch_amp_training.py``'s bounds); the LM also
+    at torch's default cuBLAS flags (the port's fp32-accumulation scope
+    replaced by a no-op), whose deviations are reported;
+27. a poisoned bf16 step: an inf in one gradient; ``Trainer.step``
+    under ``torch.cuda.set_sync_debug_mode("error")`` (any host sync
+    raises) skips it on the device: weights and momenta bitwise
+    unchanged, the scale halved, one more skipped step;
+28. report: one JSON line of kernels, then the device line last.
 
 Needs no network; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -178,10 +214,13 @@ sys.path.insert(0, ROOT)
 
 import mxnet_tpu_torch as mx  # noqa: E402
 from mxnet_tpu_torch import autograd, convert, gluon, nd, rtc, serving  # noqa: E402
+from mxnet_tpu_torch.contrib import amp  # noqa: E402
+from mxnet_tpu_torch.gluon import fused_step  # noqa: E402
 from mxnet_tpu_torch.kernels import _build, _nvrtc  # noqa: E402
 from mxnet_tpu_torch.kernels.flash_attention import (  # noqa: E402
     FLASH_KERNEL, KERNEL, _decode_flash, _decode_flash_ref, _decode_splits,
     _flash_fwd_cuda, _flash_load_width, _flash_ref, flash_attention)
+from mxnet_tpu_torch.ndarray import ops_nn  # noqa: E402
 from mxnet_tpu_torch.kernels.norm_act import (  # noqa: E402
     KERNEL as NORM_ACT_KERNEL, _norm_act_cuda, _norm_act_ref)
 from mxnet_tpu_torch.models import DecoderBlockLM, TransformerLM  # noqa: E402
@@ -208,6 +247,7 @@ TRAIN_B, TRAIN_S, TRAIN_LR = 8, 1024, 3e-4
 WARMUP_STEPS, TIMED_STEPS = 2, 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bfloat16 on the tensor cores, dense
 TF32_FLOPS = 495e12  # H100 SXM TF32 on the tensor cores, dense
 # ~200 us at the H100's 1.98 GHz boost clock: longer than a kernel
 # wrapper's host cost, so every kernel time below is the device's alone
@@ -225,6 +265,15 @@ GRAD_TOL = 1e-4
 # plain attention
 CPU_RTOL = 1e-3
 REPS = 25
+# the eager per-parameter loop (MXNET_FUSED_STEP=0) timed beside the
+# fused step in the same call: this many steps after one warm-up step
+EAGER_STEPS = 5
+# bf16 AMP on the card against the CPU port, as tests/
+# test_torch_amp_training.py holds the port against the JAX package: the
+# card's bf16 deviation from its own float32 run within 1.5 x the CPU's
+# plus 1e-3 (L2 over the logits and over every gradient), and the bf16
+# losses within rtol 2e-2 of each other
+AMP_DEV_FACTOR, AMP_DEV_FLOOR, AMP_LOSS_RTOL = 1.5, 1e-3, 2e-2
 
 
 def phase(name):
@@ -673,9 +722,43 @@ def k1_times_phase(gen):
     return row
 
 
+def eager_step_ms(step):
+    """The eager per-parameter loop (``MXNET_FUSED_STEP=0``) timed beside
+    the fused step in the same call: ``step(events)`` runs one training
+    step recording four CUDA events (forward, backward, optimizer); one
+    warm-up, then EAGER_STEPS host-timed steps. Returns the mean step ms
+    and the mean optimizer ms."""
+    os.environ["MXNET_FUSED_STEP"] = "0"
+    try:
+        step(None)
+        torch.cuda.synchronize()
+        step_ms, opt_ms = [], []
+        for _ in range(EAGER_STEPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            t0 = time.perf_counter()
+            step(ev)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            opt_ms.append(ev[2].elapsed_time(ev[3]))
+    finally:
+        os.environ.pop("MXNET_FUSED_STEP", None)
+    return statistics.mean(step_ms), statistics.mean(opt_ms)
+
+
+def check_fused(trainer, steps):
+    """The fused step ran as one captured CUDA graph replayed every step."""
+    st = fused_step.fused_step_stats()
+    if trainer._fused is None or trainer._fused["graph"] is None or \
+            st["captures"] != 1 or st["replays"] != steps:
+        raise RuntimeError(f"the fused step did not run as one graph "
+                           f"replayed {steps} times: {st}")
+    return st
+
+
 def training_phase():
     phase("8 training")
     ctx = mx.gpu(0)
+    fused_step.reset_fused_step_cache()
     cfg = GPT2_SMALL_LM
     vocab = cfg["vocab_size"]
     mx.random.seed(SEED)
@@ -688,8 +771,8 @@ def training_phase():
     trainer = gluon.Trainer(net.collect_params(), "adam",
                             {"learning_rate": TRAIN_LR})
 
-    def step():
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    def step(ev=None):
+        ev = ev or [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
         with autograd.record():
             logits = net(toks)
@@ -739,13 +822,18 @@ def training_phase():
                            f"steps of {cfg['num_layers']} layers")
     print(f"K1 launches {launches} = {cfg['num_layers']} layers x "
           f"{TIMED_STEPS} timed steps")
+    stats = check_fused(trainer, WARMUP_STEPS + TIMED_STEPS)
     fwd, bwd, opt = (statistics.mean(p[i] for p in parts) for i in range(3))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    eager_ms, eager_opt = eager_step_ms(step)
     result = {"tokens_per_s": TRAIN_B * TRAIN_S * TIMED_STEPS / wall,
               "mean_step_ms": statistics.mean(step_ms),
               "median_step_ms": statistics.median(step_ms),
               "forward_ms": fwd, "backward_ms": bwd, "optimizer_ms": opt,
               "first_loss": losses[0], "last_loss": losses[-1],
-              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+              "peak_memory_gb": peak, "fused_step": stats,
+              "eager_loop_mean_step_ms": eager_ms,
+              "eager_loop_optimizer_ms": eager_opt}
     print("training " + json.dumps(result))
     return net, launches, result
 
@@ -1242,6 +1330,7 @@ def _grads(net):
 def resnet_phase():
     phase("16 ResNet-50 training")
     ctx = mx.gpu(0)
+    fused_step.reset_fused_step_cache()
     # cuDNN times its convolution algorithms at first use of a shape, as
     # MXNet does by default (MXNET_CUDNN_AUTOTUNE_DEFAULT=1); TF32 stays off
     torch.backends.cudnn.benchmark = True
@@ -1307,7 +1396,10 @@ def resnet_phase():
     print(f"K4 launches {fwd_n + bwd_n} = 2 x {RESNET_STEPS} steps "
           f"({pr.FWD_KERNEL} {fwd_n}, {pr.BWD_KERNEL} {bwd_n}); all "
           f"{len(stats0)} running statistics moved; every gradient finite")
+    stats = check_fused(trainer, RESNET_FALL_STEPS)
     fwd, bwd, opt = (statistics.mean(p[i] for p in parts) for i in range(3))
+    eager_ms, eager_opt = eager_step_ms(
+        lambda ev: pr.train_step(net, trainer, x, y, events=ev))
     # scoring: the eval forward at the same batch (BASELINE's other fp32
     # configuration)
     for _ in range(2):
@@ -1330,7 +1422,9 @@ def resnet_phase():
               "last_loss": losses[-1], "steps": len(losses),
               "peak_memory_gb": peak_gb,
               "scoring_img_per_s": RESNET_B / score_s,
-              "scoring_ms": score_s * 1e3, "n_params": n_params}
+              "scoring_ms": score_s * 1e3, "n_params": n_params,
+              "fused_step": stats, "eager_loop_mean_step_ms": eager_ms,
+              "eager_loop_optimizer_ms": eager_opt}
     print("resnet training " + json.dumps(result))
     return net, (fwd_n, bwd_n), result
 
@@ -1798,6 +1892,402 @@ def k4_floor_phase():
     return row
 
 
+# -- slice 6: bf16 AMP and the fused step ------------------------------------
+
+def k1_bf16_phase(gen):
+    phase("23 K1 in bfloat16 at the LM's shape")
+    B, H, S, D = TRAIN_B, GPT2_SMALL_LM["num_heads"], TRAIN_S, 64
+    q, k, v = flash_inputs(gen, B, H, S, S, D, torch.bfloat16)
+    scale = D ** -0.5
+    got = _flash_fwd_cuda(q, k, v, scale, True).float()
+    # the plain version in float32 from the same bf16 inputs, rounded to
+    # bf16 once: K1 rounds once too, at its output
+    want = _flash_ref(q.float(), k.float(), v.float(), scale, True).to(
+        torch.bfloat16).float()
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, rtol=BF16_RTOL, atol=KERNEL_ATOL):
+        raise RuntimeError(f"K1 in bfloat16 is off by {err} at the LM's "
+                           "shape")
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale)
+
+    lib_err = (library().float() - want).abs().max().item()
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    pairs = S * (S + 1) // 2
+    flops = 4 * D * B * H * pairs
+    nbytes = 4 * B * H * S * D * 2  # q, k, v read and out written, bf16
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    row = {"B": B, "H": H, "S_q": S, "S_k": S, "D": D, "causal": True,
+           "dtype": "bfloat16", "max_abs_err": err,
+           "ms": time_ms(lambda: _flash_fwd_cuda(q, k, v, scale, True),
+                         flush),
+           "plain_ms": time_ms(lambda: _flash_ref(q, k, v, scale, True),
+                               flush),
+           "library_ms": time_ms(library, flush),
+           "library_max_abs_err": lib_err,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "flops": flops, "bytes": nbytes}
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    del flush
+    print(f"  K1 bf16 within two bf16 ulps of the plain version: "
+          f"max_abs_err={err:.3e}; SDPA's {lib_err:.3e}")
+    print("  " + json.dumps(row))
+    return row
+
+
+def _amp_grads_finite(net):
+    bad = [n for n, p in net._collect_params_with_prefix().items()
+           if p.grad_req != "null" and
+           not torch.isfinite(p.grad().data).all()]
+    if bad:
+        raise RuntimeError(f"non-finite gradients after step 1: {bad[:5]}")
+
+
+def resnet_amp_run(layout):
+    """ResNet-50 v1 in bf16 AMP at one layout, as phase 16 in fp32: 2
+    warm-up and 10 timed steps, then 28 more; the fused step with a loss
+    scaler. Returns (net, trainer, x, y, result)."""
+    ctx = mx.gpu(0)
+    fused_step.reset_fused_step_cache()
+    net = pr.build_resnet50(ctx, seed=SEED, layout=layout)
+    trainer = pr.make_trainer(net)
+    amp.init("bfloat16")
+    amp.init_trainer(trainer)
+    x, y = pr.synthetic_batch(RESNET_B, ctx, seed=SEED, layout=layout)
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    t_build = time.perf_counter()
+    for i in range(RESNET_WARMUP):
+        losses.append(pr.train_step(net, trainer, x, y).asscalar())
+        if i == 0:
+            _amp_grads_finite(net)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t_build
+    _build.reset_launch_counts()
+    step_ms, parts = [], []
+    t_all = time.perf_counter()
+    for _ in range(RESNET_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        t0 = time.perf_counter()
+        loss = pr.train_step(net, trainer, x, y, events=ev)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        parts.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+        losses.append(loss.asscalar())
+    wall = time.perf_counter() - t_all
+    counts = _build.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    while len(losses) < RESNET_FALL_STEPS:
+        losses.append(pr.train_step(net, trainer, x, y).asscalar())
+    print(f"  {layout} losses {[round(v, 4) for v in losses]}")
+    if not all(onp.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"bf16 ResNet-50 ({layout}) did not go down in "
+                           f"{len(losses)} steps: {losses}")
+    fwd_n, bwd_n = counts.get(pr.FWD_KERNEL, 0), counts.get(pr.BWD_KERNEL, 0)
+    if fwd_n != RESNET_STEPS or bwd_n != RESNET_STEPS:
+        raise RuntimeError(f"K4 launched forward {fwd_n}, backward {bwd_n} "
+                           f"times in {RESNET_STEPS} bf16 steps")
+    stats = check_fused(trainer, RESNET_FALL_STEPS)
+    fwd, bwd, opt = (statistics.mean(p[i] for p in parts) for i in range(3))
+    result = {"layout": layout, "img_per_s": RESNET_B * RESNET_STEPS / wall,
+              "mean_step_ms": statistics.mean(step_ms),
+              "median_step_ms": statistics.median(step_ms),
+              "forward_ms": fwd, "backward_ms": bwd, "optimizer_ms": opt,
+              "first_loss": losses[0], "last_loss": losses[-1],
+              "steps": len(losses), "peak_memory_gb": peak_gb,
+              "warmup_s": warm_s, "k4_launches": fwd_n + bwd_n,
+              "skipped_steps": trainer._fused_skipped_steps(),
+              "loss_scale": trainer._amp_loss_scaler.loss_scale,
+              "fused_step": stats}
+    print(f"  resnet bf16 {layout} " + json.dumps(result))
+    amp.disable()
+    return net, trainer, x, y, result
+
+
+def resnet_amp_phase():
+    phase("24 ResNet-50 in bf16 AMP")
+    torch.backends.cudnn.benchmark = True
+    runs = {}
+    for layout in ("NCHW", "NHWC"):
+        runs[layout] = resnet_amp_run(layout)
+        if layout == "NCHW":  # the NHWC run keeps its net for phase 27
+            runs[layout] = runs[layout][4:]
+            torch.cuda.empty_cache()
+    head = min(("NCHW", "NHWC"), key=lambda k: runs[k][-1]["mean_step_ms"])
+    print(f"headline layout {head}: "
+          f"{runs[head][-1]['img_per_s']:.1f} img/s against "
+          f"{runs['NCHW' if head == 'NHWC' else 'NHWC'][-1]['img_per_s']:.1f}")
+    net, trainer, x, y, _ = runs["NHWC"]
+    return (net, trainer, x, y), {k: v[-1] for k, v in runs.items()}, head
+
+
+def lm_amp_phase():
+    phase("25 LM in bf16 AMP")
+    ctx = mx.gpu(0)
+    cfg = GPT2_SMALL_LM
+    vocab = cfg["vocab_size"]
+    fused_step.reset_fused_step_cache()
+    mx.random.seed(SEED)
+    net = TransformerLM(**cfg)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    toks = nd.array(onp.random.RandomState(SEED).randint(
+        0, vocab, (TRAIN_B, TRAIN_S)).astype("int32"), ctx=ctx)
+    labels = toks[:, 1:].reshape(-1)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": TRAIN_LR})
+    amp.init("bfloat16")
+    amp.init_trainer(trainer)
+    dtypes = set()
+
+    def step(ev=None):
+        ev = ev or [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        with autograd.record():
+            logits = net(toks)
+            loss = loss_fn(logits[:, :-1].reshape(-1, vocab), labels).mean()
+            ev[1].record()
+            with amp.scale_loss(loss, trainer) as scaled:
+                scaled.backward()
+        ev[2].record()
+        trainer.step(TRAIN_B)
+        ev[3].record()
+        dtypes.add(str(logits.dtype))
+        return loss, ev
+
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(WARMUP_STEPS):
+        losses.append(step()[0].asscalar())
+        if i == 0:
+            _amp_grads_finite(net)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    step_ms, parts = [], []
+    t_all = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        loss, ev = step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        parts.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+        losses.append(loss.asscalar())
+    wall = time.perf_counter() - t_all
+    launches = _build.launch_counts().get(FLASH_KERNEL, 0)
+    print(f"losses {[round(x, 4) for x in losses]}")
+    if not all(onp.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"bf16 LM training did not go down: {losses}")
+    if dtypes != {"bfloat16"}:
+        raise RuntimeError(f"the LM's logits came out {dtypes} under AMP")
+    want = cfg["num_layers"] * TIMED_STEPS
+    if launches != want:
+        raise RuntimeError(f"K1 launched {launches} times in {TIMED_STEPS} "
+                           f"bf16 steps of {cfg['num_layers']} layers")
+    print(f"K1 (bf16) launches {launches} = {cfg['num_layers']} layers x "
+          f"{TIMED_STEPS} timed steps")
+    stats = check_fused(trainer, WARMUP_STEPS + TIMED_STEPS)
+    fwd, bwd, opt = (statistics.mean(p[i] for p in parts) for i in range(3))
+    result = {"tokens_per_s": TRAIN_B * TRAIN_S * TIMED_STEPS / wall,
+              "mean_step_ms": statistics.mean(step_ms),
+              "median_step_ms": statistics.median(step_ms),
+              "forward_ms": fwd, "backward_ms": bwd, "optimizer_ms": opt,
+              "first_loss": losses[0], "last_loss": losses[-1],
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "skipped_steps": trainer._fused_skipped_steps(),
+              "loss_scale": trainer._amp_loss_scaler.loss_scale,
+              "fused_step": stats}
+    print("bf16 LM training " + json.dumps(result))
+    amp.disable()
+    del net, trainer
+    torch.cuda.empty_cache()
+    return launches, result
+
+
+def _l2(parts):
+    return float(onp.sqrt(sum(float((p.astype("float64") ** 2).sum())
+                              for p in parts)))
+
+
+def _amp_record(model, ctx, x, y, loss_of, use_amp, train):
+    """One record/backward of ``model`` on ``ctx``: (loss, logits,
+    {name: grad}) as float32 host arrays."""
+    if use_amp:
+        amp.init("bfloat16")
+    try:
+        with autograd.record(train_mode=train):
+            logits, loss = loss_of(model, nd.array(x, ctx=ctx),
+                                   nd.array(y, ctx=ctx))
+        loss.backward()
+    finally:
+        amp.disable()
+    grads = {n: p.grad().asnumpy().astype("float32")
+             for n, p in model._collect_params_with_prefix().items()
+             if p.grad_req != "null"}
+    return (float(loss.asnumpy().astype("float32").reshape(-1)[0]),
+            logits.asnumpy().astype("float32"), grads)
+
+
+def _amp_dev(amp_run, fp32_run):
+    (_, oa, ga), (_, of, gf) = amp_run, fp32_run
+    return {"logits": _l2([oa - of]) / _l2([of]),
+            "grads": _l2([ga[k] - gf[k] for k in gf]) /
+            _l2([gf[k] for k in gf])}
+
+
+def _amp_compare(name, make, x, y, loss_of, train):
+    """bf16 against float32 on the card and on the CPU port, from the
+    same weights: each side's deviation, and the card's held to the
+    CPU's as the CPU test holds the port to the JAX package."""
+    runs = {}
+    for side, ctx in (("gpu", mx.gpu(0)), ("cpu", mx.cpu())):
+        model = make(ctx)
+        for use_amp in (True, False):
+            runs[side, use_amp] = _amp_record(model, ctx, x, y, loss_of,
+                                              use_amp, train)
+        del model
+    dev = {side: _amp_dev(runs[side, True], runs[side, False])
+           for side in ("gpu", "cpu")}
+    losses = {side: runs[side, True][0] for side in ("gpu", "cpu")}
+    print(f"  {name}: bf16 deviation from float32 card {dev['gpu']}, "
+          f"cpu {dev['cpu']}; bf16 loss card {losses['gpu']:.6f} cpu "
+          f"{losses['cpu']:.6f}")
+    return dev, losses
+
+
+def _check_amp_compare(name, dev, losses):
+    for what in ("logits", "grads"):
+        if dev["gpu"][what] > AMP_DEV_FACTOR * dev["cpu"][what] + \
+                AMP_DEV_FLOOR:
+            raise RuntimeError(f"{name}: the card's bf16 {what} deviate "
+                               f"{dev['gpu'][what]} from float32, the "
+                               f"CPU's {dev['cpu'][what]}")
+    if not onp.isclose(losses["gpu"], losses["cpu"], rtol=AMP_LOSS_RTOL,
+                       atol=0):
+        raise RuntimeError(f"{name}: bf16 loss card {losses['gpu']}, CPU "
+                           f"{losses['cpu']}")
+
+
+def amp_vs_cpu_phase():
+    phase("26 AMP on the card against the CPU port")
+    report = {}
+    # ResNet-50 at batch 2, 224 x 224, eval mode with fresh weights (batch
+    # norm linear, its statistics the initial ones: phase 17's
+    # well-conditioned case)
+    src = pr.build_resnet50(mx.cpu(), seed=SEED + 3)
+    arrays = {n: p.data().asnumpy()
+              for n, p in src._collect_params_with_prefix().items()}
+    del src
+    rs = onp.random.RandomState(SEED + 3)
+    xb = rs.standard_normal((2, 3, pr.IMAGE, pr.IMAGE)).astype("float32")
+    yb = rs.randint(0, pr.CLASSES, 2).astype("float32")
+
+    def resnet(ctx):
+        return convert.params_from_numpy(vision.resnet50_v1(), arrays,
+                                         ctx=ctx)
+
+    def resnet_loss(model, xs, ys):
+        out = model(xs)
+        return out, gluon.loss.SoftmaxCrossEntropyLoss()(out, ys).mean()
+
+    dev, losses = _amp_compare("resnet50 eval", resnet, xb, yb, resnet_loss,
+                               False)
+    _check_amp_compare("resnet50", dev, losses)
+    report["resnet50"] = {"dev": dev, "bf16_loss": losses}
+    # the LM at 1 x 128 tokens, full width, at both cuBLAS settings: the
+    # port's scope (bf16 products summed in float32) and torch's default
+    # (split-K partial sums in bf16)
+    cfg = GPT2_SMALL_LM
+    mx.random.seed(SEED + 4)
+    src = TransformerLM(**cfg)
+    src.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    toks = onp.random.RandomState(SEED + 4).randint(
+        0, cfg["vocab_size"], (1, 128)).astype("float32")
+    with autograd.pause():
+        src(nd.array(toks, ctx=mx.cpu()))
+    lm_arrays = {n: p.data().asnumpy()
+                 for n, p in src._collect_params_with_prefix().items()}
+    del src
+
+    def lm(ctx):
+        return convert.params_from_numpy(TransformerLM(**cfg), lm_arrays,
+                                         ctx=ctx)
+
+    def lm_loss(model, t, _):
+        logits = model(t)
+        V = cfg["vocab_size"]
+        return logits, gluon.loss.SoftmaxCrossEntropyLoss()(
+            logits[:, :-1].reshape(-1, V), t[:, 1:].reshape(-1)).mean()
+
+    dev, losses = _amp_compare("LM 1 x 128", lm, toks, toks, lm_loss, True)
+    _check_amp_compare("LM", dev, losses)
+    report["lm"] = {"dev": dev, "bf16_loss": losses}
+    # the same at torch's default cuBLAS flags (split-K partial sums of
+    # bf16 products reduced in bf16): the port's scope replaced by a
+    # no-op for this measurement, whose deviations are reported
+    scope = ops_nn.cublas_fp32_accumulate
+    ops_nn.cublas_fp32_accumulate = \
+        lambda dtype=None: contextlib.nullcontext()
+    try:
+        dev, losses = _amp_compare("LM 1 x 128, torch's default cuBLAS "
+                                   "flags", lm, toks, toks, lm_loss, True)
+    finally:
+        ops_nn.cublas_fp32_accumulate = scope
+    report["lm_torch_default_cublas_flags"] = {"dev": dev,
+                                               "bf16_loss": losses}
+    print("amp against cpu " + json.dumps(report))
+    return report
+
+
+def poisoned_step_phase(net, trainer, x, y):
+    phase("27 a poisoned bf16 step on the card")
+    amp.init("bfloat16")
+    try:
+        with amp.scale_loss(nd.ones((1,), ctx=x.context), trainer) as scale:
+            pass
+        with autograd.record():
+            logits = net(x)
+            p = pr.rtc_softmax(logits.astype("float32"), y, grad_scale=scale)
+        p.backward()
+    finally:
+        amp.disable()
+    params = [q for q in net.collect_params().values()
+              if q.grad_req != "null"]
+    params[0].grad().data.fill_(float("inf"))
+    weights = [q.data().data.clone() for q in params]
+    states = [s.data.clone() for s in trainer._states if s is not None]
+    scale0 = trainer._amp_loss_scaler.loss_scale
+    skipped0 = trainer._fused_skipped_steps()
+    replays0 = fused_step.fused_step_stats()["replays"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # any host sync in step raises
+    try:
+        trainer.step(x.shape[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, q.data().data) for a, q in zip(weights, params))
+    same_states = all(torch.equal(a, s.data) for a, s in
+                      zip(states, [s for s in trainer._states
+                                   if s is not None]))
+    scale1 = trainer._amp_loss_scaler.loss_scale
+    skipped1 = trainer._fused_skipped_steps()
+    replays1 = fused_step.fused_step_stats()["replays"]
+    result = {"weights_bitwise_unchanged": same,
+              "states_bitwise_unchanged": same_states,
+              "loss_scale_before": scale0, "loss_scale_after": scale1,
+              "skipped_before": skipped0, "skipped_after": skipped1,
+              "replays": replays1 - replays0, "host_syncs_in_step": 0}
+    print("poisoned step " + json.dumps(result))
+    if not (same and same_states and scale1 == scale0 / 2
+            and skipped1 == skipped0 + 1 and replays1 == replays0 + 1):
+        raise RuntimeError(f"the poisoned step was not skipped on the "
+                           f"device: {result}")
+    return result
+
+
 def kernel_entry(name, source, replaces, launches, worst, row, shape, smi,
                  **extra):
     entry = {"name": name, "route": "cuda", "source": source,
@@ -1841,6 +2331,15 @@ def main():
     torch.cuda.empty_cache()
     conv_default_flags_phase()
     k4_floor = k4_floor_phase()
+    k1_bf16 = k1_bf16_phase(gen)
+    (net, trainer, x, y), resnet_amp, head = resnet_amp_phase()
+    k1_bf16_launches, _ = lm_amp_phase()
+    amp_vs_cpu_phase()
+    poisoned_step_phase(net, trainer, x, y)
+    del net, trainer
+    torch.cuda.empty_cache()
+    k4_amp = {f"resnet_bf16_{k}": v["k4_launches"] // 2
+              for k, v in resnet_amp.items()}
     big = k2_rows[-1]
     k3_big = k3_rows[0]
     kernels = [
@@ -1858,14 +2357,15 @@ def main():
         kernel_entry(
             FLASH_KERNEL, "mxnet_tpu_torch/csrc/flash_attention.cu",
             "mxnet_tpu/kernels/flash_attention.py:48",
-            k1_training + sym_result["k1_launches"],
+            k1_training + sym_result["k1_launches"] + k1_bf16_launches,
             max(k1_worst, route["max_abs_err"]), k1_row,
             f"B={k1_row['B']} H={k1_row['H']} S_q={k1_row['S_q']} "
             f"S_k={k1_row['S_k']} D={k1_row['D']} causal fp32", smi,
             bound_3xtf32_ms=k1_row["bound_3xtf32_ms"],
             launches_by_path={"training": k1_training,
-                              "symbolic_serving": sym_result["k1_launches"]},
-            fusion_route=route),
+                              "symbolic_serving": sym_result["k1_launches"],
+                              "training_bf16": k1_bf16_launches},
+            fusion_route=route, bf16=k1_bf16),
         kernel_entry(
             NORM_ACT_KERNEL, "mxnet_tpu_torch/csrc/norm_act.cu",
             "mxnet_tpu/kernels/norm_act.py:45", sym_result["k3_launches"],
@@ -1877,18 +2377,23 @@ def main():
         kernel_entry(
             pr.FWD_KERNEL, "mxnet_tpu_torch/tools/profile_resnet.py "
             "(FWD_SRC, via mxnet_tpu_torch/rtc.py)", "mxnet_tpu/rtc.py:19",
-            k4_fwd_n, k4_worst, k4_fwd, f"B={k4_fwd['B']} C={k4_fwd['C']} "
-            "fp32", smi, route_detail="NVRTC sm_90a, cuLaunchKernel",
+            k4_fwd_n + sum(k4_amp.values()), k4_worst, k4_fwd,
+            f"B={k4_fwd['B']} C={k4_fwd['C']} fp32", smi,
+            route_detail="NVRTC sm_90a, cuLaunchKernel",
             library_calls="torch.softmax", launcher=k4_double,
-            launch_floor=k4_floor),
+            launch_floor=k4_floor,
+            launches_by_path={"resnet_fp32": k4_fwd_n, **k4_amp}),
         kernel_entry(
             pr.BWD_KERNEL, "mxnet_tpu_torch/tools/profile_resnet.py "
             "(BWD_SRC, via mxnet_tpu_torch/rtc.py)", "mxnet_tpu/rtc.py:19",
-            k4_bwd_n, k4_worst, k4_bwd, f"B={k4_bwd['B']} C={k4_bwd['C']} "
-            "fp32", smi, route_detail="NVRTC sm_90a, cuLaunchKernel",
-            library_calls=None),
+            k4_bwd_n + sum(k4_amp.values()), k4_worst, k4_bwd,
+            f"B={k4_bwd['B']} C={k4_bwd['C']} fp32", smi,
+            route_detail="NVRTC sm_90a, cuLaunchKernel",
+            library_calls=None,
+            launches_by_path={"resnet_fp32": k4_bwd_n, **k4_amp}),
     ]
-    phase("23 report")
+    phase("28 report")
+    print(f"bf16 ResNet-50 headline layout: {head}")
     print(f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

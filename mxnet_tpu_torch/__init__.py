@@ -18,7 +18,10 @@ ResNet-50 v1 with a custom-op loss head whose kernels ``rtc`` compiles:
 - ``mx.gluon`` — Block/HybridBlock as ``torch.nn.Module``s, the layers
   (dense, conv, pooling, norms), the losses, the Trainer and the model
   zoo's ResNet V1;
-- ``mx.optimizer`` — SGD and Adam, updating parameters in place;
+- ``mx.optimizer`` — the optimizers with a fused multi-tensor kernel
+  (SGD, NAG, Adam, AdaGrad, RMSProp, AdaDelta, Ftrl, SignSGD, Signum),
+  multi-precision master weights and the lr schedulers, updating
+  parameters in place;
 - ``mx.sym`` — symbol graphs, their JSON, shape inference;
 - ``mx.analysis`` — the graph verifier and optimizer (``MXNET_GRAPH_OPT``)
   with the fusion pass;
@@ -31,7 +34,10 @@ ResNet-50 v1 with a custom-op loss head whose kernels ``rtc`` compiles:
 - ``mx.rtc`` — ``CudaModule``: CUDA C++ compiled at run time (NVRTC)
   and launched through the driver API on torch's stream (K4);
 - ``mx.operator`` — ``CustomOp``/``CustomOpProp`` and ``nd.Custom``;
-- ``mx.convert`` — loading weights carried over as numpy arrays.
+- ``mx.convert`` — loading weights and optimizer states carried over
+  as numpy arrays;
+- ``mx.contrib.amp`` — automatic mixed precision (bfloat16 by the op
+  lists) and the dynamic loss scaler.
 
 Entry points run on the card: the default context is ``gpu(0)``, and
 with no CUDA device they raise :class:`MXNetError` unless the caller
@@ -64,8 +70,10 @@ from . import serving
 from . import convert
 from . import operator
 from . import rtc
+from . import contrib
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "autograd", "initializer", "init", "ndarray", "nd",
            "random", "optimizer", "gluon", "kernels", "name", "symbol", "sym",
-           "analysis", "models", "serving", "convert", "operator", "rtc"]
+           "analysis", "models", "serving", "convert", "operator", "rtc",
+           "contrib"]

@@ -166,9 +166,11 @@ def backward(heads, head_grads=None, retain_graph=False):
                   if a._grad_req != "null" and a._data.requires_grad]
     if not marked:
         return
-    from .ndarray.ops_nn import cudnn_fp32
+    from .ndarray.ops_nn import cublas_fp32_accumulate, cudnn_fp32
 
-    with cudnn_fp32():  # convolutions' backward in float32, as forward
+    # convolutions' backward in float32 and products' sums in float32, as
+    # their forwards
+    with cudnn_fp32(), cublas_fp32_accumulate():
         grads = torch.autograd.grad(outs, [a._data for a in marked],
                                     grad_outputs=seeds,
                                     retain_graph=retain_graph,

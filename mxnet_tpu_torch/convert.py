@@ -1,4 +1,4 @@
-"""Carry weights across: numpy arrays into a port block.
+"""Carry weights and optimizer states across: numpy arrays into the port.
 
 The arrays are keyed by the structural parameter names that
 ``Block._collect_params_with_prefix()`` gives — the names the JAX
@@ -7,6 +7,8 @@ package's ``save_parameters`` writes, e.g. ``embed.weight``,
 for :class:`~.models.DecoderBlockLM`. ``Dense`` weights keep MXNet's
 ``(units, in_units)`` layout, which is also ``torch.nn.Linear``'s, so
 nothing is transposed. Weights are copied, never re-drawn from a seed.
+bfloat16 arrays (``ml_dtypes.bfloat16``, as the JAX package's
+``asnumpy`` returns them) are carried bit for bit through an int16 view.
 """
 from __future__ import annotations
 
@@ -14,19 +16,19 @@ import numpy as onp
 
 from .base import MXNetError
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "trainer_states_from_numpy"]
 
 
 def params_from_numpy(block, arrays, ctx=None):
     """Load ``arrays`` (``{structural name: numpy array}``) into
     ``block``'s parameters and return ``block``.
 
-    A parameter that is already allocated keeps its device; one that is
-    not (never initialized, or deferred by ``in_units=0``) is allocated
-    holding its array on its deferred device, else on ``ctx`` (default:
-    the current context, ``gpu(0)``). Raises :class:`MXNetError` on a
-    missing or extra name, or on a shape mismatch, before any parameter
-    is written."""
+    A parameter that is already allocated keeps its device and dtype;
+    one that is not (never initialized, or deferred by ``in_units=0``)
+    is allocated holding its array on its deferred device, else on
+    ``ctx`` (default: the current context, ``gpu(0)``). Raises
+    :class:`MXNetError` on a missing or extra name, or on a shape
+    mismatch, before any parameter is written."""
     params = block._collect_params_with_prefix()
     missing = sorted(set(params) - set(arrays))
     extra = sorted(set(arrays) - set(params))
@@ -47,3 +49,65 @@ def params_from_numpy(block, arrays, ctx=None):
     for name, p in params.items():
         p.set_data(values[name], ctx=ctx)
     return block
+
+
+def trainer_states_from_numpy(trainer, states, num_update=None,
+                              index_update_count=None):
+    """Load optimizer states into ``trainer`` and return it: ``states``
+    holds, per parameter of the trainer (in its order), None, a numpy
+    array or a tuple of them nested as the optimizer builds them —
+    momenta, Adam's ``(mean, var)``, ``(master, base)`` for a
+    multi-precision half parameter — the JAX Trainer's ``_states`` as
+    host arrays. Each lands on its parameter's device, in the layout and
+    dtypes the port's optimizer makes (its own state, if the trainer has
+    one, is overwritten in place). ``num_update`` and
+    ``index_update_count`` set the optimizer's update counts (Adam's bias
+    correction reads them). Raises :class:`MXNetError` on a layout or
+    shape mismatch before anything is written."""
+    import torch
+
+    from .ndarray.ndarray import host_tensor
+
+    if trainer._states is None:
+        trainer._create_states()
+    if len(states) != len(trainer._states):
+        raise MXNetError(f"trainer_states_from_numpy: {len(states)} states "
+                         f"for {len(trainer._states)} parameters")
+
+    pairs = []
+
+    def walk(mine, theirs, where):
+        if mine is None or theirs is None:
+            if mine is not None or theirs is not None:
+                raise MXNetError(f"trainer_states_from_numpy: state "
+                                 f"{where} is None on one side only")
+            return
+        if isinstance(mine, tuple):
+            if not isinstance(theirs, (tuple, list)) or \
+                    len(theirs) != len(mine):
+                raise MXNetError(f"trainer_states_from_numpy: state "
+                                 f"{where} is a {len(mine)}-tuple here")
+            for k, (m, t) in enumerate(zip(mine, theirs)):
+                walk(m, t, f"{where}[{k}]")
+            return
+        arr = onp.asarray(theirs)
+        if tuple(arr.shape) != tuple(mine.shape):
+            raise MXNetError(f"trainer_states_from_numpy: state {where} "
+                             f"has shape {arr.shape}, expected "
+                             f"{tuple(mine.shape)}")
+        pairs.append((mine.data, arr))
+
+    for i, (mine, theirs) in enumerate(zip(trainer._states, states)):
+        walk(mine, theirs, str(i))
+    with torch.no_grad():
+        for dst, arr in pairs:
+            dst.copy_(host_tensor(arr).to(device=dst.device,
+                                          dtype=dst.dtype))
+    optim = trainer._optimizer
+    if num_update is not None:
+        optim.num_update = optim.begin_num_update = int(num_update)
+    if index_update_count is not None:
+        optim._index_update_count = {int(k): int(v) for k, v in
+                                     dict(index_update_count).items()}
+    trainer._invalidate_fused_state()
+    return trainer

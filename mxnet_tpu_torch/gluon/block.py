@@ -132,6 +132,15 @@ class Block(torch.nn.Module):
         self.collect_params().initialize(init or initializer.Uniform(), ctx,
                                          verbose, force_reinit)
 
+    def cast(self, dtype):
+        """Cast every parameter of this block and its children to
+        ``dtype`` (reference: gluon/block.py cast); layers may pin their
+        own (``BatchNorm`` keeps float32 under a half cast)."""
+        for child in self._children.values():
+            child.cast(dtype)
+        for _, param in self.params.items():
+            param.cast(dtype)
+
     def _collect_params_with_prefix(self, prefix=""):
         """Structure-based parameter names ("0.weight", "body.1.bias"),
         the names the JAX package's ``save_parameters`` writes."""

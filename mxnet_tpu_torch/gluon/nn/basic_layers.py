@@ -12,6 +12,7 @@ import math
 import torch
 
 from ..block import HybridBlock
+from ...ndarray.ndarray import torch_dtype
 
 __all__ = ["HybridSequential", "Dense", "Activation", "Dropout",
            "BatchNorm", "LayerNorm", "Embedding", "Flatten"]
@@ -119,7 +120,8 @@ class BatchNorm(HybridBlock):
     (0.9 keeps 90% of the old value; torch's own momentum means the
     opposite). Otherwise it normalizes with the running statistics and
     writes nothing. Half-precision inputs compute their statistics in
-    float32 (the op's rule)."""
+    float32 (the op's rule), and :meth:`cast` to a half type keeps the
+    layer's parameters and statistics in float32 (the AMP rule)."""
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False, beta_initializer="zeros",
@@ -154,6 +156,13 @@ class BatchNorm(HybridBlock):
         for p in (self.gamma, self.beta, self.running_mean, self.running_var):
             p.shape = (c,)
 
+    def cast(self, dtype):
+        """Norm parameters and statistics stay float32 under a half cast
+        (``mxnet_tpu/gluon/nn/basic_layers.py:202-206``)."""
+        if torch_dtype(dtype) in (torch.float16, torch.bfloat16):
+            dtype = "float32"
+        super().cast(dtype)
+
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
         from ... import autograd
 
@@ -164,10 +173,13 @@ class BatchNorm(HybridBlock):
                 fix_gamma=not self._scale, output_mean_var=True,
                 axis=self._axis, use_batch_stats=True)
             m = self._momentum
+            runs = [running_mean.data, running_var.data]
             with torch.no_grad():
-                for run, batch in ((running_mean, mean), (running_var, var)):
-                    run.data.mul_(m).add_(batch.data.to(run.data.dtype),
-                                          alpha=1 - m)
+                # both statistics in one multi-tensor pass per operation
+                torch._foreach_mul_(runs, m)
+                torch._foreach_add_(runs, [b.data.to(r.dtype) for r, b in
+                                           zip(runs, (mean, var))],
+                                    alpha=1 - m)
             return out
         return F.batch_norm(
             x, gamma, beta, running_mean, running_var, eps=self._epsilon,

@@ -25,7 +25,7 @@ from ..base import MXNetError
 from .. import autograd, initializer
 from ..context import resolve_device
 from ..ndarray import NDArray
-from ..ndarray.ndarray import torch_dtype
+from ..ndarray.ndarray import host_tensor, torch_dtype
 
 __all__ = ["DeferredInitializationError", "Parameter", "ParameterDict"]
 
@@ -208,6 +208,26 @@ class Parameter:
             with torch.no_grad():
                 self._ndarray.grad.data.zero_()
 
+    def cast(self, dtype):
+        """Convert the parameter to ``dtype`` (reference:
+        gluon/parameter.py cast). Its ``torch.nn.Parameter`` stays the
+        same object, so the blocks that registered it see the new dtype;
+        it keeps its device, its ``grad_req`` and its gradient buffer,
+        which takes the new dtype as zeros."""
+        self.dtype = dtype if isinstance(dtype, str) else \
+            str(torch_dtype(dtype)).replace("torch.", "")
+        arr = self._ndarray
+        if arr is None:
+            return
+        dt = torch_dtype(dtype)
+        var = arr.data
+        if var.dtype == dt:
+            return
+        with torch.no_grad():
+            var.data = var.data.to(dt)
+            if arr.grad is not None:
+                arr.grad._data = torch.zeros_like(var, requires_grad=False)
+
     def set_data(self, data, ctx=None):
         """Copy ``data`` (NDArray, tensor or array-like) into the
         parameter, which keeps its device, dtype and identity. Raises
@@ -219,8 +239,9 @@ class Parameter:
         if isinstance(data, NDArray):
             data = data.data
         elif not isinstance(data, torch.Tensor):
-            # a copy: the source may be a read-only numpy view
-            data = torch.from_numpy(onp.array(data))
+            # a copy (the source may be a read-only numpy view); bfloat16
+            # arrays of the JAX package bit for bit
+            data = host_tensor(onp.array(data))
         if self._ndarray is None:
             self.shape = data.shape
             if tuple(self._shape) != tuple(data.shape):

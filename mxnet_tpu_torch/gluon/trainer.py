@@ -1,27 +1,39 @@
-"""Gluon Trainer: one card, an eager in-place update per parameter.
+"""Gluon Trainer: one card, the fused step or the eager loop.
 
-The PyTorch counterpart of ``mxnet_tpu/gluon/trainer.py:33-100,593-700``
-(reference: python/mxnet/gluon/trainer.py). ``step(batch_size)``
-rescales the gradients by ``1/batch_size`` and runs the optimizer's
-update for every parameter whose ``grad_req`` is not ``"null"``; the
-update writes the parameter's own tensor in place, so the blocks that
-registered it see the new values.
+The PyTorch counterpart of ``mxnet_tpu/gluon/trainer.py`` (reference:
+python/mxnet/gluon/trainer.py). ``step(batch_size)`` rescales the
+gradients by ``1/batch_size`` (and by the loss scale, with an AMP loss
+scaler from ``amp.init_trainer``) and updates every parameter whose
+``grad_req`` is not ``"null"``, in place, so the blocks that registered
+a parameter see the new values.
+
+By default the step is the fused step (``gluon/fused_step.py``): one
+function over the whole parameter group, built once per signature, with
+the all-finite check, the skip and the loss scale's motion on the
+device; on a CUDA device it is captured once as a CUDA graph and
+replayed, so a step reads nothing back from the device. A deliberate
+difference from the JAX trainer: a capture or replay that fails raises;
+there is no eager fallback (``_fused_broken``), which would hide the
+path. ``MXNET_FUSED_STEP=0`` runs the eager per-parameter loop, exactly
+as the JAX package does, and so does an optimizer with no fused kernel
+(counted as a bypass).
 
 Single device: ``kvstore`` ``"device"`` or ``"local"`` (or None) is
-accepted and does nothing; a ``dist*`` kvstore raises. The JAX
-package's compiled fused step, the AMP loss scaler and the asynchronous
-gradient all-reduce are not ported yet (ROADMAP).
+accepted and does nothing; a ``dist*`` kvstore raises. The asynchronous
+gradient all-reduce belongs to the multi-device slice.
 """
 from __future__ import annotations
 
 import pickle
 
-import numpy as onp
 import torch
 
 from ..base import MXNetError
 from .. import optimizer as opt
 from ..ndarray import NDArray
+from ..ndarray import registry as _registry
+from ..resilience import faults as _faults
+from . import fused_step as _fs
 from .parameter import Parameter
 
 __all__ = ["Trainer"]
@@ -32,7 +44,8 @@ class Trainer:
     gluon/trainer.py Trainer)."""
 
     def __init__(self, params, optimizer, optimizer_params=None,
-                 kvstore="device"):
+                 kvstore="device", compression_params=None,
+                 update_on_kvstore=None):
         if hasattr(params, "values"):
             params = list(params.values())
         if not isinstance(params, (list, tuple)):
@@ -61,6 +74,9 @@ class Trainer:
                                          **(optimizer_params or {}))
         self._scale = self._optimizer.rescale_grad
         self._states = None
+        self._fused = None        # this trainer's group, buffers and graph
+        self._fused_state = None  # the step state on the device
+        self._fused_skips_host = 0
 
     @property
     def learning_rate(self):
@@ -71,61 +87,504 @@ class Trainer:
         return self._optimizer
 
     def set_learning_rate(self, lr):
+        """Takes effect on the next step; the fused step reads the rate
+        from a device scalar, so nothing is rebuilt or recaptured."""
         self._optimizer.set_learning_rate(lr)
 
     def _create_states(self):
-        self._states = [self._optimizer.create_state(i, p.data())
-                        for i, p in enumerate(self._params)]
+        self._states = [
+            self._optimizer.create_state_multi_precision(i, p.data())
+            for i, p in enumerate(self._params)]
 
-    def step(self, batch_size):
-        """Update every parameter from its gradient, rescaled by
-        ``1/batch_size`` (reference: trainer.py step)."""
-        self.update(batch_size)
+    # -- the step state on the device ---------------------------------------
 
-    def update(self, batch_size):
-        """Reference: trainer.py update (no gradient all-reduce: one
-        card)."""
+    def _device(self):
+        for p in self._params:
+            if p._ndarray is not None:
+                return p._ndarray.data.device
+        raise MXNetError("Trainer: no parameter is initialized yet")
+
+    def _fused_skipped_steps(self):
+        """The AMP skip-step total (a device read while the device holds
+        it)."""
+        st = self._fused_state
+        if st is not None and not st["stale"] and "skips" in st["vals"]:
+            return int(st["vals"]["skips"].item())
+        return self._fused_skips_host
+
+    def _invalidate_fused_state(self):
+        """The host is authoritative from here (load_states, the eager
+        path): the next fused step re-seeds the device state in place."""
+        st = self._fused_state
+        if st is None or st["stale"]:
+            return
+        if "skips" in st["vals"]:
+            self._fused_skips_host = int(st["vals"]["skips"].item())
+        st["stale"] = True
+
+    def _sync_fused_state(self):
+        """Pull the device step state into the host mirrors: the update
+        count (the host's drifts by the skipped steps) and the loss
+        scaler's scale and window count. One device read, and none when
+        no fused step ran since the last one."""
+        st = self._fused_state
+        if st is None or st["stale"] or not st["dirty"]:
+            return
+        names = list(st["vals"])
+        vals = torch.stack([st["vals"][k].to(torch.float64)
+                            for k in names]).tolist()
+        vals = dict(zip(names, vals))
+        t = int(vals["t"])
+        optim = self._optimizer
+        optim.num_update = t
+        for k in optim._index_update_count:
+            optim._index_update_count[k] = t
+        st["expected_num_update"] = t
+        if "scale" in vals:
+            scaler = getattr(self, "_amp_loss_scaler", None)
+            if scaler is not None:
+                scaler._loss_scale = float(vals["scale"])
+                scaler._unskipped = int(vals["unskipped"])
+                st["scaler_mirror"] = (scaler._loss_scale,
+                                       scaler._unskipped)
+            self._fused_skips_host = int(vals["skips"])
+        st["dirty"] = False
+
+    def _ensure_fused_state(self, scaler):
+        """The device step state, made once per mode (with or without a
+        scaler) and re-seeded in place — never replaced, so a captured
+        graph keeps reading it — when the host changed underneath
+        (load_states, a write to ``loss_scale`` or ``num_update``)."""
+        optim = self._optimizer
+        st = self._fused_state
+        with_scaler = scaler is not None
+        mirror = (scaler._loss_scale, scaler._unskipped) if with_scaler \
+            else None
+        if st is None or ("scale" in st["vals"]) != with_scaler:
+            dev = self._device()
+            vals = {"t": torch.zeros((), dtype=torch.int32, device=dev)}
+            if with_scaler:
+                vals["scale"] = torch.zeros((), dtype=torch.float32,
+                                            device=dev)
+                vals["unskipped"] = torch.zeros((), dtype=torch.int32,
+                                                device=dev)
+                vals["skips"] = torch.zeros((), dtype=torch.int32,
+                                            device=dev)
+            self._invalidate_fused_state()
+            st = self._fused_state = {"vals": vals, "stale": True,
+                                      "dirty": False,
+                                      "expected_num_update": None,
+                                      "scaler_mirror": None}
+            _fs.register_trainer(self)
+        if st["stale"] or st["expected_num_update"] != optim.num_update \
+                or st["scaler_mirror"] != mirror:
+            self._invalidate_fused_state()  # carries the skip count over
+            vals = st["vals"]
+            with torch.no_grad():
+                vals["t"].fill_(optim.num_update)
+                if with_scaler:
+                    vals["scale"].fill_(scaler._loss_scale)
+                    vals["unskipped"].fill_(scaler._unskipped)
+                    vals["skips"].fill_(self._fused_skips_host)
+            st.update(stale=False, dirty=False,
+                      expected_num_update=optim.num_update,
+                      scaler_mirror=mirror)
+        if with_scaler:
+            scaler._device_sync = self._sync_fused_state
+        return st
+
+    def _loss_scale_operand(self):
+        """What ``amp.scale_loss`` multiplies the loss by: the device
+        scale on the fused path (no host read), else the host float."""
+        scaler = self._amp_loss_scaler
+        if _fs.fused_step_enabled() and \
+                self._optimizer._fused_kernel() is not None:
+            return self._ensure_fused_state(scaler)["vals"]["scale"]
+        return scaler.loss_scale
+
+    # -- the fused step -----------------------------------------------------
+
+    def _fused_group(self, kernel_key, scaler_cfg):
+        """The work set and the LRU key of the current parameter group:
+        a dict, or ``"empty"`` when no parameter takes gradients."""
+        optim = self._optimizer
+        work = [i for i, p in enumerate(self._params)
+                if p.grad_req != "null"]
+        if not work:
+            return "empty"
+        params = [self._params[i] for i in work]
+        grads = [p.grad() for p in params]
+        states = [self._states[i] for i in work]
+        mp_flags = tuple(bool(optim.multi_precision and
+                              optim._is_half(p.data())) for p in params)
+        # parameters that always share a learning rate and a weight
+        # decay update as one list
+        keys = {}
+        for pos, i in enumerate(work):
+            keys.setdefault((optim._lr_mult_of(i), optim._wd_mult_of(i)),
+                            []).append(pos)
+        groups = tuple(tuple(v) for v in keys.values())
+        sig = tuple((tuple(p.shape), str(p.data().data.dtype),
+                     str(g.data.dtype), _fs.state_sig(s))
+                    for p, g, s in zip(params, grads, states))
+        key = (type(optim).__name__, kernel_key, mp_flags, groups, sig,
+               scaler_cfg, _registry.amp_version())
+        return {"work": work, "params": params, "grads": grads,
+                "states": states, "mp_flags": mp_flags, "groups": groups,
+                "key": key}
+
+    def _fused_entry(self, group, kernel, scaler_cfg):
+        """The cached step function of ``group``'s signature, built on a
+        miss; one construction site for the step loop and warmup."""
+        fn = _fs._CACHE.lookup(group["key"])
+        if fn is None:
+            fn = _fs.build_step(kernel, group["mp_flags"], group["groups"],
+                                scaler_cfg)
+            _fs._CACHE.insert(group["key"], fn)
+        return fn
+
+    def _buffer_ids(self, params):
+        """Where the group's tensors live: a captured graph replays these
+        addresses, so a change (a cast, a new gradient buffer) rebuilds."""
+        return tuple((p._ndarray.data.data_ptr(), p._ndarray.data.dtype,
+                      None if p._ndarray.grad is None
+                      else p._ndarray.grad.data.data_ptr()) for p in params)
+
+    def _fused_prepare(self, scaler):
+        """This trainer's fused group for the current signature, built or
+        reused; None when the optimizer has no fused kernel, ``"empty"``
+        when nothing takes gradients."""
+        optim = self._optimizer
+        kern = optim._fused_kernel()
+        if kern is None:
+            return None
         if self._states is None:
             self._create_states()
-        self._optimizer.rescale_grad = self._scale / batch_size
+        kernel_key, kernel = kern
+        scaler_cfg = None if scaler is None else \
+            (float(scaler._scale_factor), int(scaler._scale_window))
+        st = self._ensure_fused_state(scaler)
+        token = (kernel_key, scaler_cfg, _registry.amp_version(),
+                 tuple(p.grad_req for p in self._params),
+                 tuple((optim._lr_mult_of(i), optim._wd_mult_of(i))
+                       for i in range(len(self._params))))
+        cache = self._fused
+        if cache is not None and cache["token"] == token and \
+                cache["states"] is self._states and \
+                cache["sstate"] is st["vals"] and \
+                cache["ids"] == self._buffer_ids(cache["params"]):
+            _fs._CACHE.note_hit()
+            return cache
+        group = self._fused_group(kernel_key, scaler_cfg)
+        if group == "empty":
+            return group
+        fn = self._fused_entry(group, kernel, scaler_cfg)
+        dev = self._device()
+        ng = len(group["groups"])
+        self._fused = cache = {
+            "token": token, "states": self._states, "sstate": st["vals"],
+            "params": group["params"], "work": group["work"],
+            "groups": group["groups"], "fn": fn,
+            "ids": self._buffer_ids(group["params"]),
+            "args": ([p._ndarray.data for p in group["params"]],
+                     [g.data for g in group["grads"]],
+                     [_fs.state_data(s) for s in group["states"]],
+                     st["vals"]),
+            "scalars": torch.zeros(2 * ng + 1, dtype=torch.float32,
+                                   device=dev),
+            "scalars_host": None, "graph": None}
+        return cache
+
+    def _capture(self, cache):
+        """Capture ``cache``'s step as a CUDA graph (nothing runs). A
+        failure raises: the card runs the fused step only as a graph."""
         try:
-            for i, p in enumerate(self._params):
-                if p.grad_req == "null":
-                    continue
-                self._optimizer.update(i, p.data(), p.grad(), self._states[i])
+            _faults.maybe_fail("fused_step_capture")
+            graph = torch.cuda.CUDAGraph()
+            with torch.no_grad(), \
+                    torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                cache["fn"](*cache["args"], cache["scalars"])
+        except Exception as e:
+            raise MXNetError(
+                f"capturing the fused step as a CUDA graph failed "
+                f"({type(e).__name__}: {e}); on a CUDA device the fused "
+                "step runs only as a graph (MXNET_FUSED_STEP=0 runs the "
+                "eager loop)") from e
+        cache["graph"] = graph
+        _fs._CACHE.note_capture()
+
+    def _set_scalars(self, cache, batch_size):
+        """Write the groups' learning rates and weight decays and the
+        rescale into the device vector the step reads, when they changed
+        (one host-to-device copy, no wait)."""
+        optim = self._optimizer
+        firsts = [cache["work"][pos[0]] for pos in cache["groups"]]
+        host = [optim._get_lr(i) for i in firsts] + \
+            [optim._get_wd(i) for i in firsts] + [self._scale / batch_size]
+        if host == cache["scalars_host"]:
+            return
+        cache["scalars_host"] = host
+        src = torch.tensor(host, dtype=torch.float32)
+        buf = cache["scalars"]
+        with torch.no_grad():
+            if buf.is_cuda:
+                buf.copy_(src.pin_memory(), non_blocking=True)
+            else:
+                buf.copy_(src)
+
+    def _fused_step(self, batch_size, scaler):
+        """One fused step; False sends the caller to the eager loop (an
+        optimizer with no fused kernel, counted as a bypass)."""
+        cache = self._fused_prepare(scaler)
+        if cache is None:
+            _fs._CACHE.note_bypass()
+            return False
+        if cache == "empty":
+            return True  # nothing to update; the eager loop no-ops too
+        optim = self._optimizer
+        # the host's update count advances as on the eager path (and
+        # drifts on a skipped step until the next sync); rates are read
+        # after the bump, so a scheduler sees the eager path's count
+        for i in cache["work"]:
+            optim._update_count(i)
+        self._set_scalars(cache, batch_size)
+        if cache["scalars"].is_cuda:
+            if cache["graph"] is None:
+                self._capture(cache)
+            try:
+                cache["graph"].replay()
+            except Exception as e:
+                raise MXNetError(f"replaying the fused step's CUDA graph "
+                                 f"failed ({type(e).__name__}: {e})") from e
+            _fs._CACHE.note_replay()
+        else:
+            with torch.no_grad():
+                cache["fn"](*cache["args"], cache["scalars"])
+        st = self._fused_state
+        st["expected_num_update"] = optim.num_update
+        st["dirty"] = True
+        return True
+
+    def warmup(self, shapes=None, block=None):
+        """Build the step ahead of the first one, so no build or capture
+        lands mid-training.
+
+        Without arguments: builds (or finds) the fused step function of
+        the current parameter group and, on a CUDA device, captures its
+        graph; nothing runs, no state changes. With ``block`` and
+        ``shapes`` (input shapes, one per expected batch signature):
+        also runs one forward/backward/``step`` per shape on zero inputs,
+        then restores parameters, gradients, optimizer state, the update
+        counts, the loss scaler and the random generators in place, so
+        training after ``warmup`` is the same as without it. Returns the
+        number of shapes run."""
+        from .parameter import DeferredInitializationError
+
+        if (block is None) != (shapes is None):
+            raise ValueError(
+                "Trainer.warmup needs both shapes and block for the "
+                "forward/backward/step warmup (got only "
+                f"{'shapes' if shapes is not None else 'block'}); call "
+                "warmup() with neither to build just the fused step")
+        if block is None:
+            try:
+                self._warmup_fused()
+            except DeferredInitializationError:
+                pass  # shapes unknown until the first forward
+            return 0
+        return self._warmup_run(block, [tuple(s) for s in shapes])
+
+    def _warmup_fused(self):
+        if not _fs.fused_step_enabled():
+            return False
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        cache = self._fused_prepare(scaler)
+        if cache is None or cache == "empty":
+            return False
+        if cache["scalars"].is_cuda and cache["graph"] is None:
+            self._capture(cache)
+        return True
+
+    def _warmup_run(self, block, shapes):
+        from .. import autograd
+        from .. import ndarray as nd
+        from .. import random as _random
+
+        params = list(block.collect_params().values())
+        if shapes and any(p._ndarray is None for p in params):
+            # deferred parameters take their shapes from one forward
+            # without recording (no dropout draws, no statistics updates)
+            with autograd.pause(train_mode=False):
+                block(nd.zeros(shapes[0], ctx=self._device_or_default()))
+        for p in self._params:
+            if p not in params:
+                params.append(p)
+        self._sync_fused_state()
+        if self._states is None:
+            self._create_states()
+        live = [p for p in params if p._ndarray is not None]
+        snap_w = [p._ndarray.data.detach().clone() for p in live]
+        snap_g = [None if p._ndarray.grad is None else
+                  p._ndarray.grad.data.clone() for p in live]
+        state_leaves = _fs._leaves([_fs.state_data(s) for s in self._states])
+        snap_s = [s.clone() for s in state_leaves]
+        optim = self._optimizer
+        snap_o = (optim.num_update, optim.begin_num_update,
+                  dict(optim._index_update_count))
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        snap_sc = None if scaler is None else \
+            (scaler._loss_scale, scaler._unskipped)
+        snap_skips = self._fused_skips_host
+        gens = dict(_random._GENERATORS)
+        snap_r = {d: g.get_state() for d, g in gens.items()}
+        count = 0
+        try:
+            for shape in shapes:
+                x = nd.zeros(shape, ctx=self._device_or_default())
+                with autograd.record():
+                    y = block(x)
+                    outs = y if isinstance(y, (list, tuple)) else [y]
+                    loss = outs[0].sum()
+                    for o in outs[1:]:
+                        loss = loss + o.sum()
+                loss.backward()
+                self.step(batch_size=max(int(shape[0]), 1) if shape else 1)
+                count += 1
+        finally:
+            self._sync_fused_state()
+            with torch.no_grad():
+                for p, w, g in zip(live, snap_w, snap_g):
+                    p._ndarray.data.copy_(w)
+                    if g is not None and p._ndarray.grad is not None:
+                        p._ndarray.grad.data.copy_(g)
+                for s, v in zip(state_leaves, snap_s):
+                    s.copy_(v)
+            optim.num_update, optim.begin_num_update, counts = snap_o
+            optim._index_update_count = counts
+            if scaler is not None:
+                scaler._loss_scale, scaler._unskipped = snap_sc
+            self._invalidate_fused_state()
+            self._fused_skips_host = snap_skips
+            for d, g in gens.items():
+                g.set_state(snap_r[d])
+        return count
+
+    def _device_or_default(self):
+        from ..context import Context
+
+        try:
+            return Context.from_device(self._device())
+        except MXNetError:
+            return None
+
+    # -- stepping -----------------------------------------------------------
+
+    def step(self, batch_size, ignore_stale_grad=False):
+        """Rescale by 1/batch_size and update (reference: trainer.py step).
+        With an AMP loss scaler the gradients are also divided by the
+        loss scale, and a step whose gradients hold an inf or a NaN is
+        skipped and halves the scale; on the fused path all of it happens
+        on the device."""
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        if _fs.fused_step_enabled() and self._fused_step(batch_size, scaler):
+            return
+        if self._fused_state is not None:
+            # the fused path ran earlier: the device state is
+            # authoritative, pull it back before the eager arithmetic
+            self._sync_fused_state()
+            self._invalidate_fused_state()
+        rescale = self._scale / batch_size
+        if scaler is not None:
+            if scaler.has_overflow(self._params):
+                scaler.update_scale(True)
+                return  # skip the update entirely
+            # divide by the scale the loss was multiplied by; grow it only
+            # after the step is applied
+            rescale = rescale / scaler.loss_scale
+        self._optimizer.rescale_grad = rescale
+        try:
+            self._update_all()
         finally:
             self._optimizer.rescale_grad = self._scale
+        if scaler is not None:
+            scaler.update_scale(False)
+
+    def update(self, batch_size, ignore_stale_grad=False):
+        """The eager update alone, rescaled by 1/batch_size (reference:
+        trainer.py update; no gradient all-reduce: one card)."""
+        self._optimizer.rescale_grad = self._scale / batch_size
+        try:
+            self._update_all()
+        finally:
+            self._optimizer.rescale_grad = self._scale
+
+    def _update_all(self):
+        if self._states is None:
+            self._create_states()
+        for i, p in enumerate(self._params):
+            if p.grad_req == "null":
+                continue
+            self._optimizer.update_multi_precision(i, p.data(), p.grad(),
+                                                   self._states[i])
 
     def zero_grad(self):
         for p in self._params:
             p.zero_grad()
 
+    # -- checkpoints --------------------------------------------------------
+
     def save_states(self, fname):
-        """Write the optimizer's state (moments, update counts) to
-        ``fname`` (reference: trainer.py save_states)."""
+        """Write the optimizer's state (moments, master weights, update
+        counts) and the loss scaler's to ``fname`` (reference: trainer.py
+        save_states); the device step state is synced first."""
         if self._states is None:
             self._create_states()
+        self._sync_fused_state()
         opt_ = self._optimizer
         payload = {"num_update": opt_.num_update,
                    "index_update_count": dict(opt_._index_update_count),
                    "states": [_dump(s) for s in self._states]}
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        if scaler is not None:
+            payload["loss_scaler"] = {"loss_scale": scaler._loss_scale,
+                                      "unskipped": scaler._unskipped}
         with open(fname, "wb") as f:
             pickle.dump(payload, f)
 
     def load_states(self, fname):
-        """Restore what :meth:`save_states` wrote, onto each parameter's
-        device (reference: trainer.py load_states)."""
+        """Restore what :meth:`save_states` wrote. States that exist with
+        the same layout are overwritten in place, so a captured fused
+        step keeps its graph; the device step state is re-seeded from
+        the restored counts at the next step."""
         with open(fname, "rb") as f:
             payload = pickle.load(f)  # a file this trainer wrote
         if len(payload["states"]) != len(self._params):
             raise MXNetError(f"{fname}: states for {len(payload['states'])} "
                              f"parameters, the trainer has "
                              f"{len(self._params)}")
-        self._states = [_load(s, p.data().data.device)
-                        for s, p in zip(payload["states"], self._params)]
+        loaded = [_load(s, p.data().data.device)
+                  for s, p in zip(payload["states"], self._params)]
+        if self._states is not None and \
+                [_fs.state_sig(s) for s in self._states] == \
+                [_fs.state_sig(s) for s in loaded]:
+            with torch.no_grad():
+                for old, new in zip(
+                        _fs._leaves([_fs.state_data(s)
+                                     for s in self._states]),
+                        _fs._leaves([_fs.state_data(s) for s in loaded])):
+                    old.copy_(new)
+        else:
+            self._states = loaded
         opt_ = self._optimizer
         opt_.num_update = opt_.begin_num_update = payload["num_update"]
-        opt_._index_update_count = dict(payload["index_update_count"])
+        opt_._index_update_count = dict(payload.get("index_update_count",
+                                                    {}))
+        scaler_state = payload.get("loss_scaler")
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        if scaler_state is not None and scaler is not None:
+            scaler._loss_scale = float(scaler_state["loss_scale"])
+            scaler._unskipped = int(scaler_state["unskipped"])
+        self._invalidate_fused_state()
 
 
 def _dump(state):
@@ -141,4 +600,6 @@ def _load(state, device):
         return None
     if isinstance(state, tuple):
         return tuple(_load(s, device) for s in state)
-    return NDArray(torch.from_numpy(onp.array(state)).to(device))
+    from ..ndarray.ndarray import host_tensor
+
+    return NDArray(host_tensor(state).to(device))

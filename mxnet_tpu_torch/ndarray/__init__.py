@@ -11,9 +11,9 @@ from __future__ import annotations
 from . import registry
 from . import ops_basic, ops_index, ops_nn, ops_optim  # noqa: F401 — register the ops
 from .ndarray import (NDArray, arange, array, expand_dims, load,
-                      load_frombuffer, save, zeros)
+                      load_frombuffer, ones, save, zeros)
 
-__all__ = ["NDArray", "array", "zeros", "arange", "expand_dims", "save",
+__all__ = ["NDArray", "array", "zeros", "ones", "arange", "expand_dims", "save",
            "load", "load_frombuffer", "registry", "Custom"]
 
 # the JAX package's table (``mxnet_tpu/ndarray/__init__.py:41-85``); the
@@ -68,3 +68,9 @@ for _name in registry.list_ops():
     if "nd" in _opdef.namespaces:
         globals()[_name] = _make_op_function(_opdef)
         __all__.append(_name)
+
+# the reference's CamelCase spellings of the registered ops, as the JAX
+# package's ``mx.nd`` has them (``nd.Activation``, ``nd.LeakyReLU``)
+for _alias, _target in _CAMEL_ALIASES.items():
+    if _alias not in globals() and _target in globals():
+        globals()[_alias] = globals()[_target]

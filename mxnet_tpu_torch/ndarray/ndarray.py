@@ -22,7 +22,7 @@ from .. import autograd
 from ..base import MXNetError
 from ..context import Context, resolve_device
 
-__all__ = ["NDArray", "array", "zeros", "arange", "expand_dims",
+__all__ = ["NDArray", "array", "zeros", "ones", "arange", "expand_dims",
            "torch_dtype", "save", "load", "load_frombuffer"]
 
 _TORCH_DTYPES = {
@@ -44,8 +44,24 @@ def torch_dtype(dtype):
         raise MXNetError(f"unsupported dtype {dtype!r}") from None
 
 
+def _bfloat16_numpy():
+    """numpy's bfloat16 (``ml_dtypes``, which JAX arrays use), or None
+    where that package is not installed."""
+    try:
+        import ml_dtypes
+    except ImportError:
+        return None
+    return onp.dtype(ml_dtypes.bfloat16)
+
+
 def _numpy_dtype(dtype):
-    return onp.dtype(str(dtype).replace("torch.", ""))
+    """The numpy dtype of a torch dtype. bfloat16 is ``ml_dtypes``'
+    where installed (the JAX package's), else the name "bfloat16"."""
+    name = str(dtype).replace("torch.", "")
+    if name == "bfloat16":
+        bf = _bfloat16_numpy()
+        return bf if bf is not None else name
+    return onp.dtype(name)
 
 
 class NDArray:
@@ -90,6 +106,13 @@ class NDArray:
         """A host copy (waits for the device). Always a copy, never a
         view of a CPU tensor that a later in-place op could change."""
         t = self._data.detach()
+        if t.dtype == torch.bfloat16:
+            # bit for bit as ml_dtypes' bfloat16, as the JAX package
+            # returns it; float32 (exact) where ml_dtypes is missing
+            bf = _bfloat16_numpy()
+            if bf is None:
+                return t.float().cpu().numpy()
+            return t.cpu().view(torch.int16).numpy().copy().view(bf)
         return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
 
     def asscalar(self):
@@ -175,43 +198,63 @@ class NDArray:
             self._data[key] = value
 
     # -- arithmetic --------------------------------------------------------
+    # An array operand goes through the registered broadcast op, as in the
+    # JAX package (``_binop``), so the AMP policy's widest-type rule
+    # applies; a Python number keeps the array's dtype (the ``_scalar``
+    # ops, which no AMP list names).
 
-    @staticmethod
-    def _other(x):
-        return x._data if isinstance(x, NDArray) else x
+    def _binop(self, name, torch_fn, other, reverse=False):
+        """``name`` (the broadcast op) on an array ``other``; else
+        ``torch_fn(self's tensor, other)``, already reversed where the
+        operator is."""
+        if isinstance(other, (NDArray, torch.Tensor)):
+            from .registry import get_op, invoke
+
+            a, b = (other, self) if reverse else (self, other)
+            return invoke(get_op(name), (a, b), {})
+        return self._apply(torch_fn, self._data, other)
 
     def __add__(self, other):
-        return self._apply(torch.add, self._data, self._other(other))
+        return self._binop("broadcast_add", torch.add, other)
 
-    __radd__ = __add__
+    def __radd__(self, other):
+        return self._binop("broadcast_add", torch.add, other, True)
 
     def __sub__(self, other):
-        return self._apply(torch.sub, self._data, self._other(other))
+        return self._binop("broadcast_sub", torch.sub, other)
 
     def __rsub__(self, other):
-        return self._apply(torch.rsub, self._data, self._other(other))
+        return self._binop("broadcast_sub", torch.rsub, other, True)
 
     def __mul__(self, other):
-        return self._apply(torch.mul, self._data, self._other(other))
+        return self._binop("broadcast_mul", torch.mul, other)
 
-    __rmul__ = __mul__
+    def __rmul__(self, other):
+        return self._binop("broadcast_mul", torch.mul, other, True)
 
     def __truediv__(self, other):
-        return self._apply(torch.div, self._data, self._other(other))
+        return self._binop("broadcast_div", torch.div, other)
 
     def __rtruediv__(self, other):
-        return self._apply(self._data.__rtruediv__, self._other(other))
+        return self._binop("broadcast_div", torch.Tensor.__rtruediv__, other,
+                           True)
 
     def __neg__(self):
         return self._apply(torch.neg, self._data)
 
-    # -- reductions --------------------------------------------------------
+    # -- reductions (the registered ops: AMP keeps them in float32) --------
 
     def sum(self, axis=None, keepdims=False):
-        return self._apply(_reduce, torch.sum, self._data, axis, keepdims)
+        from .registry import get_op, invoke
+
+        return invoke(get_op("sum"), (self,),
+                      {"axis": axis, "keepdims": keepdims})
 
     def mean(self, axis=None, keepdims=False):
-        return self._apply(_reduce, torch.mean, self._data, axis, keepdims)
+        from .registry import get_op, invoke
+
+        return invoke(get_op("mean"), (self,),
+                      {"axis": axis, "keepdims": keepdims})
 
     def __repr__(self):
         return f"\n{self.asnumpy()!r}\n<NDArray {self.shape} @{self.context}>"
@@ -238,14 +281,26 @@ def array(source_array, ctx=None, dtype=None):
         src = source_array.detach()
         dt = torch_dtype(dtype) if dtype is not None else src.dtype
         return NDArray(src.to(device=dev, dtype=dt, copy=True))
-    arr = onp.asarray(source_array)
-    if dtype is not None:
-        arr = arr.astype(_numpy_dtype(dtype), copy=False)
+    return NDArray(host_tensor(source_array, dtype).to(dev, copy=True))
+
+
+def host_tensor(source_array, dtype=None):
+    """A CPU tensor of an array-like (it may alias a numpy source): the
+    dtype is ``dtype`` if given, else the source's, float64 narrowed to
+    float32; ``ml_dtypes`` bfloat16 arrays (the JAX package's) carried
+    bit for bit through an int16 view."""
+    arr = onp.ascontiguousarray(onp.asarray(source_array))
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(onp.int16)).view(torch.bfloat16)
+    elif dtype is not None and torch_dtype(dtype) == torch.bfloat16:
+        t = torch.from_numpy(arr.astype(onp.float32, copy=False))
+    elif dtype is not None:
+        t = torch.from_numpy(arr.astype(_numpy_dtype(dtype), copy=False))
     elif arr.dtype == onp.float64:
-        arr = arr.astype(onp.float32)
-    # a copy even on the CPU: the array must not alias the caller's buffer
-    return NDArray(torch.from_numpy(onp.ascontiguousarray(arr)).to(
-        dev, copy=True))
+        t = torch.from_numpy(arr.astype(onp.float32))
+    else:
+        t = torch.from_numpy(arr)
+    return t if dtype is None else t.to(torch_dtype(dtype))
 
 
 def zeros(shape, ctx=None, dtype="float32"):
@@ -253,6 +308,13 @@ def zeros(shape, ctx=None, dtype="float32"):
         shape = (shape,)
     return NDArray(torch.zeros(tuple(shape), dtype=torch_dtype(dtype),
                                device=resolve_device(ctx)))
+
+
+def ones(shape, ctx=None, dtype="float32"):
+    if isinstance(shape, int):
+        shape = (shape,)
+    return NDArray(torch.ones(tuple(shape), dtype=torch_dtype(dtype),
+                              device=resolve_device(ctx)))
 
 
 def arange(start, stop=None, step=1.0, ctx=None, dtype="float32"):

@@ -3,7 +3,8 @@
 The PyTorch counterparts of ``mxnet_tpu/ndarray/ops_basic.py`` (the
 unary table :27-42, the broadcast table :157-185, the scalar forms
 :199-228, the reductions :254, ``reshape`` :336, ``flatten`` :370,
-``transpose`` :377, ``slice_axis`` :456, the constant nodes :618-638,
+``transpose`` :377, ``slice_axis`` :456, ``amp_cast`` and
+``amp_multicast`` :114-135, the constant nodes :618-638,
 ``dot`` :666 and ``batch_dot`` :677), cut to what the ported paths and
 the symbol graphs they serve call. The JAX package left them to XLA; the
 port leaves them to torch. MXNet's conventions hold: comparisons return
@@ -98,6 +99,31 @@ def softsign(data):
 def clip(data, a_min=None, a_max=None):
     """Clamp into [a_min, a_max]."""
     return torch.clamp(data, a_min, a_max)
+
+
+_FLOAT_DTYPES = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
+
+
+@register()
+def amp_cast(data, dtype="float32"):
+    """Cast a floating input to ``dtype``; other dtypes pass through, so
+    the AMP graph pass can insert it blindly (reference:
+    src/operator/tensor/amp_cast.cc)."""
+    if data.dtype in _FLOAT_DTYPES:
+        return data.to(torch_dtype(dtype))
+    return data
+
+
+@register()
+def amp_multicast(*data, num_outputs=0):
+    """Every floating input cast to the widest floating dtype among them
+    (reference: amp_cast.cc AMPMultiCast)."""
+    fl = [x.dtype for x in data if x.dtype in _FLOAT_DTYPES]
+    if not fl:
+        return tuple(data)
+    widest = max(fl, key=_FLOAT_DTYPES.index)
+    return tuple(x.to(widest) if x.dtype in _FLOAT_DTYPES else x
+                 for x in data)
 
 
 # -- binary --------------------------------------------------------------
@@ -314,26 +340,49 @@ register("_sym_constant", differentiable=False,
 
 # -- matrix --------------------------------------------------------------
 
+def promote(*ts):
+    """The tensors (None kept) in their common dtype where they differ,
+    as jnp's products promote: a bfloat16 weight under a float32 input
+    computes in float32 (torch's products take one dtype)."""
+    dts = {t.dtype for t in ts if t is not None}
+    if len(dts) <= 1:
+        return ts
+    common = None
+    for t in ts:
+        if t is not None:
+            common = t.dtype if common is None else \
+                torch.promote_types(common, t.dtype)
+    return tuple(None if t is None else t.to(common) for t in ts)
+
+
 @register()
 def dot(lhs, rhs, transpose_a=False, transpose_b=False):
     """MXNet dot: contracts lhs's last axis with rhs's first axis, after
     reversing the axes of either operand on request (reference:
     src/operator/tensor/dot-inl.h)."""
+    from .ops_nn import cublas_fp32_accumulate
+
+    lhs, rhs = promote(lhs, rhs)
     if transpose_a:
         lhs = lhs.permute(*reversed(range(lhs.dim())))
     if transpose_b:
         rhs = rhs.permute(*reversed(range(rhs.dim())))
-    if lhs.dim() <= 2 and rhs.dim() <= 2:
-        return torch.matmul(lhs, rhs)
-    return torch.tensordot(lhs, rhs, dims=([lhs.dim() - 1], [0]))
+    with cublas_fp32_accumulate(lhs.dtype):
+        if lhs.dim() <= 2 and rhs.dim() <= 2:
+            return torch.matmul(lhs, rhs)
+        return torch.tensordot(lhs, rhs, dims=([lhs.dim() - 1], [0]))
 
 
 @register()
 def batch_dot(lhs, rhs, transpose_a=False, transpose_b=False):
     """Batched matrix product over the leading axes, either operand's
     last two axes swapped on request (reference: dot.cc batch_dot)."""
+    from .ops_nn import cublas_fp32_accumulate
+
+    lhs, rhs = promote(lhs, rhs)
     if transpose_a:
         lhs = lhs.transpose(-1, -2)
     if transpose_b:
         rhs = rhs.transpose(-1, -2)
-    return torch.matmul(lhs, rhs)
+    with cublas_fp32_accumulate(lhs.dtype):
+        return torch.matmul(lhs, rhs)

@@ -13,6 +13,7 @@ package load and run here with the same keyword arguments.
 """
 from __future__ import annotations
 
+import contextlib
 import inspect
 import math
 
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 from .. import autograd
 from .. import random as _random
 from ..base import MXNetError, getenv
+from .ops_basic import promote
 from .registry import register
 
 
@@ -39,7 +41,9 @@ def fully_connected(data, weight, bias=None, num_hidden=0, no_bias=False,
     (num_hidden, input_dim) as in MXNet, which is ``F.linear``'s layout."""
     if flatten and data.dim() > 2:
         data = data.reshape(data.shape[0], -1)
-    return F.linear(data, weight, None if no_bias else bias)
+    data, weight, bias = promote(data, weight, None if no_bias else bias)
+    with cublas_fp32_accumulate(data.dtype):
+        return F.linear(data, weight, bias)
 
 
 # torch versions that have the fp32_precision settings take "ieee" for
@@ -60,6 +64,42 @@ def cudnn_fp32():
         benchmark=getenv("MXNET_CUDNN_AUTOTUNE_DEFAULT", 1, int) > 0,
         deterministic=torch.backends.cudnn.deterministic,
         allow_tf32=False, **_IEEE)
+
+
+class _CublasFp32Accumulate:
+    __slots__ = ("_saved",)
+
+    def __enter__(self):
+        m = torch.backends.cuda.matmul
+        self._saved = (m.allow_bf16_reduced_precision_reduction,
+                       m.allow_fp16_reduced_precision_reduction)
+        m.allow_bf16_reduced_precision_reduction = False
+        m.allow_fp16_reduced_precision_reduction = False
+        return self
+
+    def __exit__(self, *exc):
+        m = torch.backends.cuda.matmul
+        (m.allow_bf16_reduced_precision_reduction,
+         m.allow_fp16_reduced_precision_reduction) = self._saved
+
+
+_NO_SCOPE = contextlib.nullcontext()
+_HALF = (torch.bfloat16, torch.float16)
+
+
+def cublas_fp32_accumulate(dtype=None):
+    """The scope the port's products run in, forward (``fully_connected``,
+    ``dot``, ``batch_dot``: for half operands, ``dtype``) and backward
+    (``autograd.backward``, no ``dtype``): cuBLAS sums bfloat16 and
+    float16 products in float32, split-K partial sums included, as the
+    JAX package's products accumulate. torch's default
+    (``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    and its fp16 twin, True) lets cuBLAS reduce partial sums in the half
+    type. Other dtypes get a no-op scope (the flags touch only half
+    products)."""
+    if dtype is not None and dtype not in _HALF:
+        return _NO_SCOPE
+    return _CublasFp32Accumulate()
 
 
 # channel-last layouts: the weight rides as (O, *spatial, I/g), as in the
@@ -86,11 +126,12 @@ def convolution(data, weight, bias=None, kernel=None, stride=None, dilate=None,
                          f"convolutions, got data {tuple(data.shape)} "
                          f"kernel {kernel}")
     channel_last = layout in _CHANNEL_LAST
+    data, weight, bias = promote(data, weight, None if no_bias else bias)
     if channel_last:
         data = data.movedim(-1, 1)
         weight = weight.movedim(-1, 1)
     with cudnn_fp32():
-        out = _CONV[nd](data, weight, None if no_bias else bias,
+        out = _CONV[nd](data, weight, bias,
                         _tup(stride or 1, nd), _tup(pad or 0, nd),
                         _tup(dilate or 1, nd), num_group)
     if channel_last:
@@ -289,42 +330,60 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     """Functional BatchNorm (reference: src/operator/nn/batch_norm.cc):
     batch statistics in training (``use_batch_stats`` None follows
     ``autograd.is_training()``; the variance is the biased one, as
-    ``jnp.var``), the moving ones otherwise; half inputs compute in
-    float32. The normalization itself is ``F.batch_norm`` (cuDNN on the
-    card) with the channel axis moved to 1 and no running statistics
-    passed, so torch updates nothing: the running-stat write-back is the
-    caller's, as in the JAX package, whose momentum means the opposite
-    of torch's and whose variance is not torch's unbiased one. With
-    ``output_mean_var`` the batch mean and biased variance (or the moving
-    ones) come back too."""
+    ``jnp.var``), the moving ones otherwise; statistics and arithmetic in
+    float32 for half inputs, the output in the input's dtype. The
+    normalization is ``F.batch_norm`` (cuDNN on the card) with the
+    channel axis moved to 1; a half input with float32 parameters goes in
+    as it is (cuDNN's mixed batch norm), without a float32 copy.
+
+    With ``output_mean_var`` the batch mean and biased variance (or the
+    moving ones) come back too, from the same pass: ``F.batch_norm``
+    writes the batch statistics into two scratch buffers (momentum 1),
+    the variance in torch's unbiased form, which ``(n - 1) / n`` turns
+    into MXNet's. They carry no gradient, as MXNet's auxiliary outputs
+    do not. The running-statistics write-back stays the caller's, as in
+    the JAX package: its momentum means the opposite of torch's."""
     if use_batch_stats is None:
         use_batch_stats = autograd.is_training()
     axis = axis % data.dim()
     if fix_gamma:
         gamma = torch.ones_like(gamma)
     half = data.dtype in (torch.bfloat16, torch.float16)
-    xf = data.float() if half else data
-    x1 = xf.movedim(axis, 1) if axis != 1 else xf
-    g, b = gamma.to(xf.dtype), beta.to(xf.dtype)
+    sdt = torch.float32 if half else data.dtype  # statistics' dtype
+    x1 = data.movedim(axis, 1) if axis != 1 else data
+    if half and x1.device.type == "cpu" and x1.dtype == torch.float16:
+        x1 = x1.float()  # torch's CPU kernel takes no mixed float16
+    g, b = gamma.to(sdt), beta.to(sdt)
+    C = x1.shape[1]
+    n = x1.numel() // max(C, 1)  # values per channel
     batch = use_batch_stats and not use_global_stats
     if not batch:
-        mean = moving_mean.to(xf.dtype)
-        var = moving_var.to(xf.dtype)
+        mean = moving_mean.to(sdt)
+        var = moving_var.to(sdt)
         out = F.batch_norm(x1, mean, var, g, b, False, 0.0, eps)
-    elif x1.numel() > x1.shape[1]:
-        out = F.batch_norm(x1, None, None, g, b, True, 0.0, eps)
+    elif n > 1:
+        stats = None
+        if output_mean_var:
+            # scratch running buffers at momentum 1: torch writes the
+            # batch mean and the unbiased variance into them
+            stats = torch.zeros((2, C), dtype=sdt, device=x1.device)
+        out = F.batch_norm(x1, None if stats is None else stats[0],
+                           None if stats is None else stats[1], g, b, True,
+                           1.0, eps)
+        if stats is not None:
+            mean, var = stats[0], stats[1] * ((n - 1) / n)
     else:  # one value per channel, which torch refuses: x - mean is 0
-        out = torch.zeros_like(x1) * g.reshape(1, -1, *[1] * (x1.dim() - 2)) \
-            + b.reshape(1, -1, *[1] * (x1.dim() - 2))
+        shape = (1, -1) + (1,) * (x1.dim() - 2)
+        out = torch.zeros_like(x1, dtype=sdt) * g.reshape(shape) \
+            + b.reshape(shape)
+        mean = x1.detach().to(sdt).reshape(C)
+        var = torch.zeros_like(mean)
     if axis != 1:
         out = out.movedim(1, axis)
-    if half:
+    if out.dtype != data.dtype:
         out = out.to(data.dtype)
     if not output_mean_var:
         return out
-    if batch:
-        red = tuple(i for i in range(data.dim()) if i != axis)
-        var, mean = torch.var_mean(xf, dim=red, unbiased=False)
     return out, mean, var
 
 

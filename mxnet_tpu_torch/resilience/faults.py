@@ -1,9 +1,10 @@
 """Deterministic fault injection at the serving path's failure seams.
 
 The PyTorch counterpart of the part of ``mxnet_tpu/resilience/faults.py``
-that serving uses. A seam calls :func:`maybe_fail` with its point name;
-while a clause for that point is armed (:func:`inject`), the clause
-decides per call whether the seam raises. The seams:
+that serving uses, plus the port's own seam in the fused step's graph
+capture. A seam calls :func:`maybe_fail` with its point name; while a
+clause for that point is armed (:func:`inject`), the clause decides per
+call whether the seam raises. The seams:
 
 ========================  ==============================================
 ``serving_admission``     the admission decision at ``submit`` — a fire
@@ -15,6 +16,9 @@ decides per call whether the seam raises. The seams:
                           of an ``InferenceSession``
 ``model_swap``            ``ModelRepository``'s version activation (first
                           deploy, promote); rollback has no seam
+``fused_step_capture``    the Trainer's CUDA-graph capture of its fused
+                          step (a fire makes the capture fail, which
+                          raises: there is no eager fallback)
 ========================  ==============================================
 
 Clause keys, as in the reference: ``at=N`` fires on the Nth call (once);
@@ -25,7 +29,7 @@ folded with the point name; ``after=N`` ignores the first N calls;
 exception class (default :class:`InjectedFault`).
 
 Disarmed, a seam costs one module-global read. The ``MXNET_FAULT_PLAN``
-grammar and the training seams come with a later slice.
+grammar and the JAX package's training seams come with a later slice.
 """
 from __future__ import annotations
 
@@ -52,6 +56,8 @@ FAULT_POINTS = {
     "serving_execute": "InferenceSession bucket execution or decode step",
     "model_swap": "ModelRepository version activation (first deploy / "
                   "promote; rollback is seam-free)",
+    "fused_step_capture": "the Trainer's CUDA-graph capture of its fused "
+                          "step (raises; no eager fallback)",
 }
 
 

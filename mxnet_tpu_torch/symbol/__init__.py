@@ -321,9 +321,13 @@ def Group(symbols):
 
 def _num_outputs_for(opname, kwargs):
     """Static output count of a node: the norms with
-    ``output_mean_var`` also return the mean and the variance."""
+    ``output_mean_var`` also return the mean and the variance;
+    ``amp_multicast`` returns one output per input (its
+    ``num_outputs``)."""
     if opname in ("batch_norm", "layer_norm"):
         return 3 if kwargs.get("output_mean_var") else 1
+    if opname == "amp_multicast":
+        return int(kwargs.get("num_outputs") or 1)
     return 1
 
 

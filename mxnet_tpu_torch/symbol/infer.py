@@ -18,9 +18,11 @@ import torch
 
 from ..base import MXNetError
 from ..ndarray import registry as _registry
-from ..ndarray.ndarray import torch_dtype
+from ..ndarray.ndarray import _numpy_dtype, torch_dtype
 
 _META = torch.device("meta")
+# the widest-type rule's order of float dtypes (amp_multicast)
+_FLOAT_ORDER = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
 _CHANNEL_LAST = ("NWC", "NHWC", "NDHWC")
 _CONST_OPS = ("_sym_zeros", "_sym_ones", "_sym_constant")
 
@@ -209,6 +211,22 @@ def infer_types(symbol, known):
                     node_out[id(inp)] = in_dtypes[i] = var_types[inp._name]
         if node._op in _CONST_OPS:
             out_d = onp.dtype(node._kwargs.get("dtype", "float32"))
+        elif node._op == "amp_cast":
+            out_d = in_dtypes.get(0, f32)
+            if onp.dtype(out_d).kind == "f" or str(out_d) == "bfloat16":
+                out_d = _numpy_dtype(torch_dtype(
+                    node._kwargs.get("dtype", "float32")))
+        elif node._op == "amp_multicast":
+            ds = [in_dtypes.get(i, f32) for i in range(len(node._inputs))]
+            fl = [torch_dtype(d) for d in ds
+                  if str(d) == "bfloat16" or onp.dtype(d).kind == "f"]
+            widest = _numpy_dtype(max(fl, key=_FLOAT_ORDER.index)) \
+                if fl else None
+            node_out[id(node)] = [
+                widest if widest is not None and (
+                    str(d) == "bfloat16" or onp.dtype(d).kind == "f")
+                else d for d in ds]
+            continue
         elif node._op == "embedding":
             out_d = in_dtypes.get(1, f32)
         elif in_dtypes:

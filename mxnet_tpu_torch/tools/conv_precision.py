@@ -11,7 +11,13 @@ each relative to the reference's largest entry, beside the card's name
 and power limit. Then the stem's weight gradient alone, through torch's
 ``conv2d`` backward with a random output gradient, under cuDNN in the
 port's scope, cuDNN with TF32 allowed, cuDNN restricted to deterministic
-algorithms, and torch's own CUDA convolution (cuDNN off). Run on a
+algorithms, and torch's own CUDA convolution (cuDNN off). Last, a trace
+of the same record/backward through every layer of the network: each
+layer's output and the gradient reaching it, on the card in float32
+(the port's scope) and on the CPU in float32, against float64, with the
+count of ReLU outputs that are zero on one side and not on the other
+(a ReLU input within float32 noise of zero), and the layer nearest the
+output whose gradient on the card leaves float32's accuracy. Run on a
 machine with one NVIDIA GPU:
 
     python3 -m mxnet_tpu_torch.tools.conv_precision
@@ -95,6 +101,7 @@ def main():
         else:
             os.environ["MXNET_CUDNN_AUTOTUNE_DEFAULT"] = saved[2]
     _stem_alone(arrays["features.0.weight"], x, card)
+    _trace_layers(arrays, x, y, card)
 
 
 def _stem_alone(w, x, card):
@@ -126,6 +133,74 @@ def _stem_alone(w, x, card):
         print(json.dumps({"card": card, "run": f"stem weight gradient, "
                           f"{name}", "deviation": float(
                               onp.abs(got - ref).max() / onp.abs(ref).max())}))
+
+
+
+def _trace(arrays, x, y, ctx, dtype):
+    """Every layer's output and the gradient reaching it, in forward
+    order, for one eval-mode record/backward (float64 host arrays)."""
+    from ..ndarray import NDArray
+
+    net = vision.resnet18_v1(thumbnail=True, classes=10)
+    for p in net.collect_params().values():
+        p.dtype = dtype
+    convert.params_from_numpy(
+        net, {k: v.astype(dtype) for k, v in arrays.items()}, ctx=ctx)
+    order, acts, grads = [], {}, {}
+
+    def hook(name):
+        def fn(_mod, _inputs, out):
+            if not isinstance(out, NDArray):
+                return
+            t = out.data
+            order.append(name)
+            acts[name] = t.detach().double().cpu().numpy()
+            if t.requires_grad:
+                t.register_hook(lambda g: grads.__setitem__(
+                    name, g.detach().double().cpu().numpy()))
+        return fn
+
+    handles = [m.register_forward_hook(hook(n))
+               for n, m in net.named_modules() if n]
+    try:
+        with autograd.record(train_mode=False):
+            logits = net(nd.array(x, ctx=ctx, dtype=dtype))
+            loss = gloss.SoftmaxCrossEntropyLoss()(
+                logits, nd.array(y, ctx=ctx, dtype=dtype))
+        loss.backward()
+    finally:
+        for h in handles:
+            h.remove()
+    return order, acts, grads
+
+
+def _trace_layers(arrays, x, y, card):
+    order, ref_a, ref_g = _trace(arrays, x, y, cpu(), "float64")
+    runs = {"card float32": _trace(arrays, x, y, gpu(0), "float32"),
+            "cpu float32": _trace(arrays, x, y, cpu(), "float32")}
+
+    def dev(a, r):
+        return float(onp.abs(a - r).max() / (onp.abs(r).max() or 1.0))
+
+    rows, first = [], {}
+    for name in order:
+        row = {"layer": name}
+        for run, (_, acts, grads) in runs.items():
+            row[f"{run}: output"] = dev(acts[name], ref_a[name])
+            if name in grads and name in ref_g:
+                row[f"{run}: gradient"] = dev(grads[name], ref_g[name])
+            flips = int(((acts[name] == 0) != (ref_a[name] == 0)).sum())
+            if flips:
+                row[f"{run}: zero on one side only"] = flips
+        rows.append(row)
+    # from the output back: the last layer (in forward order) whose
+    # gradient on the card is already off by more than 1e-4
+    for run in runs:
+        bad = [r["layer"] for r in rows
+               if r.get(f"{run}: gradient", 0.0) > 1e-4]
+        first[run] = bad[-1] if bad else None
+    print(json.dumps({"card": card, "run": "layer trace", "layers": rows,
+                      "nearest_output_gradient_above_1e-4": first}))
 
 
 if __name__ == "__main__":

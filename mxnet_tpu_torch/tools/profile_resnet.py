@@ -13,7 +13,10 @@ are CUDA C kernels held here as source strings, compiled at run time by
   ``exp(x - max) / sum``. DType float or double, reductions in DType.
 - ``rtc_softmax_bwd<DType>``: one block per row; ``dx = p - onehot(label)``
   written into ``in_grad[0]``. The head needs no top gradient
-  (``need_top_grad=False``), like MXNet's ``SoftmaxOutput``.
+  (``need_top_grad=False``), like MXNet's ``SoftmaxOutput``; with a
+  ``grad_scale`` input (a (1,) tensor, as ``SoftmaxOutput``'s
+  ``grad_scale``) the gradient is multiplied by it after the kernel —
+  the AMP loss scale, which ``Trainer.step`` divides back out.
 
 Both are memory-bound: the forward reads ``x`` once and writes ``p``
 once (the second ``exp`` pass re-reads the row from L1/L2), the
@@ -24,20 +27,27 @@ launches the kernels, and nothing catches a kernel's failure.
 
 The training harness is MXNet's ``train_imagenet.py --benchmark 1``:
 ``resnet50_v1`` at its published widths and depth, 1000 classes,
-224 x 224 fp32 images of one fixed synthetic batch made from a seed,
-Xavier weights from a seed, ``autograd.record``, the ``rtc_softmax``
-head, ``backward`` and ``gluon.Trainer`` with SGD (lr 0.1, momentum 0.9,
-wd 1e-4, ``step(batch_size)``). Run on a machine with one NVIDIA GPU:
+224 x 224 images of one fixed synthetic batch made from a seed, Xavier
+weights from a seed, ``autograd.record``, the ``rtc_softmax`` head,
+``backward`` and ``gluon.Trainer`` with SGD (lr 0.1, momentum 0.9,
+wd 1e-4, ``step(batch_size)``; the fused step unless
+``MXNET_FUSED_STEP=0``). With ``--amp`` it trains under
+``amp.init("bfloat16")`` with a loss scaler (``amp.init_trainer``); the
+head's kernels are float32, so the bf16 logits are cast to float32
+before it, as a user of an fp32-only RTC kernel would do. Run on a
+machine with one NVIDIA GPU:
 
-    python3 -m mxnet_tpu_torch.tools.profile_resnet [--batch 128] [--steps 3]
+    python3 -m mxnet_tpu_torch.tools.profile_resnet [--batch 128] \
+        [--steps 3] [--amp] [--layout NCHW|NHWC]
 
 It prints one JSON object: host wall ms per step, device busy ms per
 step (the sum of the CUDA kernel and copy times), the device's idle
 share, device operations per step, the K4 launches per step and their
 device time, the device time by kind (convolution, batch norm, the
-running statistics' pass, GEMM, K4, elementwise and other) and of the
-heaviest operations. It needs no
-network and writes nothing.
+running statistics' pass, GEMM, K4, dtype casts and copies, layout
+transposes, the optimizer's multi-tensor passes, elementwise and other)
+and of the heaviest operations. It needs no network and writes
+nothing.
 """
 from __future__ import annotations
 
@@ -53,6 +63,7 @@ import torch
 
 from .. import autograd, gluon, gpu, initializer, nd, operator
 from .. import random as mxrandom
+from ..contrib import amp
 from ..base import MXNetError
 from ..ndarray import NDArray
 from ..rtc import CudaModule
@@ -261,34 +272,43 @@ class RtcSoftmax(operator.CustomOp):
     def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
         softmax_bwd(in_data[1].data, out_data[0].data, in_grad[0].data,
                     req[0])
+        if len(in_data) == 3:  # the loss scale, left on the device
+            in_grad[0].data.mul_(in_data[2].data)
 
 
 @operator.register("rtc_softmax")
 class RtcSoftmaxProp(operator.CustomOpProp):
-    """Inputs ``data`` (B, C) and ``label`` (B,); output the softmax
-    (B, C); no top gradient needed."""
+    """Inputs ``data`` (B, C) and ``label`` (B,), and with
+    ``scaled=True`` a ``grad_scale`` (1,) that multiplies the gradient;
+    output the softmax (B, C); no top gradient needed."""
 
-    def __init__(self):
+    def __init__(self, scaled="False"):
         super().__init__(need_top_grad=False)
+        self._scaled = scaled == "True"
 
     def list_arguments(self):
-        return ["data", "label"]
+        return ["data", "label"] + (["grad_scale"] if self._scaled else [])
 
     def list_outputs(self):
         return ["output"]
 
     def infer_shape(self, in_shape):
         data_shape = in_shape[0]
-        return [data_shape, [data_shape[0]]], [data_shape], []
+        ins = [data_shape, [data_shape[0]]] + ([[1]] if self._scaled else [])
+        return ins, [data_shape], []
 
     def create_operator(self, ctx, in_shapes, in_dtypes):
         return RtcSoftmax()
 
 
-def rtc_softmax(data, label):
+def rtc_softmax(data, label, grad_scale=None):
     """The head's output, softmax(``data``), as ``nd.Custom``; under
-    ``autograd.record()`` its gradient is ``p - onehot(label)``."""
-    return nd.Custom(data, label, op_type="rtc_softmax")
+    ``autograd.record()`` its gradient is ``p - onehot(label)``, times
+    ``grad_scale`` (a (1,) NDArray) when given."""
+    if grad_scale is None:
+        return nd.Custom(data, label, op_type="rtc_softmax")
+    return nd.Custom(data, label, grad_scale, op_type="rtc_softmax",
+                     scaled=True)
 
 
 # -- the training harness (train_imagenet.py --benchmark 1) ---------------
@@ -298,23 +318,28 @@ IMAGE, CLASSES = 224, 1000
 LR, MOMENTUM, WD = 0.1, 0.9, 1e-4
 
 
-def build_resnet50(ctx, seed=SEED, classes=CLASSES):
+def build_resnet50(ctx, seed=SEED, classes=CLASSES, layout="NCHW"):
     """``resnet50_v1`` with Xavier weights drawn from ``seed`` on ``ctx``
     (shapes finished by one forward of one image)."""
     mxrandom.seed(seed)
-    net = vision.resnet50_v1(classes=classes)
+    net = vision.resnet50_v1(classes=classes, layout=layout)
     net.initialize(initializer.Xavier(), ctx=ctx)
+    shape = (1, 3, IMAGE, IMAGE) if layout == "NCHW" else \
+        (1, IMAGE, IMAGE, 3)
     with autograd.pause():
-        net(nd.zeros((1, 3, IMAGE, IMAGE), ctx=ctx))
+        net(nd.zeros(shape, ctx=ctx))
     return net
 
 
-def synthetic_batch(batch, ctx, seed=SEED, classes=CLASSES):
-    """One fixed batch from ``seed``: N(0, 1) images (B, 3, 224, 224) and
+def synthetic_batch(batch, ctx, seed=SEED, classes=CLASSES, layout="NCHW"):
+    """One fixed batch from ``seed``: N(0, 1) images (B, 3, 224, 224), or
+    the same images as (B, 224, 224, 3) for ``layout="NHWC"``, and
     float32 class labels (B,), made on the host with numpy."""
     rs = onp.random.RandomState(seed)
     x = rs.standard_normal((batch, 3, IMAGE, IMAGE)).astype("float32")
     y = rs.randint(0, classes, batch).astype("float32")
+    if layout == "NHWC":
+        x = onp.ascontiguousarray(x.transpose(0, 2, 3, 1))
     return nd.array(x, ctx=ctx), nd.array(y, ctx=ctx)
 
 
@@ -327,16 +352,29 @@ def make_trainer(net):
 def train_step(net, trainer, x, y, events=None):
     """One step: record the forward and the ``rtc_softmax`` head,
     backward (the head's gradient, summed over the batch), then
-    ``trainer.step(batch)``, which rescales by 1/batch. Returns the
-    batch's mean cross-entropy of the logits (an NDArray, not
-    synchronized; from ``log_softmax``, so it stays finite where a
-    probability underflows). ``events``, four CUDA events, are recorded
-    around the forward, backward and optimizer."""
+    ``trainer.step(batch)``, which rescales by 1/batch. Under AMP the
+    logits (bf16 from the classifier) are cast to float32 for the head,
+    and with a loss scaler (``amp.init_trainer``) the head's gradient is
+    multiplied by the scale ``amp.scale_loss`` hands out (on the fused
+    step the device scale itself: no host read). Returns the batch's
+    mean cross-entropy of the logits (an NDArray, not synchronized;
+    from ``log_softmax``, so it stays finite where a probability
+    underflows). ``events``, four CUDA events, are recorded around the
+    forward, backward and optimizer."""
     rec = (lambda i: events[i].record()) if events else (lambda i: None)
+    scale = None
+    if getattr(trainer, "_amp_loss_scaler", None) is not None:
+        with amp.scale_loss(nd.ones((1,), ctx=x.context), trainer) as scale:
+            pass
     rec(0)
     with autograd.record():
         logits = net(x)
-        p = rtc_softmax(logits, y)
+        # the head's kernels take float32 or float64: half logits
+        # (AMP's classifier) are cast to float32 first
+        head_in = logits.astype("float32") \
+            if logits.data.dtype in (torch.bfloat16, torch.float16) \
+            else logits
+        p = rtc_softmax(head_in, y, grad_scale=scale)
     rec(1)
     p.backward()
     rec(2)
@@ -348,7 +386,7 @@ def train_step(net, trainer, x, y, events=None):
 def cross_entropy(logits, y):
     """Mean ``-log softmax(logits)[label]`` over the batch, unrecorded."""
     with autograd.pause():
-        logp = torch.log_softmax(logits.data.detach(), dim=-1)
+        logp = torch.log_softmax(logits.data.detach().float(), dim=-1)
         return NDArray(-logp.gather(1, y.data.to(torch.int64)[:, None])
                        .mean())
 
@@ -357,7 +395,12 @@ def _kind(name):
     """The layer a device operation belongs to, from its kernel name."""
     if "rtc_softmax" in name:
         return "k4_rtc_softmax"
-    if "bn_" in name or "batch_norm" in name:
+    if "multi_tensor_apply" in name or "foreach" in name or \
+            "non_finite_check" in name:
+        return "optimizer"  # the fused step's multi-tensor passes
+    if "nchwToNhwc" in name or "nhwcToNchw" in name:
+        return "layout_transpose"
+    if "bn_" in name or "batch_norm" in name or "batchnorm" in name:
         return "batch_norm"
     if "Welford" in name:
         return "running_stats"  # the batch statistics' second pass
@@ -371,6 +414,8 @@ def _kind(name):
         return "gemm"
     if "Memcpy" in name or "Memset" in name:
         return "copy"
+    if "copy_kernel" in name:
+        return "cast_and_copy"  # dtype casts (AMP) and layout copies
     return "elementwise_and_other"
 
 
@@ -387,6 +432,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--amp", action="store_true",
+                    help="train under amp.init('bfloat16') with a loss "
+                    "scaler")
+    ap.add_argument("--layout", default="NCHW", choices=("NCHW", "NHWC"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_resnet: needs a CUDA device")
@@ -397,9 +446,12 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = True
     ctx = gpu(0)
-    net = build_resnet50(ctx)
+    net = build_resnet50(ctx, layout=args.layout)
     trainer = make_trainer(net)
-    x, y = synthetic_batch(args.batch, ctx)
+    if args.amp:
+        amp.init("bfloat16")
+        amp.init_trainer(trainer)
+    x, y = synthetic_batch(args.batch, ctx, layout=args.layout)
     for _ in range(2):
         train_step(net, trainer, x, y)
     torch.cuda.synchronize()
@@ -432,6 +484,7 @@ def main(argv=None):
         by_kind[_kind(name)][1] += cnt
     print(json.dumps({
         "card": _card(), "model": "resnet50_v1", "batch": args.batch,
+        "amp": "bfloat16" if args.amp else None, "layout": args.layout,
         "image": IMAGE, "classes": CLASSES, "steps": args.steps,
         "last_loss": float(loss.asscalar()),
         "wall_ms_per_step": wall_ms,

@@ -5,16 +5,20 @@ configuration ``chip_smoke.py`` trains: vocab 50257, E 768, 12 layers,
 12 heads, FFN 3072, max_len 1024, tied embedding, fp32, Xavier weights
 from a seed), and runs ``--steps`` training steps of one fixed batch
 (8 x 1024 numpy-seeded tokens; record, softmax cross-entropy,
-backward, Adam ``Trainer.step``) under
-``torch.profiler``, after two warm-up steps. Prints one JSON object:
+backward, Adam ``Trainer.step``, the fused step unless
+``MXNET_FUSED_STEP=0``) under ``torch.profiler``, after two warm-up
+steps; with ``--amp`` under ``amp.init("bfloat16")`` with a loss scaler
+(``amp.init_trainer``, ``amp.scale_loss``). Prints one JSON object:
 host wall ms per step, device busy ms per step (the sum of the CUDA
 kernel and copy times), the device's idle share, device operations per
 step, K1's launches per step and share of device time, the matrix
 products' (cuBLAS/CUTLASS ``gemm`` kernels) time and launches per step,
+the device time by kind (GEMM, K1, dtype casts and copies, softmax and
+layer norm, the optimizer's multi-tensor passes, elementwise and other)
 and the device time per step of the heaviest operations. Run on a
 machine with one NVIDIA GPU:
 
-    python3 -m mxnet_tpu_torch.tools.profile_train [--steps 3]
+    python3 -m mxnet_tpu_torch.tools.profile_train [--steps 3] [--amp]
 
 It needs no network and writes nothing.
 """
@@ -30,6 +34,7 @@ import numpy as onp
 import torch
 
 from .. import autograd, gluon, gpu, initializer, nd, random as mxrandom
+from ..contrib import amp
 from ..kernels import _build
 from ..kernels.flash_attention import FLASH_KERNEL
 from ..models import TransformerLM
@@ -47,9 +52,30 @@ def _card():
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
+def _kind(name):
+    """The layer a device operation belongs to, from its kernel name."""
+    if "flash_fwd_kernel" in name:
+        return "k1_flash_attention"
+    if "gemm" in name or "xmma" in name:
+        return "gemm"
+    if "multi_tensor_apply" in name or "foreach" in name or \
+            "non_finite_check" in name:
+        return "optimizer"
+    if "softmax" in name.lower():
+        return "softmax"
+    if "layer_norm" in name.lower() or "LayerNorm" in name:
+        return "layer_norm"
+    if "copy_kernel" in name or "Memcpy" in name or "Memset" in name:
+        return "cast_and_copy"
+    return "elementwise_and_other"
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--amp", action="store_true",
+                    help="train under amp.init('bfloat16') with a loss "
+                    "scaler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA device")
@@ -65,13 +91,17 @@ def main(argv=None):
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
     trainer = gluon.Trainer(net.collect_params(), "adam",
                             {"learning_rate": 3e-4})
+    if args.amp:
+        amp.init("bfloat16")
+        amp.init_trainer(trainer)
 
     def one_step():
         # next-token loss, as tests/test_attention.py's training test
         with autograd.record():
             logits = net(toks)
             loss = loss_fn(logits[:, :-1].reshape(-1, vocab), labels).mean()
-        loss.backward()
+            with amp.scale_loss(loss, trainer) as scaled:
+                scaled.backward()
         trainer.step(BATCH)
         return loss
 
@@ -103,8 +133,13 @@ def main(argv=None):
     gemm = [(us, cnt) for name, (us, cnt) in by_name.items()
             if "gemm" in name]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    by_kind = collections.defaultdict(lambda: [0.0, 0])
+    for name, (us, cnt) in by_name.items():
+        by_kind[_kind(name)][0] += us
+        by_kind[_kind(name)][1] += cnt
     print(json.dumps({
         "card": _card(), "config": GPT2_SMALL, "batch": BATCH,
+        "amp": "bfloat16" if args.amp else None,
         "seq": SEQ, "tokens_per_step": BATCH * SEQ,
         "steps": args.steps, "last_loss": float(loss.asscalar()),
         "wall_ms_per_step": wall_ms,
@@ -118,6 +153,11 @@ def main(argv=None):
         "k1_share_of_device_time": k1_us / busy_us if busy_us else None,
         "gemm_ms_per_step": sum(us for us, _ in gemm) / 1e3 / args.steps,
         "gemm_launches_per_step": sum(c for _, c in gemm) / args.steps,
+        "device_ms_per_step_by_kind": {
+            kind: {"ms": us / 1e3 / args.steps, "per_step": cnt / args.steps,
+                   "share": us / busy_us if busy_us else None}
+            for kind, (us, cnt) in sorted(by_kind.items(),
+                                          key=lambda kv: -kv[1][0])},
         "top_device_ms_per_step": {
             name: {"ms": us / 1e3 / args.steps, "per_step": cnt / args.steps}
             for name, (us, cnt) in top}}))

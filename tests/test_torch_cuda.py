@@ -980,3 +980,268 @@ def test_fp32_convolution_at_default_flags_matches_cpu(cuda):
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark = \
             saved
+
+
+# -- slice 6: bf16 AMP and the fused step on the card ------------------------
+
+def _card_params(n=6, dim=64, seed=0, dtype="float32"):
+    from mxnet_tpu_torch.gluon.parameter import Parameter
+
+    rs = onp.random.RandomState(seed)
+    params = []
+    for i in range(n):
+        shape = (dim, dim) if i % 2 == 0 else (dim,)
+        p = Parameter(f"p{i}", shape=shape, dtype=dtype)
+        p.initialize(ctx=mx.gpu(0))
+        p.set_data(rs.randn(*shape).astype("f"))
+        params.append(p)
+    return params
+
+
+def _card_grads(params, step, poison=False):
+    rs = onp.random.RandomState(100 + step)
+    for p in params:
+        g = onp.full(p.shape, onp.inf, "f") if poison else \
+            rs.randn(*p.shape).astype("f") * 0.1
+        p.grad().data.copy_(torch.from_numpy(g))
+
+
+@pytest.fixture
+def fused(cuda):
+    from mxnet_tpu_torch.gluon import fused_step
+
+    saved = os.environ.pop("MXNET_FUSED_STEP", None)
+    fused_step.reset_fused_step_cache()
+    yield fused_step
+    os.environ.pop("MXNET_FUSED_STEP", None)
+    if saved is not None:
+        os.environ["MXNET_FUSED_STEP"] = saved
+    fused_step.reset_fused_step_cache()
+
+
+def test_fused_step_captures_once_and_replays(fused):
+    """One CUDA graph per signature: captured at the first step, replayed
+    every step; a new learning rate, a scheduler's rate and the loss
+    scale's growth change device scalars, never the graph."""
+    from mxnet_tpu_torch.contrib.amp import LossScaler
+
+    params = _card_params()
+    tr = mx.gluon.Trainer(params, "sgd", {"learning_rate": 0.05,
+                                          "momentum": 0.9})
+    tr._amp_loss_scaler = LossScaler(init_scale=4.0, scale_window=2)
+    for s in range(5):
+        if s == 3:
+            tr.set_learning_rate(0.01)
+        _card_grads(params, s)
+        tr.step(1)
+    st = fused.fused_step_stats()
+    assert st["captures"] == 1 and st["replays"] == 5 and st["misses"] == 1
+    assert tr._amp_loss_scaler.loss_scale == 16.0  # grew twice on device
+
+
+def test_fused_graph_matches_eager_bitwise(fused):
+    """The captured fused step (AMP scaler included) against the eager
+    per-parameter loop from the same weights and gradients: the same
+    bits, through a poisoned step and a growth of the scale."""
+    from mxnet_tpu_torch.contrib.amp import LossScaler
+
+    runs = []
+    for flag in ("1", "0"):
+        os.environ["MXNET_FUSED_STEP"] = flag
+        params = _card_params()
+        tr = mx.gluon.Trainer(params, "sgd", {"learning_rate": 0.05,
+                                              "momentum": 0.9, "wd": 1e-4})
+        tr._amp_loss_scaler = LossScaler(init_scale=2.0 ** 8,
+                                         scale_window=3)
+        for s in range(6):
+            _card_grads(params, s, poison=(s == 2))
+            tr.step(4)
+        runs.append(([p.data().asnumpy() for p in params],
+                     tr._amp_loss_scaler.loss_scale))
+    (wf, sf), (we, se) = runs
+    assert sf == se
+    assert all(a.tobytes() == b.tobytes() for a, b in zip(wf, we))
+
+
+def test_fused_graph_matches_eager_on_a_resnet50_step(fused):
+    """One ResNet-50 SGD step (batch 8, 64 x 64): the same gradients
+    through the captured fused step and through the eager loop give the
+    same weights and momenta, bit for bit."""
+    mx.random.seed(11)
+    net = vision.resnet50_v1(classes=10)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    rs = onp.random.RandomState(12)
+    x = mx.nd.array(rs.randn(8, 3, 64, 64).astype("f"), ctx=mx.gpu(0))
+    y = mx.nd.array(rs.randint(0, 10, 8).astype("f"), ctx=mx.gpu(0))
+    with mx.autograd.record():
+        loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)
+    loss.backward()
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    w0 = [p.data().data.clone() for p in params]
+    results = []
+    for flag in ("1", "0"):
+        os.environ["MXNET_FUSED_STEP"] = flag
+        with torch.no_grad():
+            for p, w in zip(params, w0):
+                p.data().data.copy_(w)
+        tr = mx.gluon.Trainer(params, "sgd", {"learning_rate": 0.1,
+                                              "momentum": 0.9, "wd": 1e-4})
+        tr.step(8)
+        tr.step(8)  # a second step reads the momenta the first wrote
+        results.append(([p.data().data.clone() for p in params],
+                        [s.data.clone() for s in tr._states]))
+    assert fused.fused_step_stats()["replays"] == 2
+    for a, b in zip(results[0][0] + results[0][1],
+                    results[1][0] + results[1][1]):
+        assert torch.equal(a, b)
+
+
+def test_step_and_scale_loss_make_no_host_sync(fused):
+    """After the first (capturing) step, ``amp.scale_loss`` and
+    ``Trainer.step`` on the fused path never wait for the device: torch's
+    sync debug mode raises on any synchronizing call inside them."""
+    from mxnet_tpu_torch.contrib import amp
+
+    amp.init("bfloat16")
+    try:
+        net = mx.gluon.nn.Dense(16, in_units=32)
+        net.initialize(ctx=mx.gpu(0))
+        tr = mx.gluon.Trainer(net.collect_params(), "adam",
+                              {"learning_rate": 1e-3})
+        amp.init_trainer(tr)
+        x = mx.nd.array(onp.random.RandomState(0).randn(8, 32).astype("f"),
+                        ctx=mx.gpu(0))
+
+        def step(check):
+            with mx.autograd.record():
+                loss = net(x).sum()
+                torch.cuda.set_sync_debug_mode("error" if check else 0)
+                try:
+                    with amp.scale_loss(loss, tr) as scaled:
+                        pass
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                scaled.backward()
+            torch.cuda.set_sync_debug_mode("error" if check else 0)
+            try:
+                tr.step(8)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        step(False)  # captures (a capture synchronizes once)
+        for _ in range(3):
+            step(True)
+        torch.cuda.synchronize()
+        assert fused.fused_step_stats()["replays"] == 4
+    finally:
+        amp.disable()
+
+
+def test_poisoned_step_on_card_is_skipped_bitwise(fused):
+    from mxnet_tpu_torch.contrib.amp import LossScaler
+
+    params = _card_params(dtype="float32")
+    tr = mx.gluon.Trainer(params, "adam", {"learning_rate": 1e-3})
+    tr._amp_loss_scaler = LossScaler(init_scale=2.0 ** 10)
+    for s in range(2):
+        _card_grads(params, s)
+        tr.step(1)
+    w0 = [p.data().data.clone() for p in params]
+    s0 = [(m.data.clone(), v.data.clone()) for m, v in tr._states]
+    _card_grads(params, 2, poison=True)
+    tr.step(1)
+    assert all(torch.equal(a, p.data().data) for a, p in zip(w0, params))
+    assert all(torch.equal(m0, m.data) and torch.equal(v0, v.data)
+               for (m0, v0), (m, v) in zip(s0, tr._states))
+    assert tr._amp_loss_scaler.loss_scale == 2.0 ** 9
+    assert fused.fused_step_stats()["skipped_steps"] == 1
+
+
+def test_forced_capture_failure_raises_without_fallback(fused):
+    """A capture that fails raises MXNetError: the card runs the fused
+    step only as a graph, with no silent eager fallback (the JAX
+    trainer's ``_fused_broken``); the parameters are untouched."""
+    from mxnet_tpu_torch.resilience import faults
+
+    params = _card_params()
+    tr = mx.gluon.Trainer(params, "sgd", {"learning_rate": 0.05})
+    _card_grads(params, 0)
+    w0 = [p.data().data.clone() for p in params]
+    with faults.inject("fused_step_capture", every=1):
+        with pytest.raises(mx.MXNetError, match="CUDA graph"):
+            tr.step(1)
+    assert all(torch.equal(a, p.data().data) for a, p in zip(w0, params))
+    assert fused.fused_step_stats()["captures"] == 0
+    tr.step(1)  # disarmed: captures and steps
+    assert fused.fused_step_stats()["captures"] == 1
+
+
+def test_batch_norm_one_pass_statistics_on_card(cuda):
+    """cuDNN's batch norm hands back the batch mean and (converted from
+    its unbiased form) the biased variance from the one pass: within
+    1e-5 of float64 at n = 2 and 128 values per channel, and in bf16
+    with float32 parameters (a cast network)."""
+    for shape in ((2, 3, 1, 1), (2, 3, 8, 8), (64, 32, 14, 14)):
+        C = shape[1]
+        rs = onp.random.RandomState(C)
+        x = (rs.randn(*shape) * 2 + 0.5).astype("f")
+        args = [mx.nd.array(a, ctx=mx.gpu(0)) for a in
+                (x, onp.ones(C, "f"), onp.zeros(C, "f"), onp.zeros(C, "f"),
+                 onp.ones(C, "f"))]
+        out, mean, var = mx.nd.batch_norm(*args, eps=1e-5, fix_gamma=False,
+                                          output_mean_var=True,
+                                          use_batch_stats=True)
+        x64 = x.astype("float64").transpose(1, 0, 2, 3).reshape(C, -1)
+        onp.testing.assert_allclose(mean.asnumpy(), x64.mean(1), rtol=1e-5,
+                                    atol=1e-6)
+        onp.testing.assert_allclose(var.asnumpy(), x64.var(1), rtol=1e-5,
+                                    atol=1e-6)
+        half = mx.nd.batch_norm(args[0].astype("bfloat16"), *args[1:],
+                                eps=1e-5, fix_gamma=False,
+                                use_batch_stats=True)
+        assert str(half.dtype) == "bfloat16"
+        onp.testing.assert_allclose(half.asnumpy().astype("f"),
+                                    out.asnumpy(), rtol=2.0 ** -7, atol=2e-2)
+
+
+def test_bf16_amp_lm_step_on_card_launches_k1_in_bf16(cuda):
+    """A TransformerLM step under bf16 AMP on the card: K1 runs on the
+    bf16 q, k and v (one launch per layer), the loss and every gradient
+    are finite, and the loss is within 2e-2 of the CPU port's bf16
+    loss from the same weights."""
+    from mxnet_tpu_torch.contrib import amp
+
+    cfg = dict(vocab_size=64, embed_dim=64, num_layers=2, num_heads=4,
+               max_len=64, tie_weights=True)
+    toks = onp.random.RandomState(2).randint(0, 64, (2, 64)).astype("f")
+    mx.random.seed(4)
+    src = TransformerLM(**cfg)
+    src.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    with mx.autograd.pause():
+        src(mx.nd.array(toks, ctx=mx.cpu()))
+    arrays = {k: p.data().asnumpy()
+              for k, p in src._collect_params_with_prefix().items()}
+    losses = []
+    amp.init("bfloat16")
+    try:
+        for ctx in (mx.gpu(0), mx.cpu()):
+            net = convert.params_from_numpy(TransformerLM(**cfg), arrays,
+                                            ctx=ctx)
+            t = mx.nd.array(toks, ctx=ctx)
+            _build.reset_launch_counts()
+            with mx.autograd.record():
+                logits = net(t)
+                loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()(
+                    logits[:, :-1].reshape(-1, 64),
+                    t[:, 1:].reshape(-1)).mean()
+            loss.backward()
+            assert str(logits.dtype) == "bfloat16"
+            losses.append(loss.asscalar())
+            if ctx.device_type == "gpu":
+                assert _build.launch_counts() == {FLASH_KERNEL: 2}
+                for p in net.collect_params().values():
+                    assert torch.isfinite(p.grad().data).all()
+    finally:
+        amp.disable()
+    onp.testing.assert_allclose(losses[0], losses[1], rtol=2e-2)
