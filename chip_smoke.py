@@ -26,7 +26,8 @@ kernels against the plain PyTorch versions:
   ``ModelRepository`` on a local port, with a canary promote that
   migrates live streams;
 - training ResNet-50 v1 (with K4's head) and the GPT-2-small LM (with
-  K1 on bf16 operands) in bf16 AMP: ``amp.init("bfloat16")``,
+  K1's bf16 kernel for Hopper, ``csrc/flash_attention_sm90.cu``: wgmma
+  fed by TMA from a producer warp) in bf16 AMP: ``amp.init("bfloat16")``,
   ``amp.init_trainer`` (a dynamic loss scaler), ``amp.scale_loss`` and
   the Trainer's fused step, captured as one CUDA graph.
 
@@ -164,9 +165,15 @@ stream busy until the launch is enqueued, so it is the device's time:
     timed as every kernel here (median of 25 launches, CUDA events, the
     stream kept busy);
 23. K1 in bfloat16 at the LM's shape (8, 12, 1024, 1024, 64, causal):
-    within two bf16 ulps of the plain version, its time beside the plain
-    version's, ``scaled_dot_product_attention`` in bf16 (a yardstick
-    only) and its bound (bytes at 3.35 TB/s, flops at 989 TFLOP/s);
+    the rule (``_flash_route``) sends it to the sm90 kernel, on
+    contiguous inputs, on the LM's strided qkv views, at a ragged S, at
+    S_q < S_k and not causal, each within two bf16 ulps of the plain
+    version in float32 rounded once; its time on both layouts beside
+    the mma.sync kernel's (``route="mma"``, the route of earlier slices)
+    at the same shape, the plain version's,
+    ``scaled_dot_product_attention`` in bf16 (a yardstick only) and two
+    bounds: the function's (bytes at 3.35 TB/s, flops at 989 TFLOP/s)
+    and the design's two-pass arithmetic (P.V twice);
 24. ResNet-50 in bf16 AMP, as phase 16 (batch 128, SGD, the
     ``rtc_softmax`` head on the logits cast to float32, with the loss
     scale as its ``grad_scale``), in NCHW and in NHWC: 2 warm-up, 10
@@ -176,8 +183,8 @@ stream busy until the launch is enqueued, so it is the device's time:
     is the headline;
 25. the GPT-2-small LM in bf16 AMP, as phase 8 (Adam, ``scale_loss``):
     the loss falls, the logits are bf16, K1 launches = 12 x 10 (on bf16
-    q, k, v), one graph and a replay per step; tokens/s, step ms, peak
-    memory;
+    q, k, v), every one on the sm90 kernel, one graph and a replay per
+    step; tokens/s, step ms, peak memory;
 26. AMP on the card against the CPU port: ResNet-50 at batch 2 (eval
     mode, fresh weights) and the LM at 1 x 128 tokens, one
     record/backward each in bf16 and in float32 on both: the card's bf16
@@ -218,8 +225,9 @@ from mxnet_tpu_torch.contrib import amp  # noqa: E402
 from mxnet_tpu_torch.gluon import fused_step  # noqa: E402
 from mxnet_tpu_torch.kernels import _build, _nvrtc  # noqa: E402
 from mxnet_tpu_torch.kernels.flash_attention import (  # noqa: E402
-    FLASH_KERNEL, KERNEL, _decode_flash, _decode_flash_ref, _decode_splits,
-    _flash_fwd_cuda, _flash_load_width, _flash_ref, flash_attention)
+    FLASH_KERNEL, FLASH_SM90_KERNEL, KERNEL, _decode_flash, _decode_flash_ref,
+    _decode_splits, _flash_fwd_cuda, _flash_load_width, _flash_ref,
+    _flash_route, flash_attention)
 from mxnet_tpu_torch.ndarray import ops_nn  # noqa: E402
 from mxnet_tpu_torch.kernels.norm_act import (  # noqa: E402
     KERNEL as NORM_ACT_KERNEL, _norm_act_cuda, _norm_act_ref)
@@ -812,7 +820,9 @@ def training_phase():
         parts.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
         losses.append(loss.asscalar())
     wall = time.perf_counter() - t_all
-    launches = _build.launch_counts().get(FLASH_KERNEL, 0)
+    counts = _build.launch_counts()
+    launches = counts.get(FLASH_KERNEL, 0)
+    sm90 = counts.get(FLASH_SM90_KERNEL, 0)
     print(f"losses {[round(x, 4) for x in losses]}")
     if not all(onp.isfinite(losses)) or not losses[-1] < losses[0]:
         raise RuntimeError(f"training did not go down: {losses}")
@@ -1897,17 +1907,41 @@ def k4_floor_phase():
 def k1_bf16_phase(gen):
     phase("23 K1 in bfloat16 at the LM's shape")
     B, H, S, D = TRAIN_B, GPT2_SMALL_LM["num_heads"], TRAIN_S, 64
-    q, k, v = flash_inputs(gen, B, H, S, S, D, torch.bfloat16)
     scale = D ** -0.5
-    got = _flash_fwd_cuda(q, k, v, scale, True).float()
-    # the plain version in float32 from the same bf16 inputs, rounded to
-    # bf16 once: K1 rounds once too, at its output
+    q, k, v = flash_inputs(gen, B, H, S, S, D, torch.bfloat16)
+    # the LM's own layout: q, k, v strided views of one fused projection
+    qkv = torch.randn(B, S, 3, H, D, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    vq, vk, vv = qkv.permute(2, 0, 3, 1, 4)
+    cases = [("training shape, contiguous", q, k, v, True),
+             ("training shape, the LM's qkv views", vq, vk, vv, True)]
+    # a ragged S (not a multiple of the 128-row tiles) and a causal
+    # offset (S_q < S_k), not causal beside it
+    for B_, H_, S_q, S_k, causal in ((2, H, 1000, 1000, True),
+                                     (3, 4, 300, 777, True),
+                                     (2, 5, 333, 555, False)):
+        cases.append((f"B={B_} H={H_} S_q={S_q} S_k={S_k} causal={causal}",
+                      *flash_inputs(gen, B_, H_, S_q, S_k, D,
+                                    torch.bfloat16), causal))
+    worst = 0.0
+    for name, q_, k_, v_, causal in cases:
+        route = _flash_route(q_, k_, v_)
+        if route != "sm90":
+            raise RuntimeError(f"K1's rule sends {name} to {route!r}")
+        got = _flash_fwd_cuda(q_, k_, v_, scale, causal).float()
+        # the plain version in float32 from the same bf16 inputs, rounded
+        # to bf16 once: the kernel rounds once too, at its output
+        want = _flash_ref(q_.float(), k_.float(), v_.float(), scale,
+                          causal).to(torch.bfloat16).float()
+        err = (got - want).abs().max().item()
+        print(f"  sm90 route, {name}: max_abs_err={err:.3e}")
+        if not torch.allclose(got, want, rtol=BF16_RTOL, atol=KERNEL_ATOL):
+            raise RuntimeError(f"K1's sm90 kernel is off by {err} at {name}")
+        worst = max(worst, err)
     want = _flash_ref(q.float(), k.float(), v.float(), scale, True).to(
         torch.bfloat16).float()
-    err = (got - want).abs().max().item()
-    if not torch.allclose(got, want, rtol=BF16_RTOL, atol=KERNEL_ATOL):
-        raise RuntimeError(f"K1 in bfloat16 is off by {err} at the LM's "
-                           "shape")
+    mma_err = (_flash_fwd_cuda(q, k, v, scale, True, route="mma").float()
+               - want).abs().max().item()
 
     def library():
         return torch.nn.functional.scaled_dot_product_attention(
@@ -1920,20 +1954,31 @@ def k1_bf16_phase(gen):
     nbytes = 4 * B * H * S * D * 2  # q, k, v read and out written, bf16
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
     row = {"B": B, "H": H, "S_q": S, "S_k": S, "D": D, "causal": True,
-           "dtype": "bfloat16", "max_abs_err": err,
+           "dtype": "bfloat16", "max_abs_err": worst,
            "ms": time_ms(lambda: _flash_fwd_cuda(q, k, v, scale, True),
                          flush),
+           "views_ms": time_ms(
+               lambda: _flash_fwd_cuda(vq, vk, vv, scale, True), flush),
+           "mma_route_ms": time_ms(
+               lambda: _flash_fwd_cuda(q, k, v, scale, True, route="mma"),
+               flush),
+           "mma_route_max_abs_err": mma_err,
            "plain_ms": time_ms(lambda: _flash_ref(q, k, v, scale, True),
                                flush),
            "library_ms": time_ms(library, flush),
            "library_max_abs_err": lib_err,
            "bound_ms": max(t_bytes, t_ops) * 1e3,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           # the design's own arithmetic: P.V twice (P_hi and P_lo)
+           "bound_two_pass_ms": max(t_bytes, 1.5 * t_ops) * 1e3,
            "flops": flops, "bytes": nbytes}
     row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["bound_two_pass_share"] = row["bound_two_pass_ms"] / row["ms"]
+    row["speedup_over_mma_route"] = row["mma_route_ms"] / row["ms"]
     del flush
-    print(f"  K1 bf16 within two bf16 ulps of the plain version: "
-          f"max_abs_err={err:.3e}; SDPA's {lib_err:.3e}")
+    print(f"  K1 bf16 (sm90 route) within two bf16 ulps of the plain "
+          f"version: worst max_abs_err={worst:.3e}; the mma route's "
+          f"{mma_err:.3e}; SDPA's {lib_err:.3e}")
     print("  " + json.dumps(row))
     return row
 
@@ -2076,18 +2121,21 @@ def lm_amp_phase():
         parts.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
         losses.append(loss.asscalar())
     wall = time.perf_counter() - t_all
-    launches = _build.launch_counts().get(FLASH_KERNEL, 0)
+    counts = _build.launch_counts()
+    launches = counts.get(FLASH_KERNEL, 0)
+    sm90 = counts.get(FLASH_SM90_KERNEL, 0)
     print(f"losses {[round(x, 4) for x in losses]}")
     if not all(onp.isfinite(losses)) or not losses[-1] < losses[0]:
         raise RuntimeError(f"bf16 LM training did not go down: {losses}")
     if dtypes != {"bfloat16"}:
         raise RuntimeError(f"the LM's logits came out {dtypes} under AMP")
     want = cfg["num_layers"] * TIMED_STEPS
-    if launches != want:
-        raise RuntimeError(f"K1 launched {launches} times in {TIMED_STEPS} "
-                           f"bf16 steps of {cfg['num_layers']} layers")
+    if launches != want or sm90 != want:
+        raise RuntimeError(f"K1 launched {launches} times, {sm90} of them "
+                           f"on its sm90 kernel, in {TIMED_STEPS} bf16 "
+                           f"steps of {cfg['num_layers']} layers")
     print(f"K1 (bf16) launches {launches} = {cfg['num_layers']} layers x "
-          f"{TIMED_STEPS} timed steps")
+          f"{TIMED_STEPS} timed steps, all {sm90} on the sm90 kernel")
     stats = check_fused(trainer, WARMUP_STEPS + TIMED_STEPS)
     fwd, bwd, opt = (statistics.mean(p[i] for p in parts) for i in range(3))
     result = {"tokens_per_s": TRAIN_B * TRAIN_S * TIMED_STEPS / wall,
@@ -2103,7 +2151,7 @@ def lm_amp_phase():
     amp.disable()
     del net, trainer
     torch.cuda.empty_cache()
-    return launches, result
+    return launches, sm90, result
 
 
 def _l2(parts):
@@ -2333,7 +2381,7 @@ def main():
     k4_floor = k4_floor_phase()
     k1_bf16 = k1_bf16_phase(gen)
     (net, trainer, x, y), resnet_amp, head = resnet_amp_phase()
-    k1_bf16_launches, _ = lm_amp_phase()
+    k1_bf16_launches, sm90_launches, _ = lm_amp_phase()
     amp_vs_cpu_phase()
     poisoned_step_phase(net, trainer, x, y)
     del net, trainer
@@ -2353,19 +2401,33 @@ def main():
             launches_by_path={"serving": k2_launches,
                               "paged_serving": k2_paged_launches}),
         # K1's headline numbers are the training shape's; the fusion
-        # route's shape has its own row under "fusion_route"
+        # route's shape has its own row under "fusion_route". Its launches
+        # are the mma.sync kernel's; the bf16 LM's go to the sm90 kernel
         kernel_entry(
             FLASH_KERNEL, "mxnet_tpu_torch/csrc/flash_attention.cu",
             "mxnet_tpu/kernels/flash_attention.py:48",
-            k1_training + sym_result["k1_launches"] + k1_bf16_launches,
+            k1_training + sym_result["k1_launches"] + k1_bf16_launches
+            - sm90_launches,
             max(k1_worst, route["max_abs_err"]), k1_row,
             f"B={k1_row['B']} H={k1_row['H']} S_q={k1_row['S_q']} "
             f"S_k={k1_row['S_k']} D={k1_row['D']} causal fp32", smi,
             bound_3xtf32_ms=k1_row["bound_3xtf32_ms"],
             launches_by_path={"training": k1_training,
                               "symbolic_serving": sym_result["k1_launches"],
-                              "training_bf16": k1_bf16_launches},
-            fusion_route=route, bf16=k1_bf16),
+                              "training_bf16": k1_bf16_launches
+                              - sm90_launches},
+            fusion_route=route, bf16_mma_route_ms=k1_bf16["mma_route_ms"]),
+        # K1 in bf16 at D = 64: the wgmma kernel the LM takes under AMP
+        kernel_entry(
+            FLASH_SM90_KERNEL, "mxnet_tpu_torch/csrc/flash_attention_sm90.cu",
+            "mxnet_tpu/kernels/flash_attention.py:48", sm90_launches,
+            k1_bf16["max_abs_err"], k1_bf16,
+            f"B={k1_bf16['B']} H={k1_bf16['H']} S_q={k1_bf16['S_q']} "
+            f"S_k={k1_bf16['S_k']} D={k1_bf16['D']} causal bf16", smi,
+            bound_two_pass_ms=k1_bf16["bound_two_pass_ms"],
+            views_ms=k1_bf16["views_ms"],
+            mma_route_ms=k1_bf16["mma_route_ms"],
+            launches_by_path={"training_bf16": sm90_launches}),
         kernel_entry(
             NORM_ACT_KERNEL, "mxnet_tpu_torch/csrc/norm_act.cu",
             "mxnet_tpu/kernels/norm_act.py:45", sym_result["k3_launches"],

@@ -13,7 +13,10 @@
 // kept in fp32 (running max m, sum l and accumulator per row) across the
 // sweep over key tiles; masked scores are -1e30, so they get exactly zero
 // weight; the output is acc / max(l, 1e-30), cast to q's dtype. Inputs
-// are fp32 or bf16.
+// are fp32 or bf16. bf16 q, k and v at D = 64 that TMA can read in place
+// (the LM's under AMP) go to csrc/flash_attention_sm90.cu instead, the
+// wgmma kernel built for them; this one takes every other input
+// (`_flash_route`, mxnet_tpu_torch/kernels/flash_attention.py).
 //
 // Products: tensor cores in 3xTF32. Both products, Q.K^T and P.V, run as
 // mma.sync.m16n8k8 TF32 with fp32 accumulation. TF32 keeps 10 mantissa
@@ -102,9 +105,7 @@
 //   - the softmax works in base 2 with scale*log2(e) folded into one
 //     multiply; a thread's share of l is summed across its quad once, at
 //     the end.
-// Left for later: wgmma and TMA with a producer warp (and bf16 operands
-// on wgmma once AMP exists); this design reaches about a fifth of its
-// 3xTF32 bound (PERF.md).
+// This design reaches about a fifth of its 3xTF32 bound (PERF.md).
 //
 // The gradient is not a kernel: the JAX package's backward
 // (`_flash_bwd`, flash_attention.py:206-245) is an XLA q-chunk recompute,

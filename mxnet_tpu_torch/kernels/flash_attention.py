@@ -6,13 +6,17 @@ Training half (K1): :func:`flash_attention` is scaled dot-product
 attention over (B, H, S, D) tensors, with the JAX function's contract
 (``flash_attention.py:251-272``): optional bottom-right-aligned causal
 mask, ``sm_scale`` defaulting to ``1/sqrt(D)``. Its forward is
-:func:`_flash_fwd_cuda`, the wrapper of the hand-written kernel
-``csrc/flash_attention.cu`` (the port of the TPU kernel ``_fa_kernel``,
-``flash_attention.py:48-134``; its products run on the tensor cores in
-3xTF32, which keeps fp32's accuracy), or :func:`_flash_ref`, its plain
-version. Its backward is :func:`_flash_bwd`, the q-chunk recompute of
-``flash_attention.py:206-245`` in torch; the JAX package has no
-backward kernel, so neither has the port.
+:func:`_flash_fwd_cuda`, the wrapper of two hand-written ports of the
+TPU kernel ``_fa_kernel`` (``flash_attention.py:48-134``), or
+:func:`_flash_ref`, their plain version. Which kernel takes a call is
+:func:`_flash_route`'s rule on dtypes, shapes, strides and pointers:
+bf16 q, k and v at D = 64 that TMA can read go to
+``csrc/flash_attention_sm90.cu`` (wgmma fed by TMA, P kept to fp32
+accuracy in two bf16 passes); everything else, fp32 included, to
+``csrc/flash_attention.cu`` (``mma.sync``; fp32 products in 3xTF32,
+which keeps fp32's accuracy). Its backward is :func:`_flash_bwd`, the
+q-chunk recompute of ``flash_attention.py:206-245`` in torch; the JAX
+package has no backward kernel, so neither has the port.
 
 Decode half (K2): one query row per (batch, head) attends against its
 KV cache, masked to a per-row visible length. :func:`_decode_flash` is
@@ -35,13 +39,15 @@ from ..base import MXNetError
 from . import _build
 
 __all__ = ["flash_attention", "_flash_ref", "_flash_fwd_cuda", "_flash_bwd",
-           "_flash_load_width", "_decode_flash", "_decode_flash_ref",
-           "_decode_splits"]
+           "_flash_load_width", "_flash_route",
+           "_decode_flash", "_decode_flash_ref", "_decode_splits"]
 
 _NEG = -1e30
 _MAX_D = 256
 KERNEL = "decode_attention"  # K2
-FLASH_KERNEL = "flash_attention"  # K1
+FLASH_KERNEL = "flash_attention"  # K1: counts every launch, either route
+FLASH_SM90_KERNEL = "flash_attention_sm90"  # K1's launches on the sm90 route
+_SM90_D = 64  # the head width of the sm90 route
 _BWD_CHUNK = 512
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -92,7 +98,36 @@ def _flash_load_width(k, v):
     return size
 
 
-def _flash_fwd_cuda(q, k, v, sm_scale, causal):
+@functools.lru_cache(maxsize=None)
+def _flash_sm90_entry():
+    fn = _build.load(FLASH_SM90_KERNEL).mxtt_flash_attention_sm90_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _flash_route(q, k, v):
+    """Which K1 kernel takes (q, k, v) on the card: ``"sm90"``
+    (``csrc/flash_attention_sm90.cu``) for bfloat16 q, k and v with
+    D = 64, contiguous in D, whose base pointers are 16-byte aligned and
+    whose (b, h, s) strides are positive whole 16-byte steps: what TMA
+    can read in place, the model's q/k/v views of one fused projection
+    included. ``"mma"`` (``csrc/flash_attention.cu``) for everything
+    else. A variant chosen from dtypes, shapes, strides and pointers,
+    like :func:`_flash_load_width`; not a fallback."""
+    if any(t.dtype != torch.bfloat16 or t.dim() != 4 or
+           t.shape[3] != _SM90_D or t.stride(3) != 1 for t in (q, k, v)):
+        return "mma"
+    for t in (q, k, v):
+        if t.data_ptr() % 16 or any(
+                s <= 0 or (s * 2) % 16 or s * 2 >= 2 ** 40
+                for s in t.stride()[:3]):
+            return "mma"
+    return "sm90"
+
+
+def _flash_fwd_cuda(q, k, v, sm_scale, causal, route=None):
     """K1: the attention forward, same contract as :func:`_flash_ref`;
     returns a fresh contiguous (B, H, S_q, D) tensor of q's dtype.
 
@@ -102,8 +137,14 @@ def _flash_fwd_cuda(q, k, v, sm_scale, causal):
     must be float32 or bfloat16 alike, on one device, 4-d with matching
     (B, H, D), D <= 256 and contiguous (the other axes may be strided:
     views of one fused qkv are read in place), and ``causal`` needs
-    S_q <= S_k. K/V rows that are not 16-byte aligned are copied into
-    shared memory in narrower pieces (:func:`_flash_load_width`)."""
+    S_q <= S_k. The kernel is :func:`_flash_route`'s choice; ``route``
+    (``"sm90"`` or ``"mma"``) names it instead, for the tests and the
+    timing tools, and raises where the sm90 kernel cannot take the
+    inputs. On the mma route, K/V rows that are not 16-byte aligned are
+    copied into shared memory in narrower pieces
+    (:func:`_flash_load_width`). Every launch counts once under
+    ``FLASH_KERNEL``; a launch of the sm90 kernel also counts under
+    ``FLASH_SM90_KERNEL``."""
     devs = {t.device for t in (q, k, v)}
     if len(devs) != 1:
         raise MXNetError(f"_flash_fwd_cuda: inputs on several devices {devs}")
@@ -139,20 +180,35 @@ def _flash_fwd_cuda(q, k, v, sm_scale, causal):
     if causal and S_q > S_k:
         raise MXNetError(f"_flash_fwd_cuda: causal needs S_q <= S_k, got "
                          f"S_q={S_q} S_k={S_k}")
+    chosen = _flash_route(q, k, v)
+    if route is None:
+        route = chosen
+    elif route not in ("sm90", "mma") or (route == "sm90" and
+                                          chosen != "sm90"):
+        raise MXNetError(f"_flash_fwd_cuda: route {route!r} cannot take "
+                         f"these inputs (the rule gives {chosen!r})")
     out = torch.empty((B, H, S_q, D), dtype=q.dtype, device=dev)
-    strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v)
-                                        for i in range(3)))
     with torch.cuda.device(dev):
-        err = _flash_entry()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _FLASH_DTYPES[q.dtype], B, H, S_q, S_k, D,
-            ctypes.cast(strides, ctypes.c_void_p), float(sm_scale),
-            int(bool(causal)), torch.cuda.current_stream(dev).cuda_stream,
-            _flash_load_width(k, v))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        strides = (ctypes.c_longlong * 9)(
+            *(t.stride(i) for t in (q, k, v) for i in range(3)))
+        if route == "sm90":
+            err = _flash_sm90_entry()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, H, S_q, S_k, ctypes.cast(strides, ctypes.c_void_p),
+                float(sm_scale), int(bool(causal)), stream)
+        else:
+            err = _flash_entry()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _FLASH_DTYPES[q.dtype], B, H, S_q, S_k, D,
+                ctypes.cast(strides, ctypes.c_void_p), float(sm_scale),
+                int(bool(causal)), stream, _flash_load_width(k, v))
     if err:
         raise MXNetError(f"_flash_fwd_cuda: kernel launch failed with CUDA "
-                         f"error {err}")
+                         f"error {err} ({route} route)")
     _build.count_launch(FLASH_KERNEL)
+    if route == "sm90":
+        _build.count_launch(FLASH_SM90_KERNEL)
     return out
 
 

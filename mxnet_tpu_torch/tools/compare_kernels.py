@@ -7,7 +7,9 @@ it builds and launches that tree's kernels through that tree's wrappers
 (``_flash_fwd_cuda``, ``_decode_flash``), and times, at the shapes of
 ``chip_smoke.py``'s phases 4, 7 and 12:
 
-- K1 at the training shape (8, 12, 1024, 1024, 64, causal) and on the
+- K1 at the training shape (8, 12, 1024, 1024, 64, causal) in float32
+  and in bfloat16 (the LM under AMP; from this tree on, bf16 at D = 64
+  takes the wgmma kernel, ``csrc/flash_attention_sm90.cu``) and on the
   fusion route's (128, 1, 499, 499, 64), with
   ``scaled_dot_product_attention`` beside it (a yardstick only);
 - K2 at B in {1, 8, 32}, H 12, S 1024, D 64, every key visible, with
@@ -17,7 +19,8 @@ Every time is the median device ms of 25 launches, each alone between
 CUDA events after a 256 MB write that evicts the L2 and a
 ``torch.cuda._sleep`` that keeps the stream busy until the launch is
 enqueued. Each child also checks its kernels against the plain versions
-(1e-5). Prints one JSON line per turn, then the card's name and power
+(1e-5; in bfloat16 two bf16 ulps, rtol 2^-6, of the plain version in
+float32 rounded once). Prints one JSON line per turn, then the card's name and power
 limit and one JSON summary with the medians over the turns of each
 tree. Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -37,11 +40,13 @@ import sys
 
 REPS = 25
 BUSY_CYCLES = 400_000  # ~200 us at 1.98 GHz: longer than a launch's host cost
-K1_SHAPES = {"training": (8, 12, 1024, 1024, 64, True),
-             "route": (128, 1, 499, 499, 64, False)}
+K1_SHAPES = {"training": (8, 12, 1024, 1024, 64, True, "float32"),
+             "training_bf16": (8, 12, 1024, 1024, 64, True, "bfloat16"),
+             "route": (128, 1, 499, 499, 64, False, "float32")}
 K2_BATCHES = (1, 8, 32)
 K2_H, K2_S, K2_D = 12, 1024, 64
 TOL = 1e-5
+BF16_RTOL = 2.0 ** -6
 
 
 def _time_ms(torch, fn, flush):
@@ -78,13 +83,17 @@ def child(tree):
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {"tree": tree}
-    for name, (B, H, S_q, S_k, D, causal) in K1_SHAPES.items():
+    for name, (B, H, S_q, S_k, D, causal, dtype) in K1_SHAPES.items():
+        dtype = getattr(torch, dtype)
         q, k, v = (torch.randn(B, H, s, D, device=dev, generator=gen)
-                   for s in (S_q, S_k, S_k))
+                   .to(dtype) for s in (S_q, S_k, S_k))
         scale = D ** -0.5
-        err = (fa._flash_fwd_cuda(q, k, v, scale, causal)
-               - fa._flash_ref(q, k, v, scale, causal)).abs().max().item()
-        if err > TOL:
+        got = fa._flash_fwd_cuda(q, k, v, scale, causal).float()
+        want = fa._flash_ref(q.float(), k.float(), v.float(), scale,
+                             causal).to(dtype).float()
+        err = (got - want).abs().max().item()
+        rtol = TOL if dtype == torch.float32 else BF16_RTOL
+        if not torch.allclose(got, want, rtol=rtol, atol=TOL):
             raise RuntimeError(f"{tree}: K1 off by {err} at {name}")
         out[f"k1_{name}_ms"] = _time_ms(
             torch, lambda: fa._flash_fwd_cuda(q, k, v, scale, causal), flush)

@@ -17,23 +17,41 @@ the main path's shapes:
 - ``k1-4-warps``: 4 warps (64 query rows) per block at D <= 64, 2 blocks
   per SM;
 - ``k1-bk32``: 32 keys per tile at D <= 64;
-- ``k2``: K2 as committed; ``k2-4-warps``: four warps per block.
+- ``k2``: K2 as committed; ``k2-4-warps``: four warps per block;
+- ``sm90``: K1's wgmma kernel for bf16 at D = 64
+  (``csrc/flash_attention_sm90.cu``) as committed;
+- ``sm90-one-pass``: P rounded to bf16 and one P.V pass (what the second
+  pass costs; its error leaves the two-ulp gate);
+- ``sm90-round-hi``: P_hi rounded to nearest rather than cut, P_lo from
+  that;
+- ``sm90-no-overlap``: a warpgroup waits for its P.V before the softmax,
+  so the softmax runs under the other warpgroup's products only;
+- ``sm90-all-masked``: every tile through the masked softmax;
+- ``sm90-2-stages``: two K/V stages in the ring instead of three.
+
+The named barriers' turns are not undone: the sm90 kernel's releases of
+the tiles a warpgroup skips rely on them.
 
 For every variant it prints the registers and spills ``ptxas`` reports
-for the main path's instantiation (fp32, D = 64) and, for each shape, the
+for the main path's instantiation (fp32, D = 64; the sm90 kernel) and,
+for each shape, the
 largest difference from the plain version and the median device ms of
 25 launches (L2 evicted and the stream kept busy before each, as
 ``chip_smoke.py`` times). K1's shapes are the training shape (8, 12,
-1024, 1024, 64, causal) and the fusion route's (128, 1, 499, 499, 64);
-K2's are B in {1, 8, 32}, H 12, S 1024, D 64. Run from the root of a
-checkout, on a machine with one NVIDIA GPU:
+1024, 1024, 64, causal) and the fusion route's (128, 1, 499, 499, 64); the
+sm90 kernel's is the training shape in bf16, its error taken against
+the plain version in fp32 rounded to bf16; K2's are B in {1, 8, 32}, H
+12, S 1024, D 64. Run from the root of a checkout, on a machine with
+one NVIDIA GPU (``--only sm90`` builds and times only the variants whose
+names start so):
 
-    python3 -m mxnet_tpu_torch.tools.kernel_variants
+    python3 -m mxnet_tpu_torch.tools.kernel_variants [--only sm90]
 
 It needs no network and writes only the builds.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import os
@@ -47,6 +65,13 @@ from ..kernels import _build
 from ..kernels import flash_attention as fa
 
 K1_SRC, K2_SRC = "flash_attention", "decode_attention"
+SM90_SRC = "flash_attention_sm90"
+_SM90_PV_LO = ("for (int kk = 0; kk < kBK / 16; ++kk) "
+               "wgmma_pv(o, pl[kk], dv + 128 * kk);")
+_SM90_SPLIT = """          ph[kk][r] = __byte_perm(xb, yb, 0x7632);  // the high halves
+          pl[kk][r] = bf2_bits(
+              __floats2bfloat162_rn(x - __uint_as_float(xb & 0xffff0000u),
+                                    y - __uint_as_float(yb & 0xffff0000u)));"""
 VARIANTS = {
     "k1": (K1_SRC, []),
     "k1-one-accumulator": (K1_SRC, [
@@ -67,6 +92,23 @@ VARIANTS = {
         ("kMinBlocks = DP <= 64 ? 1 : 2;", "kMinBlocks = 2;")]),
     "k1-bk32": (K1_SRC, [
         ("return launch<T, 64, 64>(", "return launch<T, 64, 32>(")]),
+    "sm90": (SM90_SRC, []),
+    "sm90-one-pass": (SM90_SRC, [
+        (_SM90_PV_LO, ""),
+        (_SM90_SPLIT, "          ph[kk][r] = bf2_bits("
+                      "__floats2bfloat162_rn(x, y));")]),
+    "sm90-round-hi": (SM90_SRC, [
+        (_SM90_SPLIT, """          const __nv_bfloat162 hi = __floats2bfloat162_rn(x, y);
+          const float2 hv = __bfloat1622float2(hi);
+          ph[kk][r] = bf2_bits(hi);
+          pl[kk][r] = bf2_bits(__floats2bfloat162_rn(x - hv.x, y - hv.y));""")]),
+    "sm90-no-overlap": (SM90_SRC, [
+        ("      wg_wait<1>();\n", "      wg_wait<0>();\n")]),
+    "sm90-all-masked": (SM90_SRC, [
+        ("      const int n_full =\n          min(n_wg,",
+         "      const int n_full = 0 * min(n_wg,")]),
+    "sm90-2-stages": (SM90_SRC, [
+        ("constexpr int kStages = 3;", "constexpr int kStages = 2;")]),
     "k2": (K2_SRC, []),
     "k2-4-warps": (K2_SRC, [
         ("constexpr int kWarps = 8;", "constexpr int kWarps = 4;")]),
@@ -76,7 +118,9 @@ K1_SHAPES = {"training": (8, 12, 1024, 1024, 64, True),
 K2_BATCHES = (1, 8, 32)
 # the main path's instantiation in ptxas's log
 MAIN_KERNEL = {K1_SRC: "flash_fwd_kernelIfLi64E",
-               K2_SRC: "decode_attention_kernelILi2E"}
+               K2_SRC: "decode_attention_kernelILi2E",
+               SM90_SRC: "flash_fwd_sm90"}
+SM90_SHAPES = {"training_bf16": (8, 12, 1024, 1024, 64, True)}
 REPS = 25
 BUSY_CYCLES = 400_000
 VARIANT_DIR = os.path.join(_build.BUILD_DIR, "variants")
@@ -156,6 +200,22 @@ def k1_call(lib, q, k, v, scale, causal):
     return out
 
 
+def sm90_call(lib, q, k, v, scale, causal):
+    fn = lib.mxtt_flash_attention_sm90_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    B, H, S_q, D = q.shape
+    out = torch.empty(B, H, S_q, D, dtype=q.dtype, device=q.device)
+    st = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v)
+                                   for i in range(3)))
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+             H, S_q, k.shape[2], ctypes.cast(st, ctypes.c_void_p), scale,
+             int(causal), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"sm90 variant launch failed: CUDA error {err}")
+    return out
+
+
 def k2_call(lib, q, k, v, n, scale, n_sm):
     fn = lib.mxtt_decode_attention_f32
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
@@ -175,11 +235,16 @@ def k2_call(lib, q, k, v, n, scale, n_sm):
     return out
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", default="",
+                    help="build and time only the variants whose names "
+                         "start with this")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = build(VARIANTS)
+    libs = build([n for n in VARIANTS if n.startswith(args.only)])
     dev = torch.device("cuda")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(20240917)
@@ -195,6 +260,18 @@ def main():
             run = lambda: k1_call(lib, q, k, v, D ** -0.5, causal)  # noqa
             rows[name][shape] = {
                 "max_abs_err": (run() - ref).abs().max().item(),
+                "ms": time_ms(run, flush)}
+    for shape, (B, H, S_q, S_k, D, causal) in SM90_SHAPES.items():
+        q, k, v = (torch.randn(B, H, s, D, device=dev, generator=gen)
+                   .bfloat16() for s in (S_q, S_k, S_k))
+        ref = fa._flash_ref(q.float(), k.float(), v.float(), D ** -0.5,
+                            causal).bfloat16().float()
+        for name, (lib, _) in libs.items():
+            if VARIANTS[name][0] != SM90_SRC:
+                continue
+            run = lambda: sm90_call(lib, q, k, v, D ** -0.5, causal)  # noqa
+            rows[name][shape] = {
+                "max_abs_err": (run().float() - ref).abs().max().item(),
                 "ms": time_ms(run, flush)}
     for B in K2_BATCHES:
         H, S, D = 12, 1024, 64

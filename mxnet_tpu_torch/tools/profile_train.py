@@ -11,7 +11,8 @@ steps; with ``--amp`` under ``amp.init("bfloat16")`` with a loss scaler
 (``amp.init_trainer``, ``amp.scale_loss``). Prints one JSON object:
 host wall ms per step, device busy ms per step (the sum of the CUDA
 kernel and copy times), the device's idle share, device operations per
-step, K1's launches per step and share of device time, the matrix
+step, K1's launches per step (all, and those of its wgmma kernel for
+bf16 at D = 64) and share of device time, the matrix
 products' (cuBLAS/CUTLASS ``gemm`` kernels) time and launches per step,
 the device time by kind (GEMM, K1, dtype casts and copies, softmax and
 layer norm, the optimizer's multi-tensor passes, elementwise and other)
@@ -36,7 +37,7 @@ import torch
 from .. import autograd, gluon, gpu, initializer, nd, random as mxrandom
 from ..contrib import amp
 from ..kernels import _build
-from ..kernels.flash_attention import FLASH_KERNEL
+from ..kernels.flash_attention import FLASH_KERNEL, FLASH_SM90_KERNEL
 from ..models import TransformerLM
 
 GPT2_SMALL = dict(vocab_size=50257, embed_dim=768, num_layers=12,
@@ -52,9 +53,13 @@ def _card():
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
+# K1's two kernels: the mma.sync one and the wgmma one for bf16 at D = 64
+K1_NAMES = ("flash_fwd_kernel", "flash_fwd_sm90")
+
+
 def _kind(name):
     """The layer a device operation belongs to, from its kernel name."""
-    if "flash_fwd_kernel" in name:
+    if any(k in name for k in K1_NAMES):
         return "k1_flash_attention"
     if "gemm" in name or "xmma" in name:
         return "gemm"
@@ -117,7 +122,9 @@ def main(argv=None):
             loss = one_step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
-    k1_launches = _build.launch_counts().get(FLASH_KERNEL, 0)
+    counts = _build.launch_counts()
+    k1_launches = counts.get(FLASH_KERNEL, 0)
+    sm90_launches = counts.get(FLASH_SM90_KERNEL, 0)
     by_name = collections.defaultdict(lambda: [0.0, 0])
     busy_us = 0.0
     for ev in prof.events():
@@ -129,7 +136,7 @@ def main(argv=None):
             busy_us += dur
     busy_ms = busy_us / 1e3 / args.steps
     k1_us = sum(us for name, (us, _) in by_name.items()
-                if "flash_fwd_kernel" in name)
+                if any(k in name for k in K1_NAMES))
     gemm = [(us, cnt) for name, (us, cnt) in by_name.items()
             if "gemm" in name]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
@@ -149,6 +156,7 @@ def main(argv=None):
         "device_ops_per_step": sum(c for _, c in by_name.values())
         / args.steps,
         "k1_launches_per_step": k1_launches / args.steps,
+        "k1_sm90_launches_per_step": sm90_launches / args.steps,
         "k1_ms_per_step": k1_us / 1e3 / args.steps,
         "k1_share_of_device_time": k1_us / busy_us if busy_us else None,
         "gemm_ms_per_step": sum(us for us, _ in gemm) / 1e3 / args.steps,

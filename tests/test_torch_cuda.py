@@ -12,7 +12,10 @@ machine that has only PyTorch for CUDA. From the repo root:
     python -m pytest --noconftest -p no:cacheprovider \
         -o "markers=cuda: needs a CUDA device" -m cuda tests/test_torch_cuda.py
 
-(``--noconftest``: the suite's conftest sets up JAX.) K2 is held against
+(``--noconftest``: the suite's conftest sets up JAX.) K1's sm90 kernel
+(bf16 at D = 64) is held to the same two bf16 ulps as K1 in bfloat16
+below, reruns bitwise, and its SASS holds bf16 HGMMA and no TF32 HMMA.
+K2 is held against
 its plain version within rtol = atol = 1e-5, and so is K1 in float32:
 the bound the JAX package puts on its Pallas kernels against the lax
 path; both sum the softmax in fp32, in different orders. K1 in bfloat16
@@ -38,8 +41,9 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import convert, rtc, serving
 from mxnet_tpu_torch.kernels import _build
 from mxnet_tpu_torch.kernels.flash_attention import (
-    FLASH_KERNEL, KERNEL, _decode_flash, _decode_flash_ref, _decode_splits,
-    _flash_fwd_cuda, _flash_load_width, _flash_ref, flash_attention)
+    FLASH_KERNEL, FLASH_SM90_KERNEL, KERNEL, _decode_flash, _decode_flash_ref,
+    _decode_splits, _flash_fwd_cuda, _flash_load_width, _flash_ref,
+    _flash_route, flash_attention)
 from mxnet_tpu_torch.kernels.norm_act import (
     KERNEL as NORM_ACT_KERNEL, MAX_C, _norm_act_cuda, _norm_act_ref)
 from mxnet_tpu_torch.models import DecoderBlockLM, TransformerLM
@@ -371,6 +375,96 @@ def test_k1_sass_holds_tf32_tensor_core_products(cuda):
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
     assert re.search(r"HMMA\.\S*TF32", sass), "no TF32 HMMA in K1's SASS"
+
+
+# -- K1's sm90 kernel: bf16 at D = 64, wgmma fed by TMA ----------------------
+
+def _within_bf16_gate(got, q, k, v, scale, causal):
+    """Two bf16 ulps (rtol 2^-6, atol 1e-5) of the plain version in float32
+    from the same bf16 inputs, rounded once; returns the largest error."""
+    want = _flash_ref(q.float(), k.float(), v.float(), scale, causal).to(
+        torch.bfloat16).float()
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    assert torch.allclose(got.float(), want, rtol=2 ** -6, atol=TOL)
+    return (got.float() - want).abs().max().item()
+
+
+# (B, H, S_q, S_k, causal): ragged S_q and S_k, causal and not, S_q < S_k,
+# a single query row; 1 x 1 x 100 gives one work item (fewer than the
+# SMs), 8 x 12 x 1024 gives 768 (more than the SMs: each block walks
+# several)
+@pytest.mark.parametrize("B,H,S_q,S_k,causal", [
+    (1, 1, 100, 100, True),
+    (2, 3, 130, 130, True),
+    (2, 3, 130, 257, False),
+    (1, 2, 499, 499, False),
+    (2, 2, 100, 300, True),
+    (1, 2, 1, 40, True),
+    (3, 5, 700, 900, True),
+    (8, 12, 1024, 1024, True),
+])
+def test_sm90_kernel_on_card_within_the_gate(cuda, B, H, S_q, S_k, causal):
+    q, k, v = _qkv(cuda, B, H, S_q, S_k, 64, dtype=torch.bfloat16, seed=S_k)
+    assert _flash_route(q, k, v) == "sm90"
+    _build.reset_launch_counts()
+    got = _flash_fwd_cuda(q, k, v, 0.125, causal)
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {FLASH_KERNEL: 1, FLASH_SM90_KERNEL: 1}
+    _within_bf16_gate(got, q, k, v, 0.125, causal)
+
+
+def test_sm90_kernel_reads_the_lm_views_in_place(cuda):
+    """q, k, v as the LM makes them under AMP: views of one fused
+    (B, S, 3, H, D) bf16 projection, read through their strides."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    qkv = torch.randn(2, 1024, 3, 12, 64, device=cuda,
+                      generator=gen).bfloat16()
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    assert not q.is_contiguous() and _flash_route(q, k, v) == "sm90"
+    got = _flash_fwd_cuda(q, k, v, 0.125, True)
+    _within_bf16_gate(got, q, k, v, 0.125, True)
+    same = _flash_fwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                           0.125, True)
+    assert torch.equal(got, same)
+
+
+def test_sm90_kernel_reruns_bitwise(cuda):
+    q, k, v = _qkv(cuda, 8, 12, 1024, 1024, 64, dtype=torch.bfloat16,
+                   seed=3)
+    first = _flash_fwd_cuda(q, k, v, 0.125, True)
+    for _ in range(3):
+        assert torch.equal(_flash_fwd_cuda(q, k, v, 0.125, True), first)
+
+
+def test_sm90_and_mma_routes_agree_within_the_gate(cuda):
+    """The same bf16 inputs through both kernels: each within the gate,
+    and an impossible route raises before any launch."""
+    q, k, v = _qkv(cuda, 2, 4, 300, 300, 64, dtype=torch.bfloat16, seed=9)
+    for route in ("sm90", "mma"):
+        _within_bf16_gate(_flash_fwd_cuda(q, k, v, 0.125, True,
+                                          route=route), q, k, v, 0.125, True)
+    odd = torch.zeros(1, 2, 64, 65, dtype=torch.bfloat16,
+                      device=cuda)[..., :64]
+    _build.reset_launch_counts()
+    with pytest.raises(mx.MXNetError, match="route"):
+        _flash_fwd_cuda(odd, odd, odd, 0.125, True, route="sm90")
+    assert _build.launch_counts() == {}
+
+
+def test_sm90_sass_holds_bf16_wgmma_and_no_tf32(cuda):
+    """The sm90 library issues its products as bf16 HGMMA, never as TF32
+    HMMA."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        pytest.skip("the CUDA toolkit here has no cuobjdump")
+    _build.load(FLASH_SM90_KERNEL)
+    sass = subprocess.run(
+        [tool, "-sass", _build._library_path(FLASH_SM90_KERNEL)],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    assert re.search(r"HGMMA\.64x128x16\.F32\.BF16", sass)
+    assert re.search(r"HGMMA\.64x64x16\.F32\.BF16", sass)
+    assert not re.search(r"HMMA\.\S*TF32", sass)
 
 
 def test_transformer_training_step_on_card_launches_k1(cuda):

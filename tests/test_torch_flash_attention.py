@@ -33,6 +33,7 @@ from mxnet_tpu_torch.kernels.flash_attention import (_flash_bwd,
                                                      _flash_fwd_cuda,
                                                      _flash_load_width,
                                                      _flash_ref,
+                                                     _flash_route,
                                                      flash_attention)
 
 TOL = 1e-5
@@ -310,3 +311,170 @@ def test_load_width_of_strided_views():
     assert _flash_load_width(kb, kb) == 2
     shifted = torch.zeros(2 * 4 * 40 * 64 + 1)[1:].reshape(2, 4, 40, 64)
     assert _flash_load_width(shifted, shifted) == 4
+
+
+# -- K1's bf16 route on Hopper, emulated ------------------------------------
+#
+# bf16 q, k and v at D = 64 go to csrc/flash_attention_sm90.cu: wgmma with
+# bf16 operands, so Q.K^T is exact products with fp32 sums; the online
+# softmax in base 2 and O in fp32, per warpgroup of 64 query rows over
+# tiles of 128 keys; P split into P_hi (p cut to bf16: its high 16 bits)
+# and P_lo = bf16(p - P_hi), O rescaled, then P_lo.V added before P_hi.V;
+# the output rounded once to bf16. The emulation below repeats that arithmetic in torch on the CPU
+# and holds it, on bf16 inputs, against the TPU kernel ``_fa_kernel`` in
+# interpret mode and the plain version in fp32 rounded once, within the
+# card's gate: rtol 2^-6 (two bf16 ulps), atol 1e-5.
+
+BF16_RTOL = 2.0 ** -6
+
+
+def _emulate_k1_bf16(q, k, v, sm_scale, causal, two_pass=True, BM=64,
+                     BK=128):
+    """The sm90 kernel's forward on bf16 (B, H, S, 64) tensors."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    S_q, S_k = q.shape[2], k.shape[2]
+    off = S_k - S_q
+    # the kernel's scale: sm_scale * log2(e) in fp32
+    c = float(torch.tensor(sm_scale, dtype=torch.float32) *
+              torch.tensor(_LOG2E, dtype=torch.float32))
+    out = torch.empty(q.shape, dtype=torch.float32)
+    for r0 in range(0, S_q, BM):
+        qt = qf[:, :, r0:r0 + BM]
+        rows = torch.arange(r0, r0 + qt.shape[2])[:, None]
+        kend = min(S_k, r0 + qt.shape[2] + off) if causal else S_k
+        m = torch.full(qt.shape[:3] + (1,), -1e30)
+        l = torch.zeros(qt.shape[:3] + (1,))
+        acc = torch.zeros(qt.shape)
+        for k0 in range(0, kend, BK):
+            kt, vt = kf[:, :, k0:k0 + BK], vf[:, :, k0:k0 + BK]
+            s = qt @ kt.transpose(-1, -2)
+            if causal:  # a masked score is -inf, its weight exactly 0
+                keys = torch.arange(k0, k0 + kt.shape[2])[None, :]
+                s = torch.where(keys <= rows + off, s,
+                                torch.full_like(s, float("-inf")))
+            # the max in base-2 units, then p = 2^(s * c - m) in one
+            # rounding (the kernel's fused multiply-add)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True) * c)
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2((s.double() * c - m_new.double()).float())
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha
+            if two_pass:  # P_hi: p's high 16 bits
+                p_hi = (p.view(torch.int32) & -65536).view(torch.float32)
+            else:  # one pass: p rounded to bf16
+                p_hi = p.bfloat16().float()
+            if two_pass:
+                acc = acc + (p - p_hi).bfloat16().float() @ vt
+            acc = acc + p_hi @ vt
+            m = m_new
+        out[:, :, r0:r0 + BM] = acc / l.clamp_min(1e-30)
+    return out.bfloat16()
+
+
+def _bf16_inputs(B, H, S_q, S_k, seed, scale=1.0):
+    rs = onp.random.RandomState(seed)
+    return [torch.from_numpy((rs.randn(B, H, s, 64) * scale).astype("f"))
+            .bfloat16() for s in (S_q, S_k, S_k)]
+
+
+def _close_bf16(got, want):
+    return torch.allclose(got.float(), want.float(), rtol=BF16_RTOL,
+                          atol=TOL)
+
+
+# (B, H, S_q, S_k, causal, seed, input scale): ragged S, causal offsets
+# S_q < S_k, B*H = 1, and large logits (inputs x 4: scores up to ~100)
+BF16_CASES = [
+    pytest.param(1, 2, 130, 130, True, 21, 1.0, id="ragged-130-causal"),
+    pytest.param(1, 1, 499, 499, False, 22, 1.0, id="ragged-499-bh1"),
+    pytest.param(2, 1, 100, 300, True, 23, 1.0, id="causal-sq-lt-sk"),
+    pytest.param(1, 1, 1, 200, True, 24, 1.0, id="decode-row"),
+    pytest.param(1, 2, 256, 256, True, 25, 4.0, id="large-logits"),
+]
+
+
+@pytest.mark.parametrize("B,H,S_q,S_k,causal,seed,scale", BF16_CASES)
+def test_sm90_emulation_within_gate_of_plain_and_pallas(B, H, S_q, S_k,
+                                                        causal, seed, scale):
+    q, k, v = _bf16_inputs(B, H, S_q, S_k, seed, scale)
+    sm_scale = 64 ** -0.5
+    got = _emulate_k1_bf16(q, k, v, sm_scale, causal)
+    plain = _flash_ref(q.float(), k.float(), v.float(), sm_scale,
+                       causal).bfloat16()
+    jq, jk, jv = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                  for t in (q, k, v))
+    pallas = torch.from_numpy(onp.asarray(jax_flash_attention(
+        jq, jk, jv, causal=causal, use_pallas=True).astype(jnp.float32)))
+    assert got.dtype == torch.bfloat16 and got.shape == (B, H, S_q, 64)
+    assert _close_bf16(got, plain), float((got.float() - plain.float())
+                                          .abs().max())
+    assert _close_bf16(got, pallas), float((got.float() - pallas)
+                                           .abs().max())
+
+
+def test_sm90_one_bf16_pass_of_p_breaks_the_gate():
+    """Why P_lo: one bf16 pass rounds P to 8 bits, and the output leaves
+    the gate; with two passes P is held to about 2^-16 and the output is
+    the plain version's own rounding in all but a few elements."""
+    q, k, v = _bf16_inputs(1, 2, 256, 256, 26)
+    plain = _flash_ref(q.float(), k.float(), v.float(), 0.125,
+                       True).bfloat16()
+    two = _emulate_k1_bf16(q, k, v, 0.125, True)
+    one = _emulate_k1_bf16(q, k, v, 0.125, True, two_pass=False)
+    assert _close_bf16(two, plain)
+    assert not _close_bf16(one, plain)
+    assert float((two != plain).float().mean()) < 0.01
+    assert float((one != plain).float().mean()) > 0.1
+
+
+# (shape, make) -> route: the rule on dtypes, shapes, strides, pointers
+def _qkv_views(B, S, H, D, dtype=torch.bfloat16):
+    qkv = torch.zeros(B, S, 3, H, D, dtype=dtype)
+    return qkv.permute(2, 0, 3, 1, 4)
+
+
+def test_route_takes_the_lm_views_at_gpt2_small_widths():
+    q, k, v = _qkv_views(8, 1024, 12, 64)
+    assert not q.is_contiguous()
+    assert _flash_route(q, k, v) == "sm90"
+    # k starts 1,536 bytes into the projection; its byte strides, which
+    # the tensor map takes, are (b, h, s) = (4,718,592, 128, 4,608)
+    assert k.data_ptr() - q.data_ptr() == 12 * 64 * 2
+    assert tuple(2 * s for s in k.stride()[:3]) == (1024 * 2304 * 2, 128,
+                                                    4608)
+    c = torch.zeros(2, 12, 100, 64, dtype=torch.bfloat16)
+    assert _flash_route(c, c, c) == "sm90"
+
+
+def test_route_sends_what_tma_cannot_read_to_mma():
+    c = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16)
+    # a base 2 bytes into its storage
+    shifted = torch.zeros(2 * 64 * 64 + 1, dtype=torch.bfloat16)[1:] \
+        .reshape(1, 2, 64, 64)
+    assert _flash_route(shifted, c, c) == "mma"
+    assert _flash_route(c, c, shifted) == "mma"
+    # an odd s-stride (65 elements)
+    odd = torch.zeros(1, 2, 64, 65, dtype=torch.bfloat16)[..., :64]
+    assert _flash_route(c, odd, odd) == "mma"
+    # other head widths, fp32, a mixed pair
+    for D in (32, 128):
+        t = torch.zeros(1, 2, 64, D, dtype=torch.bfloat16)
+        assert _flash_route(t, t, t) == "mma"
+    f = c.float()
+    assert _flash_route(f, f, f) == "mma"
+    assert _flash_route(c, f, c) == "mma"
+    # D not contiguous
+    tr = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16).transpose(2, 3)
+    assert _flash_route(tr, c, c) == "mma"
+
+
+def test_kernel_wrapper_rejects_an_unknown_or_impossible_route():
+    """On CPU tensors the wrapper is the plain version whatever the route
+    (the route is the card's), and counts nothing."""
+    q, k, v = _bf16_inputs(1, 1, 8, 8, 27)
+    _build.reset_launch_counts()
+    want = _flash_ref(q, k, v, 0.125, True)
+    for route in (None, "sm90", "mma"):
+        assert torch.equal(_flash_fwd_cuda(q, k, v, 0.125, True,
+                                           route=route), want)
+    assert _build.launch_counts() == {}
