@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``mxnet_tpu_torch``) on one GPU.
 
-Drives the port's six main paths and holds their hand-written CUDA
+Drives the port's main paths and holds their hand-written CUDA
 kernels against the plain PyTorch versions:
 
 - stateful decode serving of ``DecoderBlockLM`` at GPT-2-small widths
@@ -29,7 +29,13 @@ kernels against the plain PyTorch versions:
   K1's bf16 kernel for Hopper, ``csrc/flash_attention_sm90.cu``: wgmma
   fed by TMA from a producer warp) in bf16 AMP: ``amp.init("bfloat16")``,
   ``amp.init_trainer`` (a dynamic loss scaler), ``amp.scale_loss`` and
-  the Trainer's fused step, captured as one CUDA graph.
+  the Trainer's fused step, captured as one CUDA graph;
+- both training paths hybridized (``HybridBlock.hybridize``: the
+  network's forward and backward captured as CUDA graphs, one pair per
+  signature, with K1 inside the LM's captured forward and K4's head
+  eager), held bitwise against their eager runs, and ResNet-50 fed by
+  ``gluon.data`` (``ArrayDataset``, a ``DataLoader`` of thread workers
+  into pinned memory) through ``pipeline.DeviceFeed``.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100:
 
@@ -197,13 +203,36 @@ stream busy until the launch is enqueued, so it is the device's time:
     under ``torch.cuda.set_sync_debug_mode("error")`` (any host sync
     raises) skips it on the device: weights and momenta bitwise
     unchanged, the scale halved, one more skipped step;
-28. report: one JSON line of kernels, then the device line last.
+28. ResNet-50 hybridized against eager: phase 24's NHWC setup, the net
+    hybridized; 2 warm-up and 10 timed steps in each mode from the same
+    weights and batch. With cuDNN held to deterministic algorithms, the
+    12 steps' logits and every final weight, gradient and running
+    statistic are bitwise equal; then, at torch's flags, each mode's
+    step ms, img/s, peak memory, K4 launches (2 x 10) and the cache's
+    counters (one capture, a replay per step);
+29. the LM hybridized against eager: phase 25's setup, 2 + 10 steps in
+    each mode; the last position's logits of every step and every final
+    weight and gradient bitwise equal; K1 launches = 12 x 10 counted per
+    replay, all on sm90; step ms, tokens/s, peak memory;
+30. ResNet-50 fed by ``gluon.data``: 768 uint8 NHWC images and labels
+    made from a seed and held in host memory, ``ArrayDataset``,
+    ``DataLoader(batch_size=128, num_workers=4, pin_memory=True,
+    last_batch="discard")``, ``DeviceFeed``, normalized and cast on the
+    card, the hybridized net; two passes (2 + 10 steps): step ms, img/s
+    and ``prefetch_stall_s`` per step;
+31. a capture that must fail: a block whose forward calls ``asnumpy()``
+    raises ``MXNetError`` naming the block and the signature when
+    hybridized, and the card computes correctly afterwards;
+32. report: one JSON line of kernels, then the device line last.
+
+Each phase prints the seconds it took.
 
 Needs no network; imports nothing of JAX.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import statistics
@@ -284,7 +313,16 @@ EAGER_STEPS = 5
 AMP_DEV_FACTOR, AMP_DEV_FLOOR, AMP_LOSS_RTOL = 1.5, 1e-3, 2e-2
 
 
+_PHASE = {"name": None, "t": None}
+
+
 def phase(name):
+    """Print the phase's heading, and the seconds the previous phase
+    took."""
+    now = time.perf_counter()
+    if _PHASE["name"] is not None:
+        print(f"   ({_PHASE['name']}: {now - _PHASE['t']:.1f} s)", flush=True)
+    _PHASE["name"], _PHASE["t"] = name, now
     print(f"== {name}", flush=True)
 
 
@@ -2336,6 +2374,351 @@ def poisoned_step_phase(net, trainer, x, y):
     return result
 
 
+# -- slice 7: hybridize as captured CUDA graphs, and the data pipeline --------
+
+HYB_WARMUP, HYB_STEPS = 2, 10
+# images held in host memory for the DataLoader-fed run: 6 batches of 128,
+# two passes
+FEED_BATCHES, FEED_EPOCHS, FEED_WORKERS = 6, 2, 4
+
+
+def _fresh_peak():
+    """Free what earlier runs left (blocks and parameters hold each other
+    in cycles that only the collector breaks) and restart the peak
+    count; returns the GB still allocated."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def _state_to_host(net):
+    """Weights, gradients and running statistics as host tensors."""
+    state = {}
+    for k, p in net._collect_params_with_prefix().items():
+        state[k] = p.data().data.detach().cpu()
+        if p.grad_req != "null":
+            state[k + ".grad"] = p.grad().data.detach().cpu()
+    return state
+
+
+def _compare_runs(what, eager, hyb):
+    """Bitwise comparison of two runs' per-step outputs and final state;
+    returns the count of tensors compared. Raises on any difference,
+    naming the worst ones."""
+    (lo_e, st_e), (lo_h, st_h) = eager, hyb
+    bad = []
+    for i, (a, b) in enumerate(zip(lo_e, lo_h)):
+        if not torch.equal(a, b):
+            bad.append((f"outputs of step {i + 1}",
+                        float((a.float() - b.float()).abs().max())))
+    for k in st_e:
+        if not torch.equal(st_e[k], st_h[k]):
+            bad.append((k, float((st_e[k].float() - st_h[k].float())
+                                 .abs().max())))
+    if bad:
+        raise RuntimeError(f"{what}: hybridized differs from eager in "
+                           f"{len(bad)} tensors: {bad[:8]}")
+    return len(lo_e) + len(st_e)
+
+
+def _hyb_resnet_run(hybridize, record_state, x=None, y=None):
+    """ResNet-50 v1 in bf16 AMP, NHWC, batch 128, as phase 24, eager or
+    hybridized: 2 warm-up and 10 timed steps. Returns (result, per-step
+    logits, final state or None)."""
+    ctx = mx.gpu(0)
+    fused_step.reset_fused_step_cache()
+    gluon.reset_cached_op_stats()
+    net = pr.build_resnet50(ctx, seed=SEED, layout="NHWC")
+    trainer = pr.make_trainer(net)
+    amp.init("bfloat16")
+    amp.init_trainer(trainer)
+    if hybridize:
+        net.hybridize()
+    if x is None:
+        x, y = pr.synthetic_batch(RESNET_B, ctx, seed=SEED, layout="NHWC")
+    logits, losses, step_ms = [], [], []
+    resident = _fresh_peak()
+    for _ in range(HYB_WARMUP):
+        out = []
+        losses.append(pr.train_step(net, trainer, x, y, outputs=out))
+        logits.append(out[0].data.detach().cpu())
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t_all = time.perf_counter()
+    for _ in range(HYB_STEPS):
+        out = []
+        t0 = time.perf_counter()
+        losses.append(pr.train_step(net, trainer, x, y, outputs=out))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(out[0].data.detach().cpu())
+    wall = time.perf_counter() - t_all
+    counts = _build.launch_counts()
+    losses = [v.asscalar() for v in losses]
+    if not all(onp.isfinite(losses)):
+        raise RuntimeError(f"ResNet-50 (hybridize={hybridize}) losses "
+                           f"{losses}")
+    cached = gluon.cached_op_stats()
+    k4 = counts.get(pr.FWD_KERNEL, 0) + counts.get(pr.BWD_KERNEL, 0)
+    if k4 != 2 * HYB_STEPS:
+        raise RuntimeError(f"K4 launched {counts} in {HYB_STEPS} steps")
+    steps = HYB_WARMUP + HYB_STEPS
+    if hybridize and (cached["captures"] != 1 or cached["replays"] != steps
+                      or cached["backward_replays"] != steps):
+        raise RuntimeError(f"hybridized ResNet-50: {cached} in {steps} "
+                           "steps (want one capture, a replay per step)")
+    result = {"hybridize": hybridize, "img_per_s":
+              RESNET_B * HYB_STEPS / wall,
+              "mean_step_ms": statistics.mean(step_ms),
+              "median_step_ms": statistics.median(step_ms),
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "resident_before_gb": resident,
+              "k4_launches": k4, "cached_op": cached,
+              "first_loss": losses[0], "last_loss": losses[-1]}
+    state = _state_to_host(net) if record_state else None
+    amp.disable()
+    del net, trainer
+    torch.cuda.empty_cache()
+    return result, logits, state
+
+
+def resnet_hybrid_phase():
+    phase("28 ResNet-50 hybridized against eager")
+    torch.backends.cudnn.benchmark = True
+    # equality: the same weights and batch through 12 steps in each mode,
+    # with cuDNN held to deterministic algorithms, so that two eager runs
+    # would agree bitwise too (cudnn.benchmark may pick algorithms that
+    # sum with atomics, whose order varies from run to run)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=True,
+                                    deterministic=True):
+        _, lo_e, st_e = _hyb_resnet_run(False, True)
+        _, lo_h, st_h = _hyb_resnet_run(True, True)
+    n = _compare_runs("ResNet-50 bf16 NHWC", (lo_e, st_e), (lo_h, st_h))
+    print(f"  bitwise equal: {n} tensors (12 steps' logits, every weight, "
+          "gradient and running statistic), cuDNN deterministic")
+    del lo_e, st_e, lo_h, st_h
+    # timing at torch's flags (cuDNN may pick any algorithm), as phase 24
+    runs = {}
+    for hyb in (False, True):
+        runs[hyb] = _hyb_resnet_run(hyb, False)[0]
+        print("  resnet bf16 NHWC " + json.dumps(runs[hyb]))
+    print(f"  step ms eager {runs[False]['mean_step_ms']:.2f}, hybridized "
+          f"{runs[True]['mean_step_ms']:.2f}; img/s "
+          f"{runs[False]['img_per_s']:.1f} -> {runs[True]['img_per_s']:.1f}; "
+          f"peak GB {runs[False]['peak_memory_gb']:.2f} -> "
+          f"{runs[True]['peak_memory_gb']:.2f}")
+    return runs
+
+
+def _hyb_lm_run(hybridize):
+    """The GPT-2-small LM in bf16 AMP, 8 x 1024 tokens, as phase 25, eager
+    or hybridized: 2 warm-up and 10 timed steps. Returns (result,
+    per-step logits, final state)."""
+    ctx = mx.gpu(0)
+    cfg = GPT2_SMALL_LM
+    vocab = cfg["vocab_size"]
+    fused_step.reset_fused_step_cache()
+    gluon.reset_cached_op_stats()
+    mx.random.seed(SEED)
+    net = TransformerLM(**cfg)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    toks = nd.array(onp.random.RandomState(SEED).randint(
+        0, vocab, (TRAIN_B, TRAIN_S)).astype("int32"), ctx=ctx)
+    labels = toks[:, 1:].reshape(-1)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": TRAIN_LR})
+    amp.init("bfloat16")
+    amp.init_trainer(trainer)
+    if hybridize:
+        net.hybridize()
+    logits_seen, losses, step_ms = [], [], []
+
+    def step():
+        with autograd.record():
+            logits = net(toks)
+            loss = loss_fn(logits[:, :-1].reshape(-1, vocab), labels).mean()
+            with amp.scale_loss(loss, trainer) as scaled:
+                scaled.backward()
+        trainer.step(TRAIN_B)
+        # a digest of the logits (all 8 x 1024 x 50257 would be 823 MB a
+        # step): the last position of every row, bitwise
+        logits_seen.append(logits.data[:, -1].detach().cpu())
+        return loss
+
+    resident = _fresh_peak()
+    for _ in range(WARMUP_STEPS):
+        losses.append(step())
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t_all = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    wall = time.perf_counter() - t_all
+    counts = _build.launch_counts()
+    losses = [v.asscalar() for v in losses]
+    if not all(onp.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"LM (hybridize={hybridize}) losses {losses}")
+    k1, sm90 = counts.get(FLASH_KERNEL, 0), counts.get(FLASH_SM90_KERNEL, 0)
+    want = cfg["num_layers"] * TIMED_STEPS
+    if k1 != want or sm90 != want:
+        raise RuntimeError(f"K1 launched {k1} times, {sm90} on sm90, in "
+                           f"{TIMED_STEPS} steps (hybridize={hybridize})")
+    cached = gluon.cached_op_stats()
+    steps = WARMUP_STEPS + TIMED_STEPS
+    if hybridize and (cached["captures"] != 1 or cached["replays"] != steps):
+        raise RuntimeError(f"hybridized LM: {cached} in {steps} steps")
+    result = {"hybridize": hybridize,
+              "tokens_per_s": TRAIN_B * TRAIN_S * TIMED_STEPS / wall,
+              "mean_step_ms": statistics.mean(step_ms),
+              "median_step_ms": statistics.median(step_ms),
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "resident_before_gb": resident,
+              "k1_launches": k1, "k1_sm90_launches": sm90,
+              "cached_op": cached, "first_loss": losses[0],
+              "last_loss": losses[-1]}
+    if hybridize:
+        ent = next(iter(net._cached_op.entries.values()))
+        result["k1_launches_per_replay"] = dict(ent.fwd_launches)
+    state = _state_to_host(net)
+    amp.disable()
+    del net, trainer
+    torch.cuda.empty_cache()
+    return result, logits_seen, state
+
+
+def lm_hybrid_phase():
+    phase("29 LM hybridized against eager")
+    runs, seen = {}, {}
+    for hyb in (False, True):
+        runs[hyb], lo, st = _hyb_lm_run(hyb)
+        seen[hyb] = (lo, st)
+        print("  LM bf16 " + json.dumps(runs[hyb]))
+    n = _compare_runs("the LM bf16", seen[False], seen[True])
+    print(f"  bitwise equal: {n} tensors (12 steps' last-position logits, "
+          "every weight and gradient)")
+    print(f"  K1 launches {runs[True]['k1_launches']} = "
+          f"{GPT2_SMALL_LM['num_layers']} x {TIMED_STEPS} counted per replay, "
+          f"all {runs[True]['k1_sm90_launches']} on sm90; step ms eager "
+          f"{runs[False]['mean_step_ms']:.2f}, hybridized "
+          f"{runs[True]['mean_step_ms']:.2f}; tokens/s "
+          f"{runs[False]['tokens_per_s']:.0f} -> "
+          f"{runs[True]['tokens_per_s']:.0f}; peak GB "
+          f"{runs[False]['peak_memory_gb']:.2f} -> "
+          f"{runs[True]['peak_memory_gb']:.2f}")
+    return runs
+
+
+def fed_resnet_phase():
+    phase("30 ResNet-50 fed by gluon.data")
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    from mxnet_tpu_torch.pipeline import (DeviceFeed, pipeline_counters,
+                                          reset_pipeline_counters)
+
+    ctx = mx.gpu(0)
+    n = FEED_BATCHES * RESNET_B
+    rs = onp.random.RandomState(SEED)
+    images = rs.randint(0, 256, (n, pr.IMAGE, pr.IMAGE, 3), dtype=onp.uint8)
+    labels = rs.randint(0, pr.CLASSES, n).astype("float32")
+    loader = DataLoader(ArrayDataset(images, labels), batch_size=RESNET_B,
+                        num_workers=FEED_WORKERS, pin_memory=True,
+                        last_batch="discard")
+    fused_step.reset_fused_step_cache()
+    gluon.reset_cached_op_stats()
+    net = pr.build_resnet50(ctx, seed=SEED, layout="NHWC")
+    trainer = pr.make_trainer(net)
+    amp.init("bfloat16")
+    amp.init_trainer(trainer)
+    net.hybridize()
+    # ImageNet's channel statistics, in 0-255 units, on the card
+    mean = nd.array(onp.array([123.68, 116.78, 103.94], "f"), ctx=ctx)
+    std = nd.array(onp.array([58.40, 57.12, 57.38], "f"), ctx=ctx)
+    reset_pipeline_counters()
+    resident = _fresh_peak()
+    feed = DeviceFeed(loader)
+    step_ms, stall_s, losses, k4 = [], [], [], 0
+    steps = 0
+    t_all = None
+    stalled = 0.0  # the counter after the last step
+    for _ in range(FEED_EPOCHS):
+        for xb, yb in feed:
+            # the wait for this batch: the stall since the last step ended
+            waited = pipeline_counters()["prefetch_stall_s"] - stalled
+            if steps == HYB_WARMUP:
+                _build.reset_launch_counts()
+                t_all = time.perf_counter() - waited
+            t0 = time.perf_counter()
+            x = (xb.astype("float32") - mean) / std  # normalize on the card
+            losses.append(pr.train_step(net, trainer, x, yb))
+            torch.cuda.synchronize()
+            if steps >= HYB_WARMUP:
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                stall_s.append(waited)
+            stalled = pipeline_counters()["prefetch_stall_s"]
+            steps += 1
+    wall = time.perf_counter() - t_all
+    feed.close()
+    counts = _build.launch_counts()
+    k4 = counts.get(pr.FWD_KERNEL, 0) + counts.get(pr.BWD_KERNEL, 0)
+    timed = steps - HYB_WARMUP
+    losses = [v.asscalar() for v in losses]
+    cached = gluon.cached_op_stats()
+    if steps != FEED_BATCHES * FEED_EPOCHS or not all(onp.isfinite(losses)):
+        raise RuntimeError(f"fed run: {steps} steps, losses {losses}")
+    if k4 != 2 * timed or cached["captures"] != 1 or \
+            cached["replays"] != steps:
+        raise RuntimeError(f"fed run: K4 {counts}, {cached}")
+    pc = pipeline_counters()
+    result = {"steps_timed": timed, "img_per_s": RESNET_B * timed / wall,
+              "mean_step_ms": statistics.mean(step_ms),
+              "median_step_ms": statistics.median(step_ms),
+              "prefetch_stall_s_per_step": statistics.mean(stall_s),
+              "prefetch_stall_s_by_step": stall_s,
+              "prefetch_stall_s_max": max(stall_s),
+              "prefetch_hits": pc["prefetch_hits"],
+              "prefetch_stalls": pc["prefetch_stalls"],
+              "workers": FEED_WORKERS, "k4_launches": k4,
+              "cached_op": cached, "peak_memory_gb":
+              torch.cuda.max_memory_allocated() / 1e9,
+              "resident_before_gb": resident,
+              "first_loss": losses[0], "last_loss": losses[-1]}
+    print("  fed resnet bf16 NHWC " + json.dumps(result))
+    amp.disable()
+    del net, trainer, feed, loader, images
+    torch.cuda.empty_cache()
+    return result
+
+
+class _HostSync(gluon.HybridBlock):
+    """A forward that reads a value back to the host: not capturable."""
+
+    def hybrid_forward(self, F, x):
+        return x * float(x.asnumpy().sum() > 0)
+
+
+def failing_capture_phase():
+    phase("31 a capture that must fail")
+    blk = _HostSync()
+    blk.hybridize()
+    try:
+        blk(nd.ones((4,), ctx=mx.gpu(0)))
+    except mx.MXNetError as e:
+        msg = str(e)
+        if "_HostSync" not in msg or "signature" not in msg:
+            raise RuntimeError(f"the capture error does not name the block "
+                               f"and the signature: {msg}") from e
+        print(f"  raised as expected: {msg[:200]}...")
+    else:
+        raise RuntimeError("a forward that calls asnumpy() was captured")
+    if (nd.ones((3,), ctx=mx.gpu(0)) * 2).asnumpy().tolist() != [2.0] * 3:
+        raise RuntimeError("the card computes wrongly after a failed capture")
+
+
 def kernel_entry(name, source, replaces, launches, worst, row, shape, smi,
                  **extra):
     entry = {"name": name, "route": "cuda", "source": source,
@@ -2386,6 +2769,15 @@ def main():
     poisoned_step_phase(net, trainer, x, y)
     del net, trainer
     torch.cuda.empty_cache()
+    resnet_hyb = resnet_hybrid_phase()
+    lm_hyb = lm_hybrid_phase()
+    fed = fed_resnet_phase()
+    failing_capture_phase()
+    k1_hyb = lm_hyb[True]["k1_sm90_launches"] + \
+        lm_hyb[False]["k1_sm90_launches"]
+    k4_hyb = {"resnet_bf16_hybrid_eager": resnet_hyb[False]["k4_launches"] // 2,
+              "resnet_bf16_hybridized": resnet_hyb[True]["k4_launches"] // 2,
+              "resnet_bf16_fed": fed["k4_launches"] // 2}
     k4_amp = {f"resnet_bf16_{k}": v["k4_launches"] // 2
               for k, v in resnet_amp.items()}
     big = k2_rows[-1]
@@ -2420,14 +2812,20 @@ def main():
         # K1 in bf16 at D = 64: the wgmma kernel the LM takes under AMP
         kernel_entry(
             FLASH_SM90_KERNEL, "mxnet_tpu_torch/csrc/flash_attention_sm90.cu",
-            "mxnet_tpu/kernels/flash_attention.py:48", sm90_launches,
+            "mxnet_tpu/kernels/flash_attention.py:48", sm90_launches + k1_hyb,
             k1_bf16["max_abs_err"], k1_bf16,
             f"B={k1_bf16['B']} H={k1_bf16['H']} S_q={k1_bf16['S_q']} "
             f"S_k={k1_bf16['S_k']} D={k1_bf16['D']} causal bf16", smi,
             bound_two_pass_ms=k1_bf16["bound_two_pass_ms"],
             views_ms=k1_bf16["views_ms"],
             mma_route_ms=k1_bf16["mma_route_ms"],
-            launches_by_path={"training_bf16": sm90_launches}),
+            launches_by_path={
+                "training_bf16": sm90_launches,
+                "training_bf16_hybrid_eager":
+                    lm_hyb[False]["k1_sm90_launches"],
+                "training_bf16_hybridized":
+                    lm_hyb[True]["k1_sm90_launches"]},
+            launches_per_replay=lm_hyb[True]["k1_launches_per_replay"]),
         kernel_entry(
             NORM_ACT_KERNEL, "mxnet_tpu_torch/csrc/norm_act.cu",
             "mxnet_tpu/kernels/norm_act.py:45", sym_result["k3_launches"],
@@ -2439,23 +2837,34 @@ def main():
         kernel_entry(
             pr.FWD_KERNEL, "mxnet_tpu_torch/tools/profile_resnet.py "
             "(FWD_SRC, via mxnet_tpu_torch/rtc.py)", "mxnet_tpu/rtc.py:19",
-            k4_fwd_n + sum(k4_amp.values()), k4_worst, k4_fwd,
+            k4_fwd_n + sum(k4_amp.values()) + sum(k4_hyb.values()),
+            k4_worst, k4_fwd,
             f"B={k4_fwd['B']} C={k4_fwd['C']} fp32", smi,
             route_detail="NVRTC sm_90a, cuLaunchKernel",
             library_calls="torch.softmax", launcher=k4_double,
             launch_floor=k4_floor,
-            launches_by_path={"resnet_fp32": k4_fwd_n, **k4_amp}),
+            launches_by_path={"resnet_fp32": k4_fwd_n, **k4_amp,
+                              **k4_hyb}),
         kernel_entry(
             pr.BWD_KERNEL, "mxnet_tpu_torch/tools/profile_resnet.py "
             "(BWD_SRC, via mxnet_tpu_torch/rtc.py)", "mxnet_tpu/rtc.py:19",
-            k4_bwd_n + sum(k4_amp.values()), k4_worst, k4_bwd,
+            k4_bwd_n + sum(k4_amp.values()) + sum(k4_hyb.values()),
+            k4_worst, k4_bwd,
             f"B={k4_bwd['B']} C={k4_bwd['C']} fp32", smi,
             route_detail="NVRTC sm_90a, cuLaunchKernel",
             library_calls=None,
-            launches_by_path={"resnet_fp32": k4_bwd_n, **k4_amp}),
+            launches_by_path={"resnet_fp32": k4_bwd_n, **k4_amp,
+                              **k4_hyb}),
     ]
-    phase("28 report")
+    phase("32 report")
     print(f"bf16 ResNet-50 headline layout: {head}")
+    print("hybridized: " + json.dumps({
+        "resnet50_bf16_nhwc_step_ms": [resnet_hyb[False]["mean_step_ms"],
+                                       resnet_hyb[True]["mean_step_ms"]],
+        "lm_bf16_step_ms": [lm_hyb[False]["mean_step_ms"],
+                            lm_hyb[True]["mean_step_ms"]],
+        "fed_step_ms": fed["mean_step_ms"],
+        "fed_prefetch_stall_s_per_step": fed["prefetch_stall_s_per_step"]}))
     print(f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -37,7 +37,14 @@ ResNet-50 v1 with a custom-op loss head whose kernels ``rtc`` compiles:
 - ``mx.convert`` — loading weights and optimizer states carried over
   as numpy arrays;
 - ``mx.contrib.amp`` — automatic mixed precision (bfloat16 by the op
-  lists) and the dynamic loss scaler.
+  lists) and the dynamic loss scaler;
+- ``mx.gluon.data``, ``mx.io`` and ``mx.pipeline`` — datasets,
+  samplers, the DataLoader, the data iterators and ``DeviceFeed``,
+  which stages batches on the card ahead of the step.
+
+``HybridBlock.hybridize()`` captures a block's forward, and under
+``record()`` its backward, as CUDA graphs, one pair per call
+signature (``gluon.CachedOp``).
 
 Entry points run on the card: the default context is ``gpu(0)``, and
 with no CUDA device they raise :class:`MXNetError` unless the caller
@@ -71,9 +78,11 @@ from . import convert
 from . import operator
 from . import rtc
 from . import contrib
+from . import io
+from . import pipeline
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "autograd", "initializer", "init", "ndarray", "nd",
            "random", "optimizer", "gluon", "kernels", "name", "symbol", "sym",
            "analysis", "models", "serving", "convert", "operator", "rtc",
-           "contrib"]
+           "contrib", "io", "pipeline"]

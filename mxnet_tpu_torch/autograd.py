@@ -22,6 +22,12 @@ A leaf reached along several paths (the tied embedding of
 ``TransformerLM(tie_weights=True)``) gets the sum once. Nothing goes
 through ``tensor.grad``: torch's accumulate-by-default is not MXNet's
 ``write``.
+
+:func:`grad` returns gradients instead of writing buffers; with
+``create_graph=True`` its results sit on the graph, so a second
+``grad`` or ``backward`` gives higher-order derivatives. A
+:class:`Function` is a custom VJP over NDArrays, tied into the graph as
+one ``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -34,7 +40,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "mark_variables", "backward"]
+           "is_training", "mark_variables", "backward", "grad", "Function",
+           "get_symbol"]
 
 
 class _AutogradState(threading.local):
@@ -132,12 +139,9 @@ def mark_variables(variables, gradients, grad_reqs="write"):
                 _MARKED.add(var)
 
 
-def backward(heads, head_grads=None, retain_graph=False):
-    """Compute the gradients of ``heads`` with respect to every marked
-    variable and write them into the variables' buffers by their
-    ``grad_req`` (reference: python/mxnet/autograd.py:246 backward).
-    ``head_grads`` default to ones. The graph is freed unless
-    ``retain_graph``."""
+def _heads_and_seeds(heads, head_grads):
+    """The head tensors and their seeds (``head_grads``, ones by
+    default) as ``torch.autograd.grad`` takes them."""
     from .ndarray import NDArray
 
     if isinstance(heads, NDArray):
@@ -161,20 +165,37 @@ def backward(heads, head_grads=None, retain_graph=False):
             hg = torch.as_tensor(hg, dtype=t.dtype, device=t.device)
         outs.append(t)
         seeds.append(hg)
+    return outs, seeds
+
+
+def _torch_grad(outs, inputs, seeds, retain_graph, create_graph=False):
+    """``torch.autograd.grad`` in the scopes the forwards ran in:
+    convolutions' backward in float32 and products' sums in float32."""
+    from .ndarray.ops_nn import cublas_fp32_accumulate, cudnn_fp32
+
+    with cudnn_fp32(), cublas_fp32_accumulate():
+        return torch.autograd.grad(outs, inputs, grad_outputs=seeds,
+                                   retain_graph=retain_graph,
+                                   create_graph=create_graph,
+                                   allow_unused=True)
+
+
+def backward(heads, head_grads=None, retain_graph=False):
+    """Compute the gradients of ``heads`` with respect to every marked
+    variable and write them into the variables' buffers by their
+    ``grad_req`` (reference: python/mxnet/autograd.py:246 backward).
+    ``head_grads`` default to ones. The graph is freed unless
+    ``retain_graph``."""
+    from .ndarray import NDArray
+
+    outs, seeds = _heads_and_seeds(heads, head_grads)
     with _MARK_LOCK:
         marked = [a for a in _MARKED
                   if a._grad_req != "null" and a._data.requires_grad]
     if not marked:
         return
-    from .ndarray.ops_nn import cublas_fp32_accumulate, cudnn_fp32
-
-    # convolutions' backward in float32 and products' sums in float32, as
-    # their forwards
-    with cudnn_fp32(), cublas_fp32_accumulate():
-        grads = torch.autograd.grad(outs, [a._data for a in marked],
-                                    grad_outputs=seeds,
-                                    retain_graph=retain_graph,
-                                    allow_unused=True)
+    grads = _torch_grad(outs, [a._data for a in marked], seeds,
+                        retain_graph)
     with torch.no_grad():
         for var, g in zip(marked, grads):
             if g is None:  # not reached: keeps its old gradient
@@ -187,3 +208,119 @@ def backward(heads, head_grads=None, retain_graph=False):
                 var._grad._data.add_(g)
             else:
                 var._grad._data.copy_(g)
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph=False, train_mode=True):
+    """The gradients of ``heads`` with respect to ``variables``, returned
+    rather than written into the variables' buffers (reference:
+    python/mxnet/autograd.py:273 grad; the JAX package's
+    ``autograd.py:353-400``). Each variable's buffer and ``grad_req``
+    stay as they were. ``retain_graph`` defaults to ``create_graph``.
+    With ``create_graph=True`` the results are on the graph, so a
+    ``backward`` or ``grad`` of an expression in them, inside
+    ``record()``, gives higher-order derivatives. A variable the heads
+    do not reach gets zeros. ``train_mode`` is accepted as in the
+    reference; the graph keeps the mode it was recorded in."""
+    from .ndarray import NDArray
+
+    single = isinstance(variables, NDArray)
+    variables = [variables] if single else list(variables)
+    if retain_graph is None:
+        retain_graph = create_graph
+    for v in variables:
+        if not v._data.requires_grad:
+            raise MXNetError(
+                "grad: a variable has no gradient buffer; call attach_grad() "
+                "on it before recording the heads")
+    outs, seeds = _heads_and_seeds(heads, head_grads)
+    with torch.set_grad_enabled(create_graph):
+        gs = _torch_grad(outs, [v._data for v in variables], seeds,
+                         retain_graph, create_graph)
+    res = [NDArray(g if create_graph else g.detach()) if g is not None
+           else NDArray(torch.zeros_like(v._data, requires_grad=False))
+           for v, g in zip(variables, gs)]
+    return res[0] if single else res
+
+
+def get_symbol(x):
+    """The reference returns the recorded graph as a Symbol; this tape is
+    torch's graph, which has no Symbol form. As in the JAX package,
+    trace a block with ``HybridBlock.export`` instead."""
+    raise NotImplementedError(
+        "get_symbol is not supported on the torch tape; use "
+        "HybridBlock.export to trace a graph")
+
+
+class Function:
+    """A user-defined differentiable function (reference:
+    python/mxnet/autograd.py:368 Function; the JAX package's
+    ``autograd.py:410-453``). Subclasses override ``forward(*inputs)``
+    and ``backward(*output_grads)`` over NDArrays; ``backward`` returns
+    one gradient per NDArray input. Both run outside the graph
+    (``pause()``). Under ``record()`` a call is one
+    ``torch.autograd.Function`` node whose backward calls the override,
+    so the gradients land by ``grad_req`` like any op's. The override's
+    own ops are not recorded: higher orders through it are zero, as the
+    JAX package truncates them."""
+
+    def __init__(self):
+        self._saved = ()
+
+    def save_for_backward(self, *args):
+        self._saved = args
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray import NDArray
+
+        if not is_recording():
+            with pause(train_mode=is_training()):
+                return self.forward(*inputs)
+        pos = [i for i, a in enumerate(inputs) if isinstance(a, NDArray)]
+        box = {}
+        outs = _FunctionNode.apply(self, inputs, pos, box,
+                                   *[inputs[i]._data for i in pos])
+        wrapped = [NDArray(o) for o in outs]
+        return wrapped[0] if box["single"] else wrapped
+
+
+class _FunctionNode(torch.autograd.Function):
+    """One :class:`Function` call on torch's graph."""
+
+    @staticmethod
+    def forward(ctx, fn, inputs, pos, box, *tensors):
+        from .ndarray import NDArray
+
+        args = list(inputs)
+        for i, t in zip(pos, tensors):
+            args[i] = NDArray(t)
+        with pause(train_mode=is_training()):
+            out = fn.forward(*args)
+        box["single"] = not isinstance(out, (list, tuple))
+        outs = [out] if box["single"] else list(out)
+        ctx.fn, ctx.n = fn, len(tensors)
+        return tuple(o.data for o in outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from .ndarray import NDArray
+
+        with pause():
+            igrads = ctx.fn.backward(*[NDArray(g) for g in grads])
+        if not isinstance(igrads, (list, tuple)):
+            igrads = [igrads]
+        if len(igrads) != ctx.n:
+            raise MXNetError(f"Function.backward returned {len(igrads)} "
+                             f"gradients for {ctx.n} array inputs")
+        return (None, None, None, None) + tuple(
+            g.data if isinstance(g, NDArray) else g for g in igrads)

@@ -36,6 +36,17 @@ class HybridSequential(HybridBlock):
             return (x,) + args
         return x
 
+    def __getitem__(self, key):
+        layers = list(self._children.values())[key]
+        if isinstance(layers, list):
+            net = type(self)()
+            net.add(*layers)
+            return net
+        return layers
+
+    def __len__(self):
+        return len(self._children)
+
 
 class Dense(HybridBlock):
     """Fully-connected layer (reference: basic_layers.py Dense). The

@@ -90,6 +90,12 @@ class NDArray:
     def size(self):
         return self._data.numel()
 
+    def __len__(self):
+        """The length of the first axis."""
+        if self._data.dim() == 0:
+            raise TypeError("len() of a 0-d NDArray")
+        return self._data.shape[0]
+
     @property
     def ndim(self):
         return self._data.dim()
@@ -120,6 +126,21 @@ class NDArray:
         if self.size != 1:
             raise ValueError("The current array is not a scalar")
         return self._data.item()
+
+    def as_in_context(self, ctx):
+        """This array on ``ctx``: itself if it is there already, else a
+        copy (reference: ndarray.py as_in_context). A host array bound
+        for the card goes through pinned memory without blocking the
+        host."""
+        from ..context import host_to_device
+
+        dev = resolve_device(ctx)
+        if self._data.device == dev:
+            return self
+        with autograd._grad_mode():
+            return NDArray(host_to_device(self._data, dev))
+
+    as_in_ctx = as_in_context
 
     def wait_to_read(self):
         """Block until the array's value is computed."""

@@ -3,7 +3,7 @@
 The PyTorch counterparts of ``mxnet_tpu/ndarray/ops_basic.py`` (the
 unary table :27-42, the broadcast table :157-185, the scalar forms
 :199-228, the reductions :254, ``reshape`` :336, ``flatten`` :370,
-``transpose`` :377, ``slice_axis`` :456, ``amp_cast`` and
+``transpose`` :377, ``slice_axis`` :456, ``cast`` :103, ``amp_cast`` and
 ``amp_multicast`` :114-135, the constant nodes :618-638,
 ``dot`` :666 and ``batch_dot`` :677), cut to what the ported paths and
 the symbol graphs they serve call. The JAX package left them to XLA; the
@@ -311,6 +311,33 @@ def slice_axis(data, axis, begin, end):
     idx[axis] = slice(begin, end)
     return data[tuple(idx)]
 
+
+
+@register()
+def cast(data, dtype="float32"):
+    """Cast to ``dtype``, any input dtype (reference:
+    elemwise_unary_op_basic.cc Cast)."""
+    return data.to(torch_dtype(dtype))
+
+
+@register()
+def flip(data, axis=0):
+    """Reverse the order along ``axis`` (an int or a tuple) (reference:
+    matrix_op.cc reverse)."""
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    return torch.flip(data, axes)
+
+
+@register(differentiable=False)
+def zeros_like(data):
+    """Zeros of ``data``'s shape, dtype and device."""
+    return torch.zeros_like(data)
+
+
+@register(differentiable=False)
+def ones_like(data):
+    """Ones of ``data``'s shape, dtype and device."""
+    return torch.ones_like(data)
 
 # literal-shaped constant nodes: sym.zeros / sym.ones and the literals
 # the graph optimizer's constant folding bakes in

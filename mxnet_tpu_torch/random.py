@@ -12,12 +12,13 @@ import threading
 
 import torch
 
-__all__ = ["seed", "generator"]
+__all__ = ["seed", "generator", "device_generator", "draws"]
 
 # guards: _SEED, _GENERATORS
 _LOCK = threading.Lock()
 _SEED = [0]
 _GENERATORS = {}  # torch.device -> torch.Generator
+_DRAWS = [0]  # calls of generator(): the random ops' draws, all devices
 
 
 def seed(seed_state, ctx="all"):
@@ -37,7 +38,16 @@ def seed(seed_state, ctx="all"):
 
 def generator(device):
     """The generator for ``device`` (a ``torch.device``), made from the
-    global seed at first use."""
+    global seed at first use. Each call counts as a draw (:func:`draws`):
+    random ops call it once per draw."""
+    with _LOCK:
+        _DRAWS[0] += 1
+    return device_generator(device)
+
+
+def device_generator(device):
+    """:func:`generator` without counting a draw (for code that holds the
+    generator without drawing, as a graph capture registers it)."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -47,3 +57,9 @@ def generator(device):
             gen = torch.Generator(device=device).manual_seed(_SEED[0])
             _GENERATORS[device] = gen
         return gen
+
+def draws():
+    """How many times a random op has taken a generator (every device):
+    a forward that draws nothing leaves it unchanged."""
+    with _LOCK:
+        return _DRAWS[0]

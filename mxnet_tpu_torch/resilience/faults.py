@@ -19,6 +19,10 @@ call whether the seam raises. The seams:
 ``fused_step_capture``    the Trainer's CUDA-graph capture of its fused
                           step (a fire makes the capture fail, which
                           raises: there is no eager fallback)
+``cached_op_capture``     a hybridized block's CUDA-graph capture of one
+                          signature (raises; no eager fallback)
+``device_put``            ``DeviceFeed``'s staging of one batch leaf on
+                          its worker thread (re-raised at ``next()``)
 ========================  ==============================================
 
 Clause keys, as in the reference: ``at=N`` fires on the Nth call (once);
@@ -58,6 +62,10 @@ FAULT_POINTS = {
                   "promote; rollback is seam-free)",
     "fused_step_capture": "the Trainer's CUDA-graph capture of its fused "
                           "step (raises; no eager fallback)",
+    "cached_op_capture": "a hybridized block's CUDA-graph capture of one "
+                         "signature (raises; no eager fallback)",
+    "device_put": "DeviceFeed's staging of a batch leaf (re-raised in the "
+                  "consumer)",
 }
 
 

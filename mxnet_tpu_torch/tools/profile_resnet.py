@@ -38,7 +38,11 @@ before it, as a user of an fp32-only RTC kernel would do. Run on a
 machine with one NVIDIA GPU:
 
     python3 -m mxnet_tpu_torch.tools.profile_resnet [--batch 128] \
-        [--steps 3] [--amp] [--layout NCHW|NHWC]
+        [--steps 3] [--amp] [--layout NCHW|NHWC] [--hybridize]
+
+``--hybridize`` captures the net's forward and backward as CUDA graphs
+(``HybridBlock.hybridize``; the head and the fused step stay as they
+are).
 
 It prints one JSON object: host wall ms per step, device busy ms per
 step (the sum of the CUDA kernel and copy times), the device's idle
@@ -349,7 +353,7 @@ def make_trainer(net):
                           "wd": WD})
 
 
-def train_step(net, trainer, x, y, events=None):
+def train_step(net, trainer, x, y, events=None, outputs=None):
     """One step: record the forward and the ``rtc_softmax`` head,
     backward (the head's gradient, summed over the batch), then
     ``trainer.step(batch)``, which rescales by 1/batch. Under AMP the
@@ -360,7 +364,8 @@ def train_step(net, trainer, x, y, events=None):
     mean cross-entropy of the logits (an NDArray, not synchronized;
     from ``log_softmax``, so it stays finite where a probability
     underflows). ``events``, four CUDA events, are recorded around the
-    forward, backward and optimizer."""
+    forward, backward and optimizer. A list ``outputs`` receives the
+    logits."""
     rec = (lambda i: events[i].record()) if events else (lambda i: None)
     scale = None
     if getattr(trainer, "_amp_loss_scaler", None) is not None:
@@ -380,6 +385,8 @@ def train_step(net, trainer, x, y, events=None):
     rec(2)
     trainer.step(x.shape[0])
     rec(3)
+    if outputs is not None:
+        outputs.append(logits)
     return cross_entropy(logits, y)
 
 
@@ -436,6 +443,9 @@ def main(argv=None):
                     help="train under amp.init('bfloat16') with a loss "
                     "scaler")
     ap.add_argument("--layout", default="NCHW", choices=("NCHW", "NHWC"))
+    ap.add_argument("--hybridize", action="store_true",
+                    help="hybridize the net: its forward and backward run "
+                    "as captured CUDA graphs (the loss head stays eager)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_resnet: needs a CUDA device")
@@ -451,6 +461,8 @@ def main(argv=None):
     if args.amp:
         amp.init("bfloat16")
         amp.init_trainer(trainer)
+    if args.hybridize:
+        net.hybridize()
     x, y = synthetic_batch(args.batch, ctx, layout=args.layout)
     for _ in range(2):
         train_step(net, trainer, x, y)
@@ -485,6 +497,8 @@ def main(argv=None):
     print(json.dumps({
         "card": _card(), "model": "resnet50_v1", "batch": args.batch,
         "amp": "bfloat16" if args.amp else None, "layout": args.layout,
+        "hybridize": args.hybridize,
+        "cached_op": gluon.cached_op_stats(),
         "image": IMAGE, "classes": CLASSES, "steps": args.steps,
         "last_loss": float(loss.asscalar()),
         "wall_ms_per_step": wall_ms,

@@ -19,7 +19,11 @@ layer norm, the optimizer's multi-tensor passes, elementwise and other)
 and the device time per step of the heaviest operations. Run on a
 machine with one NVIDIA GPU:
 
-    python3 -m mxnet_tpu_torch.tools.profile_train [--steps 3] [--amp]
+    python3 -m mxnet_tpu_torch.tools.profile_train [--steps 3] [--amp] \
+        [--hybridize]
+
+``--hybridize`` captures the LM's forward and backward as CUDA graphs
+(``HybridBlock.hybridize``); K1's launches are then counted per replay.
 
 It needs no network and writes nothing.
 """
@@ -81,6 +85,9 @@ def main(argv=None):
     ap.add_argument("--amp", action="store_true",
                     help="train under amp.init('bfloat16') with a loss "
                     "scaler")
+    ap.add_argument("--hybridize", action="store_true",
+                    help="hybridize the LM: its forward and backward run "
+                    "as captured CUDA graphs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA device")
@@ -99,6 +106,8 @@ def main(argv=None):
     if args.amp:
         amp.init("bfloat16")
         amp.init_trainer(trainer)
+    if args.hybridize:
+        net.hybridize()
 
     def one_step():
         # next-token loss, as tests/test_attention.py's training test
@@ -147,6 +156,7 @@ def main(argv=None):
     print(json.dumps({
         "card": _card(), "config": GPT2_SMALL, "batch": BATCH,
         "amp": "bfloat16" if args.amp else None,
+        "hybridize": args.hybridize, "cached_op": gluon.cached_op_stats(),
         "seq": SEQ, "tokens_per_step": BATCH * SEQ,
         "steps": args.steps, "last_loss": float(loss.asscalar()),
         "wall_ms_per_step": wall_ms,

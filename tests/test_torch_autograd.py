@@ -202,3 +202,172 @@ def test_parameter_gradient_buffer_is_allocated_by_first_backward():
     loss.backward()
     assert td.weight.data().grad is td.weight.grad()
     assert td.weight.grad().asnumpy().any()
+
+
+# -- grad (first and higher order), Function, get_symbol -------------------
+# Against the JAX package's grad (tests/test_higher_order_dlpack.py) and
+# Function (tests/test_autograd.py:109): the same fp32 arithmetic, a few
+# ops deep, so 1e-6 holds for first order; second and third derivatives
+# run through more ops, 1e-5.
+
+HO_TOL = 1e-5
+
+
+def test_grad_first_order_matches_jax_and_leaves_buffers():
+    got = []
+    for ag, x in zip((jautograd, autograd), _pair(_x(3, (5,)))):
+        x.attach_grad()
+        x.grad[:] = 7.0
+        with ag.record():
+            y = x * x * x
+        g = ag.grad(y, x)
+        assert g.shape == x.shape
+        # the variable's buffer and grad_req are as they were
+        onp.testing.assert_array_equal(x.grad.asnumpy(), onp.full(5, 7.0))
+        assert x._grad_req == "write"
+        got.append(g.asnumpy())
+    onp.testing.assert_allclose(got[1], got[0], rtol=TOL, atol=TOL)
+    onp.testing.assert_allclose(got[1], 3 * _x(3, (5,)) ** 2, rtol=TOL)
+
+
+def test_grad_of_several_variables_and_head_grads():
+    got = []
+    a0, b0 = _x(4, (3,)), _x(5, (3,))
+    hg = _x(6, (3,))
+    for pkg, ag, ctx in ((jmx.nd, jautograd, None), (nd, autograd, mx.cpu())):
+        kw = {} if ctx is None else {"ctx": ctx}
+        a, b = pkg.array(a0, **kw), pkg.array(b0, **kw)
+        a.attach_grad()
+        b.attach_grad()
+        with ag.record():
+            y = a * b + a
+        ga, gb = ag.grad(y, [a, b], head_grads=pkg.array(hg, **kw))
+        got.append((ga.asnumpy(), gb.asnumpy()))
+    for j, p in zip(got[0], got[1]):
+        onp.testing.assert_allclose(p, j, rtol=TOL, atol=TOL)
+
+
+def test_grad_second_order_polynomial_matches_jax():
+    got = []
+    for ag, x in zip((jautograd, autograd),
+                     _pair(onp.array([2.0, -1.0, 0.5], "f"))):
+        x.attach_grad()
+        with ag.record():
+            y = x * x * x
+            g = ag.grad(y, x, create_graph=True)  # 3x^2
+            g.backward()
+        got.append((g.asnumpy(), x.grad.asnumpy()))
+    for j, p in zip(got[0], got[1]):
+        onp.testing.assert_allclose(p, j, rtol=HO_TOL, atol=HO_TOL)
+    onp.testing.assert_allclose(got[1][1], [12.0, -6.0, 3.0], rtol=HO_TOL)
+
+
+def test_grad_third_order_via_nested_grad_matches_jax():
+    got = []
+    for ag, x in zip((jautograd, autograd), _pair(onp.array([1.5], "f"))):
+        x.attach_grad()
+        with ag.record():
+            y = x * x * x * x
+            g1 = ag.grad(y, x, create_graph=True)   # 4x^3
+            g2 = ag.grad(g1, x, create_graph=True)  # 12x^2
+            g2.backward()                           # 24x
+        got.append(x.grad.asnumpy())
+    onp.testing.assert_allclose(got[1], got[0], rtol=HO_TOL, atol=HO_TOL)
+    onp.testing.assert_allclose(got[1], [36.0], rtol=HO_TOL)
+
+
+@pytest.mark.parametrize("op", ["sigmoid", "tanh", "log", "exp"])
+def test_grad_second_order_unary_matches_jax(op):
+    got = []
+    for pkg, ag, x in zip((jmx.nd, nd), (jautograd, autograd),
+                          _pair(onp.array([0.7], "f"))):
+        x.attach_grad()
+        with ag.record():
+            y = getattr(pkg, op)(x)
+            g = ag.grad(y, x, create_graph=True)
+            g.backward()
+        got.append(x.grad.asnumpy())
+    onp.testing.assert_allclose(got[1], got[0], rtol=HO_TOL, atol=HO_TOL)
+
+
+def test_grad_second_order_through_matmul_loss_matches_jax():
+    rs = onp.random.RandomState(0)
+    w0, x0 = rs.rand(3, 3).astype("f"), rs.rand(4, 3).astype("f")
+    got = []
+    for pkg, ag, ctx in ((jmx.nd, jautograd, None), (nd, autograd, mx.cpu())):
+        kw = {} if ctx is None else {"ctx": ctx}
+        w, x = pkg.array(w0, **kw), pkg.array(x0, **kw)
+        w.attach_grad()
+        with ag.record():
+            loss = pkg.sum(pkg.dot(x, w) * pkg.dot(x, w))
+            g = ag.grad(loss, w, create_graph=True)
+            gnorm = pkg.sum(g * g)
+            gnorm.backward()
+        got.append(w.grad.asnumpy())
+    onp.testing.assert_allclose(got[1], got[0], rtol=HO_TOL, atol=HO_TOL)
+    A = x0.T @ x0
+    onp.testing.assert_allclose(got[1], 8 * A @ A @ w0, rtol=1e-4)
+
+
+def test_grad_needs_a_marked_variable():
+    x = nd.array(_x(), ctx=mx.cpu())
+    v = nd.array(_x(1), ctx=mx.cpu())
+    v.attach_grad()
+    with autograd.record():
+        y = v * 2
+    with pytest.raises(mx.MXNetError, match="attach_grad"):
+        autograd.grad(y, x)
+
+
+def test_custom_function_matches_jax():
+    got = []
+    for pkg, ag, x in zip((jmx.nd, nd), (jautograd, autograd),
+                          _pair(_x(7, (6,)))):
+        class Sigmoid(ag.Function):
+            def forward(self, x):
+                y = pkg.sigmoid(x)
+                self.save_for_backward(y)
+                return y
+
+            def backward(self, dy):
+                (y,) = self.saved_tensors
+                return dy * y * (1 - y)
+
+        x.attach_grad()
+        with ag.record():
+            y = Sigmoid()(x)
+            z = (y * y).sum()
+        z.backward()
+        got.append((y.asnumpy(), x.grad.asnumpy()))
+    for j, p in zip(got[0], got[1]):
+        onp.testing.assert_allclose(p, j, rtol=TOL, atol=TOL)
+
+
+def test_custom_function_with_two_inputs_and_outputs():
+    class MulAdd(autograd.Function):
+        def forward(self, a, b):
+            self.save_for_backward(a, b)
+            return a * b, a + b
+
+        def backward(self, d_mul, d_add):
+            a, b = self.saved_tensors
+            return d_mul * b + d_add, d_mul * a + d_add
+
+    a = nd.array(_x(1, (4,)), ctx=mx.cpu())
+    b = nd.array(_x(2, (4,)), ctx=mx.cpu())
+    a.attach_grad()
+    b.attach_grad()
+    with autograd.record():
+        m, s = MulAdd()(a, b)
+        z = (m + s * 3).sum()
+    z.backward()
+    onp.testing.assert_allclose(a.grad.asnumpy(), _x(2, (4,)) + 3, rtol=TOL)
+    onp.testing.assert_allclose(b.grad.asnumpy(), _x(1, (4,)) + 3, rtol=TOL)
+    # outside record() it is the plain forward
+    m2, _ = MulAdd()(a, b)
+    assert m2.data.grad_fn is None
+
+
+def test_get_symbol_raises():
+    with pytest.raises(NotImplementedError):
+        autograd.get_symbol(nd.zeros((1,), ctx=mx.cpu()))

@@ -1339,3 +1339,191 @@ def test_bf16_amp_lm_step_on_card_launches_k1_in_bf16(cuda):
     finally:
         amp.disable()
     onp.testing.assert_allclose(losses[0], losses[1], rtol=2e-2)
+
+
+# -- hybridize: CachedOp as captured CUDA graphs, and DeviceFeed ------------
+
+def _mlp_bn(seed, ctx):
+    mx.random.seed(seed)
+    net = mx.gluon.nn.HybridSequential()
+    net.add(mx.gluon.nn.Dense(64, activation="relu", in_units=32),
+            mx.gluon.nn.BatchNorm(in_channels=64),
+            mx.gluon.nn.Dense(10, in_units=64))
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    return net
+
+
+def _grads_of(net):
+    return {k: p.grad().data.clone()
+            for k, p in net._collect_params_with_prefix().items()
+            if p.grad_req != "null"}
+
+
+def test_hybridized_equals_eager_forward_backward_and_stats(cuda):
+    """The captured forward and backward run the eager path's kernels:
+    outputs, gradients and batch norm's running statistics bitwise equal
+    over three recorded steps and an eval call; one capture for the
+    recorded signature and one replay per call."""
+    ctx = mx.gpu(0)
+    eager, hyb = _mlp_bn(1, ctx), _mlp_bn(1, ctx)
+    hyb.hybridize()
+    mx.gluon.reset_cached_op_stats()
+    rs = onp.random.RandomState(0)
+    for _ in range(3):
+        x = mx.nd.array(rs.randn(16, 32).astype("f"), ctx=ctx)
+        ys = []
+        for net in (eager, hyb):
+            with mx.autograd.record():
+                y = net(x)
+                (y * y).sum().backward()
+            ys.append(y.data)
+        assert torch.equal(ys[0], ys[1])
+        ge, gh = _grads_of(eager), _grads_of(hyb)
+        assert all(torch.equal(ge[k], gh[k]) for k in ge)
+    for name in ("running_mean", "running_var"):
+        assert torch.equal(getattr(eager[1], name).data().data,
+                           getattr(hyb[1], name).data().data)
+    st = mx.gluon.cached_op_stats()
+    assert st["captures"] == 1 and st["replays"] == 3
+    assert st["backward_replays"] == 3
+    ent = next(iter(hyb._cached_op.entries.values()))
+    assert ent.graph is not None and ent.bwd is not None
+    with mx.autograd.predict_mode():
+        assert torch.equal(eager(x).data, hyb(x).data)
+
+
+def test_hybridized_dropout_draws_fresh_masks_per_replay(cuda):
+    """The device generator is registered with the graph: each replay
+    draws a new mask, and the keep rate is 1 - p."""
+    net = mx.gluon.nn.HybridSequential()
+    net.add(mx.gluon.nn.Dropout(0.5))
+    net.initialize(ctx=mx.gpu(0))
+    net.hybridize()
+    x = mx.nd.ones((1000, 100), ctx=mx.gpu(0))
+    masks = []
+    for _ in range(3):
+        with mx.autograd.train_mode():
+            masks.append(net(x).data != 0)
+    assert not torch.equal(masks[0], masks[1])
+    assert not torch.equal(masks[1], masks[2])
+    keep = float(masks[0].float().mean())
+    assert abs(keep - 0.5) < 0.01, keep
+    ent = next(iter(net._cached_op.entries.values()))
+    assert ent.replays == 3
+
+
+def test_hybridized_lm_counts_k1_per_replay_on_sm90(cuda):
+    """A bf16 TransformerLM hybridized: K1 runs inside the captured
+    forward, its launches counted per replay (one per layer per step,
+    every one on the sm90 kernel); logits and weights bitwise equal to
+    the eager run's after two steps."""
+    from mxnet_tpu_torch.contrib import amp
+
+    cfg = dict(vocab_size=500, embed_dim=128, num_layers=2, num_heads=2,
+               ffn_dim=256, max_len=128, tie_weights=True)
+    toks = mx.nd.array(onp.random.RandomState(0).randint(
+        0, 500, (4, 128)).astype("int32"), ctx=mx.gpu(0))
+    lf = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    amp.init("bfloat16")
+    runs = []
+    try:
+        for hyb in (False, True):
+            mx.random.seed(3)
+            net = TransformerLM(**cfg)
+            net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+            tr = mx.gluon.Trainer(net.collect_params(), "adam",
+                                  {"learning_rate": 1e-3})
+            amp.init_trainer(tr)
+            if hyb:
+                net.hybridize()
+            logits = []
+            for step in range(3):
+                if step == 1:
+                    _build.reset_launch_counts()
+                with mx.autograd.record():
+                    lg = net(toks)
+                    loss = lf(lg[:, :-1].reshape(-1, 500),
+                              toks[:, 1:].reshape(-1)).mean()
+                    with amp.scale_loss(loss, tr) as sc:
+                        sc.backward()
+                tr.step(4)
+                logits.append(lg.data.clone())
+            runs.append((net, logits, _build.launch_counts()))
+    finally:
+        amp.disable()
+    (a, la, ca), (b, lb, cb) = runs
+    assert cb == ca == {FLASH_KERNEL: 4, FLASH_SM90_KERNEL: 4}
+    assert all(torch.equal(x, y) for x, y in zip(la, lb))
+    pa, pb = a._collect_params_with_prefix(), b._collect_params_with_prefix()
+    assert all(torch.equal(pa[k].data().data, pb[k].data().data) for k in pa)
+    ent = next(iter(b._cached_op.entries.values()))
+    assert ent.fwd_launches == {FLASH_KERNEL: 2, FLASH_SM90_KERNEL: 2}
+
+
+def test_hybridized_capture_of_a_host_sync_raises(cuda):
+    """A forward that syncs with the host cannot be captured: MXNetError
+    naming the block and the signature, no eager fallback; the card
+    works afterwards."""
+    class Sync(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, x):
+            return x * float(x.asnumpy().sum() > 0)
+
+    blk = Sync()
+    blk.hybridize()
+    with pytest.raises(mx.MXNetError, match="Sync .*signature"):
+        blk(mx.nd.ones((4,), ctx=mx.gpu(0)))
+    assert (mx.nd.ones((3,), ctx=mx.gpu(0)) * 2).asnumpy().tolist() == \
+        [2.0, 2.0, 2.0]
+
+
+def test_hybridized_second_signature_captures_anew(cuda):
+    net = _mlp_bn(2, mx.gpu(0))
+    net.hybridize()
+    mx.gluon.reset_cached_op_stats()
+    for B in (8, 8, 16, 16, 8):
+        with mx.autograd.predict_mode():
+            net(mx.nd.ones((B, 32), ctx=mx.gpu(0)))
+    st = mx.gluon.cached_op_stats()
+    assert st["captures"] == 2 and st["replays"] == 5
+    assert sorted(e.replays for e in net._cached_op.entries.values()) == \
+        [2, 3]
+
+
+def test_hybridized_second_recorded_call_before_backward_raises(cuda):
+    net = _mlp_bn(3, mx.gpu(0))
+    net.hybridize()
+    x = mx.nd.ones((4, 32), ctx=mx.gpu(0))
+    with mx.autograd.record():
+        l1 = net(x).sum()
+        l2 = net(x).sum()  # overwrites the first call's activations
+    with pytest.raises(mx.MXNetError, match="before this call's backward"):
+        mx.autograd.backward([l1])
+    mx.autograd.backward([l2])
+    assert torch.isfinite(net[0].weight.grad().data).all()
+
+
+def test_device_feed_overlaps_and_never_hands_out_reused_memory(cuda):
+    """DeviceFeed stages on its own stream; the consumer waits on the
+    batch's event. A batch handed out stays intact while the source
+    rewrites its host buffer and the allocator hands out new blocks."""
+    from mxnet_tpu_torch.pipeline import DeviceFeed
+
+    host = torch.zeros((1 << 20,), dtype=torch.float32).pin_memory()
+
+    def gen():
+        for i in range(6):
+            host.fill_(float(i))
+            yield host
+
+    feed = DeviceFeed(gen(), depth=2, device=mx.gpu(0))
+    assert feed._stream is not None
+    assert feed._stream != torch.cuda.current_stream()
+    got = []
+    for b in feed:
+        scratch = [torch.full((1 << 20,), -1.0, device="cuda")
+                   for _ in range(4)]
+        got.append(b)
+        del scratch
+    torch.cuda.synchronize()
+    assert [float(b.data[0]) for b in got] == [0, 1, 2, 3, 4, 5]
+    assert all(bool((b.data == b.data[0]).all()) for b in got)
