@@ -35,7 +35,12 @@ kernels against the plain PyTorch versions:
   signature, with K1 inside the LM's captured forward and K4's head
   eager), held bitwise against their eager runs, and ResNet-50 fed by
   ``gluon.data`` (``ArrayDataset``, a ``DataLoader`` of thread workers
-  into pinned memory) through ``pipeline.DeviceFeed``.
+  into pinned memory) through ``pipeline.DeviceFeed``;
+- symbolic training: ``sym`` → ``simple_bind`` → the Executor, whose
+  forward and backward are captured CUDA graphs, under ``Module.fit``
+  (the MNIST MLP), the LSTM word-LM through ``Module`` and the fused
+  ``sym.RNN`` (cuDNN), ``BucketingModule`` over ``rnn.LSTMCell.unroll``,
+  and the same word-LM as a hybridized ``gluon.rnn.LSTM``.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100:
 
@@ -223,7 +228,42 @@ stream busy until the launch is enqueued, so it is the device's time:
 31. a capture that must fail: a block whose forward calls ``asnumpy()``
     raises ``MXNetError`` naming the block and the signature when
     hybridized, and the card computes correctly afterwards;
-32. report: one JSON line of kernels, then the device line last.
+32. the MNIST MLP through ``Module`` (784-128-64-10, ``SoftmaxOutput``,
+    SGD lr 0.3, momentum 0.9, batch 128, ``examples/train_mnist_mlp.py``
+    on its synthetic data from a seed): one pass of 14 steps on the card
+    and on the CPU port from the same weights and batches, per-step
+    losses and final weights within rtol 1e-3; then ``Module.fit`` for 8
+    epochs, with the accuracy metric and without: step ms, validation
+    accuracy before and after (it must rise by 0.2), the captured
+    training signature replayed every step;
+33. the LSTM word-LM through ``Module`` and the fused ``sym.RNN`` at
+    Zaremba et al.'s medium widths (vocabulary 10,000, 650 wide, 2
+    layers, dropout 0.5, tied decoder, BPTT 35, batch 20; SGD lr 0.25,
+    each gradient element clipped at 0.1; token ids from a seeded Markov
+    chain): cuDNN's LSTM against the
+    op's plain version on the card within 2e-5 of the largest value
+    (float32, not TF32); the captured executor against the eager one,
+    bitwise, for 3 steps at p = 0; 3 steps against the CPU port within
+    rtol 1e-3; each mode timed (2 + 20 steps, Perplexity metric) and
+    profiled (5 steps: idle share, device time by kind), peak memory,
+    5 steps without the metric; the perplexity of 10 batches
+    falls over 30 more steps; the device time of the rnn op's forward
+    and backward on views against ``torch.nn.LSTM``'s flattened weights
+    (cuDNN's repack), in turns;
+34. ``BucketingModule`` over ``rnn.LSTMCell.unroll`` at the same widths
+    (one layer), buckets 10, 20, 30 and 35, ``BucketSentenceIter`` over
+    200 Markov sentences, one epoch of ``fit``: one captured signature
+    per bucket, replayed (forward and backward) once per batch of it;
+35. the word-LM in Gluon: ``gluon.rnn.LSTM`` under an ``Embedding``
+    whose weight the decoder shares, hybridized (``CachedOp`` with the
+    states as inputs), SGD through the Trainer's fused step: 2 + 20
+    steps, step ms beside the Module's;
+36. K3 and K1 on a training bind: ``layer_norm → gelu`` and an
+    attention at ``MXNET_GRAPH_OPT=2`` against 0, one training step on
+    the card: the gradients within 1e-4, K3 not launched in the
+    training step (``replay_needs_grad``), launched in an inference
+    forward, K1 launched under its ``autograd.Function``;
+37. report: one JSON line of kernels, then the device line last.
 
 Each phase prints the seconds it took.
 
@@ -263,6 +303,7 @@ from mxnet_tpu_torch.kernels.norm_act import (  # noqa: E402
 from mxnet_tpu_torch.models import DecoderBlockLM, TransformerLM  # noqa: E402
 from mxnet_tpu_torch.tools.profile_predict import (  # noqa: E402
     SAMPLE_RATE, WAV2VEC2_LARGE_LV60, export_wav2vec2, frames)
+from mxnet_tpu_torch.tools import profile_module as pm  # noqa: E402
 from mxnet_tpu_torch.tools import profile_resnet as pr  # noqa: E402
 from mxnet_tpu_torch.tools.profile_decode import (  # noqa: E402
     build as decode_stack, profile_steps)
@@ -2719,6 +2760,512 @@ def failing_capture_phase():
         raise RuntimeError("the card computes wrongly after a failed capture")
 
 
+# -- slice 7 of ROADMAP A: symbolic training and the LSTM word-LM ------------
+
+# the MLP against the CPU port: one pass over the 14 training batches from
+# the same weights; per-step losses and final weights relative to their
+# largest value (float32 sums in another order, through 14 SGD steps)
+MLP_CPU_RTOL = 1e-3
+MLP_EPOCHS = 8
+# the word-LM: steps timed per mode, steps that check the falling
+# perplexity, steps against the CPU port and the captured-vs-eager steps
+WLM_WARMUP, WLM_STEPS, WLM_FALL, WLM_CPU, WLM_BITWISE = 2, 20, 40, 3, 3
+WLM_PROFILED = 5
+# cuDNN's LSTM against the op's plain version (the JAX step arithmetic,
+# one time step at a time) in float32 on the card, relative to the largest
+# value: two float32 computations in different orders over 35 steps and
+# 650-wide products; TF32 would miss it by two orders of magnitude
+RNN_FP32_RTOL = 2e-5
+# the word-LM on the card against the CPU port, three steps from the same
+# weights and batches at p = 0, relative to the largest value
+WLM_CPU_RTOL = 1e-3
+BUCKETS = (10, 20, 30, 35)
+BUCKET_SENTENCES = 200
+
+
+def _ce(probs, labels):
+    """Mean cross-entropy of host ``labels`` under host ``probs``."""
+    p = probs[onp.arange(len(labels)), labels.astype(int)]
+    return float(-onp.log(onp.maximum(p, 1e-30)).mean())
+
+
+def _rel(a, b):
+    """max |a - b| over max |a| (numpy or tensors)."""
+    a = onp.asarray(a, dtype=onp.float64)
+    b = onp.asarray(b, dtype=onp.float64)
+    return float(onp.abs(a - b).max() / max(onp.abs(a).max(), 1e-30))
+
+
+def _params_host(mod):
+    args, _ = mod.get_params()
+    return {k: v.asnumpy() for k, v in args.items()}
+
+
+def _mlp_module(ctx, arg_params=None):
+    mod = mx.mod.Module(pm.mlp_symbol(mx.sym, **pm.MLP), context=ctx)
+    mod.bind([("data", (pm.MLP["batch"], pm.MLP["features"]))],
+             [("softmax_label", (pm.MLP["batch"],))])
+    mx.random.seed(SEED)
+    if arg_params is None:
+        mod.init_params(mx.init.Xavier())
+    else:
+        mod.init_params(arg_params={k: nd.array(v, ctx=ctx)
+                                    for k, v in arg_params.items()})
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(pm.MLP_OPT))
+    return mod
+
+
+def mlp_phase():
+    phase("32 MNIST MLP through Module.fit")
+    ctx = mx.gpu(0)
+    B = pm.MLP["batch"]
+    X, y = pm.mlp_data(2048, seed=SEED)
+    Xt, yt, Xv, yv = X[:1792], y[:1792], X[1792:], y[1792:]
+
+    def train_iter(shuffle=False):
+        return mx.io.NDArrayIter(Xt, yt, batch_size=B, shuffle=shuffle,
+                                 label_name="softmax_label")
+
+    val = mx.io.NDArrayIter(Xv, yv, batch_size=B, label_name="softmax_label")
+    # against the CPU port: one pass, the same weights and batches
+    gpu_mod = _mlp_module(ctx)
+    w0 = _params_host(gpu_mod)
+    before = dict(gpu_mod.score(val, "acc"))["accuracy"]
+    cpu_mod = _mlp_module(mx.cpu(), w0)
+    worst_loss = 0.0
+    for batch in train_iter():
+        losses = []
+        for mod in (gpu_mod, cpu_mod):
+            mod.forward_backward(batch)
+            mod.update()
+            losses.append(_ce(mod.get_outputs()[0].asnumpy(),
+                              batch.label[0].asnumpy()))
+        worst_loss = max(worst_loss, abs(losses[0] - losses[1])
+                         / max(abs(losses[1]), 1e-30))
+    wg, wc = _params_host(gpu_mod), _params_host(cpu_mod)
+    worst_w = max(_rel(wc[k], wg[k]) for k in wc)
+    print(f"  14 steps against the CPU port: per-step loss within "
+          f"{worst_loss:.3e}, final weights within {worst_w:.3e} "
+          f"(allowed {MLP_CPU_RTOL})")
+    if worst_loss > MLP_CPU_RTOL or worst_w > MLP_CPU_RTOL:
+        raise RuntimeError("the MLP on the card departs from the CPU port")
+    # fit: accuracy before and after, step ms with and without the metric
+    res = {}
+    for metric in ("acc", None):
+        mod = mx.mod.Module(pm.mlp_symbol(mx.sym, **pm.MLP), context=ctx)
+        onp.random.seed(SEED)
+        it = train_iter(shuffle=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.fit(it, eval_data=val if metric else None, eval_metric=metric,
+                optimizer="sgd", optimizer_params=dict(pm.MLP_OPT),
+                num_epoch=MLP_EPOCHS,
+                arg_params={k: nd.array(v, ctx=ctx) for k, v in w0.items()})
+        torch.cuda.synchronize()
+        steps = MLP_EPOCHS * (len(Xt) // B)
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
+        after = dict(mod.score(val, "acc"))["accuracy"]
+        res["metric" if metric else "no_metric"] = {
+            "step_ms": step_ms, "val_acc_before": float(before),
+            "val_acc_after": float(after),
+            "graphs": mod._exec.graph_info()}
+        print(f"  fit ({'acc metric' if metric else 'no metric'}): "
+              f"{step_ms:.3f} ms per step over {steps} steps (binding, "
+              f"the graphs' capture and the evaluation passes included), "
+              f"validation accuracy {before:.3f} -> {after:.3f}")
+        if after <= before + 0.2:
+            raise RuntimeError("the MLP's validation accuracy did not rise")
+    g = res["metric"]["graphs"]
+    print(f"  captured signatures: {[(s['is_train'], s['replays'], s['backward_replays']) for s in g]}")
+    if not any(s["is_train"] and s["replays"] >= steps for s in g):
+        raise RuntimeError("the MLP's training step was not replayed")
+    return res
+
+
+def rnn_fp32_phase(gen):
+    """cuDNN's LSTM inside cudnn_fp32() against the op's plain version on
+    the card, at the word-LM's shapes, forward and gradients."""
+    cfg = pm.WORD_LM
+    T, N, H, L, E = (cfg["bptt"], cfg["batch"], cfg["hidden"],
+                     cfg["layers"], cfg["embed"])
+    size = ops_nn.rnn_param_size(L, E, H, False, "lstm")
+    x = torch.randn(T, N, E, device="cuda", generator=gen)
+    w = (torch.rand(size, device="cuda", generator=gen) - 0.5) * 0.2
+    h = torch.randn(L, N, H, device="cuda", generator=gen) * 0.5
+    c = torch.randn(L, N, H, device="cuda", generator=gen) * 0.5
+    cot = [torch.randn(T, N, H, device="cuda", generator=gen),
+           torch.randn(L, N, H, device="cuda", generator=gen),
+           torch.randn(L, N, H, device="cuda", generator=gen)]
+    def run(fn, scope):
+        ins = [t.clone().requires_grad_(True) for t in (x, w, h, c)]
+        outs = fn(*ins, state_size=H, num_layers=L, mode="lstm")
+        # the backward in the scope the port's backward runs in
+        # (autograd.backward, the executor's, CachedOp's), or at torch's
+        # default cuDNN flags (allow_tf32 True)
+        with scope:
+            grads = torch.autograd.grad(outs, ins, cot)
+        return [o.detach() for o in outs] + list(grads)
+
+    plain = run(ops_nn.rnn_plain, ops_nn.cudnn_fp32())
+    names = ["out", "h", "c", "dx", "dw", "dh", "dc"]
+    res = {}
+    for label, scope in (("cudnn_fp32", ops_nn.cudnn_fp32()),
+                         ("torch_default_flags", contextlib.nullcontext())):
+        got = run(ops_nn.rnn, scope)
+        res[label] = {n: _rel(b.cpu(), a.cpu())
+                      for n, a, b in zip(names, plain, got)}
+    worst = max(res["cudnn_fp32"].values())
+    print(f"  cuDNN LSTM (T={T}, N={N}, {E}->{H}, {L} layers) against the "
+          f"plain version on the card, the backward in the port's scope: "
+          f"{res['cudnn_fp32']}; worst {worst:.3e} (allowed "
+          f"{RNN_FP32_RTOL}: float32, not TF32)")
+    print(f"  the same backward at torch's default cuDNN flags (TF32): "
+          f"{res['torch_default_flags']}")
+    if worst > RNN_FP32_RTOL:
+        raise RuntimeError("cuDNN's LSTM is not float32-accurate")
+    return worst, res
+
+
+def _wlm_batches(n, seed=SEED):
+    cfg = pm.WORD_LM
+    toks = pm.markov_tokens(cfg["bptt"] * cfg["batch"] * n + 1,
+                            cfg["vocab"], seed)
+    return pm.bptt_batches(toks, cfg["bptt"], cfg["batch"])
+
+
+def _check_mode(mod, graphs, steps, eager_before):
+    """``mod``'s executor captured one training signature replayed
+    ``steps`` times (``graphs``), or captured nothing and ran ``steps``
+    eager forwards since ``executor_stats()`` read ``eager_before``."""
+    info = mod._exec.graph_info()
+    eager = mx.executor.executor_stats()["eager_forwards"] - eager_before
+    if graphs:
+        ok = len(info) == 1 and info[0]["replays"] == steps == \
+            info[0]["backward_replays"]
+    else:
+        ok = info == [] and eager == steps
+    if not ok:
+        raise RuntimeError(f"the {'captured' if graphs else 'eager'} "
+                           f"word-LM ran in the wrong mode: signatures "
+                           f"{info}, {eager} eager forwards in {steps} steps")
+
+
+def _wlm_run(cfg, batches, graphs, arg_params=None, ctx=None, metric=None):
+    ctx = ctx or mx.gpu(0)
+    with pm.bind_mode(mx, graphs):
+        mod = pm.word_lm_module(mx, cfg, ctx, arg_params=arg_params)
+    eager_before = mx.executor.executor_stats()["eager_forwards"]
+    outs = []
+    states = None
+    for b in batches:
+        _, states = pm.word_lm_train(mx, mod, [b], cfg, ctx, metric=metric,
+                                     states=states)
+        outs.append(mod.get_outputs()[0].asnumpy())
+    if ctx.device_type == "gpu":
+        _check_mode(mod, graphs, len(batches), eager_before)
+    return mod, outs
+
+
+def word_lm_phase(gen):
+    phase("33 LSTM word-LM through Module and the fused sym.RNN")
+    ctx = mx.gpu(0)
+    cfg = pm.WORD_LM
+    tokens = cfg["bptt"] * cfg["batch"]
+    worst, devs = rnn_fp32_phase(gen)
+    res = {"config": cfg, "rnn_fp32_worst": worst, "rnn_devs": devs}
+    batches = _wlm_batches(2 * (WLM_WARMUP + WLM_STEPS + 2 * WLM_PROFILED)
+                           + WLM_FALL + WLM_BITWISE)
+    det = dict(cfg, dropout=0.0)
+    # captured against eager, bitwise, at p = 0 (deterministic cuDNN)
+    w0 = _params_host(pm.word_lm_module(mx, det, ctx))
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True):
+        eager, e_out = _wlm_run(det, batches[:WLM_BITWISE], False, w0)
+        capt, c_out = _wlm_run(det, batches[:WLM_BITWISE], True, w0)
+    bad = [i for i, (a, b) in enumerate(zip(e_out, c_out))
+           if not onp.array_equal(a, b)]
+    we, wc = _params_host(eager), _params_host(capt)
+    bad += [k for k in we if not onp.array_equal(we[k], wc[k])]
+    print(f"  captured against eager, {WLM_BITWISE} steps at p = 0: "
+          f"{'bitwise equal' if not bad else bad} ({len(e_out)} outputs, "
+          f"{len(we)} parameters)")
+    if bad:
+        raise RuntimeError(f"the captured executor departs from eager: {bad}")
+    # three steps against the CPU port at p = 0
+    cpu, p_out = _wlm_run(det, batches[:WLM_CPU], False, w0, ctx=mx.cpu())
+    worst_out = max(_rel(a, b) for a, b in zip(p_out, c_out))
+    wp = _params_host(cpu)
+    worst_w = max(_rel(wp[k], wc[k]) for k in wp)
+    print(f"  {WLM_CPU} steps against the CPU port: softmax outputs within "
+          f"{worst_out:.3e}, weights within {worst_w:.3e} (allowed "
+          f"{WLM_CPU_RTOL})")
+    if max(worst_out, worst_w) > WLM_CPU_RTOL:
+        raise RuntimeError("the word-LM on the card departs from the CPU")
+    del eager, capt, cpu
+    # timed: eager and captured in this call, p = 0.5, Perplexity metric
+    _build.reset_launch_counts()
+    rest = batches[WLM_BITWISE:]
+    for graphs in (False, True):
+        _fresh_peak()
+        with pm.bind_mode(mx, graphs):
+            mod = pm.word_lm_module(mx, cfg, ctx)
+        eager_before = mx.executor.executor_stats()["eager_forwards"]
+        metric = mx.metric.Perplexity()
+        _, states = pm.word_lm_train(mx, mod, rest[:WLM_WARMUP], cfg, ctx,
+                                     metric=metric)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, states = pm.word_lm_train(
+            mx, mod, rest[WLM_WARMUP:WLM_WARMUP + WLM_STEPS], cfg, ctx,
+            metric=metric, states=states)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / WLM_STEPS
+        it = iter(rest[WLM_WARMUP + WLM_STEPS:])
+        box = {"states": states}
+
+        def step(metric=metric):
+            _, box["states"] = pm.word_lm_train(
+                mx, mod, [next(it)], cfg, ctx, metric=metric,
+                states=box["states"])
+
+        prof = pm.profile_steps(step, WLM_PROFILED)
+        key = "captured" if graphs else "eager"
+        # the metric's copy to the host: the same steps without it
+        t0 = time.perf_counter()
+        _, box["states"] = pm.word_lm_train(
+            mx, mod, [next(it) for _ in range(WLM_PROFILED)], cfg, ctx,
+            states=box["states"])
+        torch.cuda.synchronize()
+        bare = (time.perf_counter() - t0) * 1e3 / WLM_PROFILED
+        _check_mode(mod, graphs, WLM_WARMUP + WLM_STEPS + 2 * WLM_PROFILED,
+                    eager_before)
+        res[key] = {"step_ms": ms, "tokens_per_s": tokens / ms * 1e3,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "profile": prof, "no_metric_step_ms": bare}
+        print(f"  {key}: {ms:.3f} ms per step, {tokens / ms * 1e3:,.0f} "
+              f"tokens/s, peak {res[key]['peak_gb']:.2f} GB; profiled "
+              f"{prof['wall_ms_per_step']:.3f} ms, device busy "
+              f"{prof['device_busy_ms_per_step']:.3f} ms, idle "
+              f"{prof['device_idle_share']:.1%}, "
+              f"{prof['device_ops_per_step']:.0f} device operations")
+        print(f"    by kind: " + json.dumps(
+            {k: round(v["ms"], 4) for k, v in
+             prof["device_ms_per_step_by_kind"].items()}))
+        print(f"    without the metric: {bare:.3f} ms per step (the "
+              f"Perplexity update copies "
+              f"{tokens * cfg['vocab'] * 4 / 1e6:.0f} MB of softmax to the "
+              "host each step)")
+    # the perplexity falls
+    first, last = mx.metric.Perplexity(), mx.metric.Perplexity()
+    fall = [next(it) for _ in range(WLM_FALL)]
+    _, box["states"] = pm.word_lm_train(mx, mod, fall[:10], cfg, ctx,
+                                        metric=first, states=box["states"])
+    _, box["states"] = pm.word_lm_train(mx, mod, fall[10:-10], cfg, ctx,
+                                        states=box["states"])
+    pm.word_lm_train(mx, mod, fall[-10:], cfg, ctx, metric=last,
+                     states=box["states"])
+    p0, p1 = first.get()[1], last.get()[1]
+    print(f"  perplexity over 10 batches: {p0:.1f} -> {p1:.1f} after "
+          f"{WLM_FALL - 10} more steps")
+    if not (onp.isfinite(p1) and p1 < p0 and p1 < cfg["vocab"]):
+        raise RuntimeError("the word-LM's perplexity did not fall below "
+                           "the vocabulary's size")
+    counts = _build.launch_counts()
+    res["k1_k3_launches"] = {"k1": counts.get(FLASH_KERNEL, 0)
+                             + counts.get(FLASH_SM90_KERNEL, 0),
+                             "k3": counts.get(NORM_ACT_KERNEL, 0)}
+    info = mod._exec.graph_info()
+    print(f"  captured signatures: {[(s['is_train'], s['replays'], s['backward_replays'], s['launches_per_replay']) for s in info]}; "
+          f"K1/K3 launches on this path: {res['k1_k3_launches']}")
+    port_ms, flat_ms = pm.repack_ms(cfg, torch.device("cuda", 0))
+    res["rnn_fwd_bwd_ms"] = {"port_views": port_ms,
+                             "torch_flat_weights": flat_ms}
+    print(f"  cuDNN weight repack: the rnn op's forward+backward takes "
+          f"{port_ms:.3f} ms of device time on views of the packed vector "
+          f"against {flat_ms:.3f} ms for torch.nn.LSTM with flattened "
+          f"weights (medians of turns port, flat, flat, port)")
+    res["perplexity"] = [p0, p1]
+    return res
+
+
+def bucketing_phase():
+    phase("34 BucketingModule over rnn.LSTMCell.unroll")
+    ctx = mx.gpu(0)
+    cfg = pm.WORD_LM
+    B = cfg["batch"]
+    sents = pm.sentences(BUCKET_SENTENCES, cfg["vocab"], 5, max(BUCKETS),
+                         SEED)
+    it = mx.rnn.BucketSentenceIter(sents, B, buckets=list(BUCKETS),
+                                   invalid_label=0)
+    mod = mx.mod.BucketingModule(
+        pm.bucketing_sym_gen(mx, cfg["vocab"], cfg["hidden"], B),
+        default_bucket_key=it.default_bucket_key, context=ctx)
+    mx.random.seed(SEED)
+    metric = mx.metric.Perplexity()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # the example's optimizer: Adam at 0.01
+    mod.fit(it, eval_metric=metric, optimizer="adam",
+            optimizer_params={"learning_rate": 0.01}, num_epoch=1,
+            initializer=mx.init.Uniform(0.1))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    info = mod.graph_info()
+    per_bucket = {k: [(s["is_train"], s["replays"], s["backward_replays"])
+                      for s in v] for k, v in sorted(info.items())}
+    print(f"  {len(it.idx)} batches over buckets {sorted(info)} in "
+          f"{secs:.1f} s (captures included); perplexity "
+          f"{metric.get()[1]:.1f}")
+    print(f"  per bucket (is_train, replays, backward replays): "
+          f"{per_bucket}")
+    counts = {it.buckets[i]: 0 for i in range(len(it.buckets))}
+    for i, _ in it.idx:
+        counts[it.buckets[i]] += 1
+    for k, n in counts.items():
+        if n == 0:
+            continue
+        sigs = per_bucket.get(k, [])
+        if len(sigs) != 1 or sigs[0][1] != n or sigs[0][2] != n:
+            raise RuntimeError(f"bucket {k}: expected one captured "
+                               f"signature replayed {n} times, got {sigs}")
+    if not onp.isfinite(metric.get()[1]):
+        raise RuntimeError("the bucketed LM's perplexity is not finite")
+    return {"batches_per_bucket": counts, "graphs": per_bucket,
+            "seconds": secs}
+
+
+def gluon_word_lm_phase(module_ms):
+    phase("35 the word-LM in Gluon, hybridized")
+    ctx = mx.gpu(0)
+    cfg = pm.WORD_LM
+    T, N = cfg["bptt"], cfg["batch"]
+    GluonWordLM = pm.gluon_word_lm(mx)
+    # against the CPU port: WLM_CPU steps from the same weights at p = 0
+    det = dict(cfg, dropout=0.0)
+    runs = []
+    for c in (ctx, mx.cpu()):
+        net = GluonWordLM(**det)
+        mx.random.seed(SEED)
+        net.initialize(mx.init.Uniform(pm.WORD_LM_INIT), ctx=c)
+        net.hybridize()
+        if runs:
+            for p, q in zip(net.collect_params().values(), runs[0][0]):
+                p.set_data(nd.array(q, ctx=c))
+        w0 = [p.data().asnumpy() for p in net.collect_params().values()]
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                dict(pm.WORD_LM_OPT))
+        losses, _ = pm.gluon_word_lm_train(
+            mx, net, trainer, _wlm_batches(WLM_CPU, seed=SEED + 1), det, c)
+        runs.append((w0, [float(v.asscalar()) for v in losses],
+                     [p.data().asnumpy()
+                      for p in net.collect_params().values()]))
+    (_, g_loss, g_w), (_, c_loss, c_w) = runs
+    worst_loss = max(abs(a - b) / abs(b) for a, b in zip(g_loss, c_loss))
+    worst_w = max(_rel(b, a) for a, b in zip(g_w, c_w))
+    print(f"  {WLM_CPU} steps against the CPU port at p = 0: losses within "
+          f"{worst_loss:.3e}, weights within {worst_w:.3e} (allowed "
+          f"{WLM_CPU_RTOL})")
+    if max(worst_loss, worst_w) > WLM_CPU_RTOL:
+        raise RuntimeError("the Gluon word-LM on the card departs from the "
+                           "CPU port")
+    # timed, p = 0.5
+    net = GluonWordLM(**cfg)
+    mx.random.seed(SEED)
+    net.initialize(mx.init.Uniform(pm.WORD_LM_INIT), ctx=ctx)
+    net.hybridize()
+    gluon.reset_cached_op_stats()
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            dict(pm.WORD_LM_OPT))
+    batches = _wlm_batches(WLM_WARMUP + WLM_STEPS + WLM_FALL, seed=SEED + 1)
+    warm, states = pm.gluon_word_lm_train(mx, net, trainer,
+                                          batches[:WLM_WARMUP], cfg, ctx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed, states = pm.gluon_word_lm_train(
+        mx, net, trainer, batches[WLM_WARMUP:WLM_WARMUP + WLM_STEPS], cfg,
+        ctx, states=states)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / WLM_STEPS
+    # the loss falls: WLM_FALL more steps
+    more, _ = pm.gluon_word_lm_train(
+        mx, net, trainer, batches[WLM_WARMUP + WLM_STEPS:], cfg, ctx,
+        states=states)
+    vals = [float(v.asscalar()) / (T * N) for v in warm + timed + more]
+    first, last = float(onp.mean(vals[:5])), float(onp.mean(vals[-5:]))
+    stats = gluon.cached_op_stats()
+    print(f"  hybridized: {ms:.3f} ms per step, "
+          f"{T * N / ms * 1e3:,.0f} tokens/s (the Module's captured step: "
+          f"{module_ms:.3f} ms); mean loss over the first 5 of "
+          f"{len(vals)} steps {first:.3f}, over the last 5 {last:.3f} (ln V = "
+          f"{onp.log(cfg['vocab']):.3f}); cached op {stats}")
+    if not all(onp.isfinite(vals)) or stats["captures"] < 1 or \
+            stats["replays"] < WLM_STEPS:
+        raise RuntimeError("the Gluon word-LM did not train through its "
+                           "captured graphs")
+    if not last < min(first, onp.log(cfg["vocab"])):
+        raise RuntimeError("the Gluon word-LM's loss did not fall below "
+                           "its start and ln(vocabulary)")
+    return {"step_ms": ms, "tokens_per_s": T * N / ms * 1e3,
+            "losses": [first, last], "cpu_rel": [worst_loss, worst_w],
+            "cached_op": stats}
+
+
+def training_bind_fusion_phase():
+    phase("36 K3 and K1 on a training bind")
+    ctx = mx.gpu(0)
+    sym = mx.sym
+    x = sym.Variable("data")
+    y = sym.LayerNorm(x, sym.Variable("ln_gamma"), sym.Variable("ln_beta"),
+                      name="ln")
+    y = sym.LeakyReLU(y, act_type="gelu", name="act")
+    q = sym.FullyConnected(y, num_hidden=64, flatten=False, name="q")
+    s = sym.softmax(sym.batch_dot(q, q, transpose_b=True), axis=-1)
+    out = sym.make_loss(sym.sum(sym.batch_dot(s, q)), name="loss")
+    rs = onp.random.RandomState(SEED)
+    feed = {"data": rs.randn(4, 128, 64).astype("f"),
+            "ln_gamma": 1 + 0.1 * rs.randn(64).astype("f"),
+            "ln_beta": 0.1 * rs.randn(64).astype("f"),
+            "q_weight": 0.1 * rs.randn(64, 64).astype("f"),
+            "q_bias": 0.1 * rs.randn(64).astype("f")}
+    grads, counts = {}, {}
+    old = os.environ.get("MXNET_GRAPH_OPT")
+    try:
+        for level in ("0", "2"):
+            os.environ["MXNET_GRAPH_OPT"] = level
+            ex = out.simple_bind(ctx=ctx, data=(4, 128, 64))
+            ex.copy_params_from({k: nd.array(v, ctx=ctx) for k, v in
+                                 feed.items() if k != "data"})
+            mx.kernels.reset_counters()
+            _build.reset_launch_counts()
+            ex.forward(is_train=True, data=nd.array(feed["data"], ctx=ctx))
+            ex.backward()
+            train = _build.launch_counts()
+            grads[level] = {k: g.asnumpy() for k, g in ex.grad_dict.items()}
+            ex.forward(is_train=False)
+            infer = _build.launch_counts()
+            counts[level] = {"train": train, "after_inference": infer,
+                             "fusion": mx.kernels.counters()}
+    finally:
+        if old is None:
+            os.environ.pop("MXNET_GRAPH_OPT", None)
+        else:
+            os.environ["MXNET_GRAPH_OPT"] = old
+    worst = max(_rel(grads["0"][k], grads["2"][k]) for k in grads["0"])
+    c2 = counts["2"]
+    print(f"  gradients at MXNET_GRAPH_OPT=2 against 0: within {worst:.3e}; "
+          f"K3 launches in the training step "
+          f"{c2['train'].get(NORM_ACT_KERNEL, 0)}, after an inference "
+          f"forward {c2['after_inference'].get(NORM_ACT_KERNEL, 0)}; "
+          f"K1 in the training step {c2['train'].get(FLASH_KERNEL, 0)}; "
+          f"fusion counters {c2['fusion']}")
+    if worst > 1e-4 or c2["train"].get(NORM_ACT_KERNEL, 0) != 0 or \
+            c2["after_inference"].get(NORM_ACT_KERNEL, 0) < 1 or \
+            c2["fusion"].get("replay_needs_grad", 0) < 1:
+        raise RuntimeError("a training bind lost gradients or ran K3 on a "
+                           "graph that needs one")
+    return {"worst": worst, "counts": c2}
+
+
 def kernel_entry(name, source, replaces, launches, worst, row, shape, smi,
                  **extra):
     entry = {"name": name, "route": "cuda", "source": source,
@@ -2773,6 +3320,15 @@ def main():
     lm_hyb = lm_hybrid_phase()
     fed = fed_resnet_phase()
     failing_capture_phase()
+    mlp = mlp_phase()
+    wlm = word_lm_phase(gen)
+    bucketing = bucketing_phase()
+    gluon_wlm = gluon_word_lm_phase(wlm["captured"]["step_ms"])
+    fusion_bind = training_bind_fusion_phase()
+    bind_counts = fusion_bind["counts"]
+    # the counts after the inference forward hold the training step's too
+    k1_bind = bind_counts["after_inference"].get(FLASH_KERNEL, 0)
+    k3_bind = bind_counts["after_inference"].get(NORM_ACT_KERNEL, 0)
     k1_hyb = lm_hyb[True]["k1_sm90_launches"] + \
         lm_hyb[False]["k1_sm90_launches"]
     k4_hyb = {"resnet_bf16_hybrid_eager": resnet_hyb[False]["k4_launches"] // 2,
@@ -2799,7 +3355,7 @@ def main():
             FLASH_KERNEL, "mxnet_tpu_torch/csrc/flash_attention.cu",
             "mxnet_tpu/kernels/flash_attention.py:48",
             k1_training + sym_result["k1_launches"] + k1_bf16_launches
-            - sm90_launches,
+            - sm90_launches + wlm["k1_k3_launches"]["k1"] + k1_bind,
             max(k1_worst, route["max_abs_err"]), k1_row,
             f"B={k1_row['B']} H={k1_row['H']} S_q={k1_row['S_q']} "
             f"S_k={k1_row['S_k']} D={k1_row['D']} causal fp32", smi,
@@ -2807,7 +3363,9 @@ def main():
             launches_by_path={"training": k1_training,
                               "symbolic_serving": sym_result["k1_launches"],
                               "training_bf16": k1_bf16_launches
-                              - sm90_launches},
+                              - sm90_launches,
+                              "word_lm_module": wlm["k1_k3_launches"]["k1"],
+                              "training_bind": k1_bind},
             fusion_route=route, bf16_mma_route_ms=k1_bf16["mma_route_ms"]),
         # K1 in bf16 at D = 64: the wgmma kernel the LM takes under AMP
         kernel_entry(
@@ -2828,10 +3386,17 @@ def main():
             launches_per_replay=lm_hyb[True]["k1_launches_per_replay"]),
         kernel_entry(
             NORM_ACT_KERNEL, "mxnet_tpu_torch/csrc/norm_act.cu",
-            "mxnet_tpu/kernels/norm_act.py:45", sym_result["k3_launches"],
+            "mxnet_tpu/kernels/norm_act.py:45",
+            sym_result["k3_launches"] + wlm["k1_k3_launches"]["k3"]
+            + k3_bind,
             k3_worst, k3_big, f"rows={k3_big['rows']} C={k3_big['C']} gelu "
             "fp32 (bucket 8, feature layer 1)", smi,
-            library_calls="F.layer_norm then F.gelu", per_forward=k3_total),
+            library_calls="F.layer_norm then F.gelu", per_forward=k3_total,
+            launches_by_path={"symbolic_serving": sym_result["k3_launches"],
+                              "word_lm_module": wlm["k1_k3_launches"]["k3"],
+                              "training_bind_inference": k3_bind,
+                              "training_bind_train": bind_counts["train"]
+                              .get(NORM_ACT_KERNEL, 0)}),
         # K4: the launcher and the two kernels it compiles on the ResNet-50
         # path; the double kernel of the launcher's own check rides along
         kernel_entry(
@@ -2856,7 +3421,7 @@ def main():
             launches_by_path={"resnet_fp32": k4_bwd_n, **k4_amp,
                               **k4_hyb}),
     ]
-    phase("32 report")
+    phase("37 report")
     print(f"bf16 ResNet-50 headline layout: {head}")
     print("hybridized: " + json.dumps({
         "resnet50_bf16_nhwc_step_ms": [resnet_hyb[False]["mean_step_ms"],
@@ -2865,6 +3430,30 @@ def main():
                             lm_hyb[True]["mean_step_ms"]],
         "fed_step_ms": fed["mean_step_ms"],
         "fed_prefetch_stall_s_per_step": fed["prefetch_stall_s_per_step"]}))
+    print("symbolic training: " + json.dumps({
+        "mlp_step_ms": mlp["metric"]["step_ms"],
+        "mlp_step_ms_no_metric": mlp["no_metric"]["step_ms"],
+        "mlp_val_acc": [mlp["metric"]["val_acc_before"],
+                        mlp["metric"]["val_acc_after"]],
+        "word_lm_step_ms": {"eager": wlm["eager"]["step_ms"],
+                            "captured": wlm["captured"]["step_ms"],
+                            "eager_no_metric":
+                                wlm["eager"]["no_metric_step_ms"],
+                            "captured_no_metric":
+                                wlm["captured"]["no_metric_step_ms"],
+                            "gluon_hybridized": gluon_wlm["step_ms"]},
+        "word_lm_tokens_per_s": {"eager": wlm["eager"]["tokens_per_s"],
+                                 "captured": wlm["captured"]["tokens_per_s"],
+                                 "gluon_hybridized":
+                                     gluon_wlm["tokens_per_s"]},
+        "word_lm_idle_share": {
+            k: wlm[k]["profile"]["device_idle_share"]
+            for k in ("eager", "captured")},
+        "word_lm_peak_gb": {k: wlm[k]["peak_gb"]
+                            for k in ("eager", "captured")},
+        "word_lm_perplexity": wlm["perplexity"],
+        "rnn_fwd_bwd_ms": wlm["rnn_fwd_bwd_ms"],
+        "bucketing_batches": bucketing["batches_per_bucket"]}))
     print(f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

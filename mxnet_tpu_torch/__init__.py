@@ -42,6 +42,15 @@ ResNet-50 v1 with a custom-op loss head whose kernels ``rtc`` compiles:
   samplers, the DataLoader, the data iterators and ``DeviceFeed``,
   which stages batches on the card ahead of the step.
 
+- ``mx.sym`` ``simple_bind``/``bind`` → ``mx.executor.Executor``, and
+  ``mx.mod`` (``Module``, ``BucketingModule``, ``SequentialModule``,
+  ``PythonModule``) with ``mx.metric``, ``mx.callback`` and
+  ``mx.model``'s checkpoints: symbolic training, the bound graph's
+  forward and backward captured as CUDA graphs on the card;
+- ``mx.rnn`` (the symbolic cells, ``BucketSentenceIter``) and
+  ``mx.gluon.rnn`` (cells and the fused ``RNN``/``LSTM``/``GRU``
+  layers) over the fused ``rnn`` op (cuDNN through torch).
+
 ``HybridBlock.hybridize()`` captures a block's forward, and under
 ``record()`` its backward, as CUDA graphs, one pair per call
 signature (``gluon.CachedOp``).
@@ -80,9 +89,17 @@ from . import rtc
 from . import contrib
 from . import io
 from . import pipeline
+from . import metric
+from . import callback
+from . import model
+from . import executor
+from . import module
+from . import module as mod
+from . import rnn
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "autograd", "initializer", "init", "ndarray", "nd",
            "random", "optimizer", "gluon", "kernels", "name", "symbol", "sym",
            "analysis", "models", "serving", "convert", "operator", "rtc",
-           "contrib", "io", "pipeline"]
+           "contrib", "io", "pipeline", "metric", "callback", "model",
+           "executor", "module", "mod", "rnn"]

@@ -10,8 +10,9 @@ come with the slices that need them.
 """
 from __future__ import annotations
 
-from .diagnostics import (CODES, Diagnostic, DiagnosticReport, SEV_ERROR,
-                          SEV_WARNING)
+from .diagnostics import (CODES, Diagnostic, DiagnosticReport,
+                          GraphVerifyError, SEV_ERROR, SEV_WARNING,
+                          verify_mode)
 from .passes import (FactError, PASSES, PassContext, register_fact,
                      run_passes)
 from .graph_opt import (AnalysisPass, DEFAULT_REWRITE_PIPELINE,
@@ -21,7 +22,8 @@ from .graph_opt import counters as graph_opt_counters
 from .graph_opt import reset_counters as reset_graph_opt_counters
 
 __all__ = [
-    "CODES", "Diagnostic", "DiagnosticReport", "SEV_ERROR", "SEV_WARNING",
+    "CODES", "Diagnostic", "DiagnosticReport", "GraphVerifyError",
+    "SEV_ERROR", "SEV_WARNING", "verify_mode",
     "FactError", "PASSES", "PassContext", "register_fact", "run_passes",
     "AnalysisPass", "RewritePass", "PassManager", "PIPELINE_VERSION",
     "DEFAULT_REWRITE_PIPELINE", "REWRITE_PASSES", "opt_level",

@@ -7,14 +7,19 @@ at the first problem. The graph optimizer compares the error count of
 a graph's report before and after rewriting, and serves the original
 graph when a rewrite added an error.
 
-Not ported yet: the ``MXNET_GRAPH_VERIFY`` disposition (log or raise,
-``GraphVerifyError``) and its counters, which gate the executor's bind
-(the symbolic-graph slice).
+``MXNET_GRAPH_VERIFY`` (:func:`verify_mode`) decides what a bind does
+with a report (:meth:`DiagnosticReport.disposition`): nothing (``off``,
+the default), log it (``warn``) or raise :class:`GraphVerifyError`
+(``error``). Not ported yet: its counters.
 """
 from __future__ import annotations
 
-__all__ = ["Diagnostic", "DiagnosticReport", "CODES", "SEV_ERROR",
-           "SEV_WARNING"]
+import logging
+
+from ..base import MXNetError, getenv
+
+__all__ = ["Diagnostic", "DiagnosticReport", "GraphVerifyError", "CODES",
+           "SEV_ERROR", "SEV_WARNING", "verify_mode"]
 
 SEV_ERROR = "error"
 SEV_WARNING = "warning"
@@ -74,3 +79,35 @@ class DiagnosticReport:
     @property
     def errors(self):
         return [d for d in self._diags if d.severity == SEV_ERROR]
+
+    def disposition(self, mode=None):
+        """Log (``warn``) or raise (``error``) the report's diagnostics
+        as ``MXNET_GRAPH_VERIFY`` says; returns the report."""
+        mode = mode or verify_mode()
+        if mode == "off" or not self._diags:
+            return self
+        if mode == "error":
+            raise GraphVerifyError(self)
+        for d in self._diags:
+            logging.warning("graph-verify %r", d)
+        return self
+
+
+class GraphVerifyError(MXNetError):
+    """A verification report under ``MXNET_GRAPH_VERIFY=error``."""
+
+    def __init__(self, report):
+        self.report = report
+        super().__init__(f"graph verification of {report.subject} found "
+                         f"{len(report)} diagnostic(s): {list(report)}")
+
+
+def verify_mode():
+    """``MXNET_GRAPH_VERIFY``: ``off`` (0, the default), ``warn`` (1 or
+    anything else) or ``error`` (2, raise)."""
+    raw = str(getenv("MXNET_GRAPH_VERIFY", "0")).strip().lower()
+    if raw in ("", "0", "off", "false", "none"):
+        return "off"
+    if raw in ("error", "raise", "2"):
+        return "error"
+    return "warn"

@@ -9,6 +9,13 @@ for :class:`~.models.DecoderBlockLM`. ``Dense`` weights keep MXNet's
 nothing is transposed. Weights are copied, never re-drawn from a seed.
 bfloat16 arrays (``ml_dtypes.bfloat16``, as the JAX package's
 ``asnumpy`` returns them) are carried bit for bit through an int16 view.
+
+A symbolic :class:`~.module.Module` names its parameters by the symbol's
+argument names (``fc1_weight``, ``lstm_i2h_bias``, ``rnn_parameters``):
+:func:`module_params_from_numpy` loads a JAX ``Module.get_params()``
+pair, as numpy, by those names. A Gluon RNN layer's parameters
+(``l0_i2h_weight``, ...) load through :func:`params_from_numpy` like any
+block's.
 """
 from __future__ import annotations
 
@@ -16,7 +23,8 @@ import numpy as onp
 
 from .base import MXNetError
 
-__all__ = ["params_from_numpy", "trainer_states_from_numpy"]
+__all__ = ["params_from_numpy", "module_params_from_numpy",
+           "trainer_states_from_numpy"]
 
 
 def params_from_numpy(block, arrays, ctx=None):
@@ -49,6 +57,43 @@ def params_from_numpy(block, arrays, ctx=None):
     for name, p in params.items():
         p.set_data(values[name], ctx=ctx)
     return block
+
+
+def module_params_from_numpy(module, arg_params, aux_params=None):
+    """Load ``arg_params``/``aux_params`` (``{argument name: numpy
+    array}``, a JAX ``Module.get_params()`` as host arrays) into the
+    symbolic ``module`` and return it: into its bound arrays, in place,
+    when it is bound, else at its bind. Every parameter of the symbol
+    must be given, and nothing else; raises :class:`MXNetError` before
+    anything is written otherwise."""
+    from .context import cpu
+    from .ndarray import array
+
+    sym = module.symbol
+    inputs = set(module.data_names) | set(module.label_names)
+    want = [n for n in sym.list_arguments() if n not in inputs]
+    want_aux = sym.list_auxiliary_states()
+    aux_params = aux_params or {}
+    for what, need, got in (("arguments", want, arg_params),
+                            ("aux states", want_aux, aux_params)):
+        missing = sorted(set(need) - set(got))
+        extra = sorted(set(got) - set(need))
+        if missing or extra:
+            raise MXNetError(f"module_params_from_numpy: {what} missing "
+                             f"{missing[:5]}, extra {extra[:5]}")
+    host = cpu()
+    args = {k: array(onp.asarray(v), ctx=host) for k, v in arg_params.items()}
+    aux = {k: array(onp.asarray(v), ctx=host) for k, v in aux_params.items()}
+    if module.binded:
+        bound = module._exec.arg_dict
+        bound_aux = module._exec.aux_dict
+        for k, v in list(args.items()) + list(aux.items()):
+            b = bound.get(k, bound_aux.get(k))
+            if b.shape != v.shape:
+                raise MXNetError(f"module_params_from_numpy: {k} has shape "
+                                 f"{v.shape}, the module binds {b.shape}")
+    module.set_params(args, aux, force_init=True)
+    return module
 
 
 def trainer_states_from_numpy(trainer, states, num_update=None,

@@ -550,6 +550,7 @@ class CachedOp:
         self.flags = dict(flags)
         self.entries = {}
         self._params = None
+        self._tree = None
         self._mirror = getenv("MXNET_BACKWARD_DO_MIRROR", False, bool)
 
     def _label(self):
@@ -565,14 +566,19 @@ class CachedOp:
             self._params = params
         return self._params
 
-    def __call__(self, *args):
+    def __call__(self, *args, tree=None):
+        """Run the block on the NDArrays ``args``; ``tree`` (from
+        ``_flatten_outputs``) regroups them into the block's arguments
+        when some argument is a list of NDArrays (a recurrent layer's
+        states)."""
+        self._tree = tree
         params = self._ensure_params()
         if any(p._ndarray is None for p in params):
             # finish deferred shapes with one eager forward, as the JAX
             # package does (block.py:439-444): in training mode it moves
             # the running statistics like any forward
             with autograd.pause(train_mode=autograd.is_training()):
-                self._block.forward(*args)
+                self._forward(args)
             self._params = None
             params = self._ensure_params()
         ptensors = [p._ndarray.data for p in params]
@@ -581,7 +587,8 @@ class CachedOp:
         sig = tuple((tuple(a.shape), str(a.data.dtype).replace("torch.", ""),
                      str(a.data.device), bool(a.data.requires_grad))
                     for a in args)
-        key = (sig, train, recording, torch.is_inference_mode_enabled(),
+        key = (sig, tree, train, recording,
+               torch.is_inference_mode_enabled(),
                _registry.amp_version(),
                tuple(t.requires_grad for t in ptensors) if recording else ())
         entry = self.entries.get(key)
@@ -616,11 +623,18 @@ class CachedOp:
 
     # -- running the block ---------------------------------------------
 
+    def _forward(self, inputs):
+        """The block's forward on the flat NDArrays ``inputs``, regrouped
+        by this call's tree."""
+        if self._tree is not None:
+            inputs = _unflatten_outputs(list(inputs), self._tree)
+        return self._block.forward(*inputs)
+
     def _run(self, inputs):
         """The block's forward on NDArrays ``inputs``, with the mirror
         (recompute in backward) when it is asked for while recording."""
         if not (self._mirror and autograd.is_recording()):
-            return self._block.forward(*inputs)
+            return self._forward(inputs)
         gens = [_random.device_generator(d) for d in
                 {a.data.device for a in inputs}]
         cuda = any(a.data.is_cuda for a in inputs)
@@ -642,7 +656,7 @@ class CachedOp:
                 box["rng"] = [g.get_state() for g in gens]
             try:
                 with autograd._scope(recording=True, training=box["train"]):
-                    out = self._block.forward(*[NDArray(t) for t in tensors])
+                    out = self._forward([NDArray(t) for t in tensors])
             finally:
                 if saved is not None:
                     for g, s in zip(gens, saved):
@@ -767,6 +781,20 @@ def _flatten_outputs(outs):
     raise MXNetError(f"unsupported forward output type {type(outs)}")
 
 
+def _flatten_args(args):
+    """A call's arguments as flat NDArrays and the tree that regroups
+    them (None when every argument is an NDArray), or ``(None, None)``
+    when some argument is neither an NDArray nor a list of them."""
+    if all(isinstance(a, NDArray) for a in args):
+        return list(args), None
+    if not all(isinstance(a, NDArray) or (
+            isinstance(a, (list, tuple)) and a and
+            all(isinstance(x, NDArray) for x in a)) for a in args):
+        return None, None
+    flat, (kind, typ, spec) = _flatten_outputs(tuple(args))
+    return flat, (kind, typ, tuple(spec))
+
+
 def _unflatten_outputs(flat, tree):
     if tree == "single" or tree is None:
         return flat[0] if len(flat) == 1 else tuple(flat)
@@ -817,15 +845,15 @@ class HybridBlock(Block):
 
     def __call__(self, *args, **kwargs):
         # op hooks force the eager path, so their taps fire on every call
-        if self._active and args and not kwargs \
-                and not self.__dict__.get("_op_hooks_active", 0) \
-                and all(isinstance(a, NDArray) for a in args):
+        flat, tree = _flatten_args(args)
+        if self._active and flat and not kwargs \
+                and not self.__dict__.get("_op_hooks_active", 0):
             if self._cached_op is None:
                 self._cached_op = CachedOp(self, **self._cached_op_args)
             for hook in list(self._mx_forward_pre_hooks):
                 hook(self, args)
             with autograd._grad_mode():  # as the eager path's __call__
-                out = self._cached_op(*args)
+                out = self._cached_op(*flat, tree=tree)
             for hook in list(self._mx_forward_hooks):
                 hook(self, args, out)
             return out

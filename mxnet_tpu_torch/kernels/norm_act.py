@@ -181,9 +181,19 @@ def _fused_norm_act(data, gamma, beta, norm_kw=(), act_op="activation",
     ``impl="torch"`` replays the registered ``layer_norm`` and
     activation bodies (bit-identical to the unfused pair);
     ``impl="cuda"`` runs K3 through its wrapper, which needs the norm
-    over the last axis (the cost model picks it only then). (Reference:
-    src/operator/nn/layer_norm.cc + activation-inl.h, fused.)"""
+    over the last axis (the cost model picks it only then). K3 has no
+    backward (nor has the JAX kernel), so a call whose operands need a
+    gradient — a training bind's forward — replays the registered
+    bodies instead, counted as ``replay_needs_grad``: K3 never runs off
+    torch's graph. (Reference: src/operator/nn/layer_norm.cc +
+    activation-inl.h, fused.)"""
     nkw = dict(norm_kw)
+    if impl == "cuda" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (data, gamma, beta)):
+        from . import _count
+
+        _count("replay_needs_grad")
+        impl = "torch"
     if impl == "cuda":
         if nkw.get("axis", -1) not in (-1, data.dim() - 1) or \
                 nkw.get("output_mean_var"):

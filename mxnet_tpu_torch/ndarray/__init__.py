@@ -9,12 +9,13 @@ names (symbol JSON) to the registered ones, as in the JAX package.
 from __future__ import annotations
 
 from . import registry
-from . import ops_basic, ops_index, ops_nn, ops_optim  # noqa: F401 — register the ops
-from .ndarray import (NDArray, arange, array, expand_dims, load,
+from . import ops_basic, ops_index, ops_legacy, ops_nn, ops_optim  # noqa: F401 — register the ops
+from .ndarray import (NDArray, arange, array, concatenate, expand_dims, load,
                       load_frombuffer, ones, save, zeros)
 
-__all__ = ["NDArray", "array", "zeros", "ones", "arange", "expand_dims", "save",
-           "load", "load_frombuffer", "registry", "Custom"]
+__all__ = ["NDArray", "array", "zeros", "ones", "arange", "concatenate",
+           "expand_dims", "save", "load", "load_frombuffer", "registry",
+           "Custom"]
 
 # the JAX package's table (``mxnet_tpu/ndarray/__init__.py:41-85``); the
 # first alias per target is the name ``Symbol.tojson`` writes

@@ -192,6 +192,33 @@ class NDArray:
     def astype(self, dtype, copy=True):
         return self._apply(self._data.to, torch_dtype(dtype), copy=copy)
 
+    def squeeze(self, axis=None):
+        """Drop size-1 axes, all or ``axis``."""
+        if axis is None:
+            return self._apply(self._data.squeeze)
+        return self._apply(self._data.squeeze, axis)
+
+    def copyto(self, other):
+        """Copy into ``other``: an NDArray, written in place (its tensor
+        keeps its storage, so a captured graph that reads it sees the
+        new values), or a Context, a new array there (reference:
+        ndarray.py copyto)."""
+        if isinstance(other, NDArray):
+            if other.shape != self.shape:
+                raise MXNetError(f"copyto: shape {self.shape} into "
+                                 f"{other.shape}")
+            with torch.no_grad():
+                other._data.copy_(self._data)
+            return other
+        if isinstance(other, Context):
+            return NDArray(self._data.detach().to(other.torch_device,
+                                                  copy=True))
+        raise TypeError(f"copyto does not support type {type(other)}")
+
+    def copy(self):
+        """A copy on the same device, off any recorded graph."""
+        return NDArray(self._data.detach().clone())
+
     def __getitem__(self, key):
         """Basic indexing: ints, slices, ``None`` and ``...`` (a view, as
         in numpy)."""
@@ -347,6 +374,12 @@ def arange(start, stop=None, step=1.0, ctx=None, dtype="float32"):
 
 def expand_dims(data, axis):
     return NDArray(data.data.unsqueeze(axis))
+
+
+def concatenate(arrays, axis=0):
+    """Join NDArrays along ``axis`` (reference: ndarray.py concatenate)."""
+    with autograd._grad_mode():
+        return NDArray(torch.cat([a.data for a in arrays], dim=axis))
 
 
 # -- serialization ----------------------------------------------------------

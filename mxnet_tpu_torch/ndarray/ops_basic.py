@@ -130,6 +130,10 @@ def amp_multicast(*data, num_outputs=0):
 
 def _bcast_pair(name, fn):
     def op(lhs, rhs):
+        if not isinstance(rhs, torch.Tensor):
+            # a Python number, as the JAX package's jnp ops take one (a
+            # fill on the device: a copy from the host would wait for it)
+            rhs = lhs.new_full((), rhs)
         r = fn(lhs, rhs)
         if r.dtype == torch.bool:
             r = r.to(lhs.dtype)
@@ -338,6 +342,99 @@ def zeros_like(data):
 def ones_like(data):
     """Ones of ``data``'s shape, dtype and device."""
     return torch.ones_like(data)
+
+
+@register()
+def concat(*args, dim=1):
+    """Join arrays along ``dim`` (reference: concat.cc Concat)."""
+    return torch.cat(args, dim=dim)
+
+
+@register()
+def stack(*args, axis=0):
+    """Stack arrays along a new ``axis`` (reference: matrix_op.cc
+    stack)."""
+    return torch.stack(args, dim=axis)
+
+
+def _parts(parts, axis, squeeze_axis):
+    return tuple(p.squeeze(axis) for p in parts) if squeeze_axis \
+        else tuple(parts)
+
+
+@register()
+def split(data, num_outputs, axis=1, squeeze_axis=False):
+    """``num_outputs`` equal parts along ``axis``; ``squeeze_axis`` drops
+    the axis (reference: slice_channel.cc)."""
+    n = data.shape[axis]
+    if n % num_outputs:
+        raise ValueError(f"split: axis {axis} of length {n} does not "
+                         f"divide into {num_outputs} equal parts")
+    return _parts(torch.split(data, n // num_outputs, dim=axis), axis,
+                  squeeze_axis)
+
+
+@register()
+def split_v2(data, indices_or_sections, axis=0, squeeze_axis=False):
+    """Split into equal sections (an int) or at explicit indices
+    (reference: matrix_op.cc split_v2)."""
+    n = data.shape[axis]
+    if isinstance(indices_or_sections, int):
+        if n % indices_or_sections:
+            raise ValueError(f"split_v2: axis {axis} of length {n} does not "
+                             f"divide into {indices_or_sections} sections")
+        sizes = [n // indices_or_sections] * indices_or_sections
+    else:
+        cuts = [0] + [min(int(i), n) for i in indices_or_sections] + [n]
+        sizes = [max(b - a, 0) for a, b in zip(cuts, cuts[1:])]
+    return _parts(torch.split(data, sizes, dim=axis), axis, squeeze_axis)
+
+
+@register()
+def swapaxes(data, dim1=0, dim2=1):
+    """Exchange two axes (reference: swapaxis.cc SwapAxis)."""
+    return data.transpose(dim1, dim2)
+
+
+@register()
+def squeeze(data, axis=None):
+    """Drop size-1 axes, all or ``axis`` (reference: matrix_op.cc
+    squeeze)."""
+    if axis is None:
+        return data.squeeze()
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    return data.squeeze(tuple(a % data.dim() for a in axes))
+
+
+@register()
+def where(condition, x, y):
+    """``x`` where ``condition`` is nonzero, else ``y`` (reference:
+    control_flow_op.cc where)."""
+    return torch.where(condition != 0, x, y)
+
+
+class _StopGradient(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.zeros_like(g)
+
+
+def _stop_gradient(data):
+    """The identity forward whose gradient is zero (reference:
+    elemwise_unary_op BlockGrad): recorded, the output stays on the graph
+    and sends zeros back, as the JAX op's ``lax.stop_gradient`` does."""
+    if torch.is_grad_enabled() and data.requires_grad:
+        return _StopGradient.apply(data)
+    return data
+
+
+register("stop_gradient")(_stop_gradient)
+register("BlockGrad")(_stop_gradient)
+
 
 # literal-shaped constant nodes: sym.zeros / sym.ones and the literals
 # the graph optimizer's constant folding bakes in

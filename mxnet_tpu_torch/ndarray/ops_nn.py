@@ -442,3 +442,277 @@ def flash_attention_op(query, key, value, sm_scale=None, causal=False):
 
     return flash_attention(query, key, value, sm_scale=sm_scale,
                            causal=causal)
+
+
+# -- the legacy loss heads ---------------------------------------------------
+
+
+@register()
+def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                   multi_output=False, use_ignore=False, preserve_shape=False,
+                   normalization="null", out_grad=False, smooth_alpha=0.0):
+    """Legacy SoftmaxOutput: the forward is the softmax over the last
+    axis (axis 1 with ``multi_output``), and on the ``nd``/``autograd``
+    path so is the gradient, as the JAX op's (``ops_nn.py:429``). A bound
+    executor gives it the loss-head gradient (softmax - one_hot(label))
+    instead (``executor.py``)."""
+    return torch.softmax(data, dim=1 if multi_output else -1)
+
+
+@register()
+def make_loss(data, grad_scale=1.0, valid_thresh=0.0, normalization="null"):
+    """Mark a value as a loss head: the identity (reference:
+    make_loss.cc); a bound executor seeds its gradient with ones."""
+    return data
+
+
+# -- sequences ---------------------------------------------------------------
+
+
+def _time_index(sequence_length, like):
+    """Positions (T, B, 1, ...) and lengths (1, B, 1, ...) broadcastable
+    against ``like`` (T, B, ...)."""
+    shape = (1, -1) + (1,) * (like.dim() - 2)
+    pos = torch.arange(like.shape[0], device=like.device).reshape(
+        (-1, 1) + (1,) * (like.dim() - 2))
+    return pos, sequence_length.to(torch.int64).reshape(shape)
+
+
+@register()
+def sequence_mask(data, sequence_length=None, use_sequence_length=False,
+                  value=0.0, axis=0):
+    """Positions at or past each sequence's length set to ``value``;
+    time on ``axis`` 0 or 1 (reference: src/operator/sequence_mask.cc)."""
+    if not use_sequence_length or sequence_length is None:
+        return data
+    x = data.transpose(0, 1) if axis == 1 else data
+    pos, lens = _time_index(sequence_length, x)
+    out = torch.where(pos < lens, x, torch.full((), value, dtype=x.dtype,
+                                                device=x.device))
+    return out.transpose(0, 1) if axis == 1 else out
+
+
+@register()
+def sequence_last(data, sequence_length=None, use_sequence_length=False,
+                  axis=0):
+    """Each sequence's last valid step (reference: sequence_last.cc)."""
+    x = data.transpose(0, 1) if axis == 1 else data
+    if not use_sequence_length or sequence_length is None:
+        return x[-1]
+    idx = (sequence_length.to(torch.int64) - 1).reshape(
+        (1, -1) + (1,) * (x.dim() - 2)).expand((1,) + tuple(x.shape[1:]))
+    return torch.gather(x, 0, idx)[0]
+
+
+@register()
+def sequence_reverse(data, sequence_length=None, use_sequence_length=False,
+                     axis=0):
+    """Each sequence's valid steps reversed in place, the padding kept
+    (reference: sequence_reverse.cc)."""
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(data, (0,))
+    pos, lens = _time_index(sequence_length, data)
+    rev = torch.where(pos < lens, lens - 1 - pos, pos)
+    return torch.gather(data, 0, rev.expand(data.shape))
+
+
+@register()
+def slice_channel(data, num_outputs, axis=1, squeeze_axis=False):
+    """``num_outputs`` equal parts along ``axis`` (reference:
+    slice_channel.cc SliceChannel)."""
+    from .ops_basic import split
+
+    return split(data, num_outputs, axis=axis, squeeze_axis=squeeze_axis)
+
+
+# -- the fused RNN op --------------------------------------------------------
+
+_GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
+_VF_RNN = {"lstm": "lstm", "gru": "gru", "rnn_tanh": "rnn_tanh",
+           "rnn_relu": "rnn_relu"}
+
+
+def rnn_param_size(num_layers, input_size, state_size, bidirectional, mode):
+    """Length of the packed parameter vector (reference: rnn-inl.h
+    GetParamSize)."""
+    g, D, H = _GATES[mode], 2 if bidirectional else 1, state_size
+    return sum(D * g * H * ((input_size if layer == 0 else H * D) + H + 2)
+               for layer in range(num_layers))
+
+
+def rnn_param_views(parameters, mode, num_layers, input_size, state_size,
+                    bidirectional):
+    """Views of the packed vector as ``[(W_i, W_h, b_i, b_h)]`` per layer
+    and direction: per layer and direction W_i then W_h, then every bias
+    (the JAX op's cuDNN-compatible layout, ``ops_nn.py:550-568``).
+    Gradients through the views land in the vector, in one
+    concatenation (one ``split``, not a slice per view, whose backward
+    would write a zero-padded copy of the whole vector per view)."""
+    g, D, H = _GATES[mode], 2 if bidirectional else 1, state_size
+    want = rnn_param_size(num_layers, input_size, H, bidirectional, mode)
+    if parameters.shape[0] != want:
+        raise MXNetError(
+            f"rnn: the parameter vector has {parameters.shape[0]} values, "
+            f"the {mode} stack of {num_layers} layer(s), input {input_size} "
+            f"and state {H} takes {want}")
+    shapes = []
+    for layer in range(num_layers):
+        in_sz = input_size if layer == 0 else H * D
+        shapes += [(g * H, in_sz), (g * H, H)] * D
+    shapes += [(g * H,)] * (2 * num_layers * D)
+    parts = [p.view(s) for p, s in zip(
+        parameters.split([math.prod(s) for s in shapes]), shapes)]
+    n = num_layers * D
+    return [(parts[2 * i], parts[2 * i + 1], parts[2 * n + 2 * i],
+             parts[2 * n + 2 * i + 1]) for i in range(n)]
+
+
+def _cell_step(mode, x, h, c, wi, wh, bi, bh, clip):
+    """One time step of one layer and direction, the JAX op's arithmetic
+    (``ops_nn.py:570-595``)."""
+    if mode == "lstm":
+        gates = x @ wi.t() + bi + h @ wh.t() + bh
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        if clip is not None:
+            c = c.clamp(*clip)
+        return torch.sigmoid(o) * torch.tanh(c), c
+    if mode == "gru":
+        xr, xz, xn = (x @ wi.t() + bi).chunk(3, dim=-1)
+        hr, hz, hn = (h @ wh.t() + bh).chunk(3, dim=-1)
+        r, z = torch.sigmoid(xr + hr), torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        return (1 - z) * n + z * h, c
+    pre = x @ wi.t() + bi + h @ wh.t() + bh
+    return (torch.tanh(pre) if mode == "rnn_tanh" else torch.relu(pre)), c
+
+
+def _rnn_layer_plain(mode, x, h0, c0, weights, clip):
+    """One layer, every direction, one time step at a time: the output
+    (T, B, D*H) and the final (h, c) per direction."""
+    outs, hs, cs = [], [], []
+    for d, (wi, wh, bi, bh) in enumerate(weights):
+        h, c = h0[d], c0[d]
+        steps = range(x.shape[0]) if d == 0 else range(x.shape[0] - 1, -1, -1)
+        ys = [None] * x.shape[0]
+        for t in steps:
+            h, c = _cell_step(mode, x[t], h, c, wi, wh, bi, bh, clip)
+            ys[t] = h
+        outs.append(torch.stack(ys))
+        hs.append(h)
+        cs.append(c)
+    return torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0], hs, cs
+
+
+def _rnn_layer_vf(mode, x, h0, c0, weights, bidirectional):
+    """Layers through torch's fused RNN (cuDNN on the card, torch's own
+    loop on the CPU), in float32 without TF32 (``cudnn_fp32``):
+    ``weights`` for every layer in the call, their count the layers."""
+    flat = [t for w in weights for t in w]
+    nlayers = len(weights) // (2 if bidirectional else 1)
+    fn = getattr(torch._VF, _VF_RNN[mode])
+    # cuDNN keeps the reserve its backward reads only in training mode;
+    # the op's dropout is its own, so the mode asks for nothing else
+    train = torch.is_grad_enabled()
+    with cudnn_fp32():
+        if mode == "lstm":
+            out, hn, cn = fn(x, (h0, c0), flat, True, nlayers, 0.0, train,
+                             bidirectional, False)
+            return out, hn, cn
+        out, hn = fn(x, h0, flat, True, nlayers, 0.0, train, bidirectional,
+                     False)
+    return out, hn, c0
+
+
+def _rnn_dropout(x, p):
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, device=x.device,
+                      generator=_random.generator(x.device)) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+def rnn_plain(data, parameters, state, state_cell=None, state_size=0,
+              num_layers=1, mode="lstm", bidirectional=False, p=0.0,
+              state_outputs=True, lstm_state_clip_min=None,
+              lstm_state_clip_max=None):
+    """The plain version of :func:`rnn`: the JAX op's step arithmetic,
+    one time step at a time in torch (``_cell_step``), dropout between
+    layers as :func:`rnn` draws it."""
+    return _rnn(data, parameters, state, state_cell, state_size, num_layers,
+                mode, bidirectional, p, state_outputs, lstm_state_clip_min,
+                lstm_state_clip_max, plain=True)
+
+
+def _rnn(data, parameters, state, state_cell, H, num_layers, mode,
+         bidirectional, p, state_outputs, clip_min, clip_max, plain):
+    T, B, input_size = data.shape
+    D = 2 if bidirectional else 1
+    c0 = state_cell if state_cell is not None else torch.zeros_like(state)
+    if data.is_meta:
+        outs = [torch.empty((T, B, D * H), dtype=data.dtype, device="meta")]
+    else:
+        ws = rnn_param_views(parameters, mode, num_layers, input_size, H,
+                             bidirectional)
+        clip = None if clip_min is None else (clip_min, clip_max)
+        # the JAX op clips c at every step, which torch's fused RNN
+        # cannot: a clipped LSTM runs the plain step loop
+        plain = plain or clip is not None
+        drop = p > 0 and autograd.is_training() and num_layers > 1
+        x, hs, cs = data, [], []
+        # one call for the whole stack unless dropout sits between layers
+        per_call = 1 if drop or plain else num_layers
+        for l0 in range(0, num_layers, per_call):
+            rows = slice(l0 * D, (l0 + per_call) * D)
+            layer_ws = ws[rows]
+            if plain:
+                x, h, c = _rnn_layer_plain(mode, x, state[rows], c0[rows],
+                                           layer_ws, clip)
+            else:
+                x, hn, cn = _rnn_layer_vf(mode, x, state[rows], c0[rows],
+                                          layer_ws, bidirectional)
+                h, c = list(hn.unbind(0)), list(cn.unbind(0))
+            hs += h
+            cs += c
+            if drop and l0 + per_call < num_layers:
+                x = _rnn_dropout(x, p)
+        outs = [x]
+    if not state_outputs:
+        return outs[0]
+    if data.is_meta:
+        st = torch.empty((num_layers * D, B, H), dtype=data.dtype,
+                         device="meta")
+        return tuple(outs + [st] + ([st] if mode == "lstm" else []))
+    outs.append(torch.stack(hs))
+    if mode == "lstm":
+        outs.append(torch.stack(cs))
+    return tuple(outs)
+
+
+@register()
+def rnn(data, parameters, state, state_cell=None, state_size=0, num_layers=1,
+        mode="lstm", bidirectional=False, p=0.0, state_outputs=True,
+        projection_size=None, sequence_length=None, use_sequence_length=False,
+        lstm_state_clip_min=None, lstm_state_clip_max=None,
+        lstm_state_clip_nan=False):
+    """Fused multi-layer RNN, LSTM or GRU (reference:
+    src/operator/rnn-inl.h; the JAX op is a ``lax.scan`` per layer and
+    direction, ``ops_nn.py:533-630``). ``data`` (T, B, I), ``state`` and
+    ``state_cell`` (L*D, B, H); ``parameters`` the packed vector
+    (:func:`rnn_param_views`). Runs ``torch._VF.lstm``/``gru``/
+    ``rnn_tanh``/``rnn_relu`` over views of that vector — cuDNN on the
+    card, in float32 without TF32, and torch's own loop on the CPU — so
+    gradients flow back into the vector. cuDNN takes its weights in one
+    buffer of its own layout, so torch repacks the views at every call.
+    Dropout ``p`` between layers, in training only, draws from
+    ``mx.random``'s device generator as the JAX op does, not from
+    cuDNN's dropout state: the stack then runs one layer per call.
+    ``lstm_state_clip_min``/``_max`` clip the cell state at every step,
+    which torch's fused RNN cannot: such an LSTM runs the plain step
+    loop (:func:`rnn_plain`). ``projection_size``, ``sequence_length``,
+    ``use_sequence_length`` and ``lstm_state_clip_nan`` are accepted and
+    ignored, as the JAX op ignores them. Returns the output, then (with
+    ``state_outputs``) the final h, and c for an LSTM."""
+    return _rnn(data, parameters, state, state_cell, state_size, num_layers,
+                mode, bidirectional, p, state_outputs, lstm_state_clip_min,
+                lstm_state_clip_max, plain=False)

@@ -21,6 +21,8 @@ call whether the seam raises. The seams:
                           raises: there is no eager fallback)
 ``cached_op_capture``     a hybridized block's CUDA-graph capture of one
                           signature (raises; no eager fallback)
+``executor_capture``      a bound executor's CUDA-graph capture of its
+                          forward and backward (raises; no eager fallback)
 ``device_put``            ``DeviceFeed``'s staging of one batch leaf on
                           its worker thread (re-raised at ``next()``)
 ========================  ==============================================
@@ -64,6 +66,8 @@ FAULT_POINTS = {
                           "step (raises; no eager fallback)",
     "cached_op_capture": "a hybridized block's CUDA-graph capture of one "
                          "signature (raises; no eager fallback)",
+    "executor_capture": "a bound executor's CUDA-graph capture of its "
+                        "forward and backward (raises; no eager fallback)",
     "device_put": "DeviceFeed's staging of a batch leaf (re-raised in the "
                   "consumer)",
 }

@@ -11,8 +11,12 @@ tensors fed in, on whatever device they live. ``tojson``/``load_json``
 read and write the reference's nnvm JSON, and a graph either package
 wrote loads in the other.
 
-Not ported yet: ``bind``/``simple_bind`` and the executor, ``mod``,
-``AttrScope``, and the ``linalg``/``image``/``contrib`` sub-namespaces.
+``simple_bind``/``bind`` (``mxnet_tpu/symbol/__init__.py:223-280``)
+make an :class:`~mxnet_tpu_torch.executor.Executor`, which the Module
+API trains through.
+
+Not ported yet: ``AttrScope``, and the ``linalg``/``image``/``contrib``
+sub-namespaces.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import json
 import sys as _sys
 
 import numpy as onp
+import torch
 
 from .. import kernels as _kernels  # noqa: F401 — registers the fused ops
 from .. import name as _name_mod
@@ -58,6 +63,15 @@ class Symbol:
     def name(self):
         return self._name
 
+    def attr(self, key):
+        return self._attrs.get(key)
+
+    def _set_attr(self, **kwargs):
+        self._attrs.update({k: str(v) for k, v in kwargs.items()})
+
+    def list_attr(self):
+        return dict(self._attrs)
+
     def __repr__(self):
         return f"<Symbol {self._name or self._op}>"
 
@@ -92,6 +106,21 @@ class Symbol:
         return [s._name for s in self._walk()
                 if s._op is None and s._group is None
                 and "__aux__" in s._attrs]
+
+    def list_outputs(self):
+        """``<name>_output`` per output (``_output<i>`` for a node with
+        several), a group's in order."""
+        if self._group:
+            return [n for g in self._group for n in g.list_outputs()]
+        base = self._name or self._op
+        if self._num_outputs == 1:
+            return [f"{base}_output"]
+        return [f"{base}_output{i}" for i in range(self._num_outputs)]
+
+    def get_internals(self):
+        """Every op node of the graph as one group."""
+        return Group([s for s in self._walk() if s._op is not None]
+                     or [self])
 
     def __getitem__(self, index):
         if self._group:
@@ -145,11 +174,14 @@ class Symbol:
         opdef = _registry.get_op(self._op)
         if opdef is None:
             raise MXNetError(f"op '{self._op}' is not registered")
-        out = _registry.invoke(opdef, tuple(args), dict(self._kwargs))
         if not args and cache.get(_DEVICE) is not None:
-            # a literal node (sym.zeros, a folded constant) is made on
-            # the host: place it beside the fed arrays
-            out = NDArray(out.data.to(cache[_DEVICE]))
+            # a literal node (sym.zeros, a folded constant) is made where
+            # the fed arrays live, not copied there (no host copy, so it
+            # can sit inside a captured CUDA graph)
+            with torch.device(cache[_DEVICE]):
+                out = _registry.invoke(opdef, (), dict(self._kwargs))
+        else:
+            out = _registry.invoke(opdef, tuple(args), dict(self._kwargs))
         cache[key] = out
         pending = cache.get(_PENDING)
         if pending is not None:
@@ -199,6 +231,12 @@ class Symbol:
             return out[self._output_index]
         return out
 
+    def eval(self, ctx=None, **kwargs):
+        """The outputs, as a list, for the NDArrays ``kwargs`` (reference:
+        symbol.py eval)."""
+        out = self.eval_with(kwargs)
+        return list(out) if isinstance(out, (list, tuple)) else [out]
+
     # -- shape and type inference ----------------------------------------
 
     def infer_shape(self, **kwargs):
@@ -212,6 +250,108 @@ class Symbol:
         return ([var_shapes.get(a) for a in self.list_arguments()],
                 out_shapes,
                 [var_shapes.get(a) for a in self.list_auxiliary_states()])
+
+    def infer_shape_partial(self, **kwargs):
+        """:meth:`infer_shape` leaving unknown shapes as None."""
+        from .infer import infer_shapes
+
+        var_shapes, out_shapes = infer_shapes(
+            self, {k: tuple(v) for k, v in kwargs.items()},
+            allow_unknown=True)
+        return ([var_shapes.get(a) for a in self.list_arguments()],
+                out_shapes,
+                [var_shapes.get(a) for a in self.list_auxiliary_states()])
+
+    def infer_type(self, **kwargs):
+        """``(argument dtypes, output dtypes, aux dtypes)``; unknown
+        arguments take float32, as the reference's bind does."""
+        from .infer import infer_types
+
+        f32 = onp.dtype(onp.float32)
+        var_types, out_types = infer_types(
+            self, {k: onp.dtype(v) for k, v in kwargs.items()})
+        return ([var_types.get(a, f32) for a in self.list_arguments()],
+                out_types,
+                [var_types.get(a, f32)
+                 for a in self.list_auxiliary_states()])
+
+    # -- binding ---------------------------------------------------------
+
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
+                    **kwargs):
+        """An :class:`~mxnet_tpu_torch.executor.Executor` with arrays
+        allocated from the shapes ``kwargs`` give (reference:
+        MXExecutorSimpleBindEx): arguments and gradients zero, aux states
+        at their defaults (variances one, the rest zero), all on ``ctx``
+        (default: the current context, the card)."""
+        from ..context import current_context
+        from ..executor import Executor, one_context
+        from ..ndarray import zeros
+
+        ctx = one_context(ctx)
+        ctx = current_context() if ctx is None else ctx
+        arg_shapes, out_shapes, aux_shapes = self.infer_shape(**kwargs)
+        args = self.list_arguments()
+        aux = self.list_auxiliary_states()
+        missing = [a for a, sh in zip(args, arg_shapes) if sh is None] + \
+            [a for a, sh in zip(aux, aux_shapes) if sh is None]
+        if missing:
+            raise MXNetError(f"simple_bind could not infer shapes for "
+                             f"{missing}")
+        types = dict(type_dict or {})
+        arg_arrays = [zeros(sh, ctx=ctx, dtype=types.get(n, "float32"))
+                      for n, sh in zip(args, arg_shapes)]
+        reqs = _grad_reqs(grad_req, args)
+        grad_arrays = [None if r == "null" else zeros(
+            sh, ctx=ctx, dtype=types.get(n, "float32"))
+            for n, sh, r in zip(args, arg_shapes, reqs)]
+        aux_arrays = [_default_aux_array(n, sh, ctx)
+                      for n, sh in zip(aux, aux_shapes)]
+        return Executor(self, args, arg_arrays, grad_arrays, reqs, ctx,
+                        aux_names=aux, aux_arrays=aux_arrays,
+                        output_shapes=out_shapes)
+
+    def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
+             aux_states=None, **kwargs):
+        """An Executor over the caller's arrays (reference: executor.h
+        Bind): ``args``, ``args_grad`` and ``aux_states`` as lists in
+        :meth:`list_arguments` order or dicts by name. The executor
+        writes into those very arrays."""
+        from ..context import current_context
+        from ..executor import Executor
+
+        names = self.list_arguments()
+        arg_arrays = [args[n] for n in names] if isinstance(args, dict) \
+            else list(args)
+        if args_grad is None:
+            grad_arrays = [None] * len(names)
+        elif isinstance(args_grad, dict):
+            grad_arrays = [args_grad.get(n) for n in names]
+        else:
+            grad_arrays = list(args_grad)
+        reqs = [r if g is not None else "null" for r, g in
+                zip(_grad_reqs(grad_req, names), grad_arrays)]
+        aux = self.list_auxiliary_states()
+        if ctx is None:
+            ctx = arg_arrays[0].context if arg_arrays else current_context()
+        if isinstance(aux_states, dict):
+            aux_arrays = [aux_states[n] for n in aux]
+        elif aux_states is not None:
+            aux_arrays = list(aux_states)
+        elif aux:
+            _, _, aux_shapes = self.infer_shape(
+                **{n: a.shape for n, a in zip(names, arg_arrays)})
+            missing = [n for n, sh in zip(aux, aux_shapes) if sh is None]
+            if missing:
+                raise MXNetError(
+                    f"bind could not infer aux-state shapes for {missing}; "
+                    "pass aux_states explicitly")
+            aux_arrays = [_default_aux_array(n, sh, ctx)
+                          for n, sh in zip(aux, aux_shapes)]
+        else:
+            aux_arrays = []
+        return Executor(self, names, arg_arrays, grad_arrays, reqs, ctx,
+                        aux_names=aux, aux_arrays=aux_arrays)
 
     # -- serialization ---------------------------------------------------
 
@@ -319,15 +459,50 @@ def Group(symbols):
     return Symbol(group=list(symbols), name="group")
 
 
+def _grad_reqs(grad_req, names):
+    """``grad_req`` (a string, a list in argument order or a dict by
+    name, missing names "null") as one string per argument."""
+    if isinstance(grad_req, str):
+        reqs = [grad_req] * len(names)
+    elif isinstance(grad_req, dict):
+        reqs = [grad_req.get(n, "null") for n in names]
+    else:
+        reqs = list(grad_req)
+    for r in reqs:
+        if r not in ("write", "add", "null"):
+            raise MXNetError(f"grad_req must be 'write', 'add' or 'null', "
+                             f"got {r!r}")
+    return reqs
+
+
+def _default_aux_array(name, shape, ctx):
+    """An aux state's bind-time value: a variance starts at one, anything
+    else at zero (the reference's BatchNorm aux initialization)."""
+    from ..ndarray import ones, zeros
+
+    return (ones if name.endswith("var") else zeros)(shape, ctx=ctx)
+
+
 def _num_outputs_for(opname, kwargs):
     """Static output count of a node: the norms with
     ``output_mean_var`` also return the mean and the variance;
     ``amp_multicast`` returns one output per input (its
-    ``num_outputs``)."""
+    ``num_outputs``), the splits one per part, ``rnn`` with
+    ``state_outputs`` its final states too."""
     if opname in ("batch_norm", "layer_norm"):
         return 3 if kwargs.get("output_mean_var") else 1
     if opname == "amp_multicast":
         return int(kwargs.get("num_outputs") or 1)
+    if opname in ("split", "split_v2", "slice_channel"):
+        n = kwargs.get("num_outputs")
+        if n is None and opname == "split_v2":
+            ios = kwargs.get("indices_or_sections")
+            n = ios if isinstance(ios, int) else len(ios) + 1
+        return int(n or 1)
+    if opname == "rnn":
+        if kwargs.get("state_outputs", True):
+            return 3 if kwargs.get("mode", "lstm") == "lstm" else 2
+        return 1
     return 1
 
 

@@ -73,6 +73,24 @@ def _param_shape_rules(op, kw, in_shapes, arg_names):
         out[named("weight")] = (kw.get("input_dim"), kw.get("output_dim"))
     elif op == "leaky_relu" and kw.get("act_type") == "prelu":
         out[named("gamma")] = (data[1] if len(data) > 1 else 1,)
+    elif op == "rnn":
+        from ..ndarray.ops_nn import rnn_param_size
+
+        H, L = kw.get("state_size"), kw.get("num_layers", 1)
+        bi = kw.get("bidirectional", False)
+        out[named("parameters")] = (rnn_param_size(
+            L, data[-1], H, bi, kw.get("mode", "lstm")),)
+        st = (L * (2 if bi else 1), data[1], H)
+        out[named("state")] = st
+        out[named("state_cell")] = st
+    elif op == "softmax_output":
+        # the label is the data without its class axis (reference
+        # softmax_output.cc FInferShape); axis 1 with multi_output
+        out[named("label")] = (data[0],) + tuple(data[2:]) \
+            if kw.get("multi_output") else tuple(data[:-1])
+    elif op in ("linear_regression_output", "mae_regression_output",
+                "logistic_regression_output"):
+        out[named("label")] = tuple(data)
     return {k: v for k, v in out.items() if k is not None}
 
 

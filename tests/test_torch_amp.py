@@ -76,6 +76,21 @@ _CASES = {
     "broadcast_power": (lambda rs: [_u(rs, 2, 3), _u(rs, 1, 3)], {}),
     "add_n": (lambda rs: [_u(rs, 2, 3), _u(rs, 2, 3), _u(rs, 2, 3)], {}),
 }
+# the slice of symbolic training: the fused RNN (a target op), the loss
+# heads (fp32 ops) and the joins (widest-type ops)
+_CASES["rnn"] = (lambda rs: [_u(rs, 3, 2, 4), _u(rs, 4 * 5 * (4 + 5 + 2)),
+                             _u(rs, 1, 2, 5), _u(rs, 1, 2, 5)],
+                 {"state_size": 5, "mode": "lstm"})
+for _op in ("softmax_output", "linear_regression_output",
+            "mae_regression_output", "logistic_regression_output"):
+    _CASES[_op] = (lambda rs: [_u(rs, 2, 3), _u(rs, 2, 3)], {}) \
+        if _op != "softmax_output" else \
+        (lambda rs: [_u(rs, 2, 3), onp.array([0.0, 2.0], "float32")], {})
+_CASES["make_loss"] = (lambda rs: [_u(rs, 2, 3)], {})
+_CASES["concat"] = (lambda rs: [_u(rs, 2, 3), _u(rs, 2, 3)], {"dim": 0})
+_CASES["stack"] = (lambda rs: [_u(rs, 2, 3), _u(rs, 2, 3)], {"axis": 1})
+_CASES["where"] = (lambda rs: [_u(rs, 2, 3), _u(rs, 2, 3), _u(rs, 2, 3)],
+                   {})
 for _op in ("exp", "expm1", "log", "log10", "log1p", "log2", "erf",
             "erfinv", "gamma", "gammaln", "rsqrt", "rcbrt", "square",
             "reciprocal"):

@@ -1527,3 +1527,158 @@ def test_device_feed_overlaps_and_never_hands_out_reused_memory(cuda):
     torch.cuda.synchronize()
     assert [float(b.data[0]) for b in got] == [0, 1, 2, 3, 4, 5]
     assert all(bool((b.data == b.data[0]).all()) for b in got)
+
+
+# -- symbolic training: the executor, Module and the fused RNN ---------------
+
+
+def test_rnn_cudnn_is_float32_accurate_in_the_ports_scope(cuda):
+    """cuDNN's LSTM against the op's plain version (the JAX step
+    arithmetic) on the card, forward and the backward in the scope the
+    port's backward runs in (``autograd._torch_grad``): float32, not
+    TF32 (2e-5 of the largest value; TF32 misses it by 10x)."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.ndarray import ops_nn
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    T, N, E, H, L = 12, 8, 256, 256, 2
+    size = ops_nn.rnn_param_size(L, E, H, False, "lstm")
+    base = [torch.randn(T, N, E, device=cuda, generator=gen),
+            (torch.rand(size, device=cuda, generator=gen) - 0.5) * 0.2,
+            torch.randn(L, N, H, device=cuda, generator=gen) * 0.5,
+            torch.randn(L, N, H, device=cuda, generator=gen) * 0.5]
+    cot = [torch.randn(T, N, H, device=cuda, generator=gen),
+           torch.randn(L, N, H, device=cuda, generator=gen),
+           torch.randn(L, N, H, device=cuda, generator=gen)]
+    res = []
+    for fn in (ops_nn.rnn, ops_nn.rnn_plain):
+        ins = [t.clone().requires_grad_(True) for t in base]
+        outs = fn(*ins, state_size=H, num_layers=L, mode="lstm")
+        grads = autograd._torch_grad(list(outs), ins, cot,
+                                     retain_graph=False)
+        res.append([o.detach() for o in outs] + list(grads))
+    for a, b in zip(*res):
+        err = float((a - b).abs().max() / b.abs().max())
+        assert err < 2e-5, err
+
+
+def _tiny_word_lm(det=True):
+    from mxnet_tpu_torch.tools import profile_module as pm
+
+    cfg = dict(vocab=200, embed=64, hidden=64, layers=2,
+               dropout=0.0 if det else 0.5, bptt=12, batch=4)
+    toks = pm.markov_tokens(cfg["bptt"] * cfg["batch"] * 5 + 1,
+                            cfg["vocab"], 3)
+    return pm, cfg, pm.bptt_batches(toks, cfg["bptt"], cfg["batch"])
+
+
+def test_executor_captured_equals_eager_bitwise(cuda):
+    pm, cfg, batches = _tiny_word_lm()
+    ctx = mx.gpu(0)
+    w0 = None
+    runs = []
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True):
+        for graphs in (False, True):
+            with pm.bind_mode(mx, graphs):
+                mod = pm.word_lm_module(mx, cfg, ctx, arg_params=w0)
+            if w0 is None:
+                w0 = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+            eager0 = mx.executor.executor_stats()["eager_forwards"]
+            outs, states = [], None
+            for b in batches:
+                _, states = pm.word_lm_train(mx, mod, [b], cfg, ctx,
+                                             states=states)
+                outs.append(mod.get_outputs()[0].asnumpy())
+            eager = mx.executor.executor_stats()["eager_forwards"] - eager0
+            runs.append((outs, {k: v.asnumpy() for k, v in
+                                mod.get_params()[0].items()}, mod, eager))
+    (eo, ew, emod, e_eager), (co, cw, cmod, c_eager) = runs
+    # the eager module never captured, the captured one never ran eagerly
+    assert emod._exec.graph_info() == [] and e_eager == len(batches)
+    (info,) = cmod._exec.graph_info()
+    assert info["is_train"] and info["replays"] == len(batches) == \
+        info["backward_replays"] and c_eager == 0
+    for a, b in zip(eo, co):
+        assert onp.array_equal(a, b)
+    for k in ew:
+        assert onp.array_equal(ew[k], cw[k]), k
+
+
+def test_executor_dropout_replays_draw_fresh_masks(cuda):
+    pm, cfg, batches = _tiny_word_lm(det=False)
+    ctx = mx.gpu(0)
+    mod = pm.word_lm_module(mx, cfg, ctx)
+    x, y = batches[0]
+    outs = []
+    for _ in range(3):
+        h = mx.nd.zeros((2, 4, 64), ctx=ctx)
+        batch = mx.io.DataBatch([mx.nd.array(x, ctx=mx.cpu()), h, h],
+                                [mx.nd.array(y, ctx=mx.cpu())])
+        mod.forward(batch, is_train=True)
+        outs.append(mod.get_outputs()[0].asnumpy())
+    assert not onp.array_equal(outs[0], outs[1])
+    assert not onp.array_equal(outs[1], outs[2])
+    assert mod._exec.graph_info()[0]["replays"] == 3
+
+
+def test_executor_capture_failure_raises(cuda):
+    from mxnet_tpu_torch.resilience import faults
+
+    sym = mx.sym.make_loss(mx.sym.sum(mx.sym.FullyConnected(
+        mx.sym.Variable("data"), num_hidden=3, name="fc")), name="l")
+    ex = sym.simple_bind(ctx=mx.gpu(0), data=(2, 4))
+    with faults.inject("executor_capture", every=1):
+        with pytest.raises(mx.MXNetError, match="capturing the bound graph"):
+            ex.forward(is_train=True)
+    ex.forward(is_train=True)
+    ex.backward()
+    assert float(ex.grad_dict["fc_bias"].asnumpy().sum()) == 6.0
+
+
+def test_training_bind_never_launches_k3_on_a_graph_with_gradients(cuda,
+                                                                   monkeypatch):
+    sym = mx.sym
+    x = sym.Variable("data")
+    y = sym.LeakyReLU(sym.LayerNorm(x, sym.Variable("g"), sym.Variable("b"),
+                                    name="ln"), act_type="gelu", name="act")
+    out = sym.make_loss(sym.sum(sym.square(y)), name="loss")
+    rs = onp.random.RandomState(0)
+    feed = {"g": (1 + 0.1 * rs.randn(256)).astype("f"),
+            "b": (0.1 * rs.randn(256)).astype("f")}
+    data = mx.nd.array(rs.randn(64, 256).astype("f"), ctx=mx.gpu(0))
+    grads, counts = {}, {}
+    for level in ("0", "2"):
+        monkeypatch.setenv("MXNET_GRAPH_OPT", level)
+        ex = out.simple_bind(ctx=mx.gpu(0), data=(64, 256), g=(256,),
+                             b=(256,))
+        ex.copy_params_from({k: mx.nd.array(v, ctx=mx.gpu(0))
+                             for k, v in feed.items()})
+        _build.reset_launch_counts()
+        ex.forward(is_train=True, data=data)
+        ex.backward()
+        counts[level] = _build.launch_counts().get(NORM_ACT_KERNEL, 0)
+        grads[level] = {k: v.asnumpy() for k, v in ex.grad_dict.items()}
+        ex.forward(is_train=False)
+        counts[level + "_infer"] = \
+            _build.launch_counts().get(NORM_ACT_KERNEL, 0)
+    assert counts["2"] == 0 and counts["2_infer"] >= 1
+    for k in grads["0"]:
+        scale = onp.abs(grads["0"][k]).max()
+        assert onp.abs(grads["2"][k] - grads["0"][k]).max() <= 1e-5 * scale
+
+
+def test_gluon_lstm_hybridized_trains_through_graphs(cuda):
+    pm, cfg, batches = _tiny_word_lm(det=False)
+    ctx = mx.gpu(0)
+    net = pm.gluon_word_lm(mx)(**cfg)
+    net.initialize(mx.init.Uniform(0.1), ctx=ctx)
+    net.hybridize()
+    mx.gluon.reset_cached_op_stats()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               dict(pm.WORD_LM_OPT))
+    losses, _ = pm.gluon_word_lm_train(mx, net, trainer, batches, cfg, ctx)
+    stats = mx.gluon.cached_op_stats()
+    assert stats["captures"] == 1 and stats["replays"] == len(batches)
+    assert stats["backward_replays"] == len(batches)
+    assert onp.isfinite(float(losses[-1].asscalar()))
