@@ -40,7 +40,11 @@ kernels against the plain PyTorch versions:
   forward and backward are captured CUDA graphs, under ``Module.fit``
   (the MNIST MLP), the LSTM word-LM through ``Module`` and the fused
   ``sym.RNN`` (cuDNN), ``BucketingModule`` over ``rnn.LSTMCell.unroll``,
-  and the same word-LM as a hybridized ``gluon.rnn.LSTM``.
+  and the same word-LM as a hybridized ``gluon.rnn.LSTM``;
+- the NDArray and op surface: ResNet-50 trained through a hand-written
+  SGD loop on the in-place operators (no ``Trainer``), and every op of
+  the surface on the card against the CPU port, in one CUDA graph, with
+  the random ops drawing under a registered generator.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100:
 
@@ -125,7 +129,8 @@ stream busy until the launch is enqueued, so it is the device's time:
     (128, 1000), (128, 1001) and (64, 4097); a compile error raises with
     NVRTC's log, a dtype mismatch and a CPU context raise;
 15. K4 times: the softmax forward (against ``torch.softmax``, a
-    yardstick only) and backward at (128, 1000) and ``double`` at 2^26
+    yardstick only) and backward (against
+    ``torch._softmax_backward_data``) at (128, 1000) and ``double`` at 2^26
     (against ``x * 2``), L2 flushed before each launch, beside the bound
     (bytes at 3.35 TB/s); the host microseconds per ``launch`` call;
 16. ResNet-50 training: ``resnet50_v1`` (25.6 M parameters), batch 128
@@ -263,7 +268,29 @@ stream busy until the launch is enqueued, so it is the device's time:
     the card: the gradients within 1e-4, K3 not launched in the
     training step (``replay_needs_grad``), launched in an inference
     forward, K1 launched under its ``autograd.Function``;
-37. report: one JSON line of kernels, then the device line last.
+37. ResNet-50 through a hand-written SGD loop: ``resnet50_v1`` at
+    phase 16's configuration, the batch drawn on the card by
+    ``nd.random.uniform`` and the labels by ``nd.random.randint``, the
+    loss ``-nd.pick(nd.log_softmax(out), y).mean()``, per parameter
+    ``m *= 0.9; m -= lr * (g + wd * w); w += m`` on ``p.data()``; one
+    hand update against the Trainer's fused sgd step from the same
+    weights and gradients within 1e-6 of each parameter's largest value;
+    after a hand update the hybridized net's captured forward bitwise
+    equal to its eager forward and different from before; 20 logged
+    steps (loss, top-1 from ``argmax``, top-5 from ``nd.topk``, the
+    global gradient norm from ``nd.norm`` read with ``float()``), the
+    loss at step 40 below the first; the hand loop's step ms beside the
+    Trainer loop's on the same loss;
+38. the op sweep (``tools/op_sweep.py``): every case of the surface's
+    ops on the card against the CPU port, forward and backward (exact
+    outputs bitwise, the rest within rtol 1e-5 and atol 1e-6, CTC rtol
+    1e-4); every deterministic case but ``boolean_mask`` (a
+    data-dependent shape) captured in one CUDA graph, whose replay
+    equals the eager calls bitwise; the random ops captured with the
+    device's generator registered, drawing anew per replay and repeating
+    after ``mx.random.seed``; the JAX opperf suite's times
+    (``benchmark/opperf.py``);
+39. report: one JSON line of kernels, then the device line last.
 
 Each phase prints the seconds it took.
 
@@ -303,6 +330,8 @@ from mxnet_tpu_torch.kernels.norm_act import (  # noqa: E402
 from mxnet_tpu_torch.models import DecoderBlockLM, TransformerLM  # noqa: E402
 from mxnet_tpu_torch.tools.profile_predict import (  # noqa: E402
     SAMPLE_RATE, WAV2VEC2_LARGE_LV60, export_wav2vec2, frames)
+from mxnet_tpu_torch.benchmark import opperf  # noqa: E402
+from mxnet_tpu_torch.tools import op_sweep  # noqa: E402
 from mxnet_tpu_torch.tools import profile_module as pm  # noqa: E402
 from mxnet_tpu_torch.tools import profile_resnet as pr  # noqa: E402
 from mxnet_tpu_torch.tools.profile_decode import (  # noqa: E402
@@ -1377,9 +1406,20 @@ def k4_times_phase(gen, double):
            "plain_ms": t(lambda: pr.softmax_fwd_plain(x)),
            "library_ms": t(lambda: torch.softmax(x, -1)),
            "bound_ms": k4_bound(2 * B * C * 4), "bound_by": "bytes"}
+    # the library call: softmax's backward, torch._softmax_backward_data,
+    # which gives p * (g - sum(g * p)) = p - onehot(label) for the head
+    # gradient g = 1 - onehot / p (made outside the timing)
+    onehot = (torch.arange(C, device="cuda")
+              == label.to(torch.int64)[:, None]).float()
+    g_head = 1.0 - onehot / p
+    lib = torch._softmax_backward_data(g_head, p, -1, torch.float32)
+    lib_dev = float((lib - pr.softmax_bwd_plain(label, p)).abs().max())
     bwd = {"B": B, "C": C, "ms": t(lambda: pr.softmax_bwd(label, p, dx)),
            "plain_ms": t(lambda: pr.softmax_bwd_plain(label, p)),
-           "library_ms": None,
+           "library_ms": t(lambda: torch._softmax_backward_data(
+               g_head, p, -1, torch.float32)),
+           "library_call": "torch._softmax_backward_data",
+           "library_max_abs_dev": lib_dev,
            "bound_ms": k4_bound(2 * B * C * 4 + B * 4), "bound_by": "bytes"}
     xd = torch.randn(K4_N, device="cuda", generator=gen)
     yd = torch.empty_like(xd)
@@ -3266,6 +3306,190 @@ def training_bind_fusion_phase():
     return {"worst": worst, "counts": c2}
 
 
+# -- ROADMAP A1: the NDArray and op surface ------------------------------------
+
+# the hand update against the Trainer's fused SGD step from the same weights
+# and gradients: two fp32 orderings of one formula, relative to each
+# parameter's largest magnitude
+HAND_VS_TRAINER = 1e-6
+# the hand loop's logged and timed steps; the falling-loss check reads step
+# RESNET_FALL_STEPS, as phase 16's does (the loss overshoots early)
+HAND_STEPS = 20
+# the loss is the batch mean, so its gradients are scaled already: the
+# Trainer's rescale_grad, 1 / step's batch_size, is 1
+HAND_RESCALE = 1.0
+
+
+def _hand_backward(net, x, y):
+    """The tutorials' loss, -mean log softmax at the label, recorded and
+    differentiated; returns the logits and the loss."""
+    with autograd.record():
+        out = net(x)
+        loss = -nd.pick(nd.log_softmax(out), y).mean()
+    loss.backward()
+    return out, loss
+
+
+def _hand_update(params, moms):
+    """SGD with momentum as the from-scratch tutorials write it, through
+    the in-place operators on each Parameter's data (its registered
+    leaf): m *= 0.9; m -= lr * (g + wd * w); w += m."""
+    for p, m in zip(params, moms):
+        w = p.data()
+        g = p.grad() * HAND_RESCALE
+        m *= pr.MOMENTUM
+        m -= pr.LR * (g + pr.WD * w)
+        w += m
+
+
+def _hand_log(out, y, loss, params):
+    """The step's loss, top-1 and top-5 accuracy, and the global gradient
+    norm from ``nd.norm``, each read with ``float()``."""
+    top1 = float((out.argmax(axis=1) == y).mean())
+    top5 = float((nd.topk(out, k=5) == y.reshape((-1, 1))).sum(axis=1)
+                 .mean())
+    norms = [nd.norm(p.grad()) for p in params]
+    gnorm = float(nd.add_n(*[n * n for n in norms]) ** 0.5)
+    return {"loss": float(loss), "top1": top1, "top5": top5,
+            "grad_norm": gnorm}
+
+
+def _restore(params, weights, moms):
+    with torch.no_grad():
+        for p, w in zip(params, weights):
+            p.data().data.copy_(w)
+        for m in moms:
+            m.data.zero_()
+
+
+def hand_loop_phase():
+    phase("37 ResNet-50 through a hand-written SGD loop")
+    ctx = mx.gpu(0)
+    fused_step.reset_fused_step_cache()
+    gluon.reset_cached_op_stats()
+    torch.backends.cudnn.benchmark = True
+    net = pr.build_resnet50(ctx, seed=SEED)
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    mx.random.seed(SEED)
+    x = nd.random.uniform(-1, 1, shape=(RESNET_B, 3, pr.IMAGE, pr.IMAGE),
+                          ctx=ctx)
+    y = nd.random.randint(0, pr.CLASSES, shape=(RESNET_B,),
+                          ctx=ctx).astype("float32")
+    moms = [nd.zeros(p.shape, ctx=ctx) for p in params]
+    leaves = [p.data().data for p in params]
+    w0 = [t.detach().clone() for t in leaves]
+    # 1. the same update as the Trainer's fused step, from the same
+    # weights and gradients
+    _hand_backward(net, x, y)
+    _hand_update(params, moms)
+    kept = all(p.data().data is t for p, t in zip(params, leaves))
+    hand = [t.detach().clone() for t in leaves]
+    moved = sum(not torch.equal(a, b) for a, b in zip(hand, w0))
+    _restore(params, w0, moms)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": pr.LR, "momentum": pr.MOMENTUM,
+                             "wd": pr.WD})
+    trainer.step(1)
+    worst = max(float((t.detach() - h).abs().max()
+                      / h.abs().max().clamp_min(1e-30))
+                for t, h in zip(leaves, hand))
+    print(f"  hand update: every parameter kept its leaf: {kept}; "
+          f"{moved}/{len(params)} parameters moved; against the Trainer's "
+          f"fused sgd step: {worst:.3g} of each parameter's largest "
+          f"magnitude (bound {HAND_VS_TRAINER})")
+    if not kept or moved != len(params) or not worst <= HAND_VS_TRAINER:
+        raise RuntimeError("the hand-written SGD update did not reach the "
+                           "parameters, or differs from the Trainer's")
+    # 2. the in-place writes reach the captured forward: same gradients,
+    # fresh momenta, the forward captured before the update
+    _restore(params, w0, moms)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=True,
+                                    deterministic=True):
+        net.hybridize()
+        before = net(x).data.detach().clone()
+        _hand_update(params, moms)
+        captured = net(x).data.detach().clone()
+        cached = gluon.cached_op_stats()
+        net.hybridize(False)
+        eager = net(x).data.detach().clone()
+    same = torch.equal(captured, eager)
+    changed = not torch.equal(captured, before)
+    print(f"  after a hand update: captured forward bitwise equal to eager: "
+          f"{same}; differs from before the update: {changed}; cached op "
+          f"{cached}")
+    if not same or not changed or cached["captures"] != 1 or \
+            cached["replays"] != 2:
+        raise RuntimeError("the in-place update did not reach the captured "
+                           "graph")
+    # 3. training: the hand loop timed and logged, then untimed to the
+    # falling-loss step; the Trainer loop on the same loss timed beside
+    _restore(params, w0, moms)
+    logs, step_ms = [], []
+    for i in range(RESNET_FALL_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, loss = _hand_backward(net, x, y)
+        _hand_update(params, moms)
+        if i < HAND_STEPS:
+            logs.append(_hand_log(out, y, loss, params))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        elif i == RESNET_FALL_STEPS - 1:
+            logs.append(_hand_log(out, y, loss, params))
+    for i, row in enumerate(logs[:HAND_STEPS]):
+        print(f"  step {i + 1}: " + json.dumps(row))
+    print(f"  step {RESNET_FALL_STEPS}: " + json.dumps(logs[-1]))
+    losses = [r["loss"] for r in logs]
+    if not all(onp.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"the hand-written loop did not train: {losses}")
+    _restore(params, w0, moms)
+    trainer_ms = []
+    for i in range(RESNET_WARMUP + RESNET_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, loss = _hand_backward(net, x, y)
+        trainer.step(1)
+        _hand_log(out, y, loss, params)
+        torch.cuda.synchronize()
+        if i >= RESNET_WARMUP:
+            trainer_ms.append((time.perf_counter() - t0) * 1e3)
+    result = {"hand_step_ms": statistics.mean(step_ms[RESNET_WARMUP:]),
+              "hand_first_step_ms": step_ms[0],
+              "trainer_step_ms": statistics.mean(trainer_ms),
+              "hand_vs_trainer": worst,
+              "first_loss": losses[0], "last_loss": losses[-1]}
+    print("hand loop " + json.dumps(result))
+    del net, trainer
+    torch.cuda.empty_cache()
+    return result
+
+
+def op_sweep_phase():
+    phase("38 the op sweep")
+    dev = torch.device("cuda", 0)
+    rows = op_sweep.card_sweep(dev)
+    exact = sum(r["exact_outputs"] for r in rows)
+    worst = max(rows, key=lambda r: r["worst"])
+    print(f"  {len(rows)} cases on the card against the CPU port, forward "
+          f"and backward: {exact} outputs bitwise, the worst float "
+          f"deviation {worst['worst']:.3g} of its bound ({worst['case']})")
+    n_captured = op_sweep.capture_check(dev)
+    print(f"  {n_captured} cases in one CUDA graph, the replay bitwise equal "
+          f"to the eager calls; not captured (output shapes that depend on "
+          f"the data): {list(op_sweep.DATA_DEPENDENT)}")
+    n_random = op_sweep.random_capture_check(dev)
+    print(f"  {n_random} random draws in one CUDA graph under the registered "
+          "generator: each replay draws anew, and repeats after "
+          "mx.random.seed")
+    suite = opperf.run_op_suite(ctx=mx.gpu(0))
+    for r in suite:
+        print("  opperf " + json.dumps(r))
+    return {"cases": len(rows), "bitwise_outputs": exact,
+            "captured": n_captured, "random_captured": n_random,
+            "opperf": suite}
+
+
 def kernel_entry(name, source, replaces, launches, worst, row, shape, smi,
                  **extra):
     entry = {"name": name, "route": "cuda", "source": source,
@@ -3325,6 +3549,8 @@ def main():
     bucketing = bucketing_phase()
     gluon_wlm = gluon_word_lm_phase(wlm["captured"]["step_ms"])
     fusion_bind = training_bind_fusion_phase()
+    hand = hand_loop_phase()
+    sweep = op_sweep_phase()
     bind_counts = fusion_bind["counts"]
     # the counts after the inference forward hold the training step's too
     k1_bind = bind_counts["after_inference"].get(FLASH_KERNEL, 0)
@@ -3417,11 +3643,11 @@ def main():
             k4_worst, k4_bwd,
             f"B={k4_bwd['B']} C={k4_bwd['C']} fp32", smi,
             route_detail="NVRTC sm_90a, cuLaunchKernel",
-            library_calls=None,
+            library_calls="torch._softmax_backward_data",
             launches_by_path={"resnet_fp32": k4_bwd_n, **k4_amp,
                               **k4_hyb}),
     ]
-    phase("37 report")
+    phase("39 report")
     print(f"bf16 ResNet-50 headline layout: {head}")
     print("hybridized: " + json.dumps({
         "resnet50_bf16_nhwc_step_ms": [resnet_hyb[False]["mean_step_ms"],
@@ -3454,6 +3680,12 @@ def main():
         "word_lm_perplexity": wlm["perplexity"],
         "rnn_fwd_bwd_ms": wlm["rnn_fwd_bwd_ms"],
         "bucketing_batches": bucketing["batches_per_bucket"]}))
+    print("NDArray and op surface: " + json.dumps({
+        "hand_step_ms": hand["hand_step_ms"],
+        "trainer_step_ms": hand["trainer_step_ms"],
+        "hand_vs_trainer": hand["hand_vs_trainer"],
+        "sweep_cases": sweep["cases"], "captured": sweep["captured"],
+        "opperf_fwd_ms": {r["op"]: r["fwd_ms"] for r in sweep["opperf"]}}))
     print(f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -54,7 +54,9 @@ _STATE = _AutogradState()
 
 # guards: _MARKED
 _MARK_LOCK = threading.Lock()
-_MARKED = weakref.WeakSet()  # NDArrays given a gradient buffer
+# NDArrays given a gradient buffer, keyed by id: a WeakSet would compare
+# two live arrays with ``==``, which is elementwise on NDArrays
+_MARKED = weakref.WeakValueDictionary()
 
 
 def is_recording():
@@ -134,9 +136,9 @@ def mark_variables(variables, gradients, grad_reqs="write"):
         var._grad_req = req
         with _MARK_LOCK:
             if req == "null":
-                _MARKED.discard(var)
+                _MARKED.pop(id(var), None)
             else:
-                _MARKED.add(var)
+                _MARKED[id(var)] = var
 
 
 def _heads_and_seeds(heads, head_grads):
@@ -190,7 +192,7 @@ def backward(heads, head_grads=None, retain_graph=False):
 
     outs, seeds = _heads_and_seeds(heads, head_grads)
     with _MARK_LOCK:
-        marked = [a for a in _MARKED
+        marked = [a for a in list(_MARKED.values())
                   if a._grad_req != "null" and a._data.requires_grad]
     if not marked:
         return

@@ -9,13 +9,16 @@ Resolving a ``gpu`` context on a host without a CUDA device raises
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import threading
 
 import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context", "num_gpus"]
+__all__ = ["Context", "cpu", "gpu", "current_context", "num_gpus",
+           "cuda_graph"]
 
 
 class Context:
@@ -124,3 +127,20 @@ def host_to_device(t, device):
     if device.type == "cuda" and t.device.type == "cpu":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+@contextlib.contextmanager
+def cuda_graph(graph, **kwargs):
+    """``torch.cuda.graph(graph, **kwargs)`` with Python's cyclic garbage
+    collector paused for the capture (``torch.cuda.graph`` collects just
+    before it begins): a collection inside the capture can free an
+    unreachable CUDA graph of earlier work, whose teardown a capturing
+    stream does not permit, and the capture fails."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, **kwargs):
+            yield
+    finally:
+        if enabled:
+            gc.enable()

@@ -52,7 +52,7 @@ import torch
 from . import autograd
 from . import random as _random
 from .base import MXNetError
-from .context import Context, resolve_device
+from .context import Context, cuda_graph, resolve_device
 from .kernels import _build
 from .ndarray import NDArray
 from .resilience import faults as _faults
@@ -442,7 +442,7 @@ class Executor:
             leaves = self._leaves() if need_grad else [None] * \
                 len(self.arg_arrays)
             with _build.recording_launches() as frec:
-                with torch.cuda.graph(fwd, capture_error_mode="thread_local"):
+                with cuda_graph(fwd, capture_error_mode="thread_local"):
                     outs, total, _ = self._evaluate(train, leaves, need_grad)
             g.fwd, g.fwd_launches = fwd, frec
             g.out_diff = [need_grad and o.requires_grad for o in outs]
@@ -450,8 +450,8 @@ class Executor:
                 bwd = torch.cuda.CUDAGraph()
                 bwd.register_generator_state(gen)
                 with _build.recording_launches() as brec:
-                    with torch.cuda.graph(bwd, pool=fwd.pool(),
-                                          capture_error_mode="thread_local"):
+                    with cuda_graph(bwd, pool=fwd.pool(),
+                                    capture_error_mode="thread_local"):
                         self._write_grads(self._grads(
                             leaves, outs, total, None, retain_graph=True))
                 g.bwd, g.bwd_launches = bwd, brec
@@ -462,8 +462,8 @@ class Executor:
                 vjp = torch.cuda.CUDAGraph()
                 vjp.register_generator_state(gen)
                 with _build.recording_launches() as vrec:
-                    with torch.cuda.graph(vjp, pool=fwd.pool(),
-                                          capture_error_mode="thread_local"):
+                    with cuda_graph(vjp, pool=fwd.pool(),
+                                    capture_error_mode="thread_local"):
                         self._write_grads(self._grads(
                             leaves, outs, total, seeds))
                 g.vjp, g.vjp_launches = vjp, vrec

@@ -36,6 +36,7 @@ from .. import autograd
 from .. import ndarray as nd
 from .. import random as _random
 from ..base import MXNetError, getenv
+from ..context import cuda_graph
 from ..kernels import _build
 from ..ndarray import NDArray
 from ..ndarray import registry as _registry
@@ -720,8 +721,8 @@ class CachedOp:
             graph = torch.cuda.CUDAGraph()
             graph.register_generator_state(gen)
             with _build.recording_launches() as frec:
-                with torch.cuda.graph(graph,
-                                      capture_error_mode="thread_local"):
+                with cuda_graph(graph,
+                                capture_error_mode="thread_local"):
                     outs = self._run([NDArray(t) for t in static_in])
             flat, tree = _flatten_outputs(outs)
             static_out = [o.data for o in flat]
@@ -733,8 +734,8 @@ class CachedOp:
                 bwd = torch.cuda.CUDAGraph()
                 bwd.register_generator_state(gen)
                 with _build.recording_launches() as brec:
-                    with torch.cuda.graph(bwd, pool=graph.pool(),
-                                          capture_error_mode="thread_local"):
+                    with cuda_graph(bwd, pool=graph.pool(),
+                                    capture_error_mode="thread_local"):
                         grads = autograd._torch_grad(
                             [o for o, d in zip(static_out, out_diff) if d],
                             targets, gouts, retain_graph=False)

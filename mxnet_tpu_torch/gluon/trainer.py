@@ -30,6 +30,7 @@ import torch
 
 from ..base import MXNetError
 from .. import optimizer as opt
+from ..context import cuda_graph
 from ..ndarray import NDArray
 from ..ndarray import registry as _registry
 from ..resilience import faults as _faults
@@ -302,7 +303,7 @@ class Trainer:
             _faults.maybe_fail("fused_step_capture")
             graph = torch.cuda.CUDAGraph()
             with torch.no_grad(), \
-                    torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    cuda_graph(graph, capture_error_mode="thread_local"):
                 cache["fn"](*cache["args"], cache["scalars"])
         except Exception as e:
             raise MXNetError(

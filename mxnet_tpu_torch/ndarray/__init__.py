@@ -8,14 +8,21 @@ names (symbol JSON) to the registered ones, as in the JAX package.
 """
 from __future__ import annotations
 
-from . import registry
-from . import ops_basic, ops_index, ops_legacy, ops_nn, ops_optim  # noqa: F401 — register the ops
-from .ndarray import (NDArray, arange, array, concatenate, expand_dims, load,
-                      load_frombuffer, ones, save, zeros)
+import sys as _sys
+import types as _types
 
-__all__ = ["NDArray", "array", "zeros", "ones", "arange", "concatenate",
-           "expand_dims", "save", "load", "load_frombuffer", "registry",
-           "Custom"]
+from . import registry
+from . import ops_basic, ops_index, ops_legacy, ops_nn, ops_optim, ops_random  # noqa: F401 — register the ops
+from .ndarray import (NDArray, arange, array, concatenate, empty, expand_dims,
+                      from_dlpack, from_numpy, full, load, load_frombuffer,
+                      moveaxis, ones, save, to_dlpack_for_read,
+                      to_dlpack_for_write, waitall, zeros)
+
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
+           "concatenate", "expand_dims", "moveaxis", "waitall", "from_numpy",
+           "from_dlpack", "to_dlpack_for_read", "to_dlpack_for_write",
+           "stack_list", "save", "load", "load_frombuffer", "registry",
+           "random", "Custom"]
 
 # the JAX package's table (``mxnet_tpu/ndarray/__init__.py:41-85``); the
 # first alias per target is the name ``Symbol.tojson`` writes
@@ -41,6 +48,17 @@ _CAMEL_ALIASES = {
     "BilinearSampler": "bilinear_sampler", "GridGenerator": "grid_generator",
     "Correlation": "correlation", "Crop": "crop",
     "BatchNorm_v1": "batch_norm",
+    "IdentityAttachKLSparseReg": "identity_attach_kl_sparse_reg",
+    "_slice_assign": "slice_assign",
+    "_slice_assign_scalar": "slice_assign_scalar",
+    "_scatter_set_nd": "scatter_set_nd",
+    "_contrib_arange_like": "arange_like",
+    "_unravel_index": "unravel_index",
+    "_ravel_multi_index": "ravel_multi_index",
+    "_rnn_param_concat": "rnn_param_concat",
+    "_split_v2": "split_v2",
+    "_shuffle": "shuffle",
+    "_sample_multinomial": "sample_multinomial",
 }
 
 
@@ -75,3 +93,20 @@ for _name in registry.list_ops():
 for _alias, _target in _CAMEL_ALIASES.items():
     if _alias not in globals() and _target in globals():
         globals()[_alias] = globals()[_target]
+
+
+def stack_list(arrays, axis=0):
+    """:func:`stack` of a list of NDArrays."""
+    return stack(*arrays, axis=axis)  # noqa: F821 — registered above
+
+
+# ``mx.nd.random`` (reference: python/mxnet/ndarray/random.py; the JAX
+# package's ``ndarray/__init__.py:95-112``): the samplers of ``mx.random``
+from .. import random as _mxrandom  # noqa: E402
+
+random = _types.ModuleType(__name__ + ".random")
+for _name in ("uniform", "normal", "randn", "randint", "exponential",
+              "poisson", "gamma", "negative_binomial",
+              "generalized_negative_binomial", "multinomial", "shuffle"):
+    setattr(random, _name, getattr(_mxrandom, _name))
+_sys.modules[random.__name__] = random

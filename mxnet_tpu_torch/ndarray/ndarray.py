@@ -1,17 +1,28 @@
 """NDArray over a ``torch.Tensor``.
 
-The PyTorch counterpart of ``mxnet_tpu/ndarray/ndarray.py``, cut to what
-the decoder, the serving stack and the transformer's training loop
-touch: creation (``array``, ``zeros``, ``arange``, ``expand_dims``),
-``reshape``, ``transpose``, basic indexing and assignment, arithmetic,
-``sum``/``mean``, ``astype``, ``asnumpy``/``asscalar``, ``context``,
-``dtype``, ``wait_to_read``, and the autograd surface (``attach_grad``,
-``grad``, ``backward``, ``detach``). The device is always explicit: creation
-functions take ``ctx=`` and default to the current context, which is
-``gpu(0)`` unless a scope says otherwise.
+The PyTorch counterpart of ``mxnet_tpu/ndarray/ndarray.py``: creation
+(``array``, ``zeros``, ``ones``, ``full``, ``empty``, ``arange``),
+indexing and assignment (basic, advanced, negative steps), MXNet's Python
+operators (arithmetic, comparisons, ``%``, ``**``, ``@``, ``abs``, the
+scalar conversions and the in-place ``+= -= *= /=``), the fluent methods
+that dispatch to the registered ops, host and DLPack transfer, and the
+autograd surface (``attach_grad``, ``grad``, ``backward``, ``detach``).
+The device is always explicit: creation functions take ``ctx=`` and
+default to the current context, which is ``gpu(0)`` unless a scope says
+otherwise.
 
 Every method that computes runs with torch's grad mode on only inside
 ``autograd.record()``, so arithmetic outside it builds no graph.
+
+An in-place operator writes into the handle's own tensor when the
+handle owns it (not a view of another array's memory) and the result
+keeps its dtype and shape, so every holder of that tensor sees the new
+values: a ``Parameter``'s registered leaf, and a captured CUDA graph
+that reads its storage. Otherwise the handle rebinds to the result, as
+the JAX package's always does: an int32 array ``+= 0.5``, or ``y += 1``
+on a ``y`` that ``x.T`` or ``stop_gradient(x)`` made, which leaves ``x``
+as it was. A write into ``x`` is still seen by a torch view made from it
+earlier (``y = x.T; x += 1`` changes ``y``; ROADMAP C).
 """
 from __future__ import annotations
 
@@ -21,9 +32,12 @@ import torch
 from .. import autograd
 from ..base import MXNetError
 from ..context import Context, resolve_device
+from . import registry as _reg
 
-__all__ = ["NDArray", "array", "zeros", "ones", "arange", "expand_dims",
-           "torch_dtype", "save", "load", "load_frombuffer"]
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
+           "expand_dims", "moveaxis", "waitall", "from_numpy", "from_dlpack",
+           "to_dlpack_for_read", "to_dlpack_for_write", "torch_dtype",
+           "save", "load", "load_frombuffer"]
 
 _TORCH_DTYPES = {
     "float32": torch.float32, "float16": torch.float16,
@@ -108,6 +122,14 @@ class NDArray:
     def context(self):
         return Context.from_device(self._data.device)
 
+    ctx = context
+
+    @property
+    def stype(self):
+        """The storage type: dense ("default"); the sparse storage types
+        are not ported yet."""
+        return "default"
+
     def asnumpy(self):
         """A host copy (waits for the device). Always a copy, never a
         view of a CPU tensor that a later in-place op could change."""
@@ -126,6 +148,24 @@ class NDArray:
         if self.size != 1:
             raise ValueError("The current array is not a scalar")
         return self._data.item()
+
+    def item(self):
+        return self.asscalar()
+
+    def __float__(self):
+        return float(self.asscalar())
+
+    def __int__(self):
+        return int(self.asscalar())
+
+    def __bool__(self):
+        """False for an empty array, the value's truth for one element;
+        ambiguous, so a ValueError, for more."""
+        if self.size == 0:
+            return False
+        if self.size == 1:
+            return bool(self.asscalar())
+        raise ValueError("ambiguous truth value of multi-element NDArray")
 
     def as_in_context(self, ctx):
         """This array on ``ctx``: itself if it is there already, else a
@@ -146,6 +186,34 @@ class NDArray:
         """Block until the array's value is computed."""
         if self._data.is_cuda:
             torch.cuda.current_stream(self._data.device).synchronize()
+        return self
+
+    wait_to_write = wait_to_read
+
+    def asnative(self):
+        """The backing ``torch.Tensor`` (the JAX package returns its
+        ``jax.Array``)."""
+        return self._data
+
+    def as_nd_ndarray(self):
+        return self
+
+    def as_np_ndarray(self):
+        raise MXNetError("as_np_ndarray: the mx.np front end (ROADMAP A, "
+                         "slice 11) is not ported yet")
+
+    def tostype(self, stype):
+        """This array for ``stype`` "default"; the sparse storage types
+        wait for ROADMAP A's slice 11 and raise."""
+        if stype == "default":
+            return self
+        raise MXNetError(f"tostype({stype!r}): sparse storage (ROADMAP A, "
+                         "slice 11) is not ported yet")
+
+    def to_dlpack_for_read(self):
+        return to_dlpack_for_read(self)
+
+    to_dlpack_for_write = to_dlpack_for_read
 
     # -- autograd ----------------------------------------------------------
 
@@ -220,100 +288,320 @@ class NDArray:
         return NDArray(self._data.detach().clone())
 
     def __getitem__(self, key):
-        """Basic indexing: ints, slices, ``None`` and ``...`` (a view, as
-        in numpy)."""
-        items = key if isinstance(key, tuple) else (key,)
-        if not all(k is None or k is Ellipsis or isinstance(k, (int, slice))
-                   for k in items):
-            raise MXNetError(f"NDArray indexing takes ints, slices, None and "
-                             f"..., got {key!r}")
-        return self._apply(self._data.__getitem__, key)
+        """numpy indexing: ints, slices (negative steps too), ``None``,
+        ``...``, and index arrays (NDArrays, lists, numpy arrays; float
+        ones are taken as integers). Basic keys give a view, as in
+        numpy; a key with an index array or a negative step gives a
+        copy."""
+        return _invoke1("_slice_take", self,
+                        key=_index_key(key, self._data.device))
 
     def __setitem__(self, key, value):
         """Write ``value`` (an NDArray, tensor, number or array-like) into
-        the region basic indexing selects, in place and outside any
-        recorded graph, as ``CustomOp.assign`` does (``dst[:] = src``)."""
-        items = key if isinstance(key, tuple) else (key,)
-        if not all(k is None or k is Ellipsis or isinstance(k, (int, slice))
-                   for k in items):
-            raise MXNetError(f"NDArray indexing takes ints, slices, None and "
-                             f"..., got {key!r}")
+        the region ``key`` selects (the keys of :meth:`__getitem__`), in
+        place and outside any recorded graph, as ``CustomOp.assign`` does
+        (``dst[:] = src``): an index array goes through ``index_put_``;
+        a negative step writes through a flipped copy."""
+        key = _index_key(key, self._data.device)
         if isinstance(value, NDArray):
             value = value._data
         elif not isinstance(value, (torch.Tensor, int, float, bool)):
             value = torch.from_numpy(onp.array(value))
+        items = key if isinstance(key, tuple) else (key,)
+        flips = _negative_steps(items, self._data.dim())
         with torch.no_grad():
-            self._data[key] = value
+            if not flips:
+                self._data[key] = value
+                return
+            # torch slices take only positive steps: the reversed axes
+            # flipped (a copy), written ascending, and copied back
+            axes = [ax for _, ax in flips]
+            rev = self._data.flip(axes)
+            rev[_flipped_key(items, self._data.shape, flips)] = value
+            self._data.copy_(rev.flip(axes))
 
-    # -- arithmetic --------------------------------------------------------
-    # An array operand goes through the registered broadcast op, as in the
-    # JAX package (``_binop``), so the AMP policy's widest-type rule
-    # applies; a Python number keeps the array's dtype (the ``_scalar``
-    # ops, which no AMP list names).
+    # -- operators ---------------------------------------------------------
+    # Through the registered ops, as in the JAX package (``_binop``): an
+    # array operand takes the broadcast op, so the AMP policy's
+    # widest-type rule applies; a Python number takes the ``_scalar`` op,
+    # which keeps a float array's dtype; a numpy array or a list becomes
+    # an array of this one's dtype. Comparisons return 0/1 in the input's
+    # dtype.
 
-    def _binop(self, name, torch_fn, other, reverse=False):
-        """``name`` (the broadcast op) on an array ``other``; else
-        ``torch_fn(self's tensor, other)``, already reversed where the
-        operator is."""
+    def _binop(self, name, other, reverse=False):
         if isinstance(other, (NDArray, torch.Tensor)):
-            from .registry import get_op, invoke
-
             a, b = (other, self) if reverse else (self, other)
-            return invoke(get_op(name), (a, b), {})
-        return self._apply(torch_fn, self._data, other)
+            return _invoke1(name, a, b)
+        if isinstance(other, (int, float, bool, onp.number)):
+            if isinstance(other, onp.number):
+                other = other.item()
+            return _invoke1(name + "_scalar", self, scalar=other,
+                            reverse=reverse)
+        if isinstance(other, (onp.ndarray, list, tuple)):
+            other = array(other, ctx=self.context, dtype=self._data.dtype)
+            a, b = (other, self) if reverse else (self, other)
+            return _invoke1(name, a, b)
+        return NotImplemented
 
-    def __add__(self, other):
-        return self._binop("broadcast_add", torch.add, other)
+    def __add__(self, o): return self._binop("broadcast_add", o)
+    def __radd__(self, o): return self._binop("broadcast_add", o, True)
+    def __sub__(self, o): return self._binop("broadcast_sub", o)
+    def __rsub__(self, o): return self._binop("broadcast_sub", o, True)
+    def __mul__(self, o): return self._binop("broadcast_mul", o)
+    def __rmul__(self, o): return self._binop("broadcast_mul", o, True)
+    def __truediv__(self, o): return self._binop("broadcast_div", o)
+    def __rtruediv__(self, o): return self._binop("broadcast_div", o, True)
+    def __mod__(self, o): return self._binop("broadcast_mod", o)
+    def __rmod__(self, o): return self._binop("broadcast_mod", o, True)
+    def __pow__(self, o): return self._binop("broadcast_power", o)
+    def __rpow__(self, o): return self._binop("broadcast_power", o, True)
 
-    def __radd__(self, other):
-        return self._binop("broadcast_add", torch.add, other, True)
+    def __matmul__(self, o):
+        if not isinstance(o, (NDArray, torch.Tensor)):
+            return NotImplemented
+        return _invoke1("_matmul", self, o)
 
-    def __sub__(self, other):
-        return self._binop("broadcast_sub", torch.sub, other)
+    def __neg__(self): return _invoke1("negative", self)
+    def __abs__(self): return _invoke1("abs", self)
 
-    def __rsub__(self, other):
-        return self._binop("broadcast_sub", torch.rsub, other, True)
+    def __eq__(self, o): return self._binop("broadcast_equal", o)
+    def __ne__(self, o): return self._binop("broadcast_not_equal", o)
+    def __lt__(self, o): return self._binop("broadcast_lesser", o)
+    def __le__(self, o): return self._binop("broadcast_lesser_equal", o)
+    def __gt__(self, o): return self._binop("broadcast_greater", o)
+    def __ge__(self, o): return self._binop("broadcast_greater_equal", o)
 
-    def __mul__(self, other):
-        return self._binop("broadcast_mul", torch.mul, other)
+    def __hash__(self):
+        return id(self)
 
-    def __rmul__(self, other):
-        return self._binop("broadcast_mul", torch.mul, other, True)
+    # In place: raises while recording, as the JAX package and the
+    # reference do (the tape cannot alias a mutated output). Outside it
+    # the result goes into the handle's own tensor when the handle owns
+    # it and the result keeps the dtype and the shape (the module
+    # docstring says why); else the handle rebinds, as the JAX
+    # package's always does.
 
-    def __truediv__(self, other):
-        return self._binop("broadcast_div", torch.div, other)
+    def _inplace(self, opname, o):
+        if autograd.is_recording():
+            raise MXNetError(
+                "Inplace operations (+=, -=, *=, /=) are not supported "
+                "when recording with autograd")
+        r = self._binop(opname, o)
+        if r is NotImplemented:
+            return r
+        t = self._data
+        if r._data.dtype == t.dtype and r._data.shape == t.shape and \
+                _owns(t):
+            with torch.no_grad():
+                t.copy_(r._data)
+        else:
+            self._data = r._data
+        return self
 
-    def __rtruediv__(self, other):
-        return self._binop("broadcast_div", torch.Tensor.__rtruediv__, other,
-                           True)
+    def __iadd__(self, o): return self._inplace("broadcast_add", o)
+    def __isub__(self, o): return self._inplace("broadcast_sub", o)
+    def __imul__(self, o): return self._inplace("broadcast_mul", o)
+    def __itruediv__(self, o): return self._inplace("broadcast_div", o)
 
-    def __neg__(self):
-        return self._apply(torch.neg, self._data)
+    # -- fluent methods (the registered ops) ---------------------------------
 
-    # -- reductions (the registered ops: AMP keeps them in float32) --------
+    @property
+    def T(self):
+        return _invoke1("transpose", self)
 
-    def sum(self, axis=None, keepdims=False):
-        from .registry import get_op, invoke
+    def reshape_like(self, other):
+        return _invoke1("reshape", self, shape=other.shape)
 
-        return invoke(get_op("sum"), (self,),
-                      {"axis": axis, "keepdims": keepdims})
+    def flatten(self):
+        return _invoke1("flatten", self)
 
-    def mean(self, axis=None, keepdims=False):
-        from .registry import get_op, invoke
+    def swapaxes(self, dim1, dim2):
+        return _invoke1("swapaxes", self, dim1=dim1, dim2=dim2)
 
-        return invoke(get_op("mean"), (self,),
-                      {"axis": axis, "keepdims": keepdims})
+    def expand_dims(self, axis):
+        return _invoke1("expand_dims", self, axis=axis)
+
+    def broadcast_to(self, shape):
+        return _invoke1("broadcast_to", self, shape=shape)
+
+    def broadcast_like(self, other):
+        return _invoke1("broadcast_to", self, shape=other.shape)
+
+    def slice_axis(self, axis, begin, end):
+        return _invoke1("slice_axis", self, axis=axis, begin=begin, end=end)
+
+    def take(self, indices, axis=0, mode="clip"):
+        return _invoke1("take", self, indices, axis=axis, mode=mode)
+
+    def one_hot(self, depth, on_value=1.0, off_value=0.0, dtype="float32"):
+        return _invoke1("one_hot", self, depth=depth, on_value=on_value,
+                        off_value=off_value, dtype=dtype)
+
+    def sum(self, axis=None, keepdims=False, exclude=False):
+        return _invoke1("sum", self, axis=axis, keepdims=keepdims,
+                        exclude=exclude)
+
+    def mean(self, axis=None, keepdims=False, exclude=False):
+        return _invoke1("mean", self, axis=axis, keepdims=keepdims,
+                        exclude=exclude)
+
+    def max(self, axis=None, keepdims=False):
+        return _invoke1("max", self, axis=axis, keepdims=keepdims)
+
+    def min(self, axis=None, keepdims=False):
+        return _invoke1("min", self, axis=axis, keepdims=keepdims)
+
+    def prod(self, axis=None, keepdims=False):
+        return _invoke1("prod", self, axis=axis, keepdims=keepdims)
+
+    def argmax(self, axis=None):
+        return _invoke1("argmax", self, axis=axis)
+
+    def argmin(self, axis=None):
+        return _invoke1("argmin", self, axis=axis)
+
+    def norm(self, ord=2, axis=None, keepdims=False):
+        return _invoke1("norm", self, ord=ord, axis=axis, keepdims=keepdims)
+
+    def clip(self, a_min=None, a_max=None):
+        return _invoke1("clip", self, a_min=a_min, a_max=a_max)
 
     def __repr__(self):
         return f"\n{self.asnumpy()!r}\n<NDArray {self.shape} @{self.context}>"
 
 
-def _reduce(fn, data, axis=None, keepdims=False):
-    """``fn`` (torch.sum or torch.mean) over ``axis`` (an int, a tuple,
-    or None for every axis), MXNet's reduce signature."""
-    if axis is None or (isinstance(axis, (tuple, list)) and not axis):
-        axis = tuple(range(data.dim()))
-    return fn(data, dim=axis, keepdim=keepdims)
+# fluent methods generated from the registry, the JAX package's list
+# (``ndarray.py:411-423``; reference: ndarray.py's fluent-method autogen)
+def _install_methods(names):
+    for name in names:
+        if hasattr(NDArray, name):
+            continue
+
+        def method(self, *args, _name=name, **kwargs):
+            return _invoke1(_name, self, *args, **kwargs)
+
+        method.__name__ = name
+        setattr(NDArray, name, method)
+
+
+_install_methods((
+    "abs", "exp", "expm1", "log", "log1p", "log10", "log2",
+    "sqrt", "rsqrt", "square", "cbrt", "rcbrt", "reciprocal",
+    "sign", "round", "rint", "ceil", "floor", "trunc", "fix",
+    "relu", "sigmoid", "tanh", "softmax", "log_softmax", "sin",
+    "cos", "tan", "arcsin", "arccos", "arctan", "sinh", "cosh",
+    "arcsinh", "arccosh", "arctanh", "degrees", "radians",
+    "erf", "erfinv", "gamma", "gammaln",
+    "argmax_channel", "argsort", "broadcast_axes", "depth_to_space",
+    "diag", "flip", "nanprod", "nansum", "pad", "pick", "repeat",
+    "shape_array", "size_array", "slice", "slice_like", "softmin",
+    "sort", "space_to_depth", "split", "split_v2", "tile", "topk",
+    "ones_like", "zeros_like"))
+
+
+def _invoke1(opname, *args, **kwargs):
+    opdef = _reg.get_op(opname)
+    if opdef is None:
+        raise MXNetError(f"op '{opname}' not registered")
+    return _reg.invoke(opdef, args, kwargs)
+
+
+def repeat_each(t, repeats, dim=None):
+    """Each element of ``t`` ``repeats`` times in a row along ``dim`` (of
+    the flattened tensor for None): an expanded view, copied once.
+    ``repeat_interleave`` may size its output on the host, which a CUDA
+    graph capture cannot wait for."""
+    if dim is None:
+        t, dim = t.reshape(-1), 0
+    dim = dim % t.dim()
+    shape = list(t.shape)
+    x = t.unsqueeze(dim + 1).expand(shape[:dim + 1] + [repeats]
+                                    + shape[dim + 1:])
+    shape[dim] *= repeats
+    return x.reshape(shape)
+
+
+def _owns(t):
+    """Whether an in-place write may go into ``t``: not a view of another
+    tensor's memory, not a broadcast (several elements in one memory
+    location), and not a tensor made in inference mode, outside it."""
+    return t._base is None \
+        and not any(st == 0 and n > 1 for st, n in zip(t.stride(), t.shape)) \
+        and not (t.is_inference() and not torch.is_inference_mode_enabled())
+
+
+# -- indexing -----------------------------------------------------------------
+
+def _index_item(k, device):
+    if isinstance(k, NDArray):
+        k = k._data
+    elif isinstance(k, (list, onp.ndarray)):
+        k = torch.as_tensor(onp.asarray(k))
+    elif isinstance(k, onp.integer):
+        return int(k)
+    if isinstance(k, torch.Tensor):
+        # float index arrays (MXNet's default dtype) index as integers
+        if k.dtype != torch.bool:
+            k = k.to(torch.int64)
+        return k.to(device)
+    return k
+
+
+def _index_key(key, device):
+    """``key`` with every index array (NDArray, list, numpy array) as an
+    int64 (or bool) tensor on ``device``."""
+    if isinstance(key, tuple):
+        return tuple(_index_item(k, device) for k in key)
+    return _index_item(key, device)
+
+
+def _width(k):
+    """How many data axes a key item indexes."""
+    if k is None or k is Ellipsis:
+        return 0
+    if isinstance(k, torch.Tensor) and k.dtype == torch.bool:
+        return k.dim()
+    return 1
+
+
+def _negative_steps(items, ndim):
+    """``[(item position, data axis)]`` of the slices with a negative
+    step."""
+    used = sum(_width(k) for k in items)
+    out, ax = [], 0
+    for i, k in enumerate(items):
+        if k is Ellipsis:
+            ax += ndim - used
+            continue
+        if isinstance(k, slice) and k.step is not None and k.step < 0:
+            out.append((i, ax))
+        ax += _width(k)
+    return out
+
+
+def _flipped_key(items, shape, neg):
+    """``items`` for the data flipped along the reversed axes: each
+    negative-step slice becomes the positive-step slice that takes the
+    same elements in the same order from the flipped axis."""
+    items = list(items)
+    for i, ax in neg:
+        n = shape[ax]
+        r = range(*items[i].indices(n))
+        items[i] = slice(n - 1 - r[0], n - r[-1], -items[i].step) if r \
+            else slice(0, 0)
+    return tuple(items)
+
+
+def slice_key(data, key):
+    """``data[key]`` for numpy keys, negative steps too: torch slices take
+    only positive steps, so each reversed axis is flipped first and
+    sliced ascending (a copy, where a positive step gives a view)."""
+    items = key if isinstance(key, tuple) else (key,)
+    neg = _negative_steps(items, data.dim())
+    if not neg:
+        return data[key]
+    return data.flip([ax for _, ax in neg])[
+        _flipped_key(items, data.shape, neg)]
 
 
 def array(source_array, ctx=None, dtype=None):
@@ -351,6 +639,22 @@ def host_tensor(source_array, dtype=None):
     return t if dtype is None else t.to(torch_dtype(dtype))
 
 
+def empty(shape, ctx=None, dtype="float32"):
+    """An uninitialized array (reference: ndarray.py empty)."""
+    if isinstance(shape, int):
+        shape = (shape,)
+    return NDArray(torch.empty(tuple(shape), dtype=torch_dtype(dtype),
+                               device=resolve_device(ctx)))
+
+
+def full(shape, val, ctx=None, dtype="float32"):
+    """An array of ``shape`` filled with ``val``."""
+    if isinstance(shape, int):
+        shape = (shape,)
+    return NDArray(torch.full(tuple(shape), val, dtype=torch_dtype(dtype),
+                              device=resolve_device(ctx)))
+
+
 def zeros(shape, ctx=None, dtype="float32"):
     if isinstance(shape, int):
         shape = (shape,)
@@ -365,15 +669,69 @@ def ones(shape, ctx=None, dtype="float32"):
                               device=resolve_device(ctx)))
 
 
-def arange(start, stop=None, step=1.0, ctx=None, dtype="float32"):
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype="float32"):
+    """``[start, stop)`` by ``step``, each value ``repeat`` times in a
+    row."""
     if stop is None:
         start, stop = 0, start
-    return NDArray(torch.arange(start, stop, step, dtype=torch_dtype(dtype),
-                                device=resolve_device(ctx)))
+    t = torch.arange(start, stop, step, dtype=torch_dtype(dtype),
+                     device=resolve_device(ctx))
+    if repeat != 1:
+        t = repeat_each(t, int(repeat))
+    return NDArray(t)
 
 
 def expand_dims(data, axis):
     return NDArray(data.data.unsqueeze(axis))
+
+
+def moveaxis(data, source, destination):
+    """``data`` with axis ``source`` moved to ``destination``."""
+    with autograd._grad_mode():
+        return NDArray(torch.movedim(data.data, source, destination))
+
+
+def waitall():
+    """Block until every device has finished its queued work (reference:
+    Engine::WaitForAll)."""
+    if torch.cuda.is_available():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+
+def to_dlpack_for_read(data):
+    """A DLPack capsule over ``data``'s memory, once its pending writes
+    are done (reference: ndarray.py to_dlpack_for_read). It is also
+    ``to_dlpack_for_write``: a consumer's writes land in ``data``, as in
+    the reference (the JAX package hands out a copy, its buffers being
+    immutable)."""
+    data.wait_to_read()
+    return torch.utils.dlpack.to_dlpack(data.data.detach())
+
+
+to_dlpack_for_write = to_dlpack_for_read
+
+
+def from_dlpack(obj):
+    """An NDArray over an external DLPack tensor, without a copy: an
+    object with ``__dlpack__`` (a torch tensor, a numpy array) or a
+    capsule (reference: ndarray.py from_dlpack)."""
+    return NDArray(torch.utils.dlpack.from_dlpack(obj))
+
+
+def from_numpy(ndarray, zero_copy=True):
+    """A CPU NDArray over ``ndarray``'s memory (``zero_copy``), which is
+    marked read-only, as the reference marks it, so the host cannot
+    change what the array holds; else (or where it cannot be shared) a
+    copy on the CPU."""
+    arr = onp.ascontiguousarray(ndarray)
+    if not zero_copy or not arr.flags.writeable or \
+            arr.dtype.name not in _TORCH_DTYPES:
+        return array(arr, ctx=Context("cpu"))
+    t = torch.from_numpy(arr)
+    if arr is ndarray:
+        arr.flags.writeable = False
+    return NDArray(t)
 
 
 def concatenate(arrays, axis=0):

@@ -1,21 +1,21 @@
 """Basic tensor ops: elementwise, scalar, broadcast, reduce, shape, matrix.
 
-The PyTorch counterparts of ``mxnet_tpu/ndarray/ops_basic.py`` (the
-unary table :27-42, the broadcast table :157-185, the scalar forms
-:199-228, the reductions :254, ``reshape`` :336, ``flatten`` :370,
-``transpose`` :377, ``slice_axis`` :456, ``cast`` :103, ``amp_cast`` and
-``amp_multicast`` :114-135, the constant nodes :618-638,
-``dot`` :666 and ``batch_dot`` :677), cut to what the ported paths and
-the symbol graphs they serve call. The JAX package left them to XLA; the
-port leaves them to torch. MXNet's conventions hold: comparisons return
-0/1 in the input dtype, a scalar op keeps a float input's dtype,
-``reshape`` honors the 0/-1/-2/-3/-4 codes.
+The PyTorch counterparts of every op of ``mxnet_tpu/ndarray/ops_basic.py``
+(the unary table :27-42, the broadcast table :157-185, the scalar forms
+:199-228, the reductions :232-330, the shape ops :333-660, the matrix
+ops :664-767). The JAX package left them to XLA; the port leaves them to
+torch. MXNet's conventions hold: comparisons return 0/1 in the input
+dtype, a scalar op keeps a float input's dtype, reductions take
+``axis``/``keepdims``/``exclude``, index-returning reductions give
+float32, ``reshape`` honors the 0/-1/-2/-3/-4 codes, and
+``depth_to_space`` permutes in MXNet's DCR order.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from .ndarray import _reduce, torch_dtype
+from .ndarray import repeat_each, slice_key, torch_dtype
 from .registry import register
 
 # -- unary ---------------------------------------------------------------
@@ -232,16 +232,139 @@ for _n, _f in {
 
 # -- reduce --------------------------------------------------------------
 
-@register()
-def sum(data, axis=None, keepdims=False):
-    """Reference: broadcast_reduce_op_value.cc sum."""
-    return _reduce(torch.sum, data, axis, keepdims)
+def _axes(axis, ndim, exclude=False):
+    """MXNet's ``axis`` (an int, a tuple, or None or () for every axis)
+    as a tuple of non-negative axes; ``exclude`` takes the axes not
+    named (every axis for None, as in the JAX package)."""
+    if axis is None or (isinstance(axis, (tuple, list)) and not axis):
+        return tuple(range(ndim))
+    axes = tuple(a % ndim for a in ((axis,) if isinstance(axis, int)
+                                    else axis))
+    if exclude:
+        axes = tuple(a for a in range(ndim) if a not in axes)
+    return axes
+
+
+def _over(fn, data, axis, keepdims, exclude=False):
+    """``fn(data, dim=axes, keepdim=)`` over MXNet's axes; no axis left
+    (every axis excluded) is the identity."""
+    axes = _axes(axis, data.dim(), exclude)
+    if not axes:
+        return data
+    return fn(data, dim=axes, keepdim=keepdims)
 
 
 @register()
-def mean(data, axis=None, keepdims=False):
+def sum(data, axis=None, keepdims=False, exclude=False):
+    """Reference: broadcast_reduce_op_value.cc sum; ``exclude`` sums
+    over the axes not named."""
+    return _over(torch.sum, data, axis, keepdims, exclude)
+
+
+@register()
+def mean(data, axis=None, keepdims=False, exclude=False):
     """Reference: broadcast_reduce_op_value.cc mean."""
-    return _reduce(torch.mean, data, axis, keepdims)
+    return _over(torch.mean, data, axis, keepdims, exclude)
+
+
+def _prod(data, dim, keepdim):
+    """torch.prod over several axes (it takes one): the axes moved last
+    and flattened into one."""
+    rest = [a for a in range(data.dim()) if a not in dim]
+    x = data.permute(*rest, *dim).reshape(
+        [data.shape[a] for a in rest] + [-1]).prod(-1)
+    if keepdim:
+        x = x.reshape([1 if a in dim else n
+                       for a, n in enumerate(data.shape)])
+    return x
+
+
+def _nanprod(data, dim, keepdim):
+    return _prod(torch.where(torch.isnan(data), torch.ones_like(data),
+                             data), dim, keepdim)
+
+
+def _make_reduce(name, fn):
+    def op(data, axis=None, keepdims=False, exclude=False):
+        return _over(fn, data, axis, keepdims, exclude)
+
+    op.__name__ = name
+    op.__doc__ = (f"Reduction {name} (reference: src/operator/tensor/"
+                  "broadcast_reduce_op_value.cc).")
+    register(name)(op)
+
+
+for _n, _f in {"prod": _prod, "nansum": torch.nansum, "nanprod": _nanprod,
+               "max": torch.amax, "min": torch.amin}.items():
+    _make_reduce(_n, _f)
+
+
+@register()
+def sum_axis(data, axis=None, keepdims=False):
+    """The legacy spelling of :func:`sum` over ``axis`` (reference:
+    broadcast_reduce_op sum_axis)."""
+    return _over(torch.sum, data, axis, keepdims)
+
+
+@register()
+def mean_all(data):
+    """The mean of every element, a scalar."""
+    return torch.mean(data)
+
+
+@register()
+def norm(data, ord=2, axis=None, keepdims=False):
+    """The 1-norm (``ord=1``) or else the 2-norm over ``axis``, as the
+    JAX op computes them (reference: broadcast_reduce_norm_value.cc)."""
+    if ord == 1:
+        return _over(torch.sum, torch.abs(data), axis, keepdims)
+    return torch.sqrt(_over(torch.sum, torch.square(data), axis, keepdims))
+
+
+def _index_reduce(fn, data, axis, keepdims):
+    if axis is None:
+        r = fn(data.reshape(-1))
+        if keepdims:
+            r = r.reshape((1,) * data.dim())
+    else:
+        r = fn(data, dim=axis, keepdim=keepdims)
+    return r.to(torch.float32)
+
+
+@register()
+def argmax(data, axis=None, keepdims=False):
+    """Index of the first maximum along ``axis`` (of the flattened array
+    for None), as float32 like the reference (reference:
+    broadcast_reduce_op_index.cc)."""
+    return _index_reduce(torch.argmax, data, axis, keepdims)
+
+
+@register()
+def argmin(data, axis=None, keepdims=False):
+    """Index of the first minimum along ``axis``, as float32."""
+    return _index_reduce(torch.argmin, data, axis, keepdims)
+
+
+@register()
+def argmax_channel(data):
+    """argmax over axis 1, float32 (reference: broadcast_reduce_op_index.cc
+    argmax_channel)."""
+    return torch.argmax(data, dim=1).to(torch.float32)
+
+
+@register()
+def l2_normalization(data, eps=1e-10, mode="instance"):
+    """``data`` over the 2-norm of each instance (every axis after the
+    first), channel (axis 1) or spatial position (axes 2 on), plus
+    ``eps`` under the root (reference: src/operator/l2_normalization.cc)."""
+    if mode == "instance":
+        ax = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        ax = (1,)
+    else:
+        ax = tuple(range(2, data.dim()))
+    return data / torch.sqrt(torch.sum(torch.square(data), dim=ax,
+                                       keepdim=True) + eps)
 
 
 # -- shape ---------------------------------------------------------------
@@ -305,6 +428,234 @@ def transpose(data, axes=None):
     if not axes:
         axes = tuple(reversed(range(data.dim())))
     return data.permute(*axes)
+
+
+@register()
+def reshape_like(lhs, rhs, lhs_begin=None, lhs_end=None, rhs_begin=None,
+                 rhs_end=None):
+    """``lhs`` reshaped to ``rhs``'s shape, or over axis ranges only:
+    ``lhs.shape[:lhs_begin] + rhs.shape[rhs_begin:rhs_end] +
+    lhs.shape[lhs_end:]`` (reference: elemwise_unary_op_basic.cc
+    reshape_like)."""
+    def canon(v, nd, default):
+        v = default if v is None else int(v)
+        return v + nd if v < 0 else v
+
+    lb = canon(lhs_begin, lhs.dim(), 0)
+    le = canon(lhs_end, lhs.dim(), lhs.dim())
+    rb = canon(rhs_begin, rhs.dim(), 0)
+    re_ = canon(rhs_end, rhs.dim(), rhs.dim())
+    return lhs.reshape(tuple(lhs.shape[:lb]) + tuple(rhs.shape[rb:re_])
+                       + tuple(lhs.shape[le:]))
+
+
+@register()
+def expand_dims(data, axis):
+    """A size-1 axis inserted at ``axis`` (reference: matrix_op.cc
+    expand_dims)."""
+    return data.unsqueeze(axis)
+
+
+@register()
+def broadcast_to(data, shape):
+    """``data`` broadcast to ``shape``, where 0 keeps the input's extent
+    (reference: broadcast_reduce_op_value.cc broadcast_to)."""
+    shape = tuple(shape)
+    if len(shape) == data.dim():
+        shape = tuple(s if s != 0 else d for s, d in zip(shape, data.shape))
+    return data.expand(shape)
+
+
+@register()
+def broadcast_axis(data, axis=(), size=()):
+    """Size-1 ``axis`` broadcast to ``size`` (reference:
+    broadcast_reduce_op_value.cc broadcast_axis)."""
+    if isinstance(axis, int):
+        axis, size = (axis,), (size,)
+    tgt = list(data.shape)
+    for a, n in zip(axis, size):
+        tgt[a] = n
+    return data.expand(tgt)
+
+
+@register()
+def broadcast_axes(data, axis=(), size=()):
+    """The reference's other spelling of :func:`broadcast_axis`."""
+    return broadcast_axis(data, axis, size)
+
+
+@register()
+def broadcast_like(lhs, rhs, lhs_axes=None, rhs_axes=None):
+    """``lhs`` broadcast to ``rhs``'s shape; with axes given, only those
+    ``lhs`` axes grow to the matching ``rhs`` axes' sizes (reference:
+    broadcast_reduce_op_value.cc broadcast_like)."""
+    if lhs_axes is None and rhs_axes is None:
+        return lhs.expand(rhs.shape)
+    if lhs_axes is None or rhs_axes is None or \
+            len(lhs_axes) != len(rhs_axes) or not lhs_axes:
+        raise ValueError(
+            "broadcast_like: lhs_axes and rhs_axes must both be given, "
+            f"non-empty, and the same length; got {lhs_axes} / {rhs_axes}")
+    target = list(lhs.shape)
+    for li, ri in zip(lhs_axes, rhs_axes):
+        target[int(li) % lhs.dim()] = rhs.shape[int(ri) % rhs.dim()]
+    return lhs.expand(target)
+
+
+@register(name="slice")
+def _slice(data, begin, end, step=None):
+    """Region slice with ``begin``/``end``/``step`` per axis, None the full
+    extent, negative steps too (reference: matrix_op-inl.h Slice)."""
+    key = tuple(slice(begin[i], end[i],
+                               None if step is None else step[i])
+                for i in range(len(begin)))
+    return slice_key(data, key)
+
+
+@register()
+def slice_like(data, shape_like, axes=()):
+    """``data`` cut to ``shape_like``'s extents along ``axes`` (every
+    shared axis by default) (reference: matrix_op.cc slice_like)."""
+    axes = axes or tuple(range(min(data.dim(), shape_like.dim())))
+    idx = [slice(None)] * data.dim()
+    for a in axes:
+        idx[a] = slice(0, shape_like.shape[a])
+    return data[tuple(idx)]
+
+
+@register()
+def tile(data, reps):
+    """The whole array repeated ``reps`` times per axis (reference:
+    matrix_op.cc tile)."""
+    return torch.tile(data, (reps,) if isinstance(reps, int)
+                      else tuple(reps))
+
+
+@register()
+def repeat(data, repeats, axis=None):
+    """Each element repeated ``repeats`` times along ``axis`` (of the
+    flattened array for None) (reference: matrix_op.cc repeat)."""
+    return repeat_each(data, int(repeats), axis)
+
+
+@register()
+def reverse(data, axis=0):
+    """Element order reversed along ``axis`` (reference: matrix_op.cc
+    reverse)."""
+    return torch.flip(data, (axis,) if isinstance(axis, int)
+                      else tuple(axis))
+
+
+_PAD_MODES = {"constant": "constant", "edge": "replicate",
+              "reflect": "reflect"}
+
+
+@register()
+def pad(data, mode="constant", pad_width=(), constant_value=0.0):
+    """Pad with ``pad_width`` (before and after, per axis from the first):
+    ``constant`` fills with ``constant_value``, ``edge`` repeats the
+    border, ``reflect`` mirrors without it; ``edge`` and ``reflect`` pad
+    the spatial axes of NCW/NCHW/NCDHW data only (reference:
+    src/operator/pad.cc)."""
+    pw = [(int(pad_width[2 * i]), int(pad_width[2 * i + 1]))
+          for i in range(len(pad_width) // 2)]
+    pw += [(0, 0)] * (data.dim() - len(pw))
+    tmode = _PAD_MODES[mode]
+    if tmode != "constant":
+        if any(pw[0]) or any(pw[1]) or data.dim() not in (3, 4, 5):
+            raise ValueError(f"pad: mode {mode!r} pads the spatial axes of "
+                             f"3-D to 5-D data, got {tuple(data.shape)} "
+                             f"and pad_width {tuple(pad_width)}")
+        pw = pw[2:]
+    flat = [w for lo_hi in reversed(pw) for w in lo_hi]
+    if tmode == "constant":
+        return F.pad(data, flat, value=constant_value)
+    return F.pad(data, flat, mode=tmode)
+
+
+@register()
+def diag(data, k=0):
+    """The ``k``-th diagonal of the last two axes, or the matrix with a
+    1-D input on it (reference: diag_op.cc)."""
+    if data.dim() == 1:
+        return torch.diag(data, k)
+    return torch.diagonal(data, offset=k, dim1=-2, dim2=-1)
+
+
+def _int_vector(values, device):
+    """An int32 vector of Python ints on ``device``, written by fills on
+    the device (no copy from the host, so it can be captured)."""
+    t = torch.empty(len(values), dtype=torch.int32, device=device)
+    for i, v in enumerate(values):
+        t[i].fill_(v)  # ``t[i] = v`` copies a host scalar to a CUDA t
+    return t
+
+
+@register(differentiable=False)
+def shape_array(data):
+    """The input's shape as an int32 vector (int64 in the reference; the
+    JAX package's without 64-bit mode)."""
+    return _int_vector(data.shape, data.device)
+
+
+@register(differentiable=False)
+def size_array(data):
+    """The input's element count as a 1-element int32 vector."""
+    return _int_vector([data.numel()], data.device)
+
+
+@register()
+def identity(data):
+    """A copy of the input (reference: elemwise_unary_op_basic.cc
+    _copy)."""
+    return data.clone()
+
+
+class _KLSparseReg(torch.autograd.Function):
+    """``identity_attach_kl_sparse_reg``: a copy forward; the backward
+    passes the gradient through, as the JAX op's does (the reference
+    adds the KL sparsity penalty there, from a moving average the JAX
+    package does not keep: it leaves the penalty to the loss)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+@register()
+def identity_attach_kl_sparse_reg(data, sparseness_target=0.1,
+                                  penalty=0.001, momentum=0.9):
+    """Reference: src/operator/identity_attach_KL_sparse_reg.cc
+    (:class:`_KLSparseReg`)."""
+    if data.is_meta:
+        return torch.empty_like(data)
+    return _KLSparseReg.apply(data)
+
+
+@register()
+def depth_to_space(data, block_size):
+    """Channel blocks moved into spatial blocks, NCHW, in MXNet's DCR
+    order: reshape to (n, b, b, c/b^2, h, w), transpose (0, 3, 4, 1, 5,
+    2) (reference: matrix_op.cc depth_to_space; not
+    ``F.pixel_shuffle``, whose CRD order permutes otherwise)."""
+    n, c, h, w = data.shape
+    b = block_size
+    x = data.reshape(n, b, b, c // (b * b), h, w).permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(n, c // (b * b), h * b, w * b)
+
+
+@register()
+def space_to_depth(data, block_size):
+    """The inverse of :func:`depth_to_space` (reference: matrix_op.cc
+    space_to_depth)."""
+    n, c, h, w = data.shape
+    b = block_size
+    x = data.reshape(n, c, h // b, b, w // b, b).permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(n, c * b * b, h // b, w // b)
 
 
 @register()
@@ -495,6 +846,55 @@ def dot(lhs, rhs, transpose_a=False, transpose_b=False):
         if lhs.dim() <= 2 and rhs.dim() <= 2:
             return torch.matmul(lhs, rhs)
         return torch.tensordot(lhs, rhs, dims=([lhs.dim() - 1], [0]))
+
+
+@register(name="_matmul")
+def _matmul(lhs, rhs):
+    """numpy's matmul, broadcasting the batch axes (reference:
+    np_matmul_op.cc); the ``@`` operator."""
+    from .ops_nn import cublas_fp32_accumulate
+
+    lhs, rhs = promote(lhs, rhs)
+    with cublas_fp32_accumulate(lhs.dtype):
+        return torch.matmul(lhs, rhs)
+
+
+@register()
+def khatri_rao(*args):
+    """Column-wise Khatri-Rao product of (rows_i, C) matrices (reference:
+    contrib krprod.cc)."""
+    out = args[0]
+    for m in args[1:]:
+        out = torch.einsum("ic,jc->ijc", out, m).reshape(-1, out.shape[-1])
+    return out
+
+
+@register()
+def hypot(lhs, rhs):
+    """sqrt(lhs^2 + rhs^2) (reference: elemwise_binary_op_extended.cc)."""
+    return torch.hypot(lhs, rhs)
+
+
+@register()
+def ldexp(lhs, rhs):
+    """lhs * 2^rhs (reference: elemwise_binary_op_extended.cc)."""
+    return lhs * torch.exp2(rhs)
+
+
+@register()
+def digamma(data):
+    """d/dx log Gamma(x) (reference: mshadow_op digamma)."""
+    return torch.digamma(data)
+
+
+@register()
+def rnn_param_concat(*args, dim=0):
+    """Concatenation that packs RNN parameters (reference: nn/concat.cc
+    _rnn_param_concat): inputs of mixed rank (weights and biases) are
+    flattened first."""
+    if any(a.dim() != args[0].dim() for a in args):
+        return torch.cat([a.reshape(-1) for a in args])
+    return torch.cat(args, dim=dim)
 
 
 @register()

@@ -1,15 +1,18 @@
 """Neural-network ops.
 
-The PyTorch counterparts of ``mxnet_tpu/ndarray/ops_nn.py:33-87,137-191,
-206-349,393,411,420,727``: dense, convolution, pooling, the activations,
-softmax, the norms, embedding, dropout and the losses. The JAX package
-left these to XLA, so the port leaves them to torch (``F.linear``,
-``F.conv1d``-``F.conv3d``, the pooling functions, ``F.batch_norm``,
-``F.layer_norm``, softmax, indexing), with one exception:
-``flash_attention`` runs the hand-written CUDA kernel K1
-(``kernels/flash_attention.py``), as the JAX op runs the Pallas kernel.
-Signatures are the JAX ops', so symbol graphs written for the JAX
-package load and run here with the same keyword arguments.
+The PyTorch counterparts of every op of ``mxnet_tpu/ndarray/ops_nn.py``:
+dense, convolution and deconvolution, pooling (adaptive too), the
+activations, softmax/log_softmax/softmin, the norms (batch, layer,
+instance, group, LRN), embedding, dropout, the losses (CTC among them),
+upsampling and bilinear resize, and the fused RNN. The JAX package left
+these to XLA, so the port leaves them to torch (``F.linear``,
+``F.conv*d``, ``F.conv_transpose*d``, the pooling functions,
+``F.batch_norm``, ``F.layer_norm``, ``F.group_norm``, softmax,
+indexing, cuDNN's RNN), with one exception: ``flash_attention`` runs the
+hand-written CUDA kernel K1 (``kernels/flash_attention.py``), as the JAX
+op runs the Pallas kernel. Signatures are the JAX ops', so symbol graphs
+written for the JAX package load and run here with the same keyword
+arguments.
 """
 from __future__ import annotations
 
@@ -139,6 +142,37 @@ def convolution(data, weight, bias=None, kernel=None, stride=None, dilate=None,
     return out
 
 
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+@register()
+def deconvolution(data, weight, bias=None, kernel=None, stride=None,
+                  dilate=None, pad=None, adj=None, num_filter=0, num_group=1,
+                  no_bias=True, target_shape=None, layout=None):
+    """Transposed convolution (reference: src/operator/nn/deconvolution-
+    inl.h), 1-D to 3-D, channel-first layouts only (as the JAX op):
+    ``weight`` is (C_in, num_filter / num_group, *k), which is
+    ``F.conv_transpose*d``'s layout; ``adj`` adds to the high side of the
+    output. Runs in :func:`cudnn_fp32` as :func:`convolution` does, so
+    float32 stays float32 (no TF32). ``target_shape`` is accepted and
+    ignored, as the JAX op ignores it."""
+    if layout in _CHANNEL_LAST:
+        raise ValueError("deconvolution supports channel-first layouts "
+                         "only (NCW/NCHW/NCDHW)")
+    if isinstance(kernel, int):
+        kernel = (kernel,)
+    nd = len(kernel) if kernel is not None else data.dim() - 2
+    if nd not in _DECONV or data.dim() != nd + 2:
+        raise MXNetError(f"deconvolution: 1-D, 2-D and 3-D, got data "
+                         f"{tuple(data.shape)} kernel {kernel}")
+    data, weight, bias = promote(data, weight, None if no_bias else bias)
+    with cudnn_fp32():
+        return _DECONV[nd](data, weight, bias, _tup(stride or 1, nd),
+                           _tup(pad or 0, nd), _tup(adj or 0, nd),
+                           num_group, _tup(dilate or 1, nd))
+
+
 # -- pooling --------------------------------------------------------------
 
 _POOL = {"max": (F.max_pool1d, F.max_pool2d, F.max_pool3d),
@@ -212,6 +246,18 @@ def pooling(data, kernel=None, pool_type="max", global_pool=False,
     if channel_last:
         out = out.movedim(1, -1).contiguous()
     return out
+
+
+@register()
+def adaptive_avg_pooling2d(data, output_size=1):
+    """The mean over each of ``output_size`` equal windows of an NCHW
+    input whose height and width the output divides, as the JAX op takes
+    it (reference: src/operator/contrib/adaptive_avg_pooling.cc)."""
+    if isinstance(output_size, int):
+        output_size = (output_size, output_size)
+    n, c, h, w = data.shape
+    oh, ow = output_size
+    return data.reshape(n, c, oh, h // oh, ow, w // ow).mean(dim=(3, 5))
 
 
 # -- activations ----------------------------------------------------------
@@ -296,10 +342,22 @@ def softmax(data, length=None, axis=-1, temperature=None, use_length=False,
 
 
 @register()
-def log_softmax(data, axis=-1):
-    """log(softmax(x)) along ``axis``, computed stably (reference:
-    softmax.cc log_softmax)."""
+def log_softmax(data, axis=-1, temperature=None, dtype=None):
+    """log(softmax(x / temperature)) along ``axis``, computed stably, in
+    ``dtype`` if given (reference: softmax.cc log_softmax)."""
+    from .ndarray import torch_dtype
+
+    if dtype is not None:
+        data = data.to(torch_dtype(dtype))
+    if temperature is not None and temperature != 1.0:
+        data = data / temperature
     return torch.log_softmax(data, dim=axis)
+
+
+@register()
+def softmin(data, axis=-1):
+    """softmax of -x along ``axis`` (reference: softmax.cc softmin)."""
+    return torch.softmax(-data, dim=axis)
 
 
 # -- norms ----------------------------------------------------------------
@@ -385,6 +443,48 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     if not output_mean_var:
         return out
     return out, mean, var
+
+
+@register()
+def instance_norm(data, gamma, beta, eps=1e-3):
+    """Each sample's channels normalized over their spatial axes, the
+    population variance, then per-channel ``gamma`` and ``beta``
+    (reference: src/operator/instance_norm.cc)."""
+    ax = tuple(range(2, data.dim()))
+    mean = data.mean(dim=ax, keepdim=True)
+    var = (data - mean).square().mean(dim=ax, keepdim=True)
+    bshape = (1, -1) + (1,) * (data.dim() - 2)
+    return (data - mean) * torch.rsqrt(var + eps) * gamma.reshape(bshape) \
+        + beta.reshape(bshape)
+
+
+@register()
+def group_norm(data, gamma, beta, num_groups=1, eps=1e-5):
+    """``num_groups`` groups of channels normalized over their channels
+    and spatial axes. ``gamma`` and ``beta`` are per group, shape
+    ``(num_groups,)`` (reference: src/operator/nn/group_norm.cc,
+    group_norm-inl.h:163), so they are repeated over each group's
+    channels for ``F.group_norm``, which takes them per channel."""
+    c = data.shape[1]
+    per = c // num_groups
+    from .ndarray import repeat_each
+
+    return F.group_norm(data, num_groups, repeat_each(gamma, per),
+                        repeat_each(beta, per), eps)
+
+
+@register()
+def lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """Local response normalization across ``nsize`` channels of NCHW
+    data: x / (knorm + alpha / nsize * sum of squares)^beta (reference:
+    src/operator/nn/lrn.cc)."""
+    half = nsize // 2
+    sq = F.pad(torch.square(data), (0, 0, 0, 0, half, half))
+    c = data.shape[1]
+    acc = 0
+    for i in range(nsize):
+        acc = acc + sq[:, i:i + c]
+    return data / torch.pow(knorm + alpha / nsize * acc, beta)
 
 
 @register()
@@ -523,6 +623,112 @@ def slice_channel(data, num_outputs, axis=1, squeeze_axis=False):
     from .ops_basic import split
 
     return split(data, num_outputs, axis=axis, squeeze_axis=squeeze_axis)
+
+
+# -- resampling --------------------------------------------------------------
+
+
+@register()
+def upsampling(data, scale=2, sample_type="nearest", num_args=1):
+    """Nearest-neighbour upsampling of NCHW data by ``scale`` (reference:
+    src/operator/nn/upsampling.cc); the bilinear type, which the JAX op
+    does not have either, raises."""
+    if sample_type != "nearest":
+        raise MXNetError(f"upsampling: sample_type {sample_type!r} is not "
+                         "ported (nearest only)")
+    n, c, h, w = data.shape
+    return data.reshape(n, c, h, 1, w, 1).expand(
+        n, c, h, scale, w, scale).reshape(n, c, h * scale, w * scale)
+
+
+@register()
+def bilinear_resize2d(data, height=None, width=None, scale_height=None,
+                      scale_width=None, mode="size", align_corners=True):
+    """Bilinear resize of NCHW data to ``height`` x ``width`` (or the input
+    scaled), corners aligned by default as in the reference (reference:
+    src/operator/contrib/bilinear_resize.cc). The JAX op passes
+    ``align_corners`` over and resizes with half-pixel centers, which is
+    ``align_corners=False`` here when upsampling."""
+    n, c, h, w = data.shape
+    oh = height if height else int(h * scale_height)
+    ow = width if width else int(w * scale_width)
+    return F.interpolate(data, size=(oh, ow), mode="bilinear",
+                         align_corners=bool(align_corners))
+
+
+# -- CTC ---------------------------------------------------------------------
+
+_CTC_NEG = -1e30
+
+
+@register()
+def ctc_loss(data, label, data_lengths=None, label_lengths=None,
+             use_data_lengths=False, use_label_lengths=False,
+             blank_label="first"):
+    """Connectionist temporal classification loss per sample (reference:
+    src/operator/nn/ctc_loss.cc): ``data`` (T, N, C) activations (the
+    softmax is taken here), ``label`` (N, L). ``blank_label="first"``
+    makes class 0 the blank (labels 1..C-1, padding 0; a row of zeros
+    counts as a full-length label, as in the reference), ``"last"`` class
+    C-1 (padding -1). The JAX op's log-space alpha recursion, one step
+    per time step, differentiated by autograd; no host sync, so it can
+    be captured."""
+    if blank_label not in ("first", "last"):
+        raise ValueError(
+            f"blank_label must be 'first' or 'last', got {blank_label!r}")
+    T, N, C = data.shape
+    L = label.shape[1]
+    blank = 0 if blank_label == "first" else C - 1
+    pad = 0 if blank_label == "first" else -1
+    logp = torch.log_softmax(data, dim=-1)
+    lab = label.to(torch.int64)
+    valid = lab != pad
+    # non-pad labels packed to the front, in order (a stable sort on the
+    # pad mask), as ctc_loss-inl.h's LabelTensorToPackedVector does
+    order = torch.argsort((~valid).to(torch.int8), dim=1, stable=True)
+    lab = torch.gather(lab, 1, order)
+    valid = torch.gather(valid, 1, order)
+    ext = torch.full((N, 2 * L + 1), blank, dtype=torch.int64,
+                     device=data.device)
+    ext[:, 1::2] = torch.where(valid, lab, torch.full_like(lab, blank))
+    same2 = torch.cat([torch.ones((N, 2), dtype=torch.bool,
+                                  device=data.device),
+                       ext[:, 2:] == ext[:, :-2]], dim=1)
+    neg1 = torch.full((N, 1), _CTC_NEG, dtype=logp.dtype, device=data.device)
+    neg2 = torch.full((N, 2), _CTC_NEG, dtype=logp.dtype, device=data.device)
+    alpha = torch.full((N, 2 * L + 1), _CTC_NEG, dtype=logp.dtype,
+                       device=data.device)
+    first = torch.gather(logp[0], 1, ext[:, :2])
+    alpha = torch.cat([first, alpha[:, 2:]], dim=1)
+    alphas = [alpha]
+    for t in range(1, T):
+        a1 = torch.cat([neg1, alpha[:, :-1]], dim=1)
+        a2 = torch.where(same2, _CTC_NEG,
+                         torch.cat([neg2, alpha[:, :-2]], dim=1))
+        m = torch.maximum(torch.maximum(a1, a2), alpha)
+        alpha = m + torch.log(torch.exp(alpha - m) + torch.exp(a1 - m)
+                              + torch.exp(a2 - m)) \
+            + torch.gather(logp[t], 1, ext)
+        alphas.append(alpha)
+    alphas = torch.stack(alphas)  # (T, N, 2L+1)
+    if use_data_lengths and data_lengths is not None:
+        t_idx = data_lengths.to(torch.int64) - 1
+    else:
+        t_idx = torch.full((N,), T - 1, dtype=torch.int64, device=data.device)
+    final = torch.gather(alphas, 0, t_idx.reshape(1, N, 1).expand(
+        1, N, 2 * L + 1))[0]
+    if use_label_lengths and label_lengths is not None:
+        ll = label_lengths.to(torch.int64)
+    else:
+        ll = valid.to(torch.int64).sum(dim=1)
+        if blank_label == "first":
+            ll = torch.where(ll == 0, L, ll)
+    last = torch.gather(final, 1, (2 * ll).unsqueeze(1))[:, 0]
+    prev = torch.gather(final, 1, (2 * ll - 1).clamp_min(0).unsqueeze(1))[:, 0]
+    # an empty target's only path is all blanks: alpha[T-1, 0] alone
+    prev = torch.where(ll > 0, prev, _CTC_NEG)
+    m = torch.maximum(last, prev)
+    return -(m + torch.log(torch.exp(last - m) + torch.exp(prev - m)))
 
 
 # -- the fused RNN op --------------------------------------------------------

@@ -178,6 +178,14 @@ def invoke(opdef, args, kwargs):
             for k, c in zip(keys, casted[len(pos):]):
                 kwargs[k] = c
         result = opdef.fn(*args, **kwargs)
+        if opdef.differentiable and isinstance(result, torch.Tensor) and \
+                any(result is a for a in (*args, *kwargs.values())):
+            # an op that passes its input through (stop_gradient,
+            # make_loss, dropout outside training) hands back a view, so
+            # an in-place write on the result rebinds it and leaves the
+            # input as it was (``NDArray._inplace``); the optimizer
+            # updates, not differentiable, return the weight they wrote
+            result = result.view_as(result)
     if isinstance(result, tuple):
         return [NDArray(r) if isinstance(r, torch.Tensor) else r
                 for r in result]

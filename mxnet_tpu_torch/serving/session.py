@@ -55,7 +55,7 @@ import torch
 
 from .. import autograd
 from ..base import MXNetError, getenv
-from ..context import Context, host_to_device, resolve_device
+from ..context import Context, cuda_graph, host_to_device, resolve_device
 from ..ndarray import NDArray
 from ..ndarray.ndarray import torch_dtype
 from ..kernels import _build
@@ -397,8 +397,8 @@ class InferenceSession:
             # thread-local capture: other sessions may serve on other
             # threads meanwhile (a repository deploys while it serves)
             with _build.recording_launches() as rec:
-                with torch.cuda.graph(graph,
-                                      capture_error_mode="thread_local"):
+                with cuda_graph(graph,
+                                capture_error_mode="thread_local"):
                     outs, news = self._forward(ent.inputs, ent.states)
         except Exception as e:
             raise MXNetError(

@@ -488,7 +488,10 @@ def _num_outputs_for(opname, kwargs):
     ``output_mean_var`` also return the mean and the variance;
     ``amp_multicast`` returns one output per input (its
     ``num_outputs``), the splits one per part, ``rnn`` with
-    ``state_outputs`` its final states too."""
+    ``state_outputs`` its final states too; ``topk`` with ``ret_typ=
+    "both"`` values and indices, ``sample_multinomial`` with
+    ``get_prob`` the log-probabilities too, ``histogram`` counts and
+    edges, ``moments`` the mean and the variance."""
     if opname in ("batch_norm", "layer_norm"):
         return 3 if kwargs.get("output_mean_var") else 1
     if opname == "amp_multicast":
@@ -503,6 +506,12 @@ def _num_outputs_for(opname, kwargs):
         if kwargs.get("state_outputs", True):
             return 3 if kwargs.get("mode", "lstm") == "lstm" else 2
         return 1
+    if opname == "topk":
+        return 2 if kwargs.get("ret_typ") == "both" else 1
+    if opname == "sample_multinomial":
+        return 2 if kwargs.get("get_prob") else 1
+    if opname in ("histogram", "moments"):
+        return 2
     return 1
 
 
@@ -533,6 +542,9 @@ _AUTO_PARAMS = {
     "embedding": ("weight",),
     "batch_norm": ("gamma", "beta", "moving_mean", "moving_var"),
     "layer_norm": ("gamma", "beta"),
+    "deconvolution": ("weight", "bias"),
+    "group_norm": ("gamma", "beta"),
+    "instance_norm": ("gamma", "beta"),
 }
 
 

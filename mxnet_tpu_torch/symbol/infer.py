@@ -61,6 +61,22 @@ def _param_shape_rules(op, kw, in_shapes, arg_names):
                 out[named("weight")] = (nf,) + kernel + (data[-1] // g,)
             else:
                 out[named("weight")] = (nf, data[1] // g) + kernel
+    elif op == "deconvolution":
+        kernel = kw.get("kernel")
+        nf, g = kw.get("num_filter"), kw.get("num_group", 1)
+        out[named("bias")] = (nf,)
+        if kernel is not None:
+            kernel = (kernel,) if isinstance(kernel, int) else tuple(kernel)
+            out[named("weight")] = (data[1], nf // g) + kernel
+    elif op == "instance_norm":
+        out[named("gamma")] = (data[1],)
+        out[named("beta")] = (data[1],)
+    elif op == "group_norm":
+        # per group (group_norm-inl.h:163); the JAX rule's (C,) would not
+        # fit the op
+        g = (kw.get("num_groups", 1),)
+        out[named("gamma")] = g
+        out[named("beta")] = g
     elif op == "batch_norm":
         c = (data[kw.get("axis", 1)],)
         for pname in ("gamma", "beta", "moving_mean", "moving_var"):
@@ -91,6 +107,9 @@ def _param_shape_rules(op, kw, in_shapes, arg_names):
     elif op in ("linear_regression_output", "mae_regression_output",
                 "logistic_regression_output"):
         out[named("label")] = tuple(data)
+    elif op == "svm_output":
+        # class indices, as softmax_output's (reference svm_output.cc)
+        out[named("label")] = tuple(data[:-1])
     return {k: v for k, v in out.items() if k is not None}
 
 

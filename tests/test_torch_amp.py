@@ -102,6 +102,33 @@ for _op in ("broadcast_add", "broadcast_sub", "broadcast_mul",
 for _op in ("elemwise_add", "elemwise_sub", "elemwise_mul", "elemwise_div",
             "maximum", "minimum"):
     _CASES[_op] = (lambda rs: [_u(rs, 2, 3), _u(rs, 2, 3)], {})
+# the AMP-listed ops of the NDArray and op surface (index arrays hold
+# whole numbers, which every dtype represents exactly)
+_CASES["_matmul"] = (lambda rs: [_u(rs, 2, 3), _u(rs, 3, 4)], {})
+_CASES["batch_take"] = (lambda rs: [_u(rs, 3, 4),
+                                    onp.array([1.0, 0.0, 3.0], "float32")],
+                        {})
+_CASES["take_along_axis"] = (
+    lambda rs: [_u(rs, 3, 4), onp.array([[1.0], [3.0], [0.0]], "float32")],
+    {"axis": 1})
+_CASES["ctc_loss"] = (lambda rs: [_u(rs, 4, 2, 3),
+                                  onp.array([[1.0, 2.0], [2.0, 0.0]],
+                                            "float32")], {})
+_CASES["deconvolution"] = (lambda rs: [_u(rs, 1, 2, 3, 3),
+                                       _u(rs, 2, 3, 2, 2)],
+                           {"kernel": (2, 2), "num_filter": 3})
+_CASES["group_norm"] = (lambda rs: [_u(rs, 2, 4, 3), _u(rs, 2), _u(rs, 2)],
+                        {"num_groups": 2})
+_CASES["instance_norm"] = (lambda rs: [_u(rs, 2, 3, 4), _u(rs, 3),
+                                       _u(rs, 3)], {})
+_CASES["svm_output"] = (lambda rs: [_u(rs, 2, 3),
+                                    onp.array([0.0, 2.0], "float32")], {})
+for _op, _kw in (("l2_normalization", {}), ("lrn", {"nsize": 3}),
+                 ("mean_all", {}), ("nanprod", {}), ("nansum", {}),
+                 ("norm", {}), ("prod", {}), ("smooth_l1", {}),
+                 ("softmin", {}), ("sum_axis", {"axis": 1})):
+    _CASES[_op] = ((lambda rs: [_u(rs, 1, 3, 2, 2)]) if _op == "lrn" else
+                   (lambda rs: [_u(rs, 2, 3)]), _kw)
 for _op, _attr, _vals in lists.CONDITIONAL_FP32_OPS:
     for _v in _vals + (["relu"] if _op == "activation" else ["leaky"]):
         _CASES[f"{_op}:{_v}"] = (lambda rs: [_u(rs, 2, 3)], {_attr: _v})

@@ -1682,3 +1682,78 @@ def test_gluon_lstm_hybridized_trains_through_graphs(cuda):
     assert stats["captures"] == 1 and stats["replays"] == len(batches)
     assert stats["backward_replays"] == len(batches)
     assert onp.isfinite(float(losses[-1].asscalar()))
+
+
+# -- the NDArray and op surface ----------------------------------------------
+
+def test_in_place_update_reaches_the_captured_graph(cuda):
+    """``w -= lr * g`` on ``Parameter.data()`` writes the registered leaf,
+    whose storage a hybridized block's captured forward reads: the replay
+    after the update equals the eager forward bitwise."""
+    from mxnet_tpu_torch import autograd, gluon, nd
+
+    ctx = mx.gpu(0)
+    mx.random.seed(0)
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Dense(16, activation="relu"), gluon.nn.Dense(4))
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    x = nd.random.uniform(-1, 1, shape=(8, 5), ctx=ctx)
+    with autograd.record():
+        loss = net(x).sum()
+    loss.backward()
+    gluon.reset_cached_op_stats()
+    net.hybridize()
+    before = net(x).asnumpy()
+    for p in net.collect_params().values():
+        w = p.data()
+        w -= 0.1 * p.grad()
+    captured = net(x).asnumpy()
+    stats = gluon.cached_op_stats()
+    net.hybridize(False)
+    eager = net(x).asnumpy()
+    assert stats["captures"] == 1 and stats["replays"] == 2
+    assert onp.array_equal(captured, eager)
+    assert not onp.array_equal(captured, before)
+
+
+def test_random_ops_draw_anew_under_capture_and_repeat_after_seed(cuda):
+    from mxnet_tpu_torch.tools import op_sweep
+
+    assert op_sweep.random_capture_check(cuda) == len(op_sweep.RANDOM) + 4
+
+
+def test_op_sweep_on_card_matches_cpu_and_captures(cuda):
+    """Every case of the op sweep on the card against the CPU port (exact
+    outputs bitwise), and every deterministic one in one CUDA graph."""
+    from mxnet_tpu_torch.tools import op_sweep
+
+    assert len(op_sweep.card_sweep(cuda)) == len(op_sweep.ALL)
+    assert op_sweep.capture_check(cuda) == len(
+        [c for c in op_sweep.ALL if c.op not in op_sweep.DATA_DEPENDENT])
+
+
+def test_fault_1_rows_on_card(cuda):
+    """ROADMAP C's fault 1 table on the card: each row gives the JAX
+    package's answer (the CPU tests hold the rows against it)."""
+    from mxnet_tpu_torch import autograd, gluon, nd
+
+    ctx = mx.gpu(0)
+    net = gluon.nn.Dense(2, in_units=2)
+    net.initialize(mx.init.One(), ctx=ctx)
+    w = net.weight.data()
+    w -= 0.5
+    assert net.weight.data().asnumpy().tolist() == [[0.5, 0.5]] * 2
+    x = nd.ones((1, 2), ctx=ctx)
+    with autograd.record():
+        loss = net(x).sum()
+    loss.backward()
+    d = net.weight.data()
+    d -= 0.1 * net.weight.grad()
+    assert onp.allclose(net.weight.data().asnumpy(), 0.4)
+    a = nd.array([1.0, 2.0], ctx=ctx)
+    alias = a
+    a += 1
+    assert alias.asnumpy().tolist() == [2.0, 3.0]
+    assert bool(nd.array([0.0], ctx=ctx)) is False
+    eq = nd.array([1.0, 2.0], ctx=ctx) == 1
+    assert str(eq.dtype) == "float32" and eq.asnumpy().tolist() == [1.0, 0.0]

@@ -545,3 +545,34 @@ def test_apply_and_summary(capsys):
     net.summary()
     out = capsys.readouterr().out
     assert "Dense" in out and "16 params" in out
+
+
+def test_captures_pause_the_garbage_collector(monkeypatch):
+    """Every capture of the port goes through ``context.cuda_graph``,
+    which pauses Python's cyclic collector while ``torch.cuda.graph``
+    captures: a collection there can free an old CUDA graph, whose
+    teardown invalidates the capture. It restores the collector after,
+    also when the capture raises."""
+    import contextlib
+    import gc
+
+    from mxnet_tpu_torch.context import cuda_graph
+
+    seen = []
+
+    @contextlib.contextmanager
+    def fake_graph(graph, **kwargs):
+        seen.append((graph, gc.isenabled(), kwargs))
+        yield
+
+    monkeypatch.setattr(torch.cuda, "graph", fake_graph)
+    assert gc.isenabled()
+    with cuda_graph("g", capture_error_mode="thread_local"):
+        assert not gc.isenabled()
+    assert gc.isenabled()
+    with pytest.raises(ValueError):
+        with cuda_graph("h"):
+            raise ValueError("capture failed")
+    assert gc.isenabled()
+    assert seen == [("g", False, {"capture_error_mode": "thread_local"}),
+                    ("h", False, {})]
