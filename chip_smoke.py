@@ -44,7 +44,11 @@ kernels against the plain PyTorch versions:
 - the NDArray and op surface: ResNet-50 trained through a hand-written
   SGD loop on the in-place operators (no ``Trainer``), and every op of
   the surface on the card against the CPU port, in one CUDA graph, with
-  the random ops drawing under a registered generator.
+  the random ops drawing under a registered generator;
+- the Gluon surface: nine vision-zoo models at their published widths,
+  VGG-16 trained hybridized at Simonyan and Zisserman's settings, LAMB
+  on ResNet-50 v2, every new optimizer against the CPU port, and the
+  GAN and matrix-factorization examples' twins.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100:
 
@@ -290,7 +294,43 @@ stream busy until the launch is enqueued, so it is the device's time:
     device's generator registered, drawing anew per replay and repeating
     after ``mx.random.seed``; the JAX opperf suite's times
     (``benchmark/opperf.py``);
-39. report: one JSON line of kernels, then the device line last.
+39. the vision zoo at published widths (1000 classes, 224 x 224,
+    Inception v3 at 299 x 299): ``alexnet``, ``vgg16``, ``vgg16_bn``,
+    ``squeezenet1_1``, ``mobilenet1_0``, ``mobilenet_v2_1_0``,
+    ``densenet121``, ``inception_v3`` and ``resnet50_v2``, Xavier
+    weights from a seed: each one's trainable parameter count; eval-mode
+    logits and every gradient at batch 2 against the CPU port with the
+    same weights, within 1e-3 of each tensor's largest magnitude (a
+    gradient behind a max-pool near-tie within 1e-2 in relative L2, and
+    named); one training-mode forward and backward at batch 32, eager
+    and then hybridized, with dropout at 0 and cuDNN deterministic:
+    logits and every gradient bitwise equal; then 2 + 5 hybridized SGD
+    steps at the published dropout: step ms, img/s, peak memory;
+40. VGG-16 training: ``vgg16`` (13 convolutions and 3 FC layers at
+    Simonyan and Zisserman's widths, 138,357,544 parameters, as the JAX
+    model counts them; dropout 0.5), one synthetic batch of 64 images
+    from a seed, hybridized, SGD momentum 0.9, lr 0.01, wd 5e-4 (their
+    §3.1), ``SoftmaxCELoss``: 20 steps; the batch's eval-mode loss (no
+    dropout noise) falls; step ms, img/s, peak memory, one training and
+    one eval capture and a backward replay per step, and 3
+    profiled steps (``tools/profile_zoo.py``): the device's idle share
+    and device time by kind;
+41. LAMB on ResNet-50 v2: ``resnet50_v2`` at batch 128, hybridized,
+    LAMB (lr 0.01, wd 1e-4) through the Trainer's eager per-parameter
+    loop for 10 steps (the loss falls), then the fused SGD step on the
+    same net: each optimizer's ms per step;
+42. the new optimizers (Adamax, Nadam, FTML, LAMB, LARS, LBSGD, DCASGD,
+    SGLD without its noise, GroupAdaGrad): 3 Trainer steps on a small
+    MLP on the card against the CPU port within 1e-5 of each
+    parameter's largest value; ``ftml_update``, ``lamb_update_phase1``,
+    ``lamb_update_phase2`` and ``multi_lars`` against the CPU within
+    1e-6;
+43. the twins of ``examples/train_gan_toy.py`` (``SigmoidBCELoss``, two
+    Adam Trainers, both nets hybridized: the discriminator, called twice
+    under one ``record()``, takes two captured slots) and
+    ``examples/train_recommender_mf.py`` (``L2Loss``, ``Embedding``) at
+    their default arguments; the MF loss falls below its start;
+44. report: one JSON line of kernels, then the device line last.
 
 Each phase prints the seconds it took.
 
@@ -334,6 +374,7 @@ from mxnet_tpu_torch.benchmark import opperf  # noqa: E402
 from mxnet_tpu_torch.tools import op_sweep  # noqa: E402
 from mxnet_tpu_torch.tools import profile_module as pm  # noqa: E402
 from mxnet_tpu_torch.tools import profile_resnet as pr  # noqa: E402
+from mxnet_tpu_torch.tools import profile_zoo as pz  # noqa: E402
 from mxnet_tpu_torch.tools.profile_decode import (  # noqa: E402
     build as decode_stack, profile_steps)
 from mxnet_tpu_torch.gluon.model_zoo import vision  # noqa: E402
@@ -3490,6 +3531,428 @@ def op_sweep_phase():
             "opperf": suite}
 
 
+# -- ROADMAP A3: the Gluon surface, the vision zoo, VGG-16 -------------------
+
+# the zoo at published widths (1000 classes, 224 x 224, Inception v3 at
+# 299 x 299): eager against hybridized at batch 32, against the CPU port
+# at batch 2, timed over 5 steps after 2
+ZOO_MODELS = ("alexnet", "vgg16", "vgg16_bn", "squeezenet1_1",
+              "mobilenet1_0", "mobilenet_v2_1_0", "densenet121",
+              "inception_v3", "resnet50_v2")
+ZOO_B, ZOO_CPU_B, ZOO_WARMUP, ZOO_STEPS = 32, 2, 2, 5
+# the card against the CPU port, eval mode: within this fraction of each
+# tensor's largest magnitude; a gradient behind a max-pool near-tie (two
+# values of a window within float32 rounding, which each device's
+# rounding resolves its own way) within this relative L2 distance
+ZOO_CPU_TOL, ZOO_NEAR_TIE_L2 = 1e-3, 1e-2
+# Simonyan and Zisserman's 13 convolutions and 3 FC layers at 1000
+# classes, as the JAX package's vgg16 counts them
+VGG16_PARAMS = 138_357_544
+VGG_B, VGG_STEPS, VGG_PROFILED = 64, 20, 3
+LAMB_B, LAMB_STEPS, LAMB_PARAMS = 128, 10, {"learning_rate": 0.01,
+                                            "wd": 1e-4}
+# the new optimizers on the card against the CPU port: 3 steps, within
+# this fraction of each parameter's largest magnitude
+OPTIM_TAIL = (("adamax", {}), ("nadam", {}), ("ftml", {}),
+              ("lamb", {"wd": 0.01}), ("lars", {"momentum": 0.9}),
+              ("lbsgd", {"momentum": 0.9}), ("dcasgd", {"momentum": 0.9}),
+              ("sgld", {"wd": 0.01}), ("groupadagrad", {}))
+OPTIM_TAIL_TOL = 1e-5
+
+
+def _dropouts(net):
+    """The net's Dropout layers."""
+    found = []
+    net.apply(lambda blk: found.append(blk)
+              if isinstance(blk, gluon.nn.Dropout) else None)
+    return found
+
+
+def _zoo_record(net, x, y, loss_fn):
+    """One recorded forward and backward: (logits, {name: gradient}) on
+    the device."""
+    with autograd.record():
+        out = net(x)
+        loss = loss_fn(out, y)
+    loss.backward()
+    return out.data.detach().clone(), {
+        k: p.grad().data.detach().clone()
+        for k, p in net._collect_params_with_prefix().items()
+        if p.grad_req != "null"}
+
+
+def _zoo_vs_cpu(name, net, size):
+    """Eval-mode logits and every gradient of ``sum(logits * cot)`` at
+    batch 2 on the card against the CPU port with the same weights."""
+    rs = onp.random.RandomState(SEED + 1)
+    x = rs.standard_normal((ZOO_CPU_B, 3, size, size)).astype("float32")
+    cot = rs.standard_normal((ZOO_CPU_B, pz.CLASSES)).astype("float32")
+    cpu = vision.get_model(name, classes=pz.CLASSES)
+    convert.params_from_numpy(
+        cpu, {k: p.data().asnumpy()
+              for k, p in net._collect_params_with_prefix().items()},
+        ctx=mx.cpu())
+    runs = []
+    for n, ctx in ((net, mx.gpu(0)), (cpu, mx.cpu())):
+        xin = nd.array(x, ctx=ctx)
+        xin.attach_grad()
+        with autograd.record(train_mode=False):
+            out = n(xin)
+            loss = (out * nd.array(cot, ctx=ctx)).sum()
+        loss.backward()
+        grads = {k: p.grad().asnumpy() for k, p in
+                 n._collect_params_with_prefix().items()
+                 if p.grad_req != "null"}
+        grads["input"] = xin.grad.asnumpy()
+        runs.append((out.asnumpy(), grads))
+    (out_c, g_c), (out_h, g_h) = runs
+    logit_dev = float(onp.abs(out_c - out_h).max() / onp.abs(out_h).max())
+    if logit_dev > ZOO_CPU_TOL:
+        raise RuntimeError(f"{name}: logits {logit_dev:.3g} off the CPU "
+                           f"port's (bound {ZOO_CPU_TOL})")
+    worst, near_ties = 0.0, []
+    for k in g_h:
+        scale = float(onp.abs(g_h[k]).max()) or 1.0
+        dev = float(onp.abs(g_c[k] - g_h[k]).max()) / scale
+        if dev > ZOO_CPU_TOL:
+            l2 = float(onp.linalg.norm((g_c[k] - g_h[k]).ravel())
+                       / max(onp.linalg.norm(g_h[k].ravel()), 1e-30))
+            if l2 > ZOO_NEAR_TIE_L2:
+                raise RuntimeError(f"{name}: gradient {k} {dev:.3g} of its "
+                                   f"scale and {l2:.3g} in L2 off the CPU "
+                                   "port's")
+            near_ties.append((k, dev, l2))
+            continue
+        worst = max(worst, dev)
+    del cpu
+    return {"logits": logit_dev, "gradients": worst,
+            "near_ties": near_ties[:4], "n_near_ties": len(near_ties),
+            "n_gradients": len(g_h)}
+
+
+def zoo_phase():
+    phase("39 the vision zoo at published widths")
+    ctx = mx.gpu(0)
+    rows = {}
+    for name in ZOO_MODELS:
+        fused_step.reset_fused_step_cache()
+        gluon.reset_cached_op_stats()
+        _fresh_peak()
+        t_model = time.perf_counter()
+        net = pz.build(name, ctx, seed=SEED)
+        count = pz.trainable_count(net)
+        size = pz.image_size(name)
+        # 1. the card against the CPU port at batch 2, eval mode, eager
+        cpu = _zoo_vs_cpu(name, net, size)
+        # 2. eager against hybridized at batch 32, training mode, dropout
+        # off and cuDNN held to deterministic algorithms: bitwise
+        x, y = pz.synthetic_batch(ZOO_B, size, ctx, seed=SEED)
+        loss_fn = gluon.loss.SoftmaxCELoss()
+        drops = _dropouts(net)
+        rates = [d._rate for d in drops]
+        for d in drops:
+            d._rate = 0.0
+        aux = [p.data().data for p in net.collect_params().values()
+               if p.grad_req == "null"]
+        aux0 = [t.detach().clone() for t in aux]
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True):
+            out_e, g_e = _zoo_record(net, x, y, loss_fn)
+            with torch.no_grad():
+                for t, v in zip(aux, aux0):
+                    t.copy_(v)
+            net.hybridize()
+            out_h, g_h = _zoo_record(net, x, y, loss_fn)
+        bad = [k for k in g_e if not torch.equal(g_e[k], g_h[k])]
+        if not torch.equal(out_e, out_h) or bad:
+            raise RuntimeError(
+                f"{name}: hybridized differs from eager: logits "
+                f"{float((out_e - out_h).abs().max()):.3g}, gradients "
+                f"{bad[:5]}")
+        cached = gluon.cached_op_stats()
+        n_bitwise = 1 + len(g_e)
+        del out_e, g_e, out_h, g_h
+        with torch.no_grad():
+            for t, v in zip(aux, aux0):
+                t.copy_(v)
+        del aux0
+        # 3. training steps at the published dropout, hybridized anew (the
+        # rate is part of the captured graph), SGD-momentum
+        for d, r in zip(drops, rates):
+            d._rate = r
+        net.hybridize()
+        trainer = pz.make_trainer(net)
+        # the peak from here takes in the captures' memory pools
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(ZOO_WARMUP):
+            loss = pz.train_step(net, trainer, loss_fn, x, y)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ZOO_STEPS):
+            loss = pz.train_step(net, trainer, loss_fn, x, y)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / ZOO_STEPS
+        last = float(loss.asscalar())
+        if not onp.isfinite(last):
+            raise RuntimeError(f"{name}: training loss {last}")
+        row = {"trainable_parameters": count, "image": size,
+               "bitwise_tensors": n_bitwise,
+               "cpu_deviation": cpu, "step_ms": step_ms,
+               "img_per_s": ZOO_B * 1e3 / step_ms,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "captures": cached["captures"], "last_loss": last,
+               "seconds": time.perf_counter() - t_model}
+        rows[name] = row
+        print(f"  {name}: {count:,} trainable parameters; eager = "
+              f"hybridized bitwise ({row['bitwise_tensors']} tensors); "
+              f"CPU: logits {cpu['logits']:.3g}, gradients "
+              f"{cpu['gradients']:.3g} ({cpu['n_near_ties']} of "
+              f"{cpu['n_gradients']} behind near-ties, {cpu['near_ties']}); "
+              f"batch {ZOO_B}: {step_ms:.2f} ms/step, "
+              f"{row['img_per_s']:.1f} img/s, peak "
+              f"{row['peak_gb']:.2f} GB")
+        del net, trainer, x, y, loss
+    return rows
+
+
+def vgg_phase():
+    phase("40 VGG-16 training")
+    ctx = mx.gpu(0)
+    fused_step.reset_fused_step_cache()
+    gluon.reset_cached_op_stats()
+    torch.backends.cudnn.benchmark = True
+    _fresh_peak()
+    net = pz.build("vgg16", ctx, seed=SEED)
+    count = pz.trainable_count(net)
+    if count != VGG16_PARAMS:
+        raise RuntimeError(f"vgg16 has {count:,} trainable parameters, the "
+                           f"JAX model {VGG16_PARAMS:,}")
+    if [d._rate for d in _dropouts(net)] != [0.5, 0.5]:
+        raise RuntimeError("vgg16: dropout 0.5 in its two 4096-wide layers")
+    trainer = pz.make_trainer(net)  # SGD 0.01, momentum 0.9, wd 5e-4
+    loss_fn = gluon.loss.SoftmaxCELoss()
+    net.hybridize()
+    x, y = pz.synthetic_batch(VGG_B, 224, ctx, seed=SEED)
+
+    def eval_loss():
+        # the batch's loss without dropout's noise
+        with autograd.predict_mode():
+            return float(loss_fn(net(x), y).mean().asscalar())
+
+    before = eval_loss()
+    losses, step_ms = [], []
+    for _ in range(VGG_STEPS):
+        t0 = time.perf_counter()
+        loss = pz.train_step(net, trainer, loss_fn, x, y)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.asscalar()))
+    after = eval_loss()
+    if not all(onp.isfinite(losses)) or not after < before:
+        raise RuntimeError(f"VGG-16: the batch's eval-mode loss {before} -> "
+                           f"{after}; training losses {losses}")
+    cached = gluon.cached_op_stats()
+    fs = fused_step.fused_step_stats()
+    if cached["captures"] != 2 or cached["backward_replays"] != VGG_STEPS:
+        raise RuntimeError(f"VGG-16 hybridized: {cached} in {VGG_STEPS} "
+                           "steps (want two captures, training and eval, "
+                           "and a backward replay per step)")
+    timed = step_ms[2:]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = pr.profile_steps(lambda: pz.train_step(net, trainer, loss_fn, x,
+                                                  y), VGG_PROFILED)
+    result = {"trainable_parameters": count, "batch": VGG_B,
+              "steps": VGG_STEPS, "eval_loss": [before, after],
+              "first_loss": losses[0],
+              "last_loss": losses[-1], "losses": losses,
+              "mean_step_ms": statistics.mean(timed),
+              "median_step_ms": statistics.median(timed),
+              "img_per_s": VGG_B * 1e3 / statistics.mean(timed),
+              "peak_gb": peak, "cached_op": cached,
+              "fused_step": {k: fs[k] for k in ("captures", "replays")},
+              "profile": {k: prof[k] for k in (
+                  "wall_ms_per_step", "device_busy_ms_per_step",
+                  "device_idle_share", "device_ops_per_step",
+                  "device_ms_per_step_by_kind")}}
+    print("  vgg16 " + json.dumps(result))
+    print(f"  VGG-16, batch {VGG_B}, hybridized: {result['mean_step_ms']:.2f}"
+          f" ms/step (median {result['median_step_ms']:.2f}) over steps "
+          f"3-{VGG_STEPS}, {result['img_per_s']:.1f} img/s, peak "
+          f"{peak:.2f} GB, device idle "
+          f"{100 * prof['device_idle_share']:.1f}% (profiled "
+          f"{prof['wall_ms_per_step']:.2f} ms, busy "
+          f"{prof['device_busy_ms_per_step']:.2f} ms); the batch's "
+          f"eval-mode loss {before:.4f} -> {after:.4f} (training losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f})")
+    del net, trainer, x, y
+    return result
+
+
+def _optimizer_ms(trainer):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.step(LAMB_B)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def lamb_phase():
+    phase("41 LAMB on ResNet-50 v2")
+    ctx = mx.gpu(0)
+    fused_step.reset_fused_step_cache()
+    gluon.reset_cached_op_stats()
+    torch.backends.cudnn.benchmark = True
+    _fresh_peak()
+    net = pz.build("resnet50_v2", ctx, seed=SEED)
+    net.hybridize()
+    loss_fn = gluon.loss.SoftmaxCELoss()
+    x, y = pz.synthetic_batch(LAMB_B, 224, ctx, seed=SEED)
+    results = {}
+    for opt, params in (("lamb", LAMB_PARAMS),
+                        ("sgd", {"learning_rate": 0.1, "momentum": 0.9,
+                                 "wd": 1e-4})):
+        trainer = pz.make_trainer(net, opt, params)
+        before = fused_step.fused_step_stats()["bypasses"]
+        losses, opt_ms, step_ms = [], [], []
+        for _ in range(LAMB_STEPS):
+            t0 = time.perf_counter()
+            with autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            opt_ms.append(_optimizer_ms(trainer))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss.mean().asscalar()))
+        bypasses = fused_step.fused_step_stats()["bypasses"] - before
+        results[opt] = {"first_loss": losses[0], "last_loss": losses[-1],
+                        "optimizer_ms": statistics.mean(opt_ms[2:]),
+                        "step_ms": statistics.mean(step_ms[2:]),
+                        "eager_loop_steps": bypasses}
+        if opt == "lamb":
+            if not all(onp.isfinite(losses)) or not losses[-1] < losses[0]:
+                raise RuntimeError(f"LAMB on resnet50_v2: losses {losses}")
+            if bypasses != LAMB_STEPS:
+                raise RuntimeError(f"LAMB ran the eager loop {bypasses} "
+                                   f"times in {LAMB_STEPS} steps")
+        del trainer
+    print("  resnet50_v2 optimizers " + json.dumps(results))
+    print(f"  LAMB's eager per-parameter loop: "
+          f"{results['lamb']['optimizer_ms']:.2f} ms a step against the "
+          f"fused SGD step's {results['sgd']['optimizer_ms']:.2f} ms on the "
+          f"same net (batch {LAMB_B}; steps "
+          f"{results['lamb']['step_ms']:.2f} and "
+          f"{results['sgd']['step_ms']:.2f} ms); LAMB loss "
+          f"{results['lamb']['first_loss']:.4f} -> "
+          f"{results['lamb']['last_loss']:.4f}")
+    del net, x, y
+    return results
+
+
+class _QuietSGLD(mx.optimizer.SGLD):
+    """SGLD without its noise: the update the card and the CPU share."""
+
+    def _noise(self, weight, lr):
+        return None
+
+
+def _mlp_weights():
+    rs = onp.random.RandomState(SEED)
+    return {"0.weight": rs.randn(64, 32).astype("f") * 0.2,
+            "0.bias": rs.randn(64).astype("f") * 0.1,
+            "1.weight": rs.randn(10, 64).astype("f") * 0.2,
+            "1.bias": rs.randn(10).astype("f") * 0.1}
+
+
+def _optim_run(name, kw, ctx, x, y):
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Dense(64, activation="tanh", in_units=32),
+            gluon.nn.Dense(10, in_units=64))
+    convert.params_from_numpy(net, _mlp_weights(), ctx=ctx)
+    params = [p for k, p in sorted(net._collect_params_with_prefix().items())
+              if name != "groupadagrad" or k.endswith("weight")]
+    opt = _QuietSGLD(learning_rate=0.01, **kw) if name == "sgld" else \
+        mx.optimizer.create(name, learning_rate=0.01, **kw)
+    trainer = gluon.Trainer(params, opt)
+    lf = gluon.loss.SoftmaxCELoss()
+    xs, ys = nd.array(x, ctx=ctx), nd.array(y, ctx=ctx)
+    for _ in range(3):
+        with autograd.record():
+            loss = lf(net(xs), ys).mean()
+        loss.backward()
+        trainer.step(1)
+    return {k: p.data().asnumpy()
+            for k, p in net._collect_params_with_prefix().items()}
+
+
+def optim_tail_phase():
+    phase("42 the new optimizers and their ops against the CPU port")
+    rs = onp.random.RandomState(SEED)
+    x = rs.randn(16, 32).astype("f")
+    y = rs.randint(0, 10, 16).astype("f")
+    worst = {}
+    for name, kw in OPTIM_TAIL:
+        card = _optim_run(name, kw, mx.gpu(0), x, y)
+        cpu = _optim_run(name, kw, mx.cpu(), x, y)
+        dev = max(float(onp.abs(card[k] - cpu[k]).max()
+                        / onp.abs(cpu[k]).max()) for k in cpu)
+        moved = sum(not onp.array_equal(cpu[k], w)
+                    for k, w in _mlp_weights().items())
+        if dev > OPTIM_TAIL_TOL or moved == 0:
+            raise RuntimeError(f"{name}: the card {dev:.3g} off the CPU "
+                               f"(bound {OPTIM_TAIL_TOL}); {moved} moved")
+        worst[name] = dev
+    # the ops
+    w, g, d, v, z = (rs.randn(256, 128).astype("f") for _ in range(5))
+    v, d = onp.abs(v), onp.abs(d) + 0.5
+
+    def ops(ctx):
+        a = [nd.array(t, ctx=ctx) for t in (w, g, d, v, z)]
+        f = nd.ftml_update(*a, lr=0.01, wd=0.01, t=3)
+        b = [nd.array(t, ctx=ctx) for t in (w, g, z, v)]
+        p1 = nd.lamb_update_phase1(*b, t=2, wd=0.01)
+        r1, r2 = nd.norm(b[0]), nd.norm(p1[0])
+        p2 = nd.lamb_update_phase2(b[0], p1[0], r1, r2, lr=0.01)
+        lars = nd.multi_lars(*[nd.array(t[0, :8].copy(), ctx=ctx)
+                               for t in (onp.abs(w), onp.abs(g), v, d)])
+        return [o.asnumpy() for o in (*f, *p1, p2, lars)]
+
+    op_dev = max(float(onp.abs(a - b).max() / onp.abs(b).max())
+                 for a, b in zip(ops(mx.gpu(0)), ops(mx.cpu())))
+    if op_dev > 1e-6:
+        raise RuntimeError(f"ftml/lamb/multi_lars ops: the card {op_dev:.3g} "
+                           "off the CPU")
+    print("  3 Trainer steps each on a 32-64-10 MLP, card against CPU "
+          "(SGLD without its noise), of each parameter's largest value: "
+          + json.dumps(worst) + f"; ftml_update, lamb_update_phase1/2, "
+          f"multi_lars: {op_dev:.3g}")
+    return {"optimizers": worst, "ops": op_dev}
+
+
+def examples_phase():
+    phase("43 the GAN and matrix-factorization twins of examples/")
+    from mxnet_tpu_torch.examples import train_gan_toy, train_recommender_mf
+
+    fused_step.reset_fused_step_cache()
+    gluon.reset_cached_op_stats()
+    t0 = time.perf_counter()
+    gan = train_gan_toy.main([])
+    gan_s = time.perf_counter() - t0
+    cached = gluon.cached_op_stats()
+    if not (onp.isfinite(gan["mean_radius"]) and onp.isfinite(gan["d_loss"])):
+        raise RuntimeError(f"GAN twin: {gan}")
+    t0 = time.perf_counter()
+    mf = train_recommender_mf.main([])
+    if not mf["last_mse"] < mf["first_mse"]:
+        raise RuntimeError(f"MF twin: {mf}")
+    print(f"  GAN: {gan_s:.1f} s, mean radius {gan['mean_radius']:.3f} "
+          f"(target 2.0), the discriminator captured in two slots "
+          f"({cached['captures']} captures, {cached['backward_replays']} "
+          f"backward replays); MF: MSE {mf['first_mse']:.4f} -> "
+          f"{mf['last_mse']:.4f} in {time.perf_counter() - t0:.1f} s")
+    return {"gan": gan, "gan_seconds": gan_s, "gan_cached_op": cached,
+            "mf": mf}
+
+
 def kernel_entry(name, source, replaces, launches, worst, row, shape, smi,
                  **extra):
     entry = {"name": name, "route": "cuda", "source": source,
@@ -3551,6 +4014,12 @@ def main():
     fusion_bind = training_bind_fusion_phase()
     hand = hand_loop_phase()
     sweep = op_sweep_phase()
+    torch.cuda.empty_cache()
+    zoo = zoo_phase()
+    vgg = vgg_phase()
+    lamb = lamb_phase()
+    optim_tail = optim_tail_phase()
+    twins = examples_phase()
     bind_counts = fusion_bind["counts"]
     # the counts after the inference forward hold the training step's too
     k1_bind = bind_counts["after_inference"].get(FLASH_KERNEL, 0)
@@ -3647,7 +4116,7 @@ def main():
             launches_by_path={"resnet_fp32": k4_bwd_n, **k4_amp,
                               **k4_hyb}),
     ]
-    phase("39 report")
+    phase("44 report")
     print(f"bf16 ResNet-50 headline layout: {head}")
     print("hybridized: " + json.dumps({
         "resnet50_bf16_nhwc_step_ms": [resnet_hyb[False]["mean_step_ms"],
@@ -3686,6 +4155,22 @@ def main():
         "hand_vs_trainer": hand["hand_vs_trainer"],
         "sweep_cases": sweep["cases"], "captured": sweep["captured"],
         "opperf_fwd_ms": {r["op"]: r["fwd_ms"] for r in sweep["opperf"]}}))
+    print("Gluon surface and vision zoo: " + json.dumps({
+        "zoo": {k: {c: v[c] for c in ("trainable_parameters", "step_ms",
+                                      "img_per_s", "peak_gb")}
+                for k, v in zoo.items()},
+        "zoo_cpu_deviation": {k: v["cpu_deviation"]["logits"]
+                              for k, v in zoo.items()},
+        "vgg16_step_ms": vgg["mean_step_ms"],
+        "vgg16_img_per_s": vgg["img_per_s"],
+        "vgg16_idle_share": vgg["profile"]["device_idle_share"],
+        "vgg16_peak_gb": vgg["peak_gb"],
+        "vgg16_eval_loss": vgg["eval_loss"],
+        "lamb_optimizer_ms": lamb["lamb"]["optimizer_ms"],
+        "fused_sgd_optimizer_ms": lamb["sgd"]["optimizer_ms"],
+        "optim_tail_worst": max(optim_tail["optimizers"].values()),
+        "mf_mse": [twins["mf"]["first_mse"], twins["mf"]["last_mse"]],
+        "gan_mean_radius": twins["gan"]["mean_radius"]}))
     print(f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,10 +16,14 @@ ResNet-50 v1 with a custom-op loss head whose kernels ``rtc`` compiles:
 - ``mx.autograd`` — recording scopes and the tape (torch's autograd
   graph, with MXNet's ``grad_req`` rules);
 - ``mx.gluon`` — Block/HybridBlock as ``torch.nn.Module``s, the layers
-  (dense, conv, pooling, norms), the losses, the Trainer and the model
-  zoo's ResNet V1;
+  (dense, conv and transposed conv, pooling, norms, activations,
+  lambdas), ``contrib.nn``, the losses, ``utils``, the Trainer and the
+  vision model zoo (ResNet V1/V2, AlexNet, VGG, SqueezeNet, MobileNet
+  v1/v2, DenseNet, Inception v3);
 - ``mx.optimizer`` — the optimizers with a fused multi-tensor kernel
   (SGD, NAG, Adam, AdaGrad, RMSProp, AdaDelta, Ftrl, SignSGD, Signum),
+  those the Trainer runs through its eager loop (Adamax, Nadam, FTML,
+  LAMB, LARS, LBSGD, DCASGD, SGLD, ``contrib.GroupAdaGrad``),
   multi-precision master weights and the lr schedulers, updating
   parameters in place;
 - ``mx.sym`` — symbol graphs, their JSON, shape inference;
@@ -96,10 +100,11 @@ from . import executor
 from . import module
 from . import module as mod
 from . import rnn
+from . import utils
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "autograd", "initializer", "init", "ndarray", "nd",
            "random", "optimizer", "gluon", "kernels", "name", "symbol", "sym",
            "analysis", "models", "serving", "convert", "operator", "rtc",
            "contrib", "io", "pipeline", "metric", "callback", "model",
-           "executor", "module", "mod", "rnn"]
+           "executor", "module", "mod", "rnn", "utils"]

@@ -48,6 +48,9 @@ class _AutogradState(threading.local):
     def __init__(self):
         self.recording = False
         self.training = False
+        # record() scopes entered from outside one: a hybridized block
+        # reuses the captured graphs of a call made in an earlier scope
+        self.record_scopes = 0
 
 
 _STATE = _AutogradState()
@@ -92,10 +95,20 @@ def _scope(recording=None, training=None):
         _STATE.recording, _STATE.training = prev_r, prev_t
 
 
+@contextmanager
 def record(train_mode=True):
     """Scope in which the ops run are recorded for :func:`backward`
     (reference: python/mxnet/autograd.py:122 record())."""
-    return _scope(recording=True, training=train_mode)
+    if not _STATE.recording:
+        _STATE.record_scopes += 1
+    with _scope(recording=True, training=train_mode):
+        yield
+
+
+def _record_scope_id():
+    """Which outermost ``record()`` scope this thread is in (or was in
+    last)."""
+    return _STATE.record_scopes
 
 
 def pause(train_mode=False):

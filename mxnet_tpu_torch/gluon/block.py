@@ -426,6 +426,16 @@ class _Entry:
         self.replays = 0
         self.bwd_replays = 0
         self.generation = 0      # forward replays, to spot stale backwards
+        # the record() scope of a recorded replay whose backward has not
+        # run yet (None: none is waiting)
+        self.pending_scope = None
+
+    def awaits_backward(self):
+        """Whether a recorded replay of this scope still needs this
+        entry's activations: another recorded call in the scope takes
+        another slot."""
+        return self.pending_scope is not None and \
+            self.pending_scope == autograd._record_scope_id()
 
     def replay(self):
         self.graph.replay()
@@ -456,6 +466,7 @@ class _CachedFn(torch.autograd.Function):
         for s, t in zip(entry.static_inputs, tensors[nparams:]):
             s.copy_(t)
         entry.replay()
+        entry.pending_scope = autograd._record_scope_id()
         ctx.op, ctx.entry, ctx.nparams = op, entry, nparams
         ctx.generation = entry.generation
         outs = tuple(o.detach().clone() for o in entry.static_outputs)
@@ -475,11 +486,12 @@ class _CachedFn(torch.autograd.Function):
                 "block unhybridized for grad(create_graph=True)")
         if entry.generation != ctx.generation:
             raise MXNetError(
-                f"hybridize: {ctx.op._label()} was called again under "
-                "record() before this call's backward, and the replay "
-                "overwrote the activations the backward needs; call "
-                "backward before the next recorded call (or hybridize two "
-                "blocks)")
+                f"hybridize: {ctx.op._label()} was called again under a "
+                "later record() before this call's backward, and the "
+                "replay overwrote the activations the backward needs; "
+                "call backward before the next record() scope calls the "
+                "block")
+        entry.pending_scope = None
         if entry.bwd is None:
             return none + (None,) * (ctx.nparams + len(entry.input_grads))
         with torch.no_grad():
@@ -511,7 +523,11 @@ class CachedOp:
     copies its inputs into the entry's static input buffers and
     replays. A recorded call is one ``torch.autograd.Function`` node
     whose backward replays the backward graph, so gradients land by
-    ``grad_req`` as on the eager path. Before capturing, the entry runs
+    ``grad_req`` as on the eager path. A signature has slots: a recorded
+    call made while an earlier one of the same ``record()`` scope still
+    waits for its backward (a GAN's discriminator on real and on fake
+    data) takes the next slot, with its own buffers and graphs, captured
+    at its first use. Before capturing, the entry runs
     the forward (and backward) once eagerly on a side stream, so cuDNN
     has tuned every shape and cuBLAS and the kernels are loaded; the
     aux states that forward updated (``grad_req="null"``: batch norm's
@@ -528,11 +544,11 @@ class CachedOp:
     per output and call), never the graph's static outputs, which the
     next replay overwrites. Parameter gradients come back as the
     backward graph's static buffers, which ``autograd.backward`` copies
-    into the parameters' buffers before anything replays again. A block
-    called twice under one ``record()`` before its backward raises at
-    that backward (the second replay overwrote the first's
-    activations). Graphs live until ``hybridize()`` or ``cast`` drops
-    the cache.
+    into the parameters' buffers before anything replays again. A call
+    whose backward runs only after a later ``record()`` scope called the
+    block again raises at that backward (the later replay reused its
+    slot and overwrote the activations). Graphs live until
+    ``hybridize()`` or ``cast`` drops the cache.
 
     On the CPU the entry runs the same forward uncaptured (keyed and
     counted all the same); inside an enclosing capture (a serving
@@ -592,11 +608,8 @@ class CachedOp:
                torch.is_inference_mode_enabled(),
                _registry.amp_version(),
                tuple(t.requires_grad for t in ptensors) if recording else ())
-        entry = self.entries.get(key)
-        if entry is None:
-            entry = self.entries[key] = _Entry(
-                {"inputs": sig, "train": train, "recording": recording})
-            _count("builds")
+        entry = self._entry(key, {"inputs": sig, "train": train,
+                                  "recording": recording}, recording)
         entry.calls += 1
         _count("calls")
         cuda = any(t.is_cuda for t in ptensors) or \
@@ -621,6 +634,23 @@ class CachedOp:
                 entry.replay()
                 outs = [o.clone() for o in entry.static_outputs]
         return _unflatten_outputs([NDArray(o) for o in outs], entry.tree)
+
+    def _entry(self, key, sig, recording):
+        """The signature's entry: its first slot whose activations no
+        recorded call of this scope still waits for (a new slot when
+        every one is waiting)."""
+        slot = 0
+        while True:
+            k = key if slot == 0 else key + (("slot", slot),)
+            entry = self.entries.get(k)
+            if entry is None:
+                entry = self.entries[k] = _Entry(
+                    sig if slot == 0 else dict(sig, slot=slot))
+                _count("builds")
+                return entry
+            if not (recording and entry.awaits_backward()):
+                return entry
+            slot += 1
 
     # -- running the block ---------------------------------------------
 
@@ -678,6 +708,7 @@ class CachedOp:
         backward) as CUDA graphs over fresh static buffers. Nothing of the
         call runs here: the caller replays. Raises :class:`MXNetError`."""
         entry.graph = entry.bwd = None
+        swapped, originals = [], []
         dev = next(a.data.device for a in args if a.data.is_cuda) if any(
             a.data.is_cuda for a in args) else params[0]._ndarray.data.device
         try:
@@ -686,8 +717,18 @@ class CachedOp:
                 static_in = [a.data.detach().clone() for a in args]
             for s, a in zip(static_in, args):
                 s.requires_grad_(recording and a.data.requires_grad)
-            req = [p._ndarray.data for p in params
-                   if p._ndarray.data.requires_grad] if recording else []
+            # the forward runs on aliases of the parameters that take a
+            # gradient: leaves made here over the parameters' memory, so
+            # the graphs read and differentiate the parameters while no
+            # autograd node made outside the capture takes part (another
+            # slot's pending call keeps the parameters' own gradient
+            # accumulators alive, tied to the default stream)
+            swapped = [p for p in params
+                       if p._ndarray.data.requires_grad] if recording else []
+            originals = [p._ndarray._data for p in swapped]
+            req = [t.detach().requires_grad_() for t in originals]
+            for p, alias in zip(swapped, req):
+                p._ndarray._data = alias
             aux = [p._ndarray.data for p in params if p.grad_req == "null"]
             targets = req + [s for s in static_in if s.requires_grad]
             cur = torch.cuda.current_stream(dev)
@@ -741,6 +782,9 @@ class CachedOp:
                             targets, gouts, retain_graph=False)
         except Exception as e:
             raise self._capture_error(entry, e) from e
+        finally:
+            for p, t in zip(swapped, originals):
+                p._ndarray._data = t
         entry.graph, entry.bwd, entry.tree = graph, bwd, tree
         entry.static_inputs = static_in
         entry.static_outputs = [o.detach() for o in static_out]

@@ -1,5 +1,5 @@
-"""Model zoo (reference: python/mxnet/gluon/model_zoo/): the ResNet V1
-family so far."""
+"""Model zoo (reference: python/mxnet/gluon/model_zoo/): the vision
+families of the JAX package's zoo."""
 from . import vision
 from .vision import get_model
 

@@ -1,9 +1,11 @@
 """Basic Gluon layers.
 
-The PyTorch counterparts of ``mxnet_tpu/gluon/nn/basic_layers.py:56,89,
-146,160-226,253,308,331`` (reference:
-python/mxnet/gluon/nn/basic_layers.py): HybridSequential, Dense,
-Activation, Dropout, BatchNorm, LayerNorm, Embedding and Flatten.
+The PyTorch counterparts of ``mxnet_tpu/gluon/nn/basic_layers.py``
+(reference: python/mxnet/gluon/nn/basic_layers.py): Sequential,
+HybridSequential, Dense, Activation, Dropout, BatchNorm, InstanceNorm,
+LayerNorm, GroupNorm, Embedding, Flatten, Lambda and HybridLambda.
+``GroupNorm`` keeps one gamma and one beta per group, ``(num_groups,)``,
+the JAX layer's and MXNet 1.5's rule.
 """
 from __future__ import annotations
 
@@ -11,15 +13,18 @@ import math
 
 import torch
 
-from ..block import HybridBlock
+from ... import ndarray as nd
+from ..block import Block, HybridBlock
 from ...ndarray.ndarray import torch_dtype
 
-__all__ = ["HybridSequential", "Dense", "Activation", "Dropout",
-           "BatchNorm", "LayerNorm", "Embedding", "Flatten"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Activation",
+           "Dropout", "BatchNorm", "InstanceNorm", "LayerNorm", "GroupNorm",
+           "Embedding", "Flatten", "Lambda", "HybridLambda"]
 
 
-class HybridSequential(HybridBlock):
-    """Reference: basic_layers.py HybridSequential."""
+class _SequentialMixin:
+    """The children run in order; a child returning several outputs
+    passes the rest on as extra arguments of the next."""
 
     def add(self, *blocks):
         for block in blocks:
@@ -46,6 +51,15 @@ class HybridSequential(HybridBlock):
 
     def __len__(self):
         return len(self._children)
+
+
+class Sequential(_SequentialMixin, Block):
+    """Reference: basic_layers.py Sequential: a plain Block, run eagerly
+    (``hybridize`` reaches its hybridizable children)."""
+
+
+class HybridSequential(_SequentialMixin, HybridBlock):
+    """Reference: basic_layers.py HybridSequential."""
 
 
 class Dense(HybridBlock):
@@ -202,6 +216,35 @@ class BatchNorm(HybridBlock):
                f"momentum={self._momentum}"
 
 
+class InstanceNorm(HybridBlock):
+    """Reference: basic_layers.py InstanceNorm: each sample's channels
+    normalized over their spatial axes, then scaled and shifted per
+    channel. As in the JAX layer, ``center`` and ``scale`` are accepted
+    and gamma and beta always take part."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._axis = axis
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get("gamma", shape=(in_channels,),
+                                         init=gamma_initializer,
+                                         allow_deferred_init=True)
+            self.beta = self.params.get("beta", shape=(in_channels,),
+                                        init=beta_initializer,
+                                        allow_deferred_init=True)
+
+    def infer_param_shapes(self, x, *args):
+        c = x.shape[self._axis]
+        self.gamma.shape = (c,)
+        self.beta.shape = (c,)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.instance_norm(x, gamma, beta, eps=self._epsilon)
+
+
 class LayerNorm(HybridBlock):
     """Reference: basic_layers.py LayerNorm."""
 
@@ -226,6 +269,30 @@ class LayerNorm(HybridBlock):
 
     def hybrid_forward(self, F, x, gamma, beta):
         return F.layer_norm(x, gamma, beta, axis=self._axis,
+                            eps=self._epsilon)
+
+
+class GroupNorm(HybridBlock):
+    """Reference: basic_layers.py GroupNorm: the channels split into
+    ``num_groups`` groups, each normalized over its channels and spatial
+    axes, with one gamma and one beta per group."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get("gamma", shape=(num_groups,),
+                                         init=gamma_initializer,
+                                         allow_deferred_init=True)
+            self.beta = self.params.get("beta", shape=(num_groups,),
+                                        init=beta_initializer,
+                                        allow_deferred_init=True)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.group_norm(x, gamma, beta, num_groups=self._num_groups,
                             eps=self._epsilon)
 
 
@@ -255,3 +322,46 @@ class Flatten(HybridBlock):
 
     def hybrid_forward(self, F, x):
         return F.flatten(x)
+
+
+class Lambda(Block):
+    """A function as a Block (reference: basic_layers.py Lambda):
+    ``function`` is a callable on NDArrays or the name of an ``nd``
+    function."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            if not hasattr(nd, function):
+                raise ValueError(
+                    f"Function name {function} is not found in ndarray.")
+            self._func_impl = getattr(nd, function)
+        else:
+            self._func_impl = function
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+
+class HybridLambda(HybridBlock):
+    """A function as a HybridBlock (reference: basic_layers.py
+    HybridLambda): ``function(F, x, *args)``, or the name of a function
+    both ``nd`` and ``sym`` have."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            if not hasattr(nd, function):
+                raise ValueError(
+                    f"Function name {function} is not found in ndarray.")
+            self._func = lambda F, *args: getattr(F, function)(*args)
+            self._func_name = function
+        else:
+            self._func = function
+            self._func_name = getattr(function, "__name__", "custom")
+
+    def hybrid_forward(self, F, x, *args):
+        return self._func(F, x, *args)
+
+    def extra_repr(self):
+        return self._func_name

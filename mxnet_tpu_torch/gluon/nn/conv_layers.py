@@ -2,21 +2,25 @@
 
 The PyTorch counterparts of ``mxnet_tpu/gluon/nn/conv_layers.py:24-305``
 (reference: python/mxnet/gluon/nn/conv_layers.py): ``Conv1D``-``Conv3D``
-over the ``convolution`` op (cuDNN on the card), and the max, average
-and global pooling layers over the ``pooling`` op. A channel-last layout
-(NWC, NHWC, NDHWC) stores the filter as (O, *k, I/g), as the JAX package
-does. The transposed convolutions and ``ReflectionPad2D`` are not ported
-yet (ROADMAP).
+over the ``convolution`` op (cuDNN on the card), their transposes
+``Conv1DTranspose``-``Conv3DTranspose`` over ``deconvolution``, the max,
+average and global pooling layers over the ``pooling`` op, and
+``ReflectionPad2D`` over ``pad``. A channel-last layout (NWC, NHWC,
+NDHWC) stores the filter as (O, *k, I/g), as the JAX package does; a
+transposed convolution takes channel-first layouts only and stores its
+filter as (I, O/g, *k), MXNet's layout and torch's.
 """
 from __future__ import annotations
 
 from ..block import HybridBlock
 from .basic_layers import Activation
 
-__all__ = ["Conv1D", "Conv2D", "Conv3D", "MaxPool1D", "MaxPool2D",
+__all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",
+           "Conv2DTranspose", "Conv3DTranspose", "MaxPool1D", "MaxPool2D",
            "MaxPool3D", "AvgPool1D", "AvgPool2D", "AvgPool3D",
            "GlobalMaxPool1D", "GlobalMaxPool2D", "GlobalMaxPool3D",
-           "GlobalAvgPool1D", "GlobalAvgPool2D", "GlobalAvgPool3D"]
+           "GlobalAvgPool1D", "GlobalAvgPool2D", "GlobalAvgPool3D",
+           "ReflectionPad2D"]
 
 _CHANNEL_LAST = ("NWC", "NHWC", "NDHWC")
 
@@ -114,6 +118,75 @@ class Conv3D(_Conv):
                          dilation, groups, layout, in_channels, activation,
                          use_bias, weight_initializer, bias_initializer,
                          **kwargs)
+
+
+class _ConvTranspose(_Conv):
+    """Reference: conv_layers.py _Conv with op_name Deconvolution.
+    ``output_padding`` is the op's ``adj``: rows and columns added on the
+    high side of the output."""
+
+    def __init__(self, channels, kernel_size, strides, padding,
+                 output_padding, dilation, groups, layout, in_channels=0,
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", **kwargs):
+        if layout in _CHANNEL_LAST:
+            raise ValueError("transposed convolution supports channel-first "
+                             "layouts only (NCW/NCHW/NCDHW)")
+        super().__init__(channels, kernel_size, strides, padding, dilation,
+                         groups, layout, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer, **kwargs)
+        self._adj = _tuplize(output_padding, len(kernel_size))
+        self.weight._shape = (in_channels if in_channels else 0,
+                              channels // groups) + tuple(kernel_size)
+
+    def infer_param_shapes(self, x, *args):
+        self.weight.shape = (x.shape[1], self._channels // self._groups) + \
+            self._kernel
+
+    def hybrid_forward(self, F, x, weight, bias=None):
+        out = F.deconvolution(x, weight, bias, kernel=self._kernel,
+                              stride=self._stride, dilate=self._dilate,
+                              pad=self._pad, adj=self._adj,
+                              num_filter=self._channels,
+                              num_group=self._groups, no_bias=bias is None)
+        if self.act is not None:
+            out = self.act(out)
+        return out
+
+
+class Conv1DTranspose(_ConvTranspose):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 output_padding=0, dilation=1, groups=1, layout="NCW",
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        super().__init__(channels, _tuplize(kernel_size, 1), strides, padding,
+                         output_padding, dilation, groups, layout, in_channels,
+                         activation, use_bias, weight_initializer,
+                         bias_initializer, **kwargs)
+
+
+class Conv2DTranspose(_ConvTranspose):
+    def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
+                 output_padding=(0, 0), dilation=(1, 1), groups=1,
+                 layout="NCHW", activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros",
+                 in_channels=0, **kwargs):
+        super().__init__(channels, _tuplize(kernel_size, 2), strides, padding,
+                         output_padding, dilation, groups, layout, in_channels,
+                         activation, use_bias, weight_initializer,
+                         bias_initializer, **kwargs)
+
+
+class Conv3DTranspose(_ConvTranspose):
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), output_padding=(0, 0, 0),
+                 dilation=(1, 1, 1), groups=1, layout="NCDHW",
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        super().__init__(channels, _tuplize(kernel_size, 3), strides, padding,
+                         output_padding, dilation, groups, layout, in_channels,
+                         activation, use_bias, weight_initializer,
+                         bias_initializer, **kwargs)
 
 
 class _Pooling(HybridBlock):
@@ -233,3 +306,17 @@ class GlobalAvgPool2D(_GlobalPooling):
 class GlobalAvgPool3D(_GlobalPooling):
     def __init__(self, layout="NCDHW", **kwargs):
         super().__init__("avg", layout=layout, **kwargs)
+
+
+class ReflectionPad2D(HybridBlock):
+    """Pads the two spatial axes of NCHW data by reflection (reference:
+    conv_layers.py ReflectionPad2D); an int pads all four sides."""
+
+    def __init__(self, padding=0, **kwargs):
+        super().__init__(**kwargs)
+        if isinstance(padding, int):
+            padding = (0, 0, 0, 0, padding, padding, padding, padding)
+        self._padding = padding
+
+    def hybrid_forward(self, F, x):
+        return F.pad(x, mode="reflect", pad_width=self._padding)

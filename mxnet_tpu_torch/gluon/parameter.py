@@ -27,7 +27,8 @@ from ..context import resolve_device
 from ..ndarray import NDArray
 from ..ndarray.ndarray import host_tensor, torch_dtype
 
-__all__ = ["DeferredInitializationError", "Parameter", "ParameterDict"]
+__all__ = ["DeferredInitializationError", "Parameter", "Constant",
+           "ParameterDict"]
 
 _GRAD_REQS = ("write", "add", "null")
 
@@ -260,6 +261,45 @@ class Parameter:
         with torch.no_grad():
             var.copy_(data.to(device=var.device, dtype=var.dtype))
 
+    def _load_init_from(self, data, ctx=None):
+        """Take ``data`` as the parameter's value, allocating it first
+        if it is not yet (its shape from ``data``, nothing drawn), as
+        ``ParameterDict.load`` does (``mxnet_tpu/gluon/parameter.py:371``)."""
+        self.set_data(data, ctx=ctx)
+
+
+class _ConstantInit(initializer.Initializer):
+    """Fills a parameter with a fixed value, whatever its name."""
+
+    def __init__(self, value):
+        super().__init__()
+        self._value = value
+
+    def __call__(self, desc, arr):
+        with torch.no_grad():
+            arr.data.copy_(self._value.to(arr.data.device, arr.data.dtype))
+
+
+class Constant(Parameter):
+    """A parameter that holds a fixed value and takes no gradient
+    (reference: gluon/parameter.py Constant; ``mxnet_tpu/gluon/
+    parameter.py:225``): ``grad_req="null"``, and its own initializer
+    copies ``value`` in."""
+
+    def __init__(self, name, value):
+        if isinstance(value, NDArray):
+            t = value.data.detach().to("cpu")
+        elif isinstance(value, torch.Tensor):
+            t = value.detach().to("cpu")
+        else:
+            t = host_tensor(onp.array(value, dtype=onp.float32)
+                            if not hasattr(value, "dtype")
+                            else onp.array(value))
+        self.value = NDArray(t.clone())
+        super().__init__(name, grad_req="null", shape=tuple(t.shape),
+                         dtype=str(t.dtype).replace("torch.", ""),
+                         init=_ConstantInit(t.clone()))
+
 
 class ParameterDict:
     """Dict of Parameters with a name prefix (reference:
@@ -306,6 +346,18 @@ class ParameterDict:
             param.shape = kwargs["shape"]
         return param
 
+    def get_constant(self, name, value=None):
+        """Create (or retrieve) constant ``prefix + name`` holding
+        ``value`` (reference: gluon/parameter.py get_constant)."""
+        name = self._prefix + name
+        param = self._params.get(name)
+        if param is None:
+            if value is None:
+                raise KeyError(f"No constant named '{name}'")
+            param = Constant(name, value)
+            self._params[name] = param
+        return param
+
     def update(self, other):
         for k, v in other.items():
             if k in self._params and self._params[k] is not v:
@@ -320,3 +372,45 @@ class ParameterDict:
             init = initializer.Uniform()
         for v in self.values():
             v.initialize(None, ctx, init, force_reinit=force_reinit)
+
+    def zero_grad(self):
+        for v in self.values():
+            v.zero_grad()
+
+    def save(self, filename, strip_prefix=""):
+        """Write every parameter under its full name less
+        ``strip_prefix`` (reference: gluon/parameter.py save)."""
+        from .. import ndarray as nd
+
+        arg_dict = {}
+        for param in self.values():
+            if not param.name.startswith(strip_prefix):
+                raise ValueError(
+                    f"Prefix '{strip_prefix}' is to be striped before "
+                    f"saving, but Parameter's name '{param.name}' does not "
+                    "start with it")
+            arg_dict[param.name[len(strip_prefix):]] = param.data()
+        nd.save(filename, arg_dict)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Load what :meth:`save` wrote; a parameter not yet allocated is
+        allocated holding its value (reference: gluon/parameter.py
+        load)."""
+        from .. import ndarray as nd
+        from ..context import cpu
+
+        arg_dict = {restore_prefix + k: v
+                    for k, v in nd.load(filename, ctx=cpu()).items()}
+        if not allow_missing:
+            for name in self.keys():
+                if name not in arg_dict:
+                    raise IOError(f"Parameter {name} is missing in file "
+                                  f"{filename}")
+        for name, value in arg_dict.items():
+            if name not in self._params:
+                if not ignore_extra:
+                    raise IOError(f"Parameter {name} loaded from file "
+                                  f"{filename} is not present in this dict")
+                continue
+            self._params[name]._load_init_from(value, ctx=ctx)

@@ -19,8 +19,10 @@ as the JAX package does, and so does an optimizer with no fused kernel
 (counted as a bypass).
 
 Single device: ``kvstore`` ``"device"`` or ``"local"`` (or None) is
-accepted and does nothing; a ``dist*`` kvstore raises. The asynchronous
-gradient all-reduce belongs to the multi-device slice.
+accepted and does nothing, so ``allreduce_grads`` has nothing to reduce
+and ``allreduce_grads()`` then ``update()`` is ``step()``; a ``dist*``
+kvstore raises. The gradient all-reduce belongs to the multi-device
+slice (ROADMAP A, slice 9).
 """
 from __future__ import annotations
 
@@ -58,7 +60,8 @@ class Trainer:
                                  f"Parameters, got list of {type(p)}.")
         if isinstance(kvstore, str) and kvstore.startswith("dist"):
             raise MXNetError(f"kvstore {kvstore!r}: distributed training is "
-                             "not ported yet (the multi-device slice)")
+                             "not ported yet (the multi-device slice, "
+                             "slice 9)")
         if kvstore not in (None, "device", "local"):
             raise MXNetError(f"unknown kvstore {kvstore!r} (expected "
                              "'device' or 'local')")
@@ -480,6 +483,14 @@ class Trainer:
 
     # -- stepping -----------------------------------------------------------
 
+    def allreduce_grads(self):
+        """Sum the gradients across workers (reference: trainer.py
+        allreduce_grads; ``mxnet_tpu/gluon/trainer.py:102``). One card
+        holds the only copy of each gradient, so this does nothing, as
+        the JAX trainer does in one process; a ``dist*`` kvstore was
+        refused when the trainer was made."""
+        return
+
     def step(self, batch_size, ignore_stale_grad=False):
         """Rescale by 1/batch_size and update (reference: trainer.py step).
         With an AMP loss scaler the gradients are also divided by the
@@ -487,6 +498,7 @@ class Trainer:
         skipped and halves the scale; on the fused path all of it happens
         on the device."""
         scaler = getattr(self, "_amp_loss_scaler", None)
+        self.allreduce_grads()
         if _fs.fused_step_enabled() and self._fused_step(batch_size, scaler):
             return
         if self._fused_state is not None:
@@ -512,7 +524,8 @@ class Trainer:
 
     def update(self, batch_size, ignore_stale_grad=False):
         """The eager update alone, rescaled by 1/batch_size (reference:
-        trainer.py update; no gradient all-reduce: one card)."""
+        trainer.py update): the second half of ``step`` after
+        ``allreduce_grads``, through the per-parameter loop."""
         self._optimizer.rescale_grad = self._scale / batch_size
         try:
             self._update_all()

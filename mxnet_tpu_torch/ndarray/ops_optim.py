@@ -25,7 +25,9 @@ the same bits. Each scalar (``lr``, ``wd``, ``rescale_grad``) may be a
 Python number or a 0-d tensor on the weights' device (the fused step's
 device scalars); it only ever multiplies, so either rounds the same.
 The other updates (RMSProp, Ftrl, AdaGrad, AdaDelta, AdamW) are
-per-tensor functions (``*_math``) that return new tensors. The JAX
+per-tensor functions (``*_math``) that return new tensors; FTML's and
+LAMB's ops (no fused kernel uses them) compute in place directly, and
+``multi_lars`` returns the layer-wise rates. The JAX
 package left all of this to XLA; the port leaves it to torch.
 """
 from __future__ import annotations
@@ -324,6 +326,75 @@ def signum_update(weight, grad, mom, lr, momentum=0.0, wd=0.0,
                                 rescale_grad, clip_gradient, wd_lh)
     _commit([weight, mom], [w2, m2])
     return weight, mom
+
+
+@register(differentiable=False)
+def ftml_update(weight, grad, d, v, z, lr, beta1=0.6, beta2=0.999,
+                epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_grad=-1.0, t=1):
+    """FTML step t over the (d, v, z) state, in place; returns (weight,
+    d, v, z) (reference: optimizer_op.cc ftml_update;
+    ``mxnet_tpu/ndarray/ops_optim.py:148``)."""
+    grad = _prep_grad(grad, rescale_grad, clip_grad) + wd * weight
+    v_new = beta2 * v + (1 - beta2) * torch.square(grad)
+    d_new = (1 - beta1 ** t) / lr * (
+        torch.sqrt(v_new / (1 - beta2 ** t)) + epsilon)
+    sigma = d_new - beta1 * d
+    z_new = beta1 * z + (1 - beta1) * grad - sigma * weight
+    _commit([weight, d, v, z], [-z_new / d_new, d_new, v_new, z_new])
+    return weight, d, v, z
+
+
+@register(differentiable=False)
+def lamb_update_phase1(weight, grad, mean, var, beta1=0.9, beta2=0.999,
+                       epsilon=1e-6, t=1, bias_correction=True, wd=0.0,
+                       rescale_grad=1.0, clip_gradient=-1.0):
+    """LAMB's first phase: the moments updated in place and the
+    (bias-corrected) Adam direction plus weight decay, no learning rate;
+    returns (direction, mean, var) (reference: optimizer_op.cc
+    lamb_update_phase1; ``mxnet_tpu/ndarray/ops_optim.py:162``)."""
+    grad = _prep_grad(grad, rescale_grad, clip_gradient)
+    mean_new = beta1 * mean + (1 - beta1) * grad
+    var_new = beta2 * var + (1 - beta2) * torch.square(grad)
+    m, v = mean_new, var_new
+    if bias_correction:
+        m = m / (1 - beta1 ** t)
+        v = v / (1 - beta2 ** t)
+    g = m / (torch.sqrt(v) + epsilon) + wd * weight
+    _commit([mean, var], [mean_new, var_new])
+    return g, mean, var
+
+
+@register(differentiable=False)
+def lamb_update_phase2(weight, g, r1, r2, lr, lower_bound=-1.0,
+                       upper_bound=-1.0):
+    """LAMB's second phase: the step ``lr * r1/r2 * g`` (the trust ratio
+    of the weight's norm r1 to the direction's r2, 1 where either is 0,
+    clamped to the bounds that are positive), in place; returns the
+    weight (reference: optimizer_op.cc lamb_update_phase2;
+    ``mxnet_tpu/ndarray/ops_optim.py:179``). The norms stay on the
+    device: nothing is read back."""
+    ratio = torch.where((r1 > 0) & (r2 > 0), r1 / r2, torch.ones_like(r1))
+    if lower_bound > 0:
+        ratio = torch.clamp(ratio, min=lower_bound)
+    if upper_bound > 0:
+        ratio = torch.clamp(ratio, max=upper_bound)
+    _commit([weight], [weight - lr * ratio * g])
+    return weight
+
+
+@register(differentiable=False)
+def multi_lars(lrs, weights_sum_sq, grads_sum_sq, wds, eta=0.001, eps=1e-9,
+               rescale_grad=1.0):
+    """Layer-wise LARS rates: ``lrs * eta * |w| / (|g| + wd * |w| +
+    eps)`` from the stacked per-layer squared norms (``multi_sum_sq``),
+    ``lrs`` itself where either norm is 0 (reference:
+    contrib/multi_lars.cc; ``mxnet_tpu/ndarray/ops_optim.py:352``)."""
+    wnorm = torch.sqrt(weights_sum_sq)
+    gnorm = torch.sqrt(grads_sum_sq) * rescale_grad
+    ratio = eta * wnorm / (gnorm + wds * wnorm + eps)
+    one = torch.ones_like(ratio)
+    return lrs * torch.where(wnorm > 0, torch.where(gnorm > 0, ratio, one),
+                             one)
 
 
 @register(differentiable=False)

@@ -7,19 +7,29 @@ parameters' learning-rate and weight-decay multipliers, per-index update
 counts and multi-precision master weights; ``SGD`` (with its
 multi-tensor ``update_multi``), ``NAG``, ``Adam``, ``AdaGrad``,
 ``RMSProp``, ``AdaDelta``, ``Ftrl``, ``SignSGD`` and ``Signum``; and the
-``Updater``. The update arithmetic is in ``ndarray/ops_optim.py``, whose
-ops write the weight and the state in place; these classes keep state
-and hyperparameters. Adam's bias correction is computed on the host in
-float64 on the eager path, as the JAX package's eager path does.
+``Updater``; and (``mxnet_tpu/optimizer/optimizer.py:593-960``)
+``Adamax``, ``Nadam``, ``FTML``, ``LAMB``, ``LARS``, ``LBSGD``,
+``DCASGD`` and ``SGLD``. The update arithmetic is in
+``ndarray/ops_optim.py``, whose ops write the weight and the state in
+place; these classes keep state and hyperparameters, and the last eight
+write their own arithmetic into the weight and state tensors in place,
+as the JAX ones swap handles. Adam's bias correction is computed on the
+host in float64 on the eager path, as the JAX package's eager path does.
 
-Each class here has a ``_fused_kernel``: the update of a whole list of
-parameters at once, which the Trainer's fused step
-(``gluon/fused_step.py``) runs over a parameter group. Not ported yet:
-the optimizers without one (Adamax, Nadam, FTML, LAMB, LARS, LBSGD,
-DCASGD, SGLD), ``optimizer/contrib.py`` and sparse gradients (ROADMAP).
+The classes of the first group have a ``_fused_kernel``: the update of
+a whole list of parameters at once, which the Trainer's fused step
+(``gluon/fused_step.py``) runs over a parameter group. The last eight
+have none, as in the JAX package, so the Trainer runs them through its
+eager per-parameter loop. ``LARS`` and ``LBSGD`` (its ``"lars"``
+strategy) read two norms per parameter back to the host, where the JAX
+package reads them, so each of their steps waits for the device.
+``SGLD`` draws its noise from the device's generator, which never
+agrees with the JAX package's threefry stream. Sparse gradients wait
+for the sparse types (ROADMAP).
 """
 from __future__ import annotations
 
+import math
 import pickle
 
 import numpy as onp
@@ -31,7 +41,8 @@ from ..ndarray import ops_optim as _oo
 
 __all__ = ["Optimizer", "register", "create", "SGD", "NAG", "Adam",
            "AdaGrad", "RMSProp", "AdaDelta", "Ftrl", "SignSGD", "Signum",
-           "Updater", "get_updater"]
+           "Adamax", "Nadam", "FTML", "LAMB", "LARS", "LBSGD", "DCASGD",
+           "SGLD", "Updater", "get_updater"]
 
 _REGISTRY = {}
 
@@ -593,6 +604,339 @@ class Signum(Optimizer):
             def fn(ws, gs, ss, lr, wd, rescale, t):
                 return _oo.signsgd_lists(ws, gs, lr, wd, rescale, clip), ss
         return ("signum", mom, wd_lh, clip), fn
+
+
+# -- the optimizers without a fused kernel (the Trainer's eager loop) ------
+
+def _clipped(self, grad):
+    """``grad * rescale_grad``, clipped when ``clip_gradient`` is set,
+    as the JAX optimizers of this group do it (a set value clips even
+    when it is not positive)."""
+    g = grad * self.rescale_grad
+    if self.clip_gradient is not None:
+        c = float(self.clip_gradient)
+        g = torch.clamp(g, -c, c)
+    return g
+
+
+@register
+class Adamax(Optimizer):
+    """AdaMax, Adam under the infinity norm (reference: optimizer.py
+    Adamax)."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2 = beta1, beta2
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._index_update_count[index]
+        lr = self._get_lr(index) / (1.0 - self.beta1 ** t)
+        wd = self._get_wd(index)
+        w = weight.data
+        with torch.no_grad():
+            g = grad.data * self.rescale_grad + wd * w
+            if self.clip_gradient is not None:
+                c = float(self.clip_gradient)
+                g = torch.clamp(g, -c, c)
+            m, u = state[0].data, state[1].data
+            m2 = self.beta1 * m + (1.0 - self.beta1) * g
+            u2 = torch.maximum(self.beta2 * u, torch.abs(g))
+            w2 = w - lr * m2 / (u2 + 1e-8)
+        _oo._commit([w, m, u], [w2, m2, u2])
+
+
+@register
+class Nadam(Optimizer):
+    """Adam with Nesterov momentum and Dozat's momentum schedule
+    (reference: optimizer.py Nadam). ``m_schedule`` is one product for
+    the whole optimizer, advanced by every parameter's update, as in the
+    reference."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._index_update_count[index]
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        b1, b2 = self.beta1, self.beta2
+        momentum_t = b1 * (1.0 - 0.5 * 0.96 ** (t * self.schedule_decay))
+        momentum_t_1 = b1 * (1.0 - 0.5 * 0.96 **
+                             ((t + 1) * self.schedule_decay))
+        self.m_schedule *= momentum_t
+        m_schedule_next = self.m_schedule * momentum_t_1
+        w = weight.data
+        with torch.no_grad():
+            g = grad.data * self.rescale_grad + wd * w
+            if self.clip_gradient is not None:
+                c = float(self.clip_gradient)
+                g = torch.clamp(g, -c, c)
+            m, v = state[0].data, state[1].data
+            m2 = b1 * m + (1.0 - b1) * g
+            v2 = b2 * v + (1.0 - b2) * g * g
+            g_prime = g / (1.0 - self.m_schedule)
+            m_prime = m2 / (1.0 - m_schedule_next)
+            v_prime = v2 / (1.0 - b2 ** t)
+            m_bar = (1.0 - momentum_t) * g_prime + momentum_t_1 * m_prime
+            w2 = w - lr * m_bar / (v_prime ** 0.5 + self.epsilon)
+        _oo._commit([w, m, v], [w2, m2, v2])
+
+
+@register
+class FTML(Optimizer):
+    """Follow the Moving Leader (Zheng and Kwok 2017; reference:
+    optimizer.py FTML) over the ``ftml_update`` op."""
+
+    def __init__(self, learning_rate=0.0025, beta1=0.6, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight),
+                _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._index_update_count[index]
+        d, v, z = state
+        _oo.ftml_update(weight.data, grad.data, d.data, v.data, z.data,
+                        self._get_lr(index), beta1=self.beta1,
+                        beta2=self.beta2, epsilon=self.epsilon,
+                        wd=self._get_wd(index),
+                        rescale_grad=self.rescale_grad,
+                        clip_grad=self._clip(), t=t)
+
+
+@register
+class LAMB(Optimizer):
+    """Layer-wise adaptive moments (You et al. 2019; reference:
+    optimizer.py LAMB) over ``lamb_update_phase1``, two norms on the
+    device and ``lamb_update_phase2``: nothing is read back."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, lower_bound=None, upper_bound=None,
+                 bias_correction=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lower_bound, self.upper_bound = lower_bound, upper_bound
+        self.bias_correction = bias_correction
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._index_update_count[index]
+        mean, var = state
+        w = weight.data
+        g, _, _ = _oo.lamb_update_phase1(
+            w, grad.data, mean.data, var.data, beta1=self.beta1,
+            beta2=self.beta2, epsilon=self.epsilon, t=t,
+            bias_correction=self.bias_correction, wd=self._get_wd(index),
+            rescale_grad=self.rescale_grad, clip_gradient=self._clip())
+        with torch.no_grad():
+            r1 = torch.linalg.vector_norm(w)
+            r2 = torch.linalg.vector_norm(g)
+        _oo.lamb_update_phase2(w, g, r1, r2, self._get_lr(index),
+                               lower_bound=self.lower_bound or -1.0,
+                               upper_bound=self.upper_bound or -1.0)
+
+
+def _sgd_step(weight, g, state, lr, momentum, wd):
+    """The SGD(-momentum) step on an already rescaled and clipped
+    gradient, in place."""
+    if state is None:
+        _oo.sgd_update(weight.data, g, lr, wd=wd)
+    else:
+        _oo.sgd_mom_update(weight.data, g, state.data, lr,
+                           momentum=momentum, wd=wd)
+
+
+def _host_norm(t):
+    """A tensor's 2-norm read back to the host (a device sync)."""
+    return float(torch.linalg.vector_norm(t))
+
+
+@register
+class LARS(Optimizer):
+    """Layer-wise adaptive rate scaling SGD (You et al. 2017, "Large
+    Batch Training of Convolutional Networks"; reference: optimizer.py
+    LARS): a parameter's rate is ``lr * eta * |w| / (|g| + wd * |w| +
+    eps)`` when both norms are positive. Biases and batch-norm
+    parameters (by name) keep the plain rate. The two norms are read on
+    the host, as the JAX optimizer reads them."""
+
+    def __init__(self, momentum=0.0, lazy_update=True, eta=0.001, eps=0,
+                 momentum_correction=True, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.lazy_update = lazy_update
+        self.eta = eta
+        self.eps = eps
+        self.momentum_correction = momentum_correction
+        self.last_lr = None
+        self.cur_lr = None
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else _zeros_like(weight)
+
+    def _is_scaled(self, index):
+        name = self.idx2name.get(index, str(index))
+        return not (name.endswith("_bias") or name.endswith("_gamma")
+                    or name.endswith("_beta")
+                    or "batchnorm" in name.lower())
+
+    @staticmethod
+    def lars_scale(w_norm, g_norm, wd, eta, eps):
+        """The layer-wise multiplier of the rate (LBSGD's ``"lars"``
+        strategy uses it too)."""
+        if w_norm > 0 and g_norm > 0:
+            return eta * w_norm / (g_norm + wd * w_norm + eps)
+        return 1.0
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        # the momentum correction follows the schedule's base rate across
+        # steps, not the per-parameter rate
+        base_lr = self.learning_rate
+        if base_lr != self.cur_lr:
+            self.last_lr, self.cur_lr = self.cur_lr, base_lr
+        momentum = self.momentum
+        if self.momentum_correction and self.last_lr not in (None, 0):
+            momentum = self.momentum * self.cur_lr / self.last_lr
+        with torch.no_grad():
+            g = _clipped(self, grad.data)
+        if self._is_scaled(index):
+            lr = lr * self.lars_scale(_host_norm(weight.data), _host_norm(g),
+                                      wd, self.eta, self.eps)
+        _sgd_step(weight, g, state, lr, momentum, wd)
+
+
+@register
+class LBSGD(Optimizer):
+    """Large-batch SGD with a warm-up (reference: optimizer.py LBSGD):
+    momentum SGD whose rate follows ``warmup_strategy`` ("linear",
+    "power2" or "sqrt") over ``warmup_epochs``, or is LARS-scaled
+    ("lars", two host reads per parameter, as in the JAX package)."""
+
+    def __init__(self, momentum=0.0, multi_precision=False,
+                 warmup_strategy="linear", warmup_epochs=5, batch_scale=1,
+                 updates_per_epoch=32, begin_epoch=0, num_epochs=60,
+                 **kwargs):
+        super().__init__(multi_precision=multi_precision, **kwargs)
+        self.momentum = momentum
+        self.warmup_strategy = warmup_strategy
+        self.warmup_epochs = warmup_epochs
+        self.batch_scale = batch_scale
+        self.updates_per_epoch = max(1, updates_per_epoch)
+        self.init_updates = begin_epoch * self.updates_per_epoch
+        self.num_epochs = num_epochs
+        self.lbmult = 1.0
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else _zeros_like(weight)
+
+    def _warmup_mult(self):
+        nup = self.num_update + self.init_updates + 1
+        total_warm = self.warmup_epochs * self.updates_per_epoch
+        if nup >= total_warm:
+            return float(self.batch_scale)
+        frac = nup / total_warm
+        if self.warmup_strategy == "power2":
+            mult = self.batch_scale * frac * frac
+        elif self.warmup_strategy == "sqrt":
+            mult = self.batch_scale * (frac ** 0.5)
+        else:
+            mult = 1.0 + frac * (self.batch_scale - 1)
+        return float(max(mult, 1.0))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        with torch.no_grad():
+            g = _clipped(self, grad.data)
+        if self.warmup_strategy == "lars":
+            lr = lr * LARS.lars_scale(_host_norm(weight.data), _host_norm(g),
+                                      wd, eta=0.001, eps=1e-9)
+        else:
+            lr = lr * self._warmup_mult() / max(self.batch_scale, 1)
+        _sgd_step(weight, g, state, lr, self.momentum, wd)
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD (Zheng et al. 2017; reference:
+    optimizer.py DCASGD): the gradient corrected by ``lamda * g * g *
+    (w - w_prev)``; the state holds the momentum (or None) and the
+    previous weight."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        mom = None if self.momentum == 0.0 else _zeros_like(weight)
+        return (mom, NDArray(weight.data.detach().clone()))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        mom, prev = state
+        w = weight.data
+        with torch.no_grad():
+            g = _clipped(self, grad.data)
+            comp = g + wd * w + self.lamda * g * g * (w - prev.data)
+            if mom is not None:
+                step = self.momentum * mom.data - lr * comp
+                mom.data.copy_(step)
+            else:
+                step = -lr * comp
+            prev.data.copy_(w)
+            w.add_(step)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics (Welling and Teh 2011;
+    reference: optimizer.py SGLD): ``w - lr/2 * (g + wd * w)`` plus
+    N(0, lr) noise from the device's generator: a sampler of the
+    posterior rather than an optimizer."""
+
+    def _noise(self, weight, lr):
+        from .. import random as _random
+        from ..context import Context
+
+        return _random.normal(0, math.sqrt(lr), shape=weight.shape,
+                              dtype=str(weight.data.dtype).replace(
+                                  "torch.", ""),
+                              ctx=Context.from_device(weight.data.device))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        w = weight.data
+        noise = self._noise(weight, lr)
+        with torch.no_grad():
+            g = _clipped(self, grad.data)
+            w2 = w - (lr / 2) * (g + wd * w)
+            if noise is not None:
+                w2 = w2 + noise.data
+        _oo._commit([w], [w2])
 
 
 class Updater:

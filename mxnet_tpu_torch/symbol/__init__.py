@@ -491,7 +491,9 @@ def _num_outputs_for(opname, kwargs):
     ``state_outputs`` its final states too; ``topk`` with ``ret_typ=
     "both"`` values and indices, ``sample_multinomial`` with
     ``get_prob`` the log-probabilities too, ``histogram`` counts and
-    edges, ``moments`` the mean and the variance."""
+    edges, ``moments`` the mean and the variance; ``ftml_update`` the
+    weight and its three states, ``lamb_update_phase1`` the direction and
+    both moments."""
     if opname in ("batch_norm", "layer_norm"):
         return 3 if kwargs.get("output_mean_var") else 1
     if opname == "amp_multicast":
@@ -512,6 +514,10 @@ def _num_outputs_for(opname, kwargs):
         return 2 if kwargs.get("get_prob") else 1
     if opname in ("histogram", "moments"):
         return 2
+    if opname == "ftml_update":
+        return 4
+    if opname == "lamb_update_phase1":
+        return 3
     return 1
 
 

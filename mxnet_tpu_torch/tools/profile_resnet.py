@@ -426,6 +426,54 @@ def _kind(name):
     return "elementwise_and_other"
 
 
+def profile_steps(step, steps, top=15):
+    """Run ``step()`` ``steps`` times under ``torch.profiler`` and return
+    the host wall ms per step, the device busy ms per step (the CUDA
+    kernels and copies), the device's idle share, device operations per
+    step, the device time by kind (``_kind``: ms, operations and share
+    per step), the ``top`` heaviest operations and ``by_name``, each
+    device operation's total microseconds and count."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    busy_us = 0.0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dur = ev.device_time if hasattr(ev, "device_time") else \
+                ev.cuda_time
+            by_name[ev.name][0] += dur
+            by_name[ev.name][1] += 1
+            busy_us += dur
+    busy_ms = busy_us / 1e3 / steps
+    by_kind = collections.defaultdict(lambda: [0.0, 0])
+    for name, (us, cnt) in by_name.items():
+        by_kind[_kind(name)][0] += us
+        by_kind[_kind(name)][1] += cnt
+    heaviest = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {
+        "wall_ms_per_step": wall_ms,
+        "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": max(0.0, 1 - busy_ms / wall_ms)
+        if wall_ms else None,
+        "device_ops_per_step": sum(c for _, c in by_name.values()) / steps,
+        "device_ms_per_step_by_kind": {
+            kind: {"ms": us / 1e3 / steps, "per_step": cnt / steps,
+                   "share": us / busy_us if busy_us else None}
+            for kind, (us, cnt) in sorted(by_kind.items(),
+                                          key=lambda kv: -kv[1][0])},
+        "top_device_ms_per_step": {
+            name: {"ms": us / 1e3 / steps, "per_step": cnt / steps}
+            for name, (us, cnt) in heaviest},
+        "by_name": dict(by_name)}
+
+
 def _card():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -468,32 +516,15 @@ def main(argv=None):
         train_step(net, trainer, x, y)
     torch.cuda.synchronize()
     _build.reset_launch_counts()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            loss = train_step(net, trainer, x, y)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    losses = []
+    prof = profile_steps(
+        lambda: losses.append(train_step(net, trainer, x, y)), args.steps)
+    loss = losses[-1]
     counts = _build.launch_counts()
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    busy_us = 0.0
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            dur = ev.device_time if hasattr(ev, "device_time") else \
-                ev.cuda_time
-            by_name[ev.name][0] += dur
-            by_name[ev.name][1] += 1
-            busy_us += dur
-    busy_ms = busy_us / 1e3 / args.steps
-    k4_us = sum(us for name, (us, _) in by_name.items()
+    k4_us = sum(us for name, (us, _) in prof["by_name"].items()
                 if "rtc_softmax" in name)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    by_kind = collections.defaultdict(lambda: [0.0, 0])
-    for name, (us, cnt) in by_name.items():
-        by_kind[_kind(name)][0] += us
-        by_kind[_kind(name)][1] += cnt
+    busy_us = prof["device_busy_ms_per_step"] * 1e3 * args.steps
+    wall_ms = prof["wall_ms_per_step"]
     print(json.dumps({
         "card": _card(), "model": "resnet50_v1", "batch": args.batch,
         "amp": "bfloat16" if args.amp else None, "layout": args.layout,
@@ -503,23 +534,15 @@ def main(argv=None):
         "last_loss": float(loss.asscalar()),
         "wall_ms_per_step": wall_ms,
         "img_per_s": args.batch * 1e3 / wall_ms,
-        "device_busy_ms_per_step": busy_ms,
-        "device_idle_share": (max(0.0, 1 - busy_ms / wall_ms)
-                              if wall_ms else None),
-        "device_ops_per_step": sum(c for _, c in by_name.values())
-        / args.steps,
+        "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+        "device_idle_share": prof["device_idle_share"],
+        "device_ops_per_step": prof["device_ops_per_step"],
         "k4_launches_per_step": {k: v / args.steps
                                  for k, v in counts.items()},
         "k4_ms_per_step": k4_us / 1e3 / args.steps,
         "k4_share_of_device_time": k4_us / busy_us if busy_us else None,
-        "device_ms_per_step_by_kind": {
-            kind: {"ms": us / 1e3 / args.steps, "per_step": cnt / args.steps,
-                   "share": us / busy_us if busy_us else None}
-            for kind, (us, cnt) in sorted(by_kind.items(),
-                                          key=lambda kv: -kv[1][0])},
-        "top_device_ms_per_step": {
-            name: {"ms": us / 1e3 / args.steps, "per_step": cnt / args.steps}
-            for name, (us, cnt) in top}}))
+        "device_ms_per_step_by_kind": prof["device_ms_per_step_by_kind"],
+        "top_device_ms_per_step": prof["top_device_ms_per_step"]}))
 
 
 if __name__ == "__main__":

@@ -1490,16 +1490,46 @@ def test_hybridized_second_signature_captures_anew(cuda):
 
 
 def test_hybridized_second_recorded_call_before_backward_raises(cuda):
+    """A recorded call whose backward runs only after a later record()
+    scope called the block again raises: the later call reused its
+    slot's graphs and overwrote the activations."""
     net = _mlp_bn(3, mx.gpu(0))
     net.hybridize()
     x = mx.nd.ones((4, 32), ctx=mx.gpu(0))
     with mx.autograd.record():
         l1 = net(x).sum()
-        l2 = net(x).sum()  # overwrites the first call's activations
+    with mx.autograd.record():
+        l2 = net(x).sum()  # a later scope: the first slot again
     with pytest.raises(mx.MXNetError, match="before this call's backward"):
         mx.autograd.backward([l1])
     mx.autograd.backward([l2])
     assert torch.isfinite(net[0].weight.grad().data).all()
+
+
+def test_hybridized_block_called_twice_in_one_record_matches_eager(cuda):
+    """Two recorded calls of one signature in one scope before the
+    backward (a GAN's discriminator on real and on fake data) take two
+    slots, each captured: the gradients equal the eager block's."""
+    x1 = mx.nd.array(onp.random.RandomState(0).randn(4, 32).astype("f"),
+                     ctx=mx.gpu(0))
+    x2 = mx.nd.array(onp.random.RandomState(1).randn(4, 32).astype("f"),
+                     ctx=mx.gpu(0))
+    grads, losses = [], []
+    for hybrid in (False, True):
+        net = _mlp_bn(4, mx.gpu(0))
+        if hybrid:
+            net.hybridize()
+        for _ in range(2):  # the second round replays both slots
+            with mx.autograd.record():
+                loss = net(x1).sum() + 2 * net(x2).sum()
+            loss.backward()
+        losses.append(float(loss.asscalar()))
+        grads.append(_grads_of(net))
+    assert len(net._cached_op.entries) == 2
+    assert onp.isclose(losses[0], losses[1], rtol=1e-6)
+    for k in grads[0]:
+        torch.testing.assert_close(grads[1][k], grads[0][k], rtol=1e-5,
+                                   atol=1e-6)
 
 
 def test_device_feed_overlaps_and_never_hands_out_reused_memory(cuda):
@@ -1757,3 +1787,117 @@ def test_fault_1_rows_on_card(cuda):
     assert bool(nd.array([0.0], ctx=ctx)) is False
     eq = nd.array([1.0, 2.0], ctx=ctx) == 1
     assert str(eq.dtype) == "float32" and eq.asnumpy().tolist() == [1.0, 0.0]
+
+
+# -- the Gluon surface and the zoo on the card (ROADMAP A3) ------------------
+
+def _carry_to_cpu(net, ctor):
+    other = ctor()
+    convert.params_from_numpy(
+        other, {k: p.data().asnumpy()
+                for k, p in net._collect_params_with_prefix().items()},
+        ctx=mx.cpu())
+    return other
+
+
+@pytest.mark.parametrize("name,size", [("vgg11_bn", 32),
+                                       ("squeezenet1_1", 224),
+                                       ("mobilenet_v2_0_25", 32),
+                                       ("densenet121", 32),
+                                       ("resnet18_v2", 32)])
+def test_zoo_models_on_the_card_match_the_cpu(cuda, name, size):
+    """Eval-mode logits and the input gradient on the card against the
+    CPU port with the same weights, within 1e-3 of the largest
+    magnitude (the input gradient, when a max-pool near-tie resolves
+    differently on the two devices, within 1e-2 in relative L2, as
+    ``tests/test_torch_zoo.py`` explains); hybridized equal to eager on
+    the card."""
+    mx.random.seed(0)
+    x = onp.random.RandomState(0).randn(2, 3, size, size).astype("f")
+    net = vision.get_model(name, classes=10)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net(mx.nd.array(x, ctx=mx.gpu(0)))
+    cpu = _carry_to_cpu(net, lambda: vision.get_model(name, classes=10))
+    outs = []
+    for n, ctx in ((net, mx.gpu(0)), (cpu, mx.cpu())):
+        xin = mx.nd.array(x, ctx=ctx)
+        xin.attach_grad()
+        with mx.autograd.record(train_mode=False):
+            y = n(xin)
+        y.backward()
+        outs.append((y.asnumpy(), xin.grad.asnumpy()))
+    (logits, gx), (logits_cpu, gx_cpu) = outs
+    assert onp.abs(logits - logits_cpu).max() <= \
+        1e-3 * onp.abs(logits_cpu).max()
+    if onp.abs(gx - gx_cpu).max() > 1e-3 * onp.abs(gx_cpu).max():
+        assert onp.linalg.norm((gx - gx_cpu).ravel()) <= \
+            1e-2 * onp.linalg.norm(gx_cpu.ravel())
+    torch.backends.cudnn.deterministic = True
+    try:
+        with mx.autograd.predict_mode():
+            eager = net(mx.nd.array(x, ctx=mx.gpu(0))).asnumpy()
+            net.hybridize()
+            hyb = net(mx.nd.array(x, ctx=mx.gpu(0))).asnumpy()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert onp.array_equal(eager, hyb)
+
+
+def test_transposed_convolution_and_new_losses_on_the_card(cuda):
+    """Conv2DTranspose with adj and groups, InstanceNorm and GroupNorm,
+    and the losses on the card against the CPU port, within 1e-5 of the
+    largest magnitude (cuDNN in float32 against the CPU's sums)."""
+    rs = onp.random.RandomState(1)
+    x = rs.randn(2, 4, 5, 5).astype("f")
+    for make in (lambda: mx.gluon.nn.Conv2DTranspose(
+                     6, 3, strides=3, padding=1, output_padding=2,
+                     groups=2, in_channels=4),
+                 lambda: mx.gluon.nn.InstanceNorm(in_channels=4),
+                 lambda: mx.gluon.nn.GroupNorm(num_groups=2)):
+        net = make()
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        net(mx.nd.array(x, ctx=mx.gpu(0)))
+        cpu = _carry_to_cpu(net, make)
+        a = net(mx.nd.array(x, ctx=mx.gpu(0))).asnumpy()
+        b = cpu(mx.nd.array(x, ctx=mx.cpu())).asnumpy()
+        assert onp.abs(a - b).max() <= 1e-5 * onp.abs(b).max()
+    pred, label = rs.randn(4, 5).astype("f"), \
+        (rs.rand(4, 5) > 0.5).astype("f")
+    for loss in (mx.gluon.loss.SigmoidBCELoss(), mx.gluon.loss.HuberLoss(),
+                 mx.gluon.loss.LogisticLoss(label_format="binary"),
+                 mx.gluon.loss.KLDivLoss(from_logits=False)):
+        a = loss(mx.nd.array(pred, ctx=mx.gpu(0)),
+                 mx.nd.array(label, ctx=mx.gpu(0))).asnumpy()
+        b = loss(mx.nd.array(pred, ctx=mx.cpu()),
+                 mx.nd.array(label, ctx=mx.cpu())).asnumpy()
+        onp.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("adamax", {}), ("nadam", {}), ("ftml", {}), ("lamb", {"wd": 0.01}),
+    ("lars", {"momentum": 0.9}), ("lbsgd", {"momentum": 0.9}),
+    ("dcasgd", {"momentum": 0.9}), ("groupadagrad", {})])
+def test_new_optimizers_on_the_card_match_the_cpu(cuda, name, kw):
+    """Three updates of 2-D weights on the card against the CPU port,
+    within 1e-5 of each weight's largest magnitude."""
+    rs = onp.random.RandomState(2)
+    w0 = rs.randn(16, 8).astype("f")
+    grads = [rs.randn(16, 8).astype("f") for _ in range(3)]
+    out = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        opt = mx.optimizer.create(name, learning_rate=0.01, **kw)
+        w = mx.nd.array(w0, ctx=ctx)
+        st = opt.create_state_multi_precision(0, w)
+        for g in grads:
+            opt.update_multi_precision(0, w, mx.nd.array(g, ctx=ctx), st)
+        out.append(w.asnumpy())
+    assert onp.abs(out[0] - out[1]).max() <= 1e-5 * onp.abs(out[1]).max()
+
+
+def test_gan_twin_trains_hybridized_on_the_card(cuda):
+    """The GAN twin of examples/train_gan_toy.py: its discriminator is
+    called twice under one record(), hybridized."""
+    from mxnet_tpu_torch.examples import train_gan_toy
+
+    res = train_gan_toy.main(["--steps", "60"])
+    assert onp.isfinite(res["mean_radius"]) and onp.isfinite(res["d_loss"])

@@ -42,6 +42,10 @@ def test_import_loads_neither_jax_nor_the_jax_package():
             "import mxnet_tpu_torch.module, mxnet_tpu_torch.rnn\n"
             "import mxnet_tpu_torch.gluon.rnn, mxnet_tpu_torch.executor\n"
             "import mxnet_tpu_torch.tools.profile_module\n"
+            "import mxnet_tpu_torch.tools.profile_zoo\n"
+            "import mxnet_tpu_torch.tools.zoo_precision\n"
+            "import mxnet_tpu_torch.examples.train_gan_toy\n"
+            "import mxnet_tpu_torch.examples.train_recommender_mf\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax'"
             " or m == 'mxnet_tpu' or m.startswith('mxnet_tpu.'))\n"
             "print(bad)\n")
@@ -100,6 +104,20 @@ SYMBOLIC_TRAINING_MODULES = [
     "gluon/rnn/rnn_layer.py", "tools/profile_module.py"]
 
 
+# and those of the Gluon surface and the vision zoo
+GLUON_SURFACE_MODULES = [
+    "utils/__init__.py", "gluon/utils.py", "gluon/nn/activations.py",
+    "gluon/contrib/__init__.py", "gluon/contrib/nn/__init__.py",
+    "gluon/contrib/nn/basic_layers.py", "gluon/model_zoo/vision/alexnet.py",
+    "gluon/model_zoo/vision/vgg.py", "gluon/model_zoo/vision/squeezenet.py",
+    "gluon/model_zoo/vision/mobilenet.py",
+    "gluon/model_zoo/vision/densenet.py",
+    "gluon/model_zoo/vision/inception.py", "optimizer/contrib.py",
+    "tools/profile_zoo.py", "tools/zoo_precision.py",
+    "examples/train_gan_toy.py",
+    "examples/train_recommender_mf.py"]
+
+
 def test_no_module_imports_jax_or_the_jax_package():
     offenders = []
     files = list(_python_files())
@@ -107,7 +125,8 @@ def test_no_module_imports_jax_or_the_jax_package():
     scanned = {os.path.relpath(f, PKG) for f in files}
     assert set(TRAINING_MODULES) | set(SYMBOLIC_MODULES) | \
         set(RESNET_MODULES) | set(SERVING_MODULES) | \
-        set(SYMBOLIC_TRAINING_MODULES) <= scanned
+        set(SYMBOLIC_TRAINING_MODULES) | set(GLUON_SURFACE_MODULES) <= \
+        scanned
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

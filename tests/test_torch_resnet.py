@@ -410,14 +410,19 @@ def test_resnet50_matches_jax_at_64():
 
 
 def test_model_zoo_surface():
-    assert sorted(vision._models) == [f"resnet{d}_v1"
-                                      for d in (101, 152, 18, 34, 50)]
+    """The zoo knows every model the JAX package's does; the V2 family
+    and the space-to-depth stem build; a version other than 1 or 2, a
+    norm layer other than BatchNorm and pretrained weights raise."""
+    assert sorted(vision._models) == sorted(jvision._models)
+    assert type(vision.get_model("resnet18_v2")).__name__ == "ResNetV2"
+    assert type(vision.resnet50_v1(stem_s2d=True).features[0]).__name__ \
+        == "_S2DStemConv"
     with pytest.raises(ValueError, match="not supported"):
-        vision.get_model("resnet18_v2")
-    with pytest.raises(mx.MXNetError, match="stem_s2d"):
-        vision.resnet50_v1(stem_s2d=True)
-    with pytest.raises(mx.MXNetError, match="v2"):
-        vision.get_resnet(2, 50)
+        vision.get_model("resnet18_v3")
+    with pytest.raises(mx.MXNetError, match="version"):
+        vision.get_resnet(3, 50)
+    with pytest.raises(mx.MXNetError, match="slice 11"):
+        vision.get_resnet(2, 50, pretrained=True)
     with pytest.raises(mx.MXNetError, match="BatchNorm only"):
         vision.resnet18_v1(norm_layer=nn.LayerNorm)
     net = vision.resnet18_v1(norm_kwargs={"momentum": 0.5})
