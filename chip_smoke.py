@@ -48,7 +48,13 @@ kernels against the plain PyTorch versions:
 - the Gluon surface: nine vision-zoo models at their published widths,
   VGG-16 trained hybridized at Simonyan and Zisserman's settings, LAMB
   on ResNet-50 v2, every new optimizer against the CPU port, and the
-  GAN and matrix-factorization examples' twins.
+  GAN and matrix-factorization examples' twins;
+- detection: the ``nd.contrib`` detection ops on the card against the
+  CPU port, SSD300-VGG16 (``tools/profile_ssd.py``) trained hybridized
+  at its published widths, and its detection batch through
+  ``MultiBoxDetection``, whose ``box_nms`` sweep is the hand-written CUDA
+  kernel N1 (``csrc/box_nms.cu``; not a TPU kernel: it replaces the JAX
+  op's ``lax.fori_loop``), with the toy detector's twin.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100:
 
@@ -330,7 +336,43 @@ stream busy until the launch is enqueued, so it is the device's time:
     under one ``record()``, takes two captured slots) and
     ``examples/train_recommender_mf.py`` (``L2Loss``, ``Embedding``) at
     their default arguments; the MF loss falls below its start;
-44. report: one JSON line of kernels, then the device line last.
+44. the detection ops on the card against the CPU port: each of
+    ``multibox_prior``, ``box_iou``, ``bipartite_matching``,
+    ``multibox_target`` (with hard-negative mining),
+    ``multibox_detection``, ``box_nms`` (class-aware with ``topk`` 400,
+    ``force_suppress`` with 200) and ``roi_align`` (and its
+    gradient) at SSD300's shapes (8732 anchors, 21 classes, batch 32,
+    16 boxes) and at the JAX package's test inputs: class ids, matches,
+    masks and -1 rows equal, values within 1e-5 of max(1, largest), the
+    gradient within 1e-5 of its largest; then N1 against its plain
+    version (the Python loop over the rows) on the card at (32, 8732)
+    from random class scores, ``nms_topk`` 400 and -1, class-aware and
+    ``force_suppress``: keep masks equal; N1's and the plain loop's
+    times, N1's bound (the bytes of the swept rows and the mask; the IoU
+    tests the data needs) and its dependent steps (one barrier per kept
+    row); no PyTorch call computes greedy NMS, so no library time;
+45. the twin of ``examples/train_ssd_toy.py`` (MultiBoxPrior,
+    MultiBoxTarget, softmax cross-entropy and smooth L1, Adam, 120
+    steps, then MultiBoxDetection): the loss ends below 2.0;
+46. SSD300-VGG16 training: example/ssd's 300 x 300 ``vgg16_reduced``
+    network (26,285,486 trainable parameters, 8732 anchors, 21
+    classes) at batch 2 against the CPU port with the same weights
+    (class and location outputs within 1e-3 of their largest value, the
+    loss within rtol 1e-4); one recorded forward, ``MultiBoxTarget``,
+    loss and backward at batch 8, eager and then hybridized with cuDNN
+    deterministic: outputs, loss and every gradient bitwise equal; then
+    2 + 20 hybridized SGD steps at batch 32 on one synthetic batch (lr
+    0.001, momentum 0.9, wd 5e-4): the loss falls; step ms, img/s, peak
+    memory, the ms of ``MultiBoxTarget`` and of the loss within a step
+    (CUDA events), and 3 profiled steps: idle share, device time by
+    kind;
+47. SSD300 detection: ``softmax`` and ``MultiBoxDetection`` (NMS 0.45,
+    ``nms_topk`` 400, threshold 0.01) on the trained body's batch of
+    32, with the launch counts reset just before: N1 launched once, the
+    rows equal to the CPU port's (ids and -1 rows exactly, values within
+    1e-5); the head's and the forward-plus-head's ms; N1 and its plain
+    version timed on the rows this batch swept;
+48. report: one JSON line of kernels, then the device line last.
 
 Each phase prints the seconds it took.
 
@@ -367,6 +409,7 @@ from mxnet_tpu_torch.kernels.flash_attention import (  # noqa: E402
 from mxnet_tpu_torch.ndarray import ops_nn  # noqa: E402
 from mxnet_tpu_torch.kernels.norm_act import (  # noqa: E402
     KERNEL as NORM_ACT_KERNEL, _norm_act_cuda, _norm_act_ref)
+from mxnet_tpu_torch.kernels.box_nms import KERNEL as N1_KERNEL  # noqa: E402
 from mxnet_tpu_torch.models import DecoderBlockLM, TransformerLM  # noqa: E402
 from mxnet_tpu_torch.tools.profile_predict import (  # noqa: E402
     SAMPLE_RATE, WAV2VEC2_LARGE_LV60, export_wav2vec2, frames)
@@ -374,6 +417,7 @@ from mxnet_tpu_torch.benchmark import opperf  # noqa: E402
 from mxnet_tpu_torch.tools import op_sweep  # noqa: E402
 from mxnet_tpu_torch.tools import profile_module as pm  # noqa: E402
 from mxnet_tpu_torch.tools import profile_resnet as pr  # noqa: E402
+from mxnet_tpu_torch.tools import profile_ssd as ps  # noqa: E402
 from mxnet_tpu_torch.tools import profile_zoo as pz  # noqa: E402
 from mxnet_tpu_torch.tools.profile_decode import (  # noqa: E402
     build as decode_stack, profile_steps)
@@ -3558,6 +3602,20 @@ OPTIM_TAIL = (("adamax", {}), ("nadam", {}), ("ftml", {}),
               ("lbsgd", {"momentum": 0.9}), ("dcasgd", {"momentum": 0.9}),
               ("sgld", {"wd": 0.01}), ("groupadagrad", {}))
 OPTIM_TAIL_TOL = 1e-5
+# SSD300-VGG16 at its published widths (ROADMAP A4): example/ssd's 300 x
+# 300 VGG-16 settings, 26,285,486 trainable parameters as the JAX
+# package's network counts them (``tools/profile_ssd.py``)
+SSD_PARAMS = 26_285_486
+SSD_B, SSD_STEPS, SSD_BITWISE_B, SSD_CPU_B = 32, 20, 8, 2
+# the card against the CPU port at batch 2: the class and location
+# outputs within this fraction of their largest value (cuDNN against the
+# CPU's convolutions through 15 layers), the loss within this rtol
+SSD_CPU_TOL, SSD_LOSS_RTOL = 1e-3, 1e-4
+# the detection ops on the card against the CPU port: coordinates,
+# scores and box targets within this fraction of max(1, largest), the
+# roi_align gradient within it of its largest; integer outputs exact
+DET_TOL = 1e-5
+N1_THRESH = 0.45  # example/ssd's nms_threshold
 
 
 def _dropouts(net):
@@ -3953,6 +4011,403 @@ def examples_phase():
             "mf": mf}
 
 
+def _det_dev(name, card, cpu, exact=(), id_col=None, relative=()):
+    """Compare one op's outputs (lists of arrays) card against CPU:
+    outputs whose index is in ``exact`` bitwise; with ``id_col`` the id
+    column and the -1 rows exactly; the rest within DET_TOL of
+    max(1, largest), or of the largest for the indices in ``relative``.
+    Returns the worst deviation."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        a, b = onp.asarray(a, "float64"), onp.asarray(b, "float64")
+        if a.shape != b.shape:
+            raise RuntimeError(f"{name}[{i}]: shape {a.shape} on the card, "
+                               f"{b.shape} on the CPU")
+        if i in exact:
+            if not onp.array_equal(a, b):
+                raise RuntimeError(f"{name}[{i}]: card and CPU differ in "
+                                   f"{int((a != b).sum())} entries")
+            continue
+        if id_col is not None and not onp.array_equal(a[..., id_col],
+                                                      b[..., id_col]):
+            n_bad = int((a[..., id_col] != b[..., id_col]).sum())
+            raise RuntimeError(f"{name}: ids or -1 rows differ in {n_bad} "
+                               "rows")
+        big = float(onp.abs(b).max()) if b.size else 1.0
+        dev = float(onp.abs(a - b).max()) / (
+            (big or 1.0) if i in relative else max(1.0, big)) \
+            if a.size else 0.0
+        if dev > DET_TOL:
+            raise RuntimeError(f"{name}[{i}]: {dev:.3g} off the CPU port "
+                               f"(bound {DET_TOL})")
+        worst = max(worst, dev)
+    return worst
+
+
+def _on(ctx, *arrays):
+    return [nd.array(a, ctx=ctx) for a in arrays]
+
+
+def _roi_align_run(ctx, data, rois, pooled, scale, cot):
+    d = nd.array(data, ctx=ctx)
+    d.attach_grad()
+    with autograd.record():
+        out = nd.contrib.ROIAlign(d, nd.array(rois, ctx=ctx),
+                                  pooled_size=pooled, spatial_scale=scale)
+        (out * nd.array(cot, ctx=ctx)).sum().backward()
+    return out.asnumpy(), d.grad.asnumpy()
+
+
+def _detection_op_cases(rs):
+    """(name, fn(ctx) -> list of outputs, exact output indices, id
+    column, indices held relative to their largest) for each detection op
+    at SSD300's shapes and at the JAX package's test shapes
+    (tests/test_contrib_ops.py)."""
+    from mxnet_tpu_torch.ndarray.ops_contrib import _detection_rows
+
+    _, labels = ps.synthetic_batch(SSD_B, seed=SEED + 3, size=8)
+    cls = rs.randn(SSD_B, ps.CLASSES + 1, ps.ANCHORS).astype("float32")
+    loc = (rs.randn(SSD_B, ps.ANCHORS * 4) * 0.3).astype("float32")
+    gt = labels[..., 1:].copy()
+    gt[labels[..., 0] < 0] = 0
+
+    def anchors(ctx):
+        return ps.anchors(mx, ctx)
+
+    def iou(ctx):
+        return nd.contrib.box_iou(anchors(ctx).reshape((-1, 4)),
+                                  nd.array(gt[0], ctx=ctx))
+
+    def bip(ctx):
+        s = nd.contrib.box_iou(anchors(ctx), nd.array(gt, ctx=ctx))
+        return nd.contrib.bipartite_matching(s, threshold=1e-12)
+
+    def target(ctx):
+        return nd.contrib.MultiBoxTarget(anchors(ctx), *_on(ctx, labels, cls),
+                                         **ps.TARGET)
+
+    def detection(ctx):
+        prob = nd.softmax(nd.array(cls, ctx=ctx), axis=1)
+        return nd.contrib.MultiBoxDetection(prob, nd.array(loc, ctx=ctx),
+                                            anchors(ctx), **ps.DETECT)
+
+    def nms(ctx, **kw):
+        # the decoded rows MultiBoxDetection hands to its box_nms
+        prob = nd.softmax(nd.array(cls, ctx=ctx), axis=1)
+        rows = _detection_rows(prob._data, nd.array(loc, ctx=ctx)._data,
+                               anchors(ctx)._data, True, 0.01, 0,
+                               ps.DETECT["variances"])
+        return nd.contrib.box_nms(nd.NDArray(rows), overlap_thresh=N1_THRESH,
+                                  coord_start=2, score_index=1, id_index=0,
+                                  **kw)
+
+    data = rs.randn(2, 512, 38, 38).astype("float32")
+    rois = onp.concatenate([rs.randint(0, 2, (64, 1)),
+                            rs.uniform(0, 20, (64, 2)),
+                            rs.uniform(20, 38, (64, 2))], 1).astype("f")
+    cot = rs.randn(64, 512, 7, 7).astype("float32")
+    # the JAX package's test inputs
+    t_d = onp.array([[[0, 0.9, 0, 0, 2, 2], [0, 0.8, 0.1, 0.1, 2, 2],
+                      [1, 0.7, 0, 0, 2, 2], [0, 0.6, 5, 5, 6, 6]]], "f")
+    t_anc = onp.array([[[0.1, 0.1, 0.4, 0.4], [0.5, 0.5, 0.9, 0.9],
+                        [0.0, 0.0, 0.2, 0.2], [0.6, 0.6, 0.8, 0.8]]], "f")
+    t_lab = onp.array([[[0, 0.1, 0.1, 0.42, 0.42]]], "f")
+    t_cp = onp.random.RandomState(0).rand(1, 3, 4).astype("f")
+    t_prob = onp.array([[[0.2, 0.8], [0.7, 0.1], [0.1, 0.1]]], "f")
+    t_s = onp.array([[[0.9, 0.1], [0.8, 0.7]]], "f")
+    t_roi = onp.arange(16, dtype="f").reshape(1, 1, 4, 4)
+    return [
+        ("multibox_prior (1, 8732, 4)", lambda c: [anchors(c)], (), None,
+         ()),
+        ("box_iou (8732, 16)", lambda c: [iou(c)], (), None, ()),
+        ("bipartite_matching (32, 8732, 16)", bip, (0, 1), None, ()),
+        ("multibox_target (32, 21, 8732)", target, (1, 2), None, ()),
+        ("multibox_detection (32, 21, 8732)", lambda c: [detection(c)], (),
+         0, ()),
+        ("box_nms (32, 8732, 6), class-aware, topk 400",
+         lambda c: [nms(c, topk=400)], (), 0, ()),
+        ("box_nms (32, 8732, 6), force_suppress, topk 200",
+         lambda c: [nms(c, force_suppress=True, topk=200)], (), 0, ()),
+        ("roi_align (2, 512, 38, 38), 64 rois, 7x7, and its gradient",
+         lambda c: _roi_align_run(c, data, rois, (7, 7), 1.0, cot), (),
+         None, (1,)),
+        ("box_iou, JAX test", lambda c: [nd.contrib.box_iou(
+            *_on(c, [[0, 0, 2, 2], [1, 1, 3, 3]],
+                 [[0, 0, 2, 2], [2, 2, 4, 4]]))], (), None, ()),
+        ("box_nms, JAX test", lambda c: [nd.contrib.box_nms(
+            nd.array(t_d, ctx=c), overlap_thresh=0.5, coord_start=2,
+            score_index=1, id_index=0, force_suppress=f)
+            for f in (False, True)], (), 0, ()),
+        ("multibox_prior, JAX test", lambda c: [nd.contrib.MultiBoxPrior(
+            nd.zeros((1, 3, 2, 2), ctx=c), sizes=[0.5, 0.25],
+            ratios=[1, 2])], (), None, ()),
+        ("multibox_target, JAX test", lambda c: nd.contrib.MultiBoxTarget(
+            *_on(c, t_anc, t_lab, t_cp), negative_mining_ratio=1.0,
+            negative_mining_thresh=0.0), (1, 2), None, ()),
+        ("multibox_detection, JAX test", lambda c: [
+            nd.contrib.MultiBoxDetection(*_on(c, t_prob, onp.zeros(
+                (1, 8), "f"), t_anc[:, :2]), threshold=0.05)], (), 0, ()),
+        ("bipartite_matching, JAX test", lambda c: list(
+            nd.contrib.bipartite_matching(nd.array(t_s, ctx=c),
+                                          threshold=0.05)), (0, 1), None,
+         ()),
+        ("roi_align, JAX test", lambda c: _roi_align_run(
+            c, t_roi, onp.array([[0, 0, 0, 3, 3]], "f"), (2, 2), 1.0,
+            onp.ones((1, 1, 2, 2), "f")), (), None, (1,)),
+    ]
+
+
+def _host_list(outs):
+    return [o.asnumpy() if hasattr(o, "asnumpy") else onp.asarray(o)
+            for o in outs]
+
+
+def n1_bound(keep, vs, limit, has_ids):
+    """Least ms for one N1 call on these inputs: the bytes it must move
+    (each of the ``limit`` swept rows' box, valid flag and class id read
+    once, the whole (B, N) mask written once) over the memory rate, and
+    the IoU tests this data needs (each kept row against every later
+    valid row, ~14 flops each) over the fp32 rate. Also returns the
+    sweep's dependent steps: the kept rows of the longest image, a
+    barrier each."""
+    B, N = vs.shape
+    nbytes = B * limit * (16 + 1 + (4 if has_ids else 0)) + B * N
+    v = vs[:, :limit].sum(1, keepdim=True)  # valid rows are a prefix
+    idx = torch.arange(N, device=keep.device)[None, :]
+    pairs = int(((v - 1 - idx).clamp(min=0) * keep).sum())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 14 * pairs / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations",
+            int(keep.sum(1).max()), pairs)
+
+
+def _n1_row(what, boxes, vs, ids, limit, flush, plain=True):
+    from mxnet_tpu_torch.kernels.box_nms import _nms_keep_cuda, _nms_keep_ref
+
+    keep = _nms_keep_cuda(boxes, vs, ids, N1_THRESH, limit)
+    row = {"case": what, "B": vs.shape[0], "N": vs.shape[1],
+           "limit": limit, "class_aware": ids is not None,
+           "kept": int(keep.sum()),
+           "ms": time_ms(lambda: _nms_keep_cuda(boxes, vs, ids, N1_THRESH,
+                                                limit), flush),
+           "plain_ms": time_ms(lambda: _nms_keep_ref(
+               boxes, vs, ids, N1_THRESH, limit), flush) if plain else None,
+           "library_ms": None}
+    row["bound_ms"], row["bound_by"], row["dependent_steps"], \
+        row["iou_tests"] = n1_bound(keep, vs, limit, ids is not None)
+    print("  N1 " + json.dumps(row))
+    return row
+
+
+def detection_ops_phase():
+    phase("44 the detection ops on the card against the CPU port, and N1")
+    from mxnet_tpu_torch.kernels.box_nms import _nms_keep_cuda, _nms_keep_ref
+    from mxnet_tpu_torch.ndarray.ops_contrib import (
+        _detection_rows, _nms_sorted)
+
+    rs = onp.random.RandomState(SEED)
+    worst = {}
+    for name, fn, exact, id_col, rel in _detection_op_cases(rs):
+        card = _host_list(fn(mx.gpu(0)))
+        cpu = _host_list(fn(mx.cpu()))
+        worst[name] = _det_dev(name, card, cpu, exact, id_col, rel)
+        print(f"  {name}: {worst[name]:.3g} of max(1, largest) off the "
+              "CPU port (integer outputs and -1 rows equal)")
+    # N1 against its plain version on the card, on detection rows at
+    # SSD300's (32, 8732) from random class scores and offsets
+    dev = torch.device("cuda")
+    cls = torch.randn(SSD_B, ps.CLASSES + 1, ps.ANCHORS, device=dev,
+                      generator=torch.Generator(dev).manual_seed(SEED))
+    loc = 0.3 * torch.randn(SSD_B, ps.ANCHORS * 4, device=dev,
+                            generator=torch.Generator(dev).manual_seed(
+                                SEED + 1))
+    rows = _detection_rows(torch.softmax(cls, 1), loc,
+                           ps.anchors(mx, mx.gpu(0))._data, True, 0.01, 0,
+                           ps.DETECT["variances"])
+    n_checked = 0
+    for topk in (400, -1):
+        for force in (False, True):
+            _, vs, boxes, ids, limit = _nms_sorted(
+                rows, 0.0, topk, 2, 1, 0, -1, force, "corner")
+            got = _nms_keep_cuda(boxes, vs, ids, N1_THRESH, limit)
+            want = _nms_keep_ref(boxes, vs, ids, N1_THRESH, limit)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise RuntimeError(
+                    f"N1 disagrees with its plain version at topk {topk}, "
+                    f"force_suppress {force}: "
+                    f"{int((got != want).sum())} of {got.numel()} flags")
+            n_checked += got.numel()
+    print(f"  N1 keep masks equal to the plain loop's at (32, 8732), "
+          f"topk 400 and -1, class-aware and force_suppress "
+          f"({n_checked} flags)")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    _, vs, boxes, ids, limit = _nms_sorted(rows, 0.0, 400, 2, 1, 0, -1,
+                                           False, "corner")
+    row = _n1_row("random rows, nms_topk 400, class-aware", boxes, vs, ids,
+                  limit, flush)
+    _, vs, boxes, ids, limit = _nms_sorted(rows, 0.0, -1, 2, 1, 0, -1,
+                                           False, "corner")
+    full = _n1_row("random rows, nms_topk -1, class-aware", boxes, vs, ids,
+                   limit, flush, plain=False)
+    del flush
+    return {"ops": worst, "n1": row, "n1_all_rows": full}
+
+
+def ssd_toy_phase():
+    phase("45 the SSD toy twin of examples/train_ssd_toy.py")
+    from mxnet_tpu_torch.examples import train_ssd_toy
+
+    t0 = time.perf_counter()
+    res = train_ssd_toy.main([])
+    if not res["final_loss"] < 2.0:
+        raise RuntimeError(f"SSD toy twin: {res}")
+    print(f"  loss {res['first_loss']:.4f} -> {res['final_loss']:.4f} in "
+          f"{time.perf_counter() - t0:.1f} s; image 0's ground truth "
+          f"{onp.round(res['gt'], 3).tolist()}, its detections above 0.1 "
+          f"{onp.round(res['detections'], 3).tolist()}")
+    return res
+
+
+def _ssd_record(net, anchor, x, y):
+    """One recorded forward, targets, loss and backward: (class outputs,
+    location outputs, loss, {name: gradient}) on the device."""
+    with autograd.record():
+        cls_preds, loc_preds = net(x)
+        tgt = ps.targets(mx, anchor, y, cls_preds)
+        loss = ps.ssd_loss(mx, cls_preds, loc_preds, *tgt)
+    loss.backward()
+    return (cls_preds.data.detach().clone(), loc_preds.data.detach().clone(),
+            loss.data.detach().clone(),
+            {k: p.grad().data.detach().clone()
+             for k, p in net._collect_params_with_prefix().items()})
+
+
+def _ssd_vs_cpu(net):
+    """The class and location outputs and the loss at batch 2 on the card
+    against the CPU port with the same weights."""
+    xs, ys = ps.synthetic_batch(SSD_CPU_B, seed=SEED + 2)
+    cpu = convert.params_from_numpy(
+        ps.build_ssd300(mx), {k: p.data().asnumpy() for k, p in
+                              net._collect_params_with_prefix().items()},
+        ctx=mx.cpu())
+    runs = []
+    for n, ctx in ((net, mx.gpu(0)), (cpu, mx.cpu())):
+        x, y = nd.array(xs, ctx=ctx), nd.array(ys, ctx=ctx)
+        with autograd.pause():
+            cls_preds, loc_preds = n(x)
+            tgt = ps.targets(mx, ps.anchors(mx, ctx), y, cls_preds)
+            loss = ps.ssd_loss(mx, cls_preds, loc_preds, *tgt)
+        runs.append((cls_preds.asnumpy(), loc_preds.asnumpy(),
+                     float(loss.asscalar())))
+    (c_c, l_c, loss_c), (c_h, l_h, loss_h) = runs
+    dev = {"class": float(onp.abs(c_c - c_h).max() / onp.abs(c_h).max()),
+           "location": float(onp.abs(l_c - l_h).max() / onp.abs(l_h).max()),
+           "loss": abs(loss_c - loss_h) / abs(loss_h),
+           "loss_card": loss_c, "loss_cpu": loss_h}
+    if dev["class"] > SSD_CPU_TOL or dev["location"] > SSD_CPU_TOL or \
+            dev["loss"] > SSD_LOSS_RTOL:
+        raise RuntimeError(f"SSD300 on the card against the CPU port: {dev}")
+    del cpu
+    return dev
+
+
+def ssd_training_phase():
+    phase("46 SSD300-VGG16 training")
+    ctx = mx.gpu(0)
+    fused_step.reset_fused_step_cache()
+    gluon.reset_cached_op_stats()
+    _fresh_peak()
+    net = ps.build(mx, ctx, seed=SEED)
+    count = ps.trainable_count(net)
+    if count != SSD_PARAMS:
+        raise RuntimeError(f"SSD300 has {count:,} trainable parameters, the "
+                           f"JAX package's network {SSD_PARAMS:,}")
+    cpu = _ssd_vs_cpu(net)
+    # eager against hybridized, cuDNN deterministic: bitwise
+    xs, ys = ps.synthetic_batch(SSD_BITWISE_B, seed=SEED + 1)
+    x8, y8 = nd.array(xs, ctx=ctx), nd.array(ys, ctx=ctx)
+    anchor = ps.anchors(mx, ctx)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True):
+        eager = _ssd_record(net, anchor, x8, y8)
+        net.hybridize()
+        hyb = _ssd_record(net, anchor, x8, y8)
+    bad = [i for i in range(3) if not torch.equal(eager[i], hyb[i])]
+    bad += [k for k in eager[3] if not torch.equal(eager[3][k], hyb[3][k])]
+    if bad:
+        raise RuntimeError(
+            f"SSD300 hybridized differs from eager in {bad[:8]}")
+    n_bitwise = 3 + len(eager[3])
+    del eager, hyb, x8, y8
+    # the training path: 2 + 20 hybridized SGD steps at batch 32
+    _build.reset_launch_counts()
+    result, state = ps.train(SSD_B, SSD_STEPS, seed=SEED, net=net)
+    counts = _build.launch_counts()
+    losses = result["losses"]
+    if not all(onp.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"SSD300 training losses {losses}")
+    result.update({"cpu_deviation": cpu, "bitwise_tensors": n_bitwise,
+                   "cached_op": gluon.cached_op_stats(),
+                   "launches": counts})
+    prof = result["profile"]
+    print("  ssd300 " + json.dumps(result))
+    print(f"  SSD300-VGG16 ({count:,} parameters, {result['anchors']} "
+          f"anchors), batch {SSD_B}, hybridized: "
+          f"{result['mean_step_ms']:.2f} ms/step (median "
+          f"{result['median_step_ms']:.2f}), {result['img_per_s']:.1f} "
+          f"img/s, peak {result['peak_gb']:.2f} GB, device idle "
+          f"{100 * prof['device_idle_share']:.1f}% (profiled "
+          f"{prof['wall_ms_per_step']:.2f} ms, busy "
+          f"{prof['device_busy_ms_per_step']:.2f} ms); MultiBoxTarget "
+          f"{result['multibox_target_ms']:.3f} ms and the loss "
+          f"{result['loss_ms']:.3f} ms of a step; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; eager = hybridized bitwise ({n_bitwise} "
+          f"tensors); CPU: class {cpu['class']:.3g}, location "
+          f"{cpu['location']:.3g}, loss {cpu['loss']:.3g}")
+    return result, state
+
+
+def ssd_detection_phase(net, anchor, x):
+    phase("47 SSD300 detection")
+    from mxnet_tpu_torch.ndarray.ops_contrib import (
+        _detection_rows, _nms_sorted)
+
+    with autograd.predict_mode():
+        cls_preds, loc_preds = net(x)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        dets = ps.detect(mx, cls_preds, loc_preds, anchor)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+    n1 = counts.get(N1_KERNEL, 0)
+    if n1 != 1:
+        raise RuntimeError(f"detection of one batch launched N1 {n1} times "
+                           f"({counts}); want 1")
+    cpu = ps.detect(mx, *(nd.array(a.asnumpy(), ctx=mx.cpu())
+                          for a in (cls_preds, loc_preds, anchor)))
+    got, want = dets.asnumpy(), cpu.asnumpy()
+    err = _det_dev("SSD300 detection", [got], [want], id_col=0)
+    times = ps.detection_times(net, anchor, x)
+    # N1 on this detection's own rows, as the main path gave them
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    rows = _detection_rows(torch.softmax(cls_preds._data, -1).transpose(1, 2),
+                           loc_preds._data, anchor._data, True,
+                           ps.DETECT["threshold"], 0, ps.DETECT["variances"])
+    _, vs, boxes, ids, limit = _nms_sorted(
+        rows, 0.0, ps.DETECT["nms_topk"], 2, 1, 0, -1, False, "corner")
+    row = _n1_row("SSD300 detection rows, nms_topk 400, class-aware", boxes,
+                  vs, ids, limit, flush)
+    del flush
+    kept = (got[..., 0] >= 0).sum(1)
+    print(f"  batch {got.shape[0]}: N1 launched {n1} time, rows equal to the "
+          f"CPU port's (values within {err:.3g}); {kept.mean():.1f} "
+          f"detections an image; head {times['detection_head_ms']:.2f} ms, "
+          f"with the forward {times['detection_with_forward_ms']:.2f} ms; "
+          f"image 0's first: {onp.round(got[0, 0], 3).tolist()}")
+    return {"n1_launches": n1, "max_abs_err": err, "n1": row, **times}
+
+
 def kernel_entry(name, source, replaces, launches, worst, row, shape, smi,
                  **extra):
     entry = {"name": name, "route": "cuda", "source": source,
@@ -4020,6 +4475,12 @@ def main():
     lamb = lamb_phase()
     optim_tail = optim_tail_phase()
     twins = examples_phase()
+    torch.cuda.empty_cache()
+    det_ops = detection_ops_phase()
+    ssd_toy = ssd_toy_phase()
+    ssd, (ssd_net, ssd_anchor, ssd_x, _) = ssd_training_phase()
+    ssd_det = ssd_detection_phase(ssd_net, ssd_anchor, ssd_x)
+    del ssd_net
     bind_counts = fusion_bind["counts"]
     # the counts after the inference forward hold the training step's too
     k1_bind = bind_counts["after_inference"].get(FLASH_KERNEL, 0)
@@ -4115,8 +4576,22 @@ def main():
             library_calls="torch._softmax_backward_data",
             launches_by_path={"resnet_fp32": k4_bwd_n, **k4_amp,
                               **k4_hyb}),
+        # N1: not a TPU kernel; box_nms's greedy sweep (a lax.fori_loop in
+        # the JAX op), timed on the rows of the detection batch it swept
+        kernel_entry(
+            N1_KERNEL, "mxnet_tpu_torch/csrc/box_nms.cu",
+            "mxnet_tpu/ndarray/ops_contrib.py:88 (not a TPU kernel: "
+            "box_nms's lax.fori_loop)", ssd_det["n1_launches"], 0.0,
+            ssd_det["n1"], f"B={ssd_det['n1']['B']} N={ssd_det['n1']['N']} "
+            "nms_topk=400 class-aware fp32", smi, not_a_tpu_kernel=True,
+            library_calls="none", keep_mask_mismatches=0,
+            dependent_steps=ssd_det["n1"]["dependent_steps"],
+            random_rows=det_ops["n1"], all_rows=det_ops["n1_all_rows"],
+            launches_by_path={"ssd300_detection": ssd_det["n1_launches"],
+                              "ssd300_training": ssd["launches"].get(
+                                  N1_KERNEL, 0)}),
     ]
-    phase("44 report")
+    phase("48 report")
     print(f"bf16 ResNet-50 headline layout: {head}")
     print("hybridized: " + json.dumps({
         "resnet50_bf16_nhwc_step_ms": [resnet_hyb[False]["mean_step_ms"],
@@ -4171,6 +4646,20 @@ def main():
         "optim_tail_worst": max(optim_tail["optimizers"].values()),
         "mf_mse": [twins["mf"]["first_mse"], twins["mf"]["last_mse"]],
         "gan_mean_radius": twins["gan"]["mean_radius"]}))
+    print("SSD300-VGG16: " + json.dumps({
+        "trainable_parameters": ssd["trainable_parameters"],
+        "step_ms": ssd["mean_step_ms"], "img_per_s": ssd["img_per_s"],
+        "idle_share": ssd["profile"]["device_idle_share"],
+        "peak_gb": ssd["peak_gb"],
+        "multibox_target_ms": ssd["multibox_target_ms"],
+        "loss_ms": ssd["loss_ms"], "losses": [ssd["first_loss"],
+                                              ssd["last_loss"]],
+        "cpu_deviation": ssd["cpu_deviation"],
+        "detection_head_ms": ssd_det["detection_head_ms"],
+        "detection_with_forward_ms": ssd_det["detection_with_forward_ms"],
+        "detections_per_image": ssd_det["detections_per_image"],
+        "detection_ops_worst": max(det_ops["ops"].values()),
+        "toy_loss": [ssd_toy["first_loss"], ssd_toy["final_loss"]]}))
     print(f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -30,8 +30,11 @@ ResNet-50 v1 with a custom-op loss head whose kernels ``rtc`` compiles:
 - ``mx.analysis`` — the graph verifier and optimizer (``MXNET_GRAPH_OPT``)
   with the fusion pass;
 - ``mx.kernels`` — the flash-attention kernel K1, the decode-attention
-  kernel K2, the fused LayerNorm→activation kernel K3, their plain
-  versions and the fused cluster ops;
+  kernel K2, the fused LayerNorm→activation kernel K3, the greedy NMS
+  sweep N1, their plain versions and the fused cluster ops;
+- ``mx.nd.contrib``/``mx.sym.contrib`` — the detection ops
+  (MultiBoxPrior/Target/Detection, ``box_nms``, ``box_iou``,
+  ``bipartite_matching``, ``roi_align``) and the eager control flow;
 - ``mx.serving`` — InferenceSession (stateless ``predict`` and
   ``load`` of an export, or stateful ``step``), SessionStateStore,
   DynamicBatcher;

@@ -3,7 +3,9 @@
 The PyTorch counterpart of ``mxnet_tpu/kernels``. ``_build`` compiles
 ``csrc/*.cu`` at first use and counts launches. ``flash_attention``
 holds K1 and K2 with their plain versions, ``norm_act`` the fused
-LayerNorm→activation kernel K3 with its plain version; ``attention``
+LayerNorm→activation kernel K3 with its plain version, ``box_nms`` the
+greedy NMS sweep N1 of the ``box_nms`` op (not a TPU kernel: the JAX op
+runs a ``lax.fori_loop`` there) with its plain version; ``attention``
 registers the decode ops and the fused attention cluster op,
 ``elementwise`` the fused elementwise chain. The fusion pass
 (``analysis/fusion.py``) lowers clusters to these ops, with the
@@ -81,10 +83,10 @@ def fusion_salt():
 
 # registering the fused ops is an import side effect, as the ndarray ops'
 from . import _build, attention, elementwise  # noqa: E402,F401
-from . import flash_attention, norm_act  # noqa: E402,F401
+from . import box_nms, flash_attention, norm_act  # noqa: E402,F401
 from .cost_model import decide  # noqa: E402,F401
 
 __all__ = ["ALL_PATTERNS", "counters", "reset_counters", "fusion_enabled",
            "enabled_patterns", "cost_model_mode", "fusion_salt", "decide",
-           "_build", "attention", "elementwise", "flash_attention",
-           "norm_act"]
+           "_build", "attention", "box_nms", "elementwise",
+           "flash_attention", "norm_act"]

@@ -12,7 +12,7 @@ import sys as _sys
 import types as _types
 
 from . import registry
-from . import ops_basic, ops_index, ops_legacy, ops_nn, ops_optim, ops_random  # noqa: F401 — register the ops
+from . import ops_basic, ops_contrib, ops_index, ops_legacy, ops_nn, ops_optim, ops_random  # noqa: F401 — register the ops
 from .ndarray import (NDArray, arange, array, concatenate, empty, expand_dims,
                       from_dlpack, from_numpy, full, load, load_frombuffer,
                       moveaxis, ones, save, to_dlpack_for_read,
@@ -22,7 +22,7 @@ __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "concatenate", "expand_dims", "moveaxis", "waitall", "from_numpy",
            "from_dlpack", "to_dlpack_for_read", "to_dlpack_for_write",
            "stack_list", "save", "load", "load_frombuffer", "registry",
-           "random", "Custom"]
+           "random", "Custom", "contrib"]
 
 # the JAX package's table (``mxnet_tpu/ndarray/__init__.py:41-85``); the
 # first alias per target is the name ``Symbol.tojson`` writes
@@ -110,3 +110,9 @@ for _name in ("uniform", "normal", "randn", "randint", "exponential",
               "generalized_negative_binomial", "multinomial", "shuffle"):
     setattr(random, _name, getattr(_mxrandom, _name))
 _sys.modules[random.__name__] = random
+
+
+# ``mx.nd.contrib`` (reference: python/mxnet/ndarray/contrib.py): the
+# detection ops and the other contrib-named ops, with their CamelCase
+# spellings, and the eager control flow
+from . import contrib  # noqa: E402

@@ -15,8 +15,9 @@ wrote loads in the other.
 make an :class:`~mxnet_tpu_torch.executor.Executor`, which the Module
 API trains through.
 
-Not ported yet: ``AttrScope``, and the ``linalg``/``image``/``contrib``
-sub-namespaces.
+``sym.contrib`` holds the names of ``nd.contrib``'s ops and their
+CamelCase spellings, emitting graph nodes. Not ported yet:
+``AttrScope``, and the ``linalg``/``image`` sub-namespaces.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import ast
 import inspect
 import json
 import sys as _sys
+import types as _types
 
 import numpy as onp
 import torch
@@ -516,8 +518,10 @@ def _num_outputs_for(opname, kwargs):
         return 2
     if opname == "ftml_update":
         return 4
-    if opname == "lamb_update_phase1":
+    if opname in ("lamb_update_phase1", "multibox_target"):
         return 3
+    if opname == "bipartite_matching":
+        return 2
     return 1
 
 
@@ -615,6 +619,22 @@ def _populate():
 
 
 _populate()
+
+# ``mx.sym.contrib`` (reference: python/mxnet/symbol/contrib.py;
+# ``mxnet_tpu/symbol/__init__.py:607-618``): nd.contrib's op names,
+# emitting graph nodes, with the same fail-fast on a listed name that is
+# not registered
+contrib = _types.ModuleType(__name__ + ".contrib")
+from ..ndarray.contrib import _CONTRIB_ALIASES, _CONTRIB_OPS  # noqa: E402
+
+for _cname in _CONTRIB_OPS:
+    _cdef = _registry.get_op(_cname) or _registry.get_op(_cname.lower())
+    if _cdef is None:
+        raise RuntimeError(f"contrib op '{_cname}' listed but unregistered")
+    setattr(contrib, _cname, _sym_wrapper(_cdef))
+for _alias, _target in _CONTRIB_ALIASES.items():
+    setattr(contrib, _alias, getattr(contrib, _target))
+_sys.modules[contrib.__name__] = contrib
 
 
 def zeros(shape, dtype="float32", **kwargs):

@@ -1901,3 +1901,172 @@ def test_gan_twin_trains_hybridized_on_the_card(cuda):
 
     res = train_gan_toy.main(["--steps", "60"])
     assert onp.isfinite(res["mean_radius"]) and onp.isfinite(res["d_loss"])
+
+
+# -- N1, box_nms's greedy sweep, and the detection ops ------------------------
+
+def _nms_inputs(dev, B, N, seed=0, classes=20, span=0.3):
+    """Score-sorted detection rows as ``box_nms`` hands them to its sweep:
+    (corner boxes, valid mask, class ids, the rows), from a numpy seed."""
+    from mxnet_tpu_torch.ndarray.ops_contrib import _nms_sorted
+
+    rs = onp.random.RandomState(seed)
+    d = onp.zeros((B, N, 6), "float32")
+    d[..., 0] = rs.randint(0, classes, (B, N))
+    d[..., 1] = rs.rand(B, N)
+    d[..., 1][rs.rand(B, N) < 0.2] = 0  # a fifth invalid
+    xy = rs.uniform(0, 1 - span, (B, N, 2))
+    d[..., 2:4] = xy
+    d[..., 4:6] = xy + rs.uniform(0.02, span, (B, N, 2))
+    return torch.from_numpy(d).to(dev)
+
+
+@pytest.mark.parametrize("topk,force", [(400, False), (400, True),
+                                        (-1, False), (-1, True)])
+def test_n1_keep_mask_equals_plain_version_at_ssd300_shape(cuda, topk,
+                                                            force):
+    """N1 at (32, 8732), SSD300's detection batch: the keep mask equal,
+    bit for bit, to the plain loop on the same card inputs."""
+    from mxnet_tpu_torch.kernels.box_nms import (
+        KERNEL as N1, _nms_keep_cuda, _nms_keep_ref)
+    from mxnet_tpu_torch.ndarray.ops_contrib import _nms_sorted
+
+    d = _nms_inputs(cuda, 32, 8732)
+    _, vs, boxes, ids, limit = _nms_sorted(d, 0.0, topk, 2, 1, 0, -1,
+                                           force, "corner")
+    _build.reset_launch_counts()
+    got = _nms_keep_cuda(boxes, vs, ids, 0.45, limit)
+    assert _build.launch_counts().get(N1) == 1
+    want = _nms_keep_ref(boxes, vs, ids, 0.45, limit)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert 0 < int(got.sum()) < int(vs.sum())
+
+
+@pytest.mark.parametrize("B,N,limit", [(1, 1, 1), (3, 255, 255),
+                                       (2, 257, 100), (5, 1000, 1000),
+                                       (2, 12000, 12000)])
+def test_n1_at_ragged_sizes_and_past_shared_memory(cuda, B, N, limit):
+    """N not a multiple of the 256-thread block; 12,000 rows do not fit
+    shared memory staged (boxes then read from device memory)."""
+    from mxnet_tpu_torch.kernels.box_nms import _nms_keep_cuda, _nms_keep_ref
+
+    d = _nms_inputs(cuda, B, N, seed=N, classes=3, span=0.5)
+    boxes = d[..., 2:6].contiguous()
+    vs = (d[..., 1] > 0).contiguous()
+    for ids in (None, d[..., 0].contiguous()):
+        got = _nms_keep_cuda(boxes, vs, ids, 0.3, limit)
+        want = _nms_keep_ref(boxes, vs, ids, 0.3, limit)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (B, N, limit, ids is None)
+
+
+def test_box_nms_on_the_card_is_captured_and_matches_the_cpu(cuda):
+    """``box_nms`` inside a CUDA graph: the replay's rows equal the eager
+    card run's and the CPU port's; N1 launches once per replay."""
+    from mxnet_tpu_torch.kernels.box_nms import KERNEL as N1
+
+    d = _nms_inputs(cuda, 4, 3000, seed=3)
+    kw = dict(overlap_thresh=0.45, topk=400, id_index=0, coord_start=2,
+              score_index=1)
+    eager = mx.nd.contrib.box_nms(mx.nd.NDArray(d), **kw)._data
+    cpu = mx.nd.contrib.box_nms(mx.nd.NDArray(d.cpu()), **kw)._data
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        mx.nd.contrib.box_nms(mx.nd.NDArray(d), **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with _build.recording_launches() as rec:
+        with mx.context.cuda_graph(graph):
+            out = mx.nd.contrib.box_nms(mx.nd.NDArray(d), **kw)._data
+    assert rec == {N1: 1}
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert torch.equal(out.cpu(), cpu)
+
+
+def test_detection_ops_on_the_card_match_the_cpu(cuda):
+    """multibox prior, target (with mining) and detection, bipartite
+    matching and roi_align (values and gradient) on the card against the
+    CPU port: integer outputs exact, values within 1e-5."""
+    from mxnet_tpu_torch.tools import profile_ssd as ps
+
+    rs = onp.random.RandomState(5)
+    xs, ys = ps.synthetic_batch(4, seed=5)
+    cls = rs.randn(4, 21, ps.ANCHORS).astype("f")
+    loc = (rs.randn(4, ps.ANCHORS * 4) * 0.3).astype("f")
+    res = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        nd = mx.nd
+        anc = ps.anchors(mx, ctx)
+        tgt = nd.contrib.MultiBoxTarget(anc, nd.array(ys, ctx=ctx),
+                                        nd.array(cls, ctx=ctx), **ps.TARGET)
+        prob = nd.softmax(nd.array(cls, ctx=ctx), axis=1)
+        det = nd.contrib.MultiBoxDetection(prob, nd.array(loc, ctx=ctx),
+                                           anc, **ps.DETECT)
+        bip = nd.contrib.bipartite_matching(nd.array(cls[:, :6, :40],
+                                                     ctx=ctx))
+        data = nd.array(xs[:, :, :64, :64], ctx=ctx)
+        data.attach_grad()
+        rois = nd.array([[0, 2, 3, 40, 50], [3, 10.5, 0, 63, 20]], ctx=ctx)
+        with mx.autograd.record():
+            out = nd.contrib.ROIAlign(data, rois, pooled_size=(7, 7),
+                                      spatial_scale=1.0)
+        out.backward()
+        res[ctx.device_type] = [anc, *tgt, det, *bip, out, data.grad]
+    card, cpu = ([a.asnumpy() for a in res[k]] for k in ("gpu", "cpu"))
+    names = ["anchors", "loc_t", "loc_mask", "cls_t", "detection",
+             "row_match", "col_match", "roi_align", "roi_align_grad"]
+    for name, a, b in zip(names, card, cpu):
+        if name in ("loc_mask", "cls_t", "row_match", "col_match"):
+            onp.testing.assert_array_equal(a, b, err_msg=name)
+        elif name == "detection":
+            onp.testing.assert_array_equal(a[..., 0], b[..., 0])
+            onp.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+        else:
+            onp.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * max(
+                1.0, onp.abs(b).max()), err_msg=name)
+
+
+def test_ssd_toy_twin_trains_on_the_card(cuda):
+    from mxnet_tpu_torch.examples import train_ssd_toy
+
+    res = train_ssd_toy.main(["--steps", "60"])
+    assert res["final_loss"] < min(2.0, res["first_loss"])
+
+
+def test_sym_contrib_detection_graph_bound_on_the_card(cuda):
+    """``MultiBoxPrior`` → ``MultiBoxDetection`` as a bound symbol graph
+    on the card (the executor captures it, N1 inside): two forwards equal
+    each other and the CPU port's rows (ids and -1 rows exactly, values
+    within 1e-5)."""
+    from mxnet_tpu_torch.kernels.box_nms import KERNEL as N1
+
+    S = mx.sym
+    anchor = S.contrib.MultiBoxPrior(S.var("feat"), sizes=[0.3, 0.5],
+                                     ratios=[1, 2], name="anchors")
+    det = S.contrib.MultiBoxDetection(S.var("cls_prob"), S.var("loc_pred"),
+                                      anchor, nms_threshold=0.45,
+                                      nms_topk=50, name="detection")
+    rs = onp.random.RandomState(6)
+    logits = rs.randn(4, 5, 10 * 10 * 3).astype("f")
+    prob = onp.exp(logits) / onp.exp(logits).sum(1, keepdims=True)
+    arrays = {"feat": onp.zeros((1, 8, 10, 10), "f"),
+              "cls_prob": prob.astype("f"),
+              "loc_pred": (rs.randn(4, 1200) * 0.3).astype("f")}
+    outs = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        ex = det.bind(ctx, {k: mx.nd.array(v, ctx=ctx)
+                            for k, v in arrays.items()}, grad_req="null")
+        _build.reset_launch_counts()
+        first = ex.forward(is_train=False)[0].asnumpy()
+        second = ex.forward(is_train=False)[0].asnumpy()
+        assert onp.array_equal(first, second)
+        if ctx.device_type == "gpu":  # a warm-up, then one a replay
+            assert _build.launch_counts().get(N1, 0) >= 2
+        outs.append(second)
+    card, cpu = outs
+    onp.testing.assert_array_equal(card[..., 0], cpu[..., 0])
+    onp.testing.assert_allclose(card, cpu, rtol=0, atol=1e-5)

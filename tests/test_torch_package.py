@@ -46,6 +46,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
             "import mxnet_tpu_torch.tools.zoo_precision\n"
             "import mxnet_tpu_torch.examples.train_gan_toy\n"
             "import mxnet_tpu_torch.examples.train_recommender_mf\n"
+            "import mxnet_tpu_torch.tools.profile_ssd\n"
+            "import mxnet_tpu_torch.examples.train_ssd_toy\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax'"
             " or m == 'mxnet_tpu' or m.startswith('mxnet_tpu.'))\n"
             "print(bad)\n")
@@ -118,6 +120,12 @@ GLUON_SURFACE_MODULES = [
     "examples/train_recommender_mf.py"]
 
 
+# and those of detection (SSD300-VGG16, the box ops, N1)
+DETECTION_MODULES = [
+    "ndarray/ops_contrib.py", "ndarray/contrib.py", "kernels/box_nms.py",
+    "tools/profile_ssd.py", "examples/train_ssd_toy.py"]
+
+
 def test_no_module_imports_jax_or_the_jax_package():
     offenders = []
     files = list(_python_files())
@@ -125,8 +133,8 @@ def test_no_module_imports_jax_or_the_jax_package():
     scanned = {os.path.relpath(f, PKG) for f in files}
     assert set(TRAINING_MODULES) | set(SYMBOLIC_MODULES) | \
         set(RESNET_MODULES) | set(SERVING_MODULES) | \
-        set(SYMBOLIC_TRAINING_MODULES) | set(GLUON_SURFACE_MODULES) <= \
-        scanned
+        set(SYMBOLIC_TRAINING_MODULES) | set(GLUON_SURFACE_MODULES) | \
+        set(DETECTION_MODULES) <= scanned
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
