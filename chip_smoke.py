@@ -54,7 +54,15 @@ kernels against the plain PyTorch versions:
   at its published widths, and its detection batch through
   ``MultiBoxDetection``, whose ``box_nms`` sweep is the hand-written CUDA
   kernel N1 (``csrc/box_nms.cu``; not a TPU kernel: it replaces the JAX
-  op's ``lax.fori_loop``), with the toy detector's twin.
+  op's ``lax.fori_loop``), with the toy detector's twin;
+- int8 quantization: every ``ops_quant`` op on the card against the CPU
+  port, ``resnet50_v1`` at its published widths quantized by
+  ``contrib.quantization.quantize_net_graph`` and served in int8 through
+  ``InferenceSession.predict`` beside float32, its convolutions on the
+  hand-written int8 kernel N2 (``csrc/int8_conv.cu``; not a TPU kernel:
+  it replaces the int32-accumulating ``lax.conv_general_dilated`` of the
+  JAX op's native lowering) and its classifier on ``torch._int_mm``; the
+  block-swap ``quantize_net``; and GPT-2-small decode on int8 KV pages.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100:
 
@@ -369,10 +377,47 @@ stream busy until the launch is enqueued, so it is the device's time:
 47. SSD300 detection: ``softmax`` and ``MultiBoxDetection`` (NMS 0.45,
     ``nms_topk`` 400, threshold 0.01) on the trained body's batch of
     32, with the launch counts reset just before: N1 launched once, the
-    rows equal to the CPU port's (ids and -1 rows exactly, values within
-    1e-5); the head's and the forward-plus-head's ms; N1 and its plain
-    version timed on the rows this batch swept;
-48. report: one JSON line of kernels, then the device line last.
+    rows equal to those the CPU port's ``MultiBoxDetection`` gives on
+    the card's class probabilities (ids and -1 rows exactly, values
+    within 1e-5; the two devices' softmax, within 1e-5 of each other,
+    can order scores tied to a float32 ulp differently, so each side
+    gets the same probabilities); the head's and the forward-plus-head's
+    ms; N1 and its plain version timed on the rows this batch swept;
+48. the quantization ops and N2: every case of
+    ``tools/profile_quant.op_cases`` (all 14 ``ops_quant`` ops, int8 and
+    uint8 inputs) on the card against the CPU port under both lowerings,
+    integers equal and floats within 1e-5; N2 bitwise equal to its plain
+    version (float64) at every ``resnet50_v1`` convolution at batch 32
+    and 1, a grouped, a dilated, an odd-stride and a 7 x 7 C = 3 case;
+    ``int8_mm`` (``torch._int_mm`` on padded operands) at M = 1, 32 and
+    an odd K and N; ``dequant`` (cuDNN float32, no TF32) bitwise equal to
+    ``native`` at K = 576 and its largest accumulator gap at K = 4608;
+    the batched product by N2 as a grouped 1 x 1 convolution against
+    ``_int_mm`` per batch entry; N2's time at every distinct ResNet-50
+    shape at batch 32 beside its plain version's, its bound (int8
+    operations at 1,979 TOPS or bytes at 3.35 TB/s) and two library
+    routes that compute the same function: cuDNN's float32 convolution
+    of the codes and ``_int_mm`` on an explicit im2col (yardsticks only);
+49. ResNet-50 v1 served in int8: ``resnet50_v1`` (25,575,912
+    parameters), Xavier weights from a seed, quantized by
+    ``quantize_net_graph`` with naive calibration over 10 synthetic
+    batches of 32 and with entropy calibration over 2 batches of 4 (the
+    calibration's host sampling costs ~70 ns per activation element);
+    sessions at batch 1 and 32 under ``native`` beside the float32
+    session: ms per predict, img/s, weight bytes, ``accuracy_delta``,
+    peak memory, N2 and ``_int_mm`` launches per predict equal to the
+    quantized convolutions and FCs; once under ``dequant`` (no int8
+    launch); the card's int8 logits within 1e-5 of the CPU port's; the
+    block hybridized, captured and replayed bitwise equal to eager;
+50. ``quantize_net`` (the block-swap form) on the same network at batch
+    32: its calibration, ms per predict and ``accuracy_delta``;
+51. GPT-2-small decode on int8 KV pages: phase 18's open-loop traffic
+    (the same arrivals and token sequences) on a paged store with
+    ``kv_int8=True``: tokens/s and p50/p99 per token beside phase 18's
+    float32 pages, the full-length sessions one byte budget holds, and
+    every step of phase 18's eight rerun streams within 0.1 of their
+    float32-page logits (the JAX bound);
+52. report: one JSON line of kernels, then the device line last.
 
 Each phase prints the seconds it took.
 
@@ -410,12 +455,14 @@ from mxnet_tpu_torch.ndarray import ops_nn  # noqa: E402
 from mxnet_tpu_torch.kernels.norm_act import (  # noqa: E402
     KERNEL as NORM_ACT_KERNEL, _norm_act_cuda, _norm_act_ref)
 from mxnet_tpu_torch.kernels.box_nms import KERNEL as N1_KERNEL  # noqa: E402
+from mxnet_tpu_torch.kernels.int8_conv import KERNEL as N2_KERNEL  # noqa: E402
 from mxnet_tpu_torch.models import DecoderBlockLM, TransformerLM  # noqa: E402
 from mxnet_tpu_torch.tools.profile_predict import (  # noqa: E402
     SAMPLE_RATE, WAV2VEC2_LARGE_LV60, export_wav2vec2, frames)
 from mxnet_tpu_torch.benchmark import opperf  # noqa: E402
 from mxnet_tpu_torch.tools import op_sweep  # noqa: E402
 from mxnet_tpu_torch.tools import profile_module as pm  # noqa: E402
+from mxnet_tpu_torch.tools import profile_quant as pq  # noqa: E402
 from mxnet_tpu_torch.tools import profile_resnet as pr  # noqa: E402
 from mxnet_tpu_torch.tools import profile_ssd as ps  # noqa: E402
 from mxnet_tpu_torch.tools import profile_zoo as pz  # noqa: E402
@@ -564,8 +611,8 @@ def kernel_check_phase(gen):
     return worst
 
 
-def time_ms(fn, flush):
-    """Median device ms of ``fn`` over REPS launches, each timed alone
+def time_ms(fn, flush, reps=REPS):
+    """Median device ms of ``fn`` over ``reps`` launches, each timed alone
     with CUDA events after ``flush`` evicts the 50 MB L2 — a decode step
     reaches attention with its caches cold. The stream is then kept busy
     for BUSY_CYCLES (``torch.cuda._sleep``), so the host has enqueued
@@ -574,7 +621,7 @@ def time_ms(fn, flush):
     for _ in range(3):
         fn()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         flush.zero_()
         torch.cuda._sleep(BUSY_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
@@ -1851,6 +1898,7 @@ def paged_serving_phase(net):
         "token_latency_p50_ms": snap["latency_p50_ms"],
         "token_latency_p99_ms": snap["latency_p99_ms"],
         "pages_used_peak": stats["pages_used"],
+        "pages_total": store.num_pages,
         "kv_bytes_peak": stats["pages_used"] * stats["page_bytes"],
         "row_slot_bytes": PAGED_STREAMS * store.bytes_per_session,
         "graphs": {str(b): g for b, g in graphs.items()},
@@ -1896,7 +1944,21 @@ def paged_serving_phase(net):
     rstore.close()
     torch.cuda.empty_cache()
     result["rerun_bitwise_steps"] = compared
-    return launches, result
+    # the traffic and the rerun streams' logits per step, which phase 51
+    # replays on int8 pages
+    traffic = {"lengths": lengths, "arrivals": arrivals, "toks": toks,
+               "logits": _stream_logits(log, rerun)}
+    return launches, result, traffic
+
+
+def _stream_logits(log, sids):
+    """``{sid: [logits of its step 0, 1, ...]}`` of the streams ``sids``
+    from a step log of (ids, bucket, tokens, {row: logits})."""
+    out = {sid: [] for sid in sids}
+    for ids, _, _, got in log:
+        for i, logits in got.items():
+            out[ids[i]].append(logits)
+    return out
 
 
 def graph_vs_eager_phase(net):
@@ -4384,8 +4446,22 @@ def ssd_detection_phase(net, anchor, x):
     if n1 != 1:
         raise RuntimeError(f"detection of one batch launched N1 {n1} times "
                            f"({counts}); want 1")
-    cpu = ps.detect(mx, *(nd.array(a.asnumpy(), ctx=mx.cpu())
-                          for a in (cls_preds, loc_preds, anchor)))
+    # the CPU port's detection from the card's class probabilities: the
+    # two devices' softmax differ by float32 ulps, which reorder scores
+    # tied to an ulp (a trained body gives such pairs now and then); the
+    # softmax is held to its own bound
+    with autograd.predict_mode():
+        probs = nd.softmax(cls_preds, axis=-1)
+    want_probs = nd.softmax(nd.array(cls_preds.asnumpy(), ctx=mx.cpu()),
+                            axis=-1).asnumpy()
+    softmax_err = float(onp.abs(probs.asnumpy() - want_probs).max())
+    if softmax_err > DET_TOL:
+        raise RuntimeError(f"SSD300 class probabilities {softmax_err:.3g} "
+                           f"off the CPU port (bound {DET_TOL})")
+    cpu = nd.contrib.MultiBoxDetection(
+        *(nd.array(a.asnumpy(), ctx=mx.cpu())
+          for a in (probs.transpose((0, 2, 1)), loc_preds, anchor)),
+        **ps.DETECT)
     got, want = dets.asnumpy(), cpu.asnumpy()
     err = _det_dev("SSD300 detection", [got], [want], id_col=0)
     times = ps.detection_times(net, anchor, x)
@@ -4401,11 +4477,508 @@ def ssd_detection_phase(net, anchor, x):
     del flush
     kept = (got[..., 0] >= 0).sum(1)
     print(f"  batch {got.shape[0]}: N1 launched {n1} time, rows equal to the "
-          f"CPU port's (values within {err:.3g}); {kept.mean():.1f} "
+          f"CPU port's on the card's probabilities (values within "
+          f"{err:.3g}; the softmax within {softmax_err:.3g}); "
+          f"{kept.mean():.1f} "
           f"detections an image; head {times['detection_head_ms']:.2f} ms, "
           f"with the forward {times['detection_with_forward_ms']:.2f} ms; "
           f"image 0's first: {onp.round(got[0, 0], 3).tolist()}")
     return {"n1_launches": n1, "max_abs_err": err, "n1": row, **times}
+
+
+# -- slice 8: int8 quantization ------------------------------------------------
+
+INT8_TOPS = 1979e12  # H100 SXM dense int8 on the tensor cores
+QUANT_CALIB_BATCHES, QUANT_CALIB_B = 10, 32  # naive calibration
+# entropy calibration samples 8192 elements of every internal tensor per
+# batch with numpy's RandomState.choice (a full permutation of the tensor's
+# size, ~70 ns per element on the host): two batches of four images
+QUANT_ENTROPY_BATCHES, QUANT_ENTROPY_B = 2, 4
+QUANT_ITERS = 20
+QUANT_TOL = 1e-5  # card against the CPU port: floats, logits
+KV_INT8_BOUND = 0.1  # the JAX package's int8 KV-page accuracy bound
+
+
+def _quant_run(case, ctx):
+    from mxnet_tpu_torch.ndarray import registry as treg
+
+    _, op, args, kw = case
+    dev = torch.device("cuda" if ctx.device_type == "gpu" else "cpu")
+    out = treg.get_op(op).fn(*[torch.from_numpy(onp.ascontiguousarray(a))
+                               .to(dev) for a in args], **kw)
+    outs = list(out) if isinstance(out, (list, tuple)) else [out]
+    return [o.cpu().numpy() for o in outs]
+
+
+def _quant_ops_check():
+    """Every ops_quant case under both lowerings, card against CPU port:
+    integers equal, floats within QUANT_TOL of max(1, largest)."""
+    cases = pq.op_cases(onp.random.RandomState(SEED))
+    worst = 0.0
+    for lw in ("native", "dequant"):
+        os.environ["MXNET_QUANTIZE_LOWERING"] = lw
+        for case in cases:
+            card, cpu = _quant_run(case, mx.gpu(0)), _quant_run(case, mx.cpu())
+            for i, (a, b) in enumerate(zip(card, cpu)):
+                if a.dtype != b.dtype or a.shape != b.shape:
+                    raise RuntimeError(f"{case[0]} ({lw}) output {i}: "
+                                       f"{a.dtype}{a.shape} on the card, "
+                                       f"{b.dtype}{b.shape} on the CPU")
+                if a.dtype.kind in "iub":
+                    if not onp.array_equal(a, b):
+                        raise RuntimeError(
+                            f"{case[0]} ({lw}) output {i}: "
+                            f"{int((a != b).sum())} codes differ")
+                    continue
+                err = float(onp.abs(a.astype("f8") - b).max()) / max(
+                    1.0, float(onp.abs(b).max()))
+                worst = max(worst, err)
+                if err > QUANT_TOL:
+                    raise RuntimeError(f"{case[0]} ({lw}) output {i} off "
+                                       f"the CPU port by {err}")
+    os.environ.pop("MXNET_QUANTIZE_LOWERING", None)
+    print(f"  {len(cases)} ops_quant cases x 2 lowerings: integers equal to "
+          f"the CPU port's, floats within {worst:.3g}")
+    return worst
+
+
+def _s8(gen, shape):
+    return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                         dtype=torch.int32).to(torch.int8)
+
+
+def _n2_shape_row(gen, flush, x_s, w_s, st, p):
+    """N2 at one resnet50_v1 shape: its time, its plain version's, the
+    bound, and two library routes that compute the same function: cuDNN's
+    float32 convolution of the codes (exact while the sums stay below
+    2^24) and torch._int_mm on an explicit im2col (K padded to 8)."""
+    from mxnet_tpu_torch.kernels import int8_conv as k8
+
+    x, w = _s8(gen, x_s), _s8(gen, w_s)
+    d = (1, 1)
+    y_s = k8.conv_output_shape(x_s, w_s, st, p, d)
+    M, N, K = y_s[0] * y_s[2] * y_s[3], w_s[0], w_s[1] * w_s[2] * w_s[3]
+    ops, nbytes = 2 * M * N * K, x.numel() + w.numel() + 4 * M * N
+    t_ops, t_bytes = ops / INT8_TOPS, nbytes / HBM_BYTES_PER_S
+    xf, wf = x.float(), w.float()
+
+    def cudnn():
+        with ops_nn.cudnn_fp32():
+            return torch.nn.functional.conv2d(xf, wf, None, st, p)
+
+    cols = torch.nn.functional.unfold(xf, w_s[2:], padding=p, stride=st)
+    cols = cols.transpose(1, 2).reshape(M, K)
+    Kp = -(-K // 8) * 8
+    a = torch.nn.functional.pad(cols, (0, Kp - K)).to(torch.int8)
+    b = torch.nn.functional.pad(wf.reshape(N, K), (0, Kp - K)).to(
+        torch.int8).t()
+    row = {"x": list(x_s), "w": list(w_s), "stride": list(st),
+           "pad": list(p), "M": M, "N": N, "K": K,
+           "ms": time_ms(lambda: k8.int8_conv(x, w, st, p, d, 1), flush),
+           # the float64 plain version is too slow for 25 at every shape
+           "plain_ms": time_ms(lambda: k8._int8_conv_ref(x, w, st, p, d, 1),
+                               flush, reps=3),
+           "library_ms": time_ms(cudnn, flush),
+           "library_int_mm_ms": time_ms(lambda: torch._int_mm(a, b), flush),
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "ops_ms": t_ops * 1e3, "bytes_ms": t_bytes * 1e3}
+    row["tops"] = ops / row["ms"] / 1e9
+    return row
+
+
+def quant_kernels_phase():
+    phase("48 the quantization ops on the card against the CPU port, N2 "
+          "and _int_mm")
+    from mxnet_tpu_torch.kernels import int8_conv as k8
+
+    ops_worst = _quant_ops_check()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 48)
+    cases = [(x, w, st, p, (1, 1), 1) for b in (QUANT_CALIB_B, 1)
+             for x, w, st, p in pq.resnet50_convolutions(b)]
+    cases += [((2, 8, 13, 11), (12, 4, 3, 3), (2, 1), (1, 2), (1, 1), 2),
+              ((3, 6, 17, 17), (8, 6, 3, 3), (1, 1), (2, 2), (2, 2), 1),
+              ((2, 5, 9, 9), (7, 5, 5, 3), (3, 2), (2, 1), (1, 2), 1),
+              ((1, 3, 31, 31), (64, 3, 7, 7), (2, 2), (3, 3), (1, 1), 1),
+              ((4, 64, 7, 7), (64, 1, 3, 3), (1, 1), (1, 1), (1, 1), 64)]
+    checked = set()
+    for x_s, w_s, st, p, d, g in cases:
+        if (x_s, w_s, st, p, d, g) in checked:
+            continue
+        checked.add((x_s, w_s, st, p, d, g))
+        x, w = _s8(gen, x_s), _s8(gen, w_s)
+        got = k8.int8_conv(x, w, st, p, d, g)
+        want = k8._int8_conv_ref(x, w, st, p, d, g)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"N2 differs from its plain version at x "
+                               f"{x_s} w {w_s} stride {st} pad {p} dilate "
+                               f"{d} groups {g}: {int((got != want).sum())} "
+                               f"of {got.numel()} accumulators")
+    print(f"  N2 bitwise equal to its plain version (float64) at "
+          f"{len(checked)} shapes: every resnet50_v1 convolution at batch "
+          f"{QUANT_CALIB_B} and 1, grouped, dilated, odd-stride and stem "
+          "cases")
+    # _int_mm through the wrapper's padding: batch 1 and 32 at the
+    # classifier's shape, an odd K and an odd N
+    for M, K, N in ((1, 2048, 1000), (QUANT_CALIB_B, 2048, 1000),
+                    (5, 147, 63)):
+        a, b = _s8(gen, (M, K)), _s8(gen, (N, K)).t()
+        if not torch.equal(k8.int8_mm(a, b), k8._int8_mm_ref(a, b)):
+            raise RuntimeError(f"int8_mm differs from its plain version at "
+                               f"({M}, {K}) x ({K}, {N})")
+    print("  int8_mm (torch._int_mm, operands padded to M > 16 and K, N "
+          "multiples of 8) equal to its plain version at M = 1, 32 and an "
+          "odd K and N")
+    # dequant (cuDNN float32, no TF32) against native: bitwise while the
+    # sums stay below 2^24; at resnet50_v1's K = 4608 the largest gap
+    x, w = _s8(gen, (4, 64, 14, 14)), _s8(gen, (64, 64, 3, 3))
+    with ops_nn.cudnn_fp32():
+        deq = torch.round(torch.nn.functional.conv2d(
+            x.float(), w.float(), None, 1, 1)).to(torch.int32)
+    if not torch.equal(deq, k8.int8_conv(x, w, (1, 1), (1, 1), (1, 1), 1)):
+        raise RuntimeError("dequant differs from native at K = 576 (sums "
+                           "below 2^24): TF32 in the float32 convolution?")
+    x, w = _s8(gen, (QUANT_CALIB_B, 512, 7, 7)), _s8(gen, (512, 512, 3, 3))
+    with ops_nn.cudnn_fp32():
+        deq = torch.round(torch.nn.functional.conv2d(
+            x.float(), w.float(), None, 1, 1)).to(torch.int32)
+    nat = k8.int8_conv(x, w, (1, 1), (1, 1), (1, 1), 1)
+    full_gap = int((deq - nat).abs().max())
+    print(f"  dequant = native bitwise at K = 576; at K = 4608 (3 x 3, 512) "
+          f"the largest accumulator gap is {full_gap} (|acc| up to "
+          f"{int(nat.abs().max())}; float32 holds every integer below "
+          "2^24)")
+    # the batched product: _int_mm per batch entry against N2 as a grouped
+    # 1 x 1 convolution (one launch), at an attention-like shape
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    a, b = _s8(gen, (96, 128, 64)), _s8(gen, (96, 64, 128))
+    bt = b.transpose(1, 2).contiguous()
+    bdot = {"shape": [96, 128, 64, 128],
+            "n2_grouped_ms": time_ms(lambda: k8.int8_batch_mm(a, b), flush),
+            "int_mm_per_batch_ms": time_ms(
+                lambda: [torch._int_mm(a[i], bt[i].t()) for i in range(96)],
+                flush)}
+    print("  batch_dot routes " + json.dumps(bdot))
+    # N2's times at every distinct resnet50_v1 shape at batch 32
+    shapes = pq.resnet50_convolutions(QUANT_CALIB_B)
+    rows = {}
+    for x_s, w_s, st, p in shapes:
+        key = (x_s, w_s, st, p)
+        if key not in rows:
+            rows[key] = _n2_shape_row(gen, flush, *key)
+    del flush
+    per_forward = {k: sum(rows[tuple(c)][k] for c in shapes)
+                   for k in ("ms", "plain_ms", "library_ms",
+                             "library_int_mm_ms", "bound_ms", "ops_ms",
+                             "bytes_ms")}
+    per_forward["bound_by"] = "operations" if \
+        per_forward["ops_ms"] >= per_forward["bytes_ms"] else "bytes"
+    per_forward["convolutions"] = len(shapes)
+    for r in rows.values():
+        print("  N2 " + json.dumps({k: (round(v, 5) if isinstance(v, float)
+                                        else v) for k, v in r.items()}))
+    print("  N2 per resnet50_v1 forward at batch 32 (53 convolutions) "
+          + json.dumps(per_forward))
+    return {"ops_worst": ops_worst, "checked_shapes": len(checked),
+            "per_forward": per_forward,
+            "by_shape": [rows[k] for k in rows], "batch_dot": bdot,
+            "dequant_gap_k4608": full_gap}
+
+
+def _cpu_block(qb):
+    """The quantized SymbolBlock's graph with its parameters copied to the
+    CPU (int8 weights stay int8)."""
+    cpu = gluon.SymbolBlock(qb._outputs, [mx.sym.var("data")])
+    params = cpu.collect_params()
+    for name, p in qb.collect_params().items():
+        val = nd.array(p.data().asnumpy(), ctx=mx.cpu(),
+                       dtype=p.data().dtype)
+        params[name].dtype = val.dtype
+        if val.dtype == onp.int8:
+            params[name].grad_req = "null"
+        params[name]._load_init_from(val, ctx=mx.cpu())
+    return cpu
+
+
+def _int8_session_row(block, b, x, ctx, hybridize):
+    """ms per predict, img/s, the last logits and the launches of one
+    predict of ``block`` served at batch ``b`` (eager, or hybridized: the
+    forward captured as one CUDA graph per signature and replayed)."""
+    if hybridize:
+        block.hybridize()
+    try:
+        sess = pq.session(block, b, ctx)
+        ms, out = pq.time_predicts(sess, x, QUANT_ITERS)
+        counts = pq.launches_per_predict(sess, x)
+    finally:
+        if hybridize:
+            block.hybridize(False)
+    return {"ms": ms, "img_per_s": b * 1e3 / ms, "launches": counts}, out
+
+
+def int8_resnet_phase():
+    phase("49 ResNet-50 v1 served in int8")
+    from mxnet_tpu_torch.contrib.quantization import quantize_net_graph
+
+    ctx = mx.gpu(0)
+    net = pz.build("resnet50_v1", ctx, seed=pq.SEED, classes=pq.CLASSES)
+    calib = pq.calib_batches(ctx, QUANT_CALIB_BATCHES, QUANT_CALIB_B)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qb = quantize_net_graph(net, calib_data=calib, calib_mode="naive")
+    torch.cuda.synchronize()
+    naive_s = time.perf_counter() - t0
+    convs, fcs = pq.quantized_counts(qb)
+    t0 = time.perf_counter()
+    qe = quantize_net_graph(net, calib_data=pq.calib_batches(
+        ctx, QUANT_ENTROPY_BATCHES, QUANT_ENTROPY_B), calib_mode="entropy")
+    entropy_s = time.perf_counter() - t0
+    del calib
+    weights = {"fp32_bytes": pq.weight_bytes(net),
+               "int8_bytes": pq.weight_bytes(qb)}
+    weights["reduction_x"] = weights["fp32_bytes"] / weights["int8_bytes"]
+    print(f"  quantize_net_graph naive over {QUANT_CALIB_BATCHES} batches of "
+          f"{QUANT_CALIB_B}: {naive_s:.1f} s; entropy over "
+          f"{QUANT_ENTROPY_BATCHES} batches of {QUANT_ENTROPY_B}: "
+          f"{entropy_s:.1f} s; {convs} quantized convolutions, {fcs} "
+          f"quantized FC; weights {json.dumps(weights)}")
+    rs = onp.random.RandomState(SEED + 49)
+    xs = {b: (rs.randn(b, *pq.IMAGE) * 0.5).astype("float32")
+          for b in (1, QUANT_CALIB_B)}
+    result = {"naive_calibration_s": naive_s,
+              "entropy_calibration_s": entropy_s,
+              "quantized_convolutions": convs, "quantized_fc": fcs,
+              "weights": weights, "batches": {}}
+    n2_launches = int_mm_launches = 0
+    want = {"int8_conv": convs, "int_mm": fcs}
+    for b, x in xs.items():
+        row = {}
+        for hyb in (False, True):
+            mode = "hybridized" if hyb else "eager"
+            fp32, ref = _int8_session_row(net, b, x, ctx, hyb)
+            os.environ["MXNET_QUANTIZE_LOWERING"] = "native"
+            torch.cuda.reset_peak_memory_stats()
+            int8, out = _int8_session_row(qb, b, x, ctx, hyb)
+            int8["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            counts = int8.pop("launches")
+            n2_launches += counts.get("int8_conv", 0)
+            int_mm_launches += counts.get("int_mm", 0)
+            if {k: counts.get(k) for k in want} != want:
+                raise RuntimeError(f"batch {b} {mode}: one int8 predict "
+                                   f"launched {counts}; want {want}")
+            if out.shape != (b, pq.CLASSES) or not onp.isfinite(out).all():
+                raise RuntimeError(f"batch {b}: bad int8 logits {out.shape}")
+            fp32.pop("launches")
+            int8.update(speedup=fp32["ms"] / int8["ms"],
+                        accuracy_delta=pq.accuracy_delta(out, ref))
+            row[mode] = {"fp32": fp32, "int8": int8}
+        row["launches_per_predict"] = counts
+        if b == QUANT_CALIB_B:
+            os.environ["MXNET_QUANTIZE_LOWERING"] = "dequant"
+            dq, dout = _int8_session_row(qb, b, x, ctx, True)
+            dcounts = dq.pop("launches")
+            if dcounts.get("int8_conv") or dcounts.get("int_mm"):
+                raise RuntimeError(f"dequant launched int8 kernels: "
+                                   f"{dcounts}")
+            os.environ["MXNET_QUANTIZE_LOWERING"] = "native"
+            eout = pq.session(qe, b, ctx).predict(x).asnumpy()
+            # where an eager int8 predict's device time goes
+            prof = pq.breakdown(pq.session(qb, b, ctx), x)
+            row["int8_eager_profile"] = {
+                k: prof[k] for k in ("wall_ms_per_step",
+                                     "device_busy_ms_per_step",
+                                     "device_idle_share",
+                                     "device_ops_per_step",
+                                     "device_ms_per_step_by_kind")}
+            dq.update(accuracy_delta=pq.accuracy_delta(dout, ref),
+                      vs_native=pq.accuracy_delta(dout, out))
+            row["dequant_hybridized"] = dq
+            row["entropy_accuracy_delta"] = pq.accuracy_delta(eout, ref)
+        result["batches"][b] = row
+        print(f"  batch {b}: " + json.dumps(row))
+    # the card's int8 logits against the CPU port's on the same two
+    # images (the input boundary's range is the batch's own: the JAX
+    # pass calibrates only op outputs)
+    x2 = xs[QUANT_CALIB_B][:2]
+    with autograd.pause():
+        card = qb(nd.array(x2, ctx=ctx)).asnumpy()
+        cpu = _cpu_block(qb)(nd.array(x2, ctx=mx.cpu())).asnumpy()
+    err = float(onp.abs(card - cpu).max()) / max(float(onp.abs(cpu).max()),
+                                                 1e-9)
+    if err > QUANT_TOL:
+        raise RuntimeError(f"int8 logits off the CPU port by {err}")
+    result["cpu_deviation"] = err
+    print(f"  the card's int8 logits on two images within {err:.3g} of the "
+          "CPU port's")
+    # hybridized: the captured int8 graph replays bitwise equal to eager
+    x = nd.array(xs[QUANT_CALIB_B], ctx=ctx)
+    with autograd.pause():
+        eager = qb(x).asnumpy()
+        qb.hybridize()
+        first = qb(x).asnumpy()
+        _build.reset_launch_counts()
+        again = qb(x).asnumpy()
+        replay_counts = _build.launch_counts()
+        qb.hybridize(False)
+    if not (onp.array_equal(eager, first) and onp.array_equal(eager, again)):
+        raise RuntimeError("the hybridized int8 ResNet-50 differs from its "
+                           "eager forward")
+    if {k: replay_counts.get(k) for k in want} != want:
+        raise RuntimeError(f"a replay counted {replay_counts}")
+    print(f"  hybridized int8 SymbolBlock: captured and replayed bitwise "
+          f"equal to eager; a replay counts {replay_counts}")
+    os.environ.pop("MXNET_QUANTIZE_LOWERING", None)
+    result["n2_launches"] = n2_launches
+    result["int_mm_launches"] = int_mm_launches
+    del qb, qe
+    torch.cuda.empty_cache()
+    return net, result
+
+
+def quantize_net_phase(net):
+    phase("50 quantize_net (the block-swap form) on ResNet-50 v1")
+    from mxnet_tpu_torch.contrib.quantization import quantize_net
+
+    ctx = mx.gpu(0)
+    x = (onp.random.RandomState(SEED + 50).randn(
+        QUANT_CALIB_B, *pq.IMAGE) * 0.5).astype("float32")
+    with autograd.pause():
+        ref = net(nd.array(x, ctx=ctx)).asnumpy()
+    t0 = time.perf_counter()
+    quantize_net(net, calib_data=pq.calib_batches(ctx, QUANT_CALIB_BATCHES,
+                                                  QUANT_CALIB_B),
+                 calib_mode="naive")
+    calib_s = time.perf_counter() - t0
+    os.environ["MXNET_QUANTIZE_LOWERING"] = "native"
+    try:
+        sess = pq.session(net, len(x), ctx)
+        ms, out = pq.time_predicts(sess, x, QUANT_ITERS)
+        counts = pq.launches_per_predict(sess, x)
+    finally:
+        os.environ.pop("MXNET_QUANTIZE_LOWERING", None)
+    result = {"batch": len(x), "calibration_s": calib_s, "ms": ms,
+              "img_per_s": len(x) * 1e3 / ms,
+              "accuracy_delta": pq.accuracy_delta(out, ref),
+              "launches_per_predict": counts}
+    if counts.get("int8_conv") != 53 or counts.get("int_mm") != 1 or \
+            not onp.isfinite(out).all():
+        raise RuntimeError(f"quantize_net's predict: {result}")
+    print("  " + json.dumps(result))
+    return result
+
+
+def int8_kv_phase(traffic, fp32):
+    phase("51 decode at GPT-2 small widths with int8 KV pages")
+    from mxnet_tpu_torch.analysis import quantize as qpass
+
+    net = decode_net()
+    cfg = GPT2_SMALL
+    lengths, arrivals, toks = (traffic["lengths"], traffic["arrivals"],
+                               traffic["toks"])
+    store, sess = decode_stack(net, PAGED_STREAMS, PAGE_TOKENS,
+                               PAGED_BUCKETS, budget=PAGED_BUDGET,
+                               kv_int8=True)
+    sids = [f"p{i}" for i in range(PAGED_STREAMS)]
+    watch = set(traffic["logits"])
+    log = []
+    run_store_step = sess._run_store_step
+
+    def logged(arrs, recs, bucket=None):
+        host = run_store_step(arrs, recs, bucket)
+        ids = [r.sid for r in recs]
+        log.append((ids, None, None, {i: host[0][i].copy()
+                                      for i, sid in enumerate(ids)
+                                      if sid in watch}))
+        return host
+
+    sess._run_store_step = logged
+    bat = serving.DynamicBatcher(sess, max_batch_size=PAGED_BUCKETS[-1],
+                                 max_latency_ms=2.0, timeout_ms=600000,
+                                 admission=False)
+    pos = {sid: 0 for sid in sids}
+    try:
+        qpass.reset_counters()
+        _build.reset_launch_counts()
+        serving.METRICS.reset()
+        pending, started = {}, 0
+        t0 = time.perf_counter()
+        while pending or started < PAGED_STREAMS:
+            now = time.perf_counter() - t0
+            while started < PAGED_STREAMS and arrivals[started] <= now:
+                sid = sids[started]
+                pending[bat.submit(onp.array([[toks[sid][0]]], "int32"),
+                                   session_id=sid,
+                                   slo_class="standard")] = sid
+                started += 1
+            wait_s = (arrivals[started] - now if started < PAGED_STREAMS
+                      else 600)
+            done, _ = wait(pending, timeout=max(wait_s, 0.0),
+                           return_when=FIRST_COMPLETED)
+            if not done and started == PAGED_STREAMS:
+                raise RuntimeError("int8-KV serving stalled")
+            for fut in done:
+                sid = pending.pop(fut)
+                logits = onp.asarray(fut.result())
+                if not onp.isfinite(logits).all():
+                    raise RuntimeError(f"{sid}: non-finite logits")
+                pos[sid] += 1
+                if pos[sid] < lengths[sids.index(sid)]:
+                    # the fp32 run's own next token: the same sequences
+                    pending[bat.submit(onp.array([[toks[sid][pos[sid]]]],
+                                                 "int32"), session_id=sid,
+                                       slo_class="standard")] = sid
+        wall = time.perf_counter() - t0
+        snap = serving.METRICS.snapshot()
+        stats = store.stats()
+        quantized = qpass.counters()["kv_pages_quantized"]
+        launches = _build.launch_counts().get(KERNEL, 0)
+        step_ms = mean_step_ms()
+    finally:
+        bat.close()
+        sess._run_store_step = run_store_step
+    got = _stream_logits(log, watch)
+    worst = 0.0
+    for sid, want in traffic["logits"].items():
+        if len(got[sid]) != len(want):
+            raise RuntimeError(f"{sid}: {len(got[sid])} steps on int8 pages, "
+                               f"{len(want)} on fp32 pages")
+        for g, w in zip(got[sid], want):
+            worst = max(worst, float(onp.abs(g - w).max())
+                        / max(float(onp.abs(w).max()), 1e-6))
+    n_tokens = sum(lengths)
+    if snap["responses:standard"] != n_tokens or snap["failures"] or \
+            snap["evictions"] or quantized < snap["decode_steps"]:
+        raise RuntimeError(f"int8-KV serving: {snap}, {quantized} pages "
+                           "quantized")
+    if worst >= KV_INT8_BOUND:
+        raise RuntimeError(f"int8 KV pages drifted {worst} from the fp32 "
+                           f"pages' logits (bound {KV_INT8_BOUND})")
+    if launches != cfg["num_layers"] * snap["decode_steps"]:
+        raise RuntimeError(f"K2 launched {launches} times in "
+                           f"{snap['decode_steps']} steps")
+    ppr = cfg["max_len"] // PAGE_TOKENS
+    result = {"tokens": n_tokens, "wall_s": wall,
+              "tokens_per_s": n_tokens / wall,
+              "decode_steps": snap["decode_steps"], "mean_step_ms": step_ms,
+              "token_latency_p50_ms": snap["latency_p50_ms"],
+              "token_latency_p99_ms": snap["latency_p99_ms"],
+              "k2_launches": launches, "kv_pages_quantized": quantized,
+              "pages_total": store.num_pages,
+              "page_bytes": stats["page_bytes"],
+              "full_length_sessions_in_budget": {
+                  "int8": store.num_pages // ppr,
+                  "fp32": fp32["pages_total"] // ppr},
+              "max_deviation_from_fp32_pages": worst,
+              "compared_steps": sum(len(v) for v in got.values()),
+              "fp32": {k: fp32[k] for k in (
+                  "tokens_per_s", "mean_step_ms", "token_latency_p50_ms",
+                  "token_latency_p99_ms")}}
+    print("  int8 KV pages " + json.dumps(result))
+    sess.close()
+    store.close()
+    del sess, store, net
+    torch.cuda.empty_cache()
+    return result
 
 
 def kernel_entry(name, source, replaces, launches, worst, row, shape, smi,
@@ -4444,7 +5017,7 @@ def main():
     del net
     torch.cuda.empty_cache()
     net = decode_net()
-    k2_paged_launches, _ = paged_serving_phase(net)
+    k2_paged_launches, paged_fp32, paged_traffic = paged_serving_phase(net)
     graph_vs_eager_phase(net)
     http_phase(net)
     del net
@@ -4481,6 +5054,13 @@ def main():
     ssd, (ssd_net, ssd_anchor, ssd_x, _) = ssd_training_phase()
     ssd_det = ssd_detection_phase(ssd_net, ssd_anchor, ssd_x)
     del ssd_net
+    torch.cuda.empty_cache()
+    quant_k = quant_kernels_phase()
+    rnet, int8_resnet = int8_resnet_phase()
+    block_swap = quantize_net_phase(rnet)
+    del rnet
+    torch.cuda.empty_cache()
+    kv_int8 = int8_kv_phase(paged_traffic, paged_fp32)
     bind_counts = fusion_bind["counts"]
     # the counts after the inference forward hold the training step's too
     k1_bind = bind_counts["after_inference"].get(FLASH_KERNEL, 0)
@@ -4590,8 +5170,30 @@ def main():
             launches_by_path={"ssd300_detection": ssd_det["n1_launches"],
                               "ssd300_training": ssd["launches"].get(
                                   N1_KERNEL, 0)}),
+        # N2: not a TPU kernel; the int8 convolution XLA compiled for the
+        # JAX op's native lowering. Its numbers are one resnet50_v1
+        # forward's 53 convolutions at batch 32, each shape timed alone
+        kernel_entry(
+            N2_KERNEL, "mxnet_tpu_torch/csrc/int8_conv.cu",
+            "mxnet_tpu/ndarray/ops_quant.py:341 (not a TPU kernel: "
+            "lax.conv_general_dilated, int32)", int8_resnet["n2_launches"],
+            0.0, quant_k["per_forward"],
+            f"resnet50_v1 batch {QUANT_CALIB_B} 224 x 224, 53 int8 "
+            "convolutions NCHW/OIHW -> int32", smi, not_a_tpu_kernel=True,
+            library_calls="cuDNN float32 convolution of the codes in "
+            "cudnn_fp32(); torch._int_mm on an explicit im2col",
+            library_int_mm_ms=quant_k["per_forward"]["library_int_mm_ms"],
+            by_shape=quant_k["by_shape"],
+            checked_shapes=quant_k["checked_shapes"],
+            launches_by_path={"resnet50_int8_predict":
+                              int8_resnet["n2_launches"]}),
     ]
-    phase("48 report")
+    print("int8 quantization: " + json.dumps({
+        "resnet50_v1": int8_resnet, "quantize_net": block_swap,
+        "kv_int8_decode": kv_int8, "batch_dot_routes": quant_k["batch_dot"],
+        "dequant_gap_k4608": quant_k["dequant_gap_k4608"],
+        "ops_worst": quant_k["ops_worst"]}))
+    phase("52 report")
     print(f"bf16 ResNet-50 headline layout: {head}")
     print("hybridized: " + json.dumps({
         "resnet50_bf16_nhwc_step_ms": [resnet_hyb[False]["mean_step_ms"],

@@ -24,9 +24,12 @@ original graph is served and the rejection counted — except when the
 fusion pass rewrote a graph optimized for a CUDA device, where serving
 the original would bypass the kernels unseen: that raises
 :class:`MXNetError`. The counters are a
-plain dict under a lock (:func:`counters`). Not ported yet: the
-telemetry spans, the artifact-layer salt provider and the quantization
-passes.
+plain dict under a lock (:func:`counters`). The int8 quantization
+passes (``quantize_insert``, ``quantize_elide``, ``quantize_calibrate``,
+``analysis/quantize.py``) register here too and run as
+``QUANTIZE_PIPELINE`` under the same rejection net: a quantized rewrite
+that adds an error diagnostic serves the float32 graph. Not ported yet:
+the telemetry spans and the artifact-layer salt provider.
 """
 from __future__ import annotations
 
@@ -607,6 +610,8 @@ def _resolve_device(device):
     return torch.device(device)
 
 
-# registers the fusion pass and its facts into REWRITE_PASSES; imported
-# last so the pass infrastructure above is complete
+# register the fusion pass and its facts, then the quantize passes, into
+# REWRITE_PASSES; imported last so the pass infrastructure above is
+# complete
 from . import fusion  # noqa: E402,F401
+from . import quantize  # noqa: E402,F401

@@ -34,7 +34,10 @@ def params_from_numpy(block, arrays, ctx=None):
     A parameter that is already allocated keeps its device and dtype;
     one that is not (never initialized, or deferred by ``in_units=0``)
     is allocated holding its array on its deferred device, else on
-    ``ctx`` (default: the current context, ``gpu(0)``). Raises
+    ``ctx`` (default: the current context, ``gpu(0)``); a parameter
+    with no declared shape (a ``SymbolBlock``'s) takes its array's, and
+    an integer array (an offline-quantized int8 weight) gives such a
+    parameter its dtype. Raises
     :class:`MXNetError` on a missing or extra name, or on a shape
     mismatch, before any parameter is written."""
     params = block._collect_params_with_prefix()
@@ -50,11 +53,16 @@ def params_from_numpy(block, arrays, ctx=None):
     for name, p in params.items():
         want = p.shape
         got = values[name].shape
-        if want is None or len(want) != len(got) or any(
-                w not in (0, g) for w, g in zip(want, got)):
+        if want is not None and (len(want) != len(got) or any(
+                w not in (0, g) for w, g in zip(want, got))):
             raise MXNetError(f"params_from_numpy: {name} has shape {got}, "
                              f"the block declares {want}")
     for name, p in params.items():
+        if p._ndarray is None and values[name].dtype.kind in "iu":
+            # an int8 quantized weight keeps its dtype, and takes no
+            # gradient (the declared default would cast it to float32)
+            p.dtype = values[name].dtype
+            p.grad_req = "null"
         p.set_data(values[name], ctx=ctx)
     return block
 

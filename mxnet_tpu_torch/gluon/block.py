@@ -40,6 +40,7 @@ from ..context import cuda_graph
 from ..kernels import _build
 from ..ndarray import NDArray
 from ..ndarray import registry as _registry
+from ..analysis import quantize as _quantize
 from ..resilience import faults as _faults
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
@@ -160,6 +161,13 @@ class Block(torch.nn.Module):
         for child in self._children.values():
             ret.update(child.collect_params(select=select))
         return ret
+
+    def _runs_quantized(self):
+        """Whether this block runs int8 ops: a quantized ``SymbolBlock``
+        in its tree, or a child ``contrib.quantization.quantize_net``
+        swapped. A ``CachedOp`` keys such a block's captures by the
+        resolved quantize lowering."""
+        return any(c._runs_quantized() for c in self._children.values())
 
     def register_child(self, block, name=None):
         self.add_module(name or str(len(self._modules)), block)
@@ -569,6 +577,7 @@ class CachedOp:
         self._params = None
         self._tree = None
         self._mirror = getenv("MXNET_BACKWARD_DO_MIRROR", False, bool)
+        self._quantized = None  # whether the block runs int8 ops
 
     def _label(self):
         return f"{type(self._block).__name__} '{self._block.name}'"
@@ -604,10 +613,17 @@ class CachedOp:
         sig = tuple((tuple(a.shape), str(a.data.dtype).replace("torch.", ""),
                      str(a.data.device), bool(a.data.requires_grad))
                     for a in args)
+        if self._quantized is None:
+            self._quantized = self._block._runs_quantized()
+        # a capture bakes in the route the quantize lowering chose: a
+        # quantized block keys its entries by the resolved lowering
+        qsalt = _quantize.fingerprint_salt(
+            self._quantized, args[0].data if args else None)
         key = (sig, tree, train, recording,
                torch.is_inference_mode_enabled(),
                _registry.amp_version(),
-               tuple(t.requires_grad for t in ptensors) if recording else ())
+               tuple(t.requires_grad for t in ptensors) if recording else (),
+               qsalt)
         entry = self._entry(key, {"inputs": sig, "train": train,
                                   "recording": recording}, recording)
         entry.calls += 1
@@ -990,6 +1006,7 @@ class SymbolBlock(HybridBlock):
         self._inputs = list(inputs) if isinstance(inputs, (list, tuple)) \
             else [inputs]
         self._graph_opt_cache = {}
+        self._quantized = None  # whether the graph runs int8 ops
         input_names = {i.name for i in self._inputs}
         for s in outputs._walk():
             if s._op is None and not s._group \
@@ -1041,6 +1058,13 @@ class SymbolBlock(HybridBlock):
                 params[name].set_data(arr, ctx=ctx)
         return ret
 
+    def _runs_quantized(self):
+        if self._quantized is None:
+            from ..analysis.quantize import graph_has_quantized_ops
+
+            self._quantized = graph_has_quantized_ops(self._outputs)
+        return self._quantized
+
     def _feed(self, args):
         feed = {i.name: a for i, a in zip(self._inputs, args)}
         for name, p in self.collect_params().items():
@@ -1064,7 +1088,8 @@ class SymbolBlock(HybridBlock):
         dtypes = {k: v.data.dtype for k, v in feed.items()}
         tag = (graph_opt.fingerprint_salt(level), str(device),
                tuple((i.name, shapes.get(i.name), str(dtypes.get(i.name)))
-                     for i in self._inputs))
+                     for i in self._inputs),
+               _quantize.fingerprint_salt(self._runs_quantized(), device))
         opt = self._graph_opt_cache.get(tag)
         if opt is None:
             opt, _ = graph_opt.optimize_symbol(

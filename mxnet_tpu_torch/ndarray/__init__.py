@@ -12,7 +12,7 @@ import sys as _sys
 import types as _types
 
 from . import registry
-from . import ops_basic, ops_contrib, ops_index, ops_legacy, ops_nn, ops_optim, ops_random  # noqa: F401 — register the ops
+from . import ops_basic, ops_contrib, ops_index, ops_legacy, ops_nn, ops_optim, ops_quant, ops_random  # noqa: F401 — register the ops
 from .ndarray import (NDArray, arange, array, concatenate, empty, expand_dims,
                       from_dlpack, from_numpy, full, load, load_frombuffer,
                       moveaxis, ones, save, to_dlpack_for_read,
@@ -59,6 +59,12 @@ _CAMEL_ALIASES = {
     "_split_v2": "split_v2",
     "_shuffle": "shuffle",
     "_sample_multinomial": "sample_multinomial",
+    # the reference's names of the quantization ops: legacy-only, they
+    # load but ``tojson`` writes the first alias per target
+    "_contrib_quantize": "quantize",
+    "_contrib_quantize_v2": "quantize_v2",
+    "_contrib_dequantize": "dequantize",
+    "_contrib_requantize": "requantize",
 }
 
 

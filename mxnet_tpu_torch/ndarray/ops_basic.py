@@ -802,9 +802,14 @@ def _sym_ones_body(shape=None, dtype="float32"):
 
 def _sym_constant_body(value=None, shape=None, dtype="float32"):
     """Literal constant node made by constant folding: ``value`` is a
-    nested-list literal baked into the node's kwargs."""
-    return torch.tensor(value, dtype=torch_dtype(dtype)).reshape(
-        tuple(shape))
+    nested-list literal baked into the node's kwargs, or one number for
+    every element (the quantize passes' calibrated ranges), which is a
+    fill: no host copy, so a captured graph can hold it. A 1-tuple shape
+    read back from JSON ("(1)") arrives as an int."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    if isinstance(value, (int, float)):
+        return torch.full(shape, value, dtype=torch_dtype(dtype))
+    return torch.tensor(value, dtype=torch_dtype(dtype)).reshape(shape)
 
 
 register("_sym_zeros", differentiable=False, namespaces=())(_sym_zeros_body)

@@ -23,12 +23,12 @@ captured at :meth:`warmup` (or on first use) over static input tensors
 the session owns: one set of ``max_batch``-row buffers, whose leading
 ``bucket`` rows each bucket's graph reads. A step loads its inputs into
 the buffers, gathers the live sessions' states into them
-(``SessionStateStore.gather(out=)``), replays the graph and scatters the
-new states back. The step never falls back: a capture or replay that
-fails raises, as the reference's step path is breaker-free. On a CPU
-context the step runs eagerly over the same buffers: the plain path the
-tests use. Padding rows are zero inputs and zero states, sliced off
-before anyone reads them.
+(``SessionStateStore.gather(out=)``, which dequantizes int8 pages),
+replays the graph and scatters the new states back. The step never
+falls back: a capture or replay that fails raises, as the reference's
+step path is breaker-free. On a CPU context the step runs eagerly over
+the same buffers: the plain path the tests use. Padding rows are zero
+inputs and zero states, sliced off before anyone reads them.
 
 The port's decoder appends each step's K/V into the cache tensors it is
 handed, in place: here, the session's own buffers. Explicit states
@@ -41,9 +41,16 @@ replay: the session counts the kernel launches a capture recorded
 (``kernels._build.recording_launches``) once per replay, and its
 metrics are bumped around the replay.
 
+An int8 block (``contrib.quantization.quantize_net_graph``) serves as
+any block; its KV pages can be int8 too (``SessionStateStore(...,
+kv_int8=True)``). The stateless path captures no graph of its own: a
+block hybridized before it is served replays its ``CachedOp`` captures,
+which a quantized block keys by its resolved quantize lowering (the JAX
+package salts its AOT fingerprints the same way).
+
 Not ported yet: AOT artifacts and their disk cache, the per-bucket
-circuit breakers of the stateless path, graphs for the stateless
-buckets (with ``CachedOp``), sharded sessions and AMP.
+circuit breakers of the stateless path, the session's own graphs for
+the stateless buckets, sharded sessions and AMP.
 """
 from __future__ import annotations
 

@@ -20,8 +20,18 @@ paged and row-slot decode are bitwise equal), and scatter writes back
 only the ONE page the step appended into: the decode cache contract is
 append-only, every other page of the step's output is the page that was
 gathered. The same byte budget therefore admits several times more
-mixed-length streams. Int8 pages (``kv_int8``) wait for slice 8 of the
-port, with ``analysis/quantize.py``.
+mixed-length streams.
+
+**Int8 KV pages.** With ``kv_int8`` (``MXNET_SERVING_STATE_KV_INT8=1``)
+the float32 pageable states are stored as symmetric per-page int8 codes
+with one float32 scale per page (``analysis/quantize.py``'s
+``kv_page_codes``): a quarter of the bytes, so the same budget holds
+about four times the pages. :meth:`gather` dequantizes through the page
+table into the dense float32 rows the step reads; :meth:`scatter`
+re-quantizes the one appended page, whole, from the step's dense output
+(every other page keeps its codes: re-quantizing untouched data would
+only add error) and bumps the ``kv_pages_quantized`` counter. Export and
+restore stay dense; a restore into an int8 store quantizes.
 
 Gather and scatter are index ops on the pools (``index_select``,
 ``index_copy_``), the counterparts of the reference's jitted gather and
@@ -115,8 +125,9 @@ class SessionStateStore:
         when ``page_tokens`` > 0
     page_tokens : int, optional — tokens per KV page (default
         ``MXNET_SERVING_STATE_PAGE_TOKENS``, 0 = row-slot mode)
-    kv_int8 : bool, optional — int8 pages; not ported yet, ``True`` (or
-        ``MXNET_SERVING_STATE_KV_INT8=1``) raises
+    kv_int8 : bool, optional — store float32 pages as symmetric per-page
+        int8 codes and one float32 scale per page (default
+        ``MXNET_SERVING_STATE_KV_INT8``; paged stores only)
     label : str, optional — logging tag
     ctx : Context, optional — device of the pools (default: the current
         context)
@@ -152,13 +163,9 @@ class SessionStateStore:
         self._pageable = flags if self.page_tokens > 0 else \
             (False,) * len(self.state_shapes)
         self.paged = any(self._pageable)
-        if (kv_int8 if kv_int8 is not None else
-                getenv("MXNET_SERVING_STATE_KV_INT8", False, bool)):
-            raise MXNetError(
-                "int8 KV pages (kv_int8 / MXNET_SERVING_STATE_KV_INT8) "
-                "are not ported yet: they come with slice 8 of the port "
-                "(quantization); use fp32 pages")
-        self.kv_int8 = False
+        self.kv_int8 = bool(
+            kv_int8 if kv_int8 is not None else
+            getenv("MXNET_SERVING_STATE_KV_INT8", False, bool)) and self.paged
         if self.paged:
             seqs = {self.state_shapes[i][0] if self.state_shapes[i]
                     else 0 for i, p in enumerate(self._pageable) if p}
@@ -176,11 +183,17 @@ class SessionStateStore:
         else:
             self._seq = 0
             self._ppr = 0
-        #: bytes one physical page costs across every pageable pool
+        # int8 page storage applies to the float32 pageable states only
+        self._int8 = tuple(
+            self.kv_int8 and p and dt == onp.dtype("float32")
+            for p, dt in zip(self._pageable, self.state_dtypes))
+        #: bytes one physical page costs across every pageable pool (an
+        #: int8 page carries one float32 scale)
         self._page_bytes = int(sum(
-            self.page_tokens * int(onp.prod(s[1:] or (1,))) * dt.itemsize
-            for s, dt, p in zip(self.state_shapes, self.state_dtypes,
-                                self._pageable) if p))
+            self.page_tokens * int(onp.prod(s[1:] or (1,)))
+            * (1 if i8 else dt.itemsize) + (4 if i8 else 0)
+            for s, dt, p, i8 in zip(self.state_shapes, self.state_dtypes,
+                                    self._pageable, self._int8) if p))
         #: bytes one slot costs in the non-pageable pools
         self._slot_bytes = int(sum(
             int(onp.prod(s or (1,))) * dt.itemsize
@@ -214,14 +227,18 @@ class SessionStateStore:
                            getenv("MXNET_SERVING_STATE_TTL_S", 600.0, float))
         # ONE preallocated device tensor per state: pageable states are
         # page-indexed (physical page 0 = the null page, all zeros), the
-        # rest slot-indexed
-        self._pools = []
+        # rest slot-indexed; an int8 pool has a float32 scale per page
+        self._pools, self._scales = [], []
         for i, (s, dt) in enumerate(zip(self.state_shapes,
                                         self.state_dtypes)):
             shape = ((self.num_pages + 1, self.page_tokens) + s[1:]
                      if self._pageable[i] else (self.num_slots,) + s)
-            self._pools.append(torch.zeros(shape, dtype=torch_dtype(dt),
-                                           device=self.device))
+            self._pools.append(torch.zeros(
+                shape, dtype=torch.int8 if self._int8[i] else torch_dtype(dt),
+                device=self.device))
+            self._scales.append(torch.zeros(
+                (self.num_pages + 1,), dtype=torch.float32,
+                device=self.device) if self._int8[i] else None)
         # guards: _slots, _free, _free_pages, _evicted, steps_total,
         # and the pools' contents
         self._lock = threading.RLock()
@@ -349,7 +366,7 @@ class SessionStateStore:
                     elif npages:
                         pages = row.reshape((self._ppr, self.page_tokens)
                                             + self.state_shapes[i][1:])
-                        self._pools[i].index_copy_(0, dest, pages[:npages])
+                        self._write_pages(i, dest, pages[:npages])
             if _resumed:
                 METRICS.bump("resumed_sessions")
             return rec.slot
@@ -437,6 +454,8 @@ class SessionStateStore:
             for i, pool in enumerate(self._pools):
                 if self._pageable[i]:
                     pool.index_fill_(0, dest, 0)
+                    if self._scales[i] is not None:
+                        self._scales[i].index_fill_(0, dest, 0.0)
 
     def _evict_locked(self, sid, reason):
         rec = self._slots.pop(sid)
@@ -533,6 +552,32 @@ class SessionStateStore:
             recs.append(rec)
         return recs
 
+    def _write_pages(self, i, dest, pages):
+        """Write float32 ``pages`` (n, page_tokens, ...) of state ``i`` to
+        the physical pages ``dest``: as they are, or as int8 codes and
+        scales (counted in ``kv_pages_quantized``)."""
+        if self._scales[i] is None:
+            self._pools[i].index_copy_(0, dest, pages)
+            return
+        from ..analysis import quantize as _quantize
+
+        q, scale = _quantize.kv_page_codes(pages)
+        self._pools[i].index_copy_(0, dest, q)
+        self._scales[i].index_copy_(0, dest, scale)
+        _quantize._count("kv_pages_quantized", int(pages.shape[0]))
+
+    def _read_pages(self, i, index, out=None):
+        """The pages ``index`` of state ``i`` as float32 (dequantized from
+        an int8 pool), into ``out`` when given."""
+        pool = self._pools[i]
+        if self._scales[i] is None:
+            return torch.index_select(pool, 0, index, out=out)
+        from ..analysis import quantize as _quantize
+
+        return _quantize.dequantize_kv_pages(
+            pool.index_select(0, index),
+            self._scales[i].index_select(0, index), out=out)
+
     def _device_index(self, values):
         return host_to_device(
             torch.from_numpy(onp.asarray(values, onp.int64)), self.device)
@@ -552,8 +597,10 @@ class SessionStateStore:
             n = len(recs)
             if out is None:
                 rows = max(n, int(pad_to or 0))
-                out = [pool.new_empty((rows,) + s) for pool, s in
-                       zip(self._pools, self.state_shapes)]
+                out = [torch.empty((rows,) + s, dtype=torch_dtype(dt),
+                                   device=self.device)
+                       for s, dt in zip(self.state_shapes,
+                                        self.state_dtypes)]
             idx = self._device_index([r.slot for r in recs])
             tables = self._device_index(
                 onp.concatenate([r.table for r in recs])) \
@@ -565,7 +612,7 @@ class SessionStateStore:
                         f"gather: out[{i}] {tuple(dst.shape)} cannot hold "
                         f"{n} rows of {self.state_shapes[i]}")
                 if self._pageable[i]:
-                    torch.index_select(pool, 0, tables, out=dst[:n].view(
+                    self._read_pages(i, tables, out=dst[:n].view(
                         (n * self._ppr,) + tuple(pool.shape[1:])))
                 else:
                     torch.index_select(pool, 0, idx, out=dst[:n])
@@ -594,11 +641,11 @@ class SessionStateStore:
                 flat = self._device_index(
                     [r * self._ppr + p for r, p in enumerate(pidx)])
             for i, (pool, ns) in enumerate(zip(self._pools, new_states)):
-                ns = ns[:n].to(pool.dtype)
+                ns = ns[:n].to(torch_dtype(self.state_dtypes[i]))
                 if self._pageable[i]:
                     pages = ns.reshape((n * self._ppr,)
                                        + tuple(pool.shape[1:]))
-                    pool.index_copy_(0, dest, pages.index_select(0, flat))
+                    self._write_pages(i, dest, pages.index_select(0, flat))
                 else:
                     pool.index_copy_(0, idx, ns)
 
@@ -608,7 +655,7 @@ class SessionStateStore:
         rows = []
         for i, pool in enumerate(self._pools):
             if self._pageable[i]:
-                pg = pool.index_select(0, self._device_index(rec.table))
+                pg = self._read_pages(i, self._device_index(rec.table))
                 rows.append(pg.reshape(
                     (self._seq,) + self.state_shapes[i][1:]).cpu().numpy())
             else:

@@ -495,7 +495,7 @@ def _num_outputs_for(opname, kwargs):
     ``get_prob`` the log-probabilities too, ``histogram`` counts and
     edges, ``moments`` the mean and the variance; ``ftml_update`` the
     weight and its three states, ``lamb_update_phase1`` the direction and
-    both moments."""
+    both moments; the quantization ops (data, min, max)."""
     if opname in ("batch_norm", "layer_norm"):
         return 3 if kwargs.get("output_mean_var") else 1
     if opname == "amp_multicast":
@@ -522,6 +522,11 @@ def _num_outputs_for(opname, kwargs):
         return 3
     if opname == "bipartite_matching":
         return 2
+    if opname in ("quantize", "quantize_v2", "requantize") or \
+            opname.startswith("_contrib_quantized_"):
+        # every quantized-lattice op emits (data, min, max) (reference:
+        # src/operator/quantization/*.cc num_outputs=3)
+        return 3
     return 1
 
 

@@ -45,11 +45,17 @@ def _param_shape_rules(op, kw, in_shapes, arg_names):
     def named(name):
         return arg_names.index(name) if name in arg_names else None
 
-    if op == "fully_connected":
+    if op.startswith("_contrib_quantized_"):
+        # offline-quantized range variables (``*_min``/``*_max``) are
+        # (1,)-shaped, as quantize_model's ``nd.array([±amax])``
+        for r in ("min_data", "max_data", "min_weight", "max_weight",
+                  "min_bias", "max_bias"):
+            out[named(r)] = (1,)
+    if op in ("fully_connected", "_contrib_quantized_fully_connected"):
         in_units = _prod(data[1:]) if kw.get("flatten", True) else data[-1]
         out[named("weight")] = (kw.get("num_hidden"), in_units)
         out[named("bias")] = (kw.get("num_hidden"),)
-    elif op == "convolution":
+    elif op in ("convolution", "_contrib_quantized_conv"):
         kernel = kw.get("kernel")
         nf, g = kw.get("num_filter"), kw.get("num_group", 1)
         out[named("bias")] = (nf,)
@@ -77,7 +83,8 @@ def _param_shape_rules(op, kw, in_shapes, arg_names):
         g = (kw.get("num_groups", 1),)
         out[named("gamma")] = g
         out[named("beta")] = g
-    elif op == "batch_norm":
+    elif op in ("batch_norm", "_contrib_quantized_batch_norm"):
+        # the quantized one is formed for axis 1 only (the pass gates it)
         c = (data[kw.get("axis", 1)],)
         for pname in ("gamma", "beta", "moving_mean", "moving_var"):
             out[named(pname)] = c
@@ -144,7 +151,9 @@ def infer_shapes(symbol, known, allow_unknown=False,
                 node_dt[nid] = var_dtypes.get(node._name, torch.float32)
             continue
         if node._op in _CONST_OPS:
-            node_out[nid] = tuple(node._kwargs["shape"])
+            shape = node._kwargs["shape"]
+            node_out[nid] = (shape,) if isinstance(shape, int) \
+                else tuple(shape)
             node_dt[nid] = torch_dtype(node._kwargs.get("dtype", "float32"))
             continue
         opdef = _registry.get_op(node._op)
@@ -213,6 +222,48 @@ def _promote(dts):
     return onp.dtype(str(out).replace("torch.", ""))
 
 
+# the dtype rules of the quantization ops (``mxnet_tpu/symbol/infer.py:
+# 246-300``): fixed output dtypes, int8 offline weights (without the entry
+# the sibling rule would promote them to the ranges' float32), and the
+# (payload, float32 min, float32 max) triples
+_FIXED_OUT_DTYPE = {"dequantize": onp.float32}
+_PARAM_DTYPE_DEFAULTS = {
+    "_contrib_quantized_conv": {1: onp.int8},
+    "_contrib_quantized_fully_connected": {1: onp.int8},
+}
+#: int32 accumulators (a following requantize narrows them)
+_QUANT_ACC_OPS = ("_contrib_quantized_conv",
+                  "_contrib_quantized_fully_connected",
+                  "_contrib_quantized_batch_dot")
+#: int8 payloads on a fresh lattice
+_QUANT_S8_OPS = ("_contrib_quantized_elemwise_add",
+                 "_contrib_quantized_concat",
+                 "_contrib_quantized_batch_norm")
+#: the input lattice (int8 or uint8) passed through
+_QUANT_PASSTHROUGH_OPS = ("_contrib_quantized_act",
+                          "_contrib_quantized_flatten",
+                          "_contrib_quantized_pooling")
+
+
+def _quant_out_dtype(op, kw, in_dtypes):
+    """The output dtype(s) of a quantization op, or None for other ops."""
+    f32 = onp.dtype(onp.float32)
+    if op in _FIXED_OUT_DTYPE:
+        return onp.dtype(_FIXED_OUT_DTYPE[op])
+    if op in ("quantize", "quantize_v2"):
+        q = kw.get("out_type", "uint8" if op == "quantize" else "int8")
+        return [onp.dtype(q), f32, f32]
+    if op == "requantize":
+        return [onp.dtype(kw.get("out_type", "int8")), f32, f32]
+    if op in _QUANT_ACC_OPS:
+        return [onp.dtype(onp.int32), f32, f32]
+    if op in _QUANT_S8_OPS:
+        return [onp.dtype(onp.int8), f32, f32]
+    if op in _QUANT_PASSTHROUGH_OPS:
+        return [onp.dtype(in_dtypes.get(0, onp.int8)), f32, f32]
+    return None
+
+
 def infer_types(symbol, known):
     """Forward dtype propagation: ``({var name: dtype}, [output
     dtypes])``. Unknown parameter variables take the promoted dtype of
@@ -240,12 +291,22 @@ def infer_types(symbol, known):
             var_types.setdefault(node._inputs[1]._name, f32)
             node_out[id(node._inputs[1])] = in_dtypes[1] = \
                 var_types[node._inputs[1]._name]
+        for i, dt in _PARAM_DTYPE_DEFAULTS.get(node._op, {}).items():
+            if i < len(node._inputs) and i not in in_dtypes and \
+                    node._inputs[i]._op is None:
+                var_types.setdefault(node._inputs[i]._name, onp.dtype(dt))
+                node_out[id(node._inputs[i])] = in_dtypes[i] = \
+                    var_types[node._inputs[i]._name]
         if in_dtypes and len(in_dtypes) < len(node._inputs):
             sib = _promote(in_dtypes.values())
             for i, inp in enumerate(node._inputs):
                 if i not in in_dtypes and inp._op is None:
                     var_types.setdefault(inp._name, sib)
                     node_out[id(inp)] = in_dtypes[i] = var_types[inp._name]
+        quant = _quant_out_dtype(node._op, node._kwargs, in_dtypes)
+        if quant is not None:
+            node_out[id(node)] = quant
+            continue
         if node._op in _CONST_OPS:
             out_d = onp.dtype(node._kwargs.get("dtype", "float32"))
         elif node._op == "amp_cast":
@@ -274,5 +335,8 @@ def infer_types(symbol, known):
     out_types = []
     for h in (symbol._group if symbol._group else [symbol]):
         d = node_out.get(id(h), f32)
+        if isinstance(d, list):  # one output of a multi-output node
+            out_types.append(d[min(h._output_index, len(d) - 1)])
+            continue
         out_types.extend([d] * (getattr(h, "_num_outputs", 1) or 1))
     return var_types, out_types

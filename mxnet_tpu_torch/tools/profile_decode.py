@@ -48,15 +48,17 @@ def _card():
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def build(net, rows, page_tokens=0, buckets=None, graphs=True, budget=0):
+def build(net, rows, page_tokens=0, buckets=None, graphs=True, budget=0,
+          kv_int8=False):
     """A store of ``rows`` sessions (paged when ``page_tokens`` > 0, its
-    page pool capped at ``budget`` bytes when > 0) and a session over
-    ``net`` on ``gpu(0)``; returns ``(store, session)``."""
+    page pool capped at ``budget`` bytes when > 0, int8 pages with
+    ``kv_int8``) and a session over ``net`` on ``gpu(0)``; returns
+    ``(store, session)``."""
     ctx = gpu(0)
     store = serving.SessionStateStore(
         net.state_row_shapes(), net.state_row_dtypes(), max_sessions=rows,
         byte_budget=budget, ttl_s=0, pageable=net.state_row_pageable(),
-        page_tokens=page_tokens, ctx=ctx)
+        page_tokens=page_tokens, kv_int8=kv_int8, ctx=ctx)
     sess = serving.InferenceSession(
         net, input_shapes=[(1, 1)], input_dtypes=["int32"],
         state_store=store, buckets=buckets or sorted({1, 2, 4, 8, rows}),

@@ -2070,3 +2070,133 @@ def test_sym_contrib_detection_graph_bound_on_the_card(cuda):
     card, cpu = outs
     onp.testing.assert_array_equal(card[..., 0], cpu[..., 0])
     onp.testing.assert_allclose(card, cpu, rtol=0, atol=1e-5)
+
+
+# -- N2, the int8 convolution, and the int8 products ---------------------------
+
+_N2_EXTRA = [((2, 8, 13, 11), (12, 4, 3, 3), (2, 1), (1, 2), (1, 1), 2),
+             ((3, 6, 17, 17), (8, 6, 3, 3), (1, 1), (2, 2), (2, 2), 1),
+             ((1, 3, 31, 31), (64, 3, 7, 7), (2, 2), (3, 3), (1, 1), 1),
+             ((4, 64, 7, 7), (64, 1, 3, 3), (1, 1), (1, 1), (1, 1), 64)]
+
+
+def _s8(dev, shape, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                         dtype=torch.int32).to(torch.int8)
+
+
+def _n2_cases():
+    from mxnet_tpu_torch.tools.profile_quant import resnet50_convolutions
+
+    seen, out = set(), []
+    for x, w, st, p in resnet50_convolutions(2):
+        if (x, w, st, p) not in seen:
+            seen.add((x, w, st, p))
+            out.append((x, w, st, p, (1, 1), 1))
+    return out + _N2_EXTRA
+
+
+@pytest.mark.parametrize("case", _n2_cases(),
+                         ids=lambda c: f"x{c[0]}w{c[1]}s{c[2]}g{c[5]}")
+def test_n2_equals_its_plain_version_bitwise(cuda, case):
+    from mxnet_tpu_torch.kernels import int8_conv as k8
+
+    x_s, w_s, st, p, d, g = case
+    x, w = _s8(cuda, x_s, 1), _s8(cuda, w_s, 2)
+    _build.reset_launch_counts()
+    got = k8.int8_conv(x, w, st, p, d, g)
+    assert _build.launch_counts() == {k8.KERNEL: 1}
+    assert torch.equal(got, k8._int8_conv_ref(x, w, st, p, d, g))
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 2048, 1000), (32, 2048, 1000),
+                                   (16, 64, 64), (5, 147, 63)])
+def test_int_mm_padded_shapes(cuda, M, K, N):
+    from mxnet_tpu_torch.kernels import int8_conv as k8
+
+    a, b = _s8(cuda, (M, K), 3), _s8(cuda, (N, K), 4).t()
+    _build.reset_launch_counts()
+    assert torch.equal(k8.int8_mm(a, b), k8._int8_mm_ref(a, b))
+    assert _build.launch_counts() == {k8.INT_MM: 1}
+
+
+def test_n2_refuses_what_it_cannot_take(cuda):
+    from mxnet_tpu_torch.kernels import int8_conv as k8
+
+    x, w = _s8(cuda, (1, 4, 5, 5), 5), _s8(cuda, (4, 4, 3, 3), 6)
+    with pytest.raises(mx.MXNetError, match="int8"):
+        k8.int8_conv(x.float(), w, (1, 1), (0, 0), (1, 1))
+    with pytest.raises(mx.MXNetError, match="groups"):
+        k8.int8_conv(x, w, (1, 1), (0, 0), (1, 1), 3)
+
+
+def test_int8_symbol_block_hybridized_replays(cuda, monkeypatch):
+    """An int8 SymbolBlock from quantize_net_graph, hybridized: the
+    captured graph replays bitwise equal to the eager forward, counts N2
+    and _int_mm per replay, and a lowering switch captures a second
+    entry (dequant launches no int8 kernel)."""
+    from mxnet_tpu_torch.contrib.quantization import quantize_net_graph
+
+    monkeypatch.setenv("MXNET_QUANTIZE_LOWERING", "native")
+    mx.random.seed(7)
+    net = vision.resnet18_v1(classes=10)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    x = mx.nd.array(onp.random.RandomState(0).randn(4, 3, 32, 32)
+                    .astype("float32"), ctx=mx.gpu(0))
+    with mx.autograd.pause():
+        net(x)
+    qb = quantize_net_graph(net, calib_data=[x], calib_mode="naive")
+    with mx.autograd.pause():
+        eager = qb(x).asnumpy()
+        qb.hybridize()
+        qb(x)
+        _build.reset_launch_counts()
+        replayed = qb(x).asnumpy()
+        counts = _build.launch_counts()
+        monkeypatch.setenv("MXNET_QUANTIZE_LOWERING", "dequant")
+        _build.reset_launch_counts()
+        dq = qb(x).asnumpy()
+        dcounts = _build.launch_counts()
+    assert onp.array_equal(eager, replayed)
+    assert counts == {"int8_conv": 20, "int_mm": 1}
+    assert len(qb._cached_op.entries) == 2 and not dcounts.get("int8_conv")
+    assert float(onp.abs(dq - eager).max()) <= 1e-5 * float(
+        onp.abs(eager).max())
+
+
+def test_int8_kv_pages_decode_on_the_card(cuda):
+    """Decode through the batcher on int8 KV pages: within 0.1 of the
+    float32 client-side loop, the appended pages counted."""
+    from mxnet_tpu_torch.analysis import quantize as qpass
+
+    mx.random.seed(21)
+    net = DecoderBlockLM(**SMALL)
+    net.initialize(ctx=mx.gpu(0))
+    store = serving.SessionStateStore(
+        net.state_row_shapes(), net.state_row_dtypes(), max_sessions=4,
+        byte_budget=0, ttl_s=0, pageable=net.state_row_pageable(),
+        page_tokens=4, kv_int8=True, ctx=mx.gpu(0))
+    sess = serving.InferenceSession(
+        net, input_shapes=[(1, 1)], input_dtypes=["int32"],
+        state_store=store, buckets=[1, 2], ctx=mx.gpu(0))
+    bat = serving.DynamicBatcher(sess, max_batch_size=2, admission=False,
+                                 timeout_ms=120000.0)
+    qpass.reset_counters()
+    toks = [onp.array([[t]], "int32") for t in (3, 1, 4, 1, 5, 9, 2, 6, 5)]
+    try:
+        for x in toks:
+            out = onp.asarray(bat.submit(x, session_id="q").result(
+                timeout=120))
+        states = [onp.zeros((1,) + s, dt) for s, dt in
+                  zip(net.state_row_shapes(), net.state_row_dtypes())]
+        for x in toks:
+            ref, states = sess.step(x, states=states)
+        ref = ref.asnumpy()
+        assert float(onp.abs(out - ref).max()) < \
+            0.1 * float(onp.abs(ref).max())
+        assert qpass.counters()["kv_pages_quantized"] >= len(toks)
+    finally:
+        bat.close()
+        sess.close()
+        store.close()

@@ -48,6 +48,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
             "import mxnet_tpu_torch.examples.train_recommender_mf\n"
             "import mxnet_tpu_torch.tools.profile_ssd\n"
             "import mxnet_tpu_torch.examples.train_ssd_toy\n"
+            "import mxnet_tpu_torch.tools.ssd_near_ties\n"
+            "import mxnet_tpu_torch.tools.profile_quant\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax'"
             " or m == 'mxnet_tpu' or m.startswith('mxnet_tpu.'))\n"
             "print(bad)\n")
@@ -123,7 +125,15 @@ GLUON_SURFACE_MODULES = [
 # and those of detection (SSD300-VGG16, the box ops, N1)
 DETECTION_MODULES = [
     "ndarray/ops_contrib.py", "ndarray/contrib.py", "kernels/box_nms.py",
-    "tools/profile_ssd.py", "examples/train_ssd_toy.py"]
+    "tools/profile_ssd.py", "examples/train_ssd_toy.py",
+    "tools/ssd_near_ties.py"]
+
+
+# and those of int8 quantization (the ops, the passes, contrib, N2)
+QUANTIZATION_MODULES = [
+    "ndarray/ops_quant.py", "analysis/quantize.py",
+    "contrib/quantization.py", "kernels/int8_conv.py",
+    "tools/profile_quant.py"]
 
 
 def test_no_module_imports_jax_or_the_jax_package():
@@ -134,7 +144,7 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert set(TRAINING_MODULES) | set(SYMBOLIC_MODULES) | \
         set(RESNET_MODULES) | set(SERVING_MODULES) | \
         set(SYMBOLIC_TRAINING_MODULES) | set(GLUON_SURFACE_MODULES) | \
-        set(DETECTION_MODULES) <= scanned
+        set(DETECTION_MODULES) | set(QUANTIZATION_MODULES) <= scanned
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

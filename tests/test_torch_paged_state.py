@@ -235,10 +235,33 @@ def test_export_restore_across_page_tokens(pair, dst_tokens):
     _assert_same(j2, t2)
 
 
-def test_int8_pages_raise_naming_their_slice():
-    with pytest.raises(mx.MXNetError, match="slice 8"):
-        tstate.SessionStateStore(SHAPES, DTYPES, pageable=PAGEABLE,
-                                 page_tokens=4, kv_int8=True, ctx=mx.cpu())
+@pytest.mark.parametrize("extra_axes", [0, 1])
+def test_int8_page_codes_match_reference(extra_axes):
+    """``kv_page_codes`` and ``dequantize_kv_pages`` (the int8 pages'
+    arithmetic) against the JAX functions: codes, scales and the
+    dequantized pages bit for bit, a page of zeros exact zeros."""
+    import jax.numpy as jnp
+    from mxnet_tpu.analysis import quantize as jq
+    from mxnet_tpu_torch.analysis import quantize as tq
+
+    rs = onp.random.RandomState(8)
+    pages = (rs.standard_normal((12, 4, E)) *
+             rs.uniform(1e-3, 50.0, (12, 1, 1))).astype("float32")
+    pages[5] = 0.0
+    jc, js = jq.kv_page_codes(jnp.asarray(pages))
+    tc, ts = tq.kv_page_codes(torch.from_numpy(pages))
+    assert tc.dtype == torch.int8 and ts.dtype == torch.float32
+    onp.testing.assert_array_equal(tc.numpy(), onp.asarray(jc))
+    onp.testing.assert_array_equal(ts.numpy(), onp.asarray(js))
+    lead = (3,) * extra_axes
+    jq_, jsc = jnp.broadcast_to(jc, lead + jc.shape), \
+        jnp.broadcast_to(js, lead + js.shape)
+    tq_, tsc = tc.expand(lead + tuple(tc.shape)), \
+        ts.expand(lead + tuple(ts.shape))
+    back = tq.dequantize_kv_pages(tq_, tsc).numpy()
+    onp.testing.assert_array_equal(
+        back, onp.asarray(jq.dequantize_kv_pages(jq_, jsc)))
+    assert (back[..., 5, :, :] == 0).all()
 
 
 def test_gather_into_caller_buffers(pair):

@@ -350,3 +350,158 @@ def test_single_session_server(repo):
         srv.stop()
     with pytest.raises(ValueError, match="exactly one"):
         serving.ModelServer()
+
+
+# -- int8 canaries (twins of tests/test_quantized_serving.py:92-199) ---------
+
+def _mlp(seed):
+    mx.random.seed(seed)
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Dense(16, activation="relu"), gluon.nn.Dense(4))
+    net.initialize(ctx=mx.cpu())
+    with mx.autograd.pause(train_mode=False):
+        net(mx.nd.zeros((1, 8), ctx=mx.cpu()))
+    return net
+
+
+def _int8(net):
+    from mxnet_tpu_torch.contrib.quantization import quantize_net_graph
+
+    calib = [mx.nd.array(onp.random.RandomState(i).rand(4, 8)
+                         .astype("float32"), ctx=mx.cpu()) for i in range(3)]
+    return quantize_net_graph(net, calib_data=calib, calib_mode="naive")
+
+
+def _mlp_session(block):
+    return serving.InferenceSession(block, input_shapes=[(1, 8)],
+                                    buckets=[1, 2, 4], ctx=mx.cpu())
+
+
+def _x8(seed):
+    return onp.random.RandomState(seed).rand(1, 8).astype("float32")
+
+
+def _fp32(net, x):
+    with mx.autograd.pause(train_mode=False):
+        return net(mx.nd.array(x, ctx=mx.cpu())).asnumpy()
+
+
+class _Corrupt:
+    """An int8 version gone numerically wrong: it executes cleanly and
+    at normal latency, and answers 8 times too large — only the shadow
+    accuracy gate can see it."""
+
+    def __init__(self, inner, scale=8.0):
+        self._inner = inner
+        self._scale = scale
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def predict(self, *arrs):
+        out = self._inner.predict(*arrs)
+        if isinstance(out, (list, tuple)):
+            return type(out)(o * self._scale for o in out)
+        return out * self._scale
+
+
+def _wait_state(r, name, state, timeout_s=10.0):
+    import time
+
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        st = r.model_states()[name]
+        if st["state"] == state:
+            return st
+        time.sleep(0.01)
+    raise AssertionError(f"{name} never reached {state!r}: "
+                         f"{r.model_states()[name]}")
+
+
+def test_int8_session_serves_accurately(repo):
+    from mxnet_tpu_torch.serving.repository import _rel_deviation
+
+    net = _mlp(3)
+    r = repo()
+    r.deploy("q", _mlp_session(_int8(net)))
+    for i in range(3):
+        out = r.submit("q", _x8(i)).result(timeout=TIMEOUT_S)
+        assert _rel_deviation(out, _fp32(net, _x8(i))) < 0.1
+
+
+def test_int8_and_fp32_versions_coexist(repo):
+    """The float32 model and its int8 version deploy side by side in one
+    repository, each serving its own answers."""
+    from mxnet_tpu_torch.serving.repository import _rel_deviation
+
+    net = _mlp(4)
+    r = repo()
+    r.deploy("fp32", _mlp_session(net))
+    r.deploy("int8", _mlp_session(_int8(net)))
+    x = _x8(40)
+    a = r.predict("fp32", x)
+    b = r.predict("int8", x)
+    assert onp.array_equal(a.asnumpy() if hasattr(a, "asnumpy") else a,
+                           _fp32(net, x))
+    assert 0 < _rel_deviation(b, a) < 0.1
+    assert set(r.model_states()) == {"fp32", "int8"}
+
+
+def test_clean_int8_canary_auto_promotes(repo, monkeypatch):
+    from mxnet_tpu_torch.serving.repository import _rel_deviation
+
+    monkeypatch.setenv("MXNET_QUANTIZE_SHADOW", "1.0")
+    monkeypatch.setenv("MXNET_QUANTIZE_SHADOW_TOL", "0.1")
+    serving.reset_serving_counters()
+    net = _mlp(5)
+    r = repo(canary_min_requests=6, canary_fraction=1.0)
+    r.deploy("m", _mlp_session(net))
+    assert r.deploy("m", _mlp_session(_int8(net))) == 2
+    for i in range(6):
+        out = r.submit("m", _x8(10 + i),
+                       slo_class="standard").result(timeout=TIMEOUT_S)
+        assert _rel_deviation(out, _fp32(net, _x8(10 + i))) < 0.1
+    st = _wait_state(r, "m", "serving")
+    assert st["active_version"] == 2
+    stats = serving.serving_stats()
+    assert stats["canary_promotions"] == 1
+    assert stats["canary_shadow_checks"] >= 1
+    assert stats.get("canary_shadow_mismatches", 0) == 0
+    assert stats["canary_rollbacks"] == 0
+
+
+def test_wrong_int8_canary_rolls_back_through_the_shadow(repo, monkeypatch):
+    monkeypatch.setenv("MXNET_QUANTIZE_SHADOW", "1.0")
+    monkeypatch.setenv("MXNET_QUANTIZE_SHADOW_TOL", "0.1")
+    serving.reset_serving_counters()
+    net = _mlp(6)
+    r = repo(canary_threshold=3, canary_fraction=1.0,
+             canary_min_requests=1000)
+    r.deploy("m", _mlp_session(net))
+    r.deploy("m", _Corrupt(_mlp_session(_int8(net))))
+    futs = [r.submit("m", _x8(30 + i), slo_class="standard")
+            for i in range(6)]
+    for f in futs:
+        f.result(timeout=TIMEOUT_S)  # no client-visible failure
+    st = _wait_state(r, "m", "rolled_back")
+    assert st["active_version"] == 1
+    assert "shadow accuracy deviation" in st["last_transition"]
+    stats = serving.serving_stats()
+    assert stats["canary_rollbacks"] == 1
+    assert stats["canary_shadow_mismatches"] >= 3
+    assert stats["canary_failures"] == 0
+    out = r.submit("m", _x8(99)).result(timeout=TIMEOUT_S)
+    assert onp.array_equal(out, _fp32(net, _x8(99)))
+
+
+def test_shadow_gate_off_by_default(repo, monkeypatch):
+    monkeypatch.delenv("MXNET_QUANTIZE_SHADOW", raising=False)
+    serving.reset_serving_counters()
+    net = _mlp(7)
+    r = repo(canary_fraction=1.0, canary_min_requests=1000)
+    r.deploy("m", _mlp_session(net))
+    r.deploy("m", _Corrupt(_mlp_session(_int8(net))))
+    for i in range(4):
+        r.submit("m", _x8(i), slo_class="standard").result(timeout=TIMEOUT_S)
+    assert serving.serving_stats().get("canary_shadow_checks", 0) == 0
+    assert r.model_states()["m"]["state"] == "canary"
