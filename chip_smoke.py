@@ -59,10 +59,14 @@ kernels against the plain PyTorch versions:
   port, ``resnet50_v1`` at its published widths quantized by
   ``contrib.quantization.quantize_net_graph`` and served in int8 through
   ``InferenceSession.predict`` beside float32, its convolutions on the
-  hand-written int8 kernel N2 (``csrc/int8_conv.cu``; not a TPU kernel:
-  it replaces the int32-accumulating ``lax.conv_general_dilated`` of the
-  JAX op's native lowering) and its classifier on ``torch._int_mm``; the
-  block-swap ``quantize_net``; and GPT-2-small decode on int8 KV pages.
+  hand-written int8 kernel N2 (not a TPU kernel: it replaces the
+  int32-accumulating ``lax.conv_general_dilated`` of the JAX op's native
+  lowering): 52 of 53 on its Hopper kernel (``csrc/int8_conv_sm90.cu``:
+  wgmma s8 on NHWC/OHWI tiles fed by TMA through an mbarrier ring, after
+  the layout copy ``int8_to_nhwc`` of the same file), the stem on the
+  ``mma.sync`` kernel (``csrc/int8_conv.cu``); its classifier on
+  ``torch._int_mm``; the block-swap ``quantize_net``; and GPT-2-small
+  decode on int8 KV pages.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100:
 
@@ -388,16 +392,24 @@ stream busy until the launch is enqueued, so it is the device's time:
     uint8 inputs) on the card against the CPU port under both lowerings,
     integers equal and floats within 1e-5; N2 bitwise equal to its plain
     version (float64) at every ``resnet50_v1`` convolution at batch 32
-    and 1, a grouped, a dilated, an odd-stride and a 7 x 7 C = 3 case;
+    and 1 on both routes where the route rule gives sm90, a grouped, a
+    dilated, an odd-stride and a 7 x 7 C = 3 case; the sm90 kernel at its
+    edges (M not a multiple of 128, O not one of the tile width, C = 16
+    and 48, a stride-2 1 x 1, a padded 3 x 3 at 7 x 7, dilated,
+    anisotropic, a wide image) at each tile width, a K split at batch 1
+    run twice, bitwise; the layout copy against its plain version;
     ``int8_mm`` (``torch._int_mm`` on padded operands) at M = 1, 32 and
     an odd K and N; ``dequant`` (cuDNN float32, no TF32) bitwise equal to
     ``native`` at K = 576 and its largest accumulator gap at K = 4608;
     the batched product by N2 as a grouped 1 x 1 convolution against
     ``_int_mm`` per batch entry; N2's time at every distinct ResNet-50
-    shape at batch 32 beside its plain version's, its bound (int8
-    operations at 1,979 TOPS or bytes at 3.35 TB/s) and two library
-    routes that compute the same function: cuDNN's float32 convolution
-    of the codes and ``_int_mm`` on an explicit im2col (yardsticks only);
+    shape at batch 32, both routes in turns (mma, sm90, sm90, mma; the
+    stem forced onto sm90 with its channels padded), beside its plain
+    version's, its bound (int8 operations at 1,979 TOPS or bytes at 3.35
+    TB/s), the layout copy's time and bound, and two library routes that
+    compute the same function: cuDNN's float32 convolution of the codes
+    and ``_int_mm`` on an explicit im2col (yardsticks only); the route of
+    each of the 53 convolutions and the per-forward sums;
 49. ResNet-50 v1 served in int8: ``resnet50_v1`` (25,575,912
     parameters), Xavier weights from a seed, quantized by
     ``quantize_net_graph`` with naive calibration over 10 synthetic
@@ -406,9 +418,11 @@ stream busy until the launch is enqueued, so it is the device's time:
     sessions at batch 1 and 32 under ``native`` beside the float32
     session: ms per predict, img/s, weight bytes, ``accuracy_delta``,
     peak memory, N2 and ``_int_mm`` launches per predict equal to the
-    quantized convolutions and FCs; once under ``dequant`` (no int8
-    launch); the card's int8 logits within 1e-5 of the CPU port's; the
-    block hybridized, captured and replayed bitwise equal to eager;
+    quantized convolutions and FCs, and N2's sm90 launches to the
+    convolutions the route rule gives it; once under ``dequant`` (no
+    int8 launch); the card's int8 logits within 1e-5 of the CPU port's;
+    the block hybridized, captured and replayed bitwise equal to eager,
+    a replay launching the sm90 kernel at each of those convolutions;
 50. ``quantize_net`` (the block-swap form) on the same network at batch
     32: its calibration, ms per predict and ``accuracy_delta``;
 51. GPT-2-small decode on int8 KV pages: phase 18's open-loop traffic
@@ -455,7 +469,8 @@ from mxnet_tpu_torch.ndarray import ops_nn  # noqa: E402
 from mxnet_tpu_torch.kernels.norm_act import (  # noqa: E402
     KERNEL as NORM_ACT_KERNEL, _norm_act_cuda, _norm_act_ref)
 from mxnet_tpu_torch.kernels.box_nms import KERNEL as N1_KERNEL  # noqa: E402
-from mxnet_tpu_torch.kernels.int8_conv import KERNEL as N2_KERNEL  # noqa: E402
+from mxnet_tpu_torch.kernels.int8_conv import (  # noqa: E402
+    KERNEL as N2_KERNEL, NHWC_KERNEL)
 from mxnet_tpu_torch.models import DecoderBlockLM, TransformerLM  # noqa: E402
 from mxnet_tpu_torch.tools.profile_predict import (  # noqa: E402
     SAMPLE_RATE, WAV2VEC2_LARGE_LV60, export_wav2vec2, frames)
@@ -4548,8 +4563,12 @@ def _s8(gen, shape):
 
 
 def _n2_shape_row(gen, flush, x_s, w_s, st, p):
-    """N2 at one resnet50_v1 shape: its time, its plain version's, the
-    bound, and two library routes that compute the same function: cuDNN's
+    """N2 at one resnet50_v1 shape: the route the rule gives it, both
+    routes' times in turns (mma, sm90, sm90, mma; the sm90 kernel takes
+    the stem with its channels padded to 16 when forced), its plain
+    version's, the bound, the sm90 route's layout copies (``_to_nhwc``
+    of x and w, one launch) beside torch's channels-last and OHWI copies,
+    and two library routes that compute the same function: cuDNN's
     float32 convolution of the codes (exact while the sums stay below
     2^24) and torch._int_mm on an explicit im2col (K padded to 8)."""
     from mxnet_tpu_torch.kernels import int8_conv as k8
@@ -4572,9 +4591,25 @@ def _n2_shape_row(gen, flush, x_s, w_s, st, p):
     a = torch.nn.functional.pad(cols, (0, Kp - K)).to(torch.int8)
     b = torch.nn.functional.pad(wf.reshape(N, K), (0, Kp - K)).to(
         torch.int8).t()
+    route = k8._int8_conv_route(x, w, 1, st)
+    runs = {"mma": lambda: k8.int8_conv(x, w, st, p, d, 1, route="mma"),
+            "sm90": lambda: k8._int8_conv_sm90(x, w, st, p, d)}
+    turns = {"mma": [], "sm90": []}
+    for r in ("mma", "sm90", "sm90", "mma"):
+        turns[r].append(time_ms(runs[r], flush))
+    Cp = k8._sm90_channels(x_s[1])
+    copies = [(x, Cp)] + ([(w, Cp)] if w_s[2] * w_s[3] > 1 or Cp != x_s[1]
+                          else [])
+    # each copy reads its tensor once and writes it with Cp channels
+    copy_bytes = sum(t.numel() + t.numel() // t.shape[1] * Cp
+                     for t, _ in copies)
+    plan = k8._sm90_plan(x_s, w_s, st, p, d, torch.cuda.get_device_properties(
+        0).multi_processor_count)
     row = {"x": list(x_s), "w": list(w_s), "stride": list(st),
-           "pad": list(p), "M": M, "N": N, "K": K,
-           "ms": time_ms(lambda: k8.int8_conv(x, w, st, p, d, 1), flush),
+           "pad": list(p), "M": M, "N": N, "K": K, "route": route,
+           "mma_ms": turns["mma"], "sm90_ms": turns["sm90"],
+           "sm90_plan": {k: plan[k] for k in ("flat", "tile", "bn",
+                                              "splits", "grid")},
            # the float64 plain version is too slow for 25 at every shape
            "plain_ms": time_ms(lambda: k8._int8_conv_ref(x, w, st, p, d, 1),
                                flush, reps=3),
@@ -4582,9 +4617,78 @@ def _n2_shape_row(gen, flush, x_s, w_s, st, p):
            "library_int_mm_ms": time_ms(lambda: torch._int_mm(a, b), flush),
            "bound_ms": max(t_ops, t_bytes) * 1e3,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "ops_ms": t_ops * 1e3, "bytes_ms": t_bytes * 1e3}
+           "ops_ms": t_ops * 1e3, "bytes_ms": t_bytes * 1e3,
+           "nhwc_ms": time_ms(lambda: k8._to_nhwc(*copies), flush),
+           "nhwc_plain_ms": time_ms(
+               lambda: [k8._to_nhwc_ref(t, c) for t, c in copies], flush),
+           "nhwc_library_ms": time_ms(lambda: (
+               x.contiguous(memory_format=torch.channels_last),
+               w.permute(0, 2, 3, 1).contiguous()), flush),
+           "nhwc_bound_ms": copy_bytes / HBM_BYTES_PER_S * 1e3}
+    row["ms"] = statistics.mean(turns[route])
     row["tops"] = ops / row["ms"] / 1e9
     return row
+
+
+# the sm90 kernel's edges, held bitwise against the plain version beside
+# the resnet50_v1 shapes: M not a multiple of 128 and O not one of the tile
+# width, C = 16 and 48, a stride-2 1 x 1, a padded 3 x 3 at 7 x 7, a
+# dilated and an anisotropic case, a wide image (two spatial tiles a row)
+N2_SM90_EDGES = [((3, 16, 9, 7), (48, 16, 3, 3), (1, 1), (1, 1), (1, 1)),
+                 ((2, 48, 7, 7), (80, 48, 3, 3), (1, 1), (1, 1), (1, 1)),
+                 ((3, 48, 5, 6), (144, 48, 1, 1), (1, 1), (0, 0), (1, 1)),
+                 ((2, 64, 9, 9), (128, 64, 1, 1), (2, 2), (0, 0), (1, 1)),
+                 ((5, 512, 7, 7), (272, 512, 3, 3), (1, 1), (1, 1), (1, 1)),
+                 ((1, 32, 12, 12), (16, 32, 3, 3), (1, 1), (2, 2), (2, 2)),
+                 ((2, 16, 11, 13), (32, 16, 3, 3), (2, 1), (1, 2), (1, 1)),
+                 ((2, 32, 40, 70), (64, 32, 3, 3), (1, 1), (1, 1), (1, 1))]
+
+
+def _n2_sm90_checks(gen):
+    """The sm90 kernel's edge shapes bitwise against the plain version,
+    at the plan's tiles and at each tile width; a K split at batch 1
+    (the 3 x 3, 512 at 7 x 7, where the plan splits K) rerun bitwise; the
+    layout copies against their plain version."""
+    from mxnet_tpu_torch.kernels import int8_conv as k8
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    checked = 0
+    for x_s, w_s, st, p, d in N2_SM90_EDGES:
+        x, w = _s8(gen, x_s), _s8(gen, w_s)
+        want = k8._int8_conv_ref(x, w, st, p, d, 1)
+        plans = [None] + [k8._sm90_plan(x_s, w_s, st, p, d, n_sm, bn=bn,
+                                        splits=1) for bn in (64, 128, 256)]
+        for plan in plans:
+            got = k8._int8_conv_sm90(x, w, st, p, d, plan)
+            if not torch.equal(got, want):
+                raise RuntimeError(
+                    f"sm90 N2 differs from its plain version at x {x_s} w "
+                    f"{w_s} stride {st} pad {p} dilate {d}, plan "
+                    f"{plan and (plan['bn'], plan['splits'])}: "
+                    f"{int((got != want).sum())} of {got.numel()}")
+            checked += 1
+    x_s, w_s = (1, 512, 7, 7), (512, 512, 3, 3)
+    plan = k8._sm90_plan(x_s, w_s, (1, 1), (1, 1), (1, 1), n_sm)
+    if plan["splits"] < 2:
+        raise RuntimeError(f"the batch-1 3 x 3 plan splits no K: {plan}")
+    x, w = _s8(gen, x_s), _s8(gen, w_s)
+    want = k8._int8_conv_ref(x, w, (1, 1), (1, 1), (1, 1), 1)
+    runs = [k8.int8_conv(x, w, (1, 1), (1, 1), (1, 1), 1) for _ in range(2)]
+    if not all(torch.equal(r, want) for r in runs):
+        raise RuntimeError("the split-K sm90 N2 differs from its plain "
+                           "version or from its rerun")
+    for shape, Cp in (((32, 3, 224, 224), 16), ((32, 256, 56, 56), 256),
+                      ((32, 2048, 7, 7), 2048), ((512, 512, 3, 3), 512),
+                      ((5, 130, 14, 14), 144)):
+        t = _s8(gen, shape)
+        if not torch.equal(k8._to_nhwc((t, Cp))[0], k8._to_nhwc_ref(t, Cp)):
+            raise RuntimeError(f"int8_to_nhwc differs from its plain "
+                               f"version at {shape} -> {Cp}")
+    print(f"  sm90 N2 bitwise equal to its plain version at "
+          f"{len(N2_SM90_EDGES)} edge shapes x {checked // len(N2_SM90_EDGES)}"
+          f" plans; K split {plan['splits']} ways at batch 1 (3 x 3, 512 at "
+          "7 x 7) rerun bitwise; int8_to_nhwc equal to its plain version")
+    return {"edge_plans_checked": checked, "split_k": plan["splits"]}
 
 
 def quant_kernels_phase():
@@ -4602,22 +4706,30 @@ def quant_kernels_phase():
               ((1, 3, 31, 31), (64, 3, 7, 7), (2, 2), (3, 3), (1, 1), 1),
               ((4, 64, 7, 7), (64, 1, 3, 3), (1, 1), (1, 1), (1, 1), 64)]
     checked = set()
+    n_routes = 0
     for x_s, w_s, st, p, d, g in cases:
         if (x_s, w_s, st, p, d, g) in checked:
             continue
         checked.add((x_s, w_s, st, p, d, g))
         x, w = _s8(gen, x_s), _s8(gen, w_s)
-        got = k8.int8_conv(x, w, st, p, d, g)
         want = k8._int8_conv_ref(x, w, st, p, d, g)
-        if not torch.equal(got, want):
-            raise RuntimeError(f"N2 differs from its plain version at x "
-                               f"{x_s} w {w_s} stride {st} pad {p} dilate "
-                               f"{d} groups {g}: {int((got != want).sum())} "
-                               f"of {got.numel()} accumulators")
+        routes = ["mma"] + (["sm90"] if k8._int8_conv_route(x, w, g, st)
+                            == "sm90" else [])
+        for route in routes:
+            got = k8.int8_conv(x, w, st, p, d, g, route=route)
+            n_routes += 1
+            if not torch.equal(got, want):
+                raise RuntimeError(
+                    f"N2 ({route}) differs from its plain version at x "
+                    f"{x_s} w {w_s} stride {st} pad {p} dilate {d} groups "
+                    f"{g}: {int((got != want).sum())} of {got.numel()} "
+                    "accumulators")
     print(f"  N2 bitwise equal to its plain version (float64) at "
-          f"{len(checked)} shapes: every resnet50_v1 convolution at batch "
-          f"{QUANT_CALIB_B} and 1, grouped, dilated, odd-stride and stem "
-          "cases")
+          f"{len(checked)} shapes, {n_routes} shape-routes: every "
+          f"resnet50_v1 convolution at batch {QUANT_CALIB_B} and 1 on both "
+          "routes where the rule gives sm90, grouped, dilated, odd-stride "
+          "and stem cases")
+    sm90_checks = _n2_sm90_checks(gen)
     # _int_mm through the wrapper's padding: batch 1 and 32 at the
     # classifier's shape, an odd K and an odd N
     for M, K, N in ((1, 2048, 1000), (QUANT_CALIB_B, 2048, 1000),
@@ -4667,6 +4779,8 @@ def quant_kernels_phase():
         if key not in rows:
             rows[key] = _n2_shape_row(gen, flush, *key)
     del flush
+    turn = {r: [sum(rows[tuple(c)][f"{r}_ms"][i] for c in shapes)
+                for i in range(2)] for r in ("mma", "sm90")}
     per_forward = {k: sum(rows[tuple(c)][k] for c in shapes)
                    for k in ("ms", "plain_ms", "library_ms",
                              "library_int_mm_ms", "bound_ms", "ops_ms",
@@ -4674,13 +4788,28 @@ def quant_kernels_phase():
     per_forward["bound_by"] = "operations" if \
         per_forward["ops_ms"] >= per_forward["bytes_ms"] else "bytes"
     per_forward["convolutions"] = len(shapes)
+    per_forward["routes"] = {r: sum(rows[tuple(c)]["route"] == r
+                                    for c in shapes) for r in ("sm90", "mma")}
+    # each route's turns over every convolution (the sm90 kernel takes the
+    # stem padded to 16 channels here), and the sm90 route's layout copies
+    per_forward["mma_ms"] = turn["mma"]
+    per_forward["sm90_ms"] = turn["sm90"]
+    on_sm90 = [c for c in shapes if rows[tuple(c)]["route"] == "sm90"]
+    nhwc = {k: sum(rows[tuple(c)][k] for c in on_sm90)
+            for k in ("nhwc_ms", "nhwc_plain_ms", "nhwc_library_ms",
+                      "nhwc_bound_ms")}
+    nhwc["copies"] = len(on_sm90)
     for r in rows.values():
         print("  N2 " + json.dumps({k: (round(v, 5) if isinstance(v, float)
                                         else v) for k, v in r.items()}))
+    for c in shapes:
+        print(f"  route {rows[tuple(c)]['route']}: x {list(c[0])} w "
+              f"{list(c[1])} stride {list(c[2])}")
     print("  N2 per resnet50_v1 forward at batch 32 (53 convolutions) "
           + json.dumps(per_forward))
+    print("  the sm90 route's layout copies per forward " + json.dumps(nhwc))
     return {"ops_worst": ops_worst, "checked_shapes": len(checked),
-            "per_forward": per_forward,
+            "per_forward": per_forward, "nhwc": nhwc, "sm90": sm90_checks,
             "by_shape": [rows[k] for k in rows], "batch_dot": bdot,
             "dequant_gap_k4608": full_gap}
 
@@ -4719,6 +4848,7 @@ def _int8_session_row(block, b, x, ctx, hybridize):
 def int8_resnet_phase():
     phase("49 ResNet-50 v1 served in int8")
     from mxnet_tpu_torch.contrib.quantization import quantize_net_graph
+    from mxnet_tpu_torch.kernels import int8_conv as k8
 
     ctx = mx.gpu(0)
     net = pz.build("resnet50_v1", ctx, seed=pq.SEED, classes=pq.CLASSES)
@@ -4749,8 +4879,13 @@ def int8_resnet_phase():
               "entropy_calibration_s": entropy_s,
               "quantized_convolutions": convs, "quantized_fc": fcs,
               "weights": weights, "batches": {}}
-    n2_launches = int_mm_launches = 0
-    want = {"int8_conv": convs, "int_mm": fcs}
+    n2_launches = int_mm_launches = n2_sm90_launches = nhwc_launches = 0
+    # every convolution the route rule gives the sm90 kernel launches it
+    n_sm90 = sum(k8._int8_conv_route(
+        torch.empty(x_s, dtype=torch.int8, device="meta"),
+        torch.empty(w_s, dtype=torch.int8, device="meta"), 1) == "sm90"
+        for x_s, w_s, _, _ in pq.resnet50_convolutions(QUANT_CALIB_B))
+    want = {k8.KERNEL: convs, k8.SM90_KERNEL: n_sm90, "int_mm": fcs}
     for b, x in xs.items():
         row = {}
         for hyb in (False, True):
@@ -4761,7 +4896,9 @@ def int8_resnet_phase():
             int8, out = _int8_session_row(qb, b, x, ctx, hyb)
             int8["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
             counts = int8.pop("launches")
-            n2_launches += counts.get("int8_conv", 0)
+            n2_launches += counts.get(k8.KERNEL, 0)
+            n2_sm90_launches += counts.get(k8.SM90_KERNEL, 0)
+            nhwc_launches += counts.get(k8.NHWC_KERNEL, 0)
             int_mm_launches += counts.get("int_mm", 0)
             if {k: counts.get(k) for k in want} != want:
                 raise RuntimeError(f"batch {b} {mode}: one int8 predict "
@@ -4823,12 +4960,19 @@ def int8_resnet_phase():
     if not (onp.array_equal(eager, first) and onp.array_equal(eager, again)):
         raise RuntimeError("the hybridized int8 ResNet-50 differs from its "
                            "eager forward")
-    if {k: replay_counts.get(k) for k in want} != want:
-        raise RuntimeError(f"a replay counted {replay_counts}")
+    if {k: replay_counts.get(k) for k in want} != want or \
+            not replay_counts.get(k8.NHWC_KERNEL):
+        raise RuntimeError(f"a replay counted {replay_counts}; want {want} "
+                           f"and the sm90 route's layout copies")
     print(f"  hybridized int8 SymbolBlock: captured and replayed bitwise "
-          f"equal to eager; a replay counts {replay_counts}")
+          f"equal to eager; a replay counts {replay_counts}: N2 on the sm90 "
+          f"route at all {n_sm90} convolutions the rule gives it")
     os.environ.pop("MXNET_QUANTIZE_LOWERING", None)
     result["n2_launches"] = n2_launches
+    result["n2_sm90_launches"] = n2_sm90_launches
+    result["nhwc_launches"] = nhwc_launches
+    result["n2_sm90_convolutions"] = n_sm90
+    result["replay_counts"] = replay_counts
     result["int_mm_launches"] = int_mm_launches
     del qb, qe
     torch.cuda.empty_cache()
@@ -5171,10 +5315,15 @@ def main():
                               "ssd300_training": ssd["launches"].get(
                                   N1_KERNEL, 0)}),
         # N2: not a TPU kernel; the int8 convolution XLA compiled for the
-        # JAX op's native lowering. Its numbers are one resnet50_v1
-        # forward's 53 convolutions at batch 32, each shape timed alone
+        # JAX op's native lowering, in two kernels the route rule picks
+        # between. Its numbers are one resnet50_v1 forward's 53
+        # convolutions at batch 32, each shape timed alone on the route
+        # the rule gives it, the sm90 route's layout copies included;
+        # mma_ms is every convolution on the mma.sync kernel (the only
+        # route before the sm90 kernel), in the same call
         kernel_entry(
-            N2_KERNEL, "mxnet_tpu_torch/csrc/int8_conv.cu",
+            N2_KERNEL, "mxnet_tpu_torch/csrc/int8_conv_sm90.cu (sm90 route), "
+            "mxnet_tpu_torch/csrc/int8_conv.cu (mma route)",
             "mxnet_tpu/ndarray/ops_quant.py:341 (not a TPU kernel: "
             "lax.conv_general_dilated, int32)", int8_resnet["n2_launches"],
             0.0, quant_k["per_forward"],
@@ -5183,10 +5332,38 @@ def main():
             library_calls="cuDNN float32 convolution of the codes in "
             "cudnn_fp32(); torch._int_mm on an explicit im2col",
             library_int_mm_ms=quant_k["per_forward"]["library_int_mm_ms"],
+            mma_ms=quant_k["per_forward"]["mma_ms"],
+            sm90_ms=quant_k["per_forward"]["sm90_ms"],
+            routes=quant_k["per_forward"]["routes"],
+            launches_by_route={
+                "sm90": int8_resnet["n2_sm90_launches"],
+                "mma": int8_resnet["n2_launches"]
+                - int8_resnet["n2_sm90_launches"]},
             by_shape=quant_k["by_shape"],
             checked_shapes=quant_k["checked_shapes"],
+            sm90_checks=quant_k["sm90"],
             launches_by_path={"resnet50_int8_predict":
                               int8_resnet["n2_launches"]}),
+        # the sm90 route's layout copies (x to NHWC, w to OHWI, one launch
+        # per convolution), timed at the 52 convolutions of a forward that
+        # take the sm90 route; its library call is torch's channels-last
+        # copy of x and OHWI copy of w
+        kernel_entry(
+            NHWC_KERNEL, "mxnet_tpu_torch/csrc/int8_conv_sm90.cu",
+            "mxnet_tpu/ndarray/ops_quant.py:341 (not a TPU kernel: the "
+            "layout of N2's sm90 route)", int8_resnet["nhwc_launches"], 0.0,
+            {"ms": quant_k["nhwc"]["nhwc_ms"],
+             "plain_ms": quant_k["nhwc"]["nhwc_plain_ms"],
+             "bound_ms": quant_k["nhwc"]["nhwc_bound_ms"],
+             "bound_by": "bytes",
+             "library_ms": quant_k["nhwc"]["nhwc_library_ms"]},
+            f"the {quant_k['nhwc']['copies']} sm90 convolutions of a "
+            f"resnet50_v1 forward at batch {QUANT_CALIB_B}", smi,
+            not_a_tpu_kernel=True,
+            library_calls="x.contiguous(memory_format=torch.channels_last)"
+            ", w.permute(0, 2, 3, 1).contiguous()",
+            launches_by_path={"resnet50_int8_predict":
+                              int8_resnet["nhwc_launches"]}),
     ]
     print("int8 quantization: " + json.dumps({
         "resnet50_v1": int8_resnet, "quantize_net": block_swap,

@@ -2106,8 +2106,130 @@ def test_n2_equals_its_plain_version_bitwise(cuda, case):
     x, w = _s8(cuda, x_s, 1), _s8(cuda, w_s, 2)
     _build.reset_launch_counts()
     got = k8.int8_conv(x, w, st, p, d, g)
-    assert _build.launch_counts() == {k8.KERNEL: 1}
+    # the sm90 route copies the NCHW x (and a kh x kw weight) to NHWC in
+    # one launch before its own
+    want = {k8.KERNEL: 1}
+    if k8._int8_conv_route(x, w, g) == "sm90":
+        want.update({k8.SM90_KERNEL: 1, k8.NHWC_KERNEL: 1})
+    assert _build.launch_counts() == want
     assert torch.equal(got, k8._int8_conv_ref(x, w, st, p, d, g))
+
+
+# the sm90 kernel's edges: M not a multiple of 128 and O not one of the
+# tile width, C = 16 and 48, a flat 1 x 1, a stride-2 1 x 1, a padded
+# 3 x 3 at 7 x 7 (two images a tile), dilated, anisotropic, a wide image
+_N2_SM90_EDGES = [
+    ((3, 16, 9, 7), (48, 16, 3, 3), (1, 1), (1, 1), (1, 1)),
+    ((2, 48, 7, 7), (80, 48, 3, 3), (1, 1), (1, 1), (1, 1)),
+    ((3, 48, 5, 6), (144, 48, 1, 1), (1, 1), (0, 0), (1, 1)),
+    ((2, 64, 9, 9), (128, 64, 1, 1), (2, 2), (0, 0), (1, 1)),
+    ((5, 512, 7, 7), (272, 512, 3, 3), (1, 1), (1, 1), (1, 1)),
+    ((1, 32, 12, 12), (16, 32, 3, 3), (1, 1), (2, 2), (2, 2)),
+    ((2, 16, 11, 13), (32, 16, 3, 3), (2, 1), (1, 2), (1, 1)),
+    ((2, 32, 40, 70), (64, 32, 3, 3), (1, 1), (1, 1), (1, 1))]
+
+
+@pytest.mark.parametrize("bn", [None, 64, 128, 256])
+@pytest.mark.parametrize("case", _N2_SM90_EDGES,
+                         ids=lambda c: f"x{c[0]}w{c[1]}s{c[2]}")
+def test_n2_sm90_edges_bitwise(cuda, case, bn):
+    from mxnet_tpu_torch.kernels import int8_conv as k8
+
+    x_s, w_s, st, p, d = case
+    x, w = _s8(cuda, x_s, 7), _s8(cuda, w_s, 8)
+    plan = k8._sm90_plan(x_s, w_s, st, p, d, _n_sm(cuda), bn=bn,
+                         splits=None if bn is None else 1)
+    got = k8._int8_conv_sm90(x, w, st, p, d, plan)
+    assert torch.equal(got, k8._int8_conv_ref(x, w, st, p, d, 1))
+
+
+def _r50_batch32():
+    from mxnet_tpu_torch.tools.profile_quant import resnet50_convolutions
+
+    return list(dict.fromkeys(resnet50_convolutions(32)))
+
+
+@pytest.mark.parametrize("case", _r50_batch32(),
+                         ids=lambda c: f"x{c[0][1:]}w{c[1]}s{c[2][0]}")
+def test_n2_both_routes_at_resnet50_batch32_shapes(cuda, case):
+    from mxnet_tpu_torch.kernels import int8_conv as k8
+
+    x_s, w_s, st, p = case
+    x, w = _s8(cuda, x_s, 9), _s8(cuda, w_s, 10)
+    want = k8._int8_conv_ref(x, w, st, p, (1, 1), 1)
+    assert torch.equal(k8.int8_conv(x, w, st, p, (1, 1), 1, route="mma"),
+                       want)
+    # the sm90 kernel takes the stem too when it is handed it (padded)
+    assert torch.equal(k8._int8_conv_sm90(x, w, st, p, (1, 1)), want)
+
+
+def test_n2_sm90_split_k_reruns_bitwise(cuda):
+    from mxnet_tpu_torch.kernels import int8_conv as k8
+
+    x, w = _s8(cuda, (1, 512, 7, 7), 11), _s8(cuda, (512, 512, 3, 3), 12)
+    plan = k8._sm90_plan(x.shape, w.shape, (1, 1), (1, 1), (1, 1),
+                         _n_sm(cuda))
+    assert plan["splits"] > 1
+    want = k8._int8_conv_ref(x, w, (1, 1), (1, 1), (1, 1), 1)
+    for splits in (plan["splits"], 3, 4):
+        p_ = k8._sm90_plan(x.shape, w.shape, (1, 1), (1, 1), (1, 1),
+                           _n_sm(cuda), splits=splits)
+        first = k8._int8_conv_sm90(x, w, (1, 1), (1, 1), (1, 1), p_)
+        assert torch.equal(first, want)
+        assert torch.equal(k8._int8_conv_sm90(x, w, (1, 1), (1, 1), (1, 1),
+                                              p_), first)
+
+
+def test_n2_route_rule_on_card_tensors(cuda):
+    from mxnet_tpu_torch.kernels import int8_conv as k8
+
+    cases = [((2, 64, 9, 9), (64, 64, 3, 3), 1, "sm90"),
+             ((2, 3, 31, 31), (64, 3, 7, 7), 1, "mma"),  # the stem
+             ((2, 64, 9, 9), (64, 32, 3, 3), 2, "mma"),
+             ((2, 24, 9, 9), (32, 24, 1, 1), 1, "mma"),
+             ((2, 32, 9, 9), (40, 32, 1, 1), 1, "mma")]
+    for x_s, w_s, g, want in cases:
+        x, w = _s8(cuda, x_s, 13), _s8(cuda, w_s, 14)
+        assert k8._int8_conv_route(x, w, g) == want
+        _build.reset_launch_counts()
+        got = k8.int8_conv(x, w, (1, 1), (1, 1), (1, 1), g)
+        counts = _build.launch_counts()
+        assert counts.get(k8.KERNEL) == 1
+        assert counts.get(k8.SM90_KERNEL, 0) == (want == "sm90")
+        assert torch.equal(got, k8._int8_conv_ref(x, w, (1, 1), (1, 1),
+                                                  (1, 1), g))
+    # the 1-D convolution is lifted and routed like the 2-D one
+    x, w = _s8(cuda, (2, 32, 40), 15), _s8(cuda, (64, 32, 3), 16)
+    _build.reset_launch_counts()
+    got = k8.int8_conv(x, w, (2,), (1,), (1,), 1)
+    assert _build.launch_counts().get(k8.SM90_KERNEL) == 1
+    assert torch.equal(got, k8._int8_conv_ref(x, w, (2,), (1,), (1,), 1))
+
+
+def test_int8_to_nhwc_equals_plain(cuda):
+    from mxnet_tpu_torch.kernels import int8_conv as k8
+
+    for shape, Cp in (((2, 3, 9, 9), 16), ((32, 256, 56, 56), 256),
+                      ((3, 48, 7, 7), 48), ((512, 512, 3, 3), 512),
+                      ((5, 130, 14, 14), 144), ((7, 5, 3, 3), 16)):
+        t = _s8(cuda, shape, 17)
+        assert torch.equal(k8._to_nhwc((t, Cp))[0], k8._to_nhwc_ref(t, Cp))
+    a, b = _s8(cuda, (2, 64, 9, 9), 18), _s8(cuda, (128, 64, 3, 3), 19)
+    got = k8._to_nhwc((a, 64), (b, 64))
+    assert torch.equal(got[0], k8._to_nhwc_ref(a, 64))
+    assert torch.equal(got[1], k8._to_nhwc_ref(b, 64))
+
+
+def test_n2_sm90_refused_launch_raises(cuda):
+    from mxnet_tpu_torch.kernels import int8_conv as k8
+
+    x, w = _s8(cuda, (2, 64, 9, 9), 20), _s8(cuda, (64, 64, 3, 3), 21)
+    with pytest.raises(mx.MXNetError, match="route 'sm90'"):
+        k8.int8_conv(x, w[:, :32], (1, 1), (1, 1), (1, 1), 2, route="sm90")
+    plan = dict(k8._sm90_plan(x.shape, w.shape, (1, 1), (1, 1), (1, 1),
+                              _n_sm(cuda)), tile=(1, 16, 16))  # 256 rows
+    with pytest.raises(mx.MXNetError, match="sm90 kernel launch failed"):
+        k8._int8_conv_sm90(x, w, (1, 1), (1, 1), (1, 1), plan)
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 2048, 1000), (32, 2048, 1000),
@@ -2159,7 +2281,10 @@ def test_int8_symbol_block_hybridized_replays(cuda, monkeypatch):
         dq = qb(x).asnumpy()
         dcounts = _build.launch_counts()
     assert onp.array_equal(eager, replayed)
-    assert counts == {"int8_conv": 20, "int_mm": 1}
+    # 20 convolutions, all but the stem (3 channels) on the sm90 route,
+    # each of those after one layout copy
+    assert counts == {"int8_conv": 20, "int8_conv_sm90": 19,
+                      "int8_to_nhwc": 19, "int_mm": 1}
     assert len(qb._cached_op.entries) == 2 and not dcounts.get("int8_conv")
     assert float(onp.abs(dq - eager).max()) <= 1e-5 * float(
         onp.abs(eager).max())

@@ -50,6 +50,7 @@ def test_import_loads_neither_jax_nor_the_jax_package():
             "import mxnet_tpu_torch.examples.train_ssd_toy\n"
             "import mxnet_tpu_torch.tools.ssd_near_ties\n"
             "import mxnet_tpu_torch.tools.profile_quant\n"
+            "import mxnet_tpu_torch.tools.n2_plans\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax'"
             " or m == 'mxnet_tpu' or m.startswith('mxnet_tpu.'))\n"
             "print(bad)\n")
@@ -133,7 +134,7 @@ DETECTION_MODULES = [
 QUANTIZATION_MODULES = [
     "ndarray/ops_quant.py", "analysis/quantize.py",
     "contrib/quantization.py", "kernels/int8_conv.py",
-    "tools/profile_quant.py"]
+    "tools/profile_quant.py", "tools/n2_plans.py"]
 
 
 def test_no_module_imports_jax_or_the_jax_package():
