@@ -53,8 +53,11 @@ kernels against the plain PyTorch versions:
   CPU port, SSD300-VGG16 (``tools/profile_ssd.py``) trained hybridized
   at its published widths, and its detection batch through
   ``MultiBoxDetection``, whose ``box_nms`` sweep is the hand-written CUDA
-  kernel N1 (``csrc/box_nms.cu``; not a TPU kernel: it replaces the JAX
-  op's ``lax.fori_loop``), with the toy detector's twin;
+  kernels N1 (``csrc/box_nms.cu``; not a TPU kernel: they replace the
+  JAX op's ``lax.fori_loop``): an IoU bitmask and a sequential OR-reduce
+  over it, in two kernels (the mask across the card, the reduce a block
+  an image) at SSD300's sweeps and in one fused launch for short sweeps
+  such as the toy detector twin's;
 - int8 quantization: every ``ops_quant`` op on the card against the CPU
   port, ``resnet50_v1`` at its published widths quantized by
   ``contrib.quantization.quantize_net_graph`` and served in int8 through
@@ -359,13 +362,19 @@ stream busy until the launch is enqueued, so it is the device's time:
     gradient within 1e-5 of its largest; then N1 against its plain
     version (the Python loop over the rows) on the card at (32, 8732)
     from random class scores, ``nms_topk`` 400 and -1, class-aware and
-    ``force_suppress``: keep masks equal; N1's and the plain loop's
-    times, N1's bound (the bytes of the swept rows and the mask; the IoU
-    tests the data needs) and its dependent steps (one barrier per kept
-    row); no PyTorch call computes greedy NMS, so no library time;
+    ``force_suppress``: keep masks equal on every route that takes the
+    limit (mask_reduce, the rule's, and fused at 400; mask_reduce at -1),
+    and the mask kernel's words equal the plain mask's; both routes'
+    times at 400, their launches, workspace and shared memory, the plain
+    loop's time at 400,
+    N1's bound (the bytes of the swept rows and the mask; the IoU tests
+    the data needs) and its dependent steps (one per kept row); no
+    PyTorch call computes greedy NMS, so no library time;
 45. the twin of ``examples/train_ssd_toy.py`` (MultiBoxPrior,
     MultiBoxTarget, softmax cross-entropy and smooth L1, Adam, 120
-    steps, then MultiBoxDetection): the loss ends below 2.0;
+    steps, then MultiBoxDetection): the loss ends below 2.0, and its
+    detection (4 x 192 rows, a short sweep) launches N1's fused kernel
+    once;
 46. SSD300-VGG16 training: example/ssd's 300 x 300 ``vgg16_reduced``
     network (26,285,486 trainable parameters, 8732 anchors, 21
     classes) at batch 2 against the CPU port with the same weights
@@ -380,13 +389,20 @@ stream busy until the launch is enqueued, so it is the device's time:
     kind;
 47. SSD300 detection: ``softmax`` and ``MultiBoxDetection`` (NMS 0.45,
     ``nms_topk`` 400, threshold 0.01) on the trained body's batch of
-    32, with the launch counts reset just before: N1 launched once, the
-    rows equal to those the CPU port's ``MultiBoxDetection`` gives on
-    the card's class probabilities (ids and -1 rows exactly, values
-    within 1e-5; the two devices' softmax, within 1e-5 of each other,
-    can order scores tied to a float32 ulp differently, so each side
-    gets the same probabilities); the head's and the forward-plus-head's
-    ms; N1 and its plain version timed on the rows this batch swept;
+    32, and again uncapped (``nms_topk`` -1, the op's default), each
+    with the launch counts reset just before: the route rule's N1
+    kernels launched once each (the mask and the reduce kernel, capped
+    and uncapped), the capped rows equal to those the CPU
+    port's ``MultiBoxDetection`` gives on the card's class
+    probabilities (ids and -1 rows exactly, values within 1e-5; the two
+    devices' softmax, within 1e-5 of each other, can order scores tied
+    to a float32 ulp differently, so each side gets the same
+    probabilities), the uncapped rows' first 400 equal to the capped
+    ones; the head's and the forward-plus-head's ms at both caps; N1 on
+    the rows this batch swept, on both routes at 400 (the plain loop
+    timed beside), at the toy's (4, 192) on the fused route and
+    uncapped (keep mask equal to the plain loop's), and its mask and
+    reduce kernels alone beside their plain versions;
 48. the quantization ops and N2: every case of
     ``tools/profile_quant.op_cases`` (all 14 ``ops_quant`` ops, int8 and
     uint8 inputs) on the card against the CPU port under both lowerings,
@@ -468,7 +484,7 @@ from mxnet_tpu_torch.kernels.flash_attention import (  # noqa: E402
 from mxnet_tpu_torch.ndarray import ops_nn  # noqa: E402
 from mxnet_tpu_torch.kernels.norm_act import (  # noqa: E402
     KERNEL as NORM_ACT_KERNEL, _norm_act_cuda, _norm_act_ref)
-from mxnet_tpu_torch.kernels.box_nms import KERNEL as N1_KERNEL  # noqa: E402
+from mxnet_tpu_torch.kernels import box_nms as n1k  # noqa: E402
 from mxnet_tpu_torch.kernels.int8_conv import (  # noqa: E402
     KERNEL as N2_KERNEL, NHWC_KERNEL)
 from mxnet_tpu_torch.models import DecoderBlockLM, TransformerLM  # noqa: E402
@@ -4245,8 +4261,8 @@ def n1_bound(keep, vs, limit, has_ids):
     once, the whole (B, N) mask written once) over the memory rate, and
     the IoU tests this data needs (each kept row against every later
     valid row, ~14 flops each) over the fp32 rate. Also returns the
-    sweep's dependent steps: the kept rows of the longest image, a
-    barrier each."""
+    sweep's dependent steps: the kept rows of the longest image, one step
+    each."""
     B, N = vs.shape
     nbytes = B * limit * (16 + 1 + (4 if has_ids else 0)) + B * N
     v = vs[:, :limit].sum(1, keepdim=True)  # valid rows are a prefix
@@ -4258,27 +4274,136 @@ def n1_bound(keep, vs, limit, has_ids):
             int(keep.sum(1).max()), pairs)
 
 
-def _n1_row(what, boxes, vs, ids, limit, flush, plain=True):
-    from mxnet_tpu_torch.kernels.box_nms import _nms_keep_cuda, _nms_keep_ref
+def n1_mask_bound(vs, ids, limit):
+    """Least ms for the mask kernel's function on these inputs: its bytes
+    (the ``limit`` rows' boxes and ids read once, the triangles written
+    once) over the memory rate, against the IoU tests this data needs
+    over the fp32 rate: ~14 flops for each pair of valid rows of one
+    class (of any class without ``ids``); a pair of two classes is an id
+    compare, an invalid row's pairs need no test (its bits are never
+    read). Also returns the pairs counted."""
+    B = vs.shape[0]
+    nbytes = B * limit * (16 + (0 if ids is None else 4)) + \
+        B * n1k._triangle_words(limit) * 8
+    v = vs[:, :limit]
+    if ids is None:
+        n = v.sum(1)
+    else:  # the valid rows of each (image, class)
+        img = torch.arange(B, device=vs.device)[:, None].expand(-1, limit)
+        key = torch.stack([img[v].to(ids.dtype), ids[:, :limit][v]], 1)
+        n = torch.unique(key, dim=0, return_counts=True)[1]
+    pairs = int((n * (n - 1) // 2).sum())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 14 * pairs / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", pairs)
 
-    keep = _nms_keep_cuda(boxes, vs, ids, N1_THRESH, limit)
-    row = {"case": what, "B": vs.shape[0], "N": vs.shape[1],
-           "limit": limit, "class_aware": ids is not None,
-           "kept": int(keep.sum()),
-           "ms": time_ms(lambda: _nms_keep_cuda(boxes, vs, ids, N1_THRESH,
-                                                limit), flush),
-           "plain_ms": time_ms(lambda: _nms_keep_ref(
-               boxes, vs, ids, N1_THRESH, limit), flush) if plain else None,
+
+def n1_reduce_bound(keep, vs, limit):
+    """Least ms for the reduce kernel's function on these inputs: the
+    bytes it needs over the memory rate (its ORs are a few operations a
+    byte): each swept row's diagonal word (its fate) and each kept row's
+    words right of it (what it removes) read once, the valid flags read
+    once, the keep mask written once. Also returns the words counted."""
+    B, N = vs.shape
+    W = n1k._words(limit)
+    rows = torch.arange(limit, device=keep.device)
+    right = (W - 1 - rows // 64)[None, :]  # row i's words past its diagonal
+    words = B * limit + int((keep[:, :limit].long() * right).sum())
+    nbytes = words * 8 + B * limit + B * N
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", words
+
+
+def _n1_row(what, boxes, vs, ids, limit, flush, plain=True, route=None,
+            want=None):
+    """N1 on these rows on ``route`` (the route rule's by default): its
+    keep mask held to the plain loop's (``want``, or the plain loop run
+    here), bit for bit, then its ms, launches by kernel, workspace and
+    shared memory, the plain loop's ms (``plain``; a Python loop of a
+    quarter second at SSD300's shape, so the median of 5 calls) and the
+    sweep's bound; on the mask_reduce route also each kernel's ms."""
+    B, N = vs.shape
+    plan = n1k._card_plan(boxes.device, B, limit, route)
+    route = plan["route"]
+    if want is None:
+        want = n1k._nms_keep_ref(boxes, vs, ids, N1_THRESH, limit)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    keep = n1k._nms_keep_cuda(boxes, vs, ids, N1_THRESH, limit, route=route)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    if not torch.equal(keep, want):
+        raise RuntimeError(f"N1 ({route}) disagrees with the plain loop on "
+                           f"{what}: {int((keep != want).sum())} of "
+                           f"{keep.numel()} flags")
+    row = {"case": what, "route": route, "B": B, "N": N, "limit": limit,
+           "class_aware": ids is not None, "kept": int(keep.sum()),
+           "equal_to_plain": True, "launches": launches,
+           "workspace_bytes": plan["workspace_bytes"],
+           "smem_bytes": plan["smem"],
+           "ms": time_ms(lambda: n1k._nms_keep_cuda(
+               boxes, vs, ids, N1_THRESH, limit, route=route), flush),
+           "plain_ms": time_ms(lambda: n1k._nms_keep_ref(
+               boxes, vs, ids, N1_THRESH, limit), flush,
+               reps=5) if plain else None,
            "library_ms": None}
+    if route == "mask_reduce":
+        mask = n1k._nms_mask_cuda(boxes, ids, N1_THRESH, limit)
+        row["mask_ms"] = time_ms(lambda: n1k._nms_mask_cuda(
+            boxes, ids, N1_THRESH, limit), flush)
+        row["reduce_ms"] = time_ms(lambda: n1k._nms_reduce_cuda(
+            mask, vs, limit, plan), flush)
+        del mask
     row["bound_ms"], row["bound_by"], row["dependent_steps"], \
         row["iou_tests"] = n1_bound(keep, vs, limit, ids is not None)
     print("  N1 " + json.dumps(row))
     return row
 
 
+def _n1_kernel_rows(boxes, vs, ids, limit, flush, keep):
+    """The mask and the reduce kernel alone on these rows (``keep``: the
+    sweep's keep mask), each beside its plain version and its own bound
+    (the entries of the kernels line)."""
+    B, N = vs.shape
+    plan = n1k._card_plan(boxes.device, B, limit, "mask_reduce")
+    mask = n1k._nms_mask_cuda(boxes, ids, N1_THRESH, limit)
+    mask_row = {"ms": time_ms(lambda: n1k._nms_mask_cuda(
+        boxes, ids, N1_THRESH, limit), flush),
+        "plain_ms": time_ms(lambda: n1k._nms_mask_ref(
+            boxes, ids, N1_THRESH, limit), flush, reps=5),
+        "library_ms": None, "B": B, "limit": limit,
+        "workspace_bytes": plan["workspace_bytes"]}
+    mask_row["bound_ms"], mask_row["bound_by"], mask_row["iou_pairs"] = \
+        n1_mask_bound(vs, ids, limit)
+    reduce_row = {"ms": time_ms(lambda: n1k._nms_reduce_cuda(
+        mask, vs, limit, plan), flush),
+        "plain_ms": time_ms(lambda: n1k._nms_reduce_ref(mask, vs, limit),
+                            flush, reps=1),
+        "library_ms": None, "B": B, "limit": limit,
+        "rows_per_stage": plan["rows_per_stage"], "stages": plan["stages"],
+        "smem_bytes": plan["smem"]}
+    reduce_row["bound_ms"], reduce_row["bound_by"], \
+        reduce_row["words_needed"] = n1_reduce_bound(keep, vs, limit)
+    print("  N1 mask kernel " + json.dumps(mask_row))
+    print("  N1 reduce kernel " + json.dumps(reduce_row))
+    return mask_row, reduce_row
+
+
+def _n1_routes(dev, B, limit):
+    """The N1 routes that take ``limit`` rows of ``B`` images on this
+    card: the route rule's first, then the other where it fits."""
+    rule = n1k._card_plan(dev, B, limit)["route"]
+    routes = [rule]
+    other = "mask_reduce" if rule == "fused" else "fused"
+    try:
+        n1k._card_plan(dev, B, limit, other)
+        routes.append(other)
+    except mx.MXNetError:
+        pass
+    return routes
+
+
 def detection_ops_phase():
     phase("44 the detection ops on the card against the CPU port, and N1")
-    from mxnet_tpu_torch.kernels.box_nms import _nms_keep_cuda, _nms_keep_ref
     from mxnet_tpu_torch.ndarray.ops_contrib import (
         _detection_rows, _nms_sorted)
 
@@ -4301,34 +4426,51 @@ def detection_ops_phase():
     rows = _detection_rows(torch.softmax(cls, 1), loc,
                            ps.anchors(mx, mx.gpu(0))._data, True, 0.01, 0,
                            ps.DETECT["variances"])
-    n_checked = 0
+    n_checked, n_words, wants = 0, 0, {}
     for topk in (400, -1):
         for force in (False, True):
             _, vs, boxes, ids, limit = _nms_sorted(
                 rows, 0.0, topk, 2, 1, 0, -1, force, "corner")
-            got = _nms_keep_cuda(boxes, vs, ids, N1_THRESH, limit)
-            want = _nms_keep_ref(boxes, vs, ids, N1_THRESH, limit)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise RuntimeError(
-                    f"N1 disagrees with its plain version at topk {topk}, "
-                    f"force_suppress {force}: "
-                    f"{int((got != want).sum())} of {got.numel()} flags")
-            n_checked += got.numel()
-    print(f"  N1 keep masks equal to the plain loop's at (32, 8732), "
-          f"topk 400 and -1, class-aware and force_suppress "
-          f"({n_checked} flags)")
+            want = wants[topk, force] = n1k._nms_keep_ref(
+                boxes, vs, ids, N1_THRESH, limit)
+            for route in _n1_routes(boxes.device, SSD_B, limit):
+                got = n1k._nms_keep_cuda(boxes, vs, ids, N1_THRESH, limit,
+                                         route=route)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise RuntimeError(
+                        f"N1 ({route}) disagrees with its plain version at "
+                        f"topk {topk}, force_suppress {force}: "
+                        f"{int((got != want).sum())} of {got.numel()} flags")
+                n_checked += got.numel()
+            words = n1k._nms_mask_cuda(boxes, ids, N1_THRESH, limit)
+            if not torch.equal(words, n1k._nms_mask_ref(boxes, ids,
+                                                        N1_THRESH, limit)):
+                raise RuntimeError(f"N1's mask kernel disagrees with its "
+                                   f"plain version at topk {topk}, "
+                                   f"force_suppress {force}")
+            n_words += words.numel()
+            del words
+    print(f"  N1 keep masks of both routes equal to the plain loop's at "
+          f"(32, 8732), topk 400 and -1, class-aware and force_suppress "
+          f"({n_checked} flags); the mask kernel's words equal the plain "
+          f"mask's ({n_words} words)")
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     _, vs, boxes, ids, limit = _nms_sorted(rows, 0.0, 400, 2, 1, 0, -1,
                                            False, "corner")
+    routes = _n1_routes(boxes.device, SSD_B, limit)
     row = _n1_row("random rows, nms_topk 400, class-aware", boxes, vs, ids,
-                  limit, flush)
+                  limit, flush, want=wants[400, False])
+    row_alt = _n1_row("random rows, nms_topk 400, class-aware", boxes, vs,
+                      ids, limit, flush, plain=False, route=routes[-1],
+                      want=wants[400, False])
     _, vs, boxes, ids, limit = _nms_sorted(rows, 0.0, -1, 2, 1, 0, -1,
                                            False, "corner")
     full = _n1_row("random rows, nms_topk -1, class-aware", boxes, vs, ids,
-                   limit, flush, plain=False)
+                   limit, flush, plain=False, want=wants[-1, False])
     del flush
-    return {"ops": worst, "n1": row, "n1_all_rows": full}
+    return {"ops": worst, "n1": row, "n1_other_route": row_alt,
+            "n1_all_rows": full}
 
 
 def ssd_toy_phase():
@@ -4336,11 +4478,22 @@ def ssd_toy_phase():
     from mxnet_tpu_torch.examples import train_ssd_toy
 
     t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
     res = train_ssd_toy.main([])
+    torch.cuda.synchronize()
+    # its detection (4 images x 192 anchors) is a sweep short enough for
+    # N1's fused route: one launch
+    res["n1_launches"] = {k: v for k, v in _build.launch_counts().items()
+                          if k.startswith("box_nms")}
+    if res["n1_launches"] != {n1k.FUSED: 1}:
+        raise RuntimeError(f"the SSD toy's detection launched N1's kernels "
+                           f"{res['n1_launches']}; want {{'{n1k.FUSED}': 1}}")
     if not res["final_loss"] < 2.0:
         raise RuntimeError(f"SSD toy twin: {res}")
     print(f"  loss {res['first_loss']:.4f} -> {res['final_loss']:.4f} in "
-          f"{time.perf_counter() - t0:.1f} s; image 0's ground truth "
+          f"{time.perf_counter() - t0:.1f} s; N1 launched "
+          f"{res['n1_launches']}; image 0's ground truth "
           f"{onp.round(res['gt'], 3).tolist()}, its detections above 0.1 "
           f"{onp.round(res['detections'], 3).tolist()}")
     return res
@@ -4450,17 +4603,42 @@ def ssd_detection_phase(net, anchor, x):
     from mxnet_tpu_torch.ndarray.ops_contrib import (
         _detection_rows, _nms_sorted)
 
+    def n1_launches(counts):
+        return {k: v for k, v in counts.items() if k.startswith("box_nms")}
+
+    # each detection batch, capped (nms_topk 400) and uncapped (-1, the
+    # op's default), with the launch counts reset just before it: the
+    # route rule's kernels, each as often as its plan says (once at this
+    # batch)
     with autograd.predict_mode():
         cls_preds, loc_preds = net(x)
         torch.cuda.synchronize()
         _build.reset_launch_counts()
         dets = ps.detect(mx, cls_preds, loc_preds, anchor)
         torch.cuda.synchronize()
-        counts = _build.launch_counts()
-    n1 = counts.get(N1_KERNEL, 0)
-    if n1 != 1:
-        raise RuntimeError(f"detection of one batch launched N1 {n1} times "
-                           f"({counts}); want 1")
+        counts = n1_launches(_build.launch_counts())
+        _build.reset_launch_counts()
+        dets_all = ps.detect(mx, cls_preds, loc_preds, anchor, nms_topk=-1)
+        torch.cuda.synchronize()
+        counts_all = n1_launches(_build.launch_counts())
+    dev = cls_preds._data.device
+    topk = ps.DETECT["nms_topk"]
+    plans = {"capped": n1k._card_plan(dev, SSD_B, topk),
+             "uncapped": n1k._card_plan(dev, SSD_B, int(ps.ANCHORS))}
+    routes = {what: plan["route"] for what, plan in plans.items()}
+    for what, got_counts in (("capped", counts), ("uncapped", counts_all)):
+        want_counts = dict.fromkeys(n1k.ROUTE_KERNELS[routes[what]],
+                                    plans[what]["launches"])
+        if got_counts != want_counts:
+            raise RuntimeError(f"the {what} detection of one batch launched "
+                               f"N1's kernels {got_counts}; want "
+                               f"{want_counts}")
+    # the greedy order's prefix: rows before the cap fare the same with
+    # and without it, and the capped rows past it are -1
+    if not torch.equal(dets_all._data[:, :topk], dets._data[:, :topk]) or \
+            not bool((dets._data[:, topk:] == -1).all()):
+        raise RuntimeError("the uncapped detection's first 400 rows differ "
+                           "from the capped detection's")
     # the CPU port's detection from the card's class probabilities: the
     # two devices' softmax differ by float32 ulps, which reorder scores
     # tied to an ulp (a trained body gives such pairs now and then); the
@@ -4480,25 +4658,54 @@ def ssd_detection_phase(net, anchor, x):
     got, want = dets.asnumpy(), cpu.asnumpy()
     err = _det_dev("SSD300 detection", [got], [want], id_col=0)
     times = ps.detection_times(net, anchor, x)
-    # N1 on this detection's own rows, as the main path gave them
+    times_all = ps.detection_times(net, anchor, x, nms_topk=-1)
+    # N1 on this detection's own rows, as the main path gave them, on
+    # both routes at nms_topk 400 and on the mask_reduce route uncapped
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     rows = _detection_rows(torch.softmax(cls_preds._data, -1).transpose(1, 2),
                            loc_preds._data, anchor._data, True,
                            ps.DETECT["threshold"], 0, ps.DETECT["variances"])
     _, vs, boxes, ids, limit = _nms_sorted(
-        rows, 0.0, ps.DETECT["nms_topk"], 2, 1, 0, -1, False, "corner")
+        rows, 0.0, topk, 2, 1, 0, -1, False, "corner")
+    want = n1k._nms_keep_ref(boxes, vs, ids, N1_THRESH, limit)
     row = _n1_row("SSD300 detection rows, nms_topk 400, class-aware", boxes,
-                  vs, ids, limit, flush)
+                  vs, ids, limit, flush, want=want)
+    row_alt = _n1_row("SSD300 detection rows, nms_topk 400, class-aware",
+                      boxes, vs, ids, limit, flush, plain=False,
+                      route=_n1_routes(dev, SSD_B, limit)[-1], want=want)
+    ds, vs, boxes, ids, limit = _nms_sorted(
+        rows, 0.0, -1, 2, 1, 0, -1, False, "corner")
+    # the fused route at the shape the toy twin's detection gives it
+    # (phase 45: 4 images x 192 anchors), on the 192 best rows of four
+    # images of this batch
+    _, vs4, boxes4, ids4, limit4 = _nms_sorted(
+        ds[:4, :192].contiguous(), 0.0, -1, 2, 1, 0, -1, False, "corner")
+    row_toy = _n1_row("SSD300 detection rows, the 192 best of 4 images "
+                      "(the toy's shape), class-aware", boxes4, vs4, ids4,
+                      limit4, flush)
+    want = n1k._nms_keep_ref(boxes, vs, ids, N1_THRESH, limit)
+    row_all = _n1_row("SSD300 detection rows, nms_topk -1, class-aware",
+                      boxes, vs, ids, limit, flush, plain=False, want=want)
+    mask_row, reduce_row = _n1_kernel_rows(boxes, vs, ids, limit, flush,
+                                           want)
     del flush
     kept = (got[..., 0] >= 0).sum(1)
-    print(f"  batch {got.shape[0]}: N1 launched {n1} time, rows equal to the "
-          f"CPU port's on the card's probabilities (values within "
-          f"{err:.3g}; the softmax within {softmax_err:.3g}); "
-          f"{kept.mean():.1f} "
-          f"detections an image; head {times['detection_head_ms']:.2f} ms, "
-          f"with the forward {times['detection_with_forward_ms']:.2f} ms; "
-          f"image 0's first: {onp.round(got[0, 0], 3).tolist()}")
-    return {"n1_launches": n1, "max_abs_err": err, "n1": row, **times}
+    kept_all = (dets_all.asnumpy()[..., 0] >= 0).sum(1)
+    print(f"  batch {got.shape[0]}: N1 launched {counts} capped, "
+          f"{counts_all} uncapped; rows equal to the CPU port's on the "
+          f"card's probabilities (values within {err:.3g}; the softmax "
+          f"within {softmax_err:.3g}); {kept.mean():.1f} detections an "
+          f"image ({kept_all.mean():.1f} uncapped); head "
+          f"{times['detection_head_ms']:.2f} ms, with the forward "
+          f"{times['detection_with_forward_ms']:.2f} ms; uncapped "
+          f"{times_all['detection_head_ms']:.2f} and "
+          f"{times_all['detection_with_forward_ms']:.2f} ms; image 0's "
+          f"first: {onp.round(got[0, 0], 3).tolist()}")
+    return {"n1_launches": counts, "n1_launches_uncapped": counts_all,
+            "routes": routes, "max_abs_err": err, "n1": row,
+            "n1_other_route": row_alt, "n1_toy_shape": row_toy,
+            "n1_all_rows": row_all, "mask_kernel": mask_row,
+            "reduce_kernel": reduce_row, "uncapped": times_all, **times}
 
 
 # -- slice 8: int8 quantization ------------------------------------------------
@@ -5301,19 +5508,60 @@ def main():
             launches_by_path={"resnet_fp32": k4_bwd_n, **k4_amp,
                               **k4_hyb}),
         # N1: not a TPU kernel; box_nms's greedy sweep (a lax.fori_loop in
-        # the JAX op), timed on the rows of the detection batch it swept
+        # the JAX op). The route rule sends SSD300's detection, capped
+        # (nms_topk 400) and uncapped (-1, the op's default), to the mask
+        # and reduce kernels, timed apart on the uncapped batch it swept;
+        # the fused kernel takes the toy twin's short sweep (phase 45),
+        # timed at that shape
         kernel_entry(
-            N1_KERNEL, "mxnet_tpu_torch/csrc/box_nms.cu",
+            n1k.FUSED, "mxnet_tpu_torch/csrc/box_nms.cu",
             "mxnet_tpu/ndarray/ops_contrib.py:88 (not a TPU kernel: "
-            "box_nms's lax.fori_loop)", ssd_det["n1_launches"], 0.0,
-            ssd_det["n1"], f"B={ssd_det['n1']['B']} N={ssd_det['n1']['N']} "
-            "nms_topk=400 class-aware fp32", smi, not_a_tpu_kernel=True,
-            library_calls="none", keep_mask_mismatches=0,
-            dependent_steps=ssd_det["n1"]["dependent_steps"],
-            random_rows=det_ops["n1"], all_rows=det_ops["n1_all_rows"],
-            launches_by_path={"ssd300_detection": ssd_det["n1_launches"],
-                              "ssd300_training": ssd["launches"].get(
-                                  N1_KERNEL, 0)}),
+            "box_nms's lax.fori_loop)",
+            ssd_toy["n1_launches"].get(n1k.FUSED, 0), 0.0,
+            ssd_det["n1_toy_shape"],
+            f"B={ssd_det['n1_toy_shape']['B']} "
+            f"N={ssd_det['n1_toy_shape']['N']} class-aware fp32", smi,
+            not_a_tpu_kernel=True, library_calls="none",
+            keep_mask_mismatches=0,
+            ssd_capped_on_this_route=ssd_det["n1_other_route"],
+            launches_by_path={"ssd_toy_detection": ssd_toy["n1_launches"]}),
+        kernel_entry(
+            n1k.MASK, "mxnet_tpu_torch/csrc/box_nms.cu",
+            "mxnet_tpu/ndarray/ops_contrib.py:88 (not a TPU kernel: "
+            "box_nms's lax.fori_loop; its IoU matrix, as a bitmask)",
+            ssd_det["n1_launches"].get(n1k.MASK, 0)
+            + ssd_det["n1_launches_uncapped"].get(n1k.MASK, 0), 0.0,
+            ssd_det["mask_kernel"],
+            f"B={ssd_det['mask_kernel']['B']} "
+            f"limit={ssd_det['mask_kernel']['limit']} nms_topk=-1 "
+            "class-aware fp32", smi, not_a_tpu_kernel=True,
+            library_calls="none",
+            workspace_bytes=ssd_det["mask_kernel"]["workspace_bytes"],
+            launches_by_path={
+                "ssd300_detection": ssd_det["n1_launches"],
+                "ssd300_detection_uncapped":
+                    ssd_det["n1_launches_uncapped"]}),
+        kernel_entry(
+            n1k.REDUCE, "mxnet_tpu_torch/csrc/box_nms.cu",
+            "mxnet_tpu/ndarray/ops_contrib.py:88 (not a TPU kernel: "
+            "box_nms's lax.fori_loop)",
+            ssd_det["n1_launches"].get(n1k.REDUCE, 0)
+            + ssd_det["n1_launches_uncapped"].get(n1k.REDUCE, 0), 0.0,
+            ssd_det["reduce_kernel"],
+            f"B={ssd_det['reduce_kernel']['B']} "
+            f"limit={ssd_det['reduce_kernel']['limit']} nms_topk=-1", smi,
+            not_a_tpu_kernel=True, library_calls="none",
+            keep_mask_mismatches=0, n1_routes=ssd_det["routes"],
+            capped=ssd_det["n1"], uncapped=ssd_det["n1_all_rows"],
+            random_rows=det_ops["n1"],
+            random_rows_uncapped=det_ops["n1_all_rows"],
+            launches_by_path={
+                "ssd300_detection": ssd_det["n1_launches"],
+                "ssd300_detection_uncapped":
+                    ssd_det["n1_launches_uncapped"],
+                "ssd300_training": {
+                    k: v for k, v in ssd["launches"].items()
+                    if k.startswith("box_nms")}}),
         # N2: not a TPU kernel; the int8 convolution XLA compiled for the
         # JAX op's native lowering, in two kernels the route rule picks
         # between. Its numbers are one resnet50_v1 forward's 53
@@ -5437,6 +5685,8 @@ def main():
         "detection_head_ms": ssd_det["detection_head_ms"],
         "detection_with_forward_ms": ssd_det["detection_with_forward_ms"],
         "detections_per_image": ssd_det["detections_per_image"],
+        "uncapped_detection": ssd_det["uncapped"],
+        "n1_routes": ssd_det["routes"],
         "detection_ops_worst": max(det_ops["ops"].values()),
         "toy_loss": [ssd_toy["first_loss"], ssd_toy["final_loss"]]}))
     print(f"all phases in {time.perf_counter() - t_start:.1f} s")

@@ -21,8 +21,11 @@ values: a ``Parameter``'s registered leaf, and a captured CUDA graph
 that reads its storage. Otherwise the handle rebinds to the result, as
 the JAX package's always does: an int32 array ``+= 0.5``, or ``y += 1``
 on a ``y`` that ``x.T`` or ``stop_gradient(x)`` made, which leaves ``x``
-as it was. A write into ``x`` is still seen by a torch view made from it
-earlier (``y = x.T; x += 1`` changes ``y``; ROADMAP C).
+as it was. Memory is shared as in MXNet, by ``reshape``, basic slices
+and ``detach`` only: where a torch op hands back a view of its input
+(``T``, ``swapaxes``, ``expand_dims``, ``broadcast_to``, an input passed
+through), the array gets a copy (``_own``), so ``y = x.T; x += 1``
+leaves ``y`` as it was.
 """
 from __future__ import annotations
 
@@ -255,16 +258,17 @@ class NDArray:
     def transpose(self, axes=None):
         """Permute the axes (default: reverse them)."""
         axes = tuple(reversed(range(self.ndim))) if not axes else axes
-        return self._apply(self._data.permute, *axes)
+        return self._apply(lambda: _own(self._data.permute(*axes),
+                                        (self._data,)))
 
     def astype(self, dtype, copy=True):
         return self._apply(self._data.to, torch_dtype(dtype), copy=copy)
 
     def squeeze(self, axis=None):
         """Drop size-1 axes, all or ``axis``."""
-        if axis is None:
-            return self._apply(self._data.squeeze)
-        return self._apply(self._data.squeeze, axis)
+        args = () if axis is None else (axis,)
+        return self._apply(lambda: _own(self._data.squeeze(*args),
+                                        (self._data,)))
 
     def copyto(self, other):
         """Copy into ``other``: an NDArray, written in place (its tensor
@@ -530,6 +534,28 @@ def _owns(t):
         and not (t.is_inference() and not torch.is_inference_mode_enabled())
 
 
+# -- results that are arrays of their own ----------------------------------
+# MXNet shares memory between arrays only through ``reshape``, basic
+# slices and ``detach``; any op's result is an array of its own. Where a
+# torch op hands back a view of its input, the result is copied, row-major
+# as MXNet's arrays are (so that a ``reshape`` of it shares its memory).
+
+def _own(r, inputs):
+    """``r``, or a row-major copy of it (recorded, as any op is) where it
+    shares memory with one of the tensors ``inputs``."""
+    if not isinstance(r, torch.Tensor) or r.layout != torch.strided or \
+            r.device.type == "meta" or r.numel() == 0:
+        return r
+    ptr = None
+    for a in inputs:
+        if isinstance(a, torch.Tensor) and a.device == r.device:
+            if ptr is None:
+                ptr = r.untyped_storage().data_ptr()
+            if a.untyped_storage().data_ptr() == ptr:
+                return r.clone(memory_format=torch.contiguous_format)
+    return r
+
+
 # -- indexing -----------------------------------------------------------------
 
 def _index_item(k, device):
@@ -682,13 +708,15 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype="float32"):
 
 
 def expand_dims(data, axis):
-    return NDArray(data.data.unsqueeze(axis))
+    with autograd._grad_mode():
+        return NDArray(_own(data.data.unsqueeze(axis), (data.data,)))
 
 
 def moveaxis(data, source, destination):
     """``data`` with axis ``source`` moved to ``destination``."""
     with autograd._grad_mode():
-        return NDArray(torch.movedim(data.data, source, destination))
+        return NDArray(_own(torch.movedim(data.data, source, destination),
+                            (data.data,)))
 
 
 def waitall():

@@ -156,7 +156,7 @@ def _amp_cast_fn(opdef, args=None, kwargs=None):
 def invoke(opdef, args, kwargs):
     """Run ``opdef`` on NDArray (or plain) arguments; tensor results
     come back as NDArrays, a tuple result as a list of them."""
-    from .ndarray import NDArray
+    from .ndarray import NDArray, _own
 
     def unwrap(x):
         return x._data if isinstance(x, NDArray) else x
@@ -178,14 +178,21 @@ def invoke(opdef, args, kwargs):
             for k, c in zip(keys, casted[len(pos):]):
                 kwargs[k] = c
         result = opdef.fn(*args, **kwargs)
-        if opdef.differentiable and isinstance(result, torch.Tensor) and \
-                any(result is a for a in (*args, *kwargs.values())):
-            # an op that passes its input through (stop_gradient,
-            # make_loss, dropout outside training) hands back a view, so
-            # an in-place write on the result rebinds it and leaves the
-            # input as it was (``NDArray._inplace``); the optimizer
-            # updates, not differentiable, return the weight they wrote
-            result = result.view_as(result)
+        if opdef.name != "_slice_take":
+            # an op's result is an array of its own, as in MXNet: a torch
+            # view of an input, or the input passed through
+            # (stop_gradient, make_loss, dropout outside training), is
+            # copied (``ndarray._own``); the basic slices behind
+            # ``__getitem__`` share, and the optimizer updates, not
+            # differentiable, return the weight they wrote
+            ins = (*args, *kwargs.values())
+
+            def own(r):
+                if not opdef.differentiable and any(r is a for a in ins):
+                    return r
+                return _own(r, ins)
+            result = tuple(map(own, result)) if isinstance(result, tuple) \
+                else own(result)
     if isinstance(result, tuple):
         return [NDArray(r) if isinstance(r, torch.Tensor) else r
                 for r in result]

@@ -1,4 +1,5 @@
-"""K1, K2 and N2 of two checkouts of the port, timed in turns on one card.
+"""K1, K2, N1 and N2 of two checkouts of the port, timed in turns on one
+card.
 
 Each tree named on the command line is timed in its own child process,
 in the order given (for a before/after comparison: parent, change,
@@ -20,7 +21,14 @@ it builds and launches that tree's kernels through that tree's wrappers
   ``--n2-routes`` in the order given (``default``: the tree's own route
   rule; ``mma`` or ``sm90``: ``route=``, from the tree that has the sm90
   kernel on), each checked bitwise against the plain version at batch 2
-  first.
+  first;
+- N1 (``box_nms``'s sweep) through ``_nms_keep_cuda`` at the shapes of
+  ``N1_SHAPES`` (sweeps of 1 to 64 rows, SSD300's (32, 8732) at
+  ``nms_topk`` 400 and uncapped, and the card tests' ragged sizes),
+  class-aware, on each route of
+  ``--n1-routes`` that the tree has and that takes the shape
+  (``default``: the tree's own rule; ``fused`` or ``mask_reduce``:
+  ``route=``), each checked bitwise against the plain loop first.
 
 Every time is the median device ms of 25 launches, each alone between
 CUDA events after a 256 MB write that evicts the L2 and a
@@ -35,6 +43,8 @@ tree. Run from the root of a checkout, on a machine with one NVIDIA GPU:
         build/parent . . build/parent
     python3 -m mxnet_tpu_torch.tools.compare_kernels . --kernels n2 \
         --n2-routes mma sm90 sm90 mma
+    python3 -m mxnet_tpu_torch.tools.compare_kernels build/parent . . \
+        build/parent --kernels n1 --n1-routes default fused mask_reduce
 
 It needs no network and writes only the trees' kernel builds.
 """
@@ -54,6 +64,16 @@ K1_SHAPES = {"training": (8, 12, 1024, 1024, 64, True, "float32"),
              "route": (128, 1, 499, 499, 64, False, "float32")}
 K2_BATCHES = (1, 8, 32)
 K2_H, K2_S, K2_D = 12, 1024, 64
+# (name, B, N, nms_topk)
+N1_SHAPES = (("b1_n1", 1, 1, -1), ("b1_n2", 1, 2, -1), ("b1_n4", 1, 4, -1),
+             ("b1_n8", 1, 8, -1), ("b1_n64", 1, 64, -1),
+             ("b32_n2", 32, 2, -1), ("b32_n64", 32, 64, -1),
+             ("ssd_topk400", 32, 8732, 400), ("ssd_uncapped", 32, 8732, -1),
+             ("b3_n255", 3, 255, -1),
+             ("b2_n257_topk100", 2, 257, 100), ("b5_n1000", 5, 1000, -1),
+             ("b2_n1664", 2, 1664, -1), ("b32_n1664", 32, 1664, -1),
+             ("b2_n12000", 2, 12000, -1))
+N1_THRESH = 0.45
 TOL = 1e-5
 BF16_RTOL = 2.0 ** -6
 
@@ -124,7 +144,53 @@ def n2_per_forward(torch, flush, gen, routes):
     return out
 
 
-def child(tree, kernels, n2_routes):
+def n1_times(torch, flush, routes):
+    """``{f"n1_{shape}_{route}_ms": ms}`` for each of ``N1_SHAPES`` on
+    each of ``routes`` that this tree has and that takes the shape, each
+    first checked bitwise against the plain loop."""
+    import inspect
+
+    import numpy as onp
+
+    from mxnet_tpu_torch.kernels import box_nms as n1
+    from mxnet_tpu_torch.ndarray.ops_contrib import _nms_sorted
+
+    routed = "route" in inspect.signature(n1._nms_keep_cuda).parameters
+    out = {}
+    for name, B, N, topk in N1_SHAPES:
+        rs = onp.random.RandomState(N)
+        d = onp.zeros((B, N, 6), "float32")
+        d[..., 0] = rs.randint(0, 20, (B, N))
+        d[..., 1] = rs.rand(B, N)
+        d[..., 1][rs.rand(B, N) < 0.2] = 0
+        xy = rs.uniform(0, 0.7, (B, N, 2))
+        d[..., 2:4] = xy
+        d[..., 4:6] = xy + rs.uniform(0.02, 0.3, (B, N, 2))
+        _, vs, boxes, ids, limit = _nms_sorted(
+            torch.from_numpy(d).cuda(), 0.0, topk, 2, 1, 0, -1, False,
+            "corner")
+        want = n1._nms_keep_ref(boxes, vs, ids, N1_THRESH, limit)
+        for route in routes:
+            kw = {}
+            if route != "default":
+                if not routed:
+                    continue
+                try:
+                    n1._card_plan(boxes.device, B, limit, route)
+                except Exception:  # the route does not take this limit
+                    continue
+                kw = {"route": route}
+            got = n1._nms_keep_cuda(boxes, vs, ids, N1_THRESH, limit, **kw)
+            if not torch.equal(got, want):
+                raise RuntimeError(f"N1 ({route}) differs from the plain "
+                                   f"loop at {name}")
+            out[f"n1_{name}_{route}_ms"] = _time_ms(
+                torch, lambda: n1._nms_keep_cuda(boxes, vs, ids, N1_THRESH,
+                                                 limit, **kw), flush)
+    return out
+
+
+def child(tree, kernels, n2_routes, n1_routes):
     """Time one tree's kernels; print one JSON line."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
@@ -143,6 +209,8 @@ def child(tree, kernels, n2_routes):
     out = {"tree": tree}
     if "n2" in kernels:
         out.update(n2_per_forward(torch, flush, gen, n2_routes))
+    if "n1" in kernels:
+        out.update(n1_times(torch, flush, n1_routes))
     for name, (B, H, S_q, S_k, D, causal, dtype) in (
             K1_SHAPES.items() if "k1" in kernels else ()):
         dtype = getattr(torch, dtype)
@@ -189,21 +257,26 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="*", help="checkouts, timed in this order")
     ap.add_argument("--kernels", nargs="+", default=["k1", "k2", "n2"],
-                    choices=("k1", "k2", "n2"))
+                    choices=("k1", "k2", "n1", "n2"))
     ap.add_argument("--n2-routes", nargs="+", default=["default"],
                     choices=("default", "mma", "sm90"),
                     help="N2's routes, timed in this order in each tree")
+    ap.add_argument("--n1-routes", nargs="+", default=["default"],
+                    choices=("default", "fused", "mask_reduce"),
+                    help="N1's routes, timed in this order in each tree")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
-        return child(args.child, args.kernels, args.n2_routes)
+        return child(args.child, args.kernels, args.n2_routes,
+                     args.n1_routes)
     if not args.trees:
         ap.error("name at least one tree")
     turns = []
     for tree in args.trees:
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
                               "--child", tree, "--kernels", *args.kernels,
-                              "--n2-routes", *args.n2_routes],
+                              "--n2-routes", *args.n2_routes,
+                              "--n1-routes", *args.n1_routes],
                              capture_output=True, text=True, timeout=900)
         sys.stderr.write(res.stderr[-4000:])
         if res.returncode:

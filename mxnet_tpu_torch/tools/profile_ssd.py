@@ -34,7 +34,9 @@ settings of MXNet's ``example/ssd/symbol/symbol_factory.py``:
   initializer it diverges within four steps;
 - detection: ``softmax``, then ``MultiBoxDetection`` with
   ``nms_threshold=0.45``, ``nms_topk=400``, ``threshold=0.01``,
-  ``force_suppress=False`` (example/ssd's ``demo.py``/``evaluate``).
+  ``force_suppress=False`` (example/ssd's ``demo.py``/``evaluate``);
+  the detection is also timed at ``nms_topk=-1`` (``uncapped``), the
+  op's own default, whose sweep covers all 8732 rows.
 
 The body (backbone and heads) is one ``HybridBlock``, hybridized; the
 anchors are computed once; the targets and the loss run eagerly under
@@ -200,13 +202,15 @@ def ssd_loss(mx, cls_preds, loc_preds, loc_t, loc_mask, cls_t):
     return nd.sum(ce) / denom + nd.sum(loc) / denom
 
 
-def detect(mx, cls_preds, loc_preds, anchor):
-    """``softmax`` then ``MultiBoxDetection`` at example/ssd's settings:
+def detect(mx, cls_preds, loc_preds, anchor, nms_topk=None):
+    """``softmax`` then ``MultiBoxDetection`` at example/ssd's settings
+    (``nms_topk`` 400 unless given; -1 is the op's default, no cap):
     (B, 8732, 6) rows [class id, score, x1, y1, x2, y2], -1 where
     suppressed."""
     nd = mx.nd
     probs = nd.softmax(cls_preds, axis=-1).transpose((0, 2, 1))
-    return nd.contrib.MultiBoxDetection(probs, loc_preds, anchor, **DETECT)
+    kw = DETECT if nms_topk is None else dict(DETECT, nms_topk=nms_topk)
+    return nd.contrib.MultiBoxDetection(probs, loc_preds, anchor, **kw)
 
 
 def synthetic_batch(batch, seed=SEED, size=IMAGE, classes=CLASSES):
@@ -354,10 +358,11 @@ def train(batch=32, steps=20, warmup=2, seed=SEED, profiled=3, net=None,
     return result, (net, anchor, x, y)
 
 
-def detection_times(net, anchor, x, reps=10):
+def detection_times(net, anchor, x, reps=10, nms_topk=None):
     """Median ms of the detection head (``detect`` on the body's
-    outputs) and of the body's forward with it, on batch ``x``, in
-    predict mode; and the mean kept detections per image."""
+    outputs, at ``nms_topk``) and of the body's forward with it, on
+    batch ``x``, in predict mode; and the mean kept detections per
+    image."""
     import torch
 
     import mxnet_tpu_torch as mx
@@ -365,14 +370,14 @@ def detection_times(net, anchor, x, reps=10):
     head_ms, full_ms = [], []
     with mx.autograd.predict_mode():
         cls_preds, loc_preds = net(x)
-        dets = detect(mx, cls_preds, loc_preds, anchor)
+        dets = detect(mx, cls_preds, loc_preds, anchor, nms_topk)
         for _ in range(reps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            detect(mx, cls_preds, loc_preds, anchor)
+            detect(mx, cls_preds, loc_preds, anchor, nms_topk)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            detect(mx, *net(x), anchor)
+            detect(mx, *net(x), anchor, nms_topk)
             torch.cuda.synchronize()
             head_ms.append((t1 - t0) * 1e3)
             full_ms.append((time.perf_counter() - t1) * 1e3)
@@ -394,6 +399,7 @@ def main(argv=None):
 
     result, (net, anchor, x, _) = train(args.batch, args.steps, lr=args.lr)
     result.update(detection_times(net, anchor, x))
+    result["uncapped"] = detection_times(net, anchor, x, nms_topk=-1)
     print(json.dumps(dict({"card": _card()}, **result)))
 
 

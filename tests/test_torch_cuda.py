@@ -1921,50 +1921,153 @@ def _nms_inputs(dev, B, N, seed=0, classes=20, span=0.3):
     return torch.from_numpy(d).to(dev)
 
 
+def _n1_routes(dev, B, limit):
+    """The N1 routes that take ``limit`` rows on this card."""
+    from mxnet_tpu_torch.kernels import box_nms as n1
+
+    routes = ["mask_reduce"]
+    try:
+        n1._card_plan(dev, B, limit, "fused")
+    except mx.MXNetError:
+        return routes
+    return ["fused"] + routes
+
+
 @pytest.mark.parametrize("topk,force", [(400, False), (400, True),
                                         (-1, False), (-1, True)])
 def test_n1_keep_mask_equals_plain_version_at_ssd300_shape(cuda, topk,
                                                             force):
-    """N1 at (32, 8732), SSD300's detection batch: the keep mask equal,
-    bit for bit, to the plain loop on the same card inputs."""
-    from mxnet_tpu_torch.kernels.box_nms import (
-        KERNEL as N1, _nms_keep_cuda, _nms_keep_ref)
+    """N1 at (32, 8732), SSD300's detection batch: the keep mask of every
+    route that takes the limit equal, bit for bit, to the plain loop on
+    the same card inputs, each route's kernels launched once."""
+    from mxnet_tpu_torch.kernels import box_nms as n1
     from mxnet_tpu_torch.ndarray.ops_contrib import _nms_sorted
 
     d = _nms_inputs(cuda, 32, 8732)
     _, vs, boxes, ids, limit = _nms_sorted(d, 0.0, topk, 2, 1, 0, -1,
                                            force, "corner")
-    _build.reset_launch_counts()
-    got = _nms_keep_cuda(boxes, vs, ids, 0.45, limit)
-    assert _build.launch_counts().get(N1) == 1
-    want = _nms_keep_ref(boxes, vs, ids, 0.45, limit)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    want = n1._nms_keep_ref(boxes, vs, ids, 0.45, limit)
+    routes = _n1_routes(cuda, 32, limit)
+    assert routes == (["fused", "mask_reduce"] if topk == 400
+                      else ["mask_reduce"])
+    assert n1._card_plan(cuda, 32, limit)["route"] == "mask_reduce"
+    for route in routes:
+        _build.reset_launch_counts()
+        got = n1._nms_keep_cuda(boxes, vs, ids, 0.45, limit, route=route)
+        assert _build.launch_counts() == dict.fromkeys(
+            n1.ROUTE_KERNELS[route], 1)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), route
     assert 0 < int(got.sum()) < int(vs.sum())
+
+
+@pytest.mark.parametrize("topk,force", [(400, False), (-1, True)])
+def test_n1_mask_kernel_words_equal_the_plain_mask(cuda, topk, force):
+    """The mask kernel's triangle of words at (32, 8732), bit for bit."""
+    from mxnet_tpu_torch.kernels import box_nms as n1
+    from mxnet_tpu_torch.ndarray.ops_contrib import _nms_sorted
+
+    d = _nms_inputs(cuda, 32, 8732, seed=1)
+    _, vs, boxes, ids, limit = _nms_sorted(d, 0.0, topk, 2, 1, 0, -1,
+                                           force, "corner")
+    got = n1._nms_mask_cuda(boxes, ids, 0.45, limit)
+    want = n1._nms_mask_ref(boxes, ids, 0.45, limit)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (32, n1._triangle_words(limit))
+    assert torch.equal(got, want)
+    assert bool((want != 0).any())
 
 
 @pytest.mark.parametrize("B,N,limit", [(1, 1, 1), (3, 255, 255),
                                        (2, 257, 100), (5, 1000, 1000),
-                                       (2, 12000, 12000)])
+                                       (2, 12000, 12000), (3, 40, 0),
+                                       (4, 5, 2), (32, 2, 2),
+                                       (2, 1700, 1664), (2, 1700, 1665),
+                                       (33, 1665, 1665), (1, 64, 63)])
 def test_n1_at_ragged_sizes_and_past_shared_memory(cuda, B, N, limit):
-    """N not a multiple of the 256-thread block; 12,000 rows do not fit
-    shared memory staged (boxes then read from device memory)."""
-    from mxnet_tpu_torch.kernels.box_nms import _nms_keep_cuda, _nms_keep_ref
+    """Ragged B, N and limits, on each route that takes them: across the
+    fused route's shared-memory edge (1,664 rows fused on an H100, 1,665
+    not), past a block of threads, past 64 words, none."""
+    from mxnet_tpu_torch.kernels import box_nms as n1
 
     d = _nms_inputs(cuda, B, N, seed=N, classes=3, span=0.5)
     boxes = d[..., 2:6].contiguous()
     vs = (d[..., 1] > 0).contiguous()
+    routes = _n1_routes(cuda, B, limit)
+    assert ("fused" in routes) == (limit <= 1664)
     for ids in (None, d[..., 0].contiguous()):
-        got = _nms_keep_cuda(boxes, vs, ids, 0.3, limit)
-        want = _nms_keep_ref(boxes, vs, ids, 0.3, limit)
+        want = n1._nms_keep_ref(boxes, vs, ids, 0.3, limit)
+        for route in routes:
+            got = n1._nms_keep_cuda(boxes, vs, ids, 0.3, limit, route=route)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (B, N, limit, ids is None, route)
+
+
+@pytest.mark.parametrize("B,N,limit", [(1, 40000, 40000),
+                                       (2, 33000, 32769)])
+def test_n1_past_512_words_equals_plain_version(cuda, B, N, limit):
+    """Past 32,768 rows (512 words) the reduce keeps its removed bits in
+    shared memory: the keep mask equal to the plain loop's."""
+    from mxnet_tpu_torch.kernels import box_nms as n1
+
+    d = _nms_inputs(cuda, B, N, seed=N, classes=3, span=0.05)
+    boxes = d[..., 2:6].contiguous()
+    vs = (d[..., 1] > 0).contiguous()
+    plan = n1._card_plan(cuda, B, limit)
+    assert plan["route"] == "mask_reduce" and plan["words"] > 512
+    for ids in (None, d[..., 0].contiguous()):
+        want = n1._nms_keep_ref(boxes, vs, ids, 0.3, limit)
+        got = n1._nms_keep_cuda(boxes, vs, ids, 0.3, limit)
         torch.cuda.synchronize()
-        assert torch.equal(got, want), (B, N, limit, ids is None)
+        assert torch.equal(got, want), ids is None
+        assert 0 < int(got.sum()) < int(vs.sum())
+
+
+@pytest.mark.parametrize("R", [4, 2])
+def test_n1_reduce_on_short_ring_stages_equals_plain_version(cuda, R):
+    """Stages of 4 rows and of 2, which the route rule takes past about
+    100,000 and 200,000 rows, here at 2,900 rows (45 words a row, an odd
+    count): the keep mask equal to the plain loop's."""
+    from mxnet_tpu_torch.kernels import box_nms as n1
+
+    d = _nms_inputs(cuda, 3, 3000, seed=R, classes=3, span=0.3)
+    boxes = d[..., 2:6].contiguous()
+    vs = (d[..., 1] > 0).contiguous()
+    ids = d[..., 0].contiguous()
+    plan = dict(n1._card_plan(cuda, 3, 2900, "mask_reduce"),
+                rows_per_stage=R, stages=3)
+    got = n1._nms_reduce_cuda(n1._nms_mask_cuda(boxes, ids, 0.3, 2900), vs,
+                              2900, plan)
+    want = n1._nms_keep_ref(boxes, vs, ids, 0.3, 2900)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_n1_splits_a_batch_whose_triangles_pass_the_cap(cuda, monkeypatch):
+    """Triangles past the workspace cap: the images in turns, each launch
+    pair over as many as the cap holds; the keep mask as one sweep's."""
+    from mxnet_tpu_torch.kernels import box_nms as n1
+
+    d = _nms_inputs(cuda, 5, 3000, seed=5)
+    boxes = d[..., 2:6].contiguous()
+    vs = (d[..., 1] > 0).contiguous()
+    ids = d[..., 0].contiguous()
+    monkeypatch.setattr(n1, "_workspace_cap",
+                        lambda index: 2 * 8 * n1._triangle_words(3000))
+    assert n1._card_plan(cuda, 5, 3000)["launches"] == 3
+    _build.reset_launch_counts()
+    got = n1._nms_keep_cuda(boxes, vs, ids, 0.45, 3000)
+    assert _build.launch_counts() == {n1.MASK: 3, n1.REDUCE: 3}
+    want = n1._nms_keep_ref(boxes, vs, ids, 0.45, 3000)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_box_nms_on_the_card_is_captured_and_matches_the_cpu(cuda):
     """``box_nms`` inside a CUDA graph: the replay's rows equal the eager
-    card run's and the CPU port's; N1 launches once per replay."""
-    from mxnet_tpu_torch.kernels.box_nms import KERNEL as N1
+    card run's and the CPU port's; N1's kernels (the mask_reduce route at
+    ``topk`` 400) launch once each per replay."""
+    from mxnet_tpu_torch.kernels.box_nms import MASK, REDUCE
 
     d = _nms_inputs(cuda, 4, 3000, seed=3)
     kw = dict(overlap_thresh=0.45, topk=400, id_index=0, coord_start=2,
@@ -1980,7 +2083,33 @@ def test_box_nms_on_the_card_is_captured_and_matches_the_cpu(cuda):
     with _build.recording_launches() as rec:
         with mx.context.cuda_graph(graph):
             out = mx.nd.contrib.box_nms(mx.nd.NDArray(d), **kw)._data
-    assert rec == {N1: 1}
+    assert rec == {MASK: 1, REDUCE: 1}
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert torch.equal(out.cpu(), cpu)
+
+
+def test_box_nms_short_sweep_is_captured_on_the_fused_route(cuda):
+    """``box_nms`` over 200 rows inside a CUDA graph: the fused kernel
+    once per replay; the replay's rows equal the eager run's and the CPU
+    port's."""
+    from mxnet_tpu_torch.kernels.box_nms import FUSED
+
+    d = _nms_inputs(cuda, 4, 200, seed=4)
+    kw = dict(overlap_thresh=0.45, id_index=0, coord_start=2, score_index=1)
+    cpu = mx.nd.contrib.box_nms(mx.nd.NDArray(d.cpu()), **kw)._data
+    eager = mx.nd.contrib.box_nms(mx.nd.NDArray(d), **kw)._data
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        mx.nd.contrib.box_nms(mx.nd.NDArray(d), **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with _build.recording_launches() as rec:
+        with mx.context.cuda_graph(graph):
+            out = mx.nd.contrib.box_nms(mx.nd.NDArray(d), **kw)._data
+    assert rec == {FUSED: 1}
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, eager)
@@ -2042,7 +2171,7 @@ def test_sym_contrib_detection_graph_bound_on_the_card(cuda):
     on the card (the executor captures it, N1 inside): two forwards equal
     each other and the CPU port's rows (ids and -1 rows exactly, values
     within 1e-5)."""
-    from mxnet_tpu_torch.kernels.box_nms import KERNEL as N1
+    from mxnet_tpu_torch.kernels.box_nms import FUSED as N1  # nms_topk 50
 
     S = mx.sym
     anchor = S.contrib.MultiBoxPrior(S.var("feat"), sizes=[0.3, 0.5],

@@ -384,6 +384,107 @@ def test_in_place_on_an_array_made_from_another_leaves_that_one_as_jax(make):
         onp.testing.assert_array_equal(y.asnumpy(), want)
 
 
+_COPY_VIEWS = ["x.T", "x.swapaxes(0, 1)", "x.expand_dims(0)",
+               "m.expand_dims(x, axis=0)",
+               "m.broadcast_to(x[0:1], shape=(4, 3))",
+               "m.stop_gradient(x)", "m.BlockGrad(x)", "m.make_loss(x)",
+               "m.Dropout(x, p=0.5)", "m.transpose(x)", "x.T.T",
+               "x[0:1].T"]
+
+
+@pytest.mark.parametrize("write", ["x += 1", "x[:] = 7", "x[0, 1] = 7",
+                                   "x2.copyto(x)"])
+@pytest.mark.parametrize("make", _COPY_VIEWS)
+def test_in_place_into_an_array_leaves_one_made_from_it_as_jax(make, write):
+    """``y`` comes from an op that torch would answer with a view of
+    ``x``'s memory, and the port copies: a write into ``x`` leaves ``y``
+    as it was made, as in the JAX package (whose handles never alias)
+    and in MXNet."""
+    a = onp.arange(6, dtype="float32").reshape(2, 3)
+    for m, x in ((nd, nd.array(a, ctx=CPU)), (jnd, jnd.array(a))):
+        x2 = m.array(a + 10) if m is jnd else nd.array(a + 10, ctx=CPU)
+        y = eval(make)
+        want = y.asnumpy().copy()
+        exec(write)
+        onp.testing.assert_array_equal(y.asnumpy(), want,
+                                       err_msg=f"{make}; {write}; "
+                                       f"{m.__name__}")
+        assert not onp.array_equal(x.asnumpy(), a)
+
+
+@pytest.mark.parametrize("make", _COPY_VIEWS[:3])
+def test_a_write_into_a_view_that_stands_for_a_copy_leaves_its_source(make):
+    x = nd.array(onp.arange(6, dtype="float32").reshape(2, 3), ctx=CPU)
+    m = nd
+    y = eval(make)
+    y[:] = -1
+    assert x.asnumpy().tolist() == [[0, 1, 2], [3, 4, 5]]
+    assert (y.asnumpy() == -1).all()
+
+
+@pytest.mark.parametrize("make", ["x.reshape((3, 2))", "x[0:1]",
+                                  "x.detach()", "x.T.reshape((6,))",
+                                  "x.T[0:2]"])
+def test_reshape_slice_and_detach_share_memory_as_mxnet(make):
+    """MXNet's own sharing stays: ``reshape``, a basic slice and
+    ``detach`` see a later write into their source (``x.T`` first takes
+    its own copy, which the second one shares)."""
+    x = nd.array(onp.arange(6, dtype="float32").reshape(2, 3), ctx=CPU)
+    src = x.T if ".T" in make else x
+    y = eval(make.replace("x.T", "src"))
+    src += 100
+    assert (y.asnumpy() >= 100).all(), make
+    if src is not x:
+        assert x.asnumpy().max() == 5
+
+
+def test_a_parameter_sees_an_in_place_write_with_a_view_alive():
+    """The registered leaf still takes the write while ``w.T`` lives;
+    the view keeps the old values."""
+    net = gluon.nn.Dense(3, in_units=4)
+    net.initialize(ctx=CPU)
+    w = net.weight.data()
+    leaf = w.data
+    before = w.asnumpy().copy()
+    wt = w.T
+    w -= 1.0
+    assert net.weight.data().data is leaf
+    onp.testing.assert_array_equal(leaf.detach().numpy(), before - 1.0)
+    onp.testing.assert_array_equal(wt.asnumpy(), before.T)
+
+
+@pytest.mark.parametrize("writer", ["sgd_update", "trainer_step",
+                                    "set_data"])
+def test_the_writers_of_a_weight_leave_its_transpose_as_jax(writer):
+    """``wt = w.T`` made before an optimizer update op, a Trainer step or
+    ``Parameter.set_data`` keeps the values it was made with, in both
+    packages."""
+    for pkg in (mx, jmx):
+        ctx = pkg.cpu()
+        pkg.random.seed(0)
+        net = pkg.gluon.nn.Dense(3, in_units=2)
+        net.initialize(ctx=ctx)
+        w = net.weight.data()
+        wt = w.T
+        before = wt.asnumpy().copy()
+        if writer == "sgd_update":
+            pkg.nd.sgd_update(w, pkg.nd.ones((3, 2), ctx=ctx), lr=0.5,
+                              wd=0.0)
+        elif writer == "trainer_step":
+            trainer = pkg.gluon.Trainer(net.collect_params(), "sgd",
+                                        {"learning_rate": 0.5})
+            with pkg.autograd.record():
+                loss = net(pkg.nd.ones((4, 2), ctx=ctx)).sum()
+            loss.backward()
+            trainer.step(1)
+            assert not onp.array_equal(net.weight.data().asnumpy(),
+                                       before.T)
+        else:
+            net.weight.set_data(pkg.nd.zeros((3, 2), ctx=ctx))
+        onp.testing.assert_array_equal(wt.asnumpy(), before,
+                                       err_msg=pkg.__name__)
+
+
 @pytest.mark.parametrize("op", ["+=", "-=", "*=", "/="])
 def test_in_place_inside_record_raises_as_jax(op):
     t = nd.array(onp.ones(3, "float32"), ctx=CPU)

@@ -23,6 +23,7 @@ import numpy as onp
 import pytest
 
 from mxnet_tpu import autograd as jautograd
+from mxnet_tpu import name as jname
 from mxnet_tpu import nd as jnd
 from mxnet_tpu import sym as JS
 from mxnet_tpu.analysis import quantize as jqp
@@ -199,6 +200,14 @@ def test_entropy_statistics_equal_jax(cnn):
     host path: entropy thresholds exactly, naive ranges within 1e-6."""
     js, ts, args, auxs, x, calib = cnn
     ja, jx, ta, tx = _pair_params(args, auxs)
+    # The JAX package runs the first call of an op signature in a process
+    # op by op (its dispatch's uncached path) and every later call through
+    # the jitted executable, whose fused BatchNorm rounds a float32 ulp
+    # apart; whether an earlier test already made these calls decided
+    # which of the two this test met. One warm-up pass makes it always
+    # the jitted one, the program the port's results equal.
+    jq._collect_layer_statistics(
+        js, {**ja, **jx}, [jnd.array(c) for c in calib], ("data",), "naive")
     for mode in ("entropy", "naive"):
         jst = jq._collect_layer_statistics(
             js, {**ja, **jx}, [jnd.array(c) for c in calib], ("data",), mode)
@@ -368,11 +377,16 @@ def resnet18():
 
 @pytest.fixture(scope="module")
 def resnet18_int8(resnet18):
+    # each package names the graph's unnamed nodes from its own
+    # process-wide counters, which any earlier test in the process may
+    # have moved: a fresh name scope each, so both start from 0
     tnet, jnet, x, calib = resnet18
-    tqb = tq.quantize_net_graph(tnet, calib_data=[
-        nd.array(c, ctx=CPU) for c in calib], calib_mode="naive")
-    jqb = jq.quantize_net_graph(jnet, calib_data=[
-        jnd.array(c) for c in calib], calib_mode="naive")
+    with mx.name.NameManager():
+        tqb = tq.quantize_net_graph(tnet, calib_data=[
+            nd.array(c, ctx=CPU) for c in calib], calib_mode="naive")
+    with jname.NameManager():
+        jqb = jq.quantize_net_graph(jnet, calib_data=[
+            jnd.array(c) for c in calib], calib_mode="naive")
     return tqb, jqb
 
 

@@ -196,18 +196,47 @@ class _Boom(gluon.HybridBlock):
         raise RuntimeError("model exploded")
 
 
-@pytest.fixture
-def server(repo):
+def _serve(repo, admission):
     net = _decoder()
-    r = repo(timeout_ms=TIMEOUT_S * 1e3, admission=True)
+    r = repo(timeout_ms=TIMEOUT_S * 1e3, admission=admission)
     r.deploy("dense", _dense_session(6))
     r.deploy("lm", _decode_session(net))
     boom = serving.InferenceSession(_Boom(), input_shapes=[(1, 6)],
                                     buckets=[1], warm=False, ctx=mx.cpu())
     r.deploy("boom", boom)
-    srv = serving.ModelServer(repository=r, port=0).start()
+    return serving.ModelServer(repository=r, port=0).start()
+
+
+@pytest.fixture
+def server(repo):
+    """The front end with admission off. Admission sheds a standard
+    request once the rolling p99 of the requests in this process, any
+    earlier test's included, passes its 100 ms SLO, as it does on a
+    loaded host; these tests check routes and statuses, not that."""
+    srv = _serve(repo, admission=False)
     yield srv
     srv.stop()
+
+
+@pytest.fixture
+def admitting_server(repo):
+    """The front end with admission on, its latency window emptied first
+    so only this test's own requests move the headroom."""
+    serving.METRICS.reset()
+    srv = _serve(repo, admission=True)
+    yield srv
+    srv.stop()
+
+
+@pytest.fixture
+def blown_latency_window():
+    """What a loaded host leaves behind: critical requests far slower
+    than the 100 ms SLO in the rolling window, so the latency headroom
+    is 0. Emptied again afterwards, so no later test meets it."""
+    for _ in range(8):
+        serving.METRICS.observe_request(1.0, slo_class="critical")
+    yield
+    serving.METRICS.reset()
 
 
 def _call(srv, method, path, body=None, headers=None):
@@ -293,7 +322,8 @@ def test_http_error_mapping(server):
     assert "evicted" in json.loads(body)["error"]
 
 
-def test_http_shed_best_effort_while_critical_passes(server):
+def test_http_shed_best_effort_while_critical_passes(admitting_server):
+    server = admitting_server
     x = {"data": [[0.5] * 6]}
     serving.METRICS.reset()
     with faults.inject("serving_admission", every=1):
@@ -312,7 +342,32 @@ def test_http_shed_best_effort_while_critical_passes(server):
         in text
 
 
-def test_http_healthz_models_and_graceful_stop(server):
+def test_http_latency_window_blown_sheds_standard_not_critical(
+        admitting_server, blown_latency_window):
+    """The load the other HTTP tests no longer depend on: with the
+    window's p99 past the SLO, admission sheds a standard request and
+    still admits a critical one."""
+    x = {"data": [[0.5] * 6]}
+    code, hdr, body = _post(admitting_server, "/models/dense/predict", x)
+    assert code == 503 and "SLO headroom" in json.loads(body)["error"]
+    code, _, _ = _post(admitting_server, "/models/dense/predict", x,
+                       **{"X-SLO-Class": "critical"})
+    assert code == 200
+
+
+def test_http_predict_passes_with_the_latency_window_blown(
+        server, blown_latency_window):
+    x = onp.random.RandomState(2).randn(1, 6).astype("float32")
+    code, _, body = _post(server, "/models/dense/predict",
+                          {"data": x.tolist()})
+    assert code == 200, body
+    onp.testing.assert_allclose(json.loads(body)["outputs"][0],
+                                server.repository.predict("dense", x),
+                                rtol=1e-6)
+
+
+def test_http_healthz_models_and_graceful_stop(admitting_server):
+    server = admitting_server
     code, _, body = _call(server, "GET", "/healthz")
     doc = json.loads(body)
     assert code == 503 and doc["warm"] is False  # boom never warmed
