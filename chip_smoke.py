@@ -447,7 +447,30 @@ stream busy until the launch is enqueued, so it is the device's time:
     float32 pages, the full-length sessions one byte budget holds, and
     every step of phase 18's eight rerun streams within 0.1 of their
     float32-page logits (the JAX bound);
-52. report: one JSON line of kernels, then the device line last.
+52. ``dist_sync`` data parallelism: ``tools/profile_dist.py`` under
+    ``python -m mxnet_tpu_torch.tools.launch -n 2 --launcher local``,
+    two ranks on the one card over gloo (the launcher's rule: ranks that
+    share a card take gloo): ``resnet50_v1`` at its published widths,
+    batch 128 a rank, the fp32 step of phase 16 with
+    ``Trainer(kvstore="dist_sync")`` and K4's head; 2 warm-up and 5
+    timed steps, each holding the reduced gradient bitwise to the sum of
+    the ranks' gradients saved before the reduction and the ranks'
+    parameters bitwise equal; steps to 40, the loss at 40 below the
+    first; buckets dispatched during backward; a step with
+    ``MXNET_ASYNC_GRAD_SYNC=1`` and one with ``=0`` from the same
+    weights at deterministic cuDNN (the trainer hooks its reducer when
+    it is made, so the first step's buckets leave during backward),
+    bitwise equal parameters; ``dist.all_reduce`` and the
+    kvstore's push and pull at 1e6, 1e7 and 2.56e7 float32; per rank the
+    step ms, img/s, the all-reduce's ms left after backward, the bytes
+    reduced, peak memory and K4's launches (2 x 5);
+53. one rank over NCCL (one rank, one card): the same step under
+    ``dist_device_sync``, 3 timed, then a step bitwise equal to one
+    under ``kvstore="device"`` from the same weights; 3 steps with 2-bit
+    compression, every parameter's packed codes and residual made on the
+    card equal to the CPU port's for the same gradient and residual;
+    NCCL's ``all_reduce`` and the kvstore at the same sizes;
+54. report: one JSON line of kernels, then the device line last.
 
 Each phase prints the seconds it took.
 
@@ -501,6 +524,7 @@ from mxnet_tpu_torch.tools.profile_decode import (  # noqa: E402
     build as decode_stack, profile_steps)
 from mxnet_tpu_torch.gluon.model_zoo import vision  # noqa: E402
 from mxnet_tpu_torch.resilience import faults  # noqa: E402
+from mxnet_tpu_torch.tools import launch  # noqa: E402
 
 SEED = 20240917
 # GPT-2 small (n_embd 768, n_head 12, n_layer 12, n_positions 1024,
@@ -5332,6 +5356,141 @@ def int8_kv_phase(traffic, fp32):
     return result
 
 
+# dist_sync (phases 52-53): the ranks train at phase 16's widths and
+# batch; the loss is read at step 40 as in phase 16 (SGD at lr 0.1 and
+# momentum 0.9 overshoots on a fixed batch for ~20 steps)
+DIST_BATCH, DIST_WARMUP, DIST_STEPS, DIST_LOSS_STEP = 128, 2, 5, 40
+DIST_SIZES, DIST_BW_ITERS = "1e6,1e7,2.56e7", "5"
+DIST_TIMEOUT = 420
+
+
+def _launch_dist(n, args):
+    """``tools/profile_dist.py`` as ``n`` local ranks through the
+    launcher; each rank's JSON result. The whole job is killed if it
+    outlives ``DIST_TIMEOUT``."""
+    out = tempfile.mkdtemp(prefix="dist_")
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
+           str(n), "--launcher", "local", "--port", str(launch.free_port()),
+           sys.executable, "-m", "mxnet_tpu_torch.tools.profile_dist",
+           "--out", out] + list(args)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=DIST_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise RuntimeError(f"the {n}-rank job outlived {DIST_TIMEOUT} s")
+    if proc.returncode:
+        print(log[-6000:])
+        raise RuntimeError(f"the {n}-rank job exited {proc.returncode}")
+    res = []
+    for r in range(n):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    return res
+
+
+def _dist_rank_line(r):
+    t = r["train"]
+    k4 = t["k4_launches"]
+    return {"rank": r["rank"], "backend": r["backend"],
+            "step_ms": t["step_ms"],
+            "mean_step_ms": statistics.mean(t["step_ms"]),
+            "img_per_s": statistics.mean(t["img_per_s"]),
+            "allreduce_ms": t["allreduce_ms"],
+            "mean_allreduce_ms": statistics.mean(t["allreduce_ms"]),
+            "grad_bytes_per_step": t["grad_bytes_per_step"],
+            "buckets_in_backward": t["buckets_in_backward"],
+            "flush_buckets": t["flush_buckets"], "peak_gb": t["peak_gb"],
+            "k4_launches_per_step": t["k4_launches_per_step"],
+            "k4_fwd": k4.get(pr.FWD_KERNEL, 0),
+            "k4_bwd": k4.get(pr.BWD_KERNEL, 0),
+            "loss_first_last": [t["losses"][0], t["losses"][-1]],
+            "losses": t["losses"]}
+
+
+def _check_k4(line, steps):
+    if line["k4_fwd"] != steps or line["k4_bwd"] != steps:
+        raise RuntimeError(f"rank {line['rank']}: K4 launched forward "
+                           f"{line['k4_fwd']}, backward {line['k4_bwd']} "
+                           f"times in {steps} steps")
+
+
+def dist_gloo_phase(smi):
+    phase("52 dist_sync: ResNet-50 v1 by two ranks on one card over gloo")
+    ranks = _launch_dist(2, [
+        "--batch", str(DIST_BATCH), "--warmup", str(DIST_WARMUP),
+        "--steps", str(DIST_STEPS), "--loss-step", str(DIST_LOSS_STEP),
+        "--check", "--compare-sync", "1", "--bandwidth", DIST_SIZES,
+        "--bw-iters", DIST_BW_ITERS])
+    lines = []
+    for r in ranks:
+        if r["backend"] != "gloo" or r["ranks"] != 2:
+            raise RuntimeError(f"rank {r['rank']}: backend {r['backend']} "
+                               f"over {r['ranks']} ranks, expected gloo over 2")
+        if not r["start_weights_equal"]:
+            raise RuntimeError("the ranks started from different weights")
+        t = r["train"]
+        bad = [c for c in t["checks"]
+               if not (c["reduced_is_sum"] and c["params_equal"])]
+        if len(t["checks"]) != DIST_STEPS or bad:
+            raise RuntimeError(f"rank {r['rank']}: per-step checks {bad or t['checks']}")
+        if not t["loss_falls"] or len(t["losses"]) != DIST_LOSS_STEP:
+            raise RuntimeError(f"rank {r['rank']}: loss at step "
+                               f"{len(t['losses'])} {t['losses'][-1]} not "
+                               f"below the first {t['losses'][0]}")
+        if t["buckets_in_backward"] <= 0:
+            raise RuntimeError("no bucket was dispatched during backward")
+        if not r["compare_sync"]["bitwise_equal"]:
+            raise RuntimeError(f"MXNET_ASYNC_GRAD_SYNC 1 and 0 differ: "
+                               f"{r['compare_sync']}")
+        line = _dist_rank_line(r)
+        _check_k4(line, DIST_STEPS)
+        line["bandwidth"] = r["bandwidth"]
+        line["card"] = r["card"]
+        line["seconds"] = r["seconds"]
+        lines.append(line)
+        print(f"rank {r['rank']}: " + json.dumps(line))
+    print(f"two ranks over gloo on {smi}: every timed step's reduced "
+          f"gradient bitwise the ranks' sum ({ranks[0]['train']['grad_bytes_per_step']} "
+          "bytes), parameters bitwise equal, reducer on/off bitwise equal, "
+          f"losses {[line['loss_first_last'] for line in lines]}")
+    return lines
+
+
+def dist_nccl_phase(smi):
+    phase("53 dist_device_sync: one rank over NCCL")
+    (r,) = _launch_dist(1, [
+        "--kvstore", "dist_device_sync", "--batch", str(DIST_BATCH),
+        "--warmup", "1", "--steps", "3", "--compare-device", "1",
+        "--compression", "3", "--bandwidth", DIST_SIZES,
+        "--bw-iters", DIST_BW_ITERS])
+    if r["backend"] != "nccl":
+        raise RuntimeError(f"one rank on one card took {r['backend']}, "
+                           "expected nccl")
+    if not r["compare_device"]["bitwise_equal"]:
+        raise RuntimeError(f"dist_device_sync differs from device: "
+                           f"{r['compare_device']}")
+    for c in r["compression"]["steps"]:
+        if not (c["codes_equal"] and c["residuals_equal"]
+                and c["kept_residual_equal"]) or c["nonzero_codes"] <= 0:
+            raise RuntimeError(f"2-bit compression on the card: {c}")
+    line = _dist_rank_line(r)
+    _check_k4(line, 3)
+    line["bandwidth"] = r["bandwidth"]
+    line["compression"] = r["compression"]
+    line["card"] = r["card"]
+    line["seconds"] = r["seconds"]
+    print("rank 0: " + json.dumps(line))
+    print(f"one rank over NCCL on {smi}: a step bitwise equal to "
+          "kvstore='device'; compression codes and residuals equal to the "
+          "CPU port's")
+    return line
+
+
 def kernel_entry(name, source, replaces, launches, worst, row, shape, smi,
                  **extra):
     entry = {"name": name, "route": "cuda", "source": source,
@@ -5412,6 +5571,13 @@ def main():
     del rnet
     torch.cuda.empty_cache()
     kv_int8 = int8_kv_phase(paged_traffic, paged_fp32)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist2 = dist_gloo_phase(smi)
+    dist1 = dist_nccl_phase(smi)
+    k4_dist = {"resnet50_dist_sync_gloo_rank0": dist2[0]["k4_fwd"],
+               "resnet50_dist_sync_gloo_rank1": dist2[1]["k4_fwd"],
+               "resnet50_dist_device_sync_nccl": dist1["k4_fwd"]}
     bind_counts = fusion_bind["counts"]
     # the counts after the inference forward hold the training step's too
     k1_bind = bind_counts["after_inference"].get(FLASH_KERNEL, 0)
@@ -5489,24 +5655,26 @@ def main():
         kernel_entry(
             pr.FWD_KERNEL, "mxnet_tpu_torch/tools/profile_resnet.py "
             "(FWD_SRC, via mxnet_tpu_torch/rtc.py)", "mxnet_tpu/rtc.py:19",
-            k4_fwd_n + sum(k4_amp.values()) + sum(k4_hyb.values()),
+            k4_fwd_n + sum(k4_amp.values()) + sum(k4_hyb.values())
+            + sum(k4_dist.values()),
             k4_worst, k4_fwd,
             f"B={k4_fwd['B']} C={k4_fwd['C']} fp32", smi,
             route_detail="NVRTC sm_90a, cuLaunchKernel",
             library_calls="torch.softmax", launcher=k4_double,
             launch_floor=k4_floor,
             launches_by_path={"resnet_fp32": k4_fwd_n, **k4_amp,
-                              **k4_hyb}),
+                              **k4_hyb, **k4_dist}),
         kernel_entry(
             pr.BWD_KERNEL, "mxnet_tpu_torch/tools/profile_resnet.py "
             "(BWD_SRC, via mxnet_tpu_torch/rtc.py)", "mxnet_tpu/rtc.py:19",
-            k4_bwd_n + sum(k4_amp.values()) + sum(k4_hyb.values()),
+            k4_bwd_n + sum(k4_amp.values()) + sum(k4_hyb.values())
+            + sum(k4_dist.values()),
             k4_worst, k4_bwd,
             f"B={k4_bwd['B']} C={k4_bwd['C']} fp32", smi,
             route_detail="NVRTC sm_90a, cuLaunchKernel",
             library_calls="torch._softmax_backward_data",
             launches_by_path={"resnet_fp32": k4_bwd_n, **k4_amp,
-                              **k4_hyb}),
+                              **k4_hyb, **k4_dist}),
         # N1: not a TPU kernel; box_nms's greedy sweep (a lax.fori_loop in
         # the JAX op). The route rule sends SSD300's detection, capped
         # (nms_topk 400) and uncapped (-1, the op's default), to the mask
@@ -5618,7 +5786,7 @@ def main():
         "kv_int8_decode": kv_int8, "batch_dot_routes": quant_k["batch_dot"],
         "dequant_gap_k4608": quant_k["dequant_gap_k4608"],
         "ops_worst": quant_k["ops_worst"]}))
-    phase("52 report")
+    phase("54 report")
     print(f"bf16 ResNet-50 headline layout: {head}")
     print("hybridized: " + json.dumps({
         "resnet50_bf16_nhwc_step_ms": [resnet_hyb[False]["mean_step_ms"],
@@ -5689,6 +5857,19 @@ def main():
         "n1_routes": ssd_det["routes"],
         "detection_ops_worst": max(det_ops["ops"].values()),
         "toy_loss": [ssd_toy["first_loss"], ssd_toy["final_loss"]]}))
+    print("dist_sync data parallelism: " + json.dumps({
+        "card": smi,
+        "gloo_two_ranks": [{k: line[k] for k in (
+            "rank", "mean_step_ms", "img_per_s", "mean_allreduce_ms",
+            "grad_bytes_per_step", "buckets_in_backward", "peak_gb",
+            "k4_launches_per_step")} for line in dist2],
+        "nccl_one_rank": {k: dist1[k] for k in (
+            "mean_step_ms", "img_per_s", "mean_allreduce_ms", "peak_gb")},
+        "bandwidth_gbps": {
+            "gloo": [(b["size"], b["allreduce_gbps"], b["kvstore_gbps"])
+                     for b in dist2[0]["bandwidth"]],
+            "nccl": [(b["size"], b["allreduce_gbps"], b["kvstore_gbps"])
+                     for b in dist1["bandwidth"]]}}))
     print(f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -58,6 +58,14 @@ ResNet-50 v1 with a custom-op loss head whose kernels ``rtc`` compiles:
   ``mx.gluon.rnn`` (cells and the fused ``RNN``/``LSTM``/``GRU``
   layers) over the fused ``rnn`` op (cuDNN through torch).
 
+- ``mx.kv``/``mx.kvstore``, ``mx.parallel`` and
+  ``mxnet_tpu_torch.tools.launch`` — data parallelism over processes
+  (MXNet's ``dist_sync``): the launcher and the rendezvous, the
+  collectives over ``torch.distributed`` (NCCL, or gloo where ranks
+  share a card or run on the CPU), the kvstore with 2-bit compression
+  and its async parameter server, and the distributed ``Trainer``'s
+  bucketed gradient all-reduce.
+
 ``HybridBlock.hybridize()`` captures a block's forward, and under
 ``record()`` its backward, as CUDA graphs, one pair per call
 signature (``gluon.CachedOp``).
@@ -73,9 +81,22 @@ from __future__ import annotations
 
 __version__ = "0.1.0"
 
-from .base import MXNetError
-from .context import Context, cpu, current_context, gpu, num_gpus
-from . import autograd
+
+def _maybe_init_distributed():
+    """Join the process group when the launcher's environment is present
+    (``tools/launch.py``: ``MXNET_COORDINATOR`` and the rank variables),
+    as the JAX package joins at import (``mxnet_tpu/__init__.py:21-86``);
+    a failed rendezvous raises."""
+    from . import _rendezvous
+
+    _rendezvous.init()
+
+
+_maybe_init_distributed()
+
+from .base import MXNetError  # noqa: E402
+from .context import Context, cpu, current_context, gpu, num_gpus  # noqa: E402,E501
+from . import autograd  # noqa: E402
 from . import initializer
 from . import initializer as init
 from . import ndarray
@@ -104,10 +125,15 @@ from . import module
 from . import module as mod
 from . import rnn
 from . import utils
+from . import parallel
+from . import gradient_compression
+from . import kvstore
+from . import kvstore as kv
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "autograd", "initializer", "init", "ndarray", "nd",
            "random", "optimizer", "gluon", "kernels", "name", "symbol", "sym",
            "analysis", "models", "serving", "convert", "operator", "rtc",
            "contrib", "io", "pipeline", "metric", "callback", "model",
-           "executor", "module", "mod", "rnn", "utils"]
+           "executor", "module", "mod", "rnn", "utils", "parallel",
+           "gradient_compression", "kvstore", "kv"]

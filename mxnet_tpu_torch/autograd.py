@@ -41,7 +41,7 @@ from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "mark_variables", "backward", "grad", "Function",
-           "get_symbol"]
+           "get_symbol", "register_grad_ready_hook"]
 
 
 class _AutogradState(threading.local):
@@ -195,6 +195,35 @@ def _torch_grad(outs, inputs, seeds, retain_graph, create_graph=False):
                                    allow_unused=True)
 
 
+# grad-ready hooks: called with each marked variable right after
+# ``backward`` writes its gradient (the seam the bucketed gradient
+# all-reduce, ``pipeline/grad_sync.py``, dispatches on). torch computes
+# every gradient of a backward at once (a hybridized block's captured
+# backward too), so the signals follow in one run after it.
+_GRAD_READY_HOOKS = []
+
+
+def register_grad_ready_hook(hook):
+    """Register ``hook(marked_ndarray)`` to fire right after each marked
+    variable's gradient is written by :func:`backward` (the JAX
+    package's ``autograd.py:175-262``). Returns a callable that removes
+    it (idempotent)."""
+    _GRAD_READY_HOOKS.append(hook)
+
+    def remove():
+        try:
+            _GRAD_READY_HOOKS.remove(hook)
+        except ValueError:
+            pass
+
+    return remove
+
+
+def _signal_grad_ready(arr):
+    for hook in tuple(_GRAD_READY_HOOKS):
+        hook(arr)
+
+
 def backward(heads, head_grads=None, retain_graph=False):
     """Compute the gradients of ``heads`` with respect to every marked
     variable and write them into the variables' buffers by their
@@ -223,6 +252,8 @@ def backward(heads, head_grads=None, retain_graph=False):
                 var._grad._data.add_(g)
             else:
                 var._grad._data.copy_(g)
+            if _GRAD_READY_HOOKS:
+                _signal_grad_ready(var)
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,

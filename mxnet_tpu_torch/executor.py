@@ -39,8 +39,8 @@ scale and normalize), as in the JAX package.
 A training forward updates each batch norm's moving statistics in place:
 ``momentum * moving + (1 - momentum) * batch``, the batch variance the
 biased one (``executor.py:137-180``). A multi-context bind (the JAX
-executor's mesh and sharding branch) waits for the multi-device slice
-and raises.
+executor's mesh and sharding branch) waits for the multi-device slice's
+second half, 9b, and raises.
 """
 from __future__ import annotations
 
@@ -93,14 +93,17 @@ def _count(name, n=1):
 
 def one_context(ctx):
     """``ctx``, or the one context of a list; several raise: a bind over
-    several contexts (the JAX executor's mesh and sharding branch) waits
-    for the multi-device slice."""
+    several contexts (the JAX executor's mesh and sharding branch,
+    ``mxnet_tpu/executor.py:257-313``) comes with slice 9b. Data
+    parallelism over processes (one context a rank, ``tools/launch.py``)
+    is ported."""
     if isinstance(ctx, (list, tuple)):
         if len(ctx) > 1:
             raise MXNetError(
                 "a bind over several contexts (data parallelism over a "
                 "mesh) is not ported yet: it comes with the multi-device "
-                "slice; bind to one context")
+                "slice's second half, slice 9b; bind to one context a "
+                "process and launch ranks with mxnet_tpu_torch.tools.launch")
         return ctx[0] if ctx else None
     return ctx
 

@@ -18,7 +18,7 @@ with the same parameter. The structural parameter names
 statistics across.
 
 Not ported yet (ROADMAP): a ``norm_layer`` other than ``BatchNorm``
-(``SyncBatchNorm``, slice 9) and pretrained weights (the model store,
+(``SyncBatchNorm``, slice 9b) and pretrained weights (the model store,
 slice 11).
 """
 from __future__ import annotations

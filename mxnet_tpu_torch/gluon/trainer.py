@@ -1,4 +1,4 @@
-"""Gluon Trainer: one card, the fused step or the eager loop.
+"""Gluon Trainer: the fused step or the eager loop, alone or across ranks.
 
 The PyTorch counterpart of ``mxnet_tpu/gluon/trainer.py`` (reference:
 python/mxnet/gluon/trainer.py). ``step(batch_size)`` rescales the
@@ -18,11 +18,31 @@ path. ``MXNET_FUSED_STEP=0`` runs the eager per-parameter loop, exactly
 as the JAX package does, and so does an optimizer with no fused kernel
 (counted as a bypass).
 
-Single device: ``kvstore`` ``"device"`` or ``"local"`` (or None) is
-accepted and does nothing, so ``allreduce_grads`` has nothing to reduce
-and ``allreduce_grads()`` then ``update()`` is ``step()``; a ``dist*``
-kvstore raises. The gradient all-reduce belongs to the multi-device
-slice (ROADMAP A, slice 9).
+The store (``mxnet_tpu/gluon/trainer.py:34-61,102-160``): ``kvstore``
+is a type name (``"local"``, ``"device"``, ``"nccl"``, ``"dist_sync"``,
+``"dist_device_sync"``, ``"dist_async"``), a ``KVStore``, or None. A
+``dist*`` store makes the trainer distributed: ``step`` first runs
+``allreduce_grads``, which sums every gradient over the ranks of the
+process group (``tools/launch.py``) — once, before the overflow check
+and the update, so every rank takes the same skip or apply — in place
+in the gradient buffers the fused step's CUDA graph reads. The
+collective runs eagerly before the replay: a gloo collective cannot be
+captured (the JAX trainer runs its collective as a program of its own,
+``mxnet_tpu/gluon/trainer.py:603-611``). With ``MXNET_ASYNC_GRAD_SYNC``
+(default on) the sums were started during ``backward`` in buckets
+(``pipeline/grad_sync.py``) and ``allreduce_grads`` only finishes them;
+the values are bitwise the same either way. ``compression_params``
+(2-bit, ``{"type": "2bit", "threshold": t}``) quantize each rank's
+gradients through the store's wire format, with error-feedback
+residuals, before the sum (the reference's dist kvstore does so; the
+JAX trainer holds the parameters and ignores them); the bucketed
+reducer is then off, since the sums need the quantized values.
+``update_on_kvstore`` is held, as in the JAX trainer: the update runs
+on every rank, on the same summed gradients. No weights are broadcast
+at the start: every rank starts from the same weights, carried in from
+numpy or drawn from the same seed. In one process, or with a local
+store, ``allreduce_grads`` does nothing. A trainer over several
+contexts of one process (the mesh) comes with slice 9b.
 """
 from __future__ import annotations
 
@@ -58,13 +78,33 @@ class Trainer:
             if not isinstance(p, Parameter):
                 raise ValueError("First argument must be a list or dict of "
                                  f"Parameters, got list of {type(p)}.")
-        if isinstance(kvstore, str) and kvstore.startswith("dist"):
-            raise MXNetError(f"kvstore {kvstore!r}: distributed training is "
-                             "not ported yet (the multi-device slice, "
-                             "slice 9)")
-        if kvstore not in (None, "device", "local"):
-            raise MXNetError(f"unknown kvstore {kvstore!r} (expected "
-                             "'device' or 'local')")
+        from .. import kvstore as kvs
+
+        # as the JAX trainer: a KVStore given is held, a type name is
+        # not made into a store (a dist_async store would start a server)
+        if isinstance(kvstore, kvs.KVStore):
+            self._kvstore, self._kvstore_type = kvstore, kvstore.type
+        elif kvstore is None or (isinstance(kvstore, str)
+                                 and kvstore in kvs._VALID):
+            self._kvstore, self._kvstore_type = None, kvstore or "device"
+        else:
+            raise MXNetError(f"unknown kvstore {kvstore!r} (expected one of "
+                             f"{', '.join(kvs._VALID)}, a KVStore or None)")
+        self._distributed = self._kvstore_type.startswith("dist")
+        self._compression = None if self._kvstore is None \
+            else self._kvstore._compression
+        if compression_params:
+            from ..gradient_compression import GradientCompression
+
+            cp = dict(compression_params)
+            ctype = cp.pop("type", "2bit")
+            if self._kvstore is not None:
+                self._kvstore.set_gradient_compression(compression_params)
+            self._compression = None if ctype in (None, "none") else \
+                GradientCompression(type=ctype, **cp)
+        self._residuals = {}  # parameter index -> compression residual
+        self._update_on_kvstore = update_on_kvstore
+        self._grad_reducer = None  # the bucketed all-reduce
         self._params = list(params)
         param_dict = dict(enumerate(self._params))
         if isinstance(optimizer, opt.Optimizer):
@@ -77,6 +117,10 @@ class Trainer:
             self._optimizer = opt.create(optimizer, param_dict=param_dict,
                                          **(optimizer_params or {}))
         self._scale = self._optimizer.rescale_grad
+        if self._distributed and self._compression is None:
+            # hooked now, so the first backward already dispatches buckets
+            # (the JAX trainer hooks at its first step)
+            self._async_reducer()
         self._states = None
         self._fused = None        # this trainer's group, buffers and graph
         self._fused_state = None  # the step state on the device
@@ -484,12 +528,52 @@ class Trainer:
     # -- stepping -----------------------------------------------------------
 
     def allreduce_grads(self):
-        """Sum the gradients across workers (reference: trainer.py
-        allreduce_grads; ``mxnet_tpu/gluon/trainer.py:102``). One card
-        holds the only copy of each gradient, so this does nothing, as
-        the JAX trainer does in one process; a ``dist*`` kvstore was
-        refused when the trainer was made."""
-        return
+        """Sum the gradients over the ranks, in place (reference:
+        trainer.py allreduce_grads; ``mxnet_tpu/gluon/trainer.py:102``):
+        one collective per dtype, or the buckets the reducer started
+        during backward. Nothing with a local store."""
+        if not self._distributed:
+            return
+        from .. import parallel
+
+        grads = [p.grad() for p in self._params
+                 if p.grad_req != "null" and p._ndarray is not None]
+        gc = self._compression
+        if gc is not None:
+            with torch.no_grad():
+                for i, g in enumerate(grads):
+                    deq, self._residuals[i] = gc.roundtrip(
+                        g.data, self._residuals.get(i))
+                    g.data.copy_(deq)
+        reducer = None if gc is not None else self._async_reducer()
+        if grads and reducer is not None:
+            reducer.flush(grads)
+        elif grads:
+            with torch.no_grad():
+                for g, r in zip(grads, parallel.all_reduce_coalesced(grads)):
+                    if r is not g:
+                        g.data.copy_(r.data)
+
+    def _async_reducer(self):
+        """The bucketed reducer, made and hooked into autograd once per
+        trainer while ``MXNET_ASYNC_GRAD_SYNC`` is on; with the knob off,
+        this round's speculation is dropped and None returned."""
+        from .. import pipeline as _pl
+
+        if not _pl.async_grad_sync_enabled():
+            if self._grad_reducer is not None:
+                self._grad_reducer.abandon()
+            return None
+        if self._grad_reducer is None:
+            self._grad_reducer = _pl.AsyncGradReducer(self._params).attach()
+        return self._grad_reducer
+
+    def _abandon_speculation(self):
+        """Drop the reducer's round in flight without binding it: a state
+        boundary (``save_states``, ``load_states``) must not carry sums of
+        gradients from before it into the step after it."""
+        if self._grad_reducer is not None:
+            self._grad_reducer.abandon()
 
     def step(self, batch_size, ignore_stale_grad=False):
         """Rescale by 1/batch_size and update (reference: trainer.py step).
@@ -553,6 +637,7 @@ class Trainer:
         save_states); the device step state is synced first."""
         if self._states is None:
             self._create_states()
+        self._abandon_speculation()
         self._sync_fused_state()
         opt_ = self._optimizer
         payload = {"num_update": opt_.num_update,
@@ -570,6 +655,7 @@ class Trainer:
         the same layout are overwritten in place, so a captured fused
         step keeps its graph; the device step state is re-seeded from
         the restored counts at the next step."""
+        self._abandon_speculation()
         with open(fname, "rb") as f:
             payload = pickle.load(f)  # a file this trainer wrote
         if len(payload["states"]) != len(self._params):

@@ -8,7 +8,8 @@ decoder-only pre-norm transformer whose attention is
 forward and the q-chunk recompute backward.
 
 The sequence-parallel variants (``ring_axis``, ``sp_mode``) belong to
-the multi-device slice and raise :class:`MXNetError` here.
+the multi-device slice's second half (9b, the mesh) and raise
+:class:`MXNetError` here.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ __all__ = ["TransformerLM", "TransformerBlock", "MultiHeadSelfAttention"]
 def _no_sequence_parallel(ring_axis, ring_batch_axis):
     if ring_axis is not None or ring_batch_axis is not None:
         raise MXNetError("ring/Ulysses sequence-parallel attention belongs "
-                         "to the multi-device slice and is not ported yet")
+                         "to the multi-device slice's mesh (slice 9b) and is "
+                         "not ported yet")
 
 
 class MultiHeadSelfAttention(HybridBlock):

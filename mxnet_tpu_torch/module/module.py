@@ -4,17 +4,19 @@ The PyTorch counterpart of ``mxnet_tpu/module/module.py`` (reference:
 python/mxnet/module/module.py:40-646 — bind, init_params,
 init_optimizer, forward, backward, update). One executor on one context
 is the unit: a list of several contexts (the reference's
-``DataParallelExecutorGroup``, the JAX package's mesh bind) waits for the
-multi-device slice and raises. The executor's gradient requests follow
-the reference's executor group: the parameters take ``grad_req``, the
-data takes a gradient only with ``inputs_need_grad``, the labels never.
+``DataParallelExecutorGroup``, the JAX package's mesh bind) waits for
+slice 9b and raises. The executor's gradient requests follow the
+reference's executor group: the parameters take ``grad_req``, the data
+takes a gradient only with ``inputs_need_grad``, the labels never.
 
-``init_optimizer`` accepts ``kvstore`` "local", "device" or None and
-holds no store: the JAX module makes a kvstore that ``update()`` never
-uses (``module/module.py:236-290``), and the port's ``kvstore`` module
-comes with the multi-device slice; a ``dist*`` store raises, as the
-port's ``gluon.Trainer`` does. ``update()`` runs the updater on each
-parameter in place.
+``init_optimizer`` makes and holds the kvstore, as the JAX module does
+(``mxnet_tpu/module/module.py:236-238``): a type name is made with
+``kvstore.create``, a ``KVStore`` is held, None holds none. ``update()``
+runs the updater on each parameter in place. With a ``dist*`` store
+over several ranks (``tools/launch.py``) it first sums the gradients
+over the ranks in place, one collective per dtype, as the reference's
+``update`` goes through the store; the JAX module never uses its store
+in ``update`` and so trains each process alone (ROADMAP C).
 """
 from __future__ import annotations
 
@@ -28,8 +30,6 @@ from ..io import DataDesc
 from .base_module import BaseModule
 
 __all__ = ["Module"]
-
-_LOCAL_STORES = ("local", "device")
 
 
 class Module(BaseModule):
@@ -195,30 +195,37 @@ class Module(BaseModule):
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
-        """The optimizer and its updater (reference: module.py
-        init_optimizer); ``rescale_grad`` defaults to 1 / batch size.
-        No kvstore is made (see the module's docstring)."""
+        """The optimizer, its updater and the kvstore (reference:
+        module.py init_optimizer); ``rescale_grad`` defaults to 1 / batch
+        size, the batch of all the workers under a ``dist*`` synchronous
+        store, whose ``update`` sums their gradients."""
+        from .. import kvstore as kvs
+
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             return
-        if kvstore is not None and not isinstance(kvstore, str):
-            raise MXNetError("Module takes kvstore 'local', 'device' or "
-                             "None: kvstore objects come with the "
-                             "multi-device slice")
-        if kvstore is not None and kvstore not in _LOCAL_STORES:
-            raise MXNetError(
-                f"kvstore {kvstore!r} is not supported: a distributed store "
-                "comes with the multi-device slice; use 'local', 'device' "
-                "or None")
+        if kvstore is not None and not isinstance(kvstore, (str,
+                                                            kvs.KVStore)):
+            raise MXNetError(f"kvstore must be a type name, a KVStore or "
+                             f"None, got {type(kvstore).__name__}")
+        store = kvs.create(kvstore) if isinstance(kvstore, str) and kvstore \
+            else kvstore or None
         if isinstance(optimizer, str):
             params = dict(optimizer_params)
             idx2name = dict(enumerate(self._param_names()))
             if "rescale_grad" not in params and self._data_shapes:
-                params["rescale_grad"] = 1.0 / self._data_shapes[0].shape[0]
+                batch = self._data_shapes[0].shape[0]
+                if store is not None and store.type.startswith("dist") \
+                        and "_async" not in store.type:
+                    # the gradients are summed over the workers' batches
+                    # (reference: module.py init_optimizer)
+                    batch *= store.num_workers
+                params["rescale_grad"] = 1.0 / batch
             optimizer = opt.create(optimizer, param_idx2name=idx2name,
                                    **params)
         self._optimizer = optimizer
         self._updater = opt.get_updater(optimizer)
+        self._kvstore = store
         self.optimizer_initialized = True
 
     # -- monitor ----------------------------------------------------------
@@ -259,9 +266,23 @@ class Module(BaseModule):
 
     def update(self):
         """One updater call per parameter, in place (reference:
-        module.py update)."""
+        module.py update), after the sum over the ranks with a ``dist*``
+        store."""
         assert self.optimizer_initialized
         grads = self._exec.grad_dict
+        kv = self._kvstore
+        if kv is not None and kv.type.startswith("dist") and \
+                kv.num_workers > 1:
+            import torch
+
+            from .. import parallel
+
+            names = [n for n in self._param_names()
+                     if n not in self._fixed_param_names and n in grads]
+            gs = [grads[n] for n in names]
+            with torch.no_grad():
+                for g, r in zip(gs, parallel.all_reduce_coalesced(gs)):
+                    g.data.copy_(r.data)
         for i, name in enumerate(self._param_names()):
             if name in self._fixed_param_names or name not in grads:
                 continue

@@ -1,16 +1,19 @@
 """mxnet_tpu_torch.resilience — what serving uses of the reference's
 resilience layer (``mxnet_tpu/resilience/``): the fault seams
-(:mod:`.faults`) and the circuit breaker (:mod:`.breaker`).
+(:mod:`.faults`), the circuit breaker (:mod:`.breaker`) and the retry
+policy (:mod:`.retry`, which the async parameter server's sends use).
 
-Checkpoints, retry policies and the supervisor come with a later slice.
+Checkpoints and the supervisor come with a later slice.
 """
 from __future__ import annotations
 
 from ..base import getenv
 from . import faults
 from .breaker import CircuitBreaker, CircuitOpen
+from .retry import RetryExhausted, RetryPolicy
 
-__all__ = ["faults", "CircuitBreaker", "CircuitOpen", "resilience_enabled"]
+__all__ = ["faults", "CircuitBreaker", "CircuitOpen", "RetryPolicy",
+           "RetryExhausted", "resilience_enabled"]
 
 
 def resilience_enabled():

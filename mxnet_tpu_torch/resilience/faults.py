@@ -25,6 +25,10 @@ call whether the seam raises. The seams:
                           forward and backward (raises; no eager fallback)
 ``device_put``            ``DeviceFeed``'s staging of one batch leaf on
                           its worker thread (re-raised at ``next()``)
+``kvstore_push``          a kvstore push (a lost gradient send)
+``kvstore_pull``          a kvstore pull (a failed parameter fetch)
+``grad_bucket_dispatch``  the bucketed all-reduce's dispatch of one
+                          bucket during backward
 ========================  ==============================================
 
 Clause keys, as in the reference: ``at=N`` fires on the Nth call (once);
@@ -70,6 +74,10 @@ FAULT_POINTS = {
                         "forward and backward (raises; no eager fallback)",
     "device_put": "DeviceFeed's staging of a batch leaf (re-raised in the "
                   "consumer)",
+    "kvstore_push": "a kvstore push (a lost gradient send)",
+    "kvstore_pull": "a kvstore pull (a failed parameter fetch)",
+    "grad_bucket_dispatch": "the bucketed gradient all-reduce's dispatch "
+                            "of one bucket during backward",
 }
 
 

@@ -661,10 +661,20 @@ def test_allreduce_grads_then_update_equals_step(opt, kw):
 
 
 def test_a_dist_kvstore_names_the_multi_device_slice():
+    """Data parallelism over processes (slice 9a) is ported: a dist_sync
+    Trainer is made and is distributed, outside a process group as one
+    worker; a bind over several contexts of one process (the mesh) names
+    slice 9b, and an unknown store raises."""
     net = _dense_stack(gluon)
     net.initialize(ctx=CPU)
-    with pytest.raises(mx.MXNetError, match="slice 9"):
-        gluon.Trainer(net.collect_params(), "sgd", kvstore="dist_sync")
+    tr = gluon.Trainer(net.collect_params(), "sgd", kvstore="dist_sync")
+    assert tr._distributed and tr._kvstore_type == "dist_sync"
+    kv = mx.kv.create("dist_sync")
+    assert (kv.rank, kv.num_workers, kv.num_dead_node()) == (0, 1, 0)
+    with pytest.raises(mx.MXNetError, match="slice 9b"):
+        mx.executor.one_context([CPU, CPU])
+    with pytest.raises(mx.MXNetError, match="unknown kvstore"):
+        gluon.Trainer(net.collect_params(), "sgd", kvstore="dist_ring")
 
 
 def test_relu_gradient_at_zero_follows_the_reference():

@@ -322,22 +322,38 @@ def test_python_loss_module_as_a_chain_head_matches_jax():
 
 
 def test_kvstore_is_local_only_and_holds_no_store():
-    """A deliberate difference: the JAX module makes a kvstore that
-    update() never uses; the port accepts 'local', 'device' or None,
-    holds none, and a distributed store raises (it comes with the
-    multi-device slice)."""
+    """The port's Module makes and holds its kvstore as the JAX module
+    does (``mxnet_tpu/module/module.py:236-238``): a type name is
+    created, a KVStore is held, None holds none; ``dist*`` stores
+    included. In one process a dist store's update is the local one."""
     X, y = _mlp_data()
     jm, tm = _mlp_pair(X, y)
-    jm.init_optimizer(kvstore="local")
-    assert jm._kvstore is not None
-    for kv in ("local", "device", None):
+    for kv in ("local", "device", "dist_sync", "dist_device_sync"):
+        jm.init_optimizer(kvstore=kv, force_init=True)
         tm.init_optimizer(kvstore=kv, force_init=True)
-        assert tm._kvstore is None and tm.optimizer_initialized
-    for kv in ("dist_sync", "dist_device_sync"):
-        with pytest.raises(mx.MXNetError, match="multi-device"):
-            tm.init_optimizer(kvstore=kv, force_init=True)
-    with pytest.raises(mx.MXNetError, match="kvstore objects"):
+        assert jm._kvstore.type == tm._kvstore.type == kv
+        assert tm.optimizer_initialized
+    tm.init_optimizer(kvstore=None, force_init=True)
+    assert tm._kvstore is None
+    store = mx.kv.create("local")
+    tm.init_optimizer(kvstore=store, force_init=True)
+    assert tm._kvstore is store
+    with pytest.raises(mx.MXNetError, match="kvstore must be"):
         tm.init_optimizer(kvstore=object(), force_init=True)
+    # one update under dist_sync against the JAX module's
+    jm.init_optimizer(kvstore="dist_sync", optimizer="sgd",
+                      optimizer_params=(("learning_rate", 0.1),),
+                      force_init=True)
+    tm.init_optimizer(kvstore="dist_sync", optimizer="sgd",
+                      optimizer_params=(("learning_rate", 0.1),),
+                      force_init=True)
+    jb = next(iter(_iter(jmx, X, y)))
+    tb = next(iter(_iter(mx, X, y)))
+    for m, b in ((jm, jb), (tm, tb)):
+        m.forward(b, is_train=True)
+        m.backward()
+        m.update()
+    _assert_params(jm, tm)
 
 
 def test_contexts_fixed_params_and_input_grads():

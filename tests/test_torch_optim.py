@@ -167,8 +167,28 @@ def test_trainer_save_and_load_states(tmp_path):
 
 def test_trainer_options():
     _, net = _dense_nets(*_arrays(1, 13, (3, 5)), onp.zeros(3, "f"))
-    with pytest.raises(mx.MXNetError, match="distributed"):
-        gluon.Trainer(net.collect_params(), "sgd", kvstore="dist_sync")
+    # a one-process dist_sync Trainer steps exactly as a local one
+    w0 = net.weight.data().asnumpy().copy()
+    b0 = net.bias.data().asnumpy().copy()
+    runs = []
+    for kv in ("dist_sync", "local"):
+        net.weight.set_data(w0)
+        net.bias.set_data(b0)
+        tr = gluon.Trainer(net.collect_params(), "sgd",
+                           {"learning_rate": 0.1, "momentum": 0.9},
+                           kvstore=kv)
+        assert tr._distributed == (kv == "dist_sync")
+        for i in range(3):
+            with autograd.record():
+                loss = nd.sum(net(nd.array(_arrays(1, 20 + i, (2, 5))[0],
+                                           ctx=mx.cpu())) ** 2)
+            loss.backward()
+            tr.step(2)
+        runs.append((net.weight.data().asnumpy(), net.bias.data().asnumpy()))
+    for a, b in zip(*runs):
+        onp.testing.assert_array_equal(a, b)
+    net.weight.set_data(w0)
+    net.bias.set_data(b0)
     tr = gluon.Trainer(net.collect_params(), "sgd", {"learning_rate": 0.3},
                        kvstore="local")
     assert tr.learning_rate == 0.3
