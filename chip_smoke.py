@@ -470,7 +470,30 @@ stream busy until the launch is enqueued, so it is the device's time:
     compression, every parameter's packed codes and residual made on the
     card equal to the CPU port's for the same gradient and residual;
     NCCL's ``all_reduce`` and the kvstore at the same sizes;
-54. report: one JSON line of kernels, then the device line last.
+54. decode serving traced: on one batcher at GPT-2-small widths, a
+    warm-up, then phase 18's own paged open-loop traffic (32 streams of
+    16-256 tokens) once to warm up, then in six windows of two passes
+    each at ``MXNET_TELEMETRY`` 0, 1, 1, 0, 0 and 1, then a shorter traffic (16 streams of 16-48 tokens) at 1 with the
+    profiler's device trace (``profiler.start``/``stop``,
+    ``torch.profiler`` with the CUDA activity). Level 0 records no span;
+    in every level-1 run every request has its ``serving.admission`` and
+    ``serving.queue_wait`` spans under one trace id of its own, the
+    ``serving.decode_step`` spans equal the steps served and no span is
+    dropped; the device trace names K2's kernel 12 times a step (or,
+    where kineto does not name kernels inside a replayed graph, holds
+    one graph launch a step). Prints tokens/s, decode steps and the mean
+    step of each run, whether the levels' gap in tokens/s exceeds the
+    spread of the runs at one level, the span and trace event counts,
+    and ``trace_top``'s first ten rows;
+55. ResNet-50 v1 training traced: phase 30's setup (bf16 AMP, NHWC,
+    hybridized, batch 128, fed by ``DeviceFeed``), after the warm-up
+    captures 5 steps at level 0, 5 at level 1 and 5 at level 1 with the
+    device trace: each traced step's span names on the step loop's
+    thread are ``fused_step.execute`` and ``pipeline.feed_wait``, the
+    feed's thread stages 5 ``pipeline.prefetch_stage`` spans, and the
+    device trace holds K4's ``rtc_softmax_fwd`` and ``_bwd`` once each a
+    step; step ms of each run and ``trace_top``'s first ten rows;
+56. report: one JSON line of kernels, then the device line last.
 
 Each phase prints the seconds it took.
 
@@ -486,6 +509,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import FIRST_COMPLETED, wait
 
@@ -5491,6 +5515,383 @@ def dist_nccl_phase(smi):
     return line
 
 
+# phases 54-55: the telemetry spans and the profiler's device trace on the
+# main paths. Phase 54 times phase 18's own open-loop traffic (its 32
+# paged streams of 16-256 tokens, from its seed) with the spans off and
+# on in turns, three windows at each level, each window two passes of
+# the traffic (3.2-4.4 s a pass alone on the card), after a warm-up
+# pass; the device trace is taken on a shorter traffic of 16 streams of
+# 16-48 tokens, which keeps it near 200,000 events. Phase 55 is phase
+# 30's bf16 NHWC hybridized ResNet-50 fed by DeviceFeed
+TRACE_TURNS = (0, 1, 1, 0, 0, 1)
+TRACE_PASSES = 2
+TRACE_STREAMS, TRACE_MIN, TRACE_MAX = 16, 16, 48
+TRACE_STEPS = 5
+
+
+def _with_telemetry(level):
+    """Set ``MXNET_TELEMETRY`` (read per span) and empty the ring."""
+    from mxnet_tpu_torch import telemetry
+
+    os.environ["MXNET_TELEMETRY"] = str(level)
+    telemetry.reset_trace()
+
+
+def _device_trace(path):
+    """The profiler's device trace: (all events, kernel events)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("ph") == "X"
+               and e.get("cat") == "kernel"]
+    if not kernels:
+        raise RuntimeError(f"the device trace {path} holds no kernel event")
+    return events, kernels
+
+
+def _graph_launches(events):
+    return sum(1 for e in events if e.get("ph") == "X"
+               and e.get("name") == "cudaGraphLaunch")
+
+
+def _open_loop(seed, streams, lo, hi):
+    """Phase 18's open-loop plan: per stream its length in tokens, its
+    arrival (s) and its first token."""
+    rs = onp.random.RandomState(seed)
+    lengths = [int(n) for n in rs.randint(lo, hi + 1, streams)]
+    arrivals = onp.cumsum(rs.exponential(PAGED_GAP_S, streams))
+    first = [int(rs.randint(GPT2_SMALL["vocab_size"]))
+             for _ in range(streams)]
+    return lengths, arrivals, first
+
+
+def _traced_traffic(bat, run, lengths, arrivals, first):
+    """Phase 18's open loop: stream i arrives at ``arrivals[i]``, each
+    step's argmax is the stream's next token, until it has
+    ``lengths[i]`` tokens; every request under a trace id of its own.
+    Returns (wall seconds, the request ids, the stream ids)."""
+    from mxnet_tpu_torch import telemetry
+
+    n = len(lengths)
+    sids = [f"{run}-{i}" for i in range(n)]
+    count = {sid: 0 for sid in sids}
+    rids, pending, started = [], {}, 0
+
+    def submit(sid, tok):
+        with telemetry.trace_context(f"{sid}/{count[sid]}") as rid:
+            fut = bat.submit(onp.array([[tok]], "int32"), session_id=sid,
+                             slo_class="standard")
+        rids.append(rid)
+        count[sid] += 1
+        pending[fut] = sid
+
+    t0 = time.perf_counter()
+    while pending or started < n:
+        now = time.perf_counter() - t0
+        while started < n and arrivals[started] <= now:
+            submit(sids[started], first[started])
+            started += 1
+        wait_s = arrivals[started] - now if started < n else 600
+        done, _ = wait(pending, timeout=max(wait_s, 0.0),
+                       return_when=FIRST_COMPLETED)
+        if not done and started == n:
+            raise RuntimeError("traced serving stalled: no step resolved "
+                               "in 600 s")
+        for fut in done:
+            sid = pending.pop(fut)
+            logits = onp.asarray(fut.result())
+            if logits.shape != (1, GPT2_SMALL["vocab_size"]) or \
+                    not onp.isfinite(logits).all():
+                raise RuntimeError(f"{sid}: bad logits {logits.shape}")
+            if count[sid] < lengths[sids.index(sid)]:
+                submit(sid, int(logits.argmax()))
+    return time.perf_counter() - t0, rids, sids
+
+
+def _check_serving_spans(run, events, rids, steps, dropped):
+    """A level-1 run's trace: every request's ``serving.*`` spans under
+    its own trace id, one ``serving.decode_step`` a step, none dropped."""
+    if dropped:
+        raise RuntimeError(f"{run}: {dropped} spans dropped")
+    by_rid = {}
+    for e in events:
+        tid = e.get("args", {}).get("trace_id")
+        if tid is not None:
+            by_rid.setdefault(tid, set()).add(e["name"])
+    lacking = [r for r in rids
+               if not {"serving.admission", "serving.queue_wait"}
+               <= by_rid.get(r, set())]
+    if lacking or set(by_rid) != set(rids):
+        raise RuntimeError(f"{run}: requests without their serving spans: "
+                           f"{lacking[:5]}, ids {len(by_rid)} != {len(rids)}")
+    if any(not n.startswith("serving.") for names in by_rid.values()
+           for n in names):
+        raise RuntimeError(f"{run}: a request carries a span outside "
+                           "serving.*")
+    decode_spans = sum(e["name"] == "serving.decode_step" for e in events)
+    if decode_spans != steps:
+        raise RuntimeError(f"{run}: {decode_spans} serving.decode_step spans "
+                           f"for {steps} decode steps")
+
+
+def traced_serving_phase(smi):
+    phase("54 decode serving traced")
+    from mxnet_tpu_torch import profiler, telemetry
+    from mxnet_tpu_torch.tools import trace_top
+
+    cfg = GPT2_SMALL
+    net = decode_net()
+    store, sess = decode_stack(net, PAGED_STREAMS, PAGE_TOKENS,
+                               PAGED_BUCKETS, budget=PAGED_BUDGET)
+    full = _open_loop(SEED + 18, PAGED_STREAMS, PAGED_MIN, PAGED_MAX)
+    short = _open_loop(SEED + 54, TRACE_STREAMS, TRACE_MIN, TRACE_MAX)
+    # a warm-up pass of phase 18's traffic; windows of its traffic with
+    # the spans off and on in turns; then spans on with the device trace
+    # over the short traffic
+    plan = [("warmup", full, 0, False, 1)] + \
+        [(f"level{lv}_{i}", full, lv, False, TRACE_PASSES)
+         for i, lv in enumerate(TRACE_TURNS)] + \
+        [("level1_profiled", short, 1, True, 1)]
+    bat = serving.DynamicBatcher(sess, max_batch_size=PAGED_BUCKETS[-1],
+                                 max_latency_ms=2.0, timeout_ms=600000,
+                                 admission=False)
+    tmp = tempfile.mkdtemp(prefix="smoke54_")
+    runs, prev = {}, os.environ.get("MXNET_TELEMETRY")
+    try:
+        for run, (lengths, arrivals, first), level, profiled, passes \
+                in plan:
+            _with_telemetry(level)
+            serving.METRICS.reset()
+            _build.reset_launch_counts()
+            if profiled:
+                profiler.set_config(filename=os.path.join(tmp, "decode.json"))
+                profiler.start()
+            wall, rids = 0.0, []
+            for k in range(passes):
+                w, r, sids = _traced_traffic(bat, f"{run}.{k}", lengths,
+                                             arrivals, first)
+                wall += w
+                rids += r
+                for sid in sids:
+                    store.evict(sid, reason="traced pass done")
+            if profiled:
+                torch.cuda.synchronize()
+                profiler.stop()
+            snap = serving.METRICS.snapshot()
+            n_tokens = passes * sum(lengths)
+            if snap["responses:standard"] != n_tokens or snap["failures"]:
+                raise RuntimeError(f"{run}: not every step resolved: {snap}")
+            steps = snap["decode_steps"]
+            events = telemetry.events()
+            if level:
+                _check_serving_spans(run, events, rids, steps,
+                                     telemetry.dropped_spans())
+            elif events:
+                raise RuntimeError(f"{run}: level 0 recorded {len(events)} "
+                                   "spans")
+            k2 = _build.launch_counts().get(KERNEL, 0)
+            if k2 != cfg["num_layers"] * steps:
+                raise RuntimeError(f"{run}: K2 launched {k2} times in "
+                                   f"{steps} steps")
+            runs[run] = {"level": level, "streams": len(lengths),
+                         "passes": passes,
+                         "tokens": n_tokens, "requests": len(rids),
+                         "wall_s": wall, "tokens_per_s": n_tokens / wall,
+                         "decode_steps": steps,
+                         "mean_step_ms": mean_step_ms(),
+                         "k2_launches": k2, "spans": len(events)}
+    finally:
+        bat.close()
+        if prev is None:
+            os.environ.pop("MXNET_TELEMETRY", None)
+        else:
+            os.environ["MXNET_TELEMETRY"] = prev
+    traced = runs["level1_profiled"]
+    steps = traced["decode_steps"]
+    dev_events, kernels = _device_trace(profiler.device_trace_path())
+    k2_events = sum("decode_attention_kernel" in e["name"] for e in kernels)
+    graph_launches = _graph_launches(dev_events)
+    if k2_events:
+        named = True
+        if k2_events != cfg["num_layers"] * steps:
+            raise RuntimeError(f"the device trace names K2 {k2_events} "
+                               f"times for {steps} steps of "
+                               f"{cfg['num_layers']} layers")
+    else:
+        named = False
+        if graph_launches != steps:
+            raise RuntimeError(f"the device trace has no K2 kernel and "
+                               f"{graph_launches} graph launches for "
+                               f"{steps} steps")
+    # the spans' cost on phase 18's traffic, and whether it stands out of
+    # the spread of the runs at one level
+    timed = {lv: [v for k, v in runs.items()
+                  if k.startswith(f"level{lv}_") and k != "level1_profiled"]
+             for lv in (0, 1)}
+    tps = {lv: [v["tokens_per_s"] for v in timed[lv]] for lv in (0, 1)}
+    step_ms = {lv: [v["mean_step_ms"] for v in timed[lv]] for lv in (0, 1)}
+    spread = max(max(t) - min(t) for t in tps.values())
+    gap = statistics.mean(tps[0]) - statistics.mean(tps[1])
+    result = {"card": smi, "turns": list(TRACE_TURNS),
+              "phase18_traffic": {
+                  "streams": PAGED_STREAMS, "passes": TRACE_PASSES,
+                  "tokens": timed[0][0]["tokens"],
+                  "tokens_per_s": {f"level{lv}": tps[lv] for lv in (0, 1)},
+                  "decode_steps": {f"level{lv}": [v["decode_steps"]
+                                                  for v in timed[lv]]
+                                   for lv in (0, 1)},
+                  "mean_step_ms": {f"level{lv}": step_ms[lv]
+                                   for lv in (0, 1)},
+                  "wall_s": {f"level{lv}": [v["wall_s"] for v in timed[lv]]
+                             for lv in (0, 1)},
+                  "mean_tokens_per_s": {f"level{lv}": statistics.mean(tps[lv])
+                                        for lv in (0, 1)},
+                  "level0_minus_level1_tokens_per_s": gap,
+                  "largest_spread_within_a_level": spread,
+                  "level1_cost_resolved": abs(gap) > spread,
+                  "spans_per_level1_run": [v["spans"] for v in timed[1]]},
+              "traced_traffic": {
+                  "streams": TRACE_STREAMS, "tokens": traced["tokens"],
+                  "requests": traced["requests"], "decode_steps": steps,
+                  "wall_s": traced["wall_s"],
+                  "tokens_per_s": traced["tokens_per_s"],
+                  "warmup_tokens_per_s": runs["warmup"]["tokens_per_s"],
+                  "spans": traced["spans"]},
+              "dropped_spans": 0,
+              "device_trace_events": len(dev_events),
+              "device_kernel_events": len(kernels),
+              "k2_kernel_events": k2_events,
+              "graph_launch_events": graph_launches,
+              "kineto_names_kernels_inside_graphs": named,
+              "k2_launches": traced["k2_launches"],
+              "k2_launches_all_runs": sum(v["k2_launches"]
+                                          for v in runs.values())}
+    print("traced decode serving " + json.dumps(result))
+    for line in trace_top.table(trace_top.device_op_events(dev_events), 10):
+        print("  " + line)
+    sess.close()
+    store.close()
+    del net, sess, store
+    torch.cuda.empty_cache()
+    return result
+
+
+def traced_resnet_phase(smi):
+    phase("55 ResNet-50 v1 training traced")
+    from mxnet_tpu_torch import profiler, telemetry
+    from mxnet_tpu_torch.pipeline import DeviceFeed
+    from mxnet_tpu_torch.tools import trace_top
+
+    ctx = mx.gpu(0)
+    rs = onp.random.RandomState(SEED + 55)
+
+    def batches(n):
+        return [(rs.randint(0, 256, (RESNET_B, pr.IMAGE, pr.IMAGE, 3),
+                            dtype=onp.uint8),
+                 rs.randint(0, pr.CLASSES, RESNET_B).astype("float32"))
+                for _ in range(n)]
+
+    fused_step.reset_fused_step_cache()
+    gluon.reset_cached_op_stats()
+    net = pr.build_resnet50(ctx, seed=SEED, layout="NHWC")
+    trainer = pr.make_trainer(net)
+    amp.init("bfloat16")
+    amp.init_trainer(trainer)
+    net.hybridize()
+    mean = nd.array(onp.array([123.68, 116.78, 103.94], "f"), ctx=ctx)
+    std = nd.array(onp.array([58.40, 57.12, 57.38], "f"), ctx=ctx)
+    main_tid = threading.get_ident() % 100000
+    tmp = tempfile.mkdtemp(prefix="smoke55_")
+    prev = os.environ.get("MXNET_TELEMETRY")
+
+    def run(n, level, profiled=False):
+        """``n`` steps fed by a DeviceFeed over ``n`` fresh batches;
+        returns (ms per step, per step the step loop's span names)."""
+        _with_telemetry(level)
+        feed = DeviceFeed(batches(n))
+        it = iter(feed)
+        if profiled:
+            profiler.set_config(filename=os.path.join(tmp, "resnet.json"))
+            profiler.start()
+        ms, names, seen = [], [], 0
+        try:
+            for _ in range(n):
+                t0 = time.perf_counter()
+                xb, yb = next(it)
+                x = (xb.astype("float32") - mean) / std
+                loss = pr.train_step(net, trainer, x, yb)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                evs = telemetry.events()
+                names.append(sorted(e["name"] for e in evs[seen:]
+                                    if e["tid"] == main_tid))
+                seen = len(evs)
+                if not onp.isfinite(loss.asscalar()):
+                    raise RuntimeError(f"non-finite loss at level {level}")
+        finally:
+            if profiled:
+                profiler.stop()
+            feed.close()
+        return ms, names
+
+    try:
+        run(HYB_WARMUP, 0)  # the captures
+        _build.reset_launch_counts()
+        ms0, _ = run(TRACE_STEPS, 0)
+        ms1, _ = run(TRACE_STEPS, 1)
+        k4_before = _build.launch_counts()
+        msp, names = run(TRACE_STEPS, 1, profiled=True)
+        staged = sum(e["name"] == "pipeline.prefetch_stage"
+                     for e in telemetry.events())
+        dropped = telemetry.dropped_spans()
+    finally:
+        amp.disable()
+        if prev is None:
+            os.environ.pop("MXNET_TELEMETRY", None)
+        else:
+            os.environ["MXNET_TELEMETRY"] = prev
+    counts = _build.launch_counts()
+    k4 = counts.get(pr.FWD_KERNEL, 0) + counts.get(pr.BWD_KERNEL, 0)
+    k4_traced = k4 - k4_before.get(pr.FWD_KERNEL, 0) - \
+        k4_before.get(pr.BWD_KERNEL, 0)
+    for i, step in enumerate(names):
+        if step != ["fused_step.execute", "pipeline.feed_wait"]:
+            raise RuntimeError(f"traced step {i}: spans {step}")
+    if staged != TRACE_STEPS or dropped:
+        raise RuntimeError(f"{staged} prefetch_stage spans for "
+                           f"{TRACE_STEPS} batches, {dropped} dropped")
+    if k4 != 2 * 3 * TRACE_STEPS or k4_traced != 2 * TRACE_STEPS:
+        raise RuntimeError(f"K4 launched {k4} times in {3 * TRACE_STEPS} "
+                           f"steps, {k4_traced} traced")
+    dev_events, kernels = _device_trace(profiler.device_trace_path())
+    fwd = sum("rtc_softmax_fwd" in e["name"] for e in kernels)
+    bwd = sum("rtc_softmax_bwd" in e["name"] for e in kernels)
+    if fwd != TRACE_STEPS or bwd != TRACE_STEPS:
+        raise RuntimeError(f"the device trace has rtc_softmax_fwd {fwd} "
+                           f"and _bwd {bwd} times in {TRACE_STEPS} steps")
+    result = {"card": smi, "steps": TRACE_STEPS,
+              "step_ms": {"level0": ms0, "level1": ms1,
+                          "level1_profiled": msp},
+              "mean_step_ms": {"level0": statistics.mean(ms0),
+                               "level1": statistics.mean(ms1),
+                               "level1_profiled": statistics.mean(msp)},
+              # the first step of each feed waits for its first batch
+              "median_step_ms": {"level0": statistics.median(ms0),
+                                 "level1": statistics.median(ms1),
+                                 "level1_profiled": statistics.median(msp)},
+              "spans_per_step": names[0], "prefetch_stage_spans": staged,
+              "device_trace_events": len(dev_events),
+              "device_kernel_events": len(kernels),
+              "k4_kernel_events": fwd + bwd,
+              "graph_launch_events": _graph_launches(dev_events),
+              "k4_launches": k4}
+    print("traced resnet bf16 NHWC " + json.dumps(result))
+    for line in trace_top.table(trace_top.device_op_events(dev_events), 10):
+        print("  " + line)
+    del net, trainer
+    torch.cuda.empty_cache()
+    return result
+
+
 def kernel_entry(name, source, replaces, launches, worst, row, shape, smi,
                  **extra):
     entry = {"name": name, "route": "cuda", "source": source,
@@ -5575,6 +5976,8 @@ def main():
     torch.cuda.empty_cache()
     dist2 = dist_gloo_phase(smi)
     dist1 = dist_nccl_phase(smi)
+    traced_dec = traced_serving_phase(smi)
+    traced_res = traced_resnet_phase(smi)
     k4_dist = {"resnet50_dist_sync_gloo_rank0": dist2[0]["k4_fwd"],
                "resnet50_dist_sync_gloo_rank1": dist2[1]["k4_fwd"],
                "resnet50_dist_device_sync_nccl": dist1["k4_fwd"]}
@@ -5586,7 +5989,8 @@ def main():
         lm_hyb[False]["k1_sm90_launches"]
     k4_hyb = {"resnet_bf16_hybrid_eager": resnet_hyb[False]["k4_launches"] // 2,
               "resnet_bf16_hybridized": resnet_hyb[True]["k4_launches"] // 2,
-              "resnet_bf16_fed": fed["k4_launches"] // 2}
+              "resnet_bf16_fed": fed["k4_launches"] // 2,
+              "resnet_bf16_traced": traced_res["k4_launches"] // 2}
     k4_amp = {f"resnet_bf16_{k}": v["k4_launches"] // 2
               for k, v in resnet_amp.items()}
     big = k2_rows[-1]
@@ -5595,12 +5999,15 @@ def main():
         kernel_entry(
             KERNEL, "mxnet_tpu_torch/csrc/decode_attention.cu",
             "mxnet_tpu/kernels/flash_attention.py:137",
-            k2_launches + k2_paged_launches, k2_worst, big,
+            k2_launches + k2_paged_launches
+            + traced_dec["k2_launches_all_runs"], k2_worst, big,
             f"B={big['B']} H={big['H']} S={big['S']} "
             f"D={big['D']} visible={big['visible']} fp32", smi,
             splits=big["splits"], by_batch=k2_rows,
             launches_by_path={"serving": k2_launches,
-                              "paged_serving": k2_paged_launches}),
+                              "paged_serving": k2_paged_launches,
+                              "traced_serving":
+                                  traced_dec["k2_launches_all_runs"]}),
         # K1's headline numbers are the training shape's; the fusion
         # route's shape has its own row under "fusion_route". Its launches
         # are the mma.sync kernel's; the bf16 LM's go to the sm90 kernel
@@ -5786,7 +6193,7 @@ def main():
         "kv_int8_decode": kv_int8, "batch_dot_routes": quant_k["batch_dot"],
         "dequant_gap_k4608": quant_k["dequant_gap_k4608"],
         "ops_worst": quant_k["ops_worst"]}))
-    phase("54 report")
+    phase("56 report")
     print(f"bf16 ResNet-50 headline layout: {head}")
     print("hybridized: " + json.dumps({
         "resnet50_bf16_nhwc_step_ms": [resnet_hyb[False]["mean_step_ms"],
@@ -5870,6 +6277,18 @@ def main():
                      for b in dist2[0]["bandwidth"]],
             "nccl": [(b["size"], b["allreduce_gbps"], b["kvstore_gbps"])
                      for b in dist1["bandwidth"]]}}))
+    print("telemetry: " + json.dumps({
+        "card": smi,
+        "decode_tokens_per_s":
+            traced_dec["phase18_traffic"]["tokens_per_s"],
+        "decode_level1_cost_resolved":
+            traced_dec["phase18_traffic"]["level1_cost_resolved"],
+        "decode_traced_spans": traced_dec["traced_traffic"]["spans"],
+        "decode_device_trace_events": traced_dec["device_trace_events"],
+        "kineto_names_kernels_inside_graphs":
+            traced_dec["kineto_names_kernels_inside_graphs"],
+        "resnet_median_step_ms": traced_res["median_step_ms"],
+        "resnet_device_trace_events": traced_res["device_trace_events"]}))
     print(f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -66,6 +66,15 @@ ResNet-50 v1 with a custom-op loss head whose kernels ``rtc`` compiles:
   and its async parameter server, and the distributed ``Trainer``'s
   bucketed gradient all-reduce.
 
+- ``mx.telemetry`` and ``mx.profiler`` — host spans (``MXNET_TELEMETRY``)
+  at the seams of dispatch, the fused step, the data pipeline and
+  serving, one metrics registry with a Prometheus exposition, and the
+  card's trace through ``torch.profiler``; ``mx.runtime``, ``mx.env``
+  (the ``MXNET_*`` knob table, ``ENV_VARS.md``), ``mx.log``,
+  ``mx.registry``, ``mx.util``, ``mx.misc``, ``mx.libinfo`` and
+  ``mx.AttrScope``; the port's locks are ranked
+  (``utils/locks.py``, ``MXNET_LOCK_CHECK``).
+
 ``HybridBlock.hybridize()`` captures a block's forward, and under
 ``record()`` its backward, as CUDA graphs, one pair per call
 signature (``gluon.CachedOp``).
@@ -129,6 +138,17 @@ from . import parallel
 from . import gradient_compression
 from . import kvstore
 from . import kvstore as kv
+from . import env
+from . import telemetry
+from . import profiler
+from . import runtime
+from . import log
+from . import registry
+from . import util
+from . import misc
+from . import libinfo
+from . import attribute
+from .attribute import AttrScope
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "autograd", "initializer", "init", "ndarray", "nd",
@@ -136,4 +156,16 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "analysis", "models", "serving", "convert", "operator", "rtc",
            "contrib", "io", "pipeline", "metric", "callback", "model",
            "executor", "module", "mod", "rnn", "utils", "parallel",
-           "gradient_compression", "kvstore", "kv"]
+           "gradient_compression", "kvstore", "kv", "env", "telemetry",
+           "profiler", "runtime", "log", "registry", "util", "misc",
+           "libinfo", "attribute", "AttrScope"]
+
+# the env knobs applied once at import, as the JAX package applies them
+# (``mxnet_tpu/__init__.py:160-168``): the global seed, the profiler's
+# autostart, then a warning for every unknown MXNET_* variable
+if env.get_str("MXNET_SEED"):
+    random.seed(env.get_int("MXNET_SEED", 0))
+if env.get_bool("MXNET_PROFILER_AUTOSTART"):
+    profiler.set_config(aggregate_stats=True)
+    profiler.start()
+env.check()

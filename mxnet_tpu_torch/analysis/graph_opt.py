@@ -23,21 +23,23 @@ graph, and a rewrite that adds an error diagnostic is rejected: the
 original graph is served and the rejection counted — except when the
 fusion pass rewrote a graph optimized for a CUDA device, where serving
 the original would bypass the kernels unseen: that raises
-:class:`MXNetError`. The counters are a
-plain dict under a lock (:func:`counters`). The int8 quantization
+:class:`MXNetError`. The counters are the ``graph_opt`` family of the
+telemetry registry (:func:`counters`); ``graph_opt.optimize`` and, at
+``MXNET_TELEMETRY=2``, ``graph_opt.<pass>`` are spans. The int8 quantization
 passes (``quantize_insert``, ``quantize_elide``, ``quantize_calibrate``,
 ``analysis/quantize.py``) register here too and run as
 ``QUANTIZE_PIPELINE`` under the same rejection net: a quantized rewrite
 that adds an error diagnostic serves the float32 graph. Not ported yet:
-the telemetry spans and the artifact-layer salt provider.
+the artifact-layer salt provider (slice 10b).
 """
 from __future__ import annotations
 
 import logging
 import os
-import threading
 import time
 
+from .. import telemetry as _telemetry
+from ..telemetry import tracer as _telem
 from ..base import MXNetError
 from .passes import FactError, PassContext, register_fact, run_passes
 
@@ -65,39 +67,34 @@ _GRAPH_COUNTERS = ("graphs_seen", "graphs_optimized", "graphs_rejected",
                    "nodes_before_total", "nodes_after_total",
                    "rewrites_total", "shape_analysis_runs",
                    "dtype_analysis_runs", "fact_cache_hits")
-# guards: _COUNTERS, _PASS_COUNTERS
-_COUNT_LOCK = threading.Lock()
-_COUNTERS = dict.fromkeys(_GRAPH_COUNTERS, 0)
-_PASS_COUNTERS = {}  # "<pass>_rewrites" / "<pass>_time_ms"
+# the ``graph_opt`` family of the telemetry registry, and its internal
+# per-pass sub-family ("<pass>_rewrites" / "<pass>_time_ms")
+_COUNTERS = _telemetry.counter_family(
+    "graph_opt", dict.fromkeys(_GRAPH_COUNTERS, 0))
+_PASS_COUNTERS = _telemetry.counter_family("_graph_opt_passes")
 
 
 def _count(name, n=1):
-    with _COUNT_LOCK:
-        _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+    _COUNTERS.add(name, n)
 
 
 def _count_pass(name, rewrites, time_ms):
-    with _COUNT_LOCK:
-        for k, v in ((f"{name}_rewrites", rewrites),
-                     (f"{name}_time_ms", time_ms)):
-            _PASS_COUNTERS[k] = _PASS_COUNTERS.get(k, 0) + v
+    _PASS_COUNTERS.add(f"{name}_rewrites", rewrites)
+    _PASS_COUNTERS.add(f"{name}_time_ms", time_ms)
 
 
 def counters():
     """Graph totals, per-pass rewrite counts and cumulative time, and
     the analysis-run and fact-cache tallies."""
-    with _COUNT_LOCK:
-        out = dict(_COUNTERS)
-        out.update((k, round(v, 3) if k.endswith("_time_ms") else v)
-                   for k, v in sorted(_PASS_COUNTERS.items()))
+    out = _COUNTERS.snapshot()
+    out.update((k, round(v, 3) if k.endswith("_time_ms") else v)
+               for k, v in sorted(_PASS_COUNTERS.snapshot().items()))
     return out
 
 
 def reset_counters():
-    with _COUNT_LOCK:
-        _COUNTERS.clear()
-        _COUNTERS.update(dict.fromkeys(_GRAPH_COUNTERS, 0))
-        _PASS_COUNTERS.clear()
+    _COUNTERS.reset()
+    _PASS_COUNTERS.clear()
 
 
 # -- gating -----------------------------------------------------------------
@@ -510,7 +507,11 @@ class PassManager:
             for rp in self.passes:
                 before = len(graph.nodes)
                 t0 = time.perf_counter()
-                n = rp.run(graph, ctx)
+                with _telem.span(f"graph_opt.{rp.name}", cat="graph_opt",
+                                 need=2, iteration=it,
+                                 nodes_before=before) as sp:
+                    n = rp.run(graph, ctx)
+                    sp.set(rewrites=n)
                 dt_ms = (time.perf_counter() - t0) * 1e3
                 stats.append({"pass": rp.name, "iteration": it,
                               "nodes_before": before,
@@ -544,6 +545,16 @@ def optimize_symbol(symbol, shapes=None, dtypes=None, level=None, ctx=None,
     if lvl <= 0:
         return symbol, stats
     _count("graphs_seen")
+    with _telem.span("graph_opt.optimize", cat="graph_opt",
+                     subject=subject or "graph", level=lvl) as osp:
+        out, stats = _optimize_inner(symbol, shapes, dtypes, lvl, ctx,
+                                     subject, passes, device, stats)
+        osp.set(rewrites=stats["rewrites"], rejected=stats["rejected"])
+        return out, stats
+
+
+def _optimize_inner(symbol, shapes, dtypes, lvl, ctx, subject, passes,
+                    device, stats):
     if ctx is None:
         ctx = PassContext(symbol, shapes=shapes, dtypes=dtypes,
                           subject=subject)

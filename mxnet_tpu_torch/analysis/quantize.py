@@ -34,9 +34,9 @@ boundaries that survive the merge.
 The per-page int8 KV-cache codes of the paged state store
 (:func:`kv_page_codes`, :func:`quantize_kv_page`,
 :func:`dequantize_kv_pages`) live here too, as in the JAX package. The
-counters are a plain dict under a lock (:func:`counters`); the JAX
-package's telemetry family and artifact-layer salt have no counterpart
-in the port: :func:`fingerprint_salt` keys the port's own caches (the
+counters are the ``quantize`` family of the telemetry registry
+(:func:`counters`); the JAX package's artifact-layer salt has no
+counterpart in the port yet (slice 10b): :func:`fingerprint_salt` keys the port's own caches (the
 ``CachedOp`` entries and ``SymbolBlock``'s optimized graphs) by the
 resolved lowering.
 """
@@ -47,6 +47,7 @@ from contextlib import contextmanager
 
 import torch
 
+from .. import telemetry as _telemetry
 from .passes import PassContext
 
 __all__ = [
@@ -90,28 +91,24 @@ _TRIPLE_CONSUMERS = {"requantize", "dequantize"} | set(
 _COUNTER_NAMES = ("graphs_quantized", "nodes_quantized", "islands_elided",
                   "nodes_calibrated", "scales_folded", "uint8_boundaries",
                   "weight_bytes_saved", "kv_pages_quantized")
-# guards: _COUNTERS
-_COUNT_LOCK = threading.Lock()
-_COUNTERS = dict.fromkeys(_COUNTER_NAMES, 0)
+# the ``quantize`` family of the telemetry registry
+_COUNTERS = _telemetry.counter_family(
+    "quantize", dict.fromkeys(_COUNTER_NAMES, 0))
 
 
 def _count(name, n=1):
-    with _COUNT_LOCK:
-        _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+    _COUNTERS.add(name, n)
 
 
 def counters():
     """The quantization counters: islands formed and merged, nodes
     calibrated, scale constants folded, weight bytes saved by int8
     storage, KV pages quantized."""
-    with _COUNT_LOCK:
-        return dict(_COUNTERS)
+    return _COUNTERS.snapshot()
 
 
 def reset_counters():
-    with _COUNT_LOCK:
-        _COUNTERS.clear()
-        _COUNTERS.update(dict.fromkeys(_COUNTER_NAMES, 0))
+    _COUNTERS.reset()
 
 
 # -- the scope the passes read their configuration from ----------------------

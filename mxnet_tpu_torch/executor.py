@@ -50,6 +50,7 @@ import threading
 import torch
 
 from . import autograd
+from . import telemetry as _telemetry
 from . import random as _random
 from .base import MXNetError
 from .context import Context, cuda_graph, resolve_device
@@ -64,9 +65,11 @@ __all__ = ["Executor", "eager_binds", "executor_stats",
 _LOSS_HEADS = ("softmax_output", "make_loss", "linear_regression_output",
                "logistic_regression_output", "mae_regression_output")
 
-_STATS_LOCK = threading.Lock()
-_STATS = dict.fromkeys(("binds", "captures", "replays", "backward_replays",
-                        "eager_forwards", "eager_backwards"), 0)
+# the ``executor`` family of the telemetry registry
+_STATS = _telemetry.counter_family(
+    "executor", dict.fromkeys(("binds", "captures", "replays",
+                               "backward_replays", "eager_forwards",
+                               "eager_backwards"), 0))
 
 
 _BIND_MODE = threading.local()
@@ -87,8 +90,7 @@ def eager_binds():
 
 
 def _count(name, n=1):
-    with _STATS_LOCK:
-        _STATS[name] += n
+    _STATS.add(name, n)
 
 
 def one_context(ctx):
@@ -113,14 +115,11 @@ def executor_stats():
     captured), ``replays`` (forward graph replays), ``backward_replays``,
     and the ``eager_forwards``/``eager_backwards`` of uncaptured runs (the
     CPU, a monitor, an executor bound inside :func:`eager_binds`)."""
-    with _STATS_LOCK:
-        return dict(_STATS)
+    return _STATS.snapshot()
 
 
 def reset_executor_stats():
-    with _STATS_LOCK:
-        for k in _STATS:
-            _STATS[k] = 0
+    _STATS.reset()
 
 
 class _Graphs:

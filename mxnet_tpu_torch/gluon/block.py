@@ -33,6 +33,7 @@ import threading
 import torch
 
 from .. import autograd
+from .. import telemetry as _telemetry
 from .. import ndarray as nd
 from .. import random as _random
 from ..base import MXNetError, getenv
@@ -384,15 +385,14 @@ class Block(torch.nn.Module):
 
 # -- CachedOp -----------------------------------------------------------------
 
-# guards: _STATS
-_STATS_LOCK = threading.Lock()
-_STATS = dict.fromkeys(("builds", "calls", "captures", "replays",
-                        "backward_replays", "drops"), 0)
+# the ``cached_op`` family of the telemetry registry
+_STATS = _telemetry.counter_family(
+    "cached_op", dict.fromkeys(("builds", "calls", "captures", "replays",
+                                "backward_replays", "drops"), 0))
 
 
 def _count(name, n=1):
-    with _STATS_LOCK:
-        _STATS[name] += n
+    _STATS.add(name, n)
 
 
 def cached_op_stats():
@@ -402,14 +402,11 @@ def cached_op_stats():
     recording), ``replays`` (forward graph replays), ``backward_replays``
     and ``drops`` (caches dropped by ``hybridize``/``cast``). On the CPU
     captures and replays stay 0."""
-    with _STATS_LOCK:
-        return dict(_STATS)
+    return _STATS.snapshot()
 
 
 def reset_cached_op_stats():
-    with _STATS_LOCK:
-        for k in _STATS:
-            _STATS[k] = 0
+    _STATS.reset()
 
 
 class _Entry:

@@ -39,12 +39,12 @@ Counters: :func:`fused_step_stats`.
 from __future__ import annotations
 
 import collections
-import threading
 import weakref
 
 import torch
 
 from ..base import getenv
+from ..utils import locks as _locks
 
 __all__ = ["fused_step_enabled", "donate_params_enabled", "fused_step_stats",
            "reset_fused_step_cache", "build_step"]
@@ -71,8 +71,8 @@ class _FusedStepCache:
     def __init__(self, maxsize=None):
         self.maxsize = maxsize if maxsize is not None else \
             getenv("MXNET_FUSED_STEP_CACHE_SIZE", 16, int)
-        # guards: _entries, _counts
-        self._lock = threading.Lock()
+        # guards: _entries, _counts (the JAX package's LRU lock)
+        self._lock = _locks.RankedLock("utils.lru")
         self._entries = collections.OrderedDict()
         self._counts = dict.fromkeys(("hits", "misses", "evictions",
                                       "bypasses", "captures", "replays"), 0)

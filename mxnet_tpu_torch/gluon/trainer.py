@@ -47,6 +47,7 @@ contexts of one process (the mesh) comes with slice 9b.
 from __future__ import annotations
 
 import pickle
+import time
 
 import torch
 
@@ -56,6 +57,7 @@ from ..context import cuda_graph
 from ..ndarray import NDArray
 from ..ndarray import registry as _registry
 from ..resilience import faults as _faults
+from ..telemetry import tracer as _telem
 from . import fused_step as _fs
 from .parameter import Parameter
 
@@ -323,6 +325,7 @@ class Trainer:
                 cache["ids"] == self._buffer_ids(cache["params"]):
             _fs._CACHE.note_hit()
             return cache
+        t0 = time.monotonic()
         group = self._fused_group(kernel_key, scaler_cfg)
         if group == "empty":
             return group
@@ -341,23 +344,34 @@ class Trainer:
             "scalars": torch.zeros(2 * ng + 1, dtype=torch.float32,
                                    device=dev),
             "scalars_host": None, "graph": None}
+        if not cache["scalars"].is_cuda and _telem.tracing():
+            # the JAX fused step's ``fused_step.resolve``: on the CPU the
+            # step function runs as it is, so building it resolves it; on
+            # a CUDA device the capture does (``_capture``)
+            _telem.emit_span("fused_step.resolve", "train", t0,
+                             time.monotonic(), source="eager")
         return cache
 
     def _capture(self, cache):
         """Capture ``cache``'s step as a CUDA graph (nothing runs). A
-        failure raises: the card runs the fused step only as a graph."""
-        try:
-            _faults.maybe_fail("fused_step_capture")
-            graph = torch.cuda.CUDAGraph()
-            with torch.no_grad(), \
-                    cuda_graph(graph, capture_error_mode="thread_local"):
-                cache["fn"](*cache["args"], cache["scalars"])
-        except Exception as e:
-            raise MXNetError(
-                f"capturing the fused step as a CUDA graph failed "
-                f"({type(e).__name__}: {e}); on a CUDA device the fused "
-                "step runs only as a graph (MXNET_FUSED_STEP=0 runs the "
-                "eager loop)") from e
+        failure raises: the card runs the fused step only as a graph.
+        The capture is the JAX fused step's ``fused_step.resolve`` and,
+        inside it, its ``fused_step.trace_compile``."""
+        with _telem.span("fused_step.resolve", cat="train",
+                         source="capture"):
+            try:
+                _faults.maybe_fail("fused_step_capture")
+                graph = torch.cuda.CUDAGraph()
+                with _telem.span("fused_step.trace_compile", cat="train"), \
+                        torch.no_grad(), \
+                        cuda_graph(graph, capture_error_mode="thread_local"):
+                    cache["fn"](*cache["args"], cache["scalars"])
+            except Exception as e:
+                raise MXNetError(
+                    f"capturing the fused step as a CUDA graph failed "
+                    f"({type(e).__name__}: {e}); on a CUDA device the "
+                    "fused step runs only as a graph (MXNET_FUSED_STEP=0 "
+                    "runs the eager loop)") from e
         cache["graph"] = graph
         _fs._CACHE.note_capture()
 
@@ -396,17 +410,22 @@ class Trainer:
         for i in cache["work"]:
             optim._update_count(i)
         self._set_scalars(cache, batch_size)
+        # ``fused_step.execute`` goes around each replay, never inside
+        # the captured body
         if cache["scalars"].is_cuda:
             if cache["graph"] is None:
                 self._capture(cache)
-            try:
-                cache["graph"].replay()
-            except Exception as e:
-                raise MXNetError(f"replaying the fused step's CUDA graph "
-                                 f"failed ({type(e).__name__}: {e})") from e
+            with _telem.span("fused_step.execute", cat="train"):
+                try:
+                    cache["graph"].replay()
+                except Exception as e:
+                    raise MXNetError(
+                        f"replaying the fused step's CUDA graph failed "
+                        f"({type(e).__name__}: {e})") from e
             _fs._CACHE.note_replay()
         else:
-            with torch.no_grad():
+            with _telem.span("fused_step.execute", cat="train"), \
+                    torch.no_grad():
                 cache["fn"](*cache["args"], cache["scalars"])
         st = self._fused_state
         st["expected_num_update"] = optim.num_update

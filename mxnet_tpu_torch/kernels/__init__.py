@@ -16,25 +16,24 @@ unfused graph).
 Knobs, as in the JAX package: ``MXNET_FUSION=0`` kill switch,
 ``MXNET_FUSION_PATTERNS`` (comma list of
 ``elementwise,norm_act,attention,serving``), ``MXNET_FUSION_COST_MODEL``
-(``heuristic`` | ``always`` | ``never``). The counters are a plain dict
-under a lock (:func:`counters`).
+(``heuristic`` | ``always`` | ``never``). The counters are the
+``fusion`` family of the telemetry registry (:func:`counters`).
 """
 from __future__ import annotations
 
 import os
-import threading
+
+from .. import telemetry as _telemetry
 
 #: every pattern the clustering pass and the serving specialization know
 ALL_PATTERNS = ("elementwise", "norm_act", "attention", "serving")
 
-# guards: _COUNTERS
-_COUNT_LOCK = threading.Lock()
-_COUNTERS = {}
+# the ``fusion`` family of the telemetry registry
+_COUNTERS = _telemetry.counter_family("fusion")
 
 
 def _count(name, n=1):
-    with _COUNT_LOCK:
-        _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+    _COUNTERS.add(name, n)
 
 
 def counters():
@@ -42,13 +41,11 @@ def counters():
     ``nodes_absorbed``, ``impl_<torch|cuda>``, ``fallback_<reason>``,
     and the serving ``serving_pad_fused``/``serving_slice_fused``
     calls."""
-    with _COUNT_LOCK:
-        return dict(_COUNTERS)
+    return _COUNTERS.snapshot()
 
 
 def reset_counters():
-    with _COUNT_LOCK:
-        _COUNTERS.clear()
+    _COUNTERS.clear()
 
 
 def fusion_enabled():

@@ -2,14 +2,15 @@
 
 The PyTorch counterpart of ``mxnet_tpu/name.py`` (reference:
 python/mxnet/name.py). A symbol node without an explicit name gets
-``{hint}{n}`` from the innermost manager's per-hint counter. Not ported
-yet: the ``Prefix`` manager.
+``{hint}{n}`` from the innermost manager's per-hint counter; a
+:class:`Prefix` manager namespaces every name made inside its ``with``
+block.
 """
 from __future__ import annotations
 
 import threading
 
-__all__ = ["NameManager", "current"]
+__all__ = ["NameManager", "Prefix", "current"]
 
 _scope = threading.local()
 
@@ -44,3 +45,16 @@ class NameManager:
     def __exit__(self, *exc):
         _scope.stack.pop()
 
+
+
+class Prefix(NameManager):
+    """Prepends ``prefix`` to every generated AND explicit name inside
+    its scope (reference: name.py Prefix; explicit names are prefixed
+    too, which is what nests checkpoint namespaces)."""
+
+    def __init__(self, prefix):
+        super().__init__()
+        self._prefix = prefix
+
+    def get(self, name, hint):
+        return self._prefix + super().get(name, hint)

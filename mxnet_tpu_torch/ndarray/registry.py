@@ -17,9 +17,13 @@ torch's autograd graph and gradients land in each parameter's own dtype.
 """
 from __future__ import annotations
 
+import time as _time
+
 import torch
 
 from .. import autograd
+from .. import profiler as _prof
+from ..telemetry import tracer as _telem
 
 __all__ = ["OpDef", "register", "get_op", "list_ops", "invoke", "set_amp",
            "amp_version"]
@@ -153,9 +157,42 @@ def _amp_cast_fn(opdef, args=None, kwargs=None):
     return cast
 
 
+def _capturing():
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
 def invoke(opdef, args, kwargs):
     """Run ``opdef`` on NDArray (or plain) arguments; tensor results
-    come back as NDArrays, a tuple result as a list of them."""
+    come back as NDArrays, a tuple result as a list of them.
+
+    The seams of the JAX dispatch (``mxnet_tpu/ndarray/registry.py:
+    628-649``): with the profiler running and ``profile_imperative`` set,
+    each call's host time goes to ``profiler.record_op``; at
+    ``MXNET_TELEMETRY=2`` each call is a ``dispatch.<op>`` span. Both
+    time the host's dispatch: torch launches asynchronously, and nothing
+    here waits for the card. The port has no dispatch executable cache,
+    so ``cached`` is always False. Ops run while a CUDA graph is being
+    captured get neither: they would be timed once, at the capture, and
+    never at the replays."""
+    if _prof.imperative_on() and not _capturing():
+        t0 = _time.perf_counter()
+        try:
+            return _invoke(opdef, args, kwargs)
+        finally:
+            _prof.record_op(opdef.name, t0 * 1e6,
+                            (_time.perf_counter() - t0) * 1e6,
+                            cached=False)
+    if _telem.tracing(2) and not _capturing():
+        with _telem.span(f"dispatch.{opdef.name}", cat="dispatch",
+                         need=2) as sp:
+            out = _invoke(opdef, args, kwargs)
+            sp.set(cached=False)
+            return out
+    return _invoke(opdef, args, kwargs)
+
+
+def _invoke(opdef, args, kwargs):
     from .ndarray import NDArray, _own
 
     def unwrap(x):

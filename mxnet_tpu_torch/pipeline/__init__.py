@@ -22,12 +22,12 @@ backward and their bytes), ``grad_flush_buckets`` (partial buckets
 dispatched at the step), ``grad_async_grads`` (gradients reduced ahead
 of the step), ``grad_flush_grads`` (reduced at the step),
 ``grad_stale_discards`` (a speculative reduction whose buffer changed
-after dispatch, reduced again) and ``kvstore_async_pushes``.
+after dispatch, reduced again) and ``kvstore_async_pushes``. They are
+the ``pipeline`` family of the telemetry registry.
 """
 from __future__ import annotations
 
-import threading
-
+from .. import telemetry as _telemetry
 from ..base import getenv
 
 __all__ = ["DeviceFeed", "AsyncGradReducer", "prefetch_depth",
@@ -74,27 +74,23 @@ def _zero():
             "kvstore_async_pushes": 0}
 
 
-# guards: _COUNTERS
-_LOCK = threading.Lock()
-_COUNTERS = _zero()
+# the ``pipeline`` family of the telemetry registry
+_COUNTERS = _telemetry.counter_family("pipeline", _zero())
 
 
 def _count(name, delta=1):
-    with _LOCK:
-        _COUNTERS[name] += delta
+    _COUNTERS.add(name, delta)
 
 
 def _count_set(name, value):
-    with _LOCK:
-        _COUNTERS[name] = value
+    _COUNTERS.set(name, value)
 
 
 def pipeline_counters():
     """The counters, with ``engine_idle_s`` (the stall time) and
     ``overlap_ratio`` (the share of the feeds' consumption time not spent
     stalled; 1.0 when the source always led)."""
-    with _LOCK:
-        out = dict(_COUNTERS)
+    out = _COUNTERS.snapshot()
     out["engine_idle_s"] = out["prefetch_stall_s"]
     active = out["feed_active_s"]
     out["overlap_ratio"] = (max(0.0, 1.0 - out["prefetch_stall_s"] / active)
@@ -103,8 +99,7 @@ def pipeline_counters():
 
 
 def reset_pipeline_counters():
-    with _LOCK:
-        _COUNTERS.update(_zero())
+    _COUNTERS.reset()
 
 
 from .device_feed import DeviceFeed  # noqa: E402

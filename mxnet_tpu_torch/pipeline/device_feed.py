@@ -24,10 +24,11 @@ an ``io`` DataIter, a gluon ``DataLoader``, a plain iterable — and:
   caller's thread and stream: no thread, no queue.
 
 A leaf already on the device passes through; on a CPU ``device`` the
-leaves become host NDArrays. The JAX package also emits telemetry spans
-(``pipeline.prefetch_stage``, ``pipeline.feed_wait``); the port has no
-``telemetry`` yet (slice 10), so the counters of ``pipeline`` are the
-only record. The fault seam ``device_put`` fires in the staging.
+leaves become host NDArrays. Under ``MXNET_TELEMETRY>=1`` the staging
+is a ``pipeline.prefetch_stage`` span on the feed's thread and each
+``next()``'s wait a ``pipeline.feed_wait`` span, as in the JAX package;
+the counters are the ``pipeline`` family. The fault seam ``device_put``
+fires in the staging.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from ..context import resolve_device
 from ..ndarray import NDArray
 from ..ndarray.ndarray import host_tensor
 from ..resilience import faults as _faults
+from ..telemetry import tracer as _telem
 from . import _count, _count_set, prefetch_depth
 
 __all__ = ["DeviceFeed"]
@@ -186,7 +188,12 @@ class DeviceFeed:
             for batch in self.source:
                 if ep.stop.is_set():
                     return
-                staged = self._stage_async(batch)
+                # its own lane in the trace: staging runs on the feed's
+                # thread, beside the consumer's step spans; the span ends
+                # before the wait on the copies below
+                with _telem.span("pipeline.prefetch_stage",
+                                 cat="pipeline"):
+                    staged = self._stage_async(batch)
                 if staged.event is not None:
                     # the copies read the source's memory: let them land
                     # before the source may refill it with the next batch
@@ -226,7 +233,11 @@ class DeviceFeed:
         if self._t_first is None:
             self._t_first = t0
         stalled = ep.q.empty()
+        tm0 = time.monotonic() if _telem.tracing() else 0.0
         item = ep.q.get()
+        if tm0:
+            _telem.emit_span("pipeline.feed_wait", "pipeline", tm0,
+                             time.monotonic(), stalled=stalled)
         wait = time.perf_counter() - t0
         if item is _END:
             self._end_pass()

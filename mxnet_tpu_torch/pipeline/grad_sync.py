@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from ..telemetry import tracer as _telem
 from . import _count, async_grad_sync_enabled, grad_bucket_bytes
 
 __all__ = ["AsyncGradReducer"]
@@ -144,15 +145,18 @@ class AsyncGradReducer:
         _faults.maybe_fail("grad_bucket_dispatch")
         tensors = [g._data for g in bucket]
         nbytes = sum(t.numel() * t.element_size() for t in tensors)
-        if self._reduce_fn is None and not _rendezvous.is_initialized():
-            views = [None] * len(tensors)  # the identity: nothing to bind
-        else:
-            flat = spmd.flatten(tensors)
-            if self._reduce_fn is not None:
-                flat = self._reduce_fn(flat)
+        with _telem.span("pipeline.grad_bucket", cat="pipeline",
+                         grads=len(bucket), bytes=nbytes):
+            if self._reduce_fn is None and \
+                    not _rendezvous.is_initialized():
+                views = [None] * len(tensors)  # the identity
             else:
-                self._inflight.append(spmd.all_reduce_async(flat))
-            views = spmd.unflatten(flat, tensors)
+                flat = spmd.flatten(tensors)
+                if self._reduce_fn is not None:
+                    flat = self._reduce_fn(flat)
+                else:
+                    self._inflight.append(spmd.all_reduce_async(flat))
+                views = spmd.unflatten(flat, tensors)
         for g, t, v in zip(bucket, tensors, views):
             self._spec[id(g)] = (t, t._version, v)
         _count("grad_bucket_bytes", nbytes)
@@ -203,8 +207,10 @@ class AsyncGradReducer:
                     _count("grad_stale_discards")
                 todo.append(g)
             if todo:
-                reduced = parallel.all_reduce_coalesced(
-                    [g._data for g in todo], reduce_fn=self._reduce_fn)
+                with _telem.span("pipeline.grad_flush", cat="pipeline",
+                                 grads=len(todo)):
+                    reduced = parallel.all_reduce_coalesced(
+                        [g._data for g in todo], reduce_fn=self._reduce_fn)
                 for g, r in zip(todo, reduced):
                     if r is not g._data:
                         g._data.copy_(r)

@@ -14,10 +14,11 @@ slice.
 """
 from __future__ import annotations
 
-import threading
 import time
 
 from ..base import MXNetError, getenv
+from ..utils import locks as _locks
+from . import _count
 
 __all__ = ["CircuitBreaker", "CircuitOpen"]
 
@@ -40,7 +41,7 @@ class CircuitBreaker:
         self.name = name
         self._clock = clock if clock is not None else time.monotonic
         # guards: _failures, _opened_at, _probing
-        self._lock = threading.Lock()
+        self._lock = _locks.RankedLock("resilience.breaker")
         self._failures = 0  # consecutive, while closed / half-open
         self._opened_at = None  # clock stamp, while open
         self._probing = False  # the one half-open probe is out
@@ -76,6 +77,7 @@ class CircuitBreaker:
             if st == "half-open" and not self._probing:
                 self._probing = True
                 return True
+        _count("breaker_fast_fails")
         return False
 
     def check(self):
@@ -88,9 +90,12 @@ class CircuitBreaker:
 
     def record_success(self):
         with self._lock:
+            was_open = self._opened_at is not None
             self._failures = 0
             self._opened_at = None
             self._probing = False
+        if was_open:
+            _count("breaker_resets")
 
     def record_failure(self):
         from . import resilience_enabled
@@ -100,8 +105,11 @@ class CircuitBreaker:
         with self._lock:
             self._failures += 1
             self._probing = False
-            if self._opened_at is not None or \
-                    self._failures >= self.threshold:
+            tripped = self._opened_at is None and \
+                self._failures >= self.threshold
+            if tripped or self._opened_at is not None:
                 # a trip, or a failed half-open probe: the cooldown
                 # restarts now
                 self._opened_at = self._clock()
+        if tripped:
+            _count("breaker_trips")

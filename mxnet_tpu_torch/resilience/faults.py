@@ -44,13 +44,14 @@ grammar and the JAX package's training seams come with a later slice.
 from __future__ import annotations
 
 import random as _pyrandom
-import threading
 import zlib
 
 from ..base import MXNetError, getenv
+from ..utils import locks as _locks
+from . import _count
 
 __all__ = ["InjectedFault", "FAULT_POINTS", "maybe_fail", "inject",
-           "disarm", "clear", "armed"]
+           "disarm", "clear", "armed", "fire_counts", "reset_fire_counts"]
 
 
 class InjectedFault(MXNetError, OSError):
@@ -130,9 +131,10 @@ class _Clause:
         return hit
 
 
-# guards: _PLAN and the armed clauses' counters
-_LOCK = threading.Lock()
+# guards: _PLAN, _FIRES and the armed clauses' counters
+_LOCK = _locks.RankedLock("resilience.faults")
 _PLAN = None  # point -> _Clause, or None (disarmed)
+_FIRES = {}  # point -> total fires across plans (counters)
 
 
 class inject:
@@ -189,6 +191,20 @@ def maybe_fail(point):
         return
     with _LOCK:
         fire = clause.should_fire()
+        if fire:
+            _FIRES[point] = _FIRES.get(point, 0) + 1
     if fire:
+        _count("fault_fires")
         raise clause.exc(f"injected fault at point {point!r} "
                          f"(call {clause.calls}, fire {clause.fires})")
+
+
+def fire_counts():
+    """{point: total injected fires} since the last reset."""
+    with _LOCK:
+        return dict(_FIRES)
+
+
+def reset_fire_counts():
+    with _LOCK:
+        _FIRES.clear()

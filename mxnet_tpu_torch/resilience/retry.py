@@ -17,33 +17,27 @@ from __future__ import annotations
 
 import logging
 import random as _pyrandom
-import threading
 import time
 
 from ..base import MXNetError, getenv
+from . import _COUNTERS, _count
 
 __all__ = ["RetryPolicy", "RetryExhausted", "retry_counters",
            "reset_retry_counters"]
 
-# guards: _COUNTERS
-_LOCK = threading.Lock()
-_COUNTERS = {"retry_attempts": 0, "retry_sleep_s": 0.0, "retry_giveups": 0}
-
-
-def _count(name, delta=1):
-    with _LOCK:
-        _COUNTERS[name] += delta
+_KEYS = ("retry_attempts", "retry_sleep_s", "retry_giveups")
 
 
 def retry_counters():
-    with _LOCK:
-        return dict(_COUNTERS)
+    """The retry counters of the ``resilience`` family."""
+    snap = _COUNTERS.snapshot()
+    return {k: snap.get(k, 0) for k in _KEYS}
 
 
 def reset_retry_counters():
-    with _LOCK:
-        _COUNTERS.update(retry_attempts=0, retry_sleep_s=0.0,
-                         retry_giveups=0)
+    _COUNTERS.set("retry_attempts", 0)
+    _COUNTERS.set("retry_sleep_s", 0.0)
+    _COUNTERS.set("retry_giveups", 0)
 
 
 class RetryExhausted(MXNetError):

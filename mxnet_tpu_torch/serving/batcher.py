@@ -33,8 +33,18 @@ without executing (its session state stays put, so it can be retried).
 
 ``close()`` stops accepting queued work, drains every accepted request
 to its boundary and joins the workers; afterwards, or with
-``MXNET_SERVING=0``, ``submit`` runs inline. Telemetry spans and the
-session-state checkpoint at close come with a later slice.
+``MXNET_SERVING=0``, ``submit`` runs inline. The session-state
+checkpoint at close comes with slice 9b.
+
+Telemetry (``MXNET_TELEMETRY>=1``), with the JAX batcher's names: a
+request's ``serving.admission`` span on the submitting thread, then on
+the worker ``serving.coalesce``, one ``serving.queue_wait`` per member,
+``serving.pad``, ``serving.execute`` and ``serving.respond`` (stateless)
+or ``serving.decode_step`` (stateful), and the instant
+``serving.timeout``. Each request carries the trace id current at
+``submit`` across the queue, so its spans share one trace id. The
+execute and decode-step spans end with the host copy of the outputs
+the batcher makes anyway; no span adds a wait on the card.
 """
 from __future__ import annotations
 
@@ -49,6 +59,8 @@ import numpy as onp
 
 from ..base import MXNetError, getenv
 from ..ndarray import NDArray
+from ..utils import locks as _locks
+from ..telemetry import tracer as _telem
 from .metrics import METRICS, SLO_CLASSES
 
 __all__ = ["DynamicBatcher", "ServerBusy", "RequestTimeout"]
@@ -68,7 +80,7 @@ _STOP = object()  # queue sentinel, one per worker at close()
 
 class _Request:
     __slots__ = ("arrs", "rows", "future", "t_submit", "deadline",
-                 "slo_class", "session_id")
+                 "slo_class", "session_id", "trace_id")
 
     def __init__(self, arrs, rows, deadline, slo_class="standard",
                  session_id=None):
@@ -79,6 +91,10 @@ class _Request:
         self.deadline = deadline
         self.slo_class = slo_class
         self.session_id = session_id  # stateful: one step of this stream
+        # the trace id crosses the queue with the request: submit runs on
+        # the caller's thread (inside the HTTP layer's trace_context),
+        # the batch on a worker
+        self.trace_id = _telem.current_trace_id()
 
     def expired(self, now=None):
         return self.deadline is not None and \
@@ -105,7 +121,7 @@ class _ClassQueues:
         self._lanes = [deque() for _ in classes]
         self._ctrl = deque()
         # guards: _lanes, _ctrl
-        self._cond = threading.Condition()
+        self._cond = _locks.RankedCondition("batcher.queue")
 
     def _lane_locked(self, item):
         cls = getattr(item, "slo_class", "standard")
@@ -218,7 +234,7 @@ class DynamicBatcher:
         self._queue = _ClassQueues(int(
             max_queue or getenv("MXNET_SERVING_QUEUE_DEPTH", 256, int)))
         # guards: _closed, _outstanding
-        self._lock = threading.Condition()
+        self._lock = _locks.RankedCondition("batcher")
         self._closed = False
         self._outstanding = 0  # queued requests not yet resolved
         self._pass_through = not serving_enabled()
@@ -260,6 +276,25 @@ class DynamicBatcher:
         stream ``session_id`` (required, one row); the future resolves
         to that step's output row(s), and a reclaimed slot rejects with
         :class:`~.state.SessionEvicted` on exactly this stream."""
+        # the lifecycle's first span: validation, admission and the
+        # queue put on the caller's thread; a rejection is its error
+        if not _telem.tracing():
+            return self._submit_inner(inputs, timeout_ms, block,
+                                      slo_class, session_id)
+        t0 = time.monotonic()
+        attrs = {"slo_class": slo_class or "standard"}
+        try:
+            return self._submit_inner(inputs, timeout_ms, block,
+                                      slo_class, session_id)
+        except Exception as e:
+            attrs["error"] = type(e).__name__
+            raise
+        finally:
+            _telem.emit_span("serving.admission", "serving", t0,
+                             time.monotonic(), **attrs)
+
+    def _submit_inner(self, inputs, timeout_ms, block, slo_class,
+                      session_id):
         from .admission import normalize_class
 
         cls = normalize_class(slo_class)
@@ -401,6 +436,8 @@ class DynamicBatcher:
             met_deadline=r.deadline is None or now <= r.deadline)
 
     def _fail_timeout(self, req):
+        _telem.instant("serving.timeout", cat="serving",
+                       trace_id=req.trace_id, slo_class=req.slo_class)
         budget_ms = (req.deadline - req.t_submit) * 1e3
         self._fail(req, RequestTimeout(
             f"request expired after {budget_ms:.0f} ms in queue"),
@@ -434,6 +471,7 @@ class DynamicBatcher:
             flush_at = req.t_submit + self._max_latency_s
             if req.deadline is not None:
                 flush_at = min(flush_at, req.deadline - margin)
+            t_co = time.monotonic() if _telem.tracing() else 0.0
             while rows < self._max_batch:
                 remaining = flush_at - time.monotonic()
                 try:
@@ -455,6 +493,11 @@ class DynamicBatcher:
                 rows += nxt.rows
                 if nxt.deadline is not None:
                     flush_at = min(flush_at, nxt.deadline - margin)
+            if t_co:
+                _telem.emit_span("serving.coalesce", "serving", t_co,
+                                 time.monotonic(),
+                                 trace_id=batch[0].trace_id,
+                                 requests=len(batch), rows=rows)
             METRICS.observe_flush(time.monotonic() - batch[0].t_submit)
             try:
                 self._execute(batch)
@@ -466,14 +509,28 @@ class DynamicBatcher:
         one device-to-host copy per output, numpy slices back per
         request. A failure here is systemic (inputs were validated at
         submit): it fails the whole batch."""
+        tid = batch[0].trace_id
+        if _telem.tracing():
+            # each member's queue wait, from its own submit to now
+            now = time.monotonic()
+            for r in batch:
+                _telem.emit_span("serving.queue_wait", "serving",
+                                 r.t_submit, now, trace_id=r.trace_id,
+                                 slo_class=r.slo_class)
         try:
-            arrs = batch[0].arrs if len(batch) == 1 else [
-                onp.concatenate([r.arrs[i] for r in batch], axis=0)
-                for i in range(len(batch[0].arrs))]
-            outs = self.session.predict(*arrs)
-            outs = outs if isinstance(outs, tuple) else (outs,)
-            host = [o.asnumpy() if isinstance(o, NDArray)
-                    else onp.asarray(o) for o in outs]
+            with _telem.span("serving.pad", cat="serving", trace_id=tid,
+                             requests=len(batch)):
+                arrs = batch[0].arrs if len(batch) == 1 else [
+                    onp.concatenate([r.arrs[i] for r in batch], axis=0)
+                    for i in range(len(batch[0].arrs))]
+            with _telem.span("serving.execute", cat="serving",
+                             trace_id=tid,
+                             rows=sum(r.rows for r in batch)):
+                outs = self.session.predict(*arrs)
+                outs = outs if isinstance(outs, tuple) else (outs,)
+                # ONE device-to-host copy per output
+                host = [o.asnumpy() if isinstance(o, NDArray)
+                        else onp.asarray(o) for o in outs]
             if len(batch) > 1:
                 # every output must be batch-major over exactly the
                 # coalesced rows, or slicing would hand one request
@@ -493,12 +550,14 @@ class DynamicBatcher:
             for r in batch:
                 self._fail(r, e, now)
             return
-        offset, now = 0, time.monotonic()
-        for r in batch:
-            rows = tuple(host) if len(batch) == 1 else \
-                tuple(h[offset:offset + r.rows] for h in host)
-            offset += r.rows
-            self._succeed(r, rows, now)
+        with _telem.span("serving.respond", cat="serving", trace_id=tid,
+                         requests=len(batch)):
+            offset, now = 0, time.monotonic()
+            for r in batch:
+                rows = tuple(host) if len(batch) == 1 else \
+                    tuple(h[offset:offset + r.rows] for h in host)
+                offset += r.rows
+                self._succeed(r, rows, now)
 
     # -- continuous batching (stateful sessions) -----------------------
 
@@ -609,12 +668,22 @@ class DynamicBatcher:
                 self._fail(r, e)
         if not live:
             return
+        if _telem.tracing():
+            now = time.monotonic()
+            for r in live:
+                _telem.emit_span("serving.queue_wait", "serving",
+                                 r.t_submit, now, trace_id=r.trace_id,
+                                 slo_class=r.slo_class,
+                                 session=r.session_id)
         t0 = time.perf_counter()
         try:
-            arrs = live[0].arrs if len(live) == 1 else [
-                onp.concatenate([r.arrs[i] for r in live], axis=0)
-                for i in range(len(live[0].arrs))]
-            host = self.session._run_store_step(arrs, recs)
+            with _telem.span("serving.decode_step", cat="serving",
+                             trace_id=live[0].trace_id,
+                             sessions=len(live)):
+                arrs = live[0].arrs if len(live) == 1 else [
+                    onp.concatenate([r.arrs[i] for r in live], axis=0)
+                    for i in range(len(live[0].arrs))]
+                host = self.session._run_store_step(arrs, recs)
         except Exception as e:  # noqa: BLE001 — delivered per future
             logging.exception("serving: decode step failed for %d "
                               "session(s)", len(live))

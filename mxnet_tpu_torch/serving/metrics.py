@@ -22,9 +22,10 @@ from __future__ import annotations
 
 import bisect
 import itertools
-import threading
 import time
 from collections import deque
+
+from ..utils import locks as _locks
 
 
 __all__ = ["LatencyHistogram", "RollingHistogram", "ServingMetrics",
@@ -169,7 +170,7 @@ class ServingMetrics:
     def __init__(self):
         # guards: _depth_probes, _headroom_probes, _occupancy_probes,
         # _page_probes
-        self._lock = threading.Lock()
+        self._lock = _locks.RankedLock("serving.metrics")
         self._tokens = itertools.count()
         self._reset_locked()
         self._depth_probes = {}  # token -> callable() -> int

@@ -35,6 +35,7 @@ import threading
 import time
 
 from ..base import MXNetError, getenv
+from ..utils import locks as _locks
 from ..resilience import faults as _faults
 from ..resilience.breaker import CircuitBreaker
 from .batcher import DynamicBatcher
@@ -93,7 +94,7 @@ class _Model:
         self.name = name
         # guards: versions, active, canary, canary_fraction,
         # canary_breaker, canary_successes, canary_lat_ema
-        self.lock = threading.RLock()
+        self.lock = _locks.RankedRLock("repository.model")
         # guards: incumbent_lat_ema
         self.stats_lock = threading.Lock()
         self.versions = {}  # version -> _Version
@@ -122,7 +123,7 @@ class ModelRepository:
                  canary_threshold=None, canary_latency_x=None,
                  **batcher_kwargs):
         # guards: _models, _default, _closed
-        self._lock = threading.Lock()
+        self._lock = _locks.RankedLock("repository")
         self._models = {}
         self._default = None
         self._closed = False
@@ -338,11 +339,11 @@ class ModelRepository:
 
     def export_bundle(self, name, path, version=None):
         """Deployment bundles need the artifact layer (``torch.export``
-        / AOTInductor packages), which comes with slice 10 of the port;
+        / AOTInductor packages), which comes with slice 10b of the port;
         this raises."""
         raise MXNetError(
             "ModelRepository.export_bundle is not ported yet: deployment "
-            "bundles need the artifact layer, slice 10 of the port")
+            "bundles need the artifact layer, slice 10b of the port")
 
     def close(self):
         """Drain every batcher of every version (engine.close()

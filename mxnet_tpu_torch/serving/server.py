@@ -24,8 +24,11 @@ eviction (:class:`~.state.SessionEvicted`) -> 503 with ``Retry-After``;
 queue backpressure (:class:`~.batcher.ServerBusy`) or an open circuit
 -> 503; a deadline (:class:`~.batcher.RequestTimeout` or a result-wait
 timeout) -> 504; anything else -> 500. ``stop()`` is graceful: the
-listener closes first, then the batcher drains. Telemetry spans come
-with a later slice, as do the fleet's state-migration endpoints.
+listener closes first, then the batcher drains. Each POST is a
+``serving.request`` span under its ``X-Request-Id`` as trace id, which
+the batcher carries to its worker's spans; ``GET /metrics`` serves the
+telemetry registry's unified exposition. The fleet's state-migration
+endpoints come with slice 10b.
 """
 from __future__ import annotations
 
@@ -33,7 +36,6 @@ import io
 import json
 import logging
 import threading
-import uuid
 from concurrent.futures import TimeoutError as _FutureTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -41,6 +43,8 @@ import numpy as onp
 
 from ..base import getenv
 from ..resilience.breaker import CircuitOpen
+from ..telemetry import metrics as _tmetrics
+from ..telemetry import tracer as _telem
 from .admission import ShedLoad, normalize_class
 from .batcher import DynamicBatcher, RequestTimeout, ServerBusy
 from .metrics import METRICS
@@ -140,6 +144,7 @@ class _ServingHandler(BaseHTTPRequestHandler):
     model_server = None  # bound per-server by ModelServer.start
     protocol_version = "HTTP/1.1"
     _request_id = None  # set per-request at the top of do_POST
+    _status = None      # last reply's status code (span attr)
 
     # -- plumbing ------------------------------------------------------
 
@@ -150,6 +155,7 @@ class _ServingHandler(BaseHTTPRequestHandler):
                headers=None):
         if isinstance(body, (dict, list)):
             body = json.dumps(body).encode()
+        self._status = code
         self.send_response(code)
         self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
@@ -228,9 +234,9 @@ class _ServingHandler(BaseHTTPRequestHandler):
                 "default": srv.repository.default_model,
                 "models": srv.repository.model_states()})
         elif self.path == "/metrics":
-            # the serving registry's text (the unified exposition with
-            # the training counter families comes with a later slice)
-            self._reply(200, METRICS.prometheus_text().encode(),
+            # the unified exposition: the serving block and every
+            # training-side counter family
+            self._reply(200, _tmetrics.prometheus_text().encode(),
                         content_type="text/plain; version=0.0.4")
         else:
             self._error(404, f"no route {self.path!r}")
@@ -259,11 +265,18 @@ class _ServingHandler(BaseHTTPRequestHandler):
         raise LookupError(f"no route {self.path!r}")
 
     def do_POST(self):
-        # adopt the client's X-Request-Id (minting one when absent) and
-        # echo it on the response, errors included
+        # request-scoped trace propagation: adopt the client's
+        # X-Request-Id (minting one when absent), scope every span of
+        # this request to it (on this thread by trace_context, across the
+        # queue by the batcher's request), and echo it on the response,
+        # errors included
         self._request_id = (self.headers.get("X-Request-Id") or
-                            uuid.uuid4().hex)
-        self._do_post()
+                            _telem.new_trace_id())
+        with _telem.trace_context(self._request_id):
+            with _telem.span("serving.request", cat="serving",
+                             path=self.path) as sp:
+                self._do_post()
+                sp.set(status=self._status)
 
     def _do_post(self):
         try:

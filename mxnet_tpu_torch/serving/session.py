@@ -54,7 +54,6 @@ the stateless buckets, sharded sessions and AMP.
 """
 from __future__ import annotations
 
-import threading
 import time
 
 import numpy as onp
@@ -68,6 +67,7 @@ from ..ndarray.ndarray import torch_dtype
 from ..kernels import _build
 from ..kernels import serving_fused as _sf
 from ..resilience import faults as _faults
+from ..utils import locks as _locks
 from .metrics import METRICS
 
 __all__ = ["InferenceSession", "parse_buckets"]
@@ -249,7 +249,7 @@ class InferenceSession:
         self._num_outputs = None
         # guards: _steps, _buffers and the buffers' contents (one decode
         # step at a time)
-        self._lock = threading.RLock()
+        self._lock = _locks.RankedRLock("serving.session")
         self._steps = {}  # occupancy bucket -> _StepBucket
         self._buffers = None  # (inputs, states) of max_batch rows
         self._ready = set()  # stateless buckets that have run

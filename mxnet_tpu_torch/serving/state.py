@@ -59,7 +59,6 @@ The ``session_state_evict`` fault seam fires in :meth:`acquire`.
 from __future__ import annotations
 
 import logging
-import threading
 import time
 from collections import OrderedDict
 
@@ -70,6 +69,8 @@ from ..base import MXNetError, getenv
 from ..context import host_to_device, resolve_device
 from ..ndarray.ndarray import torch_dtype
 from ..resilience import faults as _faults
+from ..telemetry import tracer as _telem
+from ..utils import locks as _locks
 from .batcher import ServerBusy
 from .metrics import METRICS
 
@@ -241,7 +242,7 @@ class SessionStateStore:
                 device=self.device) if self._int8[i] else None)
         # guards: _slots, _free, _free_pages, _evicted, steps_total,
         # and the pools' contents
-        self._lock = threading.RLock()
+        self._lock = _locks.RankedRLock("serving.store")
         self._slots = OrderedDict()  # sid -> _Slot, LRU order
         self._free = list(range(self.num_slots - 1, -1, -1))
         # physical pages 1..num_pages (0 is the null page)
@@ -439,23 +440,26 @@ class SessionStateStore:
         missing = [j for j in range(npages) if not rec.table[j]]
         if not missing:
             return
-        if len(self._free_pages) < len(missing):
-            self._reclaim_pages_locked(len(missing), exclude=rec.sid)
-        if len(self._free_pages) < len(missing):
-            raise ServerBusy(
-                f"no free KV pages ({self.num_pages} pages, "
-                f"{len(self._free_pages)} free, {len(missing)} needed; "
-                "every other stream is in flight); retry later")
-        got = [self._free_pages.pop() for _ in missing]
-        for j, p in zip(missing, got):
-            rec.table[j] = p
-        dest = self._device_index(got)
-        with torch.inference_mode():
-            for i, pool in enumerate(self._pools):
-                if self._pageable[i]:
-                    pool.index_fill_(0, dest, 0)
-                    if self._scales[i] is not None:
-                        self._scales[i].index_fill_(0, dest, 0.0)
+        with _telem.span("serving.page_alloc", cat="serving",
+                         sid=rec.sid, pages=len(missing)):
+            if len(self._free_pages) < len(missing):
+                self._reclaim_pages_locked(len(missing), exclude=rec.sid)
+            if len(self._free_pages) < len(missing):
+                raise ServerBusy(
+                    f"no free KV pages ({self.num_pages} pages, "
+                    f"{len(self._free_pages)} free, {len(missing)} "
+                    "needed; every other stream is in flight); retry "
+                    "later")
+            got = [self._free_pages.pop() for _ in missing]
+            for j, p in zip(missing, got):
+                rec.table[j] = p
+            dest = self._device_index(got)
+            with torch.inference_mode():
+                for i, pool in enumerate(self._pools):
+                    if self._pageable[i]:
+                        pool.index_fill_(0, dest, 0)
+                        if self._scales[i] is not None:
+                            self._scales[i].index_fill_(0, dest, 0.0)
 
     def _evict_locked(self, sid, reason):
         rec = self._slots.pop(sid)

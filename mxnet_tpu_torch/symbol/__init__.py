@@ -16,8 +16,10 @@ make an :class:`~mxnet_tpu_torch.executor.Executor`, which the Module
 API trains through.
 
 ``sym.contrib`` holds the names of ``nd.contrib``'s ops and their
-CamelCase spellings, emitting graph nodes. Not ported yet:
-``AttrScope``, and the ``linalg``/``image`` sub-namespaces.
+CamelCase spellings, emitting graph nodes. ``mx.AttrScope``
+(``attribute.py``) stamps the symbols made inside it, and
+``mx.name.Prefix`` prefixes their names. Not ported yet: the
+``linalg``/``image`` sub-namespaces (slice 11).
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import numpy as onp
 import torch
 
 from .. import kernels as _kernels  # noqa: F401 — registers the fused ops
+from .. import attribute as _attribute
 from .. import name as _name_mod
 from ..base import MXNetError
 from ..ndarray import _CAMEL_ALIASES, NDArray
@@ -444,8 +447,10 @@ def Variable(name=None, shape=None, dtype=None, init=None, **kwargs):
     if name is None:
         name = _name_mod.current().get(None, "var")
     s = Symbol(op=None, name=name)
-    if kwargs.get("attr"):
-        s._attrs.update({k: str(v) for k, v in kwargs["attr"].items()})
+    # the ambient AttrScope's attributes, explicit ``attr=`` winning
+    scope_attrs = _attribute.current().get(kwargs.pop("attr", None))
+    if scope_attrs:
+        s._attrs.update({k: str(v) for k, v in scope_attrs.items()})
     if shape is not None:
         s._attrs["__shape__"] = str(tuple(shape))
     if dtype is not None:
@@ -531,9 +536,16 @@ def _num_outputs_for(opname, kwargs):
 
 
 def _make_node(opname, inputs, kwargs, name=None):
-    name = _name_mod.current().get(name, opname.lower())
-    return Symbol(op=opname, name=name, inputs=inputs, kwargs=kwargs,
+    """A node named by the innermost name manager when ``name`` is None,
+    stamped with the ambient AttrScope's attributes."""
+    if name is None:
+        name = _name_mod.current().get(None, opname.lower())
+    node = Symbol(op=opname, name=name, inputs=inputs, kwargs=kwargs,
                   num_outputs=_num_outputs_for(opname, kwargs))
+    scope_attrs = _attribute.current().get(None)
+    if scope_attrs:
+        node._attrs.update(scope_attrs)
+    return node
 
 
 # input positions that are auxiliary states (the reference derives them
@@ -601,8 +613,7 @@ def _sym_wrapper(opdef):
                 inputs.append(v)
             else:
                 config[key] = v
-        node = Symbol(op=opdef.name, name=name, inputs=inputs, kwargs=config,
-                      num_outputs=_num_outputs_for(opdef.name, config))
+        node = _make_node(opdef.name, inputs, config, name=name)
         _mark_aux_inputs(node)
         if attr:
             node._set_attr(**attr)

@@ -2454,3 +2454,31 @@ def test_int8_kv_pages_decode_on_the_card(cuda):
         bat.close()
         sess.close()
         store.close()
+
+
+def test_profiler_device_trace_holds_the_cards_kernels(cuda, tmp_path,
+                                                        monkeypatch):
+    """``profiler.start``/``stop`` on the card: the device trace holds
+    kernel events, K2's among them. (Smoke phase 54 checks K2 inside the
+    replayed decode graphs.)"""
+    from mxnet_tpu_torch import profiler, telemetry
+    import json
+
+    monkeypatch.setenv("MXNET_TELEMETRY", "1")
+    profiler.set_config(filename=str(tmp_path / "card.json"))
+    profiler.start()
+    try:
+        a = torch.randn(256, 256, device=cuda)
+        (a @ a).sum()
+        q, k, v, lengths = _inputs(cuda, 2, 64, 4, 64, [10, 64])
+        _decode_flash(q, k, v, lengths, 0.125)
+        torch.cuda.synchronize()
+    finally:
+        profiler.stop()
+    doc = json.load(open(profiler.device_trace_path()))
+    kernels = [e["name"] for e in doc["traceEvents"]
+               if e.get("cat") == "kernel"]
+    assert kernels
+    assert any("decode_attention_kernel" in n for n in kernels)
+    assert profiler.device_trace_path().endswith("card_device.json")
+    telemetry.reset_trace()
