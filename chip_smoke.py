@@ -69,7 +69,13 @@ kernels against the plain PyTorch versions:
   the layout copy ``int8_to_nhwc`` of the same file), the stem on the
   ``mma.sync`` kernel (``csrc/int8_conv.cu``); its classifier on
   ``torch._int_mm``; the block-swap ``quantize_net``; and GPT-2-small
-  decode on int8 KV pages.
+  decode on int8 KV pages;
+- the deployment chain: autotune sweeps of ``quantize.lowering`` and
+  ``fusion.attn_compute_bound_seq``, three model versions (wav2vec2,
+  int8 ResNet-50, GPT-2-small decode) exported as bundles by a
+  ``ModelRepository`` and served by a process with no ``nvcc`` that
+  builds nothing, and a ``FleetRouter`` over two replica processes on
+  the one card, drained mid-stream.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100:
 
@@ -493,7 +499,40 @@ stream busy until the launch is enqueued, so it is the device's time:
     feed's thread stages 5 ``pipeline.prefetch_stage`` spans, and the
     device trace holds K4's ``rtc_softmax_fwd`` and ``_bwd`` once each a
     step; step ms of each run and ``trace_top``'s first ten rows;
-56. report: one JSON line of kernels, then the device line last.
+56. autotune: under ``MXNET_AUTOTUNE=tune``, ``autotune.tune`` sweeps
+    ``quantize.lowering`` on the int8 ResNet-50 at batch 32 (``native``
+    runs N2, ``dequant`` cuDNN on float codes) and
+    ``fusion.attn_compute_bound_seq`` on wav2vec2's bucket-8 graph, each
+    candidate priced by the paired-median harness (3 pairs of windows of
+    10 predicts, each window ending in a synchronize) against the
+    heuristic; prints each candidate's ratio and the stored winner;
+57. artifacts and bundles: a ``ModelRepository`` deploys wav2vec2 at
+    bucket 8 (phase 13's export), ResNet-50 in int8 at batch 32 (its
+    calibrated graph a program) and GPT-2-small decode, from an empty
+    program cache, answers one request each (K1, K3, N2 and K2 launched
+    on that path), and exports a bundle of each; a child process
+    (``tools/deploy_chain.py serve``) with ``nvcc`` off its ``PATH``,
+    ``CUDA_HOME`` pointing nowhere and an empty
+    ``MXNET_COMPILE_CACHE_DIR`` imports the bundles, consults the tuned
+    records and serves: 0 ``nvcc`` builds, 0 graph-optimizer runs, 0
+    calibrations, 0 measurements, ``disk_hits`` equal to the bundles'
+    programs, every answer bitwise the exporter's, and the forced
+    winners (the lowering's knob, the threshold's trial) bitwise the
+    consulted answers; prints the bundles' bytes and the seconds to a
+    first response, cold (the exporter) against bundle-warm;
+58. the replica fleet: two replica processes of GPT-2-small decode
+    share the card behind a ``FleetRouter`` (the second joins from
+    phase 57's bundle, building nothing); 16 greedy streams of 24 steps
+    through the router's HTTP surface, ``drain("a")`` after step 12:
+    every stream pinned to one replica until the drain and to b after
+    it, ``drained_sessions`` equal to a's live sessions, K2 launched in
+    b, every stream's tokens equal to one in-process session's and its
+    logits within 1e-5; prints tokens/s through the router beside phase
+    18's and the drain's seconds;
+59. report: one JSON line of kernels, then the device line last.
+
+``python3 chip_smoke.py --chain`` runs phases 1-2, phase 13's export and
+56-58 alone.
 
 Each phase prints the seconds it took.
 
@@ -595,6 +634,9 @@ AMP_DEV_FACTOR, AMP_DEV_FLOOR, AMP_LOSS_RTOL = 1.5, 1e-3, 2e-2
 
 
 _PHASE = {"name": None, "t": None}
+# the run's scratch directory (the program cache and autotune records
+# under MXNET_HOME, phase 13's export, the bundles), removed at exit
+WORK = {"dir": None, "home": None, "w2v_prefix": None}
 
 
 def phase(name):
@@ -1383,8 +1425,10 @@ def symbolic_phase():
           f"{torch.backends.cudnn.allow_tf32}, "
           f"torch.backends.cuda.matmul.allow_tf32 = "
           f"{torch.backends.cuda.matmul.allow_tf32}")
-    with tempfile.TemporaryDirectory() as tmp:
+    # exported into the run's scratch directory: phases 56-57 serve it
+    with contextlib.nullcontext(WORK["dir"]) as tmp:
         prefix = os.path.join(tmp, "wav2vec2-large-lv60")
+        WORK["w2v_prefix"] = prefix
         t0 = time.perf_counter()
         n_params = export_wav2vec2(prefix, mx.sym, nd, cfg, SEED)
         t_export = time.perf_counter() - t0
@@ -5524,6 +5568,7 @@ def dist_nccl_phase(smi):
 # 16-48 tokens, which keeps it near 200,000 events. Phase 55 is phase
 # 30's bf16 NHWC hybridized ResNet-50 fed by DeviceFeed
 TRACE_TURNS = (0, 1, 1, 0, 0, 1)
+TRACE_SETTLE_S = 0.5
 TRACE_PASSES = 2
 TRACE_STREAMS, TRACE_MIN, TRACE_MAX = 16, 16, 48
 TRACE_STEPS = 5
@@ -5665,6 +5710,11 @@ def traced_serving_phase(smi):
             if profiled:
                 profiler.set_config(filename=os.path.join(tmp, "decode.json"))
                 profiler.start()
+                # CUPTI's activity collection settles before the traffic
+                # (a kernel in the first moments of a window can go
+                # unrecorded)
+                torch.cuda.synchronize()
+                time.sleep(TRACE_SETTLE_S)
             wall, rids = 0.0, []
             for k in range(passes):
                 w, r, sids = _traced_traffic(bat, f"{run}.{k}", lengths,
@@ -5675,6 +5725,7 @@ def traced_serving_phase(smi):
                     store.evict(sid, reason="traced pass done")
             if profiled:
                 torch.cuda.synchronize()
+                time.sleep(TRACE_SETTLE_S)
                 profiler.stop()
             snap = serving.METRICS.snapshot()
             n_tokens = passes * sum(lengths)
@@ -5892,6 +5943,435 @@ def traced_resnet_phase(smi):
     return result
 
 
+
+# -- the deployment chain: autotune, programs and bundles, the fleet ----------
+
+# the three versions a repository deploys and bundles: wav2vec2 at bucket
+# 8 (phase 13's export), ResNet-50 in int8 at batch 32 (phase 49's
+# calibration: 10 batches of 32), GPT-2-small decode on a paged store
+DEPLOY_W2V_BUCKET = 8
+DEPLOY_DECODE = dict(kind="decode", cfg=GPT2_SMALL, seed=SEED, rows=16,
+                     buckets=[1, 2, 4, 8, 16], page_tokens=16,
+                     budget=2 ** 28)
+DEPLOY_DECODE_STREAMS, DEPLOY_DECODE_STEPS = 4, 8
+TUNE_ITERS, TUNE_PAIRS, TUNE_BUDGET_MS = 10, 3, 120_000
+FLEET_STREAMS, FLEET_STEPS, FLEET_DRAIN_AT = 16, 24, 12
+FLEET_TOL = 1e-5  # K2's split count follows the occupancy: not bitwise
+FLEET_LONE_STEPS = 16
+_DC = "mxnet_tpu_torch.tools.deploy_chain"
+
+
+def _deploy_models(prefix):
+    samples = W2V_SECONDS * SAMPLE_RATE
+    return {
+        "wav2vec2": dict(kind="symbol", prefix=prefix, samples=samples,
+                         bucket=DEPLOY_W2V_BUCKET),
+        "resnet50_int8": dict(kind="int8_resnet", model="resnet50_v1",
+                              batch=QUANT_CALIB_B,
+                              calib_batches=QUANT_CALIB_BATCHES),
+        "gpt2_decode": dict(DEPLOY_DECODE, steps=DEPLOY_DECODE_STEPS)}
+
+
+def _deploy_inputs(models):
+    rng = onp.random.default_rng(SEED + 57)
+    w = models["wav2vec2"]
+    return {
+        "wav2vec2": rng.standard_normal(
+            (w["bucket"], w["samples"], 1), dtype=onp.float32),
+        "resnet50_int8": (rng.standard_normal(
+            (QUANT_CALIB_B,) + pq.IMAGE, dtype=onp.float32) * 0.5),
+        "gpt2_decode": rng.integers(0, GPT2_SMALL["vocab_size"],
+                                    DEPLOY_DECODE_STREAMS).astype("int32")}
+
+
+def _no_nvcc_env(cache_dir):
+    """A child's environment on a host without a compiler: ``nvcc`` off
+    ``PATH``, ``CUDA_HOME`` pointing nowhere, an empty compile cache."""
+    path = [d for d in os.environ.get("PATH", "").split(os.pathsep)
+            if d and not os.path.exists(os.path.join(d, "nvcc"))]
+    return {"PATH": os.pathsep.join(path),
+            "CUDA_HOME": os.path.join(cache_dir, "no-cuda"),
+            "CUDA_PATH": os.path.join(cache_dir, "no-cuda"),
+            "MXNET_COMPILE_CACHE_DIR": cache_dir}
+
+
+def _run_child(spec, env, timeout):
+    """``python -m tools.deploy_chain serve`` with ``spec``; its report."""
+    path = os.path.join(spec["dir"], "spec.json")
+    spec = dict(spec, spawn_wall=time.time())
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    proc = subprocess.run([sys.executable, "-m", _DC, "serve", path],
+                          cwd=ROOT, env=dict(os.environ, **env),
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"deploy child failed ({proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def autotune_phase(smi, prefix):
+    phase("56 autotune")
+    from mxnet_tpu_torch import autotune
+    from mxnet_tpu_torch.tools import deploy_chain as dc
+
+    os.environ.pop("MXNET_QUANTIZE_LOWERING", None)  # phase 49 forced it
+    os.environ["MXNET_AUTOTUNE"] = "tune"
+    autotune.reset_autotune_state()
+    ctx = mx.gpu(0)
+    models = _deploy_models(prefix)
+    inputs = _deploy_inputs(models)
+    qsess = dc.build_session(models["resnet50_int8"], ctx)
+    wsess = dc.build_session(models["wav2vec2"], ctx)
+    qx = nd.array(inputs["resnet50_int8"], ctx=ctx)
+    wx = nd.array(inputs["wav2vec2"], ctx=ctx)
+
+    def window(predict):
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TUNE_ITERS):
+                predict()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        return run
+
+    def measure_lowering(choice):
+        # a session of its own: the hybridized block captures one graph
+        # per resolved lowering
+        sess = pq.session(qsess._block, QUANT_CALIB_B, ctx)
+        return window(lambda: sess.predict(qx))
+
+    def measure_attention(choice):
+        wsess.predict(wx)  # re-optimizes under the candidate's salt
+        return window(lambda: wsess.predict(wx))
+
+    attn_key = ("cuda", 64)  # the attention clusters' head width
+    t0 = time.perf_counter()
+    lowering = autotune.tune(
+        "quantize.lowering", ("cuda",), measure_lowering,
+        default_choice="native", pairs=TUNE_PAIRS, budget_ms=TUNE_BUDGET_MS)
+    t_low = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    attention = autotune.tune(
+        "fusion.attn_compute_bound_seq", attn_key, measure_attention,
+        pairs=TUNE_PAIRS, budget_ms=TUNE_BUDGET_MS)
+    t_attn = time.perf_counter() - t0
+    counters = autotune.counters()
+    os.environ["MXNET_AUTOTUNE"] = "consult"
+    if counters["measurements"] != len(lowering["measured"]) + \
+            len(attention["measured"]) or counters["record_store"] != 2:
+        raise RuntimeError(f"autotune counters {counters}")
+    result = {"card": smi, "records_dir": autotune.records_dir(),
+              "quantize.lowering": {
+                  "key": ["cuda"], "measured": lowering["measured"],
+                  "winner": lowering["choice"], "won": lowering["won"],
+                  "sweep_s": t_low},
+              "fusion.attn_compute_bound_seq": {
+                  "key": list(attn_key), "measured": attention["measured"],
+                  "winner": attention["choice"], "won": attention["won"],
+                  "sweep_s": t_attn},
+              "counters": counters}
+    print("autotune (each candidate's paired-median base/test ratio over "
+          f"{TUNE_PAIRS} pairs of {TUNE_ITERS} predicts): "
+          + json.dumps(result))
+    del qsess, wsess
+    torch.cuda.empty_cache()
+    return result
+
+
+def bundle_phase(smi, prefix, tuned):
+    phase("57 artifacts and bundles")
+    from mxnet_tpu_torch.tools import deploy_chain as dc
+    from mxnet_tpu_torch.utils import compile_cache as cc
+
+    ctx = mx.gpu(0)
+    models = _deploy_models(prefix)
+    inputs = _deploy_inputs(models)
+    work = os.path.join(WORK["dir"], "deploy")
+    os.makedirs(work)
+    # the exporter starts from an empty program cache: cold programs
+    os.environ["MXNET_HOME"] = os.path.join(work, "home_export")
+    torch.backends.cudnn.deterministic = True
+    cc.reset_compile_cache_counters()
+    _build.reset_launch_counts()
+    repo = serving.ModelRepository(admission=False)
+    want, cold = {}, {}
+    try:
+        for name, spec in models.items():
+            t0 = time.perf_counter()
+            sess = dc.build_session(spec, ctx)
+            repo.deploy(name, sess)
+            got = dc.answer(sess, spec, inputs[name])
+            torch.cuda.synchronize()
+            cold[name] = time.perf_counter() - t0
+            for k, v in got.items():
+                want[f"{name}/{k}"] = v
+        counts = _build.launch_counts()
+        exporter = cc.compile_cache_stats()
+        path_kernels = {FLASH_KERNEL: "wav2vec2", NORM_ACT_KERNEL: "wav2vec2",
+                        N2_KERNEL: "resnet50_int8", KERNEL: "gpt2_decode"}
+        idle = [k for k in path_kernels if not counts.get(k)]
+        if idle:
+            raise RuntimeError(f"the exporter's path never launched {idle}: "
+                               f"{counts}")
+        bundles, reports = {}, {}
+        for name in models:
+            bundles[name] = os.path.join(work, f"{name}.bundle")
+            reports[name] = repo.export_bundle(name, bundles[name])
+    finally:
+        repo.close()
+    want_libs = {"wav2vec2": {"flash_attention", "norm_act"},
+                 "resnet50_int8": {"int8_conv", "int8_conv_sm90"},
+                 "gpt2_decode": {"decode_attention"}}
+    for name, rep in reports.items():
+        if rep["missing"] or not want_libs[name] <= set(rep["libraries"]):
+            raise RuntimeError(f"{name} bundle: {rep}")
+    if reports["wav2vec2"]["entries"] < 1 or \
+            reports["resnet50_int8"]["entries"] < 1:
+        raise RuntimeError(f"bundles hold no program: {reports}")
+    entries = sum(r["entries"] for r in reports.values())
+    onp.savez(os.path.join(work, "inputs.npz"), **inputs)
+    lowering = tuned["quantize.lowering"]
+    attention = tuned["fusion.attn_compute_bound_seq"]
+    spec = {"dir": work, "ctx": "gpu", "deterministic": True,
+            "bundles": [bundles[n] for n in models], "models": models,
+            "inputs": os.path.join(work, "inputs.npz"),
+            "out": os.path.join(work, "out.npz"),
+            "forced": {
+                "resnet50_int8": {"decision": "quantize.lowering",
+                                  "choice": lowering["winner"]},
+                "wav2vec2": {"decision": "fusion.attn_compute_bound_seq",
+                             "key": attention["key"],
+                             "choice": attention["winner"]}}}
+    env = _no_nvcc_env(os.path.join(work, "cache_child"))
+    env.update(MXNET_HOME=os.path.join(work, "home_child"),
+               MXNET_AUTOTUNE="consult",
+               MXNET_AUTOTUNE_DIR=tuned["records_dir"])
+    t0 = time.perf_counter()
+    child = _run_child(spec, env, timeout=600)
+    child_s = time.perf_counter() - t0
+    c = child["counters"]
+    gates = {"kernel_builds": c["compile_cache"]["kernel_builds"],
+             "graph_optimizer_runs": c["graph_opt_runs"],
+             "retraces": c["compile_cache"]["retraces"],
+             "calibrations": c["compile_cache"]["calibrations"],
+             "measurements": c["autotune"]["measurements"]}
+    if any(gates.values()):
+        raise RuntimeError(f"the bundle-warm child built: {gates}")
+    if c["compile_cache"]["disk_hits"] != entries:
+        raise RuntimeError(f"disk_hits {c['compile_cache']['disk_hits']} "
+                           f"!= the bundles' {entries} programs")
+    if not c["autotune"]["hits"]:
+        raise RuntimeError(f"the child consulted no record: {c['autotune']}")
+    idle = [k for k in path_kernels if not child["launches"].get(k)]
+    if idle:
+        raise RuntimeError(f"the bundle-warm child never launched {idle}")
+    got = dict(onp.load(spec["out"]))
+    for key, w in want.items():
+        if not onp.array_equal(got[key], w):
+            raise RuntimeError(f"{key}: the bundle-warm answer differs from "
+                               "the exporter's by "
+                               f"{float(onp.abs(got[key] - w).max())}")
+        forced = got.get(f"forced/{key}")
+        if forced is not None and not onp.array_equal(forced, got[key]):
+            raise RuntimeError(f"{key}: the forced winner's answer differs "
+                               "from the consulted one")
+    torch.backends.cudnn.deterministic = False
+    result = {
+        "card": smi,
+        "bundle_bytes": {n: r["bytes"] for n, r in reports.items()},
+        "bundle_programs": {n: r["entries"] for n, r in reports.items()},
+        "bundle_libraries": {n: r["libraries"] for n, r in reports.items()},
+        "cold_ready_s": cold,
+        "cold_note": "in the exporting process, kernels already built "
+                     "(phase 2's nvcc time apart), programs built",
+        "warm_ready_s": {n: m["ready_s"]
+                         for n, m in child["models"].items()},
+        "warm_first_response_since_spawn_s": child["first_response_s"],
+        "warm_child_wall_s": child_s,
+        "exporter_compile_cache": {k: exporter[k] for k in (
+            "retraces", "calibrations", "disk_writes", "kernel_builds")},
+        "child_gates": gates,
+        "child_disk_hits": c["compile_cache"]["disk_hits"],
+        "child_captures": c["compile_cache"]["captures"],
+        "child_autotune": c["autotune"],
+        "child_launches": child["launches"],
+        "answers_bitwise": sorted(want),
+        "forced_winners_bitwise": sorted(spec["forced"])}
+    print("artifacts and bundles: " + json.dumps(result))
+    os.environ["MXNET_HOME"] = WORK["home"]
+    torch.cuda.empty_cache()
+    return result, bundles["gpt2_decode"], models["gpt2_decode"]
+
+
+def _npy(a):
+    import io
+
+    buf = io.BytesIO()
+    onp.save(buf, a)
+    return buf.getvalue()
+
+
+def _fleet_step(port, sid, tok):
+    import io
+
+    status, _, body = _http(port, "POST", "/predict",
+                         _npy(onp.array([[tok]], "int32")),
+                         {"Content-Type": "application/x-npy",
+                          "X-Session-Id": sid})
+    if status != 200:
+        raise RuntimeError(f"fleet step of {sid}: HTTP {status}: "
+                           f"{body[:300]!r}")
+    return onp.load(io.BytesIO(body), allow_pickle=False)
+
+
+def _replica_launches(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url + "/metrics", timeout=30) as resp:
+        text = resp.read().decode()
+    for line in text.splitlines():
+        if line.startswith(f"mxnet_kernel_launches_{KERNEL} "):
+            return int(float(line.split()[1]))
+    return 0
+
+
+def fleet_phase(smi, bundle, spec, single_tokens_per_s):
+    phase("58 replica fleet")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mxnet_tpu_torch.serving import fleet
+    from mxnet_tpu_torch.tools import deploy_chain as dc
+
+    work = os.path.join(WORK["dir"], "fleet")
+    os.makedirs(work)
+    rspec = dict(spec, ctx="gpu")
+    rspec.pop("steps", None)
+    factory = f"{_DC}:decode_replica"
+    # the streams' steps run at one SLO class; no replica or router sheds
+    # them (the admission ladder is exercised by phase 20 and the tests)
+    base = {"DEPLOY_CHAIN_SPEC": json.dumps(rspec),
+            "MXNET_SERVING_ADMISSION": "0"}
+    envs = {"a": dict(base, MXNET_HOME=os.path.join(work, "home_a")),
+            "b": dict(base, MXNET_HOME=os.path.join(work, "home_b"),
+                      **_no_nvcc_env(os.path.join(work, "cache_b")))}
+    procs = {}
+    t0 = time.perf_counter()
+
+    def spawn(name):
+        procs[name] = fleet.spawn_replica(
+            factory, bundle=bundle if name == "b" else None,
+            env=envs[name], timeout_s=600)
+
+    threads = [threading.Thread(target=spawn, args=(n,)) for n in "ab"]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    spawn_s = time.perf_counter() - t0
+    if set(procs) != {"a", "b"}:
+        for p in procs.values():
+            p.stop()
+        raise RuntimeError("a replica did not start")
+    prev = os.environ.get("MXNET_SERVING_ADMISSION")
+    os.environ["MXNET_SERVING_ADMISSION"] = "0"
+    try:
+        router = fleet.FleetRouter(port=0, probe_ms=50)
+    finally:
+        if prev is None:
+            os.environ.pop("MXNET_SERVING_ADMISSION")
+        else:
+            os.environ["MXNET_SERVING_ADMISSION"] = prev
+    try:
+        b_ready = procs["b"].ready["compile"]
+        if b_ready["kernel_builds"] or b_ready["retraces"]:
+            raise RuntimeError(f"the bundle-warm replica built: {b_ready}")
+        router.start()
+        for name in "ab":
+            router.add_replica(name, procs[name].url, process=procs[name])
+        fleet.reset_fleet_counters()
+        before = {n: _replica_launches(procs[n].url) for n in "ab"}
+        rng = onp.random.default_rng(SEED + 58)
+        sids = [f"f{i}" for i in range(FLEET_STREAMS)]
+        first = {s: int(t) for s, t in zip(
+            sids, rng.integers(0, GPT2_SMALL["vocab_size"], FLEET_STREAMS))}
+        tok = dict(first)
+        logits = {s: [] for s in sids}
+        pins, drain = [], {}
+        t_all = time.perf_counter()
+        with ThreadPoolExecutor(FLEET_STREAMS) as pool:
+            for k in range(FLEET_STEPS):
+                if k == FLEET_DRAIN_AT:
+                    a_launches = _replica_launches(procs["a"].url)
+                    live_a = sum(v == "a" for v in router._sessions.values())
+                    t0 = time.perf_counter()
+                    moved = router.drain("a")
+                    drain = {"seconds": time.perf_counter() - t0,
+                             "moved": moved, "live_on_a": live_a}
+                outs = list(pool.map(
+                    lambda s: _fleet_step(router.port, s, tok[s]), sids))
+                for s, out in zip(sids, outs):
+                    logits[s].append(out[0])
+                    tok[s] = int(out[0].argmax())
+                pins.append(dict(router._sessions))
+        wall = time.perf_counter() - t_all
+        counters = fleet.fleet_counters()
+        after = {"a": a_launches, "b": _replica_launches(procs["b"].url)}
+        # one stream's steps alone, through the router and straight to
+        # the replica: the per-request path without the round's company
+        lone = {}
+        for via, port in (("router", router.port), ("replica", procs["b"].port)):
+            t0 = time.perf_counter()
+            nxt = first[sids[0]]
+            for _ in range(FLEET_LONE_STEPS):
+                nxt = int(_fleet_step(port, f"lone-{via}", nxt)[0].argmax())
+            lone[via] = (time.perf_counter() - t0) * 1e3 / FLEET_LONE_STEPS
+    finally:
+        router.stop()
+        for p in procs.values():
+            p.stop()
+    for s in sids:
+        homes = {pins[k][s] for k in range(FLEET_DRAIN_AT)}
+        if len(homes) != 1 or any(pins[k][s] != "b"
+                                  for k in range(FLEET_DRAIN_AT, FLEET_STEPS)):
+            raise RuntimeError(f"{s}: pinned to {[p[s] for p in pins]}")
+    if drain["moved"] != drain["live_on_a"] or \
+            counters["drained_sessions"] != drain["live_on_a"] or \
+            not drain["live_on_a"]:
+        raise RuntimeError(f"drain moved {drain} ({counters})")
+    if after["b"] <= before["b"] or after["a"] <= before["a"]:
+        raise RuntimeError(f"replica b launched no K2: {before} {after}")
+    # the same streams on one in-process session, one stream at a time
+    _build.reset_launch_counts()
+    sess = dc.build_session(rspec, mx.gpu(0))
+    worst = 0.0
+    for s in sids:
+        toks, ref = dc.greedy_decode(sess, [first[s]], FLEET_STEPS)
+        got = onp.stack(logits[s])
+        worst = max(worst, float(onp.abs(got - ref[0]).max()))
+        fleet_toks = [int(g.argmax()) for g in got]
+        if fleet_toks != [int(t) for t in toks[0]] or worst > FLEET_TOL:
+            raise RuntimeError(f"{s}: the fleet's stream differs from one "
+                               f"session's (max_abs_err {worst})")
+    if not _build.launch_counts().get(KERNEL):
+        raise RuntimeError("the in-process session launched no K2")
+    sess.close()
+    n_tokens = FLEET_STREAMS * FLEET_STEPS
+    result = {"card": smi, "streams": FLEET_STREAMS, "steps": FLEET_STEPS,
+              "tokens_per_s_router": n_tokens / wall,
+              "phase18_tokens_per_s_single_process": single_tokens_per_s,
+              "wall_s": wall, "drain": drain, "spawn_s": spawn_s,
+              "replica_b_ready": b_ready,
+              "replica_k2_launches": {n: after[n] - before[n]
+                                      for n in before},
+              "lone_stream_ms_per_step": lone,
+              "max_abs_err_vs_one_session": worst, "counters": counters}
+    print("replica fleet: " + json.dumps(result))
+    torch.cuda.empty_cache()
+    return result
+
+
 def kernel_entry(name, source, replaces, launches, worst, row, shape, smi,
                  **extra):
     entry = {"name": name, "route": "cuda", "source": source,
@@ -5905,6 +6385,42 @@ def kernel_entry(name, source, replaces, launches, worst, row, shape, smi,
 
 
 def main():
+    """Every phase in a scratch directory of the run's own: the program
+    cache and the autotune records live under it (``MXNET_HOME``,
+    ``MXNET_AUTOTUNE_DIR``); the kernel libraries stay in ``build/``."""
+    import shutil
+
+    WORK["dir"] = tempfile.mkdtemp(prefix="chip_smoke_")
+    WORK["home"] = os.path.join(WORK["dir"], "home")
+    os.environ["MXNET_HOME"] = WORK["home"]
+    os.environ["MXNET_AUTOTUNE_DIR"] = os.path.join(WORK["dir"], "autotune")
+    try:
+        if sys.argv[1:] == ["--chain"]:
+            return _chain_only()
+        return _main()
+    finally:
+        shutil.rmtree(WORK["dir"], ignore_errors=True)
+
+
+def _chain_only():
+    """``python3 chip_smoke.py --chain``: the device and build phases,
+    phase 13's export, and the deployment chain's phases 56-58 alone
+    (their gates as in the full run; no result lines)."""
+    t0 = time.perf_counter()
+    os.environ["MXNET_GRAPH_OPT"] = "1"
+    smi = device_phase()
+    build_phase()
+    prefix = os.path.join(WORK["dir"], "wav2vec2-large-lv60")
+    export_wav2vec2(prefix, mx.sym, nd, W2V_CFG, SEED)
+    tuned = autotune_phase(smi, prefix)
+    _, bundle, spec = bundle_phase(smi, prefix, tuned)
+    fleet_phase(smi, bundle, spec, None)
+    phase("done")
+    print(f"phases 56-58 in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def _main():
     t_start = time.perf_counter()
     smi = device_phase()
     build_phase()
@@ -5978,6 +6494,11 @@ def main():
     dist1 = dist_nccl_phase(smi)
     traced_dec = traced_serving_phase(smi)
     traced_res = traced_resnet_phase(smi)
+    tuned = autotune_phase(smi, WORK["w2v_prefix"])
+    deploy, gpt2_bundle, gpt2_spec = bundle_phase(
+        smi, WORK["w2v_prefix"], tuned)
+    fleet_res = fleet_phase(smi, gpt2_bundle, gpt2_spec,
+                            paged_fp32["tokens_per_s"])
     k4_dist = {"resnet50_dist_sync_gloo_rank0": dist2[0]["k4_fwd"],
                "resnet50_dist_sync_gloo_rank1": dist2[1]["k4_fwd"],
                "resnet50_dist_device_sync_nccl": dist1["k4_fwd"]}
@@ -6193,7 +6714,7 @@ def main():
         "kv_int8_decode": kv_int8, "batch_dot_routes": quant_k["batch_dot"],
         "dequant_gap_k4608": quant_k["dequant_gap_k4608"],
         "ops_worst": quant_k["ops_worst"]}))
-    phase("56 report")
+    phase("59 report")
     print(f"bf16 ResNet-50 headline layout: {head}")
     print("hybridized: " + json.dumps({
         "resnet50_bf16_nhwc_step_ms": [resnet_hyb[False]["mean_step_ms"],
@@ -6289,6 +6810,17 @@ def main():
             traced_dec["kineto_names_kernels_inside_graphs"],
         "resnet_median_step_ms": traced_res["median_step_ms"],
         "resnet_device_trace_events": traced_res["device_trace_events"]}))
+    print("deployment chain: " + json.dumps({
+        "card": smi,
+        "autotune_winners": {k: tuned[k]["winner"] for k in (
+            "quantize.lowering", "fusion.attn_compute_bound_seq")},
+        "bundle_bytes": deploy["bundle_bytes"],
+        "cold_ready_s": deploy["cold_ready_s"],
+        "bundle_warm_ready_s": deploy["warm_ready_s"],
+        "fleet_tokens_per_s": fleet_res["tokens_per_s_router"],
+        "single_process_tokens_per_s":
+            fleet_res["phase18_tokens_per_s_single_process"],
+        "drain_s": fleet_res["drain"]["seconds"]}))
     print(f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -29,8 +29,10 @@ telemetry registry (:func:`counters`); ``graph_opt.optimize`` and, at
 passes (``quantize_insert``, ``quantize_elide``, ``quantize_calibrate``,
 ``analysis/quantize.py``) register here too and run as
 ``QUANTIZE_PIPELINE`` under the same rejection net: a quantized rewrite
-that adds an error diagnostic serves the float32 graph. Not ported yet:
-the artifact-layer salt provider (slice 10b).
+that adds an error diagnostic serves the float32 graph. Every run counts
+one ``retraces`` in the ``compile_cache`` family, and the ``graph_opt``
+salt provider of the artifact layer (``artifact/salts.py``) folds
+:func:`fingerprint_salt` into persisted programs.
 """
 from __future__ import annotations
 
@@ -545,6 +547,9 @@ def optimize_symbol(symbol, shapes=None, dtypes=None, level=None, ctx=None,
     if lvl <= 0:
         return symbol, stats
     _count("graphs_seen")
+    from ..utils import compile_cache as _cc
+
+    _cc.note_retrace("graph_opt")
     with _telem.span("graph_opt.optimize", cat="graph_opt",
                      subject=subject or "graph", level=lvl) as osp:
         out, stats = _optimize_inner(symbol, shapes, dtypes, lvl, ctx,
@@ -626,3 +631,16 @@ def _resolve_device(device):
 # complete
 from . import fusion  # noqa: E402,F401
 from . import quantize  # noqa: E402,F401
+
+
+# -- artifact-layer salt provider -------------------------------------------
+
+def _salt_provider(ctx):
+    if not ctx.get("optimizable"):
+        return ("graph_opt", 0)
+    return fingerprint_salt(ctx.get("opt_level"))
+
+
+from ..artifact import salts as _artifact_salts  # noqa: E402
+
+_artifact_salts.register_salt_provider("graph_opt", _salt_provider)

@@ -35,10 +35,10 @@ The per-page int8 KV-cache codes of the paged state store
 (:func:`kv_page_codes`, :func:`quantize_kv_page`,
 :func:`dequantize_kv_pages`) live here too, as in the JAX package. The
 counters are the ``quantize`` family of the telemetry registry
-(:func:`counters`); the JAX package's artifact-layer salt has no
-counterpart in the port yet (slice 10b): :func:`fingerprint_salt` keys the port's own caches (the
-``CachedOp`` entries and ``SymbolBlock``'s optimized graphs) by the
-resolved lowering.
+(:func:`counters`). :func:`fingerprint_salt` keys the port's own caches
+(the ``CachedOp`` entries and ``SymbolBlock``'s optimized graphs) by the
+resolved lowering, and the ``quantize`` provider of the artifact layer
+(``artifact/salts.py``) folds the same into persisted programs.
 """
 from __future__ import annotations
 
@@ -565,3 +565,22 @@ def _register():
 
 
 _register()
+
+
+# -- artifact-layer salt provider -------------------------------------------
+
+def _salt_provider(ctx):
+    """The ``quantize`` contribution to a program's fingerprint: the
+    lowering resolved for ``ctx["device"]`` when ``ctx["graph_signature"]``
+    holds quantized ops, else nothing (float32 keys stay as they were)."""
+    sig = ctx.get("graph_signature")
+    if sig is None or "_contrib_quantized_" not in sig:
+        return ()
+    from ..ndarray.ops_quant import lowering
+
+    return ("quantize", lowering(ctx.get("device")))
+
+
+from ..artifact import salts as _artifact_salts  # noqa: E402
+
+_artifact_salts.register_salt_provider("quantize", _salt_provider)

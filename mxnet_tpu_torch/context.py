@@ -136,11 +136,16 @@ def cuda_graph(graph, **kwargs):
     before it begins): a collection inside the capture can free an
     unreachable CUDA graph of earlier work, whose teardown a capturing
     stream does not permit, and the capture fails."""
+    from .utils import compile_cache as _cc
+
     enabled = gc.isenabled()
     gc.disable()
     try:
         with torch.cuda.graph(graph, **kwargs):
             yield
+        # a CUDA graph cannot be persisted: every process captures its
+        # own, and the compile cache counts them
+        _cc.note_capture()
     finally:
         if enabled:
             gc.enable()

@@ -21,6 +21,14 @@ scalars per tensor, ``entropy`` draws the JAX package's sample indices
 (``numpy.random.RandomState(0)``, from the tensor's size alone) on the
 host, gathers those elements on the device and copies only them. The
 statistics equal the host version's.
+
+The calibrated int8 graph is a program of the artifact layer (kind
+``quantize``): :func:`quantize_net_graph` keys it by the traced graph,
+a digest of the weights and of the calibration batches (when they are
+NDArrays) and the options, and a later process that loads it runs no
+calibration and no quantize pass — it only quantizes the weights the
+graph names, offline. Calibration runs count ``calibrations`` in the
+``compile_cache`` family.
 """
 from __future__ import annotations
 
@@ -400,6 +408,9 @@ def _collect_layer_statistics(sym, feed, calib_data, data_names,
     device the feed lives on."""
     from .. import autograd
     from ..symbol import _DEVICE
+    from ..utils import compile_cache as _cc
+
+    _cc.note_calibration()
 
     internals = sym.get_internals()
     nodes = [s for s in internals._group if s._op is not None]
@@ -435,19 +446,13 @@ def _collect_layer_statistics(sym, feed, calib_data, data_names,
     return ranges
 
 
-def quantize_model(sym, arg_params, aux_params, data_names=("data",),
-                   excluded_sym_names=(), excluded_op_names=(),
-                   calib_mode="naive", calib_data=None,
-                   num_calib_batches=None, quantized_dtype="int8",
-                   logger=None):
-    """Post-training quantization of a symbolic model (reference:
-    contrib/quantization.py quantize_model): ``(qsym, qarg_params,
-    aux_params)``. ``calib_mode``: ``none`` (ranges computed per batch at
-    run time), ``naive`` (min/max over ``calib_data``) or ``entropy``
-    (the KL threshold per tensor)."""
-    from .. import nd
-    from ..analysis import quantize as qpass
-
+def _quantize_program(sym, arg_params, aux_params, data_names,
+                      excluded_sym_names, excluded_op_names, calib_mode,
+                      calib_data, num_calib_batches, quantized_dtype,
+                      logger):
+    """Calibrate and run the quantize pass: ``(qsym, offline)``, the
+    int8 graph and its offline weights (weight -> (quantized, min, max)
+    variable names)."""
     calib_ranges = {}
     if calib_mode != "none":
         if calib_data is None:
@@ -458,10 +463,118 @@ def quantize_model(sym, arg_params, aux_params, data_names=("data",),
         calib_ranges = _collect_layer_statistics(
             sym, feed, calib_data, data_names, calib_mode,
             num_calib_batches, logger)
-    qsym, offline = quantize_symbol(
+    return quantize_symbol(
         sym, excluded_sym_names=excluded_sym_names,
         excluded_op_names=excluded_op_names, calib_ranges=calib_ranges,
         quantized_dtype=quantized_dtype)
+
+
+def _digest_arrays(h, arrays):
+    for a in arrays:
+        arr = a.asnumpy() if isinstance(a, NDArray) else onp.asarray(a)
+        h.update(repr((arr.dtype.str, arr.shape)).encode())
+        h.update(onp.ascontiguousarray(arr).tobytes())
+
+
+def _quantize_artifact(sym, params, calib_data, calib_mode, data_names,
+                       excluded_sym_names, excluded_op_names,
+                       quantized_dtype, num_calib_batches):
+    """The :class:`~..artifact.CompiledArtifact` of a calibrated int8
+    graph, keyed by the traced graph, the weights, the calibration
+    batches and the options; memory-only when the calibration data is
+    not a list of NDArrays (an iterator cannot be read twice)."""
+    import hashlib
+
+    from ..analysis import quantize as qpass
+    from ..artifact import CompiledArtifact
+    from ..utils import compile_cache as _cc
+
+    if calib_mode != "none" and not (
+            isinstance(calib_data, (list, tuple)) and all(
+                isinstance(b, (NDArray, list, tuple)) for b in calib_data)):
+        return CompiledArtifact("quantize", None)
+    if not _cc.cache_enabled():
+        return CompiledArtifact("quantize", None)
+    h = hashlib.sha256()
+    names = sorted(params)
+    h.update(repr(names).encode())
+    _digest_arrays(h, [params[n] for n in names])
+    weights = h.hexdigest()
+    h = hashlib.sha256()
+    if calib_mode != "none":
+        for datas in _batches(calib_data):
+            _digest_arrays(h, datas)
+    device = next((v.data.device.type for v in params.values()
+                   if isinstance(v, NDArray)), "cpu")
+    try:
+        graph = _graph_digest(sym)
+    except Exception:  # noqa: BLE001 — no stable form: memory-only
+        return CompiledArtifact("quantize", None)
+    key = ("quantize", graph,
+           weights, h.hexdigest(), calib_mode, data_names,
+           excluded_sym_names, excluded_op_names, str(quantized_dtype),
+           num_calib_batches, device)
+    return CompiledArtifact(
+        "quantize", key,
+        code_of=(_quantize_program, _collect_layer_statistics,
+                 quantize_symbol, calib_entropy, qpass._quantize_insert,
+                 qpass._quantize_elide, qpass._quantize_calibrate),
+        salts=("graph_opt",), salt_ctx={"optimizable": False})
+
+
+def _graph_digest(sym):
+    """Digest of a traced graph's structure: its program with the op
+    nodes' generated names dropped (they count up with every trace in a
+    process), the variables' names kept."""
+    import hashlib
+    import json
+
+    from ..artifact.program import encode_symbol
+
+    prog = encode_symbol(sym)
+    for n in prog["nodes"]:
+        if n["op"] is not None:
+            n["name"] = None
+    return hashlib.sha256(
+        json.dumps(prog, sort_keys=True).encode()).hexdigest()
+
+
+def _load_quantize_program(art):
+    """``(qsym, offline)`` from the artifact layer, or None."""
+    from ..artifact.program import decode_symbol
+
+    got = art.load()
+    if got is None:
+        return None
+    try:
+        payload = got[0]
+        return (decode_symbol(payload["qsym"]),
+                {w: tuple(v) for w, v in payload["offline"].items()})
+    except Exception:
+        return None  # an unreadable program is a miss
+
+
+def quantize_model(sym, arg_params, aux_params, data_names=("data",),
+                   excluded_sym_names=(), excluded_op_names=(),
+                   calib_mode="naive", calib_data=None,
+                   num_calib_batches=None, quantized_dtype="int8",
+                   logger=None, _program=None):
+    """Post-training quantization of a symbolic model (reference:
+    contrib/quantization.py quantize_model): ``(qsym, qarg_params,
+    aux_params)``. ``calib_mode``: ``none`` (ranges computed per batch at
+    run time), ``naive`` (min/max over ``calib_data``) or ``entropy``
+    (the KL threshold per tensor). ``_program`` is a ``(qsym, offline
+    weights)`` pair loaded from the artifact layer: calibration and the
+    quantize pass are then skipped."""
+    from .. import nd
+    from ..analysis import quantize as qpass
+
+    if _program is None:
+        _program = _quantize_program(
+            sym, arg_params, aux_params, data_names, excluded_sym_names,
+            excluded_op_names, calib_mode, calib_data, num_calib_batches,
+            quantized_dtype, logger)
+    qsym, offline = _program
 
     qarg = dict(arg_params)
     for wname, (qn, mnn, mxn) in offline.items():
@@ -543,15 +656,37 @@ def quantize_net_graph(network, calib_data=None, calib_mode="naive",
     for name, p in network.collect_params().items():
         (aux_params if name in aux_names else arg_params)[name] = p.data()
 
+    art = _quantize_artifact(
+        out, {**arg_params, **aux_params}, calib_data, calib_mode,
+        tuple(input_names), tuple(sorted(exclude_layers)),
+        tuple(exclude_operators), quantized_dtype, num_calib_batches)
+    program = _load_quantize_program(art) \
+        if art.fingerprint is not None else None
+    if program is None:
+        program = _quantize_program(
+            out, arg_params, aux_params, tuple(input_names),
+            tuple(exclude_layers), tuple(exclude_operators), calib_mode,
+            calib_data, num_calib_batches, quantized_dtype, logger)
+        if art.fingerprint is not None:
+            from ..artifact.program import encode_symbol
+            from ..utils import compile_cache as _cc
+
+            try:
+                payload = {"qsym": encode_symbol(program[0]),
+                           "offline": {w: list(v) for w, v in
+                                       program[1].items()}}
+            except Exception:  # noqa: BLE001 — memory-only, never broken
+                _cc._bump("serialize_skips")
+            else:
+                art.store(payload)
     qsym, qarg, qaux = quantize_model(
         out, arg_params, aux_params, data_names=tuple(input_names),
-        excluded_sym_names=tuple(exclude_layers),
-        excluded_op_names=tuple(exclude_operators),
-        calib_mode=calib_mode, calib_data=calib_data,
-        num_calib_batches=num_calib_batches,
-        quantized_dtype=quantized_dtype, logger=logger)
+        calib_mode=calib_mode, quantized_dtype=quantized_dtype,
+        logger=logger, _program=program)
 
     block = SymbolBlock(qsym, [S.var(n) for n in input_names])
+    if art.fingerprint is not None:
+        block._program_fps = {art.fingerprint}
     params = block.collect_params()
     for name, val in {**qarg, **qaux}.items():
         if name in params:

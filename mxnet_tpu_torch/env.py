@@ -25,7 +25,7 @@ import os
 __all__ = ["KNOBS", "describe", "check", "get_int", "get_float",
            "get_bool", "get_str", "markdown_table"]
 
-_10B = "slice 10b"
+_10C = "slice 10c"
 _9B = "slice 9b"
 _11 = "slice 11"
 
@@ -261,19 +261,22 @@ KNOBS = {
         "store float32 KV pages as per-page int8 codes and a scale "
         "(default 0)"),
     "MXNET_FLEET_VNODES": (
-        "unported", f"serving.fleet ({_10B})",
-        "virtual nodes per replica on the consistent-hash ring"),
+        "wired", "serving.fleet",
+        "virtual nodes per replica on the consistent-hash ring "
+        "(default 64)"),
     "MXNET_FLEET_PROBE_MS": (
-        "unported", f"serving.fleet ({_10B})",
-        "fleet router health-gossip interval in ms"),
+        "wired", "serving.fleet",
+        "fleet router health-gossip interval in ms (default 100)"),
     "MXNET_FLEET_TIMEOUT_MS": (
-        "unported", f"serving.fleet ({_10B})",
-        "router->replica HTTP timeout in ms"),
+        "wired", "serving.fleet",
+        "router->replica HTTP timeout in ms (default 30000)"),
     "MXNET_FLEET_DRAIN_TIMEOUT_MS": (
-        "unported", f"serving.fleet ({_10B})", "drain budget in ms"),
+        "wired", "serving.fleet",
+        "drain budget in ms, and how long a parked stateful request "
+        "waits (default 10000)"),
     "MXNET_FLEET_RETRIES": (
-        "unported", f"serving.fleet ({_10B})",
-        "cross-replica retries for stateless requests"),
+        "wired", "serving.fleet",
+        "cross-replica retries for stateless requests (default 2)"),
     # -- resilience ---------------------------------------------------------
     "MXNET_RESILIENCE": (
         "wired", "resilience",
@@ -321,14 +324,14 @@ KNOBS = {
     "MXNET_SHARDING_ZERO1": (
         "unported", f"sharding.zero1 ({_9B})",
         "ZeRO-1 weight-update sharding"),
-    # -- engine, storage, caches, artifacts (slice 10b) ---------------------
+    # -- engine and storage (slice 10c), caches, artifacts, autotune --------
     "MXNET_ENGINE_TYPE": (
-        "unported", f"engine.get ({_10B})",
+        "unported", f"engine.get ({_10C})",
         "ThreadedEngine | NaiveEngine"),
     "MXNET_CPU_WORKER_NTHREADS": (
-        "unported", f"engine.Engine ({_10B})", "host worker-pool size"),
+        "unported", f"engine.Engine ({_10C})", "host worker-pool size"),
     "MXNET_ENGINE_NUM_LANES": (
-        "unported", f"engine.Engine ({_10B})", "worker-pool lanes"),
+        "unported", f"engine.Engine ({_10C})", "worker-pool lanes"),
     "MXNET_CPU_PRIORITY_NTHREADS": (
         "accepted", "-", "torch orders work on the CUDA stream"),
     "MXNET_GPU_WORKER_NTHREADS": ("accepted", "-", "CUDA streams"),
@@ -337,56 +340,69 @@ KNOBS = {
     "MXNET_ENGINE_OPENMP": ("accepted", "-", "torch owns intra-op threads"),
     "MXNET_OMP_MAX_THREADS": ("accepted", "-", "torch owns intra-op threads"),
     "MXNET_USE_SIGNAL_HANDLER": (
-        "unported", f"initialize ({_10B})",
+        "unported", f"initialize ({_10C})",
         "crash tracebacks via faulthandler"),
     "MXNET_CPU_MEM_POOL_DISABLE": (
-        "unported", f"storage ({_10B})", "disable the pooled host allocator"),
+        "unported", f"storage ({_10C})", "disable the pooled host allocator"),
     "MXNET_GPU_MEM_POOL_RESERVE": (
-        "unported", f"storage ({_10B})", "host-pool cap"),
+        "unported", f"storage ({_10C})", "host-pool cap"),
     "MXNET_GPU_MEM_POOL_TYPE": (
-        "unported", f"storage ({_10B})", "host-pool strategy"),
+        "unported", f"storage ({_10C})", "host-pool strategy"),
     "MXNET_GPU_MEM_POOL_ROUND_LINEAR_CUTOFF": (
         "accepted", "-", "the CUDA caching allocator rounds"),
     "MXNET_GPU_MEM_LARGE_ALLOC_ROUND_SIZE": (
         "accepted", "-", "the CUDA caching allocator rounds"),
     "MXNET_COMPILE_CACHE": (
-        "unported", f"utils.compile_cache ({_10B})",
-        "persistent compile-artifact cache"),
+        "wired", "utils.compile_cache",
+        "persistent program cache: the disk tier of the artifact layer "
+        "(default 1); 0 disables it (programs are rebuilt per process)"),
     "MXNET_COMPILE_CACHE_DIR": (
-        "unported", f"utils.compile_cache ({_10B})",
-        "directory for the persistent compile cache"),
+        "wired", "utils.compile_cache / kernels._build",
+        "directory of the program envelopes (default "
+        "$MXNET_HOME/compile_cache) and, when set, of the kernel "
+        "libraries (default build/mxnet_tpu_torch/)"),
     "MXNET_COMPILE_CACHE_MAX_MB": (
-        "unported", f"utils.compile_cache ({_10B})",
-        "size cap on the on-disk compile cache"),
+        "wired", "utils.compile_cache",
+        "size cap on the program directory (default 1024, 0 = "
+        "unbounded); oldest-used entries are pruned to 80%"),
     "MXNET_ARTIFACT_REMOTE": (
-        "unported", f"artifact.remote ({_10B})",
-        "fleet-shared remote artifact-cache URL"),
+        "wired", "artifact.remote",
+        "fleet-shared remote artifact-cache URL (file:///shared/dir or "
+        "http(s)://host:port speaking GET/PUT /artifacts/<fp>); unset "
+        "(default) = no remote tier"),
     "MXNET_ARTIFACT_REMOTE_PUBLISH": (
-        "unported", f"artifact.remote ({_10B})",
-        "push locally built artifacts to the remote store"),
+        "wired", "artifact.remote",
+        "push locally built programs to the remote store (default 1)"),
     "MXNET_ARTIFACT_REMOTE_TIMEOUT_MS": (
-        "unported", f"artifact.remote ({_10B})",
-        "per-request timeout of the remote artifact backend"),
+        "wired", "artifact.remote",
+        "per-request timeout of the http(s) remote backend (default "
+        "2000)"),
     "MXNET_ARTIFACT_REMOTE_RETRIES": (
-        "unported", f"artifact.remote ({_10B})",
-        "attempts per remote artifact round-trip"),
+        "wired", "artifact.remote",
+        "attempts per remote round trip (default 2, the retry policy)"),
     "MXNET_ARTIFACT_REMOTE_MAX_MB": (
-        "unported", f"artifact.remote ({_10B})",
-        "byte bound on the remote artifact store"),
+        "wired", "artifact.remote",
+        "byte bound on the remote store (default 512, 0 = unbounded)"),
     "MXNET_ARTIFACT_GC_MAX_AGE_S": (
-        "unported", f"artifact.remote ({_10B})",
-        "age bound on remote artifact-store entries"),
+        "wired", "artifact.remote",
+        "age bound in seconds on remote-store entries (default 0 = "
+        "none)"),
     "MXNET_ARTIFACT_GC_PROTECT": (
-        "unported", f"artifact.bundle ({_10B})",
-        "bundle paths whose fingerprints are pinned against GC"),
+        "wired", "artifact.bundle",
+        "os.pathsep-separated bundle paths whose fingerprints the "
+        "remote store's GC never evicts"),
     "MXNET_AUTOTUNE": (
-        "unported", f"autotune ({_10B})", "empirical-autotuning mode"),
+        "wired", "autotune",
+        "0 (heuristics only) / consult (default: read TuningRecords) / "
+        "tune (also allow autotune.tune() sweeps)"),
     "MXNET_AUTOTUNE_DIR": (
-        "unported", f"autotune.records ({_10B})",
-        "directory for persisted TuningRecords"),
+        "wired", "autotune.records",
+        "directory of the TuningRecords (default $MXNET_HOME/autotune), "
+        "one <fingerprint>.atr JSON file each"),
     "MXNET_AUTOTUNE_BUDGET_MS": (
-        "unported", f"autotune.tuner ({_10B})",
-        "wall-clock budget for one autotune sweep"),
+        "wired", "autotune.tuner",
+        "wall-clock budget of one autotune sweep, checked between "
+        "candidates (default 60000, 0 = unbounded)"),
     "MXNET_EAGER_JIT": (
         "accepted", "ndarray.registry",
         "the port dispatches each op eagerly to torch; a hybridized block "
@@ -398,13 +414,15 @@ KNOBS = {
     "MXNET_DISPATCH_EAGER_PERSIST": (
         "accepted", "ndarray.registry", "no dispatch executable cache"),
     "MXNET_SHAPE_BUCKETS": (
-        "accepted", "ndarray.registry",
-        "eager torch ops need no shape buckets; serving buckets are "
-        "MXNET_SERVING_BUCKETS"),
+        "wired", "ndarray.registry / utils.compile_cache",
+        "batch-axis bucketing of row-independent eager ops outside "
+        "autograd.record(): 0 (default) / pow2 / mult:N; serving "
+        "buckets are MXNET_SERVING_BUCKETS"),
     # -- everything else ----------------------------------------------------
     "MXNET_HOME": (
-        "unported", f"gluon.model_zoo.model_store ({_11})",
-        "cache directory"),
+        "wired", "utils.compile_cache / autotune.records",
+        "home of the program cache and the TuningRecords (default "
+        "~/.mxnet); the model store comes with slice 11"),
     "MXNET_GLUON_REPO": (
         "unported", f"gluon.model_zoo.model_store ({_11})",
         "pretrained-weight repo URL"),

@@ -990,12 +990,16 @@ class SymbolBlock(HybridBlock):
 
     Each forward evaluates the graph as ``MXNET_GRAPH_OPT`` optimizes
     it. The optimized graph is cached per (level, pipeline version,
-    fusion configuration, device, input shapes and dtypes): the fusion
+    fusion configuration, device, input shapes and dtypes, quantize
+    lowering, active autotune records): the fusion
     pass picks each cluster's implementation for the device and the
     shapes it sees, so a graph optimized for the CPU (the replays) is
     never run on the card, and a bucket's shapes are checked against
     what the kernels take. (The JAX package optimizes without shapes;
-    here the kernel choice depends on them.)"""
+    here the kernel choice depends on them.) A serving session persists
+    these graphs as its programs (``optimized_program``) and installs
+    loaded ones (``install_program``), so a warm process runs no graph
+    optimizer."""
 
     def __init__(self, outputs, inputs, params=None):
         super().__init__(prefix="", params=params)
@@ -1074,23 +1078,59 @@ class SymbolBlock(HybridBlock):
         the parameters; cached (see the class docstring)."""
         return self._optimized_for(self._feed(args))
 
+    def _program_tag(self, feed, level):
+        """The optimized-graph cache key of ``feed``: level, pipeline and
+        fusion configuration, device, the inputs' shapes and dtypes, the
+        quantize lowering and the active autotune records."""
+        from .. import autotune
+        from ..analysis import graph_opt
+
+        device = next(iter(feed.values())).data.device if feed else None
+        return (graph_opt.fingerprint_salt(level), str(device),
+                tuple((i.name, tuple(feed[i.name].shape),
+                       str(feed[i.name].data.dtype))
+                      for i in self._inputs if i.name in feed),
+                _quantize.fingerprint_salt(self._runs_quantized(), device),
+                autotune.autotune_salt())
+
+    def optimized_program(self, *args):
+        """The optimized graph cached for ``args``' shapes (None before
+        a forward made it, or when ``MXNET_GRAPH_OPT`` is 0)."""
+        from ..analysis import graph_opt
+
+        level = graph_opt.opt_level()
+        if level <= 0:
+            return None
+        return self._graph_opt_cache.get(
+            self._program_tag(self._feed(args), level))
+
+    def install_program(self, program, *args):
+        """Serve ``program`` (an optimized graph loaded from the artifact
+        layer) for ``args``' shapes: the graph optimizer does not run for
+        them."""
+        from ..analysis import graph_opt
+
+        level = graph_opt.opt_level()
+        if level > 0:
+            self._graph_opt_cache[
+                self._program_tag(self._feed(args), level)] = program
+
     def _optimized_for(self, feed):
         from ..analysis import graph_opt
 
         level = graph_opt.opt_level()
         if level <= 0:
             return self._outputs
-        device = next(iter(feed.values())).data.device if feed else None
-        shapes = {k: tuple(v.shape) for k, v in feed.items()}
-        dtypes = {k: v.data.dtype for k, v in feed.items()}
-        tag = (graph_opt.fingerprint_salt(level), str(device),
-               tuple((i.name, shapes.get(i.name), str(dtypes.get(i.name)))
-                     for i in self._inputs),
-               _quantize.fingerprint_salt(self._runs_quantized(), device))
+        tag = self._program_tag(feed, level)
         opt = self._graph_opt_cache.get(tag)
         if opt is None:
+            device = next(iter(feed.values())).data.device if feed \
+                else None
             opt, _ = graph_opt.optimize_symbol(
-                self._outputs, shapes=shapes, dtypes=dtypes, level=level,
+                self._outputs,
+                shapes={k: tuple(v.shape) for k, v in feed.items()},
+                dtypes={k: v.data.dtype for k, v in feed.items()},
+                level=level,
                 subject=f"hybridize:{self.name or 'symbol_block'}",
                 device=device)
             self._graph_opt_cache[tag] = opt

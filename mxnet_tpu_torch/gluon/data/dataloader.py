@@ -9,7 +9,7 @@ augment and batchify release the GIL inside numpy and torch), or
 processes (``thread_pool=False``) that hand batches back through POSIX
 shared memory (``_mp_worker.py``). The JAX package collects worker
 results through its dependency engine, which the port has not yet
-(slice 10b); here the consumer waits on the futures in order.
+(slice 10c); here the consumer waits on the futures in order.
 """
 from __future__ import annotations
 

@@ -6,7 +6,8 @@ a host read of the all-finite flag (``LossScaler.has_overflow``) before
 it. The JAX package compiles the whole weight update into one XLA
 executable per parameter-group signature; here that is one step
 function per signature, built once and kept in a bounded LRU
-(``MXNET_FUSED_STEP_CACHE_SIZE``, default 16), which updates every
+(``utils.lru.CountedLRUCache``, ``MXNET_FUSED_STEP_CACHE_SIZE``,
+default 16), which updates every
 parameter of the group on the device:
 
 - the optimizer's ``_fused_kernel`` over lists of tensors (torch's
@@ -31,6 +32,14 @@ graph per signature and replays it each step (the gradients live in
 persistent buffers, parameters and states are updated in place, so the
 addresses are static); on the CPU the same function runs uncaptured.
 
+A signature's **plan** — which parameters update through float32
+masters, the learning-rate/weight-decay groups, the loss-scaler
+configuration — is the fused step's program in the artifact layer
+(:func:`resolve_step`, kind ``fused_step``, keyed as the JAX package
+keys its step executables and salted with the optimizer kernel's and
+:func:`build_step`'s bytecode). A later process loads it from the
+compile cache; the CUDA graph itself is captured again in every process.
+
 ``MXNET_FUSED_STEP=0`` runs the Trainer's eager per-parameter loop
 instead. ``MXNET_FUSED_STEP_DONATE`` is accepted and changes nothing:
 the JAX package donates buffers to XLA, and torch updates in place.
@@ -38,16 +47,16 @@ Counters: :func:`fused_step_stats`.
 """
 from __future__ import annotations
 
-import collections
 import weakref
 
 import torch
 
 from ..base import getenv
-from ..utils import locks as _locks
+from ..utils import compile_cache as _cc
+from ..utils import lru as _lru
 
 __all__ = ["fused_step_enabled", "donate_params_enabled", "fused_step_stats",
-           "reset_fused_step_cache", "build_step"]
+           "reset_fused_step_cache", "build_step", "resolve_step"]
 
 
 def fused_step_enabled():
@@ -63,64 +72,36 @@ def donate_params_enabled():
     return getenv("MXNET_FUSED_STEP_DONATE", False, bool)
 
 
-class _FusedStepCache:
-    """Bounded LRU of step functions keyed by signature, with counters:
-    hits and misses of the lookup, evictions, bypasses (an optimizer
-    with no fused kernel), CUDA-graph captures and replays."""
+class _FusedStepCache(_lru.CountedLRUCache):
+    """The JAX package's bounded LRU (:class:`~..utils.lru.
+    CountedLRUCache`) of step functions keyed by signature, with its
+    hits, misses, evictions and bypasses (an optimizer with no fused
+    kernel), plus the port's CUDA-graph captures and replays."""
 
     def __init__(self, maxsize=None):
-        self.maxsize = maxsize if maxsize is not None else \
-            getenv("MXNET_FUSED_STEP_CACHE_SIZE", 16, int)
-        # guards: _entries, _counts (the JAX package's LRU lock)
-        self._lock = _locks.RankedLock("utils.lru")
-        self._entries = collections.OrderedDict()
-        self._counts = dict.fromkeys(("hits", "misses", "evictions",
-                                      "bypasses", "captures", "replays"), 0)
-
-    def _note(self, name):
-        with self._lock:
-            self._counts[name] += 1
-
-    def note_hit(self):
-        self._note("hits")
-
-    def note_bypass(self):
-        self._note("bypasses")
+        super().__init__(maxsize if maxsize is not None else
+                         getenv("MXNET_FUSED_STEP_CACHE_SIZE", 16, int))
+        self.captures = 0
+        self.replays = 0
 
     def note_capture(self):
-        self._note("captures")
+        with self._lock:
+            self.captures += 1
 
     def note_replay(self):
-        self._note("replays")
-
-    def lookup(self, key):
         with self._lock:
-            fn = self._entries.get(key)
-            if fn is None:
-                self._counts["misses"] += 1
-                return None
-            self._entries.move_to_end(key)
-            self._counts["hits"] += 1
-            return fn
-
-    def insert(self, key, fn):
-        with self._lock:
-            self._entries[key] = fn
-            self._entries.move_to_end(key)
-            while len(self._entries) > max(1, int(self.maxsize)):
-                self._entries.popitem(last=False)
-                self._counts["evictions"] += 1
+            self.replays += 1
 
     def stats(self):
+        st = super().stats()
         with self._lock:
-            return dict(self._counts, size=len(self._entries),
-                        maxsize=self.maxsize)
+            st.update(captures=self.captures, replays=self.replays)
+        return st
 
     def clear(self):
+        super().clear()
         with self._lock:
-            self._entries.clear()
-            for k in self._counts:
-                self._counts[k] = 0
+            self.captures = self.replays = 0
 
 
 _CACHE = _FusedStepCache()
@@ -189,6 +170,24 @@ def _commit(olds, news, ok):
         return
     for o, n in zip(olds, news):
         torch.where(ok, n, o, out=o)
+
+
+def resolve_step(kernel, mp_flags, groups, scaler_cfg, key):
+    """The step function of one signature, its plan persisted through
+    the artifact layer under the signature ``key`` (memory-only when
+    the compile cache is off or the key has no stable form). The key
+    fixes the plan, so a loaded plan is this one."""
+    plan = {"mp_flags": tuple(bool(f) for f in mp_flags),
+            "groups": tuple(tuple(int(i) for i in g) for g in groups),
+            "scaler_cfg": None if scaler_cfg is None else
+            (float(scaler_cfg[0]), int(scaler_cfg[1]))}
+    if _cc.cache_enabled():
+        from ..artifact import CompiledArtifact
+
+        CompiledArtifact("fused_step", key,
+                         code_of=(kernel, build_step)).resolve(lambda: plan)
+    return build_step(kernel, plan["mp_flags"], plan["groups"],
+                      plan["scaler_cfg"])
 
 
 def build_step(kernel, mp_flags, groups, scaler_cfg):

@@ -288,8 +288,11 @@ class Trainer:
         miss; one construction site for the step loop and warmup."""
         fn = _fs._CACHE.lookup(group["key"])
         if fn is None:
-            fn = _fs.build_step(kernel, group["mp_flags"], group["groups"],
-                                scaler_cfg)
+            # persisted under the AMP policy, not this process's count
+            # of policy changes
+            fn = _fs.resolve_step(
+                kernel, group["mp_flags"], group["groups"], scaler_cfg,
+                group["key"][:-1] + (_registry.amp_policy(),))
             _fs._CACHE.insert(group["key"], fn)
         return fn
 

@@ -6,9 +6,14 @@ the same decisions and reasons: ``cost_model_never`` under
 ``MXNET_FUSION_COST_MODEL=never``, ``too_small`` below
 ``MIN_CLUSTER`` ops, ``compute_bound_attention`` for a replayed
 attention cluster whose score matrix reaches 64 x 64, ``bandwidth_bound``
-for an elementwise chain past 2**22 elements. The thresholds are the
-JAX module's declared defaults (its autotune lookups come with the
-platform slice).
+for an elementwise chain past 2**22 elements. The three thresholds are
+autotune decision points, declared with the JAX module's names,
+candidates and defaults (``declare_decision`` returns the default), and
+:func:`decide` consults ``autotune.lookup`` before each: a record beats
+the heuristic. The keys carry the device type where the JAX package's
+carry ``jax.default_backend()``. As there, the attention bound governs
+only a replayed cluster (``impl="torch"``): a cluster K1 takes on the
+card is fused whatever its length.
 
 The viability rule replaces the TPU's 8 x 128 tile floor
 (``cost_model.py:29-32,51-60``): the implementation is ``cuda``, the
@@ -29,12 +34,36 @@ from dataclasses import dataclass
 
 import torch
 
+from ..autotune import declare_decision, lookup as _lookup
+
 #: a fused elementwise cluster must absorb at least this many ops
-MIN_CLUSTER = 2
+MIN_CLUSTER = declare_decision(
+    "fusion.min_cluster", candidates=(2, 3, 4), default=2,
+    key_doc="(backend,)")
 #: score length from which a replayed attention cluster is compute-bound
-_ATTN_COMPUTE_BOUND_SEQ = 64
+_ATTN_COMPUTE_BOUND_SEQ = declare_decision(
+    "fusion.attn_compute_bound_seq",
+    candidates=(16, 32, 64, 128, 4096), default=64,
+    key_doc="(backend, pow2-bucket of cluster output feature dim)")
 #: past 2**this elements an elementwise chain is bandwidth-bound
-_ELEMENTWISE_BANDWIDTH_LOG2 = 22
+_ELEMENTWISE_BANDWIDTH_LOG2 = declare_decision(
+    "fusion.elementwise_bandwidth_log2",
+    candidates=(20, 22, 24), default=22,
+    key_doc="(backend,)")
+
+
+def _bucket_pow2(n):
+    """Power-of-two ceiling bucket of a consult-key dimension (0 for
+    unknown), as the JAX module buckets it."""
+    n = int(n)
+    if n <= 0:
+        return 0
+    return 1 << (n - 1).bit_length()
+
+
+def _backend(device):
+    """The consult keys' backend: the device type (``cpu`` when none)."""
+    return torch.device(device).type if device is not None else "cpu"
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -107,17 +136,28 @@ def decide(pattern, n_nodes, out_shape=None, device=None, mode="heuristic",
             why = refusal
     if mode == "always":
         return Decision(True, impl=impl, reason=why)
-    if n_nodes < MIN_CLUSTER:
+    backend = _backend(device)
+    min_cluster = _lookup("fusion.min_cluster", (backend,))
+    if min_cluster is None:
+        min_cluster = MIN_CLUSTER
+    if n_nodes < min_cluster:
         return Decision(False, reason="too_small")
     if (pattern == "attention" and impl == "torch"
-            and score_shape is not None and len(score_shape) >= 2
-            and score_shape[-2] >= _ATTN_COMPUTE_BOUND_SEQ
-            and score_shape[-1] >= _ATTN_COMPUTE_BOUND_SEQ):
-        return Decision(False, reason="compute_bound_attention")
+            and score_shape is not None and len(score_shape) >= 2):
+        feat = out_shape[-1] if out_shape else 0
+        bound = _lookup("fusion.attn_compute_bound_seq",
+                        (backend, _bucket_pow2(feat)))
+        if bound is None:
+            bound = _ATTN_COMPUTE_BOUND_SEQ
+        if score_shape[-2] >= bound and score_shape[-1] >= bound:
+            return Decision(False, reason="compute_bound_attention")
     if pattern == "elementwise" and out_shape is not None:
         size = 1
         for d in out_shape:
             size *= int(d)
-        if size > (1 << _ELEMENTWISE_BANDWIDTH_LOG2):
+        log2_cap = _lookup("fusion.elementwise_bandwidth_log2", (backend,))
+        if log2_cap is None:
+            log2_cap = _ELEMENTWISE_BANDWIDTH_LOG2
+        if size > (1 << log2_cap):
             return Decision(False, reason="bandwidth_bound")
     return Decision(True, impl=impl, reason=why)

@@ -21,10 +21,11 @@ def find_lib_path(prefix=""):
     here)."""
     from .kernels import _build
 
-    if not os.path.isdir(_build.BUILD_DIR):
+    libdir = _build.library_dir()
+    if not os.path.isdir(libdir):
         return []
-    return sorted(os.path.join(_build.BUILD_DIR, f)
-                  for f in os.listdir(_build.BUILD_DIR)
+    return sorted(os.path.join(libdir, f)
+                  for f in os.listdir(libdir)
                   if f.endswith(".so") and f.startswith(prefix))
 
 

@@ -38,6 +38,7 @@ import os
 import numpy as onp
 import torch
 
+from ..autotune import declare_decision, lookup as _at_lookup
 from .ops_nn import _CHANNEL_LAST, _CONV, _tup, cudnn_fp32
 from .registry import get_op, register
 
@@ -46,6 +47,13 @@ __all__ = ["lowering", "LOWERINGS"]
 #: the values ``MXNET_QUANTIZE_LOWERING`` takes
 LOWERINGS = ("auto", "native", "dequant")
 
+#: heuristic default of the ``auto`` lowering, declared as the JAX
+#: package's autotune decision point: a tuned record (keyed by the
+#: device type) beats the device guess; an explicit knob beats both
+_LOWERING_DEFAULT = declare_decision(
+    "quantize.lowering", candidates=("native", "dequant"),
+    default="auto", key_doc="(backend,)")
+
 
 def lowering(like=None):
     """The execution strategy of the int32-accumulating quantized ops,
@@ -53,7 +61,9 @@ def lowering(like=None):
     given; ``auto`` (default) resolves to ``native`` when ``like`` (a
     tensor or a device) is on a CUDA device and to ``dequant``
     elsewhere — the port's reading of the JAX rule "native on TPU,
-    dequant elsewhere". Any other value raises ``ValueError``."""
+    dequant elsewhere", unless a tuned record for ``quantize.lowering``
+    (keyed by the device type) says otherwise. Any other value raises
+    ``ValueError``."""
     mode = (os.environ.get("MXNET_QUANTIZE_LOWERING", "auto")
             or "auto").lower()
     if mode not in LOWERINGS:
@@ -63,7 +73,11 @@ def lowering(like=None):
         return mode
     dev = like.device if isinstance(like, torch.Tensor) else (
         torch.device(like) if like is not None else None)
-    return "native" if dev is not None and dev.type == "cuda" else "dequant"
+    backend = dev.type if dev is not None else "cpu"
+    tuned = _at_lookup("quantize.lowering", (backend,))
+    if tuned in ("native", "dequant"):
+        return tuned
+    return "native" if backend == "cuda" else "dequant"
 
 
 # -- scalar helpers ---------------------------------------------------------

@@ -14,6 +14,12 @@ while ``contrib.amp.init`` has set a policy (:func:`set_amp`),
 :func:`invoke` casts an op's floating array arguments by the op lists
 before the op runs, inside the op's grad mode, so the casts sit on
 torch's autograd graph and gradients land in each parameter's own dtype.
+
+Shape bucketing (``mxnet_tpu/ndarray/registry.py:421-440``): under
+``MXNET_SHAPE_BUCKETS``, outside ``autograd.record()``, an op of
+``utils.compile_cache._BATCH_SAFE`` runs with its batch rows zero-padded
+up to the bucket and its outputs sliced back, row-bitwise equal to the
+unbucketed op (``compile_cache.plan_bucketing``).
 """
 from __future__ import annotations
 
@@ -24,9 +30,10 @@ import torch
 from .. import autograd
 from .. import profiler as _prof
 from ..telemetry import tracer as _telem
+from ..utils import compile_cache as _cc
 
 __all__ = ["OpDef", "register", "get_op", "list_ops", "invoke", "set_amp",
-           "amp_version"]
+           "amp_version", "amp_policy"]
 
 _OPS = {}
 
@@ -107,6 +114,20 @@ def set_amp(target_dtype=None, target_ops=(), fp32_ops=(), widest_ops=(),
 
 def amp_version():
     return _AMP["version"]
+
+
+def amp_policy():
+    """The AMP policy in force as a process-stable value (what
+    persisted fingerprints key on; :func:`amp_version` counts changes
+    within one process)."""
+    if not _AMP["on"]:
+        return ("amp", 0)
+    return ("amp", str(_AMP["target"]), tuple(sorted(_AMP["target_ops"])),
+            tuple(sorted(_AMP["fp32_ops"])),
+            tuple(sorted(_AMP["widest_ops"])),
+            tuple(sorted((op, attr, tuple(sorted(map(str, vals))))
+                         for op, (attr, vals) in
+                         _AMP["conditional_ops"].items())))
 
 
 def _cond_attr(opdef, args, kwargs, attr):
@@ -192,6 +213,25 @@ def invoke(opdef, args, kwargs):
     return _invoke(opdef, args, kwargs)
 
 
+def _bucket_plan(opdef, args, kwargs):
+    """``compile_cache.plan_bucketing`` for one dispatch (positional
+    tensor slots), or None: off unless ``MXNET_SHAPE_BUCKETS`` is set,
+    and never inside ``autograd.record()`` or with tensor keywords."""
+    if _cc.bucket_spec() is None or autograd.is_recording() or any(
+            isinstance(v, torch.Tensor) for v in kwargs.values()):
+        return None
+    pos = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor)]
+    if not pos:
+        return None
+    template = [("arr", pos.index(i)) if i in pos else ("lit", a)
+                for i, a in enumerate(args)]
+    plan = _cc.plan_bucketing(opdef.name, [args[i] for i in pos],
+                              template, kwargs)
+    if plan is None:
+        return None
+    return plan[0], plan[1], tuple(pos[j] for j in plan[2])
+
+
 def _invoke(opdef, args, kwargs):
     from .ndarray import NDArray, _own
 
@@ -214,7 +254,20 @@ def _invoke(opdef, args, kwargs):
                 args[i] = c
             for k, c in zip(keys, casted[len(pos):]):
                 kwargs[k] = c
+        plan = _bucket_plan(opdef, args, kwargs)
+        if plan is not None:
+            padded, true, slots = plan
+            args = list(args)
+            for i in slots:
+                args[i] = _cc.pad_batch(args[i], padded)
+            _cc.note_bucketed(padded, true)
         result = opdef.fn(*args, **kwargs)
+        if plan is not None:
+            def cut(r):
+                return _cc.slice_batch(r, padded, true) \
+                    if isinstance(r, torch.Tensor) else r
+            result = tuple(map(cut, result)) if isinstance(result, tuple) \
+                else cut(result)
         if opdef.name != "_slice_take":
             # an op's result is an array of its own, as in MXNet: a torch
             # view of an input, or the input passed through

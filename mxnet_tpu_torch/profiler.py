@@ -35,7 +35,8 @@ from .utils import locks as _locks
 __all__ = ["set_config", "set_state", "start", "stop", "pause", "resume",
            "is_running", "imperative_on", "record_op", "dump", "dumps",
            "device_trace_path", "Domain", "Task", "Frame", "Event",
-           "Counter", "Marker", "fused_step_counters", "serving_counters",
+           "Counter", "Marker", "fused_step_counters",
+           "compile_cache_counters", "serving_counters",
            "pipeline_counters", "resilience_counters", "graph_opt_counters",
            "fusion_counters", "quantize_counters", "lock_check_counters"]
 
@@ -157,6 +158,14 @@ def fused_step_counters():
     skip-step total. Reading ``skipped_steps`` reads each live
     trainer's device counter, which waits for the card."""
     return _family("fused_step")
+
+
+def compile_cache_counters():
+    """Program-cache counters: disk hits, misses, writes, corrupt and
+    pruned entries, serialize skips, retraces (graph-optimizer and
+    quantize-pass runs), CUDA-graph captures, ``nvcc`` builds,
+    calibrations and shape bucketing."""
+    return _family("compile_cache")
 
 
 def serving_counters():

@@ -29,6 +29,10 @@ call whether the seam raises. The seams:
 ``kvstore_pull``          a kvstore pull (a failed parameter fetch)
 ``grad_bucket_dispatch``  the bucketed all-reduce's dispatch of one
                           bucket during backward
+``compile_cache_io``      a compile-cache disk load or store (a miss or
+                          a skipped write; the entry survives)
+``autotune_measure``      one autotune candidate's measurement (the
+                          sweep skips that candidate)
 ========================  ==============================================
 
 Clause keys, as in the reference: ``at=N`` fires on the Nth call (once);
@@ -79,6 +83,10 @@ FAULT_POINTS = {
     "kvstore_pull": "a kvstore pull (a failed parameter fetch)",
     "grad_bucket_dispatch": "the bucketed gradient all-reduce's dispatch "
                             "of one bucket during backward",
+    "compile_cache_io": "persistent compile-cache disk load/store (a "
+                        "fire is a miss or a skipped write)",
+    "autotune_measure": "autotune candidate measurement (a fire skips "
+                        "that candidate)",
 }
 
 

@@ -4,9 +4,9 @@ include/mxnet/libinfo.h:47-146).
 The PyTorch counterpart of ``mxnet_tpu/runtime.py``. The keys are the
 JAX package's, one for one; the values are the port's truth: ``CUDA``,
 ``CUDNN`` and ``DIST_KVSTORE`` come from torch, ``TPU``, ``XLA`` and
-``PALLAS`` are False, and a subsystem the port lacks
-(``COMPILE_CACHE``, ``SHARDING``, the eager dispatch cache behind
-``EAGER_JIT``, the native IO library) reads False.
+``PALLAS`` are False, ``COMPILE_CACHE`` is the program disk tier's knob,
+and a subsystem the port lacks (``SHARDING``, the eager dispatch cache
+behind ``EAGER_JIT``, the native IO library) reads False.
 """
 from __future__ import annotations
 
@@ -35,6 +35,7 @@ def _detect():
     from .resilience import resilience_enabled
     from .serving import serving_enabled
     from .serving.admission import admission_enabled
+    from .utils.compile_cache import cache_enabled as compile_cache_enabled
 
     cuda = torch.cuda.is_available()
     feats = {
@@ -49,8 +50,8 @@ def _detect():
         # the port dispatches each op eagerly: no dispatch executable cache
         "EAGER_JIT": False,
         "FUSED_STEP": fused_step_enabled(),
-        # utils/compile_cache.py comes with slice 10b
-        "COMPILE_CACHE": False,
+        # the program disk tier (utils/compile_cache.py)
+        "COMPILE_CACHE": compile_cache_enabled(),
         "SERVING": serving_enabled(),
     }
     feats["SERVING_ADMISSION"] = feats["SERVING"] and admission_enabled()
@@ -63,7 +64,7 @@ def _detect():
     feats["SHARDING"] = False
     feats["DIST_KVSTORE"] = torch.distributed.is_available()
     feats["INT64_TENSOR_SIZE"] = True
-    # initialize.py (faulthandler) comes with slice 10b
+    # initialize.py (faulthandler) comes with slice 10c
     feats["SIGNAL_HANDLER"] = False
     feats["F16C"] = platform.machine().lower() in ("x86_64", "amd64")
     # the JAX package's native IO library has no port

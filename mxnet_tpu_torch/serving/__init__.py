@@ -19,6 +19,9 @@ The PyTorch counterpart of ``mxnet_tpu.serving``, with its names:
 - :class:`~.repository.ModelRepository` — models x versions, canary
   rollout with breaker-driven rollback, session migration at promote.
 - :class:`~.server.ModelServer` — the stdlib HTTP front end.
+- :class:`~.fleet.FleetRouter` — N replica servers behind one front
+  door: consistent-hash session affinity, bundle-warm joins
+  (:func:`~.fleet.spawn_replica`), drain with live-session migration.
 - :mod:`~.metrics` — histograms, per-class counters and the Prometheus
   text (:data:`METRICS`).
 
@@ -27,9 +30,9 @@ Knobs: ``MXNET_SERVING`` (0 makes batchers run requests inline), the
 ``QUEUE_DEPTH``, ``TIMEOUT_MS``, ``WORKERS``, ``BUCKETS``, ``HOST``,
 ``PORT``, ``ADMISSION``, ``SLO_MS``, ``SHED_HEADROOM``,
 ``RETRY_AFTER_MS``, ``CANARY_*``, ``STATE_SLOTS``, ``STATE_BUDGET_MB``,
-``STATE_TTL_S``, ``STATE_PAGE_TOKENS``), as in the reference. Not
-ported yet: the replica fleet (``fleet.py``), telemetry spans,
-deployment bundles.
+``STATE_TTL_S``, ``STATE_PAGE_TOKENS``) and the fleet's
+(``MXNET_FLEET_VNODES``, ...), as in the reference. Deployment bundles:
+``ModelRepository.export_bundle`` and ``artifact.import_bundle``.
 """
 from __future__ import annotations
 
@@ -40,7 +43,9 @@ __all__ = ["InferenceSession", "DynamicBatcher", "ModelServer",
            "ServerBusy", "RequestTimeout", "SLO_CLASSES",
            "SessionStateStore", "SessionEvicted", "parse_buckets",
            "serving_enabled", "serving_stats", "reset_serving_counters",
-           "prometheus_text", "METRICS"]
+           "prometheus_text", "METRICS",
+           "FleetRouter", "Replica", "ReplicaProcess", "spawn_replica",
+           "fleet_counters", "reset_fleet_counters"]
 
 
 def serving_enabled():
@@ -57,3 +62,5 @@ from .session import InferenceSession, parse_buckets  # noqa: E402
 from .admission import AdmissionController, ShedLoad  # noqa: E402
 from .repository import ModelRepository  # noqa: E402
 from .server import ModelServer  # noqa: E402
+from .fleet import (FleetRouter, Replica, ReplicaProcess,  # noqa: E402
+                    fleet_counters, reset_fleet_counters, spawn_replica)

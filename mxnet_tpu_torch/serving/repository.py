@@ -26,7 +26,8 @@ none). ``promote`` migrates the incumbent's live sessions into the new
 version's store (``export_state`` / ``restore_state``), so a rollout
 drops no mid-stream decode (``resumed_sessions``).
 
-Deployment bundles (``export_bundle``) wait for the artifact layer.
+``export_bundle`` packs a version's programs and kernel libraries into
+one deployment bundle (``artifact/bundle.py``).
 """
 from __future__ import annotations
 
@@ -338,12 +339,45 @@ class ModelRepository:
                             "(%s)", name, ver, reason)
 
     def export_bundle(self, name, path, version=None):
-        """Deployment bundles need the artifact layer (``torch.export``
-        / AOTInductor packages), which comes with slice 10b of the port;
-        this raises."""
-        raise MXNetError(
-            "ModelRepository.export_bundle is not ported yet: deployment "
-            "bundles need the artifact layer, slice 10b of the port")
+        """Export a deployment bundle of one model version: warm its
+        session (each bucket's program resolved into the local artifact
+        cache, its kernel libraries loaded), then pack those programs
+        and libraries into ONE file at ``path``
+        (``artifact.export_bundle``). A replica that imports it
+        (``artifact.import_bundle``) before it builds its session runs
+        no ``nvcc``, no graph optimizer, no quantize pass and no
+        calibration; it captures its CUDA graphs at warmup. The payload
+        is the port's own program and the hand kernels' libraries, not
+        ``torch.export``/AOTInductor code, which would regenerate the
+        graph's kernels through Inductor. Returns the export report
+        (``{"path", "entries", "libraries", "missing", "bytes"}``) with
+        the model and version attached."""
+        from .. import artifact as _artifact
+
+        m = self._model(name)
+        with m.lock:
+            ver = int(version) if version is not None else m.active
+            vh = m.versions.get(ver)
+            if vh is None:
+                raise MXNetError(
+                    f"model {name!r} has no version {ver} (deployed: "
+                    f"{sorted(m.versions)})")
+        sess = vh.session
+        sess.warmup()
+        fps = sess.artifact_fingerprints()
+        libs = sess.kernel_libraries()
+        if not fps and not libs:
+            raise MXNetError(
+                f"model {name!r} v{ver} has nothing to bundle (no program "
+                "— a Gluon block, MXNET_GRAPH_OPT=0 or the compile cache "
+                "disabled — and no kernel library)")
+        report = _artifact.export_bundle(
+            path, fps, libraries=libs,
+            manifest={"model": name, "version": ver,
+                      "buckets": list(getattr(sess, "buckets", []))})
+        report["model"] = name
+        report["version"] = ver
+        return report
 
     def close(self):
         """Drain every batcher of every version (engine.close()

@@ -27,14 +27,22 @@ timeout) -> 504; anything else -> 500. ``stop()`` is graceful: the
 listener closes first, then the batcher drains. Each POST is a
 ``serving.request`` span under its ``X-Request-Id`` as trace id, which
 the batcher carries to its worker's spans; ``GET /metrics`` serves the
-telemetry registry's unified exposition. The fleet's state-migration
-endpoints come with slice 10b.
+telemetry registry's unified exposition.
+
+The fleet's drain (``serving/fleet.py``) uses two internal endpoints
+of a single-session server: ``GET /admin/export_state`` answers the
+state store's ``export_state`` payload (dense rows, whatever the page
+geometry) as a pickle, and ``POST /admin/restore_state`` restores one
+into this replica's store (quantizing into int8 pages when the store
+keeps them) and answers ``{"restored": n}``; both answer 409 without a
+state store.
 """
 from __future__ import annotations
 
 import io
 import json
 import logging
+import pickle
 import threading
 from concurrent.futures import TimeoutError as _FutureTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -52,7 +60,22 @@ from .state import SessionEvicted
 
 __all__ = ["ModelServer"]
 
+
+class HTTPServer(ThreadingHTTPServer):
+    """``ThreadingHTTPServer`` with a listen backlog for concurrent
+    clients: socketserver's default of 5 drops the SYNs past it, and a
+    client's kernel retransmits a dropped SYN only after a second (the
+    fleet's router sends a replica every concurrent stream's step at
+    once)."""
+
+    request_queue_size = 128
+    daemon_threads = True
+
 _MAX_BODY = 64 * 1024 * 1024  # 64 MiB request-body bound
+# the drain's restore carries live sessions' dense rows: a GPT-2-small
+# session is 75.5 MB whatever its length, so the internal admin surface
+# takes up to 16 GiB
+_ADMIN_MAX_BODY = 16 * 1024 ** 3
 
 
 class ModelServer:
@@ -99,9 +122,7 @@ class ModelServer:
         class _Handler(_ServingHandler):
             model_server = server
 
-        self._httpd = ThreadingHTTPServer((self._host, self._port),
-                                          _Handler)
-        self._httpd.daemon_threads = True
+        self._httpd = HTTPServer((self._host, self._port), _Handler)
         self._thread = threading.Thread(
             target=self._httpd.serve_forever,
             name="mxnet-serving-http", daemon=True)
@@ -225,6 +246,18 @@ class _ServingHandler(BaseHTTPRequestHandler):
                 "slo": adm.snapshot() if adm is not None else None,
                 # stateful serving: live session-state pool occupancy
                 "state": store.stats() if store is not None else None})
+        elif self.path == "/admin/export_state":
+            store = getattr(srv.session, "state_store", None) \
+                if srv.session is not None else None
+            if store is None:
+                self._error(409, "no session state store behind this "
+                                 "server (stateless or repository "
+                                 "mode)")
+                return
+            payload = pickle.dumps(store.export_state(),
+                                   protocol=pickle.HIGHEST_PROTOCOL)
+            self._reply(200, payload,
+                        content_type="application/octet-stream")
         elif self.path == "/models":
             if srv.repository is None:
                 self._error(404, "no model repository behind this "
@@ -278,7 +311,39 @@ class _ServingHandler(BaseHTTPRequestHandler):
                 self._do_post()
                 sp.set(status=self._status)
 
+    def _restore_state(self):
+        """``POST /admin/restore_state``: a pickled ``export_state``
+        payload (possibly a repartitioned subset) lands in this replica's
+        state store."""
+        srv = self.model_server
+        store = getattr(srv.session, "state_store", None) \
+            if srv.session is not None else None
+        if store is None:
+            self._error(409, "no session state store behind this "
+                             "server (stateless or repository mode)")
+            return
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+        except ValueError:
+            self._error(400, "bad Content-Length")
+            return
+        if length <= 0 or length > _ADMIN_MAX_BODY:
+            self._error(400, f"body length {length} out of bounds "
+                             f"(max {_ADMIN_MAX_BODY})")
+            return
+        try:
+            payload = pickle.loads(self.rfile.read(length))
+            restored = store.restore_state(payload)
+        except Exception as e:  # noqa: BLE001 — HTTP boundary
+            self._error(400, f"unrestorable state payload: "
+                             f"{type(e).__name__}: {e}")
+            return
+        self._reply(200, {"restored": int(restored)})
+
     def _do_post(self):
+        if self.path == "/admin/restore_state":
+            self._restore_state()
+            return
         try:
             model = self._route_model()
         except LookupError as e:

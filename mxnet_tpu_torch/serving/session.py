@@ -48,12 +48,28 @@ block hybridized before it is served replays its ``CachedOp`` captures,
 which a quantized block keys by its resolved quantize lowering (the JAX
 package salts its AOT fingerprints the same way).
 
-Not ported yet: AOT artifacts and their disk cache, the per-bucket
-circuit breakers of the stateless path, the session's own graphs for
-the stateless buckets, sharded sessions and AMP.
+**Programs and bundles.** Where the JAX package persists each bucket's
+XLA executable, the port persists each bucket's **program**: the
+``SymbolBlock``'s graph after the graph optimizer (with its fusion and
+kernel decisions), stored through the artifact layer at :meth:`warmup`
+under the JAX package's key (graph signature, parameters, the bucket's
+input specs) and salts (``graph_opt``, ``sharding``, ``quantize``,
+``autotune``). A later process — or a replica that imported a bundle —
+loads it and runs no graph optimizer. A Gluon block serves its own
+forward, never a traced graph, so it has no program (its buckets are
+memory-only), nor has a session with ``MXNET_GRAPH_OPT=0``. A CUDA
+graph cannot be persisted: :meth:`warmup` captures again in every
+process. :meth:`artifact_fingerprints` (with the calibrated int8 graph
+the block came from) and :meth:`kernel_libraries` (the CUDA libraries
+warmup loaded) are what a bundle packs.
+
+Not ported yet: the per-bucket circuit breakers of the stateless path,
+the session's own graphs for the stateless buckets, sharded sessions
+and AMP.
 """
 from __future__ import annotations
 
+import hashlib
 import time
 
 import numpy as onp
@@ -253,6 +269,9 @@ class InferenceSession:
         self._steps = {}  # occupancy bucket -> _StepBucket
         self._buffers = None  # (inputs, states) of max_batch rows
         self._ready = set()  # stateless buckets that have run
+        self._artifact_fps = set()  # programs resolved this process
+        self._libraries = set()  # kernel libraries warmup loaded
+        self._graph_sig = self._graph_signature()
         self._ensure_initialized()
         if warm:
             self.warmup()
@@ -340,28 +359,163 @@ class InferenceSession:
 
     def warmup(self, buckets=None):
         """Make every bucket ready before the first request (metrics not
-        counted). A stateless session runs one zero forward per bucket;
-        a stateful one builds each occupancy bucket's step, which on a
-        CUDA device captures its graph (the reference's per-bucket step
-        executables). Either way the CUDA kernels are built and cuBLAS
-        is up. Returns ``{"buckets": [...], "graphs": n captured,
-        "seconds": s}``."""
+        counted). Each bucket's program is loaded from the artifact
+        layer, or built by the forward and persisted. A stateless session
+        then runs one zero forward per bucket; a stateful one builds
+        each occupancy bucket's step, which on a CUDA device captures
+        its graph (the reference's per-bucket step executables). Either
+        way the CUDA kernels are built (or loaded) and cuBLAS is up.
+        Returns ``{"buckets": [...], "graphs": n captured, "disk_hits":
+        programs loaded, "compiles": programs built, "seconds": s}``."""
         t0 = time.perf_counter()
         todo = [int(b) for b in (buckets or self.buckets)]
-        graphs = 0
-        for b in todo:
-            if self._state_specs:
-                with self._lock:
-                    ent = self._step_bucket(b)
-                    if ent.graph is None:  # eager: bring up the kernels
-                        self._forward(ent.inputs, ent.states)
-                graphs += ent.graph is not None
-            else:
-                self._forward(self._zeros(self._input_specs, b), [])
-                self._ready.add(b)
-        self._synchronize()
-        return {"buckets": todo, "graphs": graphs,
-                "seconds": time.perf_counter() - t0}
+        graphs = hits = builds = 0
+        with _build.recording_libraries() as libs:
+            for b in todo:
+                loaded, art = self._load_program(b)
+                hits += loaded
+                if self._state_specs:
+                    with self._lock:
+                        ent = self._step_bucket(b)
+                        if ent.graph is None:  # eager: bring up kernels
+                            self._forward(ent.inputs, ent.states)
+                    graphs += ent.graph is not None
+                else:
+                    self._forward(self._zeros(self._input_specs, b), [])
+                    self._ready.add(b)
+                if art is not None and not loaded:
+                    builds += self._store_program(b, art)
+            self._synchronize()
+        self._libraries |= libs
+        return {"buckets": todo, "graphs": graphs, "disk_hits": hits,
+                "compiles": builds, "seconds": time.perf_counter() - t0}
+
+    # -- programs: the artifact layer's view of a bucket ----------------
+
+    def _graph_signature(self):
+        """Process-stable identity of the served graph: a SymbolBlock's
+        graph JSON; None for a Gluon block, which serves its own forward
+        and has no program to persist."""
+        from ..gluon.block import SymbolBlock
+
+        if not isinstance(self._block, SymbolBlock):
+            return None
+        return self._block._outputs.tojson()
+
+    def _graph_op_bodies(self):
+        """The registered op functions the graph's nodes dispatch to:
+        their bytecode digests salt the fingerprint."""
+        import json as _json
+
+        from ..ndarray import _CAMEL_ALIASES
+        from ..ndarray.registry import get_op
+
+        bodies = []
+        for opname in sorted({n.get("op") or "null" for n in
+                              _json.loads(self._graph_sig)["nodes"]}):
+            if opname == "null":
+                continue
+            opdef = get_op(_CAMEL_ALIASES.get(opname, opname))
+            if opdef is not None:
+                bodies.append(opdef.fn)
+        return bodies
+
+    def _program_args(self, bucket):
+        return [NDArray(t) for t in
+                self._zeros(self._input_specs, bucket) +
+                self._zeros(self._state_specs, bucket)]
+
+    def _artifact(self, bucket):
+        """The :class:`~..artifact.CompiledArtifact` of a bucket's
+        program: the JAX package's serving key (``mxnet_tpu/serving/
+        session.py:477-505``) with the device type, and its salts. A
+        Gluon block, or ``MXNET_GRAPH_OPT=0``, is memory-only."""
+        from ..analysis import graph_opt
+        from ..artifact import CompiledArtifact
+        from ..ndarray import registry as _op_registry
+
+        kind = "serving_step" if self._state_specs else "serving"
+        if self._graph_sig is None or graph_opt.opt_level() <= 0:
+            return CompiledArtifact(kind, None)
+        params = self._block.collect_params()
+        key = (kind, hashlib.sha256(self._graph_sig.encode()).hexdigest(),
+               tuple(params.keys()),
+               tuple((tuple(p.shape), str(p.data().data.dtype))
+                     for p in params.values()),
+               tuple((s.name, (bucket,) + s.row_shape, str(s.dtype))
+                     for s in self._input_specs + self._state_specs),
+               _op_registry.amp_policy(), bucket, self.device.type)
+        code_of = [type(self)._forward, type(self._block).forward]
+        code_of.extend(self._graph_op_bodies())
+        store = self.state_store
+        return CompiledArtifact(
+            kind, key, code_of=tuple(code_of),
+            salts=("graph_opt", "sharding", "quantize", "paged_state",
+                   "autotune"),
+            salt_ctx={"optimizable": True,
+                      "graph_signature": self._graph_sig,
+                      "device": self.device,
+                      "paged": bool(store is not None and store.paged),
+                      "page_tokens": getattr(store, "page_tokens", 0),
+                      "kv_int8": bool(getattr(store, "kv_int8", False))})
+
+    def _load_program(self, bucket):
+        """``(loaded, artifact)``: install the bucket's program from the
+        nearest tier when there is one. ``artifact`` is None for a
+        memory-only bucket."""
+        from ..artifact.program import decode_symbol
+
+        art = self._artifact(bucket)
+        if art.fingerprint is None:
+            return False, None
+        self._artifact_fps.add(art.fingerprint)
+        args = self._program_args(bucket)
+        if self._block.optimized_program(*args) is not None:
+            return False, None  # resolved by an earlier warmup
+        got = art.load()
+        if got is None:
+            return False, art
+        try:
+            program = decode_symbol(got[0])
+        except Exception:
+            return False, art  # an unreadable program is a miss
+        self._block.install_program(program, *args)
+        METRICS.bump("warm_disk_hits")
+        return True, art
+
+    def _store_program(self, bucket, art):
+        """Persist the program the bucket's forward just optimized;
+        True when it was built here."""
+        from ..artifact.program import encode_symbol
+        from ..utils import compile_cache as _cc
+
+        program = self._block.optimized_program(*self._program_args(bucket))
+        if program is None:
+            return False
+        METRICS.bump("warm_compiles")
+        try:
+            payload = encode_symbol(program)
+        except Exception:  # noqa: BLE001 — a cache never breaks serving
+            # a kwarg with no stable form: this bucket stays in memory
+            _cc._bump("serialize_skips")
+            return True
+        art.store(payload)
+        return True
+
+    def artifact_fingerprints(self):
+        """The fingerprints of every persisted program this session
+        resolved, and of the calibrated int8 graph its block was made
+        from: the set a deployment bundle packs."""
+        with self._lock:
+            fps = set(self._artifact_fps)
+        fps |= set(getattr(self._block, "_program_fps", ()))
+        return sorted(fps)
+
+    def kernel_libraries(self):
+        """The CUDA kernel libraries this session's warmup loaded (none
+        on the CPU): what a bundle carries so that a replica without
+        ``nvcc`` serves."""
+        return sorted(self._libraries)
 
     # -- the decode step: static buffers and one graph per bucket -------
 

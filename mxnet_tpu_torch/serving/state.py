@@ -738,3 +738,20 @@ class SessionStateStore:
                 f"live={self.occupancy}, "
                 f"bytes_per_session={self.bytes_per_session}, "
                 f"ttl_s={self.ttl_s:g}{paged}, device={self.device})")
+
+
+# -- artifact-layer salt provider -------------------------------------------
+
+def fingerprint_salt(ctx):
+    """The ``paged_state`` contribution to a decode step's program:
+    page geometry and int8-KV storage re-key it; a row-slot store (and
+    every stateless program) contributes nothing."""
+    if not ctx.get("paged"):
+        return ()
+    return ("paged_state", int(ctx.get("page_tokens", 0)),
+            bool(ctx.get("kv_int8", False)))
+
+
+from ..artifact import salts as _artifact_salts  # noqa: E402
+
+_artifact_salts.register_salt_provider("paged_state", fingerprint_salt)

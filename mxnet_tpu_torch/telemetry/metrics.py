@@ -291,13 +291,14 @@ _BOOT_LOCK = _locks.RankedLock("telemetry.boot")
 _BOOTED = False
 
 #: the JAX package's probed families the port has a subsystem for, with
-#: the port's own reader; ``compile_cache``, ``artifact`` (slice 10b),
-#: ``graph_verify`` (the verifier's counters, slice 10b), ``sharding``
-#: (slice 9b) and ``eager_jit_cache`` (the port has no dispatch
-#: executable cache) are not registered. ``kernel_launches`` is the
-#: port's own: its hand kernels' launch counts. (The port's
-#: ``cached_op`` and ``executor`` families, its CUDA-graph captures and
-#: replays, and ``quantize`` are owned, registered at import.)
+#: the port's own reader; ``graph_verify`` (the verifier's counters,
+#: slice 10c), ``sharding`` (slice 9b) and ``eager_jit_cache`` (the
+#: port has no dispatch executable cache) are not registered.
+#: ``kernel_launches`` is the port's own: its hand kernels' launch
+#: counts. (The port's ``cached_op`` and ``executor`` families, its
+#: CUDA-graph captures and replays, ``quantize``, ``artifact``,
+#: ``autotune`` and ``fleet`` are owned, registered at import; their
+#: modules are imported here so that a read surface shows them.)
 PROBED_FAMILIES = (
     ("fused_step", "mxnet_tpu_torch.gluon.fused_step", "fused_step_stats"),
     ("serving", "mxnet_tpu_torch.serving.metrics", "serving_stats"),
@@ -306,6 +307,11 @@ PROBED_FAMILIES = (
     ("graph_opt", "mxnet_tpu_torch.analysis.graph_opt", "counters"),
     ("fusion", "mxnet_tpu_torch.kernels", "counters"),
     ("kernel_launches", "mxnet_tpu_torch.kernels._build", "launch_counts"),
+    ("compile_cache", "mxnet_tpu_torch.utils.compile_cache",
+     "compile_cache_stats"),
+    ("artifact", "mxnet_tpu_torch.artifact", "artifact_stats"),
+    ("autotune", "mxnet_tpu_torch.autotune", "counters"),
+    ("fleet", "mxnet_tpu_torch.serving.fleet", "fleet_counters"),
 )
 
 

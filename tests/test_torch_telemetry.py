@@ -448,17 +448,19 @@ def _train_spans(tel, feed, step_fn, net, trainer):
 
 
 #: spans of the JAX fused step's first call that the port has no
-#: counterpart for on the CPU: the persistent compile cache's disk tier
-#: (``utils/compile_cache.py``, slice 10b) and the XLA compile; the
-#: port's ``fused_step.trace_compile`` is its CUDA-graph capture, which
-#: runs on the card only (``tests/test_torch_profiler.py`` and smoke
-#: phase 55 see it there)
-JAX_ONLY_FIRST_STEP = {"compile_cache.disk_load", "compile_cache.disk_store",
-                       "fused_step.trace_compile"}
+#: counterpart for on the CPU: the port's ``fused_step.trace_compile`` is
+#: its CUDA-graph capture, which runs on the card only
+#: (``tests/test_torch_profiler.py`` and smoke phase 55 see it there).
+#: Both packages persist the step through the compile cache's disk tier
+#: (``compile_cache.disk_load``/``disk_store``): the JAX package its
+#: executable, the port its plan
+JAX_ONLY_FIRST_STEP = {"fused_step.trace_compile"}
 
 
-def test_fused_step_with_device_feed_spans_equal_jax(monkeypatch):
+def test_fused_step_with_device_feed_spans_equal_jax(monkeypatch, tmp_path):
     monkeypatch.setenv("MXNET_TELEMETRY", "1")
+    # an empty compile cache: both first steps miss and store
+    monkeypatch.setenv("MXNET_COMPILE_CACHE_DIR", str(tmp_path))
     monkeypatch.delenv("MXNET_FUSED_STEP", raising=False)
     # a step function cached by an earlier test would skip the resolve
     jfused.reset_fused_step_cache()
@@ -551,11 +553,7 @@ def test_bucketed_reducer_step_records_both_grad_sync_spans(monkeypatch):
 
 #: JAX families whose subsystem the port lacks: not registered
 JAX_ONLY_FAMILIES = {
-    "compile_cache": "utils/compile_cache.py, slice 10b",
-    "artifact": "artifact/, slice 10b",
-    "autotune": "autotune/, slice 10b",
-    "fleet": "serving/fleet.py, slice 10b",
-    "graph_verify": "the graph verifier's counters, slice 10b",
+    "graph_verify": "the graph verifier's counters, slice 10c",
     "sharding": "sharding/, slice 9b",
     "eager_jit_cache": "no counterpart: the port has no dispatch "
                        "executable cache",
@@ -563,9 +561,9 @@ JAX_ONLY_FAMILIES = {
 
 #: per family, the JAX keys the port lacks, and why
 JAX_ONLY_KEYS = {
-    # the JAX step falls back to plain jit when an AOT compile fails; the
-    # port's step captures its graph or raises
-    "fused_step": {"fallbacks"},
+    # both steps sit on the JAX package's CountedLRUCache; the port's
+    # ``fallbacks`` stays 0 (its step captures its graph or raises)
+    "fused_step": set(),
     # checkpoints and auto-resume, and the per-bucket serving breakers
     # that demote a bucket: slice 9b
     "resilience": {"ckpt_saves", "ckpt_async_saves", "ckpt_async_waits",
@@ -577,6 +575,10 @@ JAX_ONLY_KEYS = {
     "graph_opt": set(),
     "quantize": set(),
     "serving": set(),
+    "compile_cache": set(),
+    "artifact": set(),
+    "autotune": set(),
+    "fleet": set(),
 }
 
 
@@ -599,7 +601,8 @@ def test_registry_families_are_the_jax_ones_the_port_has():
     jfam, tfam = ({f for f in snap if not f.startswith("test_")}
                   for snap in (_jax_snapshot(), _port_snapshot()))
     shared = {"fused_step", "pipeline", "serving", "graph_opt", "fusion",
-              "quantize", "resilience"}
+              "quantize", "resilience", "compile_cache", "artifact",
+              "autotune", "fleet"}
     assert shared <= jfam and shared <= tfam
     assert jfam - tfam - {"lock_check"} == set(JAX_ONLY_FAMILIES)
     assert not (tfam & set(JAX_ONLY_FAMILIES))
