@@ -75,7 +75,14 @@ kernels against the plain PyTorch versions:
   int8 ResNet-50, GPT-2-small decode) exported as bundles by a
   ``ModelRepository`` and served by a process with no ``nvcc`` that
   builds nothing, and a ``FleetRouter`` over two replica processes on
-  the one card, drained mid-stream.
+  the one card, drained mid-stream;
+- the host runtime and the record pipeline: the dependency engine on the
+  card, the JPEG decoder the machine has (libjpeg on the host, or nvJPEG
+  and the crop kernel ``jpeg_crop`` of ``csrc/jpeg_decode.cu``, not a
+  TPU kernel: it replaces the resize, crop and mirror of the JAX
+  package's host decode), ``ImageRecordIter`` alone, and ResNet-50 v1
+  trained from a ``.rec`` through ``DeviceFeed``
+  (``tools/profile_records.py``).
 
 Run from the root of a checkout, on a machine with one NVIDIA H100:
 
@@ -529,10 +536,31 @@ stream busy until the launch is enqueued, so it is the device's time:
     b, every stream's tokens equal to one in-process session's and its
     logits within 1e-5; prints tokens/s through the router beside phase
     18's and the drain's seconds;
-59. report: one JSON line of kernels, then the device line last.
+59. the dependency engine on the card: 200 pushes on each lane in push
+    order with their var versions, a poisoned var and its reader raised
+    again at ``wait_for_var``, an op pushed with ``device=`` whose
+    matmuls are finished when ``nd.waitall()`` returns; the host µs a
+    push for the native engine and ``NaiveEngine``;
+60. record decode: the decoder the machine has (jpeglib.h, nvJPEG, PIL,
+    cores) on the example twin's synthetic .rec (512 records of 64
+    seeded 252 x 252 JPEGs); on the nvJPEG route ``jpeg_crop`` bitwise
+    against its plain version and its times, and the batch of 128
+    against the Python twin (PIL) within the bounds
+    ``tools/profile_records.py`` states: the IDCT's rounding alone on
+    4:4:4 JPEGs (a mean of 1.5 levels of 255), the chroma upsampling of
+    the .rec's 4:2:0 JPEGs (a luma mean of 3, an RGB mean of 20);
+61. ``ImageRecordIter`` alone at 224 x 224, batch 128,
+    ``preprocess_threads`` = the machine's cores: images/s;
+62. ResNet-50 v1 (bf16 NHWC hybridized under AMP, SGD 0.05) trained 20
+    steps from the .rec through ``DeviceFeed``, counts reset just before:
+    K4 launched twice a step, ``jpeg_crop`` launched (nvJPEG route), the
+    mean loss of the last five steps below the first five's; ms a step,
+    images/s and the device's idle share beside the same step fed from a
+    batch already on the card;
+63. report: one JSON line of kernels, then the device line last.
 
 ``python3 chip_smoke.py --chain`` runs phases 1-2, phase 13's export and
-56-58 alone.
+56-58 alone; ``--records`` runs phases 1-2 and 59-62 alone.
 
 Each phase prints the seconds it took.
 
@@ -588,6 +616,8 @@ from mxnet_tpu_torch.tools.profile_decode import (  # noqa: E402
 from mxnet_tpu_torch.gluon.model_zoo import vision  # noqa: E402
 from mxnet_tpu_torch.resilience import faults  # noqa: E402
 from mxnet_tpu_torch.tools import launch  # noqa: E402
+from mxnet_tpu_torch.tools import profile_records as prec  # noqa: E402
+from mxnet_tpu_torch.kernels import jpeg_decode as jpk  # noqa: E402
 
 SEED = 20240917
 # GPT-2 small (n_embd 768, n_head 12, n_layer 12, n_positions 1024,
@@ -6372,6 +6402,77 @@ def fleet_phase(smi, bundle, spec, single_tokens_per_s):
     return result
 
 
+RECORD_IMAGES, RECORD_B, RECORD_STEPS = 512, 128, 20
+
+
+def engine_phase(smi):
+    phase("59 the dependency engine on the card")
+    out = prec.engine_check()
+    out["card"] = smi
+    print("  " + json.dumps(out))
+    return out
+
+
+def record_decode_phase(smi):
+    phase("60 record decode: the decoder, jpeg_crop, the Python twin")
+    rec = prec.write_records(os.path.join(WORK["dir"], "train.rec"),
+                             RECORD_IMAGES)
+    out = prec.decode_check(rec, RECORD_B)
+    out["card"] = smi
+    print(f"decoder: {out['decoder']} (jpeglib.h {out['jpeglib_h']}, "
+          f"nvJPEG {out['nvjpeg']}, PIL {out['pil']}, {out['cores']} cores)")
+    print("  " + json.dumps(out))
+    return rec, out
+
+
+def record_iter_phase(smi, rec):
+    phase("61 ImageRecordIter alone")
+    out = prec.iter_rate(rec, RECORD_B)
+    out["card"] = smi
+    print("  " + json.dumps(out))
+    return out
+
+
+def record_resnet_phase(smi, rec):
+    phase("62 ResNet-50 v1 trained from the .rec")
+    out = prec.train_from_records(rec, RECORD_STEPS, RECORD_B)
+    out["card"] = smi
+    print("  " + json.dumps(out))
+    losses = out["losses"]
+    if not all(onp.isfinite(losses)):
+        raise RuntimeError(f"non-finite record-fed loss: {losses}")
+    if not onp.mean(losses[-5:]) < onp.mean(losses[:5]):
+        raise RuntimeError(f"the record-fed loss did not fall: {losses}")
+    if out["k4_launches"] != 2 * RECORD_STEPS:
+        raise RuntimeError(f"K4 launched {out['k4_launches']} times in "
+                           f"{RECORD_STEPS} record-fed steps")
+    if out["decoder"] == "nvjpeg" and out["jpeg_crop_launches"] == 0:
+        raise RuntimeError("the record-fed steps launched no jpeg_crop")
+    return out
+
+
+def records_phases(smi):
+    engine = engine_phase(smi)
+    rec, decode = record_decode_phase(smi)
+    rate = record_iter_phase(smi, rec)
+    train = record_resnet_phase(smi, rec)
+    return {"engine": engine, "decode": decode, "iter": rate,
+            "train": train}
+
+
+def _records_only():
+    """``python3 chip_smoke.py --records``: phases 1-2 and 59-62 alone
+    (phase 2 builds only the crop kernel's source)."""
+    t0 = time.perf_counter()
+    smi = device_phase()
+    phase("2 build")
+    _build.build_all([jpk.SOURCE])
+    records_phases(smi)
+    phase("done")
+    print(f"phases 59-62 in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def kernel_entry(name, source, replaces, launches, worst, row, shape, smi,
                  **extra):
     entry = {"name": name, "route": "cuda", "source": source,
@@ -6390,6 +6491,12 @@ def main():
     ``MXNET_AUTOTUNE_DIR``); the kernel libraries stay in ``build/``."""
     import shutil
 
+    import faulthandler
+
+    # a hang prints every thread's stack and ends the run inside the
+    # driver's 1200 s, rather than holding the card to the limit
+    faulthandler.dump_traceback_later(
+        450 if sys.argv[1:] == ["--records"] else 1150, exit=True)
     WORK["dir"] = tempfile.mkdtemp(prefix="chip_smoke_")
     WORK["home"] = os.path.join(WORK["dir"], "home")
     os.environ["MXNET_HOME"] = WORK["home"]
@@ -6397,6 +6504,8 @@ def main():
     try:
         if sys.argv[1:] == ["--chain"]:
             return _chain_only()
+        if sys.argv[1:] == ["--records"]:
+            return _records_only()
         return _main()
     finally:
         shutil.rmtree(WORK["dir"], ignore_errors=True)
@@ -6499,6 +6608,7 @@ def _main():
         smi, WORK["w2v_prefix"], tuned)
     fleet_res = fleet_phase(smi, gpt2_bundle, gpt2_spec,
                             paged_fp32["tokens_per_s"])
+    records = records_phases(smi)
     k4_dist = {"resnet50_dist_sync_gloo_rank0": dist2[0]["k4_fwd"],
                "resnet50_dist_sync_gloo_rank1": dist2[1]["k4_fwd"],
                "resnet50_dist_device_sync_nccl": dist1["k4_fwd"]}
@@ -6511,7 +6621,9 @@ def _main():
     k4_hyb = {"resnet_bf16_hybrid_eager": resnet_hyb[False]["k4_launches"] // 2,
               "resnet_bf16_hybridized": resnet_hyb[True]["k4_launches"] // 2,
               "resnet_bf16_fed": fed["k4_launches"] // 2,
-              "resnet_bf16_traced": traced_res["k4_launches"] // 2}
+              "resnet_bf16_traced": traced_res["k4_launches"] // 2,
+              "resnet_bf16_record_fed":
+                  records["train"]["k4_launches"] // 2}
     k4_amp = {f"resnet_bf16_{k}": v["k4_launches"] // 2
               for k, v in resnet_amp.items()}
     big = k2_rows[-1]
@@ -6709,12 +6821,30 @@ def _main():
             launches_by_path={"resnet50_int8_predict":
                               int8_resnet["nhwc_launches"]}),
     ]
+    if records["decode"]["decoder"] == "nvjpeg":
+        # not a TPU kernel: the resize, crop and mirror of the JAX
+        # package's host decode (native/recordio.cc decode_one), on the
+        # card after nvJPEG's full-size decode
+        crop = records["decode"]["kernel"]
+        kernels.append(kernel_entry(
+            jpk.KERNEL, "mxnet_tpu_torch/csrc/jpeg_decode.cu",
+            "native/recordio.cc:89 (not a TPU kernel: decode_one's "
+            "resize-short, crop and mirror on the host)",
+            records["train"]["jpeg_crop_launches"], crop["max_abs_err"],
+            crop, crop["shape"], smi, not_a_tpu_kernel=True,
+            library_calls="none: no PyTorch call crops a batch of packed "
+            "images of their own sizes",
+            vs_python_twin=records["decode"]["vs_python_twin"],
+            nvjpeg_decode_ms=records["decode"]["nvjpeg_decode_ms"],
+            decode_batch_ms=records["decode"]["decode_batch_ms"],
+            launches_by_path={"resnet50_record_fed":
+                              records["train"]["jpeg_crop_launches"]}))
     print("int8 quantization: " + json.dumps({
         "resnet50_v1": int8_resnet, "quantize_net": block_swap,
         "kv_int8_decode": kv_int8, "batch_dot_routes": quant_k["batch_dot"],
         "dequant_gap_k4608": quant_k["dequant_gap_k4608"],
         "ops_worst": quant_k["ops_worst"]}))
-    phase("59 report")
+    phase("63 report")
     print(f"bf16 ResNet-50 headline layout: {head}")
     print("hybridized: " + json.dumps({
         "resnet50_bf16_nhwc_step_ms": [resnet_hyb[False]["mean_step_ms"],
@@ -6821,6 +6951,19 @@ def _main():
         "single_process_tokens_per_s":
             fleet_res["phase18_tokens_per_s_single_process"],
         "drain_s": fleet_res["drain"]["seconds"]}))
+    print("host runtime and records: " + json.dumps({
+        "card": smi, "decoder": records["decode"]["decoder"],
+        "push_us": [records["engine"]["push_us_native"],
+                    records["engine"]["push_us_naive"]],
+        "iter_images_per_s": records["iter"]["images_per_s"],
+        "iter_images_per_s_per_core":
+            records["iter"]["images_per_s_per_core"],
+        "record_fed_step_ms": records["train"]["step_ms"],
+        "record_fed_images_per_s": records["train"]["images_per_s"],
+        "record_fed_idle_share": records["train"]["idle_share"],
+        "device_fed_step_ms": records["train"]["device_fed_step_ms"],
+        "device_fed_idle_share": records["train"]["idle_share_device_fed"],
+        "losses": records["train"]["losses"]}))
     print(f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

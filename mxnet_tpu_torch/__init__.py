@@ -75,6 +75,17 @@ ResNet-50 v1 with a custom-op loss head whose kernels ``rtc`` compiles:
   ``mx.AttrScope``; the port's locks are ranked
   (``utils/locks.py``, ``MXNET_LOCK_CHECK``).
 
+- ``mx.engine`` and ``mx.storage`` — the dependency engine (native
+  lanes of worker threads over versioned vars, ``csrc/engine.cc``) that
+  the DataLoader, ``PrefetchingIter``, ``nd.save`` and the record
+  iterators push their host work to, and the pooled host storage;
+  ``mx.library`` (op libraries), ``mx.ops``, and the trace verifier
+  (``mx.analysis.record_trace``/``verify_trace``);
+- ``mx.recordio``, ``mx.image`` and ``mx.io.ImageRecordIter`` — RecordIO
+  files, the image augmenters and the record iterators, whose JPEG
+  decode runs through libjpeg on the host (``csrc/recordio.cc``) or
+  nvJPEG and a crop kernel on the card (``csrc/jpeg_decode.cu``).
+
 ``HybridBlock.hybridize()`` captures a block's forward, and under
 ``record()`` its backward, as CUDA graphs, one pair per call
 signature (``gluon.CachedOp``).
@@ -149,6 +160,17 @@ from . import misc
 from . import libinfo
 from . import attribute
 from .attribute import AttrScope
+from . import engine
+from . import storage
+from . import library
+from . import ops
+from . import recordio
+from . import image
+from . import initialize as _initialize
+
+# crash tracebacks and a fork-safe engine (reference: src/initialize.cc),
+# where the JAX package installs them (``mxnet_tpu/__init__.py:114``)
+_initialize.initialize()
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "autograd", "initializer", "init", "ndarray", "nd",
@@ -158,7 +180,8 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "executor", "module", "mod", "rnn", "utils", "parallel",
            "gradient_compression", "kvstore", "kv", "env", "telemetry",
            "profiler", "runtime", "log", "registry", "util", "misc",
-           "libinfo", "attribute", "AttrScope"]
+           "libinfo", "attribute", "AttrScope", "engine", "storage",
+           "library", "ops", "recordio", "image"]
 
 # the env knobs applied once at import, as the JAX package applies them
 # (``mxnet_tpu/__init__.py:160-168``): the global seed, the profiler's

@@ -10,26 +10,36 @@ graph when a rewrite added an error.
 ``MXNET_GRAPH_VERIFY`` (:func:`verify_mode`) decides what a bind does
 with a report (:meth:`DiagnosticReport.disposition`): nothing (``off``,
 the default), log it (``warn``) or raise :class:`GraphVerifyError`
-(``error``). Not ported yet: its counters.
+(``error``). Every disposition is counted in the registry's
+``graph_verify`` family (:func:`counters`), as in the JAX package.
 """
 from __future__ import annotations
 
 import logging
 
 from ..base import MXNetError, getenv
+from ..telemetry import metrics as _telemetry
 
 __all__ = ["Diagnostic", "DiagnosticReport", "GraphVerifyError", "CODES",
-           "SEV_ERROR", "SEV_WARNING", "verify_mode"]
+           "SEV_ERROR", "SEV_WARNING", "verify_mode", "counters",
+           "reset_counters"]
 
 SEV_ERROR = "error"
 SEV_WARNING = "warning"
 
-# code -> (default severity, title): GV1xx shape/dtype inference, GV4xx
-# graph structure (the codes the ported passes emit)
+# code -> (default severity, title): GV1xx shape/dtype inference, GV2xx
+# in-place writes (the JAX package's donation codes), GV3xx random
+# streams, GV4xx graph structure (the codes the ported passes emit;
+# GV5xx, sharding, comes with slice 9b)
 CODES = {
     "GV101": (SEV_ERROR, "shape mismatch"),
     "GV102": (SEV_ERROR, "dtype mismatch"),
+    "GV103": (SEV_ERROR, "shape-inference desync (infer vs meta run)"),
+    "GV201": (SEV_ERROR, "in-place write into a saved tensor"),
+    "GV202": (SEV_ERROR, "double in-place write"),
+    "GV301": (SEV_ERROR, "random stream reuse"),
     "GV401": (SEV_WARNING, "dead node / unused output"),
+    "GV402": (SEV_WARNING, "unused input"),
     "GV403": (SEV_ERROR, "duplicate node name"),
 }
 
@@ -76,14 +86,28 @@ class DiagnosticReport:
     def __bool__(self):
         return bool(self._diags)
 
+    def extend(self, other):
+        self._diags.extend(other._diags)
+
+    def codes(self):
+        return [d.code for d in self._diags]
+
+    def by_code(self, code):
+        return [d for d in self._diags if d.code == code]
+
     @property
     def errors(self):
         return [d for d in self._diags if d.severity == SEV_ERROR]
 
+    @property
+    def warnings(self):
+        return [d for d in self._diags if d.severity == SEV_WARNING]
+
     def disposition(self, mode=None):
-        """Log (``warn``) or raise (``error``) the report's diagnostics
-        as ``MXNET_GRAPH_VERIFY`` says; returns the report."""
+        """Count, then log (``warn``) or raise (``error``) the report's
+        diagnostics as ``MXNET_GRAPH_VERIFY`` says; returns the report."""
         mode = mode or verify_mode()
+        _count(self)
         if mode == "off" or not self._diags:
             return self
         if mode == "error":
@@ -111,3 +135,33 @@ def verify_mode():
     if raw in ("error", "raise", "2"):
         return "error"
     return "warn"
+
+
+# -- counters (the registry's ``graph_verify`` family) ------------------------
+
+_COUNTERS = _telemetry.counter_family(
+    "graph_verify", {"graphs_checked": 0, "diagnostics": 0, "errors": 0,
+                     "warnings": 0})
+# "_"-prefixed: merged into the "graph_verify" probe by counters()
+_BY_CODE = _telemetry.counter_family("_graph_verify_codes")
+
+
+def _count(report):
+    _COUNTERS.add("graphs_checked")
+    _COUNTERS.add("diagnostics", len(report))
+    _COUNTERS.add("errors", len(report.errors))
+    _COUNTERS.add("warnings", len(report.warnings))
+    for d in report:
+        _BY_CODE.add(d.code)
+
+
+def counters():
+    """Live verifier counters: totals and per-code tallies."""
+    out = _COUNTERS.snapshot()
+    out.update({f"code_{c}": n for c, n in sorted(_BY_CODE.items())})
+    return out
+
+
+def reset_counters():
+    _COUNTERS.reset()
+    _BY_CODE.clear()

@@ -12,10 +12,14 @@ and dtypes the caller knows, memoized analyses) and emits diagnostics:
 - ``structure``: duplicate node names (GV403) and dead outputs of
   multi-output nodes (GV401).
 
+- ``eval_shape``: the whole graph run on torch's ``meta`` device (every
+  op body on tensors with shapes and no data, the counterpart of the JAX
+  package's ``jax.eval_shape``), its output shapes held against the
+  inference pass's (GV103).
+
 Expensive analyses are *facts*, computed once per context by
 ``ctx.fact(name)``; ``analysis/fusion.py`` adds the pattern and per-node
-shape facts. Not ported: the whole-graph ``eval_shape`` cross-check
-(GV103), which no optimizer path runs.
+shape facts.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from ..base import MXNetError
 from .diagnostics import DiagnosticReport
 
 __all__ = ["FactError", "PassContext", "PASSES", "register_fact",
-           "run_passes"]
+           "run_passes", "verify_symbol"]
 
 
 class FactError:
@@ -216,6 +220,14 @@ def shape_pass(ctx):
 
 def dtype_pass(ctx):
     declared = ctx.declared_dtypes()
+    for name, dt in ctx.known_dtypes.items():
+        bound = onp.dtype(str(dt).replace("torch.", ""))
+        if name in declared and declared[name] != bound:
+            ctx.report.emit(
+                "GV102", f"variable '{name}' is declared {declared[name]} "
+                f"but bound as {bound}", node=name,
+                hint="fix the Variable(dtype=...) declaration or cast the "
+                "bound array")
     result = ctx.fact("dtypes")
     if isinstance(result, FactError):
         ctx.report.emit("GV102",
@@ -274,9 +286,53 @@ def structure_pass(ctx):
                 "consume them")
 
 
-PASSES = {"shape": shape_pass, "dtype": dtype_pass,
-          "structure": structure_pass}
-DEFAULT_PIPELINE = ("shape", "dtype", "structure")
+def eval_shape_cross_check(ctx):
+    """The graph's op bodies run on ``meta`` tensors against the
+    inference pass (GV103: ``symbol/infer.py`` has drifted from what the
+    ops compute). Runs only with every argument shape known; float32
+    arguments, as the JAX pass feeds ``jax.ShapeDtypeStruct``s."""
+    import torch
+
+    from .. import autograd
+    from ..ndarray import NDArray
+
+    if ctx.var_shapes is None or ctx.out_shapes is None:
+        return
+    if any(s is None for s in ctx.out_shapes):
+        return
+    symbol = ctx.symbol
+    names = symbol.list_arguments() + symbol.list_auxiliary_states()
+    shapes = [ctx.var_shapes.get(n) for n in names]
+    if any(s is None for s in shapes):
+        return  # partial information: nothing sound to compare
+    feed = {n: NDArray(torch.empty(tuple(s), dtype=torch.float32,
+                                   device="meta"))
+            for n, s in zip(names, shapes)}
+    try:
+        with autograd.pause():
+            out = symbol._eval_nodes(feed, {})
+    except Exception:  # noqa: BLE001 — bodies that need values or ints
+        return  # not comparable
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    observed = [tuple(o.shape) for o in outs]
+    inferred = [tuple(s) for s in ctx.out_shapes]
+    if len(observed) != len(inferred):
+        return  # head-view flattening differs; a pairwise compare is unsound
+    for i, (obs, inf) in enumerate(zip(observed, inferred)):
+        if obs != inf:
+            ctx.report.emit(
+                "GV103",
+                f"output {i}: inference pass says {inf} but the op "
+                f"bodies produce {obs}",
+                node=ctx.heads()[min(i, len(ctx.heads()) - 1)]._name,
+                hint="symbol/infer.py has drifted from the op registry; "
+                     "file a framework bug")
+
+
+PASSES = {"shape": shape_pass, "eval_shape": eval_shape_cross_check,
+          "dtype": dtype_pass, "structure": structure_pass}
+#: shape first (eval_shape reads its result)
+DEFAULT_PIPELINE = ("shape", "eval_shape", "dtype", "structure")
 
 
 def run_passes(ctx, passes=None):
@@ -285,3 +341,13 @@ def run_passes(ctx, passes=None):
         ctx.passes_run.add(name)
     return ctx.report
 
+
+
+def verify_symbol(symbol, shapes=None, dtypes=None, passes=None,
+                  subject=None):
+    """Run the verifier pipeline over a Symbol DAG; returns the
+    ``DiagnosticReport`` (not yet dispositioned: ``.disposition()``
+    applies the ``MXNET_GRAPH_VERIFY`` mode)."""
+    ctx = PassContext(symbol, shapes=shapes, dtypes=dtypes,
+                      subject=subject or getattr(symbol, "_name", None))
+    return run_passes(ctx, passes)

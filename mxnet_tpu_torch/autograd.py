@@ -101,6 +101,17 @@ def record(train_mode=True):
     (reference: python/mxnet/autograd.py:122 record())."""
     if not _STATE.recording:
         _STATE.record_scopes += 1
+        from .analysis.diagnostics import verify_mode
+
+        if verify_mode() != "off":
+            # the graph verifier's in-place write checks need to know
+            # which tensors the graph saves (analysis/donation.py)
+            from .analysis.donation import tracking_saved
+
+            with tracking_saved(), _scope(recording=True,
+                                          training=train_mode):
+                yield
+            return
     with _scope(recording=True, training=train_mode):
         yield
 

@@ -25,7 +25,6 @@ import os
 __all__ = ["KNOBS", "describe", "check", "get_int", "get_float",
            "get_bool", "get_str", "markdown_table"]
 
-_10C = "slice 10c"
 _9B = "slice 9b"
 _11 = "slice 11"
 
@@ -324,14 +323,19 @@ KNOBS = {
     "MXNET_SHARDING_ZERO1": (
         "unported", f"sharding.zero1 ({_9B})",
         "ZeRO-1 weight-update sharding"),
-    # -- engine and storage (slice 10c), caches, artifacts, autotune --------
+    # -- engine and storage, caches, artifacts, autotune --------------------
     "MXNET_ENGINE_TYPE": (
-        "unported", f"engine.get ({_10C})",
-        "ThreadedEngine | NaiveEngine"),
+        "wired", "engine.get",
+        "ThreadedEngine (default: the native engine, csrc/engine.cc) | "
+        "NaiveEngine (synchronous, inline); a native engine that does "
+        "not build raises, it never falls back"),
     "MXNET_CPU_WORKER_NTHREADS": (
-        "unported", f"engine.Engine ({_10C})", "host worker-pool size"),
+        "wired", "engine.Engine",
+        "host worker threads of the engine (default: the CPU count); the "
+        "IO lane and every other auxiliary lane take one each"),
     "MXNET_ENGINE_NUM_LANES": (
-        "unported", f"engine.Engine ({_10C})", "worker-pool lanes"),
+        "wired", "engine.Engine",
+        "worker-pool lanes of the engine (default 2: compute and IO)"),
     "MXNET_CPU_PRIORITY_NTHREADS": (
         "accepted", "-", "torch orders work on the CUDA stream"),
     "MXNET_GPU_WORKER_NTHREADS": ("accepted", "-", "CUDA streams"),
@@ -340,14 +344,22 @@ KNOBS = {
     "MXNET_ENGINE_OPENMP": ("accepted", "-", "torch owns intra-op threads"),
     "MXNET_OMP_MAX_THREADS": ("accepted", "-", "torch owns intra-op threads"),
     "MXNET_USE_SIGNAL_HANDLER": (
-        "unported", f"initialize ({_10C})",
-        "crash tracebacks via faulthandler"),
+        "wired", "initialize",
+        "crash tracebacks through faulthandler (default 1)"),
     "MXNET_CPU_MEM_POOL_DISABLE": (
-        "unported", f"storage ({_10C})", "disable the pooled host allocator"),
+        "wired", "storage",
+        "1 bypasses the pooled host allocator (a plain buffer per "
+        "allocation)"),
     "MXNET_GPU_MEM_POOL_RESERVE": (
-        "unported", f"storage ({_10C})", "host-pool cap"),
+        "wired", "storage",
+        "percent of host memory the host pool leaves unpooled (the JAX "
+        "package's reading: on the card torch's caching allocator owns "
+        "the memory)"),
     "MXNET_GPU_MEM_POOL_TYPE": (
-        "unported", f"storage ({_10C})", "host-pool strategy"),
+        "wired", "storage",
+        "host-pool strategy: Naive (default) | Round | Unpooled (the JAX "
+        "package's reading: on the card torch's caching allocator "
+        "owns the memory)"),
     "MXNET_GPU_MEM_POOL_ROUND_LINEAR_CUTOFF": (
         "accepted", "-", "the CUDA caching allocator rounds"),
     "MXNET_GPU_MEM_LARGE_ALLOC_ROUND_SIZE": (

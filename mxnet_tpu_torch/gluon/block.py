@@ -892,6 +892,24 @@ class HybridBlock(Block):
                                     static_shape=static_shape, **kwargs)
         super().hybridize(active=False)
 
+    def _verify_on_hybridize(self, args):
+        """``MXNET_GRAPH_VERIFY``-gated trace verification before the
+        first CachedOp build (JAX ``gluon/block.py:543-556``): one paused
+        eager forward is recorded (``analysis.record_trace``) and the
+        dataflow passes (random-stream reuse, in-place writes into saved
+        tensors, dead values) disposition per the mode. Once per cache
+        build, never on the hot path."""
+        from .. import analysis
+
+        if analysis.verify_mode() == "off":
+            return
+        try:
+            report = analysis.verify_block_call(
+                self, args, subject=f"hybridize:{self.name}")
+        except DeferredInitializationError:
+            return  # shapes not known yet; the CachedOp's own pass inits
+        report.disposition()
+
     def infer_shape(self, *args):
         """Finish deferred parameter shapes from example inputs."""
         with autograd.pause():
@@ -907,6 +925,7 @@ class HybridBlock(Block):
         if self._active and flat and not kwargs \
                 and not self.__dict__.get("_op_hooks_active", 0):
             if self._cached_op is None:
+                self._verify_on_hybridize(args)
                 self._cached_op = CachedOp(self, **self._cached_op_args)
             for hook in list(self._mx_forward_pre_hooks):
                 hook(self, args)

@@ -7,9 +7,15 @@ NDArrays, as in MXNet; ``pipeline.DeviceFeed`` stages them onto the
 card. Workers are threads by default, as in the JAX package (decode,
 augment and batchify release the GIL inside numpy and torch), or
 processes (``thread_pool=False``) that hand batches back through POSIX
-shared memory (``_mp_worker.py``). The JAX package collects worker
-results through its dependency engine, which the port has not yet
-(slice 10c); here the consumer waits on the futures in order.
+shared memory (``_mp_worker.py``). Collecting a worker's batch (the
+future's wait and the decode of a process worker's shared-memory
+batch) is an op of the dependency engine on its IO lane, one var per
+prefetch slot, as in the JAX package: a worker's error poisons its slot
+and is raised at the ``next()`` that waits for it. Under
+``NaiveEngine`` the collect would block at its push, so it is deferred
+to the slot's turn and ``prefetch`` worker batches stay in flight.
+Process workers never touch the card (a forked CUDA context is
+unusable); they start from a forkserver.
 """
 from __future__ import annotations
 
@@ -162,29 +168,87 @@ class DataLoader:
             for batch_indices in self._batch_sampler:
                 yield self._make_batch(batch_indices)
             return
+        from ... import engine as _engine
+
+        eng = _engine.get()
         depth = max(1, self._prefetch)
-        pending = collections.deque()
+        slot_vars = self._checkout_vars(eng, depth)
+        # under an inline engine the collect op blocks at push: defer it
+        # to emit time so `depth` worker futures stay in flight
+        defer_collect = isinstance(eng, _engine.NaiveEngine)
+        slots = [None] * depth
+        pending = collections.deque()  # (fut, slot) not yet pushed
+        futures = []
         it = iter(self._batch_sampler)
+        state = {"submitted": 0}
+
+        def push_collect(fut, slot):
+            def collect(fut=fut, slot=slot):
+                slots[slot] = self._collect(fut)
+
+            eng.push(collect, mutable_vars=(slot_vars[slot],),
+                     lane=_engine.LANE_IO)
 
         def submit():
             try:
                 indices = list(next(it))
             except StopIteration:
                 return False
-            pending.append(self._pool.submit(self._submit_fn, indices))
+            fut = self._pool.submit(self._submit_fn, indices)
+            futures.append(fut)
+            slot = state["submitted"] % depth
+            state["submitted"] += 1
+            if defer_collect:
+                pending.append((fut, slot))
+            else:
+                push_collect(fut, slot)
             return True
 
         for _ in range(depth):
             if not submit():
                 break
+        emitted = 0
+        clean = True
         try:
-            while pending:
-                batch = self._collect(pending.popleft())
+            while emitted < state["submitted"]:
+                slot = emitted % depth
+                if defer_collect and pending and pending[0][1] == slot:
+                    push_collect(*pending.popleft())
+                try:
+                    eng.wait_for_var(slot_vars[slot])
+                except BaseException:
+                    clean = False
+                    raise
+                batch = slots[slot]
+                slots[slot] = None
+                emitted += 1
                 submit()
                 yield batch
         finally:
-            for fut in pending:  # an abandoned pass: drop what is queued
+            # an abandoned pass: drop what is queued, then drain the
+            # collects in flight before the vars go back to the pool, so
+            # a late failure cannot poison a pooled var
+            for fut in futures:
                 fut.cancel()
+            if clean:
+                for v in slot_vars:
+                    try:
+                        eng.wait_for_var(v)
+                    except BaseException:  # noqa: BLE001 — drop the vars
+                        clean = False
+            if clean:
+                self._var_pool.append((eng, slot_vars))
+
+    def _checkout_vars(self, eng, depth):
+        """Per-instance var pool: concurrent iterators get distinct var
+        lists; later passes reuse them instead of growing the engine's
+        var table."""
+        pool = self.__dict__.setdefault("_var_pool", [])
+        while pool:
+            e, vs = pool.pop()
+            if e is eng and len(vs) == depth:
+                return vs
+        return [eng.new_variable() for _ in range(depth)]
 
     def __len__(self):
         return len(self._batch_sampler)

@@ -2,7 +2,6 @@
 package's ``gluon/data/dataset.py``)."""
 from __future__ import annotations
 
-from ...base import MXNetError
 
 __all__ = ["Dataset", "SimpleDataset", "ArrayDataset", "RecordFileDataset"]
 
@@ -99,10 +98,19 @@ class ArrayDataset(Dataset):
 
 
 class RecordFileDataset(Dataset):
-    """A dataset over a RecordIO ``.rec`` file (reference: dataset.py
-    RecordFileDataset). Not ported yet: it needs ``recordio``."""
+    """A dataset over a RecordIO ``.rec`` file and its ``.idx`` (reference:
+    dataset.py RecordFileDataset over recordio.MXIndexedRecordIO): item
+    ``i`` is the raw record of the ``i``-th key."""
 
     def __init__(self, filename):
-        raise MXNetError(
-            "RecordFileDataset needs mxnet_tpu_torch.recordio, which is not "
-            "ported yet (it comes with io/image_record.py)")
+        from ... import recordio
+
+        self._record = recordio.MXIndexedRecordIO(
+            filename[:-3] + "idx" if filename.endswith("rec")
+            else filename + ".idx", filename, "r")
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)

@@ -200,10 +200,28 @@ class ImageFolderDataset(Dataset):
 
 
 class ImageRecordDataset(Dataset):
-    """Reference: datasets.py ImageRecordDataset over ``.rec`` files. Not
-    ported yet: it needs ``recordio`` and ``io/image_record.py``."""
+    """Images in a RecordIO ``.rec`` file (reference: datasets.py
+    ImageRecordDataset): item ``i`` is (the decoded HWC uint8 host
+    NDArray, the record's label), through ``transform`` when given."""
 
     def __init__(self, filename, flag=1, transform=None):
-        raise MXNetError(
-            "ImageRecordDataset needs mxnet_tpu_torch.recordio, which is "
-            "not ported yet (it comes with io/image_record.py)")
+        from .... import recordio
+
+        self._flag = flag
+        self._transform = transform
+        idx_file = os.path.splitext(filename)[0] + ".idx"
+        self._record = recordio.MXIndexedRecordIO(idx_file, filename, "r")
+
+    def __getitem__(self, idx):
+        from .... import image, recordio
+
+        record = self._record.read_idx(self._record.keys[idx])
+        header, img = recordio.unpack(record)
+        img = image.imdecode(img, self._flag)
+        label = header.label
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label
+
+    def __len__(self):
+        return len(self._record.keys)

@@ -605,6 +605,15 @@ class Trainer:
         on the device."""
         scaler = getattr(self, "_amp_loss_scaler", None)
         self.allreduce_grads()
+        # MXNET_GRAPH_VERIFY-gated (JAX ``gluon/trainer.py:305-312``): the
+        # step writes every parameter in place, so a parameter a live
+        # autograd graph saved would hand that backward the new values
+        from ..analysis import check_param_donation, verify_mode
+
+        if verify_mode() != "off":
+            check_param_donation([(p.name, p._ndarray._data)
+                                  for p in self._params
+                                  if p._ndarray is not None])
         if _fs.fused_step_enabled() and self._fused_step(batch_size, scaler):
             return
         if self._fused_state is not None:

@@ -4,10 +4,9 @@ The PyTorch counterpart of ``mxnet_tpu/io/io.py`` (reference:
 python/mxnet/io/io.py :180-790; src/io/iter_mnist.cc, iter_csv.cc).
 Batches are host (CPU) NDArrays, as in MXNet; ``DevicePrefetchIter``
 (over ``pipeline.DeviceFeed``) stages them onto the card.
-``PrefetchingIter`` fetches each sub-iterator's next batch on a
-background thread while the current one is consumed (the JAX package
-pushes that fetch to its engine's IO lane; the port has no engine yet,
-slice 10).
+``PrefetchingIter`` fetches each sub-iterator's next batch as an op of
+the dependency engine on its IO lane while the current one is consumed,
+as the JAX package does.
 
 ``NDArrayIter``'s ``last_batch_handle`` follows the reference: ``"pad"``
 fills the last batch from the start of the data (``pad`` says how
@@ -19,7 +18,6 @@ JAX package returns the short batch under both ``"discard"`` and
 from __future__ import annotations
 
 from collections import namedtuple
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as onp
 
@@ -266,13 +264,20 @@ class ResizeIter(DataIter):
 
 
 class PrefetchingIter(DataIter):
-    """Double buffering over one or more iterators (reference: io.py
-    PrefetchingIter; src/io/iter_prefetcher.h:142): each
-    sub-iterator's next batch is fetched on a background thread while
-    the current one is consumed; a fetch's exception is raised at the
-    ``next()`` that waits for it."""
+    """Engine-scheduled double buffering over one or more iterators
+    (reference: io.py PrefetchingIter; src/io/iter_prefetcher.h:142).
+
+    Each sub-iterator owns an engine var; fetching its next batch is an
+    op pushed to the engine's IO lane with that var mutable. The fetch of
+    batch k+1 overlaps the consumption of batch k; a fetch's exception is
+    raised at the ``next()`` that waits for it (and at every ``next()``
+    until ``reset()``, as poison is permanent on a var);
+    ``MXNET_ENGINE_TYPE=NaiveEngine`` makes every fetch synchronous at
+    push."""
 
     def __init__(self, iters, rename_data=None, rename_label=None):
+        from .. import engine
+
         super().__init__()
         if not isinstance(iters, list):
             iters = [iters]
@@ -281,21 +286,24 @@ class PrefetchingIter(DataIter):
         self.rename_label = rename_label
         self.batch_size = iters[0].batch_size
         self.current_batch = None
-        self._pool = ThreadPoolExecutor(max_workers=len(iters),
-                                        thread_name_prefix="prefetching-iter")
-        self._futures = []
+        self.next_batch = [None for _ in iters]
+        self._engine = engine.get()
+        self._vars = [self._engine.new_variable() for _ in iters]
         self._push_fetches()
 
-    @staticmethod
-    def _fetch(it):
-        try:
-            return it.next()
-        except StopIteration:
-            return None
-
     def _push_fetches(self):
-        self._futures = [self._pool.submit(self._fetch, it)
-                         for it in self.iters]
+        """Schedule one fetch op per sub-iterator on the IO lane."""
+        from .. import engine
+
+        for i in range(len(self.iters)):
+            def fetch(i=i):
+                try:
+                    self.next_batch[i] = self.iters[i].next()
+                except StopIteration:
+                    self.next_batch[i] = None
+
+            self._engine.push(fetch, mutable_vars=(self._vars[i],),
+                              lane=engine.LANE_IO)
 
     @property
     def provide_data(self):
@@ -314,23 +322,26 @@ class PrefetchingIter(DataIter):
                     for r, i in zip(self.rename_label, self.iters)], [])
 
     def reset(self):
-        for f in self._futures:  # drain the fetches in flight
+        for v in self._vars:  # drain the fetches in flight
             try:
-                f.result()
+                self._engine.wait_for_var(v)
             except BaseException:  # noqa: BLE001 — the pass is abandoned
                 pass
+        # fresh vars: poison is permanent on a var
+        self._vars = [self._engine.new_variable() for _ in self.iters]
         for i in self.iters:
             i.reset()
         self._push_fetches()
 
     def iter_next(self):
-        batches = [f.result() for f in self._futures]
-        if batches[0] is None:
+        for v in self._vars:
+            self._engine.wait_for_var(v)
+        if self.next_batch[0] is None:
             return False
         self.current_batch = DataBatch(
-            sum([b.data for b in batches], []),
-            sum([(b.label or []) for b in batches], []),
-            batches[0].pad, batches[0].index)
+            sum([b.data for b in self.next_batch], []),
+            sum([(b.label or []) for b in self.next_batch], []),
+            self.next_batch[0].pad, self.next_batch[0].index)
         self._push_fetches()  # the next fetch overlaps the consumption
         return True
 

@@ -53,6 +53,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 _BUILD_TIMEOUT_S = 600
+#: link flags of the sources that call a library of the CUDA toolkit
+LINK_FLAGS = {"jpeg_decode": ("-lnvjpeg",)}
 
 # guards: _LIBS
 _LIB_LOCK = threading.Lock()
@@ -117,10 +119,10 @@ def library_fingerprint(name, nvcc_version):
     ``--version`` is ``nvcc_version`` for this card."""
     from ..utils import compile_cache as _cc
 
-    return _cc.fingerprint(
-        "kernel_library", (name, NVCC_FLAGS, nvcc_version,
-                           _cc._capability()),
-        code_of=_code_of(name))
+    key = (name, NVCC_FLAGS, nvcc_version, _cc._capability())
+    if name in LINK_FLAGS:
+        key += (LINK_FLAGS[name],)
+    return _cc.fingerprint("kernel_library", key, code_of=_code_of(name))
 
 
 def _paths(name, fp):
@@ -183,7 +185,8 @@ def build_all(names=None):
     for name, path in todo.items():
         tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
         cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC_DIR, name + ".cu")]
+               os.path.join(CSRC_DIR, name + ".cu"),
+               *LINK_FLAGS.get(name, ())]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT,
                                         text=True), tmp, path)
@@ -266,7 +269,8 @@ def library_files(names):
 
 #: launch-count names whose library is not the source of that name
 _LIBRARY_OF = {"int8_to_nhwc": "int8_conv_sm90", "box_nms_mask": "box_nms",
-               "box_nms_reduce": "box_nms", "box_nms_fused": "box_nms"}
+               "box_nms_reduce": "box_nms", "box_nms_fused": "box_nms",
+               "jpeg_crop": "jpeg_decode"}
 
 
 def _note_library(name):

@@ -88,11 +88,20 @@ def _make_op_function(opdef):
     return op
 
 
-for _name in registry.list_ops():
-    _opdef = registry.get_op(_name)
-    if "nd" in _opdef.namespaces:
-        globals()[_name] = _make_op_function(_opdef)
-        __all__.append(_name)
+def _populate(names=None):
+    """Install the ops ``names`` (default: every registered op) of the
+    ``nd`` namespace as functions of this module (at import, and for the
+    ops a ``library.load`` adds)."""
+    mod = globals()
+    for name in registry.list_ops() if names is None else names:
+        opdef = registry.get_op(name)
+        if "nd" in opdef.namespaces:
+            mod[name] = _make_op_function(opdef)
+            if name not in __all__:
+                __all__.append(name)
+
+
+_populate()
 
 # the reference's CamelCase spellings of the registered ops, as the JAX
 # package's ``mx.nd`` has them (``nd.Activation``, ``nd.LeakyReLU``)

@@ -35,6 +35,7 @@ import torch
 from .. import autograd
 from ..base import MXNetError
 from ..context import Context, resolve_device
+from ..utils import locks as _locks
 from . import registry as _reg
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
@@ -720,8 +721,13 @@ def moveaxis(data, source, destination):
 
 
 def waitall():
-    """Block until every device has finished its queued work (reference:
-    Engine::WaitForAll)."""
+    """Block until every engine op and every device's queued work is
+    done (reference: Engine::WaitForAll): the engine's ``wait_all``
+    first (its ops may queue work on the card), then the card's
+    synchronize."""
+    from .. import engine
+
+    engine.wait_all()
     if torch.cuda.is_available():
         for i in range(torch.cuda.device_count()):
             torch.cuda.synchronize(i)
@@ -812,8 +818,14 @@ def _host_array(a):
 
 def save(fname, data):
     """Save an NDArray, a list of them, a dict name -> NDArray or a list
-    of (name, NDArray) pairs in the reference's binary format."""
-    import struct
+    of (name, NDArray) pairs in the reference's binary format.
+
+    The file write is an op of the dependency engine on its IO lane
+    (reference: MXNDArraySave orders through the engine), pushed with a
+    var of its own and waited for, so a write failure raises here and
+    ``MXNET_ENGINE_TYPE=NaiveEngine`` writes inline. The arrays are
+    copied to the host before the push: the op touches no device."""
+    from .. import engine
 
     if isinstance(data, NDArray):
         data = [data]
@@ -827,10 +839,37 @@ def save(fname, data):
         names, arrays = [], list(data)
     else:
         raise TypeError("save expects NDArray, list or dict")
+    host = [_host_array(a) for a in arrays]
+    eng = engine.get()
+    # vars come from a free list, so the engine's var table stays bounded
+    # at peak save concurrency; concurrent saves get distinct vars
+    v = None
+    with _SAVE_POOL_LOCK:
+        while _SAVE_POOL:
+            e, cand = _SAVE_POOL.pop()
+            if e is eng:  # vars of a replaced engine mean nothing here
+                v = cand
+                break
+    if v is None:
+        v = eng.new_variable()
+    eng.push(lambda: _write_ref_params(fname, names, host),
+             mutable_vars=(v,), lane=engine.LANE_IO)
+    eng.wait_for_var(v)  # a failure leaves the poisoned var unpooled
+    with _SAVE_POOL_LOCK:
+        _SAVE_POOL.append((eng, v))
+
+
+# guards: _SAVE_POOL
+_SAVE_POOL_LOCK = _locks.RankedLock("ndarray.save_pool")
+_SAVE_POOL = []
+
+
+def _write_ref_params(fname, names, arrays):
+    import struct
+
     with open(fname, "wb") as f:
         f.write(struct.pack("<QQQ", _LIST_MAGIC, 0, len(arrays)))
-        for a in arrays:
-            arr = _host_array(a)
+        for arr in arrays:
             f.write(struct.pack("<Ii", _ND_V2_MAGIC, 0))
             f.write(struct.pack(f"<i{arr.ndim}q", arr.ndim, *arr.shape))
             f.write(struct.pack("<iii", 1, 0,

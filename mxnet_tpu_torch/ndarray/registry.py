@@ -29,6 +29,7 @@ import torch
 
 from .. import autograd
 from .. import profiler as _prof
+from ..base import MXNetError
 from ..telemetry import tracer as _telem
 from ..utils import compile_cache as _cc
 
@@ -185,7 +186,51 @@ def _capturing():
 
 def invoke(opdef, args, kwargs):
     """Run ``opdef`` on NDArray (or plain) arguments; tensor results
-    come back as NDArrays, a tuple result as a list of them.
+    come back as NDArrays, a tuple result as a list of them. ``out=``
+    (an NDArray) receives the result, as in the JAX package: written in
+    place (cast to its dtype) where it keeps its shape outside
+    ``autograd.record()``, else rebound; under ``MXNET_GRAPH_VERIFY`` the
+    in-place write is checked first (``analysis/donation.py``: GV201 when
+    a live autograd graph saved ``out``, GV202 when ``out`` also feeds
+    another argument slot)."""
+    out = kwargs.get("out")
+    if out is not None and "out" not in opdef.signature().parameters:
+        kwargs = {k: v for k, v in kwargs.items() if k != "out"}
+        return _invoke_out(opdef, args, kwargs, out)
+    return _dispatch(opdef, args, kwargs)
+
+
+def _invoke_out(opdef, args, kwargs, out):
+    from ..analysis.diagnostics import verify_mode
+    from .ndarray import NDArray, _owns
+
+    if not isinstance(out, NDArray):
+        raise MXNetError(f"op '{opdef.name}': out= must be an NDArray")
+    recording = autograd.is_recording()
+    if not recording and verify_mode() != "off":
+        from ..analysis.donation import check_dispatch_donation
+
+        arr_args = [a for a in (*args, *kwargs.values())
+                    if isinstance(a, NDArray)]
+        slot = next((i for i, a in enumerate(arr_args) if a is out), None)
+        check_dispatch_donation(opdef.name, arr_args, slot, out)
+    result = _dispatch(opdef, args, kwargs)
+    if isinstance(result, list):
+        raise MXNetError("out= not supported for multi-output ops")
+    res = result._data if isinstance(result, NDArray) else \
+        torch.as_tensor(result)
+    dst = out._data
+    if recording or dst.shape != res.shape or dst.device != res.device \
+            or not _owns(dst):
+        out._data = res.to(dst.dtype)
+    else:
+        with torch.no_grad():
+            dst.copy_(res)
+    return out
+
+
+def _dispatch(opdef, args, kwargs):
+    """:func:`invoke` without ``out=``.
 
     The seams of the JAX dispatch (``mxnet_tpu/ndarray/registry.py:
     628-649``): with the profiler running and ``profile_imperative`` set,

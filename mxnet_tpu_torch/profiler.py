@@ -38,6 +38,7 @@ __all__ = ["set_config", "set_state", "start", "stop", "pause", "resume",
            "Counter", "Marker", "fused_step_counters",
            "compile_cache_counters", "serving_counters",
            "pipeline_counters", "resilience_counters", "graph_opt_counters",
+           "graph_verify_counters",
            "fusion_counters", "quantize_counters", "lock_check_counters"]
 
 _config = {"filename": "profile.json", "profile_all": False,
@@ -187,6 +188,13 @@ def resilience_counters():
     """Fault-tolerance counters: retry attempts and give-ups, circuit
     breaker trips, injected-fault fires per point."""
     return _family("resilience")
+
+
+def graph_verify_counters():
+    """The graph verifier's counters: reports dispositioned, their
+    diagnostics, errors and warnings, and per-code tallies
+    (``MXNET_GRAPH_VERIFY``)."""
+    return _family("graph_verify")
 
 
 def graph_opt_counters():

@@ -87,6 +87,7 @@ FAULT_POINTS = {
                         "fire is a miss or a skipped write)",
     "autotune_measure": "autotune candidate measurement (a fire skips "
                         "that candidate)",
+    "engine_push": "dependency-engine host-task push",
 }
 
 

@@ -64,11 +64,15 @@ def _detect():
     feats["SHARDING"] = False
     feats["DIST_KVSTORE"] = torch.distributed.is_available()
     feats["INT64_TENSOR_SIZE"] = True
-    # initialize.py (faulthandler) comes with slice 10c
-    feats["SIGNAL_HANDLER"] = False
+    # what initialize.install_signal_handlers installed (faulthandler)
+    from . import initialize
+
+    feats["SIGNAL_HANDLER"] = initialize.installed()["signals"]
     feats["F16C"] = platform.machine().lower() in ("x86_64", "amd64")
-    # the JAX package's native IO library has no port
-    feats["NATIVE_IO"] = False
+    # the port's native IO library (csrc/recordio.cc) is built and loaded
+    from . import _native
+
+    feats["NATIVE_IO"] = _native.io_loaded()
     feats["OPENCV"] = False
     try:
         import PIL  # noqa: F401

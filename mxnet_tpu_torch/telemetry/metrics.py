@@ -291,9 +291,8 @@ _BOOT_LOCK = _locks.RankedLock("telemetry.boot")
 _BOOTED = False
 
 #: the JAX package's probed families the port has a subsystem for, with
-#: the port's own reader; ``graph_verify`` (the verifier's counters,
-#: slice 10c), ``sharding`` (slice 9b) and ``eager_jit_cache`` (the
-#: port has no dispatch executable cache) are not registered.
+#: the port's own reader; ``sharding`` (slice 9b) and ``eager_jit_cache``
+#: (the port has no dispatch executable cache) are not registered.
 #: ``kernel_launches`` is the port's own: its hand kernels' launch
 #: counts. (The port's ``cached_op`` and ``executor`` families, its
 #: CUDA-graph captures and replays, ``quantize``, ``artifact``,
@@ -304,6 +303,7 @@ PROBED_FAMILIES = (
     ("serving", "mxnet_tpu_torch.serving.metrics", "serving_stats"),
     ("pipeline", "mxnet_tpu_torch.pipeline", "pipeline_counters"),
     ("resilience", "mxnet_tpu_torch.resilience", "resilience_counters"),
+    ("graph_verify", "mxnet_tpu_torch.analysis", "counters"),
     ("graph_opt", "mxnet_tpu_torch.analysis.graph_opt", "counters"),
     ("fusion", "mxnet_tpu_torch.kernels", "counters"),
     ("kernel_launches", "mxnet_tpu_torch.kernels._build", "launch_counts"),

@@ -34,13 +34,15 @@ def get_gpu_count():
 
 def get_gpu_memory(gpu_dev_id=0):
     """(free, total) memory of CUDA device ``gpu_dev_id`` in bytes
-    (reference: cudaMemGetInfo)."""
+    (reference: cudaMemGetInfo), through
+    ``storage.device_memory_info``."""
     if gpu_dev_id >= get_gpu_count():
         raise ValueError(f"no accelerator device {gpu_dev_id}")
-    import torch
+    from .context import Context
+    from .storage import device_memory_info
 
-    free, total = torch.cuda.mem_get_info(gpu_dev_id)
-    return int(free), int(total)
+    free, total, _ = device_memory_info(Context("gpu", gpu_dev_id))
+    return free, total
 
 
 # ---- NumPy-semantics switches -------------------------------------------

@@ -2482,3 +2482,95 @@ def test_profiler_device_trace_holds_the_cards_kernels(cuda, tmp_path,
     assert any("decode_attention_kernel" in n for n in kernels)
     assert profiler.device_trace_path().endswith("card_device.json")
     telemetry.reset_trace()
+
+
+# -- the host runtime and the record pipeline (slice 10c) ---------------------
+
+def _seeded_jpegs(n, side=64, seed=0, subsampling=-1):
+    from io import BytesIO
+
+    from PIL import Image
+
+    rng = onp.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        buf = BytesIO()
+        Image.fromarray(rng.randint(0, 255, (side, side, 3), "uint8")).save(
+            buf, format="JPEG", quality=90, subsampling=subsampling)
+        out.append(buf.getvalue())
+    return out
+
+
+def test_engine_decode_pushed_before_waitall_is_done_when_it_returns(cuda):
+    """An nvJPEG decode pushed to the engine's IO lane with ``device=``
+    is finished, on the card too, when ``nd.waitall()`` returns."""
+    from mxnet_tpu_torch import engine, nd
+    from mxnet_tpu_torch.kernels import jpeg_decode as jd
+
+    if not jd.available():
+        pytest.skip("no nvJPEG on this machine")
+    eng = engine.get()
+    dev = torch.device("cuda", 0)
+    blobs = _seeded_jpegs(32)
+    crops = onp.full((32, 3), -1, onp.int32)
+    crops[:, 2] = 0
+    box = {}
+    v = eng.new_variable()
+    eng.push(lambda: box.update(out=jd.decode_batch(blobs, 56, 56, 0,
+                                                    crops, dev)),
+             mutable_vars=(v,), lane=engine.LANE_IO, device=dev)
+    nd.waitall()
+    _, done = eng._device_events[v.id]
+    assert done.query()
+    src, sizes = jd.decode_full(blobs, dev)
+    plan = torch.from_numpy(jd.crop_plan(sizes, 56, 56, 0, crops)).to(dev)
+    assert torch.equal(box["out"], jd._crop_ref(src, plan, 56, 56))
+
+
+def test_jpeg_crop_is_bitwise_its_plain_version(cuda):
+    """The crop kernel against its plain version on nvJPEG's pixels:
+    with and without a resize, at libjpeg's 1/2 and 1/4 scales, mirrored
+    and at the free space's edges."""
+    from mxnet_tpu_torch.kernels import jpeg_decode as jd
+
+    if not jd.available():
+        pytest.skip("no nvJPEG on this machine")
+    dev = torch.device("cuda", 0)
+    blobs = _seeded_jpegs(6, side=96) + _seeded_jpegs(2, side=300, seed=1)
+    src, sizes = jd.decode_full(blobs, dev)
+    rs = onp.random.RandomState(0)
+    for resize in (0, 40, 80, 150):
+        crops = onp.stack([rs.randint(-1, 10001, 8), rs.randint(-1, 10001, 8),
+                           rs.randint(0, 2, 8)], 1).astype(onp.int32)
+        crops[0, :2] = (0, 10000)
+        plan = torch.from_numpy(jd.crop_plan(sizes, 32, 40, resize,
+                                             crops)).to(dev)
+        assert torch.equal(jd.jpeg_crop(src, plan, 32, 40),
+                           jd._crop_ref(src, plan, 32, 40)), resize
+
+
+def test_image_record_iter_on_the_card(cuda, tmp_path):
+    """The nvJPEG route's batches lie on the card, normalized, and match
+    the Python twin's geometry (4:4:4 JPEGs: the IDCT's rounding only)."""
+    from mxnet_tpu_torch import io, recordio
+    from mxnet_tpu_torch.io.image_record import _decode_batch_python
+
+    path = str(tmp_path / "x.rec")
+    blobs = _seeded_jpegs(8, side=72, subsampling=0)
+    w = recordio.MXIndexedRecordIO(path + ".idx", path, "w")
+    for i, b in enumerate(blobs):
+        w.write_idx(i, recordio.pack(recordio.IRHeader(0, float(i), i, 0), b))
+    w.close()
+    it = io.ImageRecordIter(path, data_shape=(3, 64, 64), batch_size=4,
+                            path_imgidx=path + ".idx")
+    if it.decoder != "nvjpeg":
+        it.close()
+        pytest.skip("this machine decodes on the host")
+    b = it.next()
+    it.close()
+    x = b.data[0].data
+    assert x.device.type == "cuda" and x.shape == (4, 3, 64, 64)
+    twin = _decode_batch_python(blobs[:4], 64, 64, 0, [(-1, -1, 0)] * 4)
+    want = torch.from_numpy(twin).permute(0, 3, 1, 2).float()
+    assert (x.cpu() - want).abs().mean() < 1.5
+    assert b.label[0].asnumpy().tolist() == [0.0, 1.0, 2.0, 3.0]

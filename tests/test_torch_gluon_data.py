@@ -299,13 +299,18 @@ def test_image_folder_dataset_matches_jax(tmp_path):
         _same([j[i] for i in range(4)], [t[i] for i in range(4)])
 
 
-def test_record_datasets_name_what_they_wait_for():
+def test_record_datasets_name_what_they_wait_for(tmp_path):
+    # the record datasets are ported: a missing file is named, as the
+    # JAX datasets name it (their parity is in test_torch_recordio.py)
     from mxnet_tpu_torch.gluon.data import vision as tv
 
-    with pytest.raises(mx.MXNetError, match="recordio"):
-        tdata.RecordFileDataset("x.rec")
-    with pytest.raises(mx.MXNetError, match="recordio"):
-        tv.ImageRecordDataset("x.rec")
+    missing = str(tmp_path / "x.rec")
+    with pytest.raises(FileNotFoundError, match="x.rec"):
+        tdata.RecordFileDataset(missing)
+    with pytest.raises(FileNotFoundError, match="x.rec"):
+        tv.ImageRecordDataset(missing)
+    with pytest.raises(FileNotFoundError, match="x.rec"):
+        jdata.RecordFileDataset(missing)
 
 
 # -- io ------------------------------------------------------------------------

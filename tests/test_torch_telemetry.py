@@ -553,7 +553,6 @@ def test_bucketed_reducer_step_records_both_grad_sync_spans(monkeypatch):
 
 #: JAX families whose subsystem the port lacks: not registered
 JAX_ONLY_FAMILIES = {
-    "graph_verify": "the graph verifier's counters, slice 10c",
     "sharding": "sharding/, slice 9b",
     "eager_jit_cache": "no counterpart: the port has no dispatch "
                        "executable cache",
@@ -573,6 +572,7 @@ JAX_ONLY_KEYS = {
                    "breaker_demotions"},
     "pipeline": set(),
     "graph_opt": set(),
+    "graph_verify": set(),
     "quantize": set(),
     "serving": set(),
     "compile_cache": set(),
@@ -602,7 +602,7 @@ def test_registry_families_are_the_jax_ones_the_port_has():
                   for snap in (_jax_snapshot(), _port_snapshot()))
     shared = {"fused_step", "pipeline", "serving", "graph_opt", "fusion",
               "quantize", "resilience", "compile_cache", "artifact",
-              "autotune", "fleet"}
+              "autotune", "fleet", "graph_verify"}
     assert shared <= jfam and shared <= tfam
     assert jfam - tfam - {"lock_check"} == set(JAX_ONLY_FAMILIES)
     assert not (tfam & set(JAX_ONLY_FAMILIES))
