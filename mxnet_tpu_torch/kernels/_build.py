@@ -270,7 +270,7 @@ def library_files(names):
 #: launch-count names whose library is not the source of that name
 _LIBRARY_OF = {"int8_to_nhwc": "int8_conv_sm90", "box_nms_mask": "box_nms",
                "box_nms_reduce": "box_nms", "box_nms_fused": "box_nms",
-               "jpeg_crop": "jpeg_decode"}
+               "jpeg_crop": "jpeg_decode", "jpeg_crop_scaled": "jpeg_decode"}
 
 
 def _note_library(name):

@@ -4,17 +4,20 @@ Where the machine has no libjpeg (``_native.decoder()`` says
 ``"nvjpeg"``), ``io.ImageRecordIter`` decodes each batch here: the CUDA
 toolkit's nvJPEG decodes every JPEG at full size into the card's memory
 (interleaved RGB), then the hand kernel ``jpeg_crop``
-(``csrc/jpeg_decode.cu``) makes the (N, H, W, 3) uint8 batch with the
-CPU route's resize-short, crop and mirror. Not a port of a TPU kernel:
-the JAX package decodes on the host (``native/recordio.cc``).
+(``csrc/jpeg_decode.cu``: ``copy_kernel`` for the crops with no resize,
+``scaled_kernel`` for the rest; a block a band of output rows, source
+rows staged in shared memory, 16-byte stores) makes the (N, H, W, 3)
+uint8 batch with the CPU route's resize-short, crop and mirror. Not a
+port of a TPU kernel: the JAX package decodes on the host
+(``native/recordio.cc``).
 
 :func:`crop_plan` computes each image's plan on the host exactly as
 ``decode_one`` (``csrc/recordio.cc``) does: libjpeg's DCT scale, the
-resized size, the crop corner. :func:`_crop_ref` is the kernel's plain
+resized size, the crop corner. :func:`_crop_ref` is the kernels' plain
 version (the same float32 arithmetic, op by op), and :func:`jpeg_crop`
-its wrapper: on CPU tensors the plain version, on a ``meta`` tensor an
-empty result, on CUDA tensors the kernel (counted as :data:`KERNEL`) or
-an error.
+their wrapper: on CPU tensors the plain version, on a ``meta`` tensor an
+empty result, on CUDA tensors the kernels that the plan needs (each
+launch counted as :data:`KERNEL` or :data:`SCALED_KERNEL`) or an error.
 """
 from __future__ import annotations
 
@@ -30,12 +33,19 @@ import torch
 from ..base import MXNetError
 from . import _build
 
-__all__ = ["KERNEL", "SOURCE", "available", "crop_plan", "jpeg_crop",
-           "_crop_ref", "decode_batch"]
+__all__ = ["KERNEL", "SCALED_KERNEL", "SOURCE", "CROP_PAD",
+           "available", "crop_plan", "crop_kinds", "jpeg_crop", "_crop_ref",
+           "decode_layout", "decode_full", "decode_batch"]
 
-KERNEL = "jpeg_crop"
+KERNEL = "jpeg_crop"  # copy_kernel: the crops with no resize at scale 1
+SCALED_KERNEL = "jpeg_crop_scaled"  # scaled_kernel: the others
 SOURCE = "jpeg_decode"  # csrc/jpeg_decode.cu
 _PLAN = 11  # offset, w, h, denom, sw, sh, tw, th, cy, cx, mirror
+#: bytes after the last decoded image: the crop kernel stages each source
+#: row as the 16-byte-aligned run that encloses it, which reaches up to 15
+#: bytes past the row (it reads such a run byte by byte where it would
+#: leave the buffer, so the padding keeps every run on 16-byte copies)
+CROP_PAD = 16
 
 
 def _cuda_home():
@@ -164,8 +174,8 @@ def _entries():
                        i64p, ctypes.POINTER(ctypes.c_int32), ctypes.c_int, vp]
     crop = lib.mxtt_jpeg_crop
     crop.restype = ctypes.c_int
-    crop.argtypes = [vp, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp,
-                     vp]
+    crop.argtypes = [vp, ctypes.c_int64, vp, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_int, vp, vp]
     return create, destroy, info, decode, crop
 
 
@@ -196,42 +206,81 @@ def _decoder():
     return d
 
 
+def crop_kinds(plan):
+    """Which crop kernels ``plan`` (:func:`crop_plan`'s rows) needs, as
+    bits: 1 where an image is cropped with no resize at scale 1
+    (``copy_kernel``), 2 where one is resized or scaled
+    (``scaled_kernel``)."""
+    plan = onp.asarray(plan)
+    copies = (plan[:, 6] == plan[:, 4]) & (plan[:, 7] == plan[:, 5]) & \
+        (plan[:, 3] == 1)
+    return (1 if copies.any() else 0) | (0 if copies.all() else 2)
+
+
 def jpeg_crop(src, plan, H, W):
     """(n, H, W, 3) uint8: resize-short, crop and mirror of the packed
-    full-size images ``src`` by ``plan`` (:func:`crop_plan`, as an int64
-    tensor on ``src``'s device). CPU tensors: the plain version; CUDA
-    tensors: one launch of the kernel on the current stream."""
+    full-size images ``src`` by ``plan``, :func:`crop_plan`'s int64 rows
+    on the host (numpy, or a CPU tensor). CPU tensors: the plain version;
+    CUDA tensors: the plan copied to the card, then each kernel that
+    :func:`crop_kinds` names launched once on the current stream."""
+    if isinstance(plan, torch.Tensor) and plan.device.type != "cpu":
+        raise MXNetError(f"jpeg_crop takes the plan on the host, not on "
+                         f"{plan.device}")
+    plan = onp.asarray(plan)
+    if plan.dtype != onp.int64 or plan.ndim != 2 or \
+            plan.shape[1] != _PLAN:
+        raise MXNetError("jpeg_crop takes an (n, 11) int64 plan")
     dev = src.device
     if dev.type == "cpu":
-        return _crop_ref(src, plan, H, W)
+        return _crop_ref(src, torch.from_numpy(plan), H, W)
     n = plan.shape[0]
     if dev.type == "meta":
         return torch.empty((n, H, W, 3), dtype=torch.uint8, device=dev)
-    if dev.type != "cuda" or plan.device != dev:
-        raise MXNetError(f"jpeg_crop: unsupported devices {dev}, "
-                         f"{plan.device}")
-    if src.dtype != torch.uint8 or plan.dtype != torch.int64 or \
-            plan.shape[1:] != (_PLAN,) or not plan.is_contiguous():
-        raise MXNetError("jpeg_crop takes uint8 images and an (n, 11) "
-                         "contiguous int64 plan")
+    if dev.type != "cuda":
+        raise MXNetError(f"jpeg_crop: unsupported device {dev}")
+    if src.dtype != torch.uint8 or not src.is_contiguous():
+        raise MXNetError("jpeg_crop takes contiguous uint8 images")
     out = torch.empty((n, H, W, 3), dtype=torch.uint8, device=dev)
     if n == 0:
         return out
+    on_card = torch.from_numpy(onp.ascontiguousarray(plan)).to(dev)
+    return _launch(src, on_card, crop_kinds(plan), H, W, out)
+
+
+def _launch(src, plan, kinds, H, W, out):
+    """The kernels that ``kinds`` (:func:`crop_kinds`) names, over the
+    int64 ``plan`` already on the card, into ``out``: what
+    :func:`jpeg_crop` runs once the plan is there, which
+    ``tools/profile_records.py`` times alone."""
+    dev = src.device
     with torch.cuda.device(dev):
-        err = _entries()[4](src.data_ptr(), plan.data_ptr(), n, H, W,
-                            out.data_ptr(),
+        err = _entries()[4](src.data_ptr(), src.numel(), plan.data_ptr(),
+                            plan.shape[0], H, W, kinds, out.data_ptr(),
                             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise MXNetError(f"jpeg_crop failed to launch (CUDA error {err})")
-    _build.count_launch(KERNEL)
+    if kinds & 1:
+        _build.count_launch(KERNEL)
+    if kinds & 2:
+        _build.count_launch(SCALED_KERNEL)
     return out
+
+
+def decode_layout(sizes):
+    """Where :func:`decode_full` puts images of full size ``sizes``
+    [(w, h)] on the card: (each image's byte offset, int64; the buffer's
+    bytes, the images packed one after another and :data:`CROP_PAD`
+    after them)."""
+    px = onp.array([w * h * 3 for w, h in sizes], dtype=onp.int64)
+    offs = onp.concatenate([[0], onp.cumsum(px)[:-1]]).astype(onp.int64)
+    return offs, int(px.sum()) + CROP_PAD
 
 
 def decode_full(blobs, device):
     """nvJPEG's full-size decode of ``blobs``: (packed uint8 images on
     ``device``, their (w, h) sizes). Raises on a record nvJPEG cannot
     read."""
-    create, destroy, info, decode, crop = _entries()
+    info, decode = _entries()[2:4]
     dec = _decoder()
     sizes = []
     for i, b in enumerate(blobs):
@@ -243,10 +292,9 @@ def decode_full(blobs, device):
         sizes.append((w.value, h.value))
     lens = onp.array([len(b) for b in blobs], dtype=onp.int64)
     offs = onp.concatenate([[0], onp.cumsum(lens)[:-1]]).astype(onp.int64)
-    px = onp.array([w * h * 3 for w, h in sizes], dtype=onp.int64)
-    dev_offs = onp.concatenate([[0], onp.cumsum(px)[:-1]]).astype(onp.int64)
+    dev_offs, nbytes = decode_layout(sizes)
     widths = onp.array([w for w, _ in sizes], dtype=onp.int32)
-    src = torch.empty(int(px.sum()), dtype=torch.uint8, device=device)
+    src = torch.empty(nbytes, dtype=torch.uint8, device=device)
     blob = b"".join(blobs)
     i64p = ctypes.POINTER(ctypes.c_int64)
     with torch.cuda.device(device):
@@ -265,5 +313,4 @@ def decode_batch(blobs, H, W, resize_short, crops, device):
     """The nvJPEG route of ``ImageRecordIter``: (n, H, W, 3) uint8 on
     ``device``, on the current stream."""
     src, sizes = decode_full(blobs, device)
-    plan = torch.from_numpy(crop_plan(sizes, H, W, resize_short, crops))
-    return jpeg_crop(src, plan.to(device), H, W)
+    return jpeg_crop(src, crop_plan(sizes, H, W, resize_short, crops), H, W)

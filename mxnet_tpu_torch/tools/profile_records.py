@@ -9,9 +9,14 @@ What ``chip_smoke.py`` phases 59-62 run, also runnable alone:
   works on the card finished when ``nd.waitall()`` returns, and the cost
   of a push (native engine and ``NaiveEngine``);
 - :func:`decode_check`: which decoder the machine has, the nvJPEG
-  route's crop kernel against its plain version (bitwise) and the
-  decoded batch against the Python twin (PIL), with times;
+  route's crop kernels against their plain version and their first
+  design (:func:`pixel_crop`, bitwise) and the decoded batch against the
+  Python twin (PIL); the kernels and the first design timed in turns on
+  the nvJPEG batch and on a resize shape (:func:`resize_batch`), beside
+  a ``copy_`` of the same output bytes and ``torch.take`` of the crops;
 - :func:`iter_rate`: ``ImageRecordIter`` alone, images/s;
+- :func:`resize_launches`: which crop kernels ``ImageRecordIter`` with
+  a resize launches;
 - :func:`train_from_records`: ResNet-50 v1 trained from the .rec through
   ``DeviceFeed`` (the example twin's helpers), the same step fed from
   tensors already on the card beside it, and the device's idle share.
@@ -21,6 +26,8 @@ Every function needs a CUDA device; each result names the card.
 from __future__ import annotations
 
 import argparse
+import ctypes
+import functools
 import json
 import os
 import sys
@@ -32,11 +39,21 @@ import time
 import numpy as onp
 import torch
 
-__all__ = ["card", "write_records", "engine_check", "decode_check",
-           "iter_rate", "train_from_records"]
+__all__ = ["card", "write_records", "engine_check", "resize_batch",
+           "crop_source_bytes", "crop_bound_ms", "pixel_crop", "crop_turns",
+           "decode_check", "iter_rate", "resize_launches",
+           "train_from_records"]
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 IMAGE, STORED, CLASSES = 224, 252, 1000
+# the resize shape: ImageNet's most common image size, resized short
+# side 256 and cropped 224 as train_imagenet.py's augmentation does
+RESIZE_W, RESIZE_H, RESIZE_SHORT = 500, 375, 256
+PIXEL_SOURCE = "jpeg_crop_pixel"  # csrc/jpeg_crop_pixel.cu
+# ~200 us at the H100's 1.98 GHz boost clock: longer than a launch's
+# host cost, so a kernel time is the device's alone
+BUSY_CYCLES = 400_000
+CROP_REPS = 25
 # nvJPEG's pixels against PIL's (libjpeg-turbo: the ISLOW integer IDCT
 # and "fancy" triangle-filter chroma upsampling) on the same records, in
 # uint8 levels of 255. Two causes, measured apart on the card:
@@ -78,6 +95,27 @@ def _events_ms(fn, reps=20):
     fn()
     times = []
     for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _kernel_ms(fn, flush, reps=CROP_REPS):
+    """Median device ms of ``fn`` over ``reps`` launches, each timed alone
+    with CUDA events after ``flush`` evicts the 50 MB L2, the stream kept
+    busy for BUSY_CYCLES first so that the launch's host cost is not
+    counted."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(BUSY_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -209,22 +247,139 @@ def _levels(a, b):
             "luma_max_levels": float(dy.max())}
 
 
+def _taps(o0, n, s, t):
+    """The source indices that decode_one's bilinear step reads for
+    outputs ``o0 .. o0 + n - 1`` of ``t`` from ``s`` (float32, op by op):
+    each output's two taps, the second clamped at the edge."""
+    f32 = onp.float32
+    f = (onp.arange(o0, o0 + n).astype(f32) + f32(0.5)) * f32(s) / f32(t) \
+        - f32(0.5)
+    i0 = onp.where(f < 0, 0, f.astype(onp.int64))
+    return onp.union1d(i0, onp.minimum(i0 + 1, s - 1))
+
+
+def crop_source_bytes(row, H, W):
+    """The full-size source bytes that one image's crop (a
+    :func:`crop_plan` row) must read: the crop's own pixels with no
+    resize; with one, the scaled rows and columns its taps reach, each
+    scaled pixel a denom x denom block of full-size pixels, cut at the
+    image's edges."""
+    _, w, h, denom, sw, sh, tw, th, cy, cx, _ = (int(v) for v in row)
+    if (tw, th) == (sw, sh):
+        ys, xs = onp.arange(cy, cy + H), onp.arange(cx, cx + W)
+    else:
+        ys, xs = _taps(cy, H, sh, th), _taps(cx, W, sw, tw)
+
+    def full(idx, size):  # full-size lines under the scaled lines idx
+        return int((onp.minimum((idx + 1) * denom, size) - idx * denom).sum())
+
+    return full(ys, h) * full(xs, w) * 3
+
+
 def crop_bound_ms(plan, H, W):
-    """Least ms of ``jpeg_crop`` for ``plan``: the output written once,
-    the source pixels it needs read once (the crop without a resize, the
-    scaled image with one), the plan read once."""
-    nbytes = plan.size * 8
-    for (_, w, h, denom, sw, sh, tw, th, *_rest) in plan.tolist():
-        nbytes += H * W * 3
-        nbytes += H * W * 3 if (tw, th) == (sw, sh) and denom == 1 \
-            else w * h * 3
+    """Least ms of ``jpeg_crop`` for ``plan`` at the card's memory rate:
+    the output written once, the source bytes the crops need
+    (:func:`crop_source_bytes`) and the plan read once."""
+    nbytes = plan.size * 8 + sum(H * W * 3 + crop_source_bytes(r, H, W)
+                                 for r in plan)
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def resize_batch(n=128, size=IMAGE, seed=0, device="cuda"):
+    """The crop kernel's resize shape, made on the card from ``seed``
+    with no JPEG: ``n`` random images of RESIZE_W x RESIZE_H packed as
+    ``decode_full`` packs them, resized short side RESIZE_SHORT, random
+    crops of ``size``, mirrored at random. Returns (src, plan), the plan
+    :func:`crop_plan`'s rows on the host."""
+    from ..kernels import jpeg_decode as jd
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    sizes = [(RESIZE_W, RESIZE_H)] * n
+    _, nbytes = jd.decode_layout(sizes)
+    src = torch.randint(0, 256, (nbytes,), generator=gen, device=device,
+                        dtype=torch.uint8)
+    rs = onp.random.RandomState(seed)
+    crops = onp.stack([rs.randint(0, 10001, n), rs.randint(0, 10001, n),
+                       rs.randint(0, 2, n)], 1).astype(onp.int32)
+    return src, jd.crop_plan(sizes, size, size, RESIZE_SHORT, crops)
+
+
+@functools.lru_cache(maxsize=None)
+def _pixel_entry():
+    from ..kernels import _build
+
+    fn = _build.load(PIXEL_SOURCE).mxtt_jpeg_crop_pixel
+    vp = ctypes.c_void_p
+    fn.restype = ctypes.c_int
+    fn.argtypes = [vp, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp, vp]
+    return fn
+
+
+def pixel_crop(src, plan, H, W):
+    """The crop kernels' first design (``csrc/jpeg_crop_pixel.cu``: a
+    thread an output pixel) on the card, for comparisons: (n, H, W, 3)
+    uint8 from ``src`` by ``plan`` (:func:`crop_plan`'s rows as an int64
+    tensor on the card), one launch on the current stream, not
+    counted."""
+    dev = src.device
+    out = torch.empty((plan.shape[0], H, W, 3), dtype=torch.uint8,
+                      device=dev)
+    with torch.cuda.device(dev):
+        err = _pixel_entry()(src.data_ptr(), plan.data_ptr(), plan.shape[0],
+                             H, W, out.data_ptr(),
+                             torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"the first design failed to launch (CUDA "
+                           f"error {err})")
+    return out
+
+
+def _take_index(plan, H, W, device):
+    """The flat source index of every output byte of crops with no
+    resize at scale 1: ``torch.take(src, index)`` is ``jpeg_crop``."""
+    p = torch.from_numpy(plan).to(device)[:, :, None, None, None]
+    off, w, cy, cx, mirror = p[:, 0], p[:, 1], p[:, 8], p[:, 9], p[:, 10]
+    y = torch.arange(H, device=device)[None, :, None, None]
+    x = torch.arange(W, device=device)[None, None, :, None]
+    c = torch.arange(3, device=device)
+    x = torch.where(mirror.bool(), W - 1 - x, x)
+    return off + ((cy + y) * w + cx + x) * 3 + c
+
+
+def crop_turns(src, plan, size, flush):
+    """``jpeg_crop`` (as ``decode_batch`` calls it) and its first design
+    (:func:`pixel_crop`) on the same inputs, each against the plain
+    version bit for bit; then the kernels alone, the plan already on the
+    card, timed in turns with the first design: pixel, band, band, pixel.
+    Raises when an output differs."""
+    from ..kernels import jpeg_decode as jd
+
+    on_card = torch.from_numpy(plan).to(src.device)
+    plain = jd._crop_ref(src, torch.from_numpy(plan), size, size)
+    band = jd.jpeg_crop(src, plan, size, size)
+    pixel = pixel_crop(src, on_card, size, size)
+    torch.cuda.synchronize()
+    err = {"band": (band.int() - plain.int()).abs().max().item(),
+           "pixel": (pixel.int() - plain.int()).abs().max().item()}
+    if err["band"] != 0 or err["pixel"] != 0 or not torch.equal(band, pixel):
+        raise RuntimeError(f"jpeg_crop or its first design differs from "
+                           f"the plain version: {err} levels")
+    kinds = jd.crop_kinds(plan)
+    run = {"band": lambda: jd._launch(src, on_card, kinds, size, size, band),
+           "pixel": lambda: pixel_crop(src, on_card, size, size)}
+    turns = {"band": [], "pixel": []}
+    for route in ("pixel", "band", "band", "pixel"):
+        turns[route].append(_kernel_ms(run[route], flush))
+    return turns, err["band"]
 
 
 def decode_check(rec, batch=128, size=IMAGE, seed=0):
     """The decoder probe's answer and, on the nvJPEG route, the crop
-    kernel against its plain version and the batch against the Python
-    twin, with times. Raises when a check fails."""
+    kernels against their plain version and their first design and the
+    batch against the Python twin, with times: ``kernel`` the copy
+    kernel's row (the nvJPEG batch, no resize), ``scaled_kernel`` the
+    scaled kernel's (the resize shape). Raises when a check fails."""
     from PIL import __version__ as pil_version
 
     from .. import _native
@@ -250,23 +405,18 @@ def decode_check(rec, batch=128, size=IMAGE, seed=0):
     dev = torch.device("cuda", 0)
     _note("decode: nvJPEG's full-size decode")
     src, sizes = jd.decode_full(blobs, dev)
-    plan_np = jd.crop_plan(sizes, size, size, 0, crops)
-    plan = torch.from_numpy(plan_np).to(dev)
-    _note("decode: jpeg_crop against its plain version")
+    plan = jd.crop_plan(sizes, size, size, 0, crops)
+    _note("decode: jpeg_crop against its plain version and first design")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    turns, kernel_err = crop_turns(src, plan, size, flush)
     got = jd.jpeg_crop(src, plan, size, size)
-    plain = jd._crop_ref(src, plan, size, size)
-    torch.cuda.synchronize()
-    kernel_err = (got.int() - plain.int()).abs().max().item()
-    if kernel_err != 0:
-        raise RuntimeError(f"jpeg_crop differs from its plain version by "
-                           f"{kernel_err} levels")
     out["vs_python_twin"] = _levels(got.cpu().numpy(), twin)
     # the IDCT alone: the same seeded pixels as 4:4:4 JPEGs
     blobs444 = _first_batch_444(rec, 32)
     crops444 = crops[:32]
     src444, sizes444 = jd.decode_full(blobs444, dev)
-    got444 = jd.jpeg_crop(src444, torch.from_numpy(jd.crop_plan(
-        sizes444, size, size, 0, crops444)).to(dev), size, size)
+    got444 = jd.jpeg_crop(src444, jd.crop_plan(sizes444, size, size, 0,
+                                               crops444), size, size)
     out["vs_python_twin_444"] = _levels(
         got444.cpu().numpy(), _decode_batch_python(
             blobs444, size, size, 0,
@@ -281,15 +431,45 @@ def decode_check(rec, batch=128, size=IMAGE, seed=0):
             t420["max_levels"] > DECODE_420_MAX:
         raise RuntimeError(f"the nvJPEG route is off the Python twin: "
                            f"4:2:0 {t420}, 4:4:4 {t444}")
+    _note("decode: jpeg_crop on the resize shape")
+    rsrc, rplan = resize_batch(batch, size, seed)
+    rturns, rerr = crop_turns(rsrc, rplan, size, flush)
     _note("decode: times")
+    # the practical ceiling: a copy of the output's bytes on the card
+    a = torch.empty_like(got)
+    copy_ms = _kernel_ms(lambda: a.copy_(got), flush)
+    # the library call: torch.take on an index made outside its timing
+    index = _take_index(plan, size, size, dev)
+    if not torch.equal(torch.take(src, index), got):
+        raise RuntimeError("torch.take of the crops differs from jpeg_crop")
+    take_ms = _kernel_ms(lambda: torch.take(src, index), flush)
+    del index
+    bound = crop_bound_ms(plan, size, size)
+    rbound = crop_bound_ms(rplan, size, size)
+    ms = statistics.median(turns["band"])
+    rms = statistics.median(rturns["band"])
+    plan_t, rplan_t = torch.from_numpy(plan), torch.from_numpy(rplan)
     out["kernel"] = {
-        "ms": _events_ms(lambda: jd.jpeg_crop(src, plan, size, size)),
-        "plain_ms": _events_ms(lambda: jd._crop_ref(src, plan, size, size),
+        "ms": ms, "turns_ms": turns,
+        "plain_ms": _events_ms(lambda: jd._crop_ref(src, plan_t, size, size),
                                reps=3),
-        "bound_ms": crop_bound_ms(plan_np, size, size), "bound_by": "bytes",
-        "library_ms": None, "max_abs_err": float(kernel_err),
+        "bound_ms": bound, "bound_by": "bytes", "bound_share": bound / ms,
+        "library_ms": take_ms, "max_abs_err": float(kernel_err),
+        "copy_ms": copy_ms, "copy_bytes": 2 * got.numel(),
         "shape": f"{batch} x {size} x {size} x 3 uint8 from "
                  f"{sizes[0][0]} x {sizes[0][1]} JPEGs, no resize"}
+    out["scaled_kernel"] = {
+        "ms": rms, "turns_ms": rturns,
+        "plain_ms": _events_ms(
+            lambda: jd._crop_ref(rsrc, rplan_t, size, size), reps=3),
+        "bound_ms": rbound, "bound_by": "bytes",
+        "bound_share": rbound / rms, "library_ms": None,
+        "max_abs_err": float(rerr),
+        "shape": f"{batch} x {size} x {size} x 3 uint8 from "
+                 f"{RESIZE_W} x {RESIZE_H} images, resize_short "
+                 f"{RESIZE_SHORT}, random crops and mirrors"}
+    print("  jpeg_crop: " + json.dumps({k: out[k] for k in (
+        "kernel", "scaled_kernel")}), flush=True)
     out["nvjpeg_decode_ms"] = _events_ms(
         lambda: jd.decode_full(blobs, dev), reps=5)
     out["decode_batch_ms"] = _events_ms(
@@ -333,16 +513,49 @@ def iter_rate(rec, batch=128, size=IMAGE, batches=16, threads=None):
             "ms_per_batch": dt * 1e3 / batches}
 
 
+def resize_launches(rec, batch=128, size=IMAGE, batches=2, threads=None):
+    """``ImageRecordIter`` as the example makes it but with
+    ``resize=RESIZE_SHORT`` (the .rec's images scaled up before the
+    crop): ``batches`` batches pulled, and the crop kernels' launches
+    from the iterator's start to its close."""
+    from .. import io as mxio
+    from ..kernels import _build
+    from ..kernels import jpeg_decode as jd
+
+    _note("iter: ImageRecordIter with a resize")
+    _build.reset_launch_counts()
+    it = mxio.ImageRecordIter(
+        rec, data_shape=(3, size, size), batch_size=batch,
+        path_imgidx=rec + ".idx", shuffle=True, rand_crop=True,
+        rand_mirror=True, resize=RESIZE_SHORT,
+        preprocess_threads=threads or os.cpu_count() or 1, prefetch_buffer=1)
+    try:
+        for _ in range(batches):
+            x = it.next().data[0]
+            if x.shape != (batch, 3, size, size) or \
+                    not bool(torch.isfinite(x.data).all()):
+                raise RuntimeError(f"ImageRecordIter with a resize gave "
+                                   f"{x.shape}")
+    finally:
+        it.close()
+    counts = _build.launch_counts()
+    return {"decoder": it.decoder, "batches": batches,
+            "resize": RESIZE_SHORT,
+            "jpeg_crop_launches": counts.get(jd.KERNEL, 0),
+            "jpeg_crop_scaled_launches": counts.get(jd.SCALED_KERNEL, 0)}
+
+
 def train_from_records(rec, steps=20, batch=128, profile_steps=5):
     """ResNet-50 v1, bf16 NHWC hybridized under AMP, trained ``steps``
     steps from the .rec through ``DeviceFeed``, then the same step fed
     from one batch already on the card; the device's idle share over
     ``profile_steps`` more record-fed steps. Returns the numbers and the
-    K4 and jpeg_crop launches of the timed record-fed steps."""
+    K4 and crop kernel launches of the timed record-fed steps."""
     from .. import gpu, nd
     from ..contrib import amp
     from ..examples import train_imagenet_rec as ex
     from ..kernels import _build
+    from ..kernels import jpeg_decode as jd
     from . import profile_resnet as pr
 
     ctx = gpu(0)
@@ -405,7 +618,8 @@ def train_from_records(rec, steps=20, batch=128, profile_steps=5):
             "device_busy_ms": prof["device_busy_ms_per_step"],
             "k4_launches": counts.get(pr.FWD_KERNEL, 0)
             + counts.get(pr.BWD_KERNEL, 0),
-            "jpeg_crop_launches": counts.get("jpeg_crop", 0),
+            "jpeg_crop_launches": counts.get(jd.KERNEL, 0),
+            "jpeg_crop_scaled_launches": counts.get(jd.SCALED_KERNEL, 0),
             "decoder": it.decoder}
 
 
@@ -422,6 +636,7 @@ def main(argv=None):
         out["engine"] = engine_check()
         out["decode"] = decode_check(rec)
         out["iter"] = iter_rate(rec)
+        out["iter_resize"] = resize_launches(rec)
         out["train"] = train_from_records(rec, args.steps)
     print(json.dumps(out))
 

@@ -2527,26 +2527,87 @@ def test_engine_decode_pushed_before_waitall_is_done_when_it_returns(cuda):
     assert torch.equal(box["out"], jd._crop_ref(src, plan, 56, 56))
 
 
-def test_jpeg_crop_is_bitwise_its_plain_version(cuda):
-    """The crop kernel against its plain version on nvJPEG's pixels:
-    with and without a resize, at libjpeg's 1/2 and 1/4 scales, mirrored
-    and at the free space's edges."""
-    from mxnet_tpu_torch.kernels import jpeg_decode as jd
+# (full sizes (w, h), H, W, resize_short, padded buffer, base offset):
+# the crop kernel's routes through shared memory and its edges
+_CROP_CASES = {
+    # the record pipeline's main path: no resize, rows 16-byte aligned
+    "copy_224": ([(252, 252)] * 4, 224, 224, 0, True, 0),
+    # rows of W * 3 bytes that are not a multiple of 16, at the odd byte
+    # offsets 97 x 61 images make
+    "copy_w33": ([(97, 61), (64, 64), (50, 70), (97, 61)], 20, 33, 0,
+                 True, 0),
+    "copy_w40": ([(97, 61), (64, 64), (50, 70), (97, 61)], 24, 40, 0,
+                 True, 0),
+    # a buffer with no padding at an odd address: the staged runs that
+    # would leave it are read byte by byte
+    "copy_unpadded_odd_base": ([(97, 61), (97, 61)], 16, 33, 0, False, 1),
+    "one_row_one_image": ([(97, 61)], 1, 40, 0, True, 0),
+    "one_row_resize": ([(97, 61)], 1, 33, 48, True, 0),
+    # a bilinear resize at scale 1 and 1/4, and an upscale
+    "resize": ([(500, 375), (375, 500), (97, 61)], 56, 56, 64, True, 0),
+    # libjpeg's 1/2 scale with no resize after it, then with one
+    "denom2_identity": ([(130, 100), (100, 130)], 32, 40, 50, True, 0),
+    "denom2": ([(130, 100), (97, 61)], 32, 33, 40, True, 0),
+    "denom4": ([(200, 161), (161, 200)], 32, 40, 40, True, 0),
+    # 1/8 with partial blocks at the right and bottom edges
+    "denom8": ([(300, 290), (290, 301)], 32, 33, 36, True, 0),
+    # staged rows too wide for shared memory: the band reads the source
+    "resize_direct": ([(2000, 1000)], 8, 1500, 700, True, 0),
+    # wider than the column-tap table
+    "resize_wide": ([(5000, 60)], 8, 4200, 50, True, 0),
+}
 
-    if not jd.available():
-        pytest.skip("no nvJPEG on this machine")
+
+@pytest.mark.parametrize("case", sorted(_CROP_CASES) + ["nvjpeg"])
+def test_jpeg_crop_is_bitwise_its_plain_version(cuda, case):
+    """The crop kernels against their plain version and their first
+    design (``tools/profile_records.pixel_crop``), bit for bit: with and
+    without a resize, at libjpeg's 1/2, 1/4 and 1/8 scales, mirrored and
+    not, at the free space's edges, at widths whose rows are not 16-byte
+    aligned, one row and one image, images packed at odd byte offsets;
+    on nvJPEG's pixels and on seeded pixels made on the card; each kernel
+    the plan needs launched once and counted under its own name."""
+    from mxnet_tpu_torch.kernels import _build
+    from mxnet_tpu_torch.kernels import jpeg_decode as jd
+    from mxnet_tpu_torch.tools.profile_records import pixel_crop
+
     dev = torch.device("cuda", 0)
-    blobs = _seeded_jpegs(6, side=96) + _seeded_jpegs(2, side=300, seed=1)
-    src, sizes = jd.decode_full(blobs, dev)
     rs = onp.random.RandomState(0)
-    for resize in (0, 40, 80, 150):
-        crops = onp.stack([rs.randint(-1, 10001, 8), rs.randint(-1, 10001, 8),
-                           rs.randint(0, 2, 8)], 1).astype(onp.int32)
+
+    def check(src, sizes, H, W, resize, tag):
+        n = len(sizes)
+        crops = onp.stack([rs.randint(-1, 10001, n), rs.randint(-1, 10001, n),
+                           onp.arange(n) % 2], 1).astype(onp.int32)
         crops[0, :2] = (0, 10000)
-        plan = torch.from_numpy(jd.crop_plan(sizes, 32, 40, resize,
-                                             crops)).to(dev)
-        assert torch.equal(jd.jpeg_crop(src, plan, 32, 40),
-                           jd._crop_ref(src, plan, 32, 40)), resize
+        plan = jd.crop_plan(sizes, H, W, resize, crops)
+        want = jd._crop_ref(src, torch.from_numpy(plan), H, W)
+        before = _build.launch_counts()
+        got = jd.jpeg_crop(src, plan, H, W)
+        after = _build.launch_counts()
+        kinds = jd.crop_kinds(plan)
+        for name, bit in ((jd.KERNEL, 1), (jd.SCALED_KERNEL, 2)):
+            assert after.get(name, 0) - before.get(name, 0) == \
+                bool(kinds & bit), (tag, name)
+        assert torch.equal(got, want), tag
+        assert torch.equal(pixel_crop(src, torch.from_numpy(plan).to(dev), H,
+                                      W), want), tag
+
+    if case == "nvjpeg":
+        if not jd.available():
+            pytest.skip("no nvJPEG on this machine")
+        blobs = _seeded_jpegs(6, side=96) + _seeded_jpegs(2, side=300, seed=1)
+        src, sizes = jd.decode_full(blobs, dev)
+        for resize in (0, 40, 80, 150):
+            check(src, sizes, 32, 40, resize, resize)
+        return
+    sizes, H, W, resize, padded, base = _CROP_CASES[case]
+    _, nbytes = jd.decode_layout(sizes)
+    if not padded:
+        nbytes -= jd.CROP_PAD
+    gen = torch.Generator(device=dev).manual_seed(0)
+    buf = torch.randint(0, 256, (base + nbytes,), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    check(buf[base:], sizes, H, W, resize, case)
 
 
 def test_image_record_iter_on_the_card(cuda, tmp_path):

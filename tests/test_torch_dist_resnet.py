@@ -17,7 +17,18 @@ Bounds: every parameter and running statistic within rtol 1e-5, atol
 1e-6 of the JAX package's; the port's reduced gradient bitwise the sum
 of its ranks' gradients; the port's runs with the bucketed reducer on
 and off bitwise equal.
+
+Both launches start from a stated environment (:func:`_stated_environ`):
+the pytest worker's, less every ``MXNET_`` variable, with the compile
+cache's disk tier off. A worker's ``MXNET_COMPILE_CACHE_DIR`` (the
+session's cache, ``tests/conftest.py``) holds what every earlier test in
+that worker persisted; ``tests/test_torch_recordio.py`` trains this
+network in one JAX process, and the JAX package's executables of that
+run, loaded by the two-process ranks, fail them ("CopyArrays only
+supports destination device list of the same size").
 """
+import contextlib
+import os
 import sys
 
 import numpy as onp
@@ -60,6 +71,8 @@ for s in range(STEPS):
     tr.step(8)
 for k, p in params.items():
     res["final/" + k] = p.data().asnumpy()
+res["env/mxnet"] = onp.array(sorted(k for k in os.environ
+                                    if k.startswith("MXNET_")))
 onp.savez(os.path.join({outdir!r}, "jax%d.npz" % rank), **res)
 """
 
@@ -111,22 +124,36 @@ for flag in ("1", "0"):
         res["%s/final/%s" % (flag, k)] = p.data().asnumpy()
     del tr
 mx.kv.create("dist_sync").barrier()
+res["env/mxnet"] = onp.array(sorted(k for k in os.environ
+                                    if k.startswith("MXNET_")))
 onp.savez(os.path.join(outdir, "port%d.npz" % rank), **res)
 """
+
+
+@contextlib.contextmanager
+def _stated_environ():
+    """This worker's environment less every ``MXNET_`` variable, with the
+    compile cache's disk tier off: what both launches hand their ranks."""
+    with pytest.MonkeyPatch.context() as mp:
+        for k in [k for k in os.environ if k.startswith("MXNET_")]:
+            mp.delenv(k)
+        mp.setenv("MXNET_COMPILE_CACHE", "0")
+        yield
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dist_resnet")
-    run_launched_workers(tmp, JAX_BODY.replace("STEPS", str(STEPS)), n=2,
-                         timeout=300)
-    worker = tmp / "port_worker.py"
-    worker.write_text(PORT_BODY)
-    proc = launch.run_local(
-        [sys.executable, str(worker), str(tmp), str(STEPS)], 2,
-        env={"MXNET_DIST_DEVICE": "cpu", "MXNET_GRAD_BUCKET_KB": "16",
-             "OMP_NUM_THREADS": "1", "PYTHONPATH": REPO},
-        timeout=240, cwd=REPO)
+    with _stated_environ():
+        run_launched_workers(tmp, JAX_BODY.replace("STEPS", str(STEPS)), n=2,
+                             timeout=300)
+        worker = tmp / "port_worker.py"
+        worker.write_text(PORT_BODY)
+        proc = launch.run_local(
+            [sys.executable, str(worker), str(tmp), str(STEPS)], 2,
+            env={"MXNET_DIST_DEVICE": "cpu", "MXNET_GRAD_BUCKET_KB": "16",
+                 "OMP_NUM_THREADS": "1", "PYTHONPATH": REPO},
+            timeout=240, cwd=REPO)
     assert proc.returncode == 0, (proc.stdout[-2000:], proc.stderr[-3000:])
     return ({r: dict(onp.load(tmp / f"jax{r}.npz")) for r in (0, 1)},
             {r: dict(onp.load(tmp / f"port{r}.npz")) for r in (0, 1)})
@@ -165,3 +192,21 @@ def test_reducer_on_and_off_bitwise(runs):
         for r in (0, 1):
             onp.testing.assert_array_equal(port[r]["1/final/" + k],
                                            port[r]["0/final/" + k])
+
+
+def test_the_launches_start_from_a_stated_environment(runs):
+    """The fault a whole-suite run met: the ranks inherited the worker's
+    ``MXNET_COMPILE_CACHE_DIR``, a cache that earlier tests of the worker
+    had filled. Every rank of both launches saw none of the worker's
+    ``MXNET_`` variables, the disk tier off, and the launcher's own."""
+    jax_res, port = runs
+    for res in (*jax_res.values(), *port.values()):
+        seen = set(res["env/mxnet"].tolist())
+        assert "MXNET_COMPILE_CACHE_DIR" not in seen
+        assert "MXNET_LOCK_CHECK" not in seen
+        assert "MXNET_COMPILE_CACHE" in seen
+    assert all(set(port[r]["env/mxnet"].tolist()) == {
+        "MXNET_COMPILE_CACHE", "MXNET_COORDINATOR", "MXNET_DIST_DEVICE",
+        "MXNET_GRAD_BUCKET_KB", "MXNET_LOCAL_RANK", "MXNET_LOCAL_SIZE",
+        "MXNET_NUM_PROCESSES", "MXNET_PROCESS_ID",
+        "MXNET_ASYNC_GRAD_SYNC"} for r in (0, 1))

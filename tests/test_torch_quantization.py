@@ -262,8 +262,10 @@ def test_mixed_boundaries_and_batch_dot():
     got, want = _eval_both(jres, tres, x)
     assert _rel(got, want) < OUT_TOL
     for kw in ({}, {"transpose_b": True}):
-        jo, to = JS.batch_dot(JS.var("a"), JS.var("b"), **kw), \
-            TS.batch_dot(TS.var("a"), TS.var("b"), **kw)
+        # named: an unnamed op takes its package's process-wide counter,
+        # which the tests run before this one in the process advance
+        jo, to = JS.batch_dot(JS.var("a"), JS.var("b"), name="bd", **kw), \
+            TS.batch_dot(TS.var("a"), TS.var("b"), name="bd", **kw)
         jsym, joff = jq.quantize_symbol(jo)
         tsym, toff = tq.quantize_symbol(to)
         assert toff == joff == {}

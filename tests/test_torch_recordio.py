@@ -326,25 +326,116 @@ def _native_decode(blob, H, W, resize, crop):
                                onp.array([crop], onp.int32), 1)[0]
 
 
-@pytest.mark.parametrize("resize", [0, 36, 50])
-def test_crop_plain_version_is_bitwise_the_libjpeg_route(resize):
+# (h, w) of the JPEGs, the crop (H, W): the first three at 28 x 28; then
+# rows of 99 and 120 bytes (not multiples of 16) from images of mixed
+# sizes whose 97 x 61 members put the next image at an odd byte offset
+_CROP_SHAPES = {
+    "": ([(40, 48), (52, 40), (44, 44)], 28, 28),
+    "w33-": ([(61, 97), (40, 48), (61, 97), (44, 50)], 20, 33),
+    "w40-": ([(61, 97), (52, 40), (61, 97), (70, 50)], 24, 40),
+}
+
+
+@pytest.mark.parametrize("shape,resize", [
+    pytest.param(shape, resize, id=f"{shape}{resize}")
+    for shape in _CROP_SHAPES for resize in (0, 36, 50)])
+def test_crop_plain_version_is_bitwise_the_libjpeg_route(shape, resize):
     """From the same full-size pixels the crop kernel's plain version
     (the kernel's arithmetic op by op) gives libjpeg's decode_one bit for
-    bit wherever libjpeg scales by 1 (no DCT scaling)."""
+    bit wherever libjpeg scales by 1 (no DCT scaling), at any crop width
+    and for images packed at any byte offset."""
     import torch
 
+    hws, H, W = _CROP_SHAPES[shape]
     rng = onp.random.RandomState(7)
-    blobs = [_jpeg(rng, 40, 48), _jpeg(rng, 52, 40), _jpeg(rng, 44, 44)]
-    crops = onp.array([[-1, -1, 0], [2500, 10000, 1], [10000, 0, 1]],
-                      onp.int32)
+    blobs = [_jpeg(rng, h, w) for h, w in hws]
+    crops = onp.array([[-1, -1, 0], [2500, 10000, 1], [10000, 0, 1],
+                       [5000, 5000, 0]][:len(blobs)], onp.int32)
     fulls = [_full(b) for b in blobs]
     src = torch.from_numpy(onp.concatenate([f.ravel() for f, _ in fulls]))
-    plan = jd.crop_plan([s for _, s in fulls], 28, 28, resize, crops)
+    plan = jd.crop_plan([s for _, s in fulls], H, W, resize, crops)
     assert (plan[:, 3] == 1).all()
-    got = jd.jpeg_crop(src, torch.from_numpy(plan), 28, 28)
+    got = jd.jpeg_crop(src, plan, H, W)
     for i, blob in enumerate(blobs):
         onp.testing.assert_array_equal(
-            got[i].numpy(), _native_decode(blob, 28, 28, resize, crops[i]))
+            got[i].numpy(), _native_decode(blob, H, W, resize, crops[i]))
+
+
+def test_crop_kinds_name_the_kernels_a_plan_needs():
+    """No resize at scale 1 is the copy kernel's (1); a resize, or
+    libjpeg's scale with no resize after it, the scaled kernel's (2)."""
+    crops = onp.full((2, 3), -1, onp.int32)
+    copy = jd.crop_plan([(40, 40), (50, 45)], 28, 28, 0, crops)
+    resized = jd.crop_plan([(40, 40), (100, 130)], 28, 28, 36, crops)
+    scaled = jd.crop_plan([(130, 100)], 28, 28, 50, crops[:1])
+    assert scaled[0, 3] == 2 and tuple(scaled[0, 4:6]) == tuple(
+        scaled[0, 6:8])
+    assert jd.crop_kinds(copy) == 1
+    assert jd.crop_kinds(resized) == 2
+    assert jd.crop_kinds(scaled) == 2
+    assert jd.crop_kinds(onp.concatenate([copy, resized])) == 3
+
+
+def test_decode_buffer_holds_the_crop_kernels_padding():
+    """``decode_full`` packs the images where ``crop_plan`` says they lie
+    and leaves CROP_PAD bytes after the last: the crop kernel stages each
+    source row as the 16-byte-aligned run that encloses it, and those
+    runs end inside the buffer (a 16-byte-aligned base, as the card's
+    allocator gives)."""
+    sizes = [(97, 61), (252, 252), (33, 17), (97, 61), (5, 3)]
+    offs, nbytes = jd.decode_layout(sizes)
+    plan = jd.crop_plan(sizes, 3, 5, 0, onp.full((5, 3), -1, onp.int32))
+    assert offs.tolist() == plan[:, 0].tolist()
+    px = [w * h * 3 for w, h in sizes]
+    assert nbytes == sum(px) + jd.CROP_PAD and jd.CROP_PAD >= 15
+    assert offs[1] % 2 == 1  # the next image starts at an odd byte
+    # every row's run ends at or before the last row's, whose end is the
+    # 16-byte boundary at or after the last image's last byte
+    run_end = -(-(offs[-1] + px[-1]) // 16) * 16
+    assert run_end <= nbytes
+    assert run_end > sum(px)  # the pixels alone would leave it outside
+
+
+def test_crop_bound_counts_the_source_under_the_taps():
+    """The crop kernels' byte bound (``tools/profile_records.py``) reads
+    the full-size pixels under the plain version's taps and no others:
+    the crop itself with no resize; with one, the scaled rows and columns
+    its taps reach, each a denom x denom block cut at the image's edge."""
+    import torch
+
+    from mxnet_tpu_torch.tools import profile_records as pr
+
+    sizes = [(500, 375), (375, 500), (97, 61), (130, 100), (300, 290),
+             (252, 252), (40, 30)]
+    rs = onp.random.RandomState(3)
+    crops = onp.stack([rs.randint(-1, 10001, len(sizes)),
+                       rs.randint(-1, 10001, len(sizes)),
+                       rs.randint(0, 2, len(sizes))], 1).astype(onp.int32)
+    H, W = 28, 33
+    for resize in (0, 36, 100, 256):
+        plan = jd.crop_plan(sizes, H, W, resize, crops)
+        for row in plan:
+            _, w, h, denom, sw, sh, tw, th, cy, cx, _ = row.tolist()
+            oy, ox = torch.arange(cy, cy + H), torch.arange(cx, cx + W)
+
+            def taps(o, s, t):  # _crop_ref's, in torch
+                f = (o.to(torch.float32) + 0.5) * float(s) / torch.tensor(
+                    float(t)) - 0.5
+                i0 = torch.where(f < 0, 0, f.to(torch.int64))
+                return torch.cat([i0, torch.clamp(i0 + 1, max=s - 1)])
+
+            ys, xs = (oy, ox) if (tw, th) == (sw, sh) else (
+                taps(oy, sh, th), taps(ox, sw, tw))
+            under = onp.zeros((h, w), bool)
+            for r in ys.unique().tolist():
+                for c in xs.unique().tolist():
+                    under[r * denom:(r + 1) * denom,
+                          c * denom:(c + 1) * denom] = True
+            assert pr.crop_source_bytes(row, H, W) == int(under.sum()) * 3, \
+                (resize, row.tolist())
+    plan = jd.crop_plan([(252, 252)] * 2, 224, 224, 0, crops[:2])
+    assert pr.crop_bound_ms(plan, 224, 224) == (
+        plan.size * 8 + 2 * 2 * 224 * 224 * 3) / pr.HBM_BYTES_PER_S * 1e3
 
 
 def test_crop_plan_is_decode_ones():
