@@ -83,7 +83,13 @@ kernels against the plain PyTorch versions:
   crop and mirror of the JAX package's host decode), ``ImageRecordIter``
   alone and with a resize, and ResNet-50 v1
   trained from a ``.rec`` through ``DeviceFeed``
-  (``tools/profile_records.py``).
+  (``tools/profile_records.py``);
+- the linear-algebra, image and contrib ops of ``nd.linalg``,
+  ``nd.image`` and ``nd.contrib`` on the card against the CPU port, the
+  two-stage detector ops (``Proposal``, ``PSROIPooling``,
+  ``DeformableConvolution``, ...) at Faster R-CNN's, R-FCN's and
+  Deformable ConvNets' published shapes, and SSD300-VGG16 trained from
+  ``ImageDetIter``.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100:
 
@@ -486,8 +492,9 @@ stream busy until the launch is enqueued, so it is the device's time:
     NCCL's ``all_reduce`` and the kvstore at the same sizes;
 54. decode serving traced: on one batcher at GPT-2-small widths, a
     warm-up, then phase 18's own paged open-loop traffic (32 streams of
-    16-256 tokens) once to warm up, then in six windows of two passes
-    each at ``MXNET_TELEMETRY`` 0, 1, 1, 0, 0 and 1, then a shorter traffic (16 streams of 16-48 tokens) at 1 with the
+    16-256 tokens) once to warm up, then in six windows of one pass
+    each at ``MXNET_TELEMETRY`` 0, 1, 1, 0, 0 and 1,
+    then a shorter traffic (16 streams of 16-48 tokens) at 1 with the
     profiler's device trace (``profiler.start``/``stop``,
     ``torch.profiler`` with the CUDA activity). Level 0 records no span;
     in every level-1 run every request has its ``serving.admission`` and
@@ -567,10 +574,42 @@ stream busy until the launch is enqueued, so it is the device's time:
     the last five steps below the first five's; ms a step, images/s and
     the device's idle share beside the same step fed from a batch
     already on the card;
-63. report: one JSON line of kernels, then the device line last.
+63. the slice's ops (``ops_linalg``, ``ops_image``, ``ops_contrib2``,
+    ``ops_contrib3``): every case of ``tools/op_sweep.py``'s ``LINALG``,
+    ``IMAGE``, ``CONTRIB2`` and ``CONTRIB3`` tables on the card against
+    the CPU port, forward and backward, at the sweep's tolerances, every
+    output on the card; every deterministic case but ``linalg_syevd``
+    (``torch.linalg.eigh`` reads the solver's error code on the host)
+    in one CUDA graph whose replay equals the eager calls bitwise; the
+    random image ops captured with the device's generator registered;
+64. the two-stage detector ops at published shapes against the CPU port:
+    ``Proposal`` at Faster R-CNN's RPN test settings (a 600 x 1000 image,
+    a 38 x 63 stride-16 map, 12 anchors, pre 6000, post 300, NMS 0.7)
+    with the kept indices equal and the boxes within 1e-5, and
+    ``MultiProposal`` at batch 2; ``PSROIPooling`` at R-FCN's VOC head
+    (1029 channels, 300 rois, output_dim 21, 7 x 7, scale 1/16) and
+    ``DeformablePSROIPooling`` at the same shapes (trans (300, 2, 7, 7),
+    part 7, 4 samples a part, trans_std 0.1), forward and backward
+    within 1e-5 of max(1, |value|); ``DeformableConvolution`` at
+    Deformable ConvNets v1's res5a_branch2b ((1, 512, 38, 63), 3 x 3,
+    dilation 2, 512 filters, 4 deformable groups) within 1e-4 of each
+    tensor's largest magnitude; each op's card ms (CUDA events) beside
+    its CPU ms;
+65. SSD300-VGG16 trained from ``ImageDetIter``
+    (``tools/profile_detiter.py``): a synthetic detection .rec of 256
+    seeded images with 1-5 boxes each (``pack_det`` labels), read with
+    ``CreateDetAugmenter(data_shape=(3, 300, 300), rand_crop=0.5,
+    rand_pad=0.5, rand_mirror=True, mean=True, std=True)`` through
+    ``DeviceFeed``; 10 steps of phase 46's network, loss and optimizer at
+    batch 32: every loss finite, every label in [0, 1] or padding, the
+    first batch's labels equal to the same iterator and seed run on the
+    host; ms a step, images/s and the device's idle share beside the
+    step fed from a batch already on the card;
+66. report: one JSON line of kernels, then the device line last.
 
 ``python3 chip_smoke.py --chain`` runs phases 1-2, phase 13's export and
-56-58 alone; ``--records`` runs phases 1-2 and 59-62 alone.
+56-58 alone; ``--records`` runs phases 1-2 and 59-62 alone; ``--tail``
+runs phases 1-2 and 63-65 alone.
 
 Each phase prints the seconds it took.
 
@@ -3778,17 +3817,19 @@ def hand_loop_phase():
 def op_sweep_phase():
     phase("38 the op sweep")
     dev = torch.device("cuda", 0)
-    rows = op_sweep.card_sweep(dev)
+    rows = op_sweep.card_sweep(dev, op_sweep.SURFACE)
     exact = sum(r["exact_outputs"] for r in rows)
     worst = max(rows, key=lambda r: r["worst"])
     print(f"  {len(rows)} cases on the card against the CPU port, forward "
           f"and backward: {exact} outputs bitwise, the worst float "
           f"deviation {worst['worst']:.3g} of its bound ({worst['case']})")
-    n_captured = op_sweep.capture_check(dev)
+    n_captured = op_sweep.capture_check(dev, op_sweep.SURFACE)
+    skipped = sorted({c.op for c in op_sweep.SURFACE
+                      if c.op in op_sweep.DATA_DEPENDENT})
     print(f"  {n_captured} cases in one CUDA graph, the replay bitwise equal "
           f"to the eager calls; not captured (output shapes that depend on "
-          f"the data): {list(op_sweep.DATA_DEPENDENT)}")
-    n_random = op_sweep.random_capture_check(dev)
+          f"the data): {skipped}")
+    n_random = op_sweep.random_capture_check(dev, op_sweep.RANDOM_SURFACE)
     print(f"  {n_random} random draws in one CUDA graph under the registered "
           "generator: each replay draws anew, and repeats after "
           "mx.random.seed")
@@ -5602,14 +5643,15 @@ def dist_nccl_phase(smi):
 # phases 54-55: the telemetry spans and the profiler's device trace on the
 # main paths. Phase 54 times phase 18's own open-loop traffic (its 32
 # paged streams of 16-256 tokens, from its seed) with the spans off and
-# on in turns, three windows at each level, each window two passes of
-# the traffic (3.2-4.4 s a pass alone on the card), after a warm-up
-# pass; the device trace is taken on a shorter traffic of 16 streams of
+# on in turns, three windows at each level, each window one pass of the
+# traffic (3.2-4.4 s a pass alone on the card; one pass, not two, so
+# that the whole run keeps its time limit), after a warm-up pass; the
+# device trace is taken on a shorter traffic of 16 streams of
 # 16-48 tokens, which keeps it near 200,000 events. Phase 55 is phase
 # 30's bf16 NHWC hybridized ResNet-50 fed by DeviceFeed
 TRACE_TURNS = (0, 1, 1, 0, 0, 1)
 TRACE_SETTLE_S = 0.5
-TRACE_PASSES = 2
+TRACE_PASSES = 1
 TRACE_STREAMS, TRACE_MIN, TRACE_MAX = 16, 16, 48
 TRACE_STEPS = 5
 
@@ -6482,6 +6524,246 @@ def records_phases(smi):
             "train": train}
 
 
+# -- slice 11a: linalg, image and the contrib tail ---------------------------
+
+def tail_ops_phase(smi):
+    """Phase 63: every case of op_sweep's LINALG, IMAGE, CONTRIB2 and
+    CONTRIB3 tables on the card against the CPU port (outputs on the
+    card), the deterministic ones in one CUDA graph, the random image ops
+    replayed under the registered generator."""
+    phase("63 the slice's ops on the card: linalg, image, contrib")
+    dev = torch.device("cuda", 0)
+    rows = op_sweep.card_sweep(dev, op_sweep.TAIL)
+    exact = sum(r["exact_outputs"] for r in rows)
+    worst = max(rows, key=lambda r: r["worst"])
+    n_captured = op_sweep.capture_check(dev, op_sweep.TAIL)
+    n_random = op_sweep.random_capture_check(dev, op_sweep.RANDOM_TAIL,
+                                             samplers=False)
+    skipped = sorted({c.op for c in op_sweep.TAIL
+                      if c.op in op_sweep.DATA_DEPENDENT})
+    out = {"card": smi, "cases": len(rows), "bitwise_outputs": exact,
+           "worst_of_bound": worst["worst"], "worst_case": worst["case"],
+           "captured": n_captured, "not_captured": skipped,
+           "random_captured": n_random}
+    print(f"  {len(rows)} cases on the card against the CPU port, forward "
+          f"and backward, every output on the card: {exact} outputs "
+          f"bitwise, the worst float deviation {worst['worst']:.3g} of its "
+          f"bound ({worst['case']}); {n_captured} cases in one CUDA graph "
+          f"(not captured: {skipped}, the solver's error check reads the "
+          f"card on the host); {n_random} random image draws replayed under "
+          "the registered generator")
+    print("  " + json.dumps(out))
+    return out
+
+
+# the two-stage detector ops at published shapes (phase 64): Faster
+# R-CNN's RPN at its test settings (a 600 x 1000 image, a stride-16 map of
+# 38 x 63, the op's 12 default anchors, pre-NMS 6000, post-NMS 300, NMS
+# 0.7), R-FCN's VOC head (7 x 7 x 21 = 1029 channels, 300 rois, output_dim
+# 21, pooled and group size 7, spatial scale 1/16) and its deformable
+# pooling (trans (300, 2, 7, 7), part 7, 4 samples a part, trans_std 0.1),
+# and Deformable ConvNets v1's res5a_branch2b (512 -> 512, 3 x 3,
+# dilation 2, pad 2, 4 deformable groups: 72 offset channels)
+RPN_MAP, RPN_IMAGE, RPN_K = (38, 63), (600.0, 1000.0, 1.0), 12
+RPN = dict(rpn_pre_nms_top_n=6000, rpn_post_nms_top_n=300, threshold=0.7,
+           rpn_min_size=16, scales=(4, 8, 16, 32), ratios=(0.5, 1, 2),
+           feature_stride=16)
+RFCN_ROIS = 300
+RFCN = dict(spatial_scale=1.0 / 16, output_dim=21, pooled_size=7,
+            group_size=7)
+DPSROI = dict(RFCN, part_size=7, sample_per_part=4, trans_std=0.1)
+RES5 = dict(kernel=(3, 3), dilate=(2, 2), pad=(2, 2), num_filter=512,
+            num_deformable_group=4, no_bias=True)
+# the card against the CPU port: boxes and pooled values within this
+# fraction of max(1, |value|) (the proposals' boxes and kept indices are
+# in fact bitwise); the deformable convolution's output and gradients
+# within DEFORM_TOL of each tensor's largest magnitude (cuBLAS against
+# the CPU's BLAS over K = 4608, and the data gradient's scatter-adds)
+DET_OPS_TOL, DEFORM_TOL = 1e-5, 1e-4
+
+
+def _detector_cases(rs):
+    """op_sweep Cases at the published shapes (the arrays made here from
+    ``rs``; each Case's own RandomState draws its cotangent)."""
+    h, w = RPN_MAP
+    e = onp.exp(rs.standard_normal((2, 2, RPN_K, h, w)))
+    prob = (e / e.sum(1, keepdims=True)).reshape(2, 2 * RPN_K, h, w)
+    deltas = 0.1 * rs.standard_normal((2, 4 * RPN_K, h, w))
+    info = onp.tile(onp.asarray([RPN_IMAGE]), (2, 1))
+    rpn = [a.astype("float32") for a in (prob, deltas, info)]
+    x1 = rs.uniform(0, 900, RFCN_ROIS)
+    y1 = rs.uniform(0, 500, RFCN_ROIS)
+    bw, bh = rs.uniform(24, 500, (2, RFCN_ROIS))
+    rois = onp.stack([onp.zeros(RFCN_ROIS), x1, y1,
+                      onp.minimum(x1 + bw, 999), onp.minimum(y1 + bh, 599)],
+                     1).astype("float32")
+    score_maps = rs.standard_normal((1, 1029, h, w)).astype("float32")
+    trans = rs.standard_normal((RFCN_ROIS, 2, 7, 7)).astype("float32")
+    feat = rs.standard_normal((1, 512, h, w)).astype("float32")
+    # offsets off the integers (the bilinear weight's kinks)
+    off = (rs.uniform(-2, 2, (1, 72, h, w)) + 0.01).astype("float32")
+    weight = (rs.standard_normal((512, 512, 3, 3))
+              * (2.0 / (512 * 9)) ** 0.5).astype("float32")
+    C = op_sweep.Case
+    return [
+        ("Proposal", C("proposal", lambda _: [a[:1] for a in rpn], RPN,
+                       tag="rpn"), DET_OPS_TOL),
+        ("MultiProposal", C("multi_proposal", lambda _: rpn, RPN,
+                            tag="rpn_b2"), DET_OPS_TOL),
+        ("PSROIPooling", C("psroi_pooling",
+                           lambda _: [score_maps, rois], RFCN, diff=(0,),
+                           tag="rfcn"), DET_OPS_TOL),
+        ("DeformablePSROIPooling", C(
+            "deformable_psroi_pooling",
+            lambda _: [score_maps, rois, trans], DPSROI, diff=(0, 2),
+            tag="rfcn"), DET_OPS_TOL),
+        ("DeformableConvolution", C(
+            "deformable_convolution", lambda _: [feat, off, weight], RES5,
+            diff=(0, 1, 2), tag="res5a_branch2b"), DEFORM_TOL)]
+
+
+def _rel_dev(got, want):
+    """max |got - want| / max(1, max |want|), 0 for equal arrays."""
+    got, want = got.double().cpu(), want.double().cpu()
+    if torch.equal(got, want):
+        return 0.0
+    return float((got - want).abs().max()
+                 / max(1.0, float(want.abs().max())))
+
+
+def _fwd_bwd_closure(case, device):
+    """``case``'s forward (and, with ``diff``, its backward to them) on
+    ``device`` as a closure over inputs made once."""
+    from mxnet_tpu_torch.ndarray import registry as reg
+
+    xs, rs = op_sweep._inputs(case, device)
+    fn = reg.get_op(case.op).fn
+    if not case.diff:
+        return lambda: fn(*xs, **case.kw)
+    out0 = op_sweep._outs(fn(*xs, **case.kw))[case.out]
+    ct = torch.from_numpy(rs.standard_normal(tuple(out0.shape)).astype(
+        "float32")).to(device)
+    for i in case.diff:
+        xs[i] = xs[i].detach().requires_grad_(True)
+
+    def run():
+        with torch.enable_grad():
+            y = op_sweep._outs(fn(*xs, **case.kw))[case.out]
+            return autograd._torch_grad([y], [xs[i] for i in case.diff],
+                                        [ct], retain_graph=False)
+    return run
+
+
+def _host_ms(fn):
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def detector_ops_phase(smi):
+    """Phase 64: Proposal, MultiProposal, PSROIPooling,
+    DeformablePSROIPooling and DeformableConvolution at the published
+    shapes on the card against the CPU port, forward and (where
+    differentiable) backward, each timed on the card (CUDA events) beside
+    the CPU."""
+    from mxnet_tpu_torch.ndarray import ops_contrib2
+
+    phase("64 the two-stage detector ops at published shapes")
+    dev, cpu = torch.device("cuda", 0), torch.device("cpu")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    rows, bad = {}, []
+    for name, case, tol in _detector_cases(onp.random.RandomState(SEED)):
+        outs, grads = op_sweep._forward_backward(case, dev)
+        c_outs, c_grads = op_sweep._forward_backward(case, cpu)
+        if any(t.device != dev for t in outs + grads):
+            raise RuntimeError(f"{name}: an output left the card")
+        devs = {f"output{i}": _rel_dev(t, c)
+                for i, (t, c) in enumerate(zip(outs, c_outs))}
+        devs.update({f"grad{i}": _rel_dev(t, c) for i, t, c in
+                     zip(case.diff, grads, c_grads)})
+        row = {"shapes": [list(a.shape) for a in case.make(None)],
+               "max_rel_dev": max(devs.values()), "rel_dev": devs}
+        if name in ("Proposal", "MultiProposal"):
+            parts = [ops_contrib2._proposal_parts(
+                *op_sweep._inputs(case, d)[0], **{
+                    k: case.kw[k] for k in (
+                        "rpn_pre_nms_top_n", "rpn_post_nms_top_n",
+                        "threshold", "rpn_min_size", "scales", "ratios",
+                        "feature_stride")}) for d in (dev, cpu)]
+            (bx, _, keep), (c_bx, _, c_keep) = parts
+            if not torch.equal(keep.cpu(), c_keep):
+                raise RuntimeError(f"{name}: the kept indices differ from "
+                                   "the CPU port's")
+            row["kept_per_image"] = (c_keep >= 0).sum(1).tolist()
+            row["boxes_bitwise"] = bool(torch.equal(bx.cpu(), c_bx))
+        if row["max_rel_dev"] > tol:
+            bad.append(f"{name} {devs} > {tol}")
+        fwd_case = op_sweep.Case(case.op, case.make, case.kw, tag=case.id)
+        row["ms"] = time_ms(_fwd_bwd_closure(fwd_case, dev), flush, reps=10)
+        row["cpu_ms"] = _host_ms(_fwd_bwd_closure(fwd_case, cpu))
+        if case.diff:
+            row["fwd_bwd_ms"] = time_ms(_fwd_bwd_closure(case, dev), flush,
+                                        reps=10)
+            row["cpu_fwd_bwd_ms"] = _host_ms(_fwd_bwd_closure(case, cpu))
+        rows[name] = row
+        print(f"  {name} {json.dumps(row)}")
+    if bad:
+        raise RuntimeError("the detector ops on the card against the CPU "
+                           "port: " + "; ".join(bad))
+    out = {"card": smi, "ops": rows}
+    print("  " + json.dumps(out))
+    return out
+
+
+DET_REC_IMAGES, DET_B, DET_STEPS = 256, 32, 10
+
+
+def det_iter_phase(smi):
+    """Phase 65: SSD300-VGG16 (phase 46's network, loss and optimizer)
+    trained 10 steps at batch 32 from ImageDetIter over a synthetic
+    detection .rec written here, beside the same step fed from a batch
+    already on the card."""
+    from mxnet_tpu_torch.tools import profile_detiter as pdi
+
+    phase("65 SSD300-VGG16 trained from ImageDetIter")
+    rec = pdi.write_det_records(os.path.join(WORK["dir"], "det.rec"),
+                                DET_REC_IMAGES, seed=SEED % 2 ** 31)
+    out = pdi.train_from_det_iter(rec, DET_STEPS, DET_B, seed=0)
+    out["card"] = smi
+    print("  " + json.dumps(out))
+    if not all(onp.isfinite(out["losses"])):
+        raise RuntimeError(f"non-finite ImageDetIter-fed loss: "
+                           f"{out['losses']}")
+    if out["label_faults"]:
+        raise RuntimeError(f"labels outside [0, 1] and not padding: "
+                           f"{out['label_faults']}")
+    if not out["first_labels_equal_host"]:
+        raise RuntimeError("the first batch's labels differ from the same "
+                           "iterator and seed run on the host")
+    print(f"  {smi}: {out['step_ms']:.1f} ms a step, "
+          f"{out['images_per_s']:.1f} images/s, device idle "
+          f"{100 * out['idle_share']:.1f}%; fed from a batch on the card "
+          f"{out['device_fed_step_ms']:.1f} ms, idle "
+          f"{100 * out['idle_share_device_fed']:.1f}%")
+    return out
+
+
+def tail_phases(smi):
+    return {"ops": tail_ops_phase(smi), "detector": detector_ops_phase(smi),
+            "det_iter": det_iter_phase(smi)}
+
+
+def _tail_only():
+    """``python3 chip_smoke.py --tail``: phases 1-2 and 63-65 alone."""
+    t0 = time.perf_counter()
+    smi = device_phase()
+    build_phase()
+    tail_phases(smi)
+    phase("done")
+    print(f"phases 63-65 in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def _records_only():
     """``python3 chip_smoke.py --records``: phases 1-2 and 59-62 alone
     (phase 2 builds only the crop kernels' sources)."""
@@ -6518,7 +6800,8 @@ def main():
     # a hang prints every thread's stack and ends the run inside the
     # driver's 1200 s, rather than holding the card to the limit
     faulthandler.dump_traceback_later(
-        450 if sys.argv[1:] == ["--records"] else 1150, exit=True)
+        450 if sys.argv[1:] in (["--records"], ["--tail"]) else 1150,
+        exit=True)
     WORK["dir"] = tempfile.mkdtemp(prefix="chip_smoke_")
     WORK["home"] = os.path.join(WORK["dir"], "home")
     os.environ["MXNET_HOME"] = WORK["home"]
@@ -6528,6 +6811,8 @@ def main():
             return _chain_only()
         if sys.argv[1:] == ["--records"]:
             return _records_only()
+        if sys.argv[1:] == ["--tail"]:
+            return _tail_only()
         return _main()
     finally:
         shutil.rmtree(WORK["dir"], ignore_errors=True)
@@ -6631,6 +6916,7 @@ def _main():
     fleet_res = fleet_phase(smi, gpt2_bundle, gpt2_spec,
                             paged_fp32["tokens_per_s"])
     records = records_phases(smi)
+    tail = tail_phases(smi)
     k4_dist = {"resnet50_dist_sync_gloo_rank0": dist2[0]["k4_fwd"],
                "resnet50_dist_sync_gloo_rank1": dist2[1]["k4_fwd"],
                "resnet50_dist_device_sync_nccl": dist1["k4_fwd"]}
@@ -6885,7 +7171,7 @@ def _main():
         "kv_int8_decode": kv_int8, "batch_dot_routes": quant_k["batch_dot"],
         "dequant_gap_k4608": quant_k["dequant_gap_k4608"],
         "ops_worst": quant_k["ops_worst"]}))
-    phase("63 report")
+    phase("66 report")
     print(f"bf16 ResNet-50 headline layout: {head}")
     print("hybridized: " + json.dumps({
         "resnet50_bf16_nhwc_step_ms": [resnet_hyb[False]["mean_step_ms"],
@@ -7005,6 +7291,15 @@ def _main():
         "device_fed_step_ms": records["train"]["device_fed_step_ms"],
         "device_fed_idle_share": records["train"]["idle_share_device_fed"],
         "losses": records["train"]["losses"]}))
+    print("linalg, image and the contrib tail: " + json.dumps({
+        "card": smi, "ops_cases": tail["ops"]["cases"],
+        "ops_captured": tail["ops"]["captured"],
+        "detector_ops_ms": {k: [v["ms"], v.get("fwd_bwd_ms")]
+                            for k, v in tail["detector"]["ops"].items()},
+        "det_iter_step_ms": tail["det_iter"]["step_ms"],
+        "det_iter_images_per_s": tail["det_iter"]["images_per_s"],
+        "det_iter_idle_share": tail["det_iter"]["idle_share"],
+        "device_fed_step_ms": tail["det_iter"]["device_fed_step_ms"]}))
     print(f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,10 @@
 The PyTorch counterpart of
 ``mxnet_tpu/gluon/data/vision/transforms.py`` (reference:
 python/mxnet/gluon/data/vision/transforms.py), on host or device
-NDArrays, with the few image ops they need as torch functions (the JAX
-package takes them from ``ndarray/ops_image.py``: the BT.601 luma, the
-YIQ hue rotation and the AlexNet PCA lighting basis). The random
-transforms draw from Python's ``random`` (and ``RandomLighting`` from
+NDArrays. The jitters' arithmetic (the BT.601 luma, the YIQ hue
+rotation, the AlexNet PCA lighting basis) is ``ndarray/ops_image.py``'s,
+as the JAX package's transforms take theirs from its ``ops_image``. The
+random transforms draw from Python's ``random`` (and ``RandomLighting`` from
 numpy's), as the JAX package's do, so one seed gives both the same
 draws. ``Resize`` is bilinear with half-pixel centers, antialiased when
 it shrinks (``F.interpolate(..., antialias=True)``), where the JAX
@@ -25,6 +25,8 @@ import torch.nn.functional as F
 from .... import ndarray as nd
 from ....ndarray import NDArray
 from ....ndarray.ndarray import host_tensor
+from ....ndarray.ops_image import (_adjust, _brightness, _contrast, _hue,
+                                   _saturation)
 from ...block import Block, HybridBlock
 from ...nn import HybridSequential
 
@@ -32,58 +34,6 @@ __all__ = ["Compose", "Cast", "ToTensor", "Normalize", "Resize", "CenterCrop",
            "RandomResizedCrop", "RandomFlipLeftRight", "RandomFlipTopBottom",
            "RandomBrightness", "RandomContrast", "RandomSaturation",
            "RandomLighting", "RandomHue", "RandomColorJitter", "CropResize"]
-
-# ITU-R BT.601 luma (reference image_random-inl.h RGB2GrayConvert)
-_GRAY = (0.299, 0.587, 0.114)
-# the YIQ transform pair of the reference's hue adjustment
-_TYIQ = ((0.299, 0.587, 0.114),
-         (0.596, -0.274, -0.321),
-         (0.211, -0.523, 0.311))
-_ITYIQ = ((1.0, 0.956, 0.621),
-          (1.0, -0.272, -0.647),
-          (1.0, -1.107, 1.705))
-# AlexNet PCA lighting basis (reference AdjustLightingParam defaults)
-_EIG_VAL = (55.46, 4.794, 1.148)
-_EIG_VEC = ((-0.5675, 0.7192, 0.4009),
-            (-0.5808, -0.0045, -0.8140),
-            (-0.5836, -0.6948, 0.4203))
-
-
-def _gray(hwc):
-    w = torch.tensor(_GRAY, dtype=hwc.dtype, device=hwc.device)
-    return (hwc * w).sum(dim=-1, keepdim=True)
-
-
-def _brightness(data, alpha):
-    return data * alpha
-
-
-def _contrast(data, alpha):
-    # blend with the image's mean luma (reference ContrastImpl)
-    mean_gray = _gray(data).mean(dim=(-3, -2), keepdim=True)
-    return data * alpha + mean_gray * (1.0 - alpha)
-
-
-def _saturation(data, alpha):
-    # blend with the per-pixel luma (reference SaturationImpl)
-    return data * alpha + _gray(data) * (1.0 - alpha)
-
-
-def _hue(data, alpha):
-    """Rotate chroma in YIQ space by pi * alpha (reference HueImpl)."""
-    u, w = math.cos(alpha * math.pi), math.sin(alpha * math.pi)
-    kw = dict(dtype=data.dtype, device=data.device)
-    rot = torch.tensor([[1.0, 0.0, 0.0], [0.0, u, -w], [0.0, w, u]], **kw)
-    t = torch.tensor(_ITYIQ, **kw) @ rot @ torch.tensor(_TYIQ, **kw)
-    return data @ t.T
-
-
-def _adjust(data, a):
-    """AlexNet PCA lighting: add eigvec @ (alpha * eigval) to every pixel
-    (reference AdjustLightingImpl)."""
-    kw = dict(dtype=torch.float32, device=data.device)
-    a = torch.as_tensor(a, **kw) * torch.tensor(_EIG_VAL, **kw)
-    return data + (torch.tensor(_EIG_VEC, **kw) @ a).to(data.dtype)
 
 
 def _back(out, like):

@@ -1,4 +1,7 @@
 """``mx.image`` (reference: python/mxnet/image/__init__.py): decode,
-augmenters and ``ImageIter``. ``image/detection.py`` comes with slice 11."""
+augmenters, ``ImageIter``, and the detection pipeline
+(``image/detection.py``: the box-aware augmenters and ``ImageDetIter``)."""
 from .image import *  # noqa: F401,F403
 from . import image  # noqa: F401
+from .detection import *  # noqa: F401,F403
+from . import detection  # noqa: F401

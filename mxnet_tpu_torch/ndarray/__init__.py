@@ -12,7 +12,9 @@ import sys as _sys
 import types as _types
 
 from . import registry
-from . import ops_basic, ops_contrib, ops_index, ops_legacy, ops_nn, ops_optim, ops_quant, ops_random  # noqa: F401 — register the ops
+from . import (ops_basic, ops_contrib, ops_contrib2, ops_contrib3,  # noqa: F401 — register the ops
+               ops_image, ops_index, ops_legacy, ops_linalg, ops_nn,
+               ops_optim, ops_quant, ops_random)
 from .ndarray import (NDArray, arange, array, concatenate, empty, expand_dims,
                       from_dlpack, from_numpy, full, load, load_frombuffer,
                       moveaxis, ones, save, to_dlpack_for_read,
@@ -22,7 +24,7 @@ __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "concatenate", "expand_dims", "moveaxis", "waitall", "from_numpy",
            "from_dlpack", "to_dlpack_for_read", "to_dlpack_for_write",
            "stack_list", "save", "load", "load_frombuffer", "registry",
-           "random", "Custom", "contrib"]
+           "random", "Custom", "contrib", "linalg", "image"]
 
 # the JAX package's table (``mxnet_tpu/ndarray/__init__.py:41-85``); the
 # first alias per target is the name ``Symbol.tojson`` writes
@@ -65,7 +67,19 @@ _CAMEL_ALIASES = {
     "_contrib_quantize_v2": "quantize_v2",
     "_contrib_dequantize": "dequantize",
     "_contrib_requantize": "requantize",
+    # the two-stage detector ops' CamelCase names (``nd.contrib``'s
+    # aliases): they load, but ``tojson`` writes the op's own name, as the
+    # JAX package (whose table lacks them) does
+    "Proposal": "proposal", "MultiProposal": "multi_proposal",
+    "PSROIPooling": "psroi_pooling",
+    "DeformableConvolution": "deformable_convolution",
+    "DeformablePSROIPooling": "deformable_psroi_pooling",
 }
+# aliases ``tojson`` never writes: SoftmaxActivation is another op in the
+# reference, and the JAX package's table has no contrib names
+_LOAD_ONLY = frozenset({"SoftmaxActivation", "Proposal", "MultiProposal",
+                        "PSROIPooling", "DeformableConvolution",
+                        "DeformablePSROIPooling"})
 
 
 def Custom(*args, op_type=None, **kwargs):
@@ -126,6 +140,25 @@ for _name in ("uniform", "normal", "randn", "randint", "exponential",
     setattr(random, _name, getattr(_mxrandom, _name))
 _sys.modules[random.__name__] = random
 
+
+def _prefix_namespace(short):
+    """``mx.nd.<short>``: every registered op named ``<short>_*``, the
+    prefix stripped (reference: the autogen's split by registered-name
+    prefix; ``mxnet_tpu/ndarray/__init__.py:115-135``)."""
+    mod = _types.ModuleType(__name__ + "." + short)
+    pre = short + "_"
+    for name in registry.list_ops():
+        if name.startswith(pre):
+            setattr(mod, name[len(pre):],
+                    _make_op_function(registry.get_op(name)))
+    _sys.modules[mod.__name__] = mod
+    return mod
+
+
+# ``mx.nd.linalg`` (reference: python/mxnet/ndarray/linalg.py) and
+# ``mx.nd.image`` (the ``_image_*`` ops)
+linalg = _prefix_namespace("linalg")
+image = _prefix_namespace("image")
 
 # ``mx.nd.contrib`` (reference: python/mxnet/ndarray/contrib.py): the
 # detection ops and the other contrib-named ops, with their CamelCase

@@ -11,11 +11,11 @@ Python branch. The JAX package's traced branches (``lax.scan``,
 count depends on the data cannot be captured in a CUDA graph, and
 ``while_loop``/``cond`` read their predicate on the host.
 
-``_CONTRIB_OPS`` lists the registered ops exposed here and
-``_CONTRIB_ALIASES`` their CamelCase spellings; :func:`_install` raises on
-a listed name that is not registered, as the JAX package's does. The
-JAX list's other names (``fft``, ``proposal``, ``box_encode``, ...) wait
-for the ops that back them.
+``_CONTRIB_OPS`` lists the registered ops exposed here, the JAX
+package's list, and ``_CONTRIB_ALIASES`` their CamelCase spellings;
+:func:`_install` raises on a listed name that is not registered, as the
+JAX package's does. ``reset_arrays`` zeroes its inputs in place, the
+reference's contract.
 """
 from __future__ import annotations
 
@@ -117,24 +117,34 @@ def getnnz(data, axis=None):
 
 
 def _public_names():
-    return (["foreach", "while_loop", "cond", "getnnz"] + _CONTRIB_OPS
-            + list(_CONTRIB_ALIASES))
+    return (["foreach", "while_loop", "cond", "reset_arrays", "getnnz"]
+            + _CONTRIB_OPS + list(_CONTRIB_ALIASES))
 
 
-# the registered ops of the JAX package's list that the port has
+# the JAX package's list (``mxnet_tpu/ndarray/contrib.py:207-217``)
 _CONTRIB_OPS = [
     "boolean_mask", "index_copy", "index_array", "adaptive_avg_pooling2d",
     "bilinear_resize2d", "all_finite", "multi_sum_sq",
     "box_iou", "box_nms", "bipartite_matching", "multibox_prior",
-    "multibox_target", "multibox_detection", "roi_align", "multi_lars",
+    "multibox_target", "multibox_detection", "roi_align",
+    "fft", "ifft", "count_sketch", "deformable_convolution",
+    "proposal", "multi_proposal", "psroi_pooling",
+    "deformable_psroi_pooling", "mrcnn_mask_target",
+    "quadratic", "allclose", "div_sqrt_dim", "gradientmultiplier",
+    "round_ste", "sign_ste", "reset_arrays", "box_encode", "box_decode",
+    "rroi_align", "multi_lars", "hawkesll",
 ]
 
-# CamelCase contrib aliases (reference registered names) whose targets
-# exist
+# CamelCase contrib aliases (reference registered names)
 _CONTRIB_ALIASES = {"MultiBoxPrior": "multibox_prior",
                     "MultiBoxTarget": "multibox_target",
                     "MultiBoxDetection": "multibox_detection",
-                    "ROIAlign": "roi_align"}
+                    "ROIAlign": "roi_align",
+                    "Proposal": "proposal",
+                    "MultiProposal": "multi_proposal",
+                    "PSROIPooling": "psroi_pooling",
+                    "DeformableConvolution": "deformable_convolution",
+                    "DeformablePSROIPooling": "deformable_psroi_pooling"}
 
 
 def _install():
@@ -152,5 +162,28 @@ def _install():
 
 
 _install()
+
+_reset_arrays_pure = reset_arrays  # noqa: F821 — installed by _install
+
+
+def reset_arrays(*arrays, num_arrays=0):  # noqa: F811
+    """Zero every input in place (reference contrib/reset_arrays.cc: call
+    sites discard the result and read the inputs): each NDArray takes its
+    zeroed copy, written into its tensor where it owns one (a
+    parameter's or a gradient buffer's, which captured graphs read), else
+    rebound."""
+    from .ndarray import _owns
+
+    outs = _reset_arrays_pure(*arrays, num_arrays=num_arrays)
+    if not isinstance(outs, (list, tuple)):
+        outs = (outs,)
+    for arr, out in zip(arrays, outs):
+        if _owns(arr._data) and arr._data.is_leaf:
+            with torch.no_grad():
+                arr._data.zero_()
+        else:
+            arr._data = out._data
+    return outs
+
 
 __all__ = _public_names()

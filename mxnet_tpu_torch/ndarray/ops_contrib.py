@@ -39,6 +39,14 @@ def _f32(v):
     return float(onp.float32(v))
 
 
+def _div(t, c):
+    """``t / c`` for a Python number ``c`` as a true division, the JAX
+    op's: torch on CUDA multiplies by the float reciprocal of a Python
+    divisor, which can move a value across an integer (a bin edge) that
+    the CPU's division does not."""
+    return t / torch.full((), _f32(c), dtype=t.dtype, device=t.device)
+
+
 def _consts(values, like):
     """A float32 vector of ``values`` made on ``like``'s device by fills
     (no host copy, so it can sit inside a captured graph)."""

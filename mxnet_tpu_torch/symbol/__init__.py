@@ -16,10 +16,10 @@ make an :class:`~mxnet_tpu_torch.executor.Executor`, which the Module
 API trains through.
 
 ``sym.contrib`` holds the names of ``nd.contrib``'s ops and their
-CamelCase spellings, emitting graph nodes. ``mx.AttrScope``
-(``attribute.py``) stamps the symbols made inside it, and
-``mx.name.Prefix`` prefixes their names. Not ported yet: the
-``linalg``/``image`` sub-namespaces (slice 11).
+CamelCase spellings, ``sym.linalg`` and ``sym.image`` the ``linalg_*``
+and ``image_*`` ops with the prefix stripped, all emitting graph nodes.
+``mx.AttrScope`` (``attribute.py``) stamps the symbols made inside it,
+and ``mx.name.Prefix`` prefixes their names.
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ from .. import kernels as _kernels  # noqa: F401 — registers the fused ops
 from .. import attribute as _attribute
 from .. import name as _name_mod
 from ..base import MXNetError
-from ..ndarray import _CAMEL_ALIASES, NDArray
+from ..ndarray import _CAMEL_ALIASES, _LOAD_ONLY, NDArray
 from ..ndarray import registry as _registry
 
 __all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
@@ -367,7 +367,7 @@ class Symbol:
         same text the JAX package writes for the same graph."""
         rev = {}
         for k, v in _CAMEL_ALIASES.items():
-            if k != "SoftmaxActivation":
+            if k not in _LOAD_ONLY:
                 rev.setdefault(v, k)
         order, idx = [], {}
         for s in self._walk():
@@ -500,7 +500,9 @@ def _num_outputs_for(opname, kwargs):
     ``get_prob`` the log-probabilities too, ``histogram`` counts and
     edges, ``moments`` the mean and the variance; ``ftml_update`` the
     weight and its three states, ``lamb_update_phase1`` the direction and
-    both moments; the quantization ops (data, min, max)."""
+    both moments; ``linalg_gelqf`` (L, Q), ``linalg_syevd`` (U, L),
+    ``linalg_slogdet`` (sign, log|det|); the quantization ops (data, min,
+    max)."""
     if opname in ("batch_norm", "layer_norm"):
         return 3 if kwargs.get("output_mean_var") else 1
     if opname == "amp_multicast":
@@ -525,7 +527,8 @@ def _num_outputs_for(opname, kwargs):
         return 4
     if opname in ("lamb_update_phase1", "multibox_target"):
         return 3
-    if opname == "bipartite_matching":
+    if opname in ("bipartite_matching", "linalg_gelqf", "linalg_syevd",
+                  "linalg_slogdet"):
         return 2
     if opname in ("quantize", "quantize_v2", "requantize") or \
             opname.startswith("_contrib_quantized_"):
@@ -651,6 +654,22 @@ for _cname in _CONTRIB_OPS:
 for _alias, _target in _CONTRIB_ALIASES.items():
     setattr(contrib, _alias, getattr(contrib, _target))
 _sys.modules[contrib.__name__] = contrib
+
+
+def _sym_prefix_namespace(short):
+    """``mx.sym.<short>``: the ``<short>_*`` ops, the prefix stripped
+    (reference: python/mxnet/symbol/{linalg,image}.py)."""
+    mod = _types.ModuleType(__name__ + "." + short)
+    pre = short + "_"
+    for name in _registry.list_ops():
+        if name.startswith(pre):
+            setattr(mod, name[len(pre):], _sym_wrapper(_registry.get_op(name)))
+    _sys.modules[mod.__name__] = mod
+    return mod
+
+
+linalg = _sym_prefix_namespace("linalg")
+image = _sym_prefix_namespace("image")
 
 
 def zeros(shape, dtype="float32", **kwargs):

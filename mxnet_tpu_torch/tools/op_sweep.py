@@ -1,11 +1,15 @@
 """The op sweep: the cases that hold the NDArray and op surface's ops.
 
-One table per op file (``BASIC``, ``INDEX``, ``NN``, ``LEGACY``): each
+One table per op file (``BASIC``, ``INDEX``, ``NN``, ``LEGACY``;
+``LINALG``, ``IMAGE``, ``CONTRIB2`` and ``CONTRIB3`` for the slice of
+``ops_linalg``, ``ops_image``, ``ops_contrib2`` and ``ops_contrib3``;
+``SURFACE`` and ``TAIL`` group them, ``ALL`` is both): each
 :class:`Case` names an op, makes its array inputs from a numpy
 ``RandomState`` (small shapes), gives its settings, the tolerance it is
 held to, and the inputs whose gradients are checked. The CPU tests hold
 the port against the JAX package with these cases
-(``tests/test_torch_ops_surface.py``); on the card ``chip_smoke.py``
+(``tests/test_torch_ops_surface.py``, ``tests/test_torch_ops_tail.py``);
+on the card ``chip_smoke.py``
 runs every case against the CPU port (:func:`card_sweep`), captures
 every deterministic op in one CUDA graph (:func:`capture_check`), and
 replays the random ops under a registered generator
@@ -14,10 +18,19 @@ replays the random ops under a registered generator
 Tolerances against the JAX package (``tol``): ``EXACT`` bitwise, ``ELEM``
 (1e-6) for elementwise float math, ``REDUCE`` (1e-5) for reductions,
 products and the transcendentals where XLA and torch differ, ``CTC``
-(1e-4) for ``ctc_loss``. On the card against the CPU port: ``EXACT``
-cases bitwise in the forward, the rest within rtol 1e-5 and atol 1e-6
-(``ctc_loss`` rtol 1e-4), and every gradient within the float bound
-(the card's scatter-adds sum in another order).
+(1e-4) for ``ctc_loss``, ``SCAN`` (1e-4) for the sums that cancel
+after a running sum or a scatter-add in another order
+(``psroi_pooling``'s integral image, ``count_sketch``, ``hawkesll``'s
+likelihood). On the card against the CPU port: ``EXACT`` cases bitwise
+in the forward, the rest within rtol 1e-5 and atol 1e-6 (``ctc_loss``
+rtol 1e-4), and every gradient within the float bound (the card's
+scatter-adds sum in another order). A case whose outputs are defined up
+to a sign (``linalg_syevd``'s eigenvectors) names a ``canon`` that fixes
+it before any comparison.
+
+The random ops (``RANDOM``) include the ``image_random_*`` ops, drawn on
+an image; a coin-flip op is drawn ``COINS`` times a call, so that two
+replays differ.
 """
 from __future__ import annotations
 
@@ -30,14 +43,17 @@ from ..base import MXNetError
 from ..context import cuda_graph
 from ..ndarray import registry
 
-__all__ = ["Case", "EXACT", "ELEM", "REDUCE", "CTC", "BASIC", "INDEX", "NN",
-           "LEGACY", "ALL", "DATA_DEPENDENT", "RANDOM", "card_sweep",
-           "capture_check", "random_capture_check"]
+__all__ = ["Case", "EXACT", "ELEM", "REDUCE", "CTC", "SCAN", "BASIC",
+           "INDEX", "NN", "LEGACY", "LINALG", "IMAGE", "CONTRIB2",
+           "CONTRIB3", "SURFACE", "TAIL", "ALL", "DATA_DEPENDENT", "RANDOM",
+           "RANDOM_SURFACE", "RANDOM_TAIL", "COINS", "card_sweep", "capture_check",
+           "random_capture_check", "row_signs"]
 
 EXACT = 0.0
 ELEM = 1e-6
 REDUCE = 1e-5
 CTC = 1e-4
+SCAN = 1e-4
 
 
 class Case:
@@ -48,9 +64,9 @@ class Case:
     cotangent pulls back through."""
 
     def __init__(self, op, make, kw=None, tol=EXACT, diff=(), out=0,
-                 grad_tol=None, tag=""):
+                 grad_tol=None, tag="", canon=None):
         self.op, self.make, self.kw, self.tol = op, make, kw or {}, tol
-        self.diff, self.out = diff, out
+        self.diff, self.out, self.canon = diff, out, canon
         self.grad_tol = grad_tol if grad_tol is not None else \
             max(max(tol) if isinstance(tol, tuple) else tol, ELEM)
         self.id = op + (f"-{tag}" if tag else "")
@@ -367,12 +383,265 @@ LEGACY = [
           "use_linear": True}, diff=(0,), tag="linear"),
 ]
 
-ALL = BASIC + INDEX + NN + LEGACY
-# output shapes that depend on the data: the host waits for them, so no
-# CUDA graph can hold them
-DATA_DEPENDENT = ("boolean_mask",)
+
+# -- ops_linalg -----------------------------------------------------------
+# well-conditioned inputs: SPD matrices as X Xᵀ + n I, triangles with a
+# dominant diagonal, so float32 solves and factorizations stay within
+# the tolerance
+
+def spd(rs, b, n):
+    x = rs.uniform(-1, 1, (b, n, n))
+    return (x @ x.transpose(0, 2, 1) + n * onp.eye(n)).astype("float32")
+
+
+def tri(rs, b, n):
+    return (rs.uniform(-1, 1, (b, n, n)) + 3 * onp.eye(n)).astype("float32")
+
+
+def chol(rs, b, n):
+    return onp.linalg.cholesky(spd(rs, b, n).astype("float64")).astype(
+        "float32")
+
+
+def row_signs(outs):
+    """``linalg_syevd``'s (U, L) with each row of U signed so that its
+    largest-magnitude entry (the first such) is positive: an eigenvector's
+    sign is the solver's choice."""
+    u, w = outs
+    big = torch.gather(u, -1, u.abs().argmax(-1, keepdim=True))
+    return [u * torch.where(big < 0, -1.0, 1.0).to(u.dtype), w]
+
+
+LINALG = [
+    Case("linalg_gemm", lambda rs: [f32(rs, 2, 3, 4), f32(rs, 2, 4, 5),
+                                    f32(rs, 2, 3, 5)],
+         {"alpha": 2.0, "beta": 0.5}, tol=REDUCE, diff=(0, 1, 2)),
+    Case("linalg_gemm", lambda rs: [f32(rs, 4, 2, 3), f32(rs, 5, 2, 4),
+                                    f32(rs, 3, 2, 5)],
+         {"transpose_a": True, "transpose_b": True, "axis": 0}, tol=REDUCE,
+         diff=(0, 1, 2), tag="transposed_axis0"),
+    Case("linalg_gemm2", lambda rs: [f32(rs, 2, 4, 3), f32(rs, 2, 4, 5)],
+         {"transpose_a": True, "alpha": 0.5}, tol=REDUCE, diff=(0, 1)),
+    Case("linalg_syrk", lambda rs: [f32(rs, 2, 3, 4)], {"alpha": 1.5},
+         tol=REDUCE, diff=(0,)),
+    Case("linalg_syrk", lambda rs: [f32(rs, 2, 3, 4)], {"transpose": True},
+         tol=REDUCE, diff=(0,), tag="transpose"),
+    Case("linalg_trmm", lambda rs: [f32(rs, 2, 3, 3), f32(rs, 2, 3, 4)],
+         {"alpha": 2.0}, tol=REDUCE, diff=(0, 1)),
+    Case("linalg_trmm", lambda rs: [f32(rs, 2, 3, 3), f32(rs, 2, 4, 3)],
+         {"transpose": True, "rightside": True, "lower": False},
+         tol=REDUCE, diff=(0, 1), tag="upper_right_transposed"),
+    Case("linalg_trsm", lambda rs: [tri(rs, 2, 3), f32(rs, 2, 3, 4)],
+         {"alpha": 2.0}, tol=REDUCE, diff=(0, 1)),
+    Case("linalg_trsm", lambda rs: [tri(rs, 2, 3), f32(rs, 2, 4, 3)],
+         {"transpose": True, "rightside": True, "lower": False},
+         tol=REDUCE, diff=(0, 1), tag="upper_right_transposed"),
+    Case("linalg_trsm", lambda rs: [tri(rs, 2, 3), f32(rs, 2, 3, 2)],
+         {"transpose": True}, tol=REDUCE, diff=(0, 1),
+         tag="lower_transposed"),
+    Case("linalg_potrf", lambda rs: [spd(rs, 2, 3)], tol=REDUCE, diff=(0,)),
+    Case("linalg_potri", lambda rs: [chol(rs, 2, 3)], tol=REDUCE, diff=(0,)),
+    Case("linalg_gelqf", lambda rs: [f32(rs, 2, 3, 5)], tol=REDUCE,
+         diff=(0,)),
+    Case("linalg_gelqf", lambda rs: [f32(rs, 2, 3, 5)], tol=REDUCE,
+         diff=(0,), out=1, tag="q"),
+    # eigenvalues and sign-fixed eigenvectors; the gradient through L
+    Case("linalg_syevd", lambda rs: [spd(rs, 2, 4)], tol=REDUCE, diff=(0,),
+         out=1, canon=row_signs),
+    Case("linalg_inverse", lambda rs: [tri(rs, 2, 3)], tol=REDUCE,
+         diff=(0,)),
+    Case("linalg_det", lambda rs: [tri(rs, 2, 3)], tol=REDUCE, diff=(0,)),
+    Case("linalg_slogdet", lambda rs: [tri(rs, 2, 3) * fl([1, -1])[:, None,
+                                                                  None]],
+         tol=REDUCE, diff=(0,), out=1),
+    Case("linalg_sumlogdiag", lambda rs: [spd(rs, 2, 3)], tol=REDUCE,
+         diff=(0,)),
+    Case("linalg_extractdiag", lambda rs: [f32(rs, 2, 4, 4)], {"offset": 1},
+         diff=(0,)),
+    Case("linalg_makediag", lambda rs: [f32(rs, 2, 3)], {"offset": -1},
+         diff=(0,)),
+    Case("linalg_extracttrian", lambda rs: [f32(rs, 2, 4, 4)], diff=(0,)),
+    Case("linalg_extracttrian", lambda rs: [f32(rs, 2, 4, 4)],
+         {"offset": 1, "lower": False}, diff=(0,), tag="upper_offset"),
+    Case("linalg_maketrian", lambda rs: [f32(rs, 2, 6)], diff=(0,)),
+    Case("linalg_maketrian", lambda rs: [f32(rs, 2, 6)],
+         {"offset": -1}, diff=(0,), tag="lower_offset"),
+]
+
+
+# -- ops_image ------------------------------------------------------------
+
+def img(rs, *shape):
+    return rs.uniform(0, 255, shape).astype("float32")
+
+
+IMAGE = [
+    Case("image_to_tensor", lambda rs: [rs.randint(0, 256, (4, 5, 3))
+                                        .astype("uint8")], tol=ELEM),
+    Case("image_to_tensor", lambda rs: [img(rs, 2, 4, 5, 3)], tol=ELEM,
+         diff=(0,), tag="nhwc"),
+    Case("image_normalize", lambda rs: [f32(rs, 3, 4, 5)],
+         {"mean": (0.1, 0.2, 0.3), "std": (0.5, 0.6, 0.7)}, tol=ELEM,
+         diff=(0,)),
+    Case("image_normalize", lambda rs: [f32(rs, 2, 3, 4, 5)],
+         {"mean": 0.5, "std": 2.0}, tol=ELEM, diff=(0,), tag="nchw_scalar"),
+    Case("image_flip_left_right", lambda rs: [img(rs, 4, 5, 3)], diff=(0,)),
+    Case("image_flip_top_bottom", lambda rs: [img(rs, 2, 4, 5, 3)],
+         diff=(0,)),
+    Case("image_adjust_lighting", lambda rs: [img(rs, 4, 5, 3)],
+         {"alpha": (0.01, -0.02, 0.03)}, tol=ELEM, diff=(0,)),
+    Case("image_crop", lambda rs: [img(rs, 5, 6, 3)],
+         {"x": 1, "y": 2, "width": 3, "height": 2}, diff=(0,)),
+    Case("image_crop", lambda rs: [img(rs, 2, 5, 6, 3)],
+         {"x": 0, "y": 1, "width": 4, "height": 3}, diff=(0,), tag="nhwc"),
+    # shrinking: the antialiased triangle filter of jax.image.resize
+    Case("image_resize", lambda rs: [img(rs, 6, 8, 3)], {"size": (5, 3)},
+         tol=REDUCE, diff=(0,)),
+    Case("image_resize", lambda rs: [img(rs, 2, 3, 4, 3)],
+         {"size": 6, "keep_ratio": True}, tol=REDUCE, diff=(0,),
+         tag="up_keep_ratio"),
+    Case("image_resize", lambda rs: [img(rs, 5, 7, 3)],
+         {"size": (3, 4), "interp": 0}, diff=(0,), tag="nearest"),
+]
+
+
+# -- ops_contrib3 ---------------------------------------------------------
+
+def _boxes(rs, *lead):
+    lo = rs.uniform(0, 0.5, lead + (2,))
+    wh = rs.uniform(0.1, 0.5, lead + (2,))
+    return onp.concatenate([lo, lo + wh], -1).astype("float32")
+
+
+def _hawkes(rs):
+    N, K, T = 2, 3, 6
+    return [rs.uniform(0.5, 1.5, (N, K)).astype("float32"),
+            rs.uniform(0.2, 0.8, K).astype("float32"),
+            rs.uniform(0.5, 2.0, K).astype("float32"),
+            rs.uniform(0.0, 1.0, (N, K)).astype("float32"),
+            rs.uniform(0.1, 1.0, (N, T)).astype("float32"),
+            rs.randint(0, K, (N, T)).astype("int32"),
+            fl([6, 4]), fl([8.0, 9.0])]
+
+
+def _rrois(rs):
+    return [f32(rs, 2, 2, 8, 8),
+            fl([[0, 3.5, 4.2, 4.0, 3.0, 30.0], [1, 4.1, 3.3, 5.0, 2.5, -45.0],
+                [0, 2.2, 5.6, 3.0, 4.0, 90.0]])]
+
+
+CONTRIB3 = [
+    Case("quadratic", lambda rs: [f32(rs, 3, 4)],
+         {"a": 0.5, "b": -1.0, "c": 2.0}, tol=ELEM, diff=(0,)),
+    Case("allclose", lambda rs: [fl([1.0, 2.0, 3.0]),
+                                 fl([1.0, 2.000001, 3.0])]),
+    Case("allclose", lambda rs: [fl([1.0, 2.0]), fl([1.0, 2.1])],
+         {"rtol": 1e-3}, tag="far"),
+    Case("div_sqrt_dim", lambda rs: [f32(rs, 2, 3, 16)], tol=ELEM,
+         diff=(0,)),
+    Case("round_ste", lambda rs: [f32(rs, 3, 4, lo=-3, hi=3)], diff=(0,)),
+    Case("sign_ste", lambda rs: [f32(rs, 3, 4)], diff=(0,)),
+    Case("gradientmultiplier", lambda rs: [f32(rs, 3, 4)],
+         {"scalar": -0.5}, diff=(0,)),
+    Case("reset_arrays", lambda rs: [f32(rs, 3, 4), f32(rs, 2)],
+         {"num_arrays": 2}),
+    Case("box_encode", lambda rs: [fl([[1, -1, 0, 1, 1], [1, 1, -1, 0, 1]]),
+                                   fl([[0, 2, 1, 1, 0], [2, 0, 1, 1, 2]]),
+                                   _boxes(rs, 2, 5), _boxes(rs, 2, 3)],
+         tol=(REDUCE, EXACT)),
+    Case("box_decode", lambda rs: [f32(rs, 2, 5, 4), _boxes(rs, 1, 5)],
+         {"std0": 0.1, "std1": 0.1, "std2": 0.2, "std3": 0.2}, tol=REDUCE),
+    Case("box_decode", lambda rs: [f32(rs, 2, 5, 4),
+                                   rs.uniform(0.2, 0.6, (1, 5, 4))
+                                   .astype("float32")],
+         {"clip": 0.5, "format": "center"}, tol=REDUCE, tag="center_clip"),
+    Case("hawkesll", _hawkes, tol=SCAN, diff=(0, 1, 2)),
+    Case("rroi_align", _rrois, {"pooled_size": (2, 3)}, tol=REDUCE,
+         diff=(0,)),
+]
+
+
+# -- ops_contrib2 ---------------------------------------------------------
+
+def _deform(rs, C=4, F=4, G=2, ndg=2, H=6, W=6, Ho=6, Wo=6, bias=True):
+    # offsets off the integers: the bilinear weight has a kink there
+    off = rs.uniform(-1.5, 1.5, (1, ndg * 18, Ho, Wo)).astype("float32")
+    xs = [f32(rs, 1, C, H, W), off, f32(rs, F, C // G, 3, 3)]
+    return xs + [f32(rs, F)] if bias else xs
+
+
+def _rpn(rs, B=1, h=4, w=5, K=12):
+    e = onp.exp(rs.standard_normal((B, 2, K, h, w)))
+    prob = (e / e.sum(1, keepdims=True)).reshape(B, 2 * K, h, w)
+    return [prob.astype("float32"),
+            (0.2 * rs.standard_normal((B, 4 * K, h, w))).astype("float32"),
+            onp.tile(fl([[64, 80, 1.0]]), (B, 1))]
+
+
+def _ps(rs, D=2, G=2, trans=False):
+    rois = fl([[0, 1, 2, 9, 10], [0, 4, 0, 11, 7], [0, 0, 3, 5, 11]])
+    xs = [f32(rs, 1, D * G * G, 6, 6), rois]
+    return xs + [f32(rs, 3, 2, G, G)] if trans else xs
+
+
+def _masks(rs):
+    return [onp.concatenate([rs.uniform(0, 3, (2, 3, 2)),
+                             rs.uniform(4, 7, (2, 3, 2))], -1)
+            .astype("float32"),
+            rs.uniform(0, 1, (2, 2, 8, 8)).astype("float32"),
+            fl([[0, 1, 1], [1, 0, 1]]), fl([[0, 2, 1], [1, 1, 2]])]
+
+
+CONTRIB2 = [
+    Case("fft", lambda rs: [f32(rs, 2, 8)], tol=REDUCE, diff=(0,)),
+    Case("ifft", lambda rs: [f32(rs, 2, 16)], tol=REDUCE, diff=(0,)),
+    # a scatter-add: the sums come in another order
+    Case("count_sketch", lambda rs: [f32(rs, 3, 6),
+                                     fl([0, 3, 1, 3, 2, 0]),
+                                     fl([1, -1, 1, 1, -1, 1])],
+         {"out_dim": 4}, tol=SCAN, diff=(0,)),
+    Case("deformable_convolution", _deform,
+         {"kernel": (3, 3), "pad": (1, 1), "num_filter": 4, "num_group": 2,
+          "num_deformable_group": 2}, tol=REDUCE, diff=(0, 1, 2, 3)),
+    Case("deformable_convolution",
+         lambda rs: _deform(rs, G=1, ndg=1, H=7, W=7, Ho=3, Wo=3,
+                            bias=False),
+         {"kernel": (3, 3), "stride": (2, 2), "dilate": (2, 2),
+          "pad": (1, 1), "num_filter": 4, "no_bias": True}, tol=REDUCE,
+         diff=(0, 1, 2), tag="strided_dilated"),
+    Case("proposal", _rpn, {"rpn_pre_nms_top_n": 50,
+                            "rpn_post_nms_top_n": 10, "rpn_min_size": 4},
+         tol=REDUCE),
+    Case("multi_proposal", lambda rs: _rpn(rs, B=2),
+         {"rpn_pre_nms_top_n": 60, "rpn_post_nms_top_n": 12,
+          "threshold": 0.5, "rpn_min_size": 4, "output_score": True},
+         tol=REDUCE),
+    Case("psroi_pooling", _ps, {"spatial_scale": 0.5, "output_dim": 2,
+                                "pooled_size": 2, "group_size": 2},
+         tol=SCAN, diff=(0,)),
+    Case("deformable_psroi_pooling", lambda rs: _ps(rs, trans=True),
+         {"spatial_scale": 0.5, "output_dim": 2, "group_size": 2,
+          "pooled_size": 2, "part_size": 2, "sample_per_part": 2,
+          "trans_std": 0.1}, tol=REDUCE, diff=(0, 2)),
+    Case("deformable_psroi_pooling", _ps,
+         {"spatial_scale": 0.5, "output_dim": 2, "group_size": 2,
+          "pooled_size": 2, "sample_per_part": 3, "no_trans": True},
+         tol=REDUCE, diff=(0,), tag="no_trans"),
+    Case("mrcnn_mask_target", _masks,
+         {"num_rois": 3, "num_classes": 3, "mask_size": (4, 4)},
+         tol=(REDUCE, EXACT)),
+]
+
+SURFACE = BASIC + INDEX + NN + LEGACY
+TAIL = LINALG + IMAGE + CONTRIB2 + CONTRIB3
+ALL = SURFACE + TAIL
+# output shapes that depend on the data, or an error code the host reads
+# (the solver's check), so that no CUDA graph can hold them
+DATA_DEPENDENT = ("boolean_mask",
+                  # torch.linalg.eigh reads cuSOLVER's error code on the host
+                  "linalg_syevd")
 # the random ops and their settings, drawn on the card under capture
-RANDOM = [
+RANDOM_SURFACE = [
     ("random_uniform", {"low": -1.0, "high": 2.0, "shape": (4096,)}),
     ("random_normal", {"loc": 1.0, "scale": 2.0, "shape": (4096,)}),
     ("random_randint", {"low": 0, "high": 1000, "shape": (4096,)}),
@@ -384,6 +653,21 @@ RANDOM = [
                                               "shape": (4096,)}),
     ("random_gumbel", {"shape": (4096,)}),
 ]
+# the random image ops, drawn on one (8, 8, 3) image; a coin flip COINS
+# times a call
+RANDOM_TAIL = [
+    ("image_random_flip_left_right", {}),
+    ("image_random_flip_top_bottom", {}),
+    ("image_random_brightness", {"min_factor": 0.5, "max_factor": 1.5}),
+    ("image_random_contrast", {"min_factor": 0.5, "max_factor": 1.5}),
+    ("image_random_saturation", {"min_factor": 0.5, "max_factor": 1.5}),
+    ("image_random_hue", {"min_factor": -0.3, "max_factor": 0.3}),
+    ("image_random_color_jitter", {"brightness": 0.3, "contrast": 0.3,
+                                   "saturation": 0.3, "hue": 0.1}),
+    ("image_random_lighting", {"alpha_std": 0.1}),
+]
+RANDOM = RANDOM_SURFACE + RANDOM_TAIL
+COINS = 16
 
 
 def _outs(r):
@@ -402,6 +686,8 @@ def _forward_backward(case, device):
     xs, rs = _inputs(case, device)
     fn = registry.get_op(case.op).fn
     outs = [o.detach() for o in _outs(fn(*xs, **case.kw))]
+    if case.canon is not None:
+        outs = case.canon(outs)
     if not case.diff:
         return outs, []
     ct = torch.from_numpy(rs.standard_normal(
@@ -418,7 +704,7 @@ def _forward_backward(case, device):
 
 
 def _float_tol(case):
-    return (CTC, 0.0) if case.tol == CTC else (1e-5, 1e-6)
+    return (CTC, 0.0) if case.op == "ctc_loss" else (1e-5, 1e-6)
 
 
 def _deviation(got, want, rtol, atol):
@@ -432,18 +718,21 @@ def _deviation(got, want, rtol, atol):
     return float(over.max())
 
 
-def card_sweep(device):
-    """Every case on ``device`` against the CPU port on the same inputs:
-    the forward bitwise for ``EXACT`` outputs, else within the float
-    bound, and the gradients within the float bound. Returns one row per
-    case; raises :class:`MXNetError` naming every case that disagrees."""
+def card_sweep(device, cases=ALL):
+    """Every case of ``cases`` on ``device`` against the CPU port on the
+    same inputs: the forward bitwise for ``EXACT`` outputs, else within
+    the float bound, and the gradients within the float bound; every
+    output on ``device``. Returns one row per case; raises
+    :class:`MXNetError` naming every case that disagrees."""
     rows, bad = [], []
-    for case in ALL:
+    for case in cases:
         outs, grads = _forward_backward(case, device)
         c_outs, c_grads = _forward_backward(case, torch.device("cpu"))
         rtol, atol = _float_tol(case)
         row = {"case": case.id, "exact_outputs": 0, "worst": 0.0}
         for t, c, tol in zip(outs, c_outs, case.tols(len(c_outs))):
+            if t.device != torch.device(device):
+                bad.append(f"{case.id}: an output on {t.device}")
             t = t.cpu()
             if t.shape != c.shape or t.dtype != c.dtype:
                 bad.append(f"{case.id}: {t.dtype}{tuple(t.shape)} against "
@@ -465,13 +754,13 @@ def card_sweep(device):
     return rows
 
 
-def capture_check(device):
-    """Every deterministic case but the ``DATA_DEPENDENT`` ones, forward,
+def capture_check(device, cases=ALL):
+    """Every case of ``cases`` but the ``DATA_DEPENDENT`` ones, forward,
     in one CUDA graph: warmed up eagerly on a side stream, captured, then
     replayed; each replayed output must equal the eager call bitwise (a
     host copy or sync inside an op fails the capture). Returns the count
     of captured cases."""
-    cases = [c for c in ALL if c.op not in DATA_DEPENDENT]
+    cases = [c for c in cases if c.op not in DATA_DEPENDENT]
     inputs = [_inputs(c, device)[0] for c in cases]
     fns = [registry.get_op(c.op).fn for c in cases]
 
@@ -519,20 +808,32 @@ def _uncapturable(cases, fns, inputs):
     return bad
 
 
-def random_capture_check(device):
-    """The random ops captured in one CUDA graph with the device's
-    generator registered: two replays draw different numbers; after
+def random_capture_check(device, ops=RANDOM, samplers=True):
+    """The random ops ``ops`` (and, with ``samplers``, the four samplers
+    of arrays) captured in one CUDA graph with the device's generator
+    registered: two replays draw different numbers; after
     ``mx.random.seed`` a replay draws what the replay after the same seed
-    drew. Returns the count of random ops captured."""
+    drew. Returns the count of random outputs captured."""
     gen = _random.device_generator(device)
     ctx_kw = {"ctx": _ctx(device)}
     probs = torch.tensor([[0.1, 0.2, 0.3, 0.4]] * 64, device=device)
     low = torch.zeros(64, device=device)
     high = torch.ones(64, device=device) * 3
     rows = torch.arange(4096.0, device=device).reshape(512, 8)
+    image = torch.arange(192.0, device=device).reshape(8, 8, 3)
+
+    def draw(name, kw):
+        fn = registry.get_op(name).fn
+        if not name.startswith("image_"):
+            return fn(**kw, **ctx_kw)
+        if "flip" in name:
+            return torch.stack([fn(image, **kw) for _ in range(COINS)])
+        return fn(image, **kw)
 
     def draws():
-        out = [registry.get_op(n).fn(**kw, **ctx_kw) for n, kw in RANDOM]
+        out = [draw(n, kw) for n, kw in ops]
+        if not samplers:
+            return out
         out.append(registry.get_op("sample_uniform").fn(low, high,
                                                          shape=(64,)))
         out.append(registry.get_op("sample_normal").fn(low, high,

@@ -288,6 +288,12 @@ def _samples(text):
 
 def test_decode_serving_spans_equal_jax(monkeypatch):
     monkeypatch.setenv("MXNET_TELEMETRY", "1")
+    # the port's serving exposition appends the fusion counters of
+    # whatever ran earlier in the process too: start from none, so that
+    # it holds the serving block alone whatever ran before in the worker
+    from mxnet_tpu_torch import kernels
+
+    kernels.reset_counters()
     rs = onp.random.RandomState(7)
     requests = [(f"req-{i}", f"s{i % 2}",
                  rs.randint(0, VOCAB, size=(1, 1)).astype("int32"))
