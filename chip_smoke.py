@@ -89,7 +89,14 @@ kernels against the plain PyTorch versions:
   two-stage detector ops (``Proposal``, ``PSROIPooling``,
   ``DeformableConvolution``, ...) at Faster R-CNN's, R-FCN's and
   Deformable ConvNets' published shapes, and SSD300-VGG16 trained from
-  ``ImageDetIter``.
+  ``ImageDetIter``;
+- the sparse storage types: sparse logistic regression and the
+  embedding-bag layer of a wide-and-deep model at avazu-app's 1,000,000
+  features, batch 8,192, through ``LibSVMIter`` over the native text
+  parser, ``nd.sparse.dot``, the store's sparse push and
+  ``row_sparse_pull`` and the lazy SGD and Adam rows
+  (``tools/profile_sparse.py``; no kernel: plain tensor code), and the
+  DGL graph ops on a graph of ogbn-arxiv's size.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100:
 
@@ -605,11 +612,33 @@ stream busy until the launch is enqueued, so it is the device's time:
     first batch's labels equal to the same iterator and seed run on the
     host; ms a step, images/s and the device's idle share beside the
     step fed from a batch already on the card;
-66. report: one JSON line of kernels, then the device line last.
+66. ``LibSVMIter``'s parse: a LibSVM file of 40 batches (327,680 rows)
+    written from the seed (``profile_sparse.write_libsvm``: 15 one-hot
+    features a row, one per field, Zipf 1.1 ranks hashed into 1,000,000
+    columns) parsed by ``csrc/textio.cc``; seconds and rows a second;
+67. both legs of ``tools/profile_sparse.py`` at 1,000,000 features, batch
+    8,192 (the embedding width 64: 256 MB of weights, 512 MB of Adam
+    state), 20 steps with lazy SGD and 20 with lazy Adam each on the
+    card, each against the CPU port on the same file over the first 3
+    steps: the pushed row ids equal at every step, the logits within
+    1e-5 relative in L2, the weights after 3 steps within 1e-4; ms a
+    step split into its stages (batch assembly and copy, forward
+    ``dot``, transposed ``dot``, ``tostype``, push and update, pulls;
+    a sync at each boundary), rows a second, unique rows a batch, the
+    device's idle share over 5 more steps without the syncs
+    (``torch.profiler``) and the peak device memory;
+68. the DGL graph ops on a seeded graph of ogbn-arxiv's size (169,343
+    nodes, 1,166,243 edges) resident on the card: neighbor sampling of
+    1,024 seeds over 2 hops (fan-out 10), the subgraph with its mapping
+    on the sampled vertices, ``edge_id`` of 1,024 pairs; every output
+    bitwise equal to the CPU port's on the same graph, and each op's
+    seconds;
+69. report: one JSON line of kernels, then the device line last.
 
 ``python3 chip_smoke.py --chain`` runs phases 1-2, phase 13's export and
 56-58 alone; ``--records`` runs phases 1-2 and 59-62 alone; ``--tail``
-runs phases 1-2 and 63-65 alone.
+runs phases 1-2 and 63-65 alone; ``--sparse`` runs phases 1 and 66-68
+alone (they build no kernel).
 
 Each phase prints the seconds it took.
 
@@ -667,6 +696,7 @@ from mxnet_tpu_torch.resilience import faults  # noqa: E402
 from mxnet_tpu_torch.tools import launch  # noqa: E402
 from mxnet_tpu_torch.tools import profile_records as prec  # noqa: E402
 from mxnet_tpu_torch.kernels import jpeg_decode as jpk  # noqa: E402
+from mxnet_tpu_torch.tools import profile_sparse as psp  # noqa: E402
 
 SEED = 20240917
 # GPT-2 small (n_embd 768, n_head 12, n_layer 12, n_positions 1024,
@@ -6777,6 +6807,128 @@ def _records_only():
     return 0
 
 
+# the sparse phases (66-68): the card against the CPU port over the first
+# SPARSE_KEEP steps; row ids bitwise
+SPARSE_STEPS, SPARSE_KEEP = 20, 3
+SPARSE_LOGITS_TOL, SPARSE_WEIGHTS_TOL = 1e-5, 1e-4
+
+
+def libsvm_parse_phase(smi):
+    """Phase 66: the seeded LibSVM file and its native parse."""
+    phase("66 LibSVMIter's parse through csrc/textio.cc")
+    path = os.path.join(WORK["dir"], "train.libsvm")
+    t0 = time.perf_counter()
+    psp.write_libsvm(path, psp.FILE_BATCHES * psp.BATCH, psp.FEATURES,
+                     seed=SEED % 2 ** 31)
+    out = psp.parse_rate(mx, path)
+    out.update(card=smi, write_s=time.perf_counter() - t0 - out["parse_s"],
+               file_mb=os.path.getsize(path) / 2 ** 20)
+    print(f"  {out['rows']} rows ({out['nnz']} features, "
+          f"{out['file_mb']:.1f} MB) parsed in {out['parse_s']:.3f} s: "
+          f"{out['rows_per_s']:.0f} rows/s (the parser's g++ build "
+          f"{out['parser_build_s']:.2f} s before it)")
+    print("  " + json.dumps(out))
+    return path, out
+
+
+def sparse_legs_phase(smi, path):
+    """Phase 67: both legs, lazy SGD and lazy Adam, on the card and
+    against the CPU port."""
+    phase("67 sparse logistic regression and the embedding-bag layer at "
+          "1,000,000 features")
+    init = psp.embedding_init(psp.FEATURES, psp.WIDTH, SEED % 2 ** 31)
+    res = {}
+    for leg in ("linear", "embedding"):
+        for opt in ("sgd", "adam"):
+            card, nums = psp.run_leg(mx, leg, path, opt, SPARSE_STEPS,
+                                     psp.FEATURES, psp.BATCH, init)
+            t0 = time.perf_counter()
+            cpu = psp.run_steps(psp.make_leg(
+                mx, leg, mx.cpu(), path, opt, psp.FEATURES, psp.BATCH,
+                init), SPARSE_KEEP, keep=SPARSE_KEEP)
+            cmp = psp.compare(card, cpu)
+            nums.update(cmp, card=smi,
+                        cpu_run_s=time.perf_counter() - t0)
+            res[f"{leg}_{opt}"] = nums
+            stages = ", ".join(f"{k} {v:.2f}"
+                               for k, v in nums["stage_ms"].items())
+            print(f"  {leg} {opt}: {nums['ms_per_step']:.2f} ms a step "
+                  f"({stages}), "
+                  f"{nums['rows_per_s']:.0f} rows/s, "
+                  f"{nums['unique_rows_per_batch']:.0f} unique rows a batch, "
+                  f"idle {100 * nums['idle_share']:.1f}%, peak "
+                  f"{nums['leg_peak_gb']:.2f} GB above the "
+                  f"{nums['peak_device_gb'] - nums['leg_peak_gb']:.2f} "
+                  f"held before; against the CPU: row "
+                  f"ids equal {cmp['row_ids_equal']}, logits "
+                  f"{cmp['logits_rel_l2']:.3g}, weights "
+                  f"{cmp['weights_rel_l2']:.3g}")
+            if not cmp["row_ids_equal"] or \
+                    cmp["steps_compared"] != SPARSE_KEEP:
+                raise RuntimeError(f"{leg} {opt}: the pushed row ids differ "
+                                   "from the CPU port's")
+            if not cmp["logits_rel_l2"] <= SPARSE_LOGITS_TOL:
+                raise RuntimeError(f"{leg} {opt}: logits {cmp}")
+            if not cmp["weights_rel_l2"] <= SPARSE_WEIGHTS_TOL:
+                raise RuntimeError(f"{leg} {opt}: weights {cmp}")
+            if not all(onp.isfinite(w).all() for w in card["weights"]):
+                raise RuntimeError(f"{leg} {opt}: non-finite weights")
+            del card, cpu
+            gc.collect()
+            torch.cuda.empty_cache()
+    print("  " + json.dumps(res))
+    return res
+
+
+def dgl_phase(smi):
+    """Phase 68: the DGL ops on a card-resident graph of ogbn-arxiv's
+    size, bitwise against the CPU port."""
+    phase("68 the DGL graph ops at ogbn-arxiv's size")
+    data, indices, indptr, shape = psp.make_graph(seed=SEED % 2 ** 31)
+    runs = {}
+    for name, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        g = nd.sparse.csr_matrix((data, indices, indptr), shape=shape,
+                                 ctx=ctx)
+        runs[name] = psp.graph_ops(mx, g, seed=SEED % 2 ** 31)
+    (card, card_s, info), (cpu, cpu_s, _) = runs["card"], runs["cpu"]
+    for key in card:
+        a, b = card[key], cpu[key]
+        pairs = zip(a, b) if isinstance(a, list) else [(a, b)]
+        for x, y in pairs:
+            if x.dtype != y.dtype or x.shape != y.shape or \
+                    not onp.array_equal(x, y):
+                raise RuntimeError(f"DGL {key}: the card's graph gives "
+                                   "another output than the CPU's")
+    out = dict(info, card=smi, nodes=shape[0], edges=len(data),
+               seeds=psp.GRAPH_SEEDS, hops=psp.GRAPH_HOPS,
+               fanout=psp.GRAPH_FANOUT, card_graph_s=card_s,
+               cpu_graph_s=cpu_s, bitwise=True)
+    print(f"  {info['sampled_vertices']} vertices and "
+          f"{info['sample_edges']} edges sampled; "
+          f"{info['edge_ids_found']} of 1024 pairs are edges; the card's "
+          f"graph: " + ", ".join(f"{k} {v:.3f}" for k, v in card_s.items())
+          + "; every output bitwise equal to the CPU's")
+    print("  " + json.dumps(out))
+    return out
+
+
+def sparse_phases(smi):
+    path, parse = libsvm_parse_phase(smi)
+    legs = sparse_legs_phase(smi, path)
+    os.remove(path)
+    return {"parse": parse, "legs": legs, "dgl": dgl_phase(smi)}
+
+
+def _sparse_only():
+    """``python3 chip_smoke.py --sparse``: phases 1 and 66-68 alone."""
+    t0 = time.perf_counter()
+    smi = device_phase()
+    sparse_phases(smi)
+    phase("done")
+    print(f"phases 66-68 in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def kernel_entry(name, source, replaces, launches, worst, row, shape, smi,
                  **extra):
     entry = {"name": name, "route": "cuda", "source": source,
@@ -6800,7 +6952,8 @@ def main():
     # a hang prints every thread's stack and ends the run inside the
     # driver's 1200 s, rather than holding the card to the limit
     faulthandler.dump_traceback_later(
-        450 if sys.argv[1:] in (["--records"], ["--tail"]) else 1150,
+        450 if sys.argv[1:] in (["--records"], ["--tail"], ["--sparse"])
+        else 1150,
         exit=True)
     WORK["dir"] = tempfile.mkdtemp(prefix="chip_smoke_")
     WORK["home"] = os.path.join(WORK["dir"], "home")
@@ -6813,6 +6966,8 @@ def main():
             return _records_only()
         if sys.argv[1:] == ["--tail"]:
             return _tail_only()
+        if sys.argv[1:] == ["--sparse"]:
+            return _sparse_only()
         return _main()
     finally:
         shutil.rmtree(WORK["dir"], ignore_errors=True)
@@ -6917,6 +7072,9 @@ def _main():
                             paged_fp32["tokens_per_s"])
     records = records_phases(smi)
     tail = tail_phases(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sparse = sparse_phases(smi)
     k4_dist = {"resnet50_dist_sync_gloo_rank0": dist2[0]["k4_fwd"],
                "resnet50_dist_sync_gloo_rank1": dist2[1]["k4_fwd"],
                "resnet50_dist_device_sync_nccl": dist1["k4_fwd"]}
@@ -7171,7 +7329,7 @@ def _main():
         "kv_int8_decode": kv_int8, "batch_dot_routes": quant_k["batch_dot"],
         "dequant_gap_k4608": quant_k["dequant_gap_k4608"],
         "ops_worst": quant_k["ops_worst"]}))
-    phase("66 report")
+    phase("69 report")
     print(f"bf16 ResNet-50 headline layout: {head}")
     print("hybridized: " + json.dumps({
         "resnet50_bf16_nhwc_step_ms": [resnet_hyb[False]["mean_step_ms"],
@@ -7300,6 +7458,13 @@ def _main():
         "det_iter_images_per_s": tail["det_iter"]["images_per_s"],
         "det_iter_idle_share": tail["det_iter"]["idle_share"],
         "device_fed_step_ms": tail["det_iter"]["device_fed_step_ms"]}))
+    print("sparse storage types: " + json.dumps({
+        "card": smi, "parse_rows_per_s": sparse["parse"]["rows_per_s"],
+        "legs": {k: {f: v[f] for f in (
+            "ms_per_step", "rows_per_s", "idle_share", "largest_stage",
+            "unique_rows_per_batch", "peak_device_gb", "leg_peak_gb")}
+            for k, v in sparse["legs"].items()},
+        "dgl_card_s": sparse["dgl"]["card_graph_s"]}))
     print(f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -84,7 +84,12 @@ ResNet-50 v1 with a custom-op loss head whose kernels ``rtc`` compiles:
 - ``mx.recordio``, ``mx.image`` and ``mx.io.ImageRecordIter`` — RecordIO
   files, the image augmenters and the record iterators, whose JPEG
   decode runs through libjpeg on the host (``csrc/recordio.cc``) or
-  nvJPEG and a crop kernel on the card (``csrc/jpeg_decode.cu``).
+  nvJPEG and a crop kernel on the card (``csrc/jpeg_decode.cu``);
+- ``mx.nd.sparse`` — ``row_sparse`` and ``csr`` arrays, sparse ``dot``,
+  the lazy optimizer rows and the store's sparse push and
+  ``row_sparse_pull``; ``mx.io.LibSVMIter`` and ``CSVIter`` over the
+  text parsers of ``csrc/textio.cc``; the DGL graph ops in
+  ``nd.contrib``; ``cpu_shared`` arrays; ``mx.test_utils``.
 
 ``HybridBlock.hybridize()`` captures a block's forward, and under
 ``record()`` its backward, as CUDA graphs, one pair per call
@@ -166,6 +171,7 @@ from . import library
 from . import ops
 from . import recordio
 from . import image
+from . import test_utils
 from . import initialize as _initialize
 
 # crash tracebacks and a fork-safe engine (reference: src/initialize.cc),
@@ -181,7 +187,7 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "gradient_compression", "kvstore", "kv", "env", "telemetry",
            "profiler", "runtime", "log", "registry", "util", "misc",
            "libinfo", "attribute", "AttrScope", "engine", "storage",
-           "library", "ops", "recordio", "image"]
+           "library", "ops", "recordio", "image", "test_utils"]
 
 # the env knobs applied once at import, as the JAX package applies them
 # (``mxnet_tpu/__init__.py:160-168``): the global seed, the profiler's

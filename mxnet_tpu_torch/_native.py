@@ -1,6 +1,6 @@
 """Build and load the port's host libraries (``csrc/*.cc``).
 
-Two C++ sources run on the host, each compiled by ``g++`` into a shared
+Three C++ sources run on the host, each compiled by ``g++`` into a shared
 library with a plain C interface and loaded with ``ctypes``:
 
 - ``csrc/engine.cc``: the dependency engine and the pooled host storage
@@ -9,7 +9,9 @@ library with a plain C interface and loaded with ``ctypes``:
   route (``io/image_record.py``). Where the host has no ``jpeglib.h`` it
   is built with ``-DMXTT_NO_LIBJPEG`` (the frame parser alone), and the
   record iterator decodes on the card with nvJPEG
-  (``kernels/jpeg_decode.py``).
+  (``kernels/jpeg_decode.py``);
+- ``csrc/textio.cc``: the multithreaded CSV and LibSVM parsers of
+  ``io.CSVIter`` and ``io.LibSVMIter``.
 
 The flags are the JAX package's native build's (``-O3 -fPIC -std=c++17
 -Wall -shared`` with ``-lpthread``, and ``-ljpeg`` for the decode). A
@@ -34,7 +36,7 @@ import threading
 from .base import MXNetError
 
 __all__ = ["CXX_FLAGS", "build", "engine_lib", "io_lib", "io_loaded",
-           "decoder"]
+           "text_lib", "decoder"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared")
@@ -179,6 +181,24 @@ def _bind_io(L):
             ctypes.c_int, u8p]
 
 
+def _bind_text(L):
+    i64, vp = ctypes.c_int64, ctypes.c_void_p
+    f32p, i64p = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(i64)
+    L.textio_last_error.restype = ctypes.c_char_p
+    L.csv_parse.restype = vp
+    L.csv_parse.argtypes = [ctypes.c_char_p]
+    L.svm_parse.restype = vp
+    L.svm_parse.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    for fn, res in ((L.csv_rows, i64), (L.csv_cols, i64),
+                    (L.csv_data, f32p), (L.svm_rows, i64), (L.svm_nnz, i64),
+                    (L.svm_data, f32p), (L.svm_indices, i64p),
+                    (L.svm_indptr, i64p), (L.svm_labels, f32p)):
+        fn.restype = res
+        fn.argtypes = [vp]
+    L.csv_free.argtypes = [vp]
+    L.svm_free.argtypes = [vp]
+
+
 def engine_lib():
     """The engine library (``csrc/engine.cc``), built at first use."""
     return _load("engine", _bind_engine)
@@ -187,6 +207,12 @@ def engine_lib():
 def io_lib():
     """The RecordIO library (``csrc/recordio.cc``), built at first use."""
     return _load("recordio", _bind_io)
+
+
+def text_lib():
+    """The text parsers' library (``csrc/textio.cc``), built at first
+    use."""
+    return _load("textio", _bind_text)
 
 
 def io_loaded():

@@ -2,7 +2,9 @@
 
 The PyTorch counterpart of ``mxnet_tpu/context.py`` (reference:
 python/mxnet/context.py). Device types are ``cpu`` and ``gpu``; a
-Context maps to a ``torch.device``. The default context is ``gpu(0)``:
+Context maps to a ``torch.device``; ``cpu_shared`` (shared memory that
+other processes attach to, ``ndarray/shared_mem.py``) maps to the CPU.
+The default context is ``gpu(0)``:
 entry points run on the card unless the caller asks for ``cpu()``.
 Resolving a ``gpu`` context on a host without a CUDA device raises
 :class:`MXNetError` — the port never falls back to the CPU quietly.
@@ -28,13 +30,13 @@ class Context:
 
     _default_ctx = threading.local()
 
-    devstr2type = {"cpu": 1, "gpu": 2}
-    devtype2str = {1: "cpu", 2: "gpu"}
+    devstr2type = {"cpu": 1, "gpu": 2, "cpu_shared": 5}
+    devtype2str = {1: "cpu", 2: "gpu", 5: "cpu_shared"}
 
     def __init__(self, device_type, device_id=0):
         if device_type not in Context.devstr2type:
             raise MXNetError(f"unknown device type {device_type!r} "
-                             "(expected 'cpu' or 'gpu')")
+                             "(expected 'cpu', 'gpu' or 'cpu_shared')")
         self.device_typeid = Context.devstr2type[device_type]
         self.device_id = int(device_id)
         self._old_ctx = None
@@ -69,7 +71,7 @@ class Context:
         """The ``torch.device`` backing this context. Raises
         :class:`MXNetError` for a ``gpu`` context when no CUDA device
         (or not that many) is present."""
-        if self.device_type == "cpu":
+        if self.device_type in ("cpu", "cpu_shared"):
             return torch.device("cpu")
         if not torch.cuda.is_available():
             raise MXNetError(

@@ -15,7 +15,9 @@ argument names (``fc1_weight``, ``lstm_i2h_bias``, ``rnn_parameters``):
 :func:`module_params_from_numpy` loads a JAX ``Module.get_params()``
 pair, as numpy, by those names. A Gluon RNN layer's parameters
 (``l0_i2h_weight``, ...) load through :func:`params_from_numpy` like any
-block's.
+block's. A JAX ``CSRNDArray`` or ``RowSparseNDArray``, as its numpy
+components and shape, becomes the port's through
+:func:`sparse_from_numpy`.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import numpy as onp
 from .base import MXNetError
 
 __all__ = ["params_from_numpy", "module_params_from_numpy",
-           "trainer_states_from_numpy"]
+           "trainer_states_from_numpy", "sparse_from_numpy"]
 
 
 def params_from_numpy(block, arrays, ctx=None):
@@ -164,3 +166,23 @@ def trainer_states_from_numpy(trainer, states, num_update=None,
                                      dict(index_update_count).items()}
     trainer._invalidate_fused_state()
     return trainer
+
+
+def sparse_from_numpy(stype, parts, shape, ctx=None):
+    """The port's sparse array of a JAX ``CSRNDArray`` or
+    ``RowSparseNDArray`` given as numpy components: ``stype`` "csr" with
+    ``parts = (data, indices, indptr)``, or "row_sparse" with ``parts =
+    (data, indices)``, and the logical ``shape``, on ``ctx`` (default:
+    the current context). The values keep their dtype (float64 narrowed
+    to float32, as the JAX arrays hold them) and the ids become int32,
+    as the JAX package's are; nothing is re-sorted or merged."""
+    from .ndarray import sparse
+
+    parts = tuple(onp.asarray(p) for p in parts)
+    if stype == "csr" and len(parts) == 3:
+        return sparse.csr_matrix(parts, shape=shape, ctx=ctx)
+    if stype == "row_sparse" and len(parts) == 2:
+        return sparse.row_sparse_array(parts, shape=shape, ctx=ctx)
+    raise MXNetError(f"sparse_from_numpy: {stype!r} with {len(parts)} "
+                     "components (csr takes data, indices, indptr; "
+                     "row_sparse takes data, indices)")

@@ -439,7 +439,7 @@ KNOBS = {
         "unported", f"gluon.model_zoo.model_store ({_11})",
         "pretrained-weight repo URL"),
     "MXNET_TEST_SEED": (
-        "unported", f"test_utils ({_11})", "fixed seed for seeded tests"),
+        "wired", "test_utils", "fixed seed for seeded tests (with_seed)"),
     "MXNET_INT64_TENSOR_SIZE": (
         "accepted", "-", "torch tensors always take 64-bit sizes"),
     "MXNET_ENFORCE_DETERMINISM": (

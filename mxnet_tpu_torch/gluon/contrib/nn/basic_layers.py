@@ -1,8 +1,8 @@
-"""Contrib layers: Concurrent, HybridConcurrent, Identity and
-PixelShuffle1D/2D.
+"""Contrib layers: Concurrent, HybridConcurrent, Identity, SparseEmbedding
+and PixelShuffle1D/2D.
 
 The PyTorch counterparts of ``mxnet_tpu/gluon/contrib/nn/basic_layers.py:
-17-52,72-101`` (reference: python/mxnet/gluon/contrib/nn/basic_layers.py).
+17-101`` (reference: python/mxnet/gluon/contrib/nn/basic_layers.py).
 The concurrent blocks run every child on the same input and concatenate
 the outputs along ``axis``; DenseNet, Inception and SqueezeNet are made
 of them.
@@ -12,8 +12,8 @@ from __future__ import annotations
 from ...block import HybridBlock
 from ...nn.basic_layers import HybridSequential, Sequential
 
-__all__ = ["Concurrent", "HybridConcurrent", "Identity", "PixelShuffle1D",
-           "PixelShuffle2D"]
+__all__ = ["Concurrent", "HybridConcurrent", "Identity", "SparseEmbedding",
+           "PixelShuffle1D", "PixelShuffle2D"]
 
 
 class Concurrent(Sequential):
@@ -51,6 +51,27 @@ class Identity(HybridBlock):
 
     def hybrid_forward(self, F, x):
         return x
+
+
+class SparseEmbedding(HybridBlock):
+    """An embedding whose weight asks for a ``row_sparse`` gradient
+    (reference: contrib/nn/basic_layers.py SparseEmbedding). As in the
+    JAX package, ``grad_stype`` is recorded and the gradient autograd
+    writes is dense; a ``row_sparse`` gradient made by the caller (for
+    example ``nd.sparse.dot(x, g, transpose_a=True)
+    .tostype("row_sparse")``) takes the optimizers' lazy row updates."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._kwargs = {"input_dim": input_dim, "output_dim": output_dim}
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim), dtype=dtype,
+                init=weight_initializer, grad_stype="row_sparse")
+
+    def hybrid_forward(self, F, x, weight):
+        return F.embedding(x, weight, **self._kwargs)
 
 
 class PixelShuffle1D(HybridBlock):

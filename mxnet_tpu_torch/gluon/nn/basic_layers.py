@@ -297,10 +297,13 @@ class GroupNorm(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """Reference: basic_layers.py Embedding (op: indexing_op.h)."""
+    """Reference: basic_layers.py Embedding (op: indexing_op.h).
+    ``sparse_grad`` is accepted and changes nothing, as in the JAX
+    package: the weight's gradient is dense."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
-                 weight_initializer=None, prefix=None, params=None):
+                 weight_initializer=None, sparse_grad=False, prefix=None,
+                 params=None):
         super().__init__(prefix=prefix, params=params)
         self._input_dim = input_dim
         self._output_dim = output_dim

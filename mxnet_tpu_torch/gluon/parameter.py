@@ -39,11 +39,16 @@ class DeferredInitializationError(MXNetError):
 
 
 class Parameter:
-    """A Block parameter (reference: gluon/parameter.py:48)."""
+    """A Block parameter (reference: gluon/parameter.py:48).
+
+    ``stype`` and ``grad_stype`` are accepted, as the JAX package accepts
+    them, and change nothing: the value is dense and autograd writes a
+    dense gradient (``tests/test_torch_sparse.py`` pins it)."""
 
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
                  lr_mult=1.0, wd_mult=1.0, init=None,
-                 allow_deferred_init=False):
+                 allow_deferred_init=False, stype="default",
+                 grad_stype="default"):
         self.name = name
         if grad_req not in _GRAD_REQS:
             raise ValueError(f"grad_req must be one of {_GRAD_REQS}, got "

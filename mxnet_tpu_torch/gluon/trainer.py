@@ -56,6 +56,7 @@ from .. import optimizer as opt
 from ..context import cuda_graph
 from ..ndarray import NDArray
 from ..ndarray import registry as _registry
+from ..ndarray import sparse as _sp
 from ..resilience import faults as _faults
 from ..telemetry import tracer as _telem
 from . import fused_step as _fs
@@ -256,7 +257,9 @@ class Trainer:
 
     def _fused_group(self, kernel_key, scaler_cfg):
         """The work set and the LRU key of the current parameter group:
-        a dict, or ``"empty"`` when no parameter takes gradients."""
+        a dict, ``"empty"`` when no parameter takes gradients, or None
+        when a gradient is sparse (the eager loop's lazy updates take
+        it)."""
         optim = self._optimizer
         work = [i for i, p in enumerate(self._params)
                 if p.grad_req != "null"]
@@ -264,6 +267,8 @@ class Trainer:
             return "empty"
         params = [self._params[i] for i in work]
         grads = [p.grad() for p in params]
+        if any(isinstance(g, _sp.BaseSparseNDArray) for g in grads):
+            return None  # the per-tensor path (``mxnet_tpu`` trainer:384)
         states = [self._states[i] for i in work]
         mp_flags = tuple(bool(optim.multi_precision and
                               optim._is_half(p.data())) for p in params)
@@ -301,12 +306,12 @@ class Trainer:
         addresses, so a change (a cast, a new gradient buffer) rebuilds."""
         return tuple((p._ndarray.data.data_ptr(), p._ndarray.data.dtype,
                       None if p._ndarray.grad is None
-                      else p._ndarray.grad.data.data_ptr()) for p in params)
+                      else p._ndarray.grad._data.data_ptr()) for p in params)
 
     def _fused_prepare(self, scaler):
         """This trainer's fused group for the current signature, built or
-        reused; None when the optimizer has no fused kernel, ``"empty"``
-        when nothing takes gradients."""
+        reused; None when the optimizer has no fused kernel or a gradient
+        is sparse, ``"empty"`` when nothing takes gradients."""
         optim = self._optimizer
         kern = optim._fused_kernel()
         if kern is None:
@@ -330,7 +335,7 @@ class Trainer:
             return cache
         t0 = time.monotonic()
         group = self._fused_group(kernel_key, scaler_cfg)
-        if group == "empty":
+        if group is None or group == "empty":
             return group
         fn = self._fused_entry(group, kernel, scaler_cfg)
         dev = self._device()
@@ -399,7 +404,8 @@ class Trainer:
 
     def _fused_step(self, batch_size, scaler):
         """One fused step; False sends the caller to the eager loop (an
-        optimizer with no fused kernel, counted as a bypass)."""
+        optimizer with no fused kernel, or a sparse gradient; counted as
+        a bypass)."""
         cache = self._fused_prepare(scaler)
         if cache is None:
             _fs._CACHE.note_bypass()
@@ -556,10 +562,20 @@ class Trainer:
         during backward. Nothing with a local store."""
         if not self._distributed:
             return
-        from .. import parallel
+        from .. import _rendezvous, parallel
 
         grads = [p.grad() for p in self._params
                  if p.grad_req != "null" and p._ndarray is not None]
+        sparse = [g for g in grads if isinstance(g, _sp.BaseSparseNDArray)]
+        if sparse and _rendezvous.world_size() > 1:
+            # the JAX trainer all-reduces a sparse gradient's values
+            # position by position (right only where every rank stores
+            # the same rows); a correct sparse reduce is not written yet
+            raise MXNetError(
+                f"{len(sparse)} row_sparse gradients across "
+                f"{_rendezvous.world_size()} processes: the sparse reduce "
+                "over ranks is not written yet")
+        grads = [g for g in grads if not isinstance(g, _sp.BaseSparseNDArray)]
         gc = self._compression
         if gc is not None:
             with torch.no_grad():

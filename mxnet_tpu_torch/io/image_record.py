@@ -1,4 +1,5 @@
-"""ImageRecordIter, ImageDetRecordIter and LibSVMIter.
+"""ImageRecordIter, ImageDetRecordIter and LibSVMIter (CSR batches from a
+LibSVM text file, parsed by ``csrc/textio.cc``).
 
 The PyTorch counterpart of ``mxnet_tpu/io/image_record.py`` (reference:
 src/io/iter_image_recordio_2.cc: chunked record read, parallel JPEG
@@ -404,10 +405,114 @@ class ImageDetRecordIter(ImageRecordIter):
 
 
 class LibSVMIter(DataIter):
-    """Reference: src/io/iter_libsvm.cc. It yields CSR batches, which
-    need the port's sparse arrays (slice 11)."""
+    """Batches of CSR rows from a LibSVM text file (reference:
+    src/io/iter_libsvm.cc; the JAX package's
+    ``io/image_record.py:361-480``).
 
-    def __init__(self, *args, **kwargs):
-        raise MXNetError(
-            "LibSVMIter yields CSR batches, and the port has no sparse "
-            "arrays yet (ndarray/sparse.py, slice 11)")
+    The file is parsed once, at construction, by the multithreaded parser
+    of ``csrc/textio.cc`` (built with ``g++`` at first use; a failed build
+    or a malformed line raises :class:`MXNetError`, and there is no
+    Python parse to fall back to). Labels are each line's first token, or
+    the lines of ``label_libsvm``. Column ids are taken as written. Each
+    batch is a ``CSRNDArray`` of shape ``(batch_size, data_shape[-1])``
+    (int32 ids, float32 values) and a float32 label array, both on the
+    iterator's device (``ctx``, default the current context); a short
+    last batch is filled from the start of the data and ``pad`` says how
+    many rows, as the JAX iterator does whatever ``round_batch`` says."""
+
+    def __init__(self, data_libsvm, data_shape, batch_size,
+                 label_libsvm=None, round_batch=True, ctx=None, **kwargs):
+        from ..context import resolve_device
+
+        super().__init__(batch_size)
+        self.data_shape = tuple(data_shape) if hasattr(data_shape, "__len__") \
+            else (data_shape,)
+        self._ncol = self.data_shape[-1]
+        self._device = resolve_device(ctx)
+        inline = label_libsvm is None
+        values, indices, indptr, labels = _parse_libsvm(data_libsvm, inline)
+        if not inline:
+            with open(label_libsvm) as f:
+                labels = onp.asarray([float(line.split()[0]) for line in f
+                                      if line.split()], onp.float32)
+            if len(labels) != len(indptr) - 1:
+                raise ValueError("label_libsvm has %d rows, data has %d"
+                                 % (len(labels), len(indptr) - 1))
+        self._values, self._indices, self._indptr = values, indices, indptr
+        self._labels = labels
+        self.round_batch = round_batch
+        self._cursor = 0
+        self.num_data = len(labels)
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size, self._ncol))]
+
+    @property
+    def provide_label(self):
+        return [DataDesc("softmax_label", (self.batch_size,))]
+
+    def reset(self):
+        self._cursor = 0
+
+    def _rows(self, rows):
+        """The CSR parts (host tensors: float32 values, int32 ids and
+        indptr) of ``rows``, in that order."""
+        starts = self._indptr[rows]
+        lens = self._indptr[rows + 1] - starts
+        ip = onp.zeros(len(rows) + 1, onp.int64)
+        onp.cumsum(lens, out=ip[1:])
+        pos = onp.arange(ip[-1], dtype=onp.int64) + onp.repeat(
+            starts - ip[:-1], lens)
+        return (torch.from_numpy(self._values[pos]),
+                torch.from_numpy(self._indices[pos].astype(onp.int32)),
+                torch.from_numpy(ip.astype(onp.int32)))
+
+    def next(self):
+        from ..context import host_to_device
+        from ..ndarray.sparse import CSRNDArray
+
+        if self._cursor >= self.num_data:
+            raise StopIteration
+        lo = self._cursor
+        hi = min(lo + self.batch_size, self.num_data)
+        self._cursor = lo + self.batch_size
+        pad = self.batch_size - (hi - lo)
+        rows = onp.concatenate([onp.arange(lo, hi),
+                                onp.arange(pad) % self.num_data])
+        dev = self._device
+        vals, ind, ip = (host_to_device(t, dev) for t in self._rows(rows))
+        data = CSRNDArray(vals, ind, ip, (self.batch_size, self._ncol))
+        label = NDArray(host_to_device(torch.from_numpy(self._labels[rows]),
+                                       dev))
+        return DataBatch(data=[data], label=[label], pad=pad,
+                         provide_data=self.provide_data,
+                         provide_label=self.provide_label)
+
+
+def _parse_libsvm(path, inline_labels):
+    """(values float32, indices int64, indptr int64, labels float32) of
+    a LibSVM file, by ``csrc/textio.cc``'s parser (labels empty unless
+    ``inline_labels``)."""
+    from .. import _native
+
+    lib = _native.text_lib()
+    h = lib.svm_parse(str(path).encode(), 1 if inline_labels else 0)
+    if not h:
+        raise MXNetError(f"libsvm parse failed: "
+                         f"{lib.textio_last_error().decode()}")
+    try:
+        rows, nnz = lib.svm_rows(h), lib.svm_nnz(h)
+
+        def arr(ptr, n, dtype):
+            if n == 0:
+                return onp.zeros(0, dtype)
+            return onp.ctypeslib.as_array(ptr, shape=(n,)).copy()
+
+        return (arr(lib.svm_data(h), nnz, onp.float32),
+                arr(lib.svm_indices(h), nnz, onp.int64),
+                arr(lib.svm_indptr(h), rows + 1, onp.int64),
+                arr(lib.svm_labels(h), rows, onp.float32)
+                if inline_labels else onp.zeros(0, onp.float32))
+    finally:
+        lib.svm_free(h)

@@ -386,21 +386,43 @@ class MNISTIter(NDArrayIter):
                          shuffle=bool(shuffle), last_batch_handle="discard")
 
 
+def _parse_csv(path):
+    """A float32 (rows, columns) array of a CSV file, parsed by the
+    multithreaded parser of ``csrc/textio.cc`` (the JAX package's
+    ``native/textio.cc``; reference: src/io/iter_csv.cc), built with
+    ``g++`` at first use. Blank lines are skipped and ``#`` starts a
+    comment, as ``numpy.loadtxt`` has it; a ragged or malformed file
+    raises :class:`MXNetError`, and so does a failed build: there is no
+    Python parse to fall back to."""
+    from .. import _native
+    from ..base import MXNetError
+
+    lib = _native.text_lib()
+    h = lib.csv_parse(str(path).encode())
+    if not h:
+        raise MXNetError(f"CSV parse failed: "
+                         f"{lib.textio_last_error().decode()}")
+    try:
+        rows, cols = lib.csv_rows(h), lib.csv_cols(h)
+        if rows * cols == 0:
+            return onp.zeros((rows, cols), dtype=onp.float32)
+        return onp.ctypeslib.as_array(lib.csv_data(h), shape=(
+            rows * cols,)).reshape(rows, cols).copy()
+    finally:
+        lib.csv_free(h)
+
+
 class CSVIter(NDArrayIter):
     """Batches from CSV files of numbers (reference: src/io/iter_csv.cc),
-    parsed with numpy; the last batch padded (``round_batch``) or
-    discarded."""
+    parsed natively (:func:`_parse_csv`); the last batch padded
+    (``round_batch``) or discarded."""
 
     def __init__(self, data_csv, data_shape, label_csv=None, label_shape=(1,),
                  batch_size=1, round_batch=True, **kwargs):
-        def parse(path):
-            return onp.loadtxt(path, delimiter=",", dtype=onp.float32,
-                               ndmin=2)
-
-        data = parse(data_csv).reshape((-1,) + tuple(data_shape))
+        data = _parse_csv(data_csv).reshape((-1,) + tuple(data_shape))
         label = None
         if label_csv is not None:
-            label = parse(label_csv).reshape((-1,) + tuple(label_shape))
+            label = _parse_csv(label_csv).reshape((-1,) + tuple(label_shape))
         super().__init__(data, label, batch_size=batch_size,
                          last_batch_handle="pad" if round_batch
                          else "discard")

@@ -28,8 +28,20 @@ quantizes every dense push with per-source error-feedback residuals.
 ``MXNET_KVSTORE_BIGARRAY_BOUND`` row-shards a big value over a
 process's local devices in the JAX package; a rank here holds one
 device, where the JAX package changes no layout either, so the knob is
-not read. The port has no sparse arrays yet (slice 11), so
-every value is dense.
+not read.
+
+Sparse values (``ndarray/sparse.py``), as in the JAX package: a list
+push of ``row_sparse`` gradients is summed with ``sparse.elemwise_add``
+(duplicate rows merged, sorted), and compression and the device-group
+reduce skip sparse values; the updater gets the sparse aggregate (the
+optimizers' lazy row updates), and without one a sparse aggregate is
+added into the stored value, which then becomes that sum. ``pull``
+densifies a sparse stored value; ``row_sparse_pull`` writes each
+requested row of the value, gathered densely, into ``out``. A ``dist*``
+store across more than one process refuses a sparse push: the JAX
+package's all-reduce sums a sparse value's values position by position,
+which is right only where every rank holds the same rows, and a correct
+sparse reduce is not written yet (ROADMAP).
 """
 from __future__ import annotations
 
@@ -42,6 +54,7 @@ import torch
 from .base import MXNetError, getenv
 from . import ndarray as nd
 from .ndarray import NDArray
+from .ndarray import sparse as _sp
 
 __all__ = ["KVStore", "create"]
 
@@ -254,10 +267,12 @@ class KVStore:
             k = str(k)
             if isinstance(v, (list, tuple)):
                 vs = list(v)
-                if self._compression is not None:
+                sparse = any(isinstance(x, _sp.BaseSparseNDArray)
+                             for x in vs)
+                if self._compression is not None and not sparse:
                     vs = [self._compress(k, i, x) for i, x in enumerate(vs)]
                 agg = None
-                if len(vs) > 1:
+                if len(vs) > 1 and not sparse:
                     try:
                         agg = parallel.group_all_reduce(vs)[0]
                     except MXNetError:
@@ -265,14 +280,20 @@ class KVStore:
                 if agg is None:
                     agg = vs[0]
                     for x in vs[1:]:
-                        agg = agg + x
+                        # sparse values sum sparse (reference: comm.h:478)
+                        agg = _sp.elemwise_add(agg, x) if sparse else \
+                            agg + x
             else:
                 agg = v
-                if self._compression is not None:
+                if self._compression is not None and not isinstance(
+                        agg, _sp.BaseSparseNDArray):
                     agg = self._compress(k, 0, agg)
             if k not in self._store:
                 raise MXNetError(f"key {k} was not initialized")
             if self._ps is not None:
+                if isinstance(agg, _sp.BaseSparseNDArray):
+                    raise MXNetError(_SPARSE_DIST.format(
+                        self._type, self.num_workers))
                 self._ps.push(k, agg)
                 continue
             if self._async_mode:
@@ -283,13 +304,22 @@ class KVStore:
     def _apply_update(self, k, agg):
         from . import parallel
 
+        sparse = isinstance(agg, _sp.BaseSparseNDArray)
         if self._type.startswith("dist"):
-            agg = parallel.all_reduce(agg)
+            if not sparse:
+                agg = parallel.all_reduce(agg)
+            elif self.num_workers > 1:
+                raise MXNetError(_SPARSE_DIST.format(self._type,
+                                                     self.num_workers))
         stored = self._store[k]
-        if agg.data.device != stored.data.device:
-            agg = NDArray(agg.data.to(stored.data.device))
+        if agg._data.device != stored._data.device:
+            agg = agg.as_in_context(stored.context) if sparse else \
+                NDArray(agg.data.to(stored.data.device))
         if self._updater is not None:
             self._updater(_key_to_int(k), agg, stored)
+        elif sparse or isinstance(stored, _sp.BaseSparseNDArray):
+            # the sum may change the stored rows or the format
+            self._store[k] = _sp.elemwise_add(stored, agg)
         else:
             with torch.no_grad():
                 stored.data.copy_(stored.data + agg.data)
@@ -312,6 +342,8 @@ class KVStore:
             with torch.no_grad():
                 if self._ps is not None:
                     src.data.copy_(torch.from_numpy(self._ps.pull(k)))
+                if isinstance(src, _sp.BaseSparseNDArray):
+                    src = src.todense()
                 for t in (o if isinstance(o, (list, tuple)) else [o]):
                     t.data.copy_(src.data)
 
@@ -322,14 +354,18 @@ class KVStore:
             self.pull(key, out, priority)
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        """The rows ``row_ids`` of each value (dense here: the port has no
-        sparse arrays yet)."""
+        """The rows ``row_ids`` of each value, gathered densely: ``out``
+        is rebound to a ``(len(row_ids),) + row shape`` array on the
+        value's device, as the JAX store rebinds it (a sparse stored
+        value is densified first)."""
         if self._async_mode:
             self._async_flush()
         keys, outs, _ = self._normalize(key, out)
         _, rids, _ = self._normalize(key, row_ids)
         for k, o, r in zip(keys, outs, rids):
             src = self._store[str(k)]
+            if isinstance(src, _sp.BaseSparseNDArray):
+                src = src.todense()
             targets = o if isinstance(o, (list, tuple)) else [o]
             rows = r if isinstance(r, (list, tuple)) else [r] * len(targets)
             for t, rid in zip(targets, rows):
@@ -398,6 +434,12 @@ class KVStore:
         else:
             with Context.from_device(dev):
                 self._updater.set_states(blob)
+
+
+_SPARSE_DIST = ("a sparse push to a {} store across {} processes: the sum "
+                "of row_sparse values over ranks (each with its own rows) "
+                "is not written yet; densify with .tostype('default') "
+                "first")
 
 
 def _key_to_int(k):

@@ -24,7 +24,8 @@ __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "concatenate", "expand_dims", "moveaxis", "waitall", "from_numpy",
            "from_dlpack", "to_dlpack_for_read", "to_dlpack_for_write",
            "stack_list", "save", "load", "load_frombuffer", "registry",
-           "random", "Custom", "contrib", "linalg", "image"]
+           "random", "Custom", "contrib", "linalg", "image", "sparse",
+           "CSRNDArray", "RowSparseNDArray", "cast_storage"]
 
 # the JAX package's table (``mxnet_tpu/ndarray/__init__.py:41-85``); the
 # first alias per target is the name ``Symbol.tojson`` writes
@@ -164,3 +165,8 @@ image = _prefix_namespace("image")
 # detection ops and the other contrib-named ops, with their CamelCase
 # spellings, and the eager control flow
 from . import contrib  # noqa: E402
+
+# ``mx.nd.sparse`` and its classes (the JAX package's
+# ``ndarray/__init__.py:34-35``)
+from . import sparse  # noqa: E402
+from .sparse import CSRNDArray, RowSparseNDArray, cast_storage  # noqa: E402

@@ -15,7 +15,8 @@ count depends on the data cannot be captured in a CUDA graph, and
 package's list, and ``_CONTRIB_ALIASES`` their CamelCase spellings;
 :func:`_install` raises on a listed name that is not registered, as the
 JAX package's does. ``reset_arrays`` zeroes its inputs in place, the
-reference's contract.
+reference's contract. The DGL graph ops (``ops_dgl.py``) are here under
+the reference's names, and ``getnnz`` counts a CSR's stored values.
 """
 from __future__ import annotations
 
@@ -105,20 +106,47 @@ def cond(pred, then_func, else_func):
 
 
 def getnnz(data, axis=None):
-    """Non-zero count of a dense array (reference: contrib/nnz.cc
-    _contrib_getnnz; axis None: total as a (1,) array; else per axis),
-    int32. The CSR branch waits for the sparse storage types."""
+    """Stored-value count of a CSRNDArray (reference: contrib/nnz.cc
+    _contrib_getnnz; axis None: the total as a (1,) array, axis 1: per
+    row, axis 0 unsupported there too); a dense array's non-zero count
+    (total, or per axis). int32, on the array's device."""
     from .ndarray import NDArray
+    from .sparse import BaseSparseNDArray, CSRNDArray
 
+    if isinstance(data, CSRNDArray):
+        if axis is None:
+            return NDArray(torch.full((1,), data.nnz, dtype=torch.int32,
+                                      device=data._data.device))
+        if axis == 1:
+            ptr = data._indptr
+            return NDArray((ptr[1:] - ptr[:-1]).to(torch.int32))
+        raise NotImplementedError(
+            "getnnz with axis=0 is not supported (reference nnz.cc:124)")
+    if isinstance(data, BaseSparseNDArray):
+        raise TypeError("getnnz supports csr storage (reference nnz.cc), "
+                        f"got stype '{data.stype}'")
     x = data._data if isinstance(data, NDArray) else torch.as_tensor(data)
     if axis is None:
         return NDArray((x != 0).sum().reshape(1).to(torch.int32))
     return NDArray((x != 0).sum(dim=axis).to(torch.int32))
 
 
+# the DGL graph-sampling ops (host work over the CSR arrays; reference:
+# src/operator/contrib/dgl_graph.cc) under the reference's public names,
+# as the JAX package's ``ndarray/contrib.py:263-269`` exposes them
+from .ops_dgl import (  # noqa: E402
+    edge_id, dgl_adjacency, dgl_subgraph, dgl_graph_compact,
+    csr_neighbor_uniform_sample as dgl_csr_neighbor_uniform_sample,
+    csr_neighbor_non_uniform_sample as dgl_csr_neighbor_non_uniform_sample)
+
+_DGL_NAMES = ["edge_id", "dgl_adjacency", "dgl_subgraph", "dgl_graph_compact",
+              "dgl_csr_neighbor_uniform_sample",
+              "dgl_csr_neighbor_non_uniform_sample"]
+
+
 def _public_names():
     return (["foreach", "while_loop", "cond", "reset_arrays", "getnnz"]
-            + _CONTRIB_OPS + list(_CONTRIB_ALIASES))
+            + _DGL_NAMES + _CONTRIB_OPS + list(_CONTRIB_ALIASES))
 
 
 # the JAX package's list (``mxnet_tpu/ndarray/contrib.py:207-217``)

@@ -130,8 +130,8 @@ class NDArray:
 
     @property
     def stype(self):
-        """The storage type: dense ("default"); the sparse storage types
-        are not ported yet."""
+        """The storage type: "default" (dense); ``sparse.CSRNDArray`` and
+        ``sparse.RowSparseNDArray`` say "csr" and "row_sparse"."""
         return "default"
 
     def asnumpy(self):
@@ -203,16 +203,19 @@ class NDArray:
         return self
 
     def as_np_ndarray(self):
-        raise MXNetError("as_np_ndarray: the mx.np front end (ROADMAP A, "
-                         "slice 11) is not ported yet")
+        raise MXNetError("as_np_ndarray: the mx.np front end (numpy/ and "
+                         "numpy_extension/, ROADMAP A's slice 11) is not "
+                         "ported yet")
 
     def tostype(self, stype):
-        """This array for ``stype`` "default"; the sparse storage types
-        wait for ROADMAP A's slice 11 and raise."""
+        """This array in storage ``stype``: itself for "default", else a
+        ``sparse.CSRNDArray`` ("csr") or ``sparse.RowSparseNDArray``
+        ("row_sparse") on the same device (``sparse.cast_storage``)."""
         if stype == "default":
             return self
-        raise MXNetError(f"tostype({stype!r}): sparse storage (ROADMAP A, "
-                         "slice 11) is not ported yet")
+        from . import sparse
+
+        return sparse.cast_storage(self, stype)
 
     def to_dlpack_for_read(self):
         return to_dlpack_for_read(self)
@@ -635,6 +638,8 @@ def array(source_array, ctx=None, dtype=None):
     """An NDArray copy of ``source_array`` on ``ctx``. The dtype is
     ``dtype`` if given, else the source's, with float64 (and Python
     lists of floats) narrowed to float32 as in MXNet."""
+    if getattr(ctx, "device_type", None) == "cpu_shared":
+        return _shared_array(source_array, dtype)
     dev = resolve_device(ctx)
     if isinstance(source_array, NDArray):
         src = source_array.data
@@ -645,6 +650,28 @@ def array(source_array, ctx=None, dtype=None):
         dt = torch_dtype(dtype) if dtype is not None else src.dtype
         return NDArray(src.to(device=dev, dtype=dt, copy=True))
     return NDArray(host_tensor(source_array, dtype).to(dev, copy=True))
+
+
+def _shared_array(source_array, dtype):
+    """``array(..., ctx=Context("cpu_shared"))``: a copy in shared memory
+    (``shared_mem.to_shared``), with the JAX package's dtype rules: the
+    source's dtype, float64 narrowed to float32, for arrays; float32 for
+    Python lists and scalars."""
+    from .shared_mem import to_shared
+
+    if isinstance(source_array, NDArray):
+        t = source_array.data.detach().cpu()
+    elif isinstance(source_array, torch.Tensor):
+        t = source_array.detach().cpu()
+    elif isinstance(source_array, onp.ndarray):
+        t = host_tensor(source_array)
+    else:
+        t = torch.from_numpy(onp.asarray(source_array, dtype=onp.float32))
+    if dtype is not None:
+        t = t.to(torch_dtype(dtype))
+    elif t.dtype == torch.float64:
+        t = t.to(torch.float32)
+    return to_shared(t)
 
 
 def host_tensor(source_array, dtype=None):
@@ -797,6 +824,8 @@ def _host_array(a):
     """A host numpy array of ``a``, widened to the nearest lossless
     type flag the format has (bfloat16 to float32, as the JAX package
     does)."""
+    if getattr(a, "stype", "default") != "default":
+        a = a.todense()  # a sparse array is saved dense, as the JAX one
     if isinstance(a, NDArray):
         a = a.data
     if isinstance(a, torch.Tensor):

@@ -6,6 +6,7 @@ import torch
 
 from ..ndarray import NDArray
 from ..ndarray import ops_optim as _oo
+from ..ndarray import sparse as _sp
 from .optimizer import Optimizer, register
 
 __all__ = ["GroupAdaGrad"]
@@ -19,8 +20,10 @@ class GroupAdaGrad(Optimizer):
         history += mean(grad^2, axis=1, keepdims=True)
         weight -= lr * grad / sqrt(history + eps)
 
-    No weight decay (the reference asserts it is 0). Dense gradients
-    only: the lazy row-sparse update waits for the sparse types."""
+    No weight decay (the reference asserts it is 0). A ``row_sparse``
+    gradient updates its stored rows and their histories alone
+    (``sparse.group_adagrad_update_rsp``), the lazy update embedding
+    tables rely on."""
 
     def __init__(self, eps=1e-5, **kwargs):
         super().__init__(**kwargs)
@@ -38,6 +41,12 @@ class GroupAdaGrad(Optimizer):
         lr = self._get_lr(index)
         assert self._get_wd(index) == 0, \
             "Weight decay is not supported for GroupAdaGrad"
+        if isinstance(grad, _sp.RowSparseNDArray):
+            _sp.group_adagrad_update_rsp(
+                weight, grad, state, lr, epsilon=self.float_stable_eps,
+                rescale_grad=self.rescale_grad,
+                clip_gradient=self.clip_gradient)
+            return
         w, h = weight.data, state.data
         with torch.no_grad():
             g = grad.data * self.rescale_grad

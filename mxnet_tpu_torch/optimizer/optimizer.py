@@ -24,8 +24,14 @@ eager per-parameter loop. ``LARS`` and ``LBSGD`` (its ``"lars"``
 strategy) read two norms per parameter back to the host, where the JAX
 package reads them, so each of their steps waits for the device.
 ``SGLD`` draws its noise from the device's generator, which never
-agrees with the JAX package's threefry stream. Sparse gradients wait
-for the sparse types (ROADMAP).
+agrees with the JAX package's threefry stream.
+
+A ``row_sparse`` gradient (the store's sparse push, ``ndarray/sparse.py``)
+takes the lazy row update where the JAX package has one: SGD without
+momentum when ``lazy_update`` (``sparse.sgd_update_rsp``), Adam when
+``lazy_update`` (``sparse.adam_update_rsp``); otherwise it is densified
+and takes the dense update, as the JAX optimizers do. The Updater
+aggregates a list of dense gradients only.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ import torch
 from ..base import getenv
 from ..ndarray import NDArray
 from ..ndarray import ops_optim as _oo
+from ..ndarray import sparse as _sp
 
 __all__ = ["Optimizer", "register", "create", "SGD", "NAG", "Adam",
            "AdaGrad", "RMSProp", "AdaDelta", "Ftrl", "SignSGD", "Signum",
@@ -118,7 +125,9 @@ class Optimizer:
         as its cast; a plain update otherwise."""
         if self.multi_precision and self._is_half(weight):
             master, base_state = state
-            g32 = NDArray(grad.data.to(torch.float32))
+            g32 = grad.astype("float32") if isinstance(
+                grad, _sp.BaseSparseNDArray) else \
+                NDArray(grad.data.to(torch.float32))
             self.update(index, master, g32, base_state)
             with torch.no_grad():
                 weight.data.copy_(master.data)
@@ -178,6 +187,12 @@ class Optimizer:
     def _get_wd(self, index):
         return self.wd * self._wd_mult_of(index)
 
+    def _sparse_kwargs(self):
+        """The rescale and the clip as the lazy row updates take them
+        (None: no clip)."""
+        return {"rescale_grad": self.rescale_grad,
+                "clip_gradient": self.clip_gradient}
+
     def _clip(self):
         """clip_gradient as the ops take it: a value <= 0 disables it."""
         return -1.0 if self.clip_gradient is None else \
@@ -226,6 +241,14 @@ class SGD(Optimizer):
     def update(self, index, weight, grad, state):
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
+        if isinstance(grad, _sp.RowSparseNDArray):
+            # the stored rows alone (reference: SGDUpdateRspImpl);
+            # momentum densifies, as the reference's std_update path does
+            if state is None and self.lazy_update:
+                _sp.sgd_update_rsp(weight, grad, lr=lr, wd=wd,
+                                   **self._sparse_kwargs())
+                return
+            grad = grad.todense()
         if state is None:
             _oo.sgd_update(weight.data, grad.data, lr, wd=wd,
                            rescale_grad=self.rescale_grad,
@@ -354,6 +377,14 @@ class Adam(Optimizer):
         # bias correction on the host in float64 (optimizer.py:361)
         lr *= (1.0 - self.beta2 ** t) ** 0.5 / (1.0 - self.beta1 ** t)
         mean, var = state
+        if isinstance(grad, _sp.RowSparseNDArray):
+            if self.lazy_update:  # reference: AdamUpdateRspImpl
+                _sp.adam_update_rsp(weight, grad, mean, var, lr=lr,
+                                    beta1=self.beta1, beta2=self.beta2,
+                                    epsilon=self.epsilon, wd=wd,
+                                    **self._sparse_kwargs())
+                return
+            grad = grad.todense()
         _oo.adam_update(weight.data, grad.data, mean.data, var.data, lr,
                         beta1=self.beta1, beta2=self.beta2,
                         epsilon=self.epsilon, wd=wd,
@@ -966,7 +997,8 @@ class Updater:
                 self.states[i] = \
                     self.optimizer.create_state_multi_precision(i, w)
                 self.states_synced[i] = True
-        if len(indices) > 1 and self.aggregate_updates:
+        dense = not any(isinstance(g, _sp.BaseSparseNDArray) for g in grads)
+        if len(indices) > 1 and dense and self.aggregate_updates:
             self.optimizer.update_multi(indices, weights, grads,
                                         [self.states[i] for i in indices])
         else:

@@ -118,7 +118,7 @@ class AsyncGradReducer:
         while self._cursor in self._ready:
             g = self._live[self._cursor]._ndarray._grad
             self._cursor += 1
-            if g is None:
+            if not self._reducible(g):
                 continue
             t = g._data
             key = (t.dtype, t.device)
@@ -129,6 +129,15 @@ class AsyncGradReducer:
             if size >= cap:
                 self._dispatch(key)
                 _count("grad_buckets")
+
+    @staticmethod
+    def _reducible(g):
+        """Whether the buckets take ``g``: a dense gradient (a sparse one
+        stays on the Trainer's per-tensor path, as in the JAX package's
+        ``pipeline/grad_sync.py:135``)."""
+        from ..ndarray import sparse as _sp
+
+        return g is not None and not isinstance(g, _sp.BaseSparseNDArray)
 
     def _dispatch(self, key):
         from .. import _rendezvous

@@ -590,9 +590,16 @@ def test_properties_and_transfers():
 
 @pytest.mark.parametrize("what", ["as_np_ndarray", "csr", "row_sparse"])
 def test_sparse_and_np_conversions_wait_for_slice_11(what):
+    """``as_np_ndarray`` still waits for the ``mx.np`` part of slice 11;
+    the sparse conversions are ported (``tests/test_torch_sparse.py``)."""
     t = nd.array(onp.ones((2, 2), "float32"), ctx=CPU)
-    with pytest.raises(MXNetError, match="slice 11"):
-        t.as_np_ndarray() if what == "as_np_ndarray" else t.tostype(what)
+    if what == "as_np_ndarray":
+        with pytest.raises(MXNetError, match="mx.np .*slice 11"):
+            t.as_np_ndarray()
+        return
+    s = t.tostype(what)
+    assert s.stype == what and s.shape == (2, 2) and s.context == CPU
+    assert s.asnumpy().tolist() == [[1.0, 1.0], [1.0, 1.0]]
 
 
 # -- indexing and assignment ----------------------------------------------

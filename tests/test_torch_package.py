@@ -137,6 +137,13 @@ QUANTIZATION_MODULES = [
     "tools/profile_quant.py", "tools/n2_plans.py"]
 
 
+# and those of the sparse storage types, the text parsers and the DGL ops
+SPARSE_MODULES = [
+    "ndarray/sparse.py", "ndarray/ops_dgl.py", "ndarray/shared_mem.py",
+    "test_utils.py", "io/image_record.py", "io/io.py",
+    "tools/profile_sparse.py"]
+
+
 def test_no_module_imports_jax_or_the_jax_package():
     offenders = []
     files = list(_python_files())
@@ -145,7 +152,8 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert set(TRAINING_MODULES) | set(SYMBOLIC_MODULES) | \
         set(RESNET_MODULES) | set(SERVING_MODULES) | \
         set(SYMBOLIC_TRAINING_MODULES) | set(GLUON_SURFACE_MODULES) | \
-        set(DETECTION_MODULES) | set(QUANTIZATION_MODULES) <= scanned
+        set(DETECTION_MODULES) | set(QUANTIZATION_MODULES) | \
+        set(SPARSE_MODULES) <= scanned
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -308,8 +308,10 @@ def test_iterator_recovers_after_a_failed_decode(rec):
 
 
 def test_libsvm_iter_names_what_it_waits_for():
-    with pytest.raises(MXNetError, match="sparse"):
-        tio.LibSVMIter("x.libsvm", (4,), 2)
+    """LibSVMIter is ported (``tests/test_torch_textio.py``); a file that
+    is not there raises, naming it."""
+    with pytest.raises(MXNetError, match="cannot open x.libsvm"):
+        tio.LibSVMIter("x.libsvm", (4,), 2, ctx=mx.cpu())
 
 
 # -- the card's route, on the CPU: the crop kernel's plain version -------------
