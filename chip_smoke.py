@@ -96,7 +96,14 @@ kernels against the plain PyTorch versions:
   parser, ``nd.sparse.dot``, the store's sparse push and
   ``row_sparse_pull`` and the lazy SGD and Adam rows
   (``tools/profile_sparse.py``; no kernel: plain tensor code), and the
-  DGL graph ops on a graph of ogbn-arxiv's size.
+  DGL graph ops on a graph of ogbn-arxiv's size;
+- interchange: ResNet-50 v1 at its published widths trained by
+  ``gluon.contrib.estimator.Estimator.fit`` with its handlers and an
+  ``mx.Monitor``, exported to ONNX by ``contrib.onnx.export_model``
+  through the package's own protobuf codec, imported back by
+  ``import_to_gluon`` and ``import_model`` and served, and loaded
+  through the model store by ``pretrained=True``
+  (``tools/profile_onnx.py``; no kernel).
 
 Run from the root of a checkout, on a machine with one NVIDIA H100:
 
@@ -633,12 +640,34 @@ stream busy until the launch is enqueued, so it is the device's time:
     on the sampled vertices, ``edge_id`` of 1,024 pairs; every output
     bitwise equal to the CPU port's on the same graph, and each op's
     seconds;
-69. report: one JSON line of kernels, then the device line last.
+69. ``resnet50_v1`` (1000 classes, 224 x 224, float32; weights from a
+    numpy seed, explicit prefix) hybridized, trained by ``Estimator.fit``
+    for 2 epochs of 4 seeded batches of 32 on the card (SGD 0.1, momentum
+    0.9, wd 1e-4; ``LoggingHandler``, ``CheckpointHandler``,
+    ``EarlyStoppingHandler``, an ``mx.Monitor`` collecting every 4th
+    step, on which the net runs eagerly) and its twin by a loop written
+    by hand with the same Trainer settings, loss, batches and monitor,
+    both under cuDNN's deterministic algorithms: every parameter and
+    running statistic bitwise equal, the loss finite, the monitor's
+    steps and the checkpoint names as expected; the step times (a
+    device sync at each end) of both;
+70. ``export`` then ``contrib.onnx.export_model`` at (32, 3, 224, 224):
+    the file's bytes, nodes, initializers and seconds; the package's
+    codec reads it back and every initializer is its parameter, bitwise;
+71. ``import_to_gluon(ctx=gpu)``, hybridized, and ``import_model``
+    bound through the Executor predict a seeded batch of 32: both within
+    rtol = atol = 1e-5 of the exported block's logits; the imported
+    block's hybridized predict timed in turns beside the zoo block's;
+72. the exported ``.params`` file staged as ``resnet50_v1-<hash>.params``
+    under ``$MXNET_HOME/models`` with a run-local checksum entry, loaded
+    by ``resnet50_v1(pretrained=True, ctx=gpu, root=...)``: its logits
+    bitwise the exported block's;
+73. report: one JSON line of kernels, then the device line last.
 
 ``python3 chip_smoke.py --chain`` runs phases 1-2, phase 13's export and
 56-58 alone; ``--records`` runs phases 1-2 and 59-62 alone; ``--tail``
 runs phases 1-2 and 63-65 alone; ``--sparse`` runs phases 1 and 66-68
-alone (they build no kernel).
+alone and ``--onnx`` phases 1 and 69-72 (they build no kernel).
 
 Each phase prints the seconds it took.
 
@@ -697,6 +726,7 @@ from mxnet_tpu_torch.tools import launch  # noqa: E402
 from mxnet_tpu_torch.tools import profile_records as prec  # noqa: E402
 from mxnet_tpu_torch.kernels import jpeg_decode as jpk  # noqa: E402
 from mxnet_tpu_torch.tools import profile_sparse as psp  # noqa: E402
+from mxnet_tpu_torch.tools import profile_onnx as po  # noqa: E402
 
 SEED = 20240917
 # GPT-2 small (n_embd 768, n_head 12, n_layer 12, n_positions 1024,
@@ -6929,6 +6959,175 @@ def _sparse_only():
     return 0
 
 
+# the interchange phases (69-72): ResNet-50 v1 at BASELINE.md's widths
+# (1000 classes, 224 x 224, NCHW, float32), batch 32; the imported graphs
+# against the block they were exported from, as tests/test_torch_onnx.py
+# holds them on the CPU
+ONNX_RTOL = ONNX_ATOL = 1e-5
+
+
+def onnx_fit_phase(smi):
+    """Phase 69: ``Estimator.fit`` against the hand-written loop."""
+    phase("69 ResNet-50 v1 through Estimator.fit against a hand-written "
+          "loop")
+    ctx = mx.gpu(0)
+    seed = SEED % 2 ** 31
+    _build.reset_launch_counts()
+    with po.deterministic():
+        net, start = po.build(ctx, seed)
+        hand = po.twin(ctx, start)
+        net.hybridize()
+        hand.hybridize()
+        data = po.batches(ctx, seed + 1)
+        fit = po.fit(net, data, ctx, os.path.join(WORK["dir"], "fit"))
+        loop = po.hand_loop(hand, data, ctx)
+        differ = po.same_parameters(net, hand)
+    launches = _build.launch_counts()
+    if differ:
+        raise RuntimeError(f"Estimator.fit and the hand loop end apart in "
+                           f"{len(differ)} parameters: {differ[:5]}")
+    loss = fit["metrics"][-1][1]
+    if not onp.isfinite(loss):
+        raise RuntimeError(f"fit's loss is not finite: {fit['metrics']}")
+    steps = po.EPOCHS * po.BATCHES
+    if len(fit["step_ms"]) != steps or len(loop["step_ms"]) != steps:
+        raise RuntimeError(f"fit ran {len(fit['step_ms'])} steps and the "
+                           f"loop {len(loop['step_ms'])}, not {steps}")
+    seen = sorted({r[0] for r in fit["monitor_rows"]})
+    if seen != [1, 1 + po.INTERVAL] or \
+            [r[:2] for r in fit["monitor_rows"]] != \
+            [r[:2] for r in loop["monitor_rows"]]:
+        raise RuntimeError(f"the monitor collected steps {seen}")
+    if fit["checkpoints"] != [f"{po.NAME}-epoch{e}.params"
+                              for e in range(1, po.EPOCHS + 1)]:
+        raise RuntimeError(f"checkpoints {fit['checkpoints']}")
+    out = {"card": smi, "steps": steps, "batch": po.BATCH,
+           "fit_step_ms": fit["step_ms"], "hand_step_ms": loop["step_ms"],
+           "fit_median_step_ms": statistics.median(fit["step_ms"]),
+           "hand_median_step_ms": statistics.median(loop["step_ms"]),
+           "fit_cycle_ms": fit["cycle_ms"], "hand_cycle_ms": loop["cycle_ms"],
+           "fit_median_cycle_ms": statistics.median(fit["cycle_ms"]),
+           "hand_median_cycle_ms": statistics.median(loop["cycle_ms"]),
+           "fit_s": fit["fit_s"], "hand_loop_s": loop["loop_s"],
+           "monitor_stats": len(fit["monitor_rows"]),
+           "metrics": fit["metrics"], "log_lines": fit["log_lines"],
+           "checkpoints": fit["checkpoints"], "bitwise": True,
+           "hand_kernel_launches": launches}
+    print(f"  fit: {steps} steps at batch {po.BATCH}, median "
+          f"{out['fit_median_step_ms']:.2f} ms a step against the hand "
+          f"loop's {out['hand_median_step_ms']:.2f}, from a step's start "
+          f"to the next {out['fit_median_cycle_ms']:.2f} against "
+          f"{out['hand_median_cycle_ms']:.2f} ({fit['fit_s']:.2f} s "
+          f"against {loop['loop_s']:.2f} s in all; fit ran first); "
+          f"{len(fit['monitor_rows'])} monitor statistics on steps {seen}; "
+          f"every parameter bitwise equal to the hand loop's; "
+          + "; ".join(fit["log_lines"][-2:]))
+    print("  " + json.dumps(out))
+    del hand
+    gc.collect()
+    torch.cuda.empty_cache()
+    return net, out
+
+
+def onnx_export_phase(smi, net):
+    """Phase 70: ``export`` and ``export_model``; the codec reads the
+    file back and every initializer is its parameter, bitwise."""
+    phase("70 export: HybridBlock.export and contrib.onnx.export_model")
+    path, params_file, model, info = po.export(
+        net, WORK["dir"], (po.BATCH, 3, po.SIZE, po.SIZE))
+    info.update(card=smi, initializers_bitwise=po.check_initializers(
+        model, net))
+    print(f"  {info['onnx_bytes']} bytes, {info['nodes']} nodes, "
+          f"{info['initializers']} initializers (opset {info['opset']}): "
+          f"export_model {info['export_s']:.3f} s after export's "
+          f"{info['block_export_s']:.3f} s; read back by the codec in "
+          f"{info['codec_read_s']:.3f} s, all "
+          f"{info['initializers_bitwise']} parameters bitwise")
+    print("  " + json.dumps(info))
+    return path, params_file, info
+
+
+def onnx_import_phase(smi, net, path):
+    """Phase 71: ``import_to_gluon`` (hybridized) and ``import_model``
+    through the Executor against the exported block; predict times."""
+    phase("71 import: import_to_gluon and import_model on the card")
+    ctx = mx.gpu(0)
+    x = po.batches(ctx, SEED % 2 ** 31 + 2, n=1)[0][0]
+    with po.deterministic():
+        ref = net(x).asnumpy()
+        block, g, e, info = po.import_both(path, ctx, x)
+    worst = {}
+    for what, got in (("import_to_gluon", g), ("executor", e)):
+        if got.shape != ref.shape or not onp.isfinite(got).all():
+            raise RuntimeError(f"{what}: logits {got.shape}, finite "
+                               f"{onp.isfinite(got).all()}")
+        onp.testing.assert_allclose(got, ref, rtol=ONNX_RTOL,
+                                    atol=ONNX_ATOL, err_msg=what)
+        worst[what] = float(onp.abs(got - ref).max())
+    zoo, imported = po.predict_ms([net, block], x, ctx)
+    info.update(card=smi, max_abs_err=worst,
+                zoo_predict_ms=statistics.median(zoo),
+                imported_predict_ms=statistics.median(imported),
+                zoo_predict_ms_range=[min(zoo), max(zoo)],
+                imported_predict_ms_range=[min(imported), max(imported)])
+    print(f"  import_to_gluon {info['import_to_gluon_s']:.3f} s, "
+          f"import_model and bind {info['import_model_bind_s']:.3f} s; "
+          f"logits within {worst} of the exported block's; hybridized "
+          f"predict at batch {po.BATCH}: imported "
+          f"{info['imported_predict_ms']:.2f} ms against the zoo block's "
+          f"{info['zoo_predict_ms']:.2f} (medians of {len(zoo)}, torch's "
+          "cuDNN flags)")
+    print("  " + json.dumps(info))
+    del block
+    return x, ref, info
+
+
+def onnx_store_phase(smi, params_file, x, ref):
+    """Phase 72: the exported .params file through the model store and
+    ``resnet50_v1(pretrained=True)``, bitwise the exported block."""
+    phase("72 pretrained=True through the model store")
+    ctx = mx.gpu(0)
+    root = os.path.join(WORK["home"], "models")
+    t0 = time.perf_counter()
+    with po.deterministic():
+        stored = po.store_load(params_file, root, ctx)
+        load_s = time.perf_counter() - t0
+        stored.hybridize()
+        got = stored(x).asnumpy()
+    if got.tobytes() != ref.tobytes():
+        raise RuntimeError(f"the stored weights' logits are not the "
+                           f"exported block's: max "
+                           f"{float(onp.abs(got - ref).max())}")
+    out = {"card": smi, "file": sorted(os.listdir(root)),
+           "load_s": load_s, "bitwise": True}
+    print(f"  {out['file']} loaded in {load_s:.3f} s; logits bitwise the "
+          "exported block's")
+    print("  " + json.dumps(out))
+    return out
+
+
+def onnx_phases(smi):
+    net, fit = onnx_fit_phase(smi)
+    path, params_file, export = onnx_export_phase(smi, net)
+    x, ref, imported = onnx_import_phase(smi, net, path)
+    store = onnx_store_phase(smi, params_file, x, ref)
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"fit": fit, "export": export, "import": imported,
+            "store": store}
+
+
+def _onnx_only():
+    """``python3 chip_smoke.py --onnx``: phases 1 and 69-72 alone."""
+    t0 = time.perf_counter()
+    smi = device_phase()
+    onnx_phases(smi)
+    phase("done")
+    print(f"phases 69-72 in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def kernel_entry(name, source, replaces, launches, worst, row, shape, smi,
                  **extra):
     entry = {"name": name, "route": "cuda", "source": source,
@@ -6952,7 +7151,8 @@ def main():
     # a hang prints every thread's stack and ends the run inside the
     # driver's 1200 s, rather than holding the card to the limit
     faulthandler.dump_traceback_later(
-        450 if sys.argv[1:] in (["--records"], ["--tail"], ["--sparse"])
+        450 if sys.argv[1:] in (["--records"], ["--tail"], ["--sparse"],
+                                ["--onnx"])
         else 1150,
         exit=True)
     WORK["dir"] = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -6968,6 +7168,8 @@ def main():
             return _tail_only()
         if sys.argv[1:] == ["--sparse"]:
             return _sparse_only()
+        if sys.argv[1:] == ["--onnx"]:
+            return _onnx_only()
         return _main()
     finally:
         shutil.rmtree(WORK["dir"], ignore_errors=True)
@@ -7075,6 +7277,7 @@ def _main():
     gc.collect()
     torch.cuda.empty_cache()
     sparse = sparse_phases(smi)
+    interchange = onnx_phases(smi)
     k4_dist = {"resnet50_dist_sync_gloo_rank0": dist2[0]["k4_fwd"],
                "resnet50_dist_sync_gloo_rank1": dist2[1]["k4_fwd"],
                "resnet50_dist_device_sync_nccl": dist1["k4_fwd"]}
@@ -7329,7 +7532,7 @@ def _main():
         "kv_int8_decode": kv_int8, "batch_dot_routes": quant_k["batch_dot"],
         "dequant_gap_k4608": quant_k["dequant_gap_k4608"],
         "ops_worst": quant_k["ops_worst"]}))
-    phase("69 report")
+    phase("73 report")
     print(f"bf16 ResNet-50 headline layout: {head}")
     print("hybridized: " + json.dumps({
         "resnet50_bf16_nhwc_step_ms": [resnet_hyb[False]["mean_step_ms"],
@@ -7465,6 +7668,18 @@ def _main():
             "unique_rows_per_batch", "peak_device_gb", "leg_peak_gb")}
             for k, v in sparse["legs"].items()},
         "dgl_card_s": sparse["dgl"]["card_graph_s"]}))
+    print("interchange and Fit: " + json.dumps({
+        "card": smi,
+        "fit_median_step_ms": interchange["fit"]["fit_median_step_ms"],
+        "hand_median_step_ms": interchange["fit"]["hand_median_step_ms"],
+        "fit_bitwise_hand_loop": interchange["fit"]["bitwise"],
+        "onnx_bytes": interchange["export"]["onnx_bytes"],
+        "export_s": interchange["export"]["export_s"],
+        "import_to_gluon_s": interchange["import"]["import_to_gluon_s"],
+        "imported_predict_ms": interchange["import"]["imported_predict_ms"],
+        "zoo_predict_ms": interchange["import"]["zoo_predict_ms"],
+        "import_max_abs_err": interchange["import"]["max_abs_err"],
+        "store_bitwise": interchange["store"]["bitwise"]}))
     print(f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -91,6 +91,12 @@ ResNet-50 v1 with a custom-op loss head whose kernels ``rtc`` compiles:
   text parsers of ``csrc/textio.cc``; the DGL graph ops in
   ``nd.contrib``; ``cpu_shared`` arrays; ``mx.test_utils``.
 
+- ``mx.contrib.onnx`` — ONNX export and import over a wire codec of the
+  package's own (no ``protobuf``); ``gluon.contrib.estimator`` (the Fit
+  API and its event handlers); ``mx.Monitor``; ``mx.viz``; the model
+  store behind the zoo's ``pretrained=True``; the legacy
+  ``mx.contrib.{autograd,io,ndarray,symbol}``.
+
 ``HybridBlock.hybridize()`` captures a block's forward, and under
 ``record()`` its backward, as CUDA graphs, one pair per call
 signature (``gluon.CachedOp``).
@@ -172,6 +178,10 @@ from . import ops
 from . import recordio
 from . import image
 from . import test_utils
+from . import monitor
+from .monitor import Monitor
+from . import visualization
+from . import visualization as viz
 from . import initialize as _initialize
 
 # crash tracebacks and a fork-safe engine (reference: src/initialize.cc),
@@ -187,7 +197,8 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "gradient_compression", "kvstore", "kv", "env", "telemetry",
            "profiler", "runtime", "log", "registry", "util", "misc",
            "libinfo", "attribute", "AttrScope", "engine", "storage",
-           "library", "ops", "recordio", "image", "test_utils"]
+           "library", "ops", "recordio", "image", "test_utils", "monitor",
+           "Monitor", "visualization", "viz"]
 
 # the env knobs applied once at import, as the JAX package applies them
 # (``mxnet_tpu/__init__.py:160-168``): the global seed, the profiler's

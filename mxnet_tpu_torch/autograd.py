@@ -40,8 +40,9 @@ import torch
 from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "mark_variables", "backward", "grad", "Function",
-           "get_symbol", "register_grad_ready_hook"]
+           "is_training", "set_recording", "set_training", "mark_variables",
+           "backward", "grad", "Function", "get_symbol",
+           "register_grad_ready_hook"]
 
 
 class _AutogradState(threading.local):
@@ -70,6 +71,26 @@ def is_recording():
 def is_training():
     """Reference: python/mxnet/autograd.py is_training."""
     return _STATE.training
+
+
+def set_recording(is_record):
+    """Turn recording on or off outside a scope; returns the previous
+    state (reference: python/mxnet/autograd.py set_recording). torch's
+    grad mode follows, as inside :func:`record`."""
+    prev = _STATE.recording
+    if is_record and not prev:
+        _STATE.record_scopes += 1
+    _STATE.recording = bool(is_record)
+    torch.set_grad_enabled(bool(is_record))
+    return prev
+
+
+def set_training(train_mode_):
+    """Turn training mode on or off outside a scope; returns the previous
+    state (reference: python/mxnet/autograd.py set_training)."""
+    prev = _STATE.training
+    _STATE.training = bool(train_mode_)
+    return prev
 
 
 def _grad_mode(differentiable=True):

@@ -93,6 +93,9 @@ class Engine:
         self._device_events = {}  # var id -> (device, event) of its writer
         self._h = self._lib.eng_create_lanes(int(nthreads), int(nlanes))
         self._nlanes = int(nlanes)
+        # the process whose worker threads the handle owns; a copy of
+        # this object in a forked child must never reach them
+        self._pid = os.getpid()
 
     def _reserve(self):
         """Pin the native handle for one call; None when closed. Every
@@ -325,6 +328,9 @@ class Engine:
         lock = getattr(self, "_lock", None)
         if lock is None:
             return
+        if getattr(self, "_pid", None) != os.getpid():
+            self._abandon_after_fork()
+            return
         missing = object()
         with lock:
             h = getattr(self, "_h", missing)
@@ -358,6 +364,18 @@ class Engine:
                 pass
         finally:
             self._drained.set()
+
+    def _abandon_after_fork(self):
+        """Drop the handle of an engine inherited across ``fork``
+        without a native call: its worker threads did not survive the
+        fork, so draining or joining them (``eng_wait_all``,
+        ``eng_destroy``) in the child waits on or frees thread state the
+        child does not own (a segfault). The locks may have been copied
+        held, so none is taken; later pushes on this object run inline."""
+        self._h = None
+        self._active = 0
+        self._drained = threading.Event()
+        self._drained.set()
 
     def __del__(self):
         try:

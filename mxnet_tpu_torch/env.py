@@ -26,7 +26,6 @@ __all__ = ["KNOBS", "describe", "check", "get_int", "get_float",
            "get_bool", "get_str", "markdown_table"]
 
 _9B = "slice 9b"
-_11 = "slice 11"
 
 # name -> (status, consumer, description)
 KNOBS = {
@@ -432,12 +431,14 @@ KNOBS = {
         "buckets are MXNET_SERVING_BUCKETS"),
     # -- everything else ----------------------------------------------------
     "MXNET_HOME": (
-        "wired", "utils.compile_cache / autotune.records",
-        "home of the program cache and the TuningRecords (default "
-        "~/.mxnet); the model store comes with slice 11"),
+        "wired", "utils.compile_cache / autotune.records / "
+        "gluon.model_zoo.model_store",
+        "home of the program cache, the TuningRecords and the model "
+        "store's models/ (default ~/.mxnet)"),
     "MXNET_GLUON_REPO": (
-        "unported", f"gluon.model_zoo.model_store ({_11})",
-        "pretrained-weight repo URL"),
+        "accepted", "gluon.model_zoo.model_store",
+        "nothing is downloaded: a weight file is placed in the store "
+        "by hand"),
     "MXNET_TEST_SEED": (
         "wired", "test_utils", "fixed seed for seeded tests (with_seed)"),
     "MXNET_INT64_TENSOR_SIZE": (

@@ -1,6 +1,6 @@
 """``gluon.contrib`` (reference: python/mxnet/gluon/contrib/): the
-``nn`` layers the vision zoo builds on, and ``cnn``'s deformable
-convolution."""
-from . import cnn, nn
+``nn`` layers the vision zoo builds on, ``cnn``'s deformable
+convolution and ``estimator``, the Fit API."""
+from . import cnn, estimator, nn
 
-__all__ = ["cnn", "nn"]
+__all__ = ["cnn", "estimator", "nn"]

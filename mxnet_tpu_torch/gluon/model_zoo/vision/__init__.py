@@ -3,7 +3,7 @@ python/mxnet/gluon/model_zoo/vision/__init__.py get_model:91; the JAX
 package's ``mxnet_tpu/gluon/model_zoo/vision/__init__.py:19-35``): ResNet
 V1 and V2, AlexNet, VGG with and without batch norm, SqueezeNet,
 MobileNet v1 and v2, DenseNet and Inception v3. ``pretrained=True``
-raises: the weights come with the model store (ROADMAP A, slice 11)."""
+loads a weight file from the model store (``model_store.py``)."""
 from . import alexnet as _alexnet
 from . import densenet as _densenet
 from . import inception as _inception

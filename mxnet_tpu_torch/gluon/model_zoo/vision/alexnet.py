@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from ...block import HybridBlock
 from ...nn import Conv2D, Dense, Dropout, Flatten, HybridSequential, MaxPool2D
-from .resnet import _pretrained_error
+from .resnet import _load_pretrained
 
 __all__ = ["AlexNet", "alexnet"]
 
@@ -43,6 +43,7 @@ class AlexNet(HybridBlock):
 
 
 def alexnet(pretrained=False, ctx=None, root=None, **kwargs):
+    net = AlexNet(**kwargs)
     if pretrained:
-        raise _pretrained_error("alexnet")
-    return AlexNet(**kwargs)
+        _load_pretrained(net, "alexnet", ctx, root)
+    return net

@@ -9,7 +9,7 @@ from ...block import HybridBlock
 from ...contrib.nn import HybridConcurrent, Identity
 from ...nn import (Activation, AvgPool2D, BatchNorm, Conv2D, Dense, Dropout,
                    Flatten, GlobalAvgPool2D, HybridSequential, MaxPool2D)
-from .resnet import _pretrained_error
+from .resnet import _load_pretrained
 
 __all__ = ["DenseNet", "densenet121", "densenet161", "densenet169",
            "densenet201"]
@@ -91,10 +91,11 @@ densenet_spec = {121: (64, 32, [6, 12, 24, 16]),
 
 def get_densenet(num_layers, pretrained=False, ctx=None, root=None,
                  **kwargs):
-    if pretrained:
-        raise _pretrained_error(f"densenet{num_layers}")
     num_init_features, growth_rate, block_config = densenet_spec[num_layers]
-    return DenseNet(num_init_features, growth_rate, block_config, **kwargs)
+    net = DenseNet(num_init_features, growth_rate, block_config, **kwargs)
+    if pretrained:
+        _load_pretrained(net, f"densenet{num_layers}", ctx, root)
+    return net
 
 
 def densenet121(**kwargs):

@@ -9,7 +9,7 @@ from ...block import HybridBlock
 from ...contrib.nn import HybridConcurrent
 from ...nn import (Activation, AvgPool2D, BatchNorm, Conv2D, Dense, Dropout,
                    Flatten, HybridSequential, MaxPool2D)
-from .resnet import _pretrained_error
+from .resnet import _load_pretrained
 
 __all__ = ["Inception3", "inception_v3"]
 
@@ -156,6 +156,7 @@ class Inception3(HybridBlock):
 
 
 def inception_v3(pretrained=False, ctx=None, root=None, **kwargs):
+    net = Inception3(**kwargs)
     if pretrained:
-        raise _pretrained_error("inceptionv3")
-    return Inception3(**kwargs)
+        _load_pretrained(net, "inceptionv3", ctx, root)
+    return net

@@ -13,7 +13,7 @@ from __future__ import annotations
 from ...block import HybridBlock
 from ...nn import (Activation, BatchNorm, Conv2D, Dense, Flatten,
                    GlobalAvgPool2D, HybridSequential)
-from .resnet import _bn_axis, _pretrained_error
+from .resnet import _bn_axis, _load_pretrained
 
 __all__ = ["MobileNet", "MobileNetV2", "mobilenet1_0", "mobilenet0_75",
            "mobilenet0_5", "mobilenet0_25", "mobilenet_v2_1_0",
@@ -142,16 +142,18 @@ class MobileNetV2(HybridBlock):
 
 def get_mobilenet(multiplier, pretrained=False, ctx=None, root=None,
                   **kwargs):
+    net = MobileNet(multiplier, **kwargs)
     if pretrained:
-        raise _pretrained_error(f"mobilenet{float(multiplier)}")
-    return MobileNet(multiplier, **kwargs)
+        _load_pretrained(net, f"mobilenet{float(multiplier)}", ctx, root)
+    return net
 
 
 def get_mobilenet_v2(multiplier, pretrained=False, ctx=None, root=None,
                      **kwargs):
+    net = MobileNetV2(multiplier, **kwargs)
     if pretrained:
-        raise _pretrained_error(f"mobilenetv2_{float(multiplier)}")
-    return MobileNetV2(multiplier, **kwargs)
+        _load_pretrained(net, f"mobilenetv2_{float(multiplier)}", ctx, root)
+    return net
 
 
 def mobilenet1_0(**kwargs):

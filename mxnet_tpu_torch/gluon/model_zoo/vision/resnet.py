@@ -18,8 +18,8 @@ with the same parameter. The structural parameter names
 statistics across.
 
 Not ported yet (ROADMAP): a ``norm_layer`` other than ``BatchNorm``
-(``SyncBatchNorm``, slice 9b) and pretrained weights (the model store,
-slice 11).
+(``SyncBatchNorm``, slice 9b). ``pretrained=True`` loads the model
+store's file (``model_store.py``).
 """
 from __future__ import annotations
 
@@ -35,10 +35,14 @@ __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
            "get_resnet"]
 
 
-def _pretrained_error(name):
-    return MXNetError(f"{name}: pretrained weights come with the model "
-                      "store (ROADMAP A, slice 11); carry weights in with "
-                      "convert.params_from_numpy")
+def _load_pretrained(net, name, ctx=None, root=None):
+    """``net`` holding the weight file ``name`` of the model store under
+    ``root`` (default ``$MXNET_HOME/models``) on ``ctx``; a file missing
+    from the store raises, saying where to put it."""
+    from ..model_store import get_model_file
+
+    net.load_parameters(get_model_file(name, root=root), ctx=ctx)
+    return net
 
 
 def _conv3x3(channels, stride, in_channels, layout="NCHW"):
@@ -396,21 +400,21 @@ resnet_block_versions = [{"basic_block": BasicBlockV1,
 def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
                **kwargs):
     """ResNet ``version`` (1 or 2) of depth ``num_layers`` (reference:
-    resnet.py get_resnet). ``pretrained=True`` raises: the weights come
-    with the model store; carry weights in with
-    ``convert.params_from_numpy``."""
+    resnet.py get_resnet). ``pretrained=True`` loads the model store's
+    file on ``ctx`` (``model_store.get_model_file``)."""
     if num_layers not in resnet_spec:
         raise MXNetError(f"Invalid number of layers: {num_layers}. Options "
                          f"are {sorted(resnet_spec)}")
     if version not in (1, 2):
         raise MXNetError(f"Invalid resnet version: {version}. Options are "
                          "1 and 2.")
-    if pretrained:
-        raise _pretrained_error(f"resnet{num_layers}_v{version}")
     block_type, layers, channels = resnet_spec[num_layers]
-    return resnet_net_versions[version - 1](
+    net = resnet_net_versions[version - 1](
         resnet_block_versions[version - 1][block_type], layers, channels,
         **kwargs)
+    if pretrained:
+        _load_pretrained(net, f"resnet{num_layers}_v{version}", ctx, root)
+    return net
 
 
 def resnet18_v1(**kwargs):

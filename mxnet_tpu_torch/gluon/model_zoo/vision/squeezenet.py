@@ -10,7 +10,7 @@ from ...block import HybridBlock
 from ...contrib.nn import HybridConcurrent
 from ...nn import (Activation, AvgPool2D, Conv2D, Dropout, Flatten,
                    HybridSequential, MaxPool2D)
-from .resnet import _pretrained_error
+from .resnet import _load_pretrained
 
 __all__ = ["SqueezeNet", "squeezenet1_0", "squeezenet1_1"]
 
@@ -91,9 +91,10 @@ class SqueezeNet(HybridBlock):
 def get_squeezenet(version, pretrained=False, ctx=None, root=None,
                    **kwargs):
     """Reference: squeezenet.py get_squeezenet."""
+    net = SqueezeNet(version, **kwargs)
     if pretrained:
-        raise _pretrained_error(f"squeezenet{version}")
-    return SqueezeNet(version, **kwargs)
+        _load_pretrained(net, f"squeezenet{version}", ctx, root)
+    return net
 
 
 def squeezenet1_0(**kwargs):

@@ -8,7 +8,7 @@ from ....initializer import Xavier
 from ...block import HybridBlock
 from ...nn import (Activation, BatchNorm, Conv2D, Dense, Dropout, Flatten,
                    HybridSequential, MaxPool2D)
-from .resnet import _pretrained_error
+from .resnet import _load_pretrained
 
 __all__ = ["VGG", "vgg11", "vgg13", "vgg16", "vgg19", "vgg11_bn",
            "vgg13_bn", "vgg16_bn", "vgg19_bn", "get_vgg"]
@@ -61,11 +61,12 @@ vgg_spec = {11: ([1, 1, 2, 2, 2], [64, 128, 256, 512, 512]),
 
 def get_vgg(num_layers, pretrained=False, ctx=None, root=None, **kwargs):
     """Reference: vgg.py get_vgg."""
+    layers, filters = vgg_spec[num_layers]
+    net = VGG(layers, filters, **kwargs)
     if pretrained:
         bn = "_bn" if kwargs.get("batch_norm") else ""
-        raise _pretrained_error(f"vgg{num_layers}{bn}")
-    layers, filters = vgg_spec[num_layers]
-    return VGG(layers, filters, **kwargs)
+        _load_pretrained(net, f"vgg{num_layers}{bn}", ctx, root)
+    return net
 
 
 def vgg11(**kwargs):

@@ -277,6 +277,75 @@ def test_fork_after_push_gets_a_fresh_engine():
     assert proc.stdout.split() == ["0", "True", "42"]
 
 
+_FORK_ORPHAN_SCRIPT = r"""
+import gc, os, sys
+sys.path.insert(0, sys.argv[1])
+import mxnet_tpu_torch  # noqa: F401 -- installs the after-fork handler
+from mxnet_tpu_torch import engine as teng
+
+calls = []
+
+
+class Spy:
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name not in ("eng_wait_all", "eng_destroy"):
+            return fn
+
+        def spy(*args):
+            calls.append((name, os.getpid()))
+            return fn(*args)
+        return spy
+
+
+e = teng.get()
+e._lib = Spy(e._lib)
+v = e.new_variable()
+e.push(lambda: None, mutable_vars=(v,), lane=teng.LANE_IO)
+e.wait_for_var(v)
+del e, v
+pid = os.fork()
+if pid == 0:
+    code = 1
+    try:
+        gc.collect()  # the parent's engine may sit in a reference cycle
+        if [c for c in calls if c[1] == os.getpid()]:
+            code = 3
+        else:
+            child = teng.get()
+            cv = child.new_variable()
+            box = []
+            child.push(lambda: box.append(1), mutable_vars=(cv,))
+            child.wait_for_var(cv)
+            code = 0 if box == [1] else 2
+    finally:
+        os._exit(code)
+_, status = os.waitpid(pid, 0)
+print(os.waitstatus_to_exitcode(status))
+sys.stdout.flush()
+os._exit(0)
+"""
+
+
+def test_fork_leaves_the_parents_engine_alone_in_the_child():
+    """The after-fork handler drops the singleton, and with it the last
+    reference to the parent's engine: its finalizer must not drain or
+    join the parent's worker threads from the child (the JAX package's
+    ``test_aux.py::test_fork_reinitializes_engine`` died of SIGSEGV there
+    when an earlier test in its process had built the port's engine)."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _FORK_ORPHAN_SCRIPT, repo],
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.split() == ["0"], (proc.stdout, proc.stderr[-2000:])
+
+
 def test_failed_build_raises_and_never_falls_back(monkeypatch, tmp_path):
     """Without g++ the engine library cannot build: ``Engine()`` and
     ``engine.get()`` raise (the JAX ``get()`` would pick NaiveEngine);

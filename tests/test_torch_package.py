@@ -1,7 +1,8 @@
 """Package rules of the PyTorch port, checked on a host with no GPU.
 
 - ``import mxnet_tpu_torch`` loads neither ``jax`` nor ``mxnet_tpu``, and
-  no module of the package (nor ``chip_smoke.py``) imports them;
+  no module of the package (nor ``chip_smoke.py``) imports them, nor
+  ``onnx`` or ``google.protobuf`` (ONNX goes through the package's codec);
 - entry points run on the card by default and raise ``MXNetError``
   when there is none, unless the caller asks for ``cpu()``;
 - the kernel wrapper takes its plain version only for CPU tensors, and
@@ -51,8 +52,16 @@ def test_import_loads_neither_jax_nor_the_jax_package():
             "import mxnet_tpu_torch.tools.ssd_near_ties\n"
             "import mxnet_tpu_torch.tools.profile_quant\n"
             "import mxnet_tpu_torch.tools.n2_plans\n"
+            "import mxnet_tpu_torch.contrib.onnx\n"
+            "import mxnet_tpu_torch.gluon.contrib.estimator\n"
+            "import mxnet_tpu_torch.monitor, mxnet_tpu_torch.visualization\n"
+            "import mxnet_tpu_torch.gluon.model_zoo.model_store\n"
+            "import mxnet_tpu_torch.contrib.autograd\n"
+            "import mxnet_tpu_torch.contrib.io\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax'"
-            " or m == 'mxnet_tpu' or m.startswith('mxnet_tpu.'))\n"
+            " or m == 'mxnet_tpu' or m.startswith('mxnet_tpu.')"
+            " or m.split('.')[0] == 'onnx'"
+            " or m.startswith('google.protobuf'))\n"
             "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
@@ -144,6 +153,19 @@ SPARSE_MODULES = [
     "tools/profile_sparse.py"]
 
 
+# and those of ONNX interchange, the estimator, Monitor, viz, the model
+# store and the legacy contrib shims, which need no protobuf either
+INTERCHANGE_MODULES = [
+    "contrib/onnx/__init__.py", "contrib/onnx/_wire.py",
+    "contrib/onnx/mx2onnx.py", "contrib/onnx/onnx2mx.py",
+    "gluon/contrib/estimator/__init__.py",
+    "gluon/contrib/estimator/estimator.py",
+    "gluon/contrib/estimator/event_handler.py", "monitor.py",
+    "visualization.py", "gluon/model_zoo/model_store.py",
+    "contrib/autograd.py", "contrib/io.py", "contrib/ndarray.py",
+    "contrib/symbol.py"]
+
+
 def test_no_module_imports_jax_or_the_jax_package():
     offenders = []
     files = list(_python_files())
@@ -153,7 +175,7 @@ def test_no_module_imports_jax_or_the_jax_package():
         set(RESNET_MODULES) | set(SERVING_MODULES) | \
         set(SYMBOLIC_TRAINING_MODULES) | set(GLUON_SURFACE_MODULES) | \
         set(DETECTION_MODULES) | set(QUANTIZATION_MODULES) | \
-        set(SPARSE_MODULES) <= scanned
+        set(SPARSE_MODULES) | set(INTERCHANGE_MODULES) <= scanned
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -165,7 +187,9 @@ def test_no_module_imports_jax_or_the_jax_package():
             else:
                 continue
             offenders += [f"{os.path.relpath(path, ROOT)}: {n}"
-                          for n in names if _forbidden(n)]
+                          for n in names if _forbidden(n) or (
+                              n.split(".")[0] == "onnx" or
+                              n.startswith("google.protobuf"))]
     assert offenders == []
 
 

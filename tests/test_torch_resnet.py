@@ -45,6 +45,9 @@ accurate, and say so:
 - the ``Trainer`` steps at batch 4 and lr 0.01, with the precondition
   above checked in the test.
 """
+import hashlib
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as onp
@@ -409,10 +412,12 @@ def test_resnet50_matches_jax_at_64():
                                     rtol=1e-4, err_msg=k)
 
 
-def test_model_zoo_surface():
+def test_model_zoo_surface(tmp_path, monkeypatch):
     """The zoo knows every model the JAX package's does; the V2 family
-    and the space-to-depth stem build; a version other than 1 or 2, a
-    norm layer other than BatchNorm and pretrained weights raise."""
+    and the space-to-depth stem build; a version other than 1 or 2 and a
+    norm layer other than BatchNorm raise; pretrained weights raise with
+    an empty model store, saying where to put the file, and load from a
+    file there whose checksum matches."""
     assert sorted(vision._models) == sorted(jvision._models)
     assert type(vision.get_model("resnet18_v2")).__name__ == "ResNetV2"
     assert type(vision.resnet50_v1(stem_s2d=True).features[0]).__name__ \
@@ -421,8 +426,23 @@ def test_model_zoo_surface():
         vision.get_model("resnet18_v3")
     with pytest.raises(mx.MXNetError, match="version"):
         vision.get_resnet(3, 50)
-    with pytest.raises(mx.MXNetError, match="slice 11"):
-        vision.get_resnet(2, 50, pretrained=True)
+    with pytest.raises(RuntimeError, match="put the file at"):
+        vision.get_resnet(2, 50, pretrained=True, root=str(tmp_path))
+    from mxnet_tpu_torch.gluon.model_zoo import model_store
+
+    src = vision.get_resnet(2, 50, classes=10)
+    src.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    src(nd.zeros((1, 3, 32, 32), ctx=mx.cpu()))
+    staged = str(tmp_path / "staged.params")
+    src.save_parameters(staged)
+    sha = hashlib.sha1(open(staged, "rb").read()).hexdigest()
+    monkeypatch.setitem(model_store._model_sha1, "resnet50_v2", sha)
+    os.replace(staged, str(tmp_path / f"resnet50_v2-{sha[:8]}.params"))
+    net = vision.get_resnet(2, 50, pretrained=True, classes=10,
+                            ctx=mx.cpu(), root=str(tmp_path))
+    for k, p in src._collect_params_with_prefix().items():
+        assert net._collect_params_with_prefix()[k].data().asnumpy() \
+            .tobytes() == p.data().asnumpy().tobytes(), k
     with pytest.raises(mx.MXNetError, match="BatchNorm only"):
         vision.resnet18_v1(norm_layer=nn.LayerNorm)
     net = vision.resnet18_v1(norm_kwargs={"momentum": 0.5})

@@ -28,6 +28,9 @@ gradient: 0.97% against 0.49%; Inception v3's: 0.060% against
 NHWC against NCHW: within 1e-5 of the largest magnitude (the same sums
 in another order).
 """
+import hashlib
+import os
+
 import numpy as onp
 import pytest
 import torch
@@ -172,13 +175,49 @@ def test_get_model_lists_the_jax_names():
         vision.get_model("vgg17")
 
 
-@pytest.mark.parametrize("name", ["resnet50_v2", "alexnet", "vgg16",
-                                  "vgg16_bn", "squeezenet1_1",
-                                  "mobilenet1_0", "mobilenet_v2_1_0",
-                                  "densenet121", "inception_v3"])
-def test_pretrained_names_the_model_store_slice(name):
-    with pytest.raises(mx.MXNetError, match="slice 11"):
-        vision.get_model(name, pretrained=True)
+# zoo name -> the model store's name (the published checksum table's)
+STORE_NAMES = {"resnet50_v2": "resnet50_v2", "alexnet": "alexnet",
+               "vgg16": "vgg16", "vgg16_bn": "vgg16_bn",
+               "squeezenet1_1": "squeezenet1.1",
+               "mobilenet1_0": "mobilenet1.0",
+               "mobilenet_v2_1_0": "mobilenetv2_1.0",
+               "densenet121": "densenet121", "inception_v3": "inceptionv3"}
+# the smallest input each family takes (FAMILIES' sizes)
+STORE_SIZES = {"squeezenet1_1": 224, "inception_v3": 299, "alexnet": 67}
+
+
+@pytest.mark.parametrize("name", sorted(STORE_NAMES))
+def test_pretrained_names_the_model_store_slice(name, tmp_path,
+                                                monkeypatch):
+    """``pretrained=True`` goes through the model store under the
+    store's name: with an empty cache it raises, naming where to put the
+    file; with a file there whose sha1 is the table's (a run-local entry)
+    the net loads it on the given context, every parameter bitwise."""
+    from mxnet_tpu_torch.gluon.model_zoo import model_store
+
+    store = STORE_NAMES[name]
+    with pytest.raises(RuntimeError, match="put the file at") as err:
+        vision.get_model(name, pretrained=True, classes=10, ctx=CPU,
+                         root=str(tmp_path))
+    assert f"{store}-{model_store.short_hash(store)}.params" in \
+        str(err.value)
+    mx.random.seed(0)
+    src = vision.get_model(name, classes=10)
+    src.initialize(mx.init.Xavier(), ctx=CPU)
+    size = STORE_SIZES.get(name, 32)
+    src(nd.zeros((1, 3, size, size), ctx=CPU))
+    staged = str(tmp_path / "staged.params")
+    src.save_parameters(staged)
+    with open(staged, "rb") as f:
+        sha = hashlib.sha1(f.read()).hexdigest()
+    monkeypatch.setitem(model_store._model_sha1, store, sha)
+    os.replace(staged, str(tmp_path / f"{store}-{sha[:8]}.params"))
+    net = vision.get_model(name, pretrained=True, classes=10, ctx=CPU,
+                           root=str(tmp_path))
+    got, want = _host(net), _host(src)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].tobytes() == want[k].tobytes(), k
 
 
 @pytest.mark.parametrize("size", [32, 33, 35])
