@@ -103,7 +103,14 @@ kernels against the plain PyTorch versions:
   through the package's own protobuf codec, imported back by
   ``import_to_gluon`` and ``import_model`` and served, and loaded
   through the model store by ``pretrained=True``
-  (``tools/profile_onnx.py``; no kernel).
+  (``tools/profile_onnx.py``; no kernel);
+- the resilience layer's checkpoints: the GPT-2-small LM in bf16 with
+  dropout trained under ``resilience.AutoResume`` over a
+  ``CheckpointManager``, through an injected fault and a SIGKILLed
+  process, bitwise equal to an uninterrupted run, and paged decode
+  serving checkpointed at the batcher's close and restored onto
+  another page size (``tools/profile_resilience.py``; K1's sm90 kernel
+  and K2 on the path).
 
 Run from the root of a checkout, on a machine with one NVIDIA H100:
 
@@ -506,8 +513,8 @@ stream busy until the launch is enqueued, so it is the device's time:
     NCCL's ``all_reduce`` and the kvstore at the same sizes;
 54. decode serving traced: on one batcher at GPT-2-small widths, a
     warm-up, then phase 18's own paged open-loop traffic (32 streams of
-    16-256 tokens) once to warm up, then in six windows of one pass
-    each at ``MXNET_TELEMETRY`` 0, 1, 1, 0, 0 and 1,
+    16-256 tokens) once to warm up, then in four windows of one pass
+    each at ``MXNET_TELEMETRY`` 0, 1, 1 and 0,
     then a shorter traffic (16 streams of 16-48 tokens) at 1 with the
     profiler's device trace (``profiler.start``/``stop``,
     ``torch.profiler`` with the CUDA activity). Level 0 records no span;
@@ -532,7 +539,7 @@ stream busy until the launch is enqueued, so it is the device's time:
     ``quantize.lowering`` on the int8 ResNet-50 at batch 32 (``native``
     runs N2, ``dequant`` cuDNN on float codes) and
     ``fusion.attn_compute_bound_seq`` on wav2vec2's bucket-8 graph, each
-    candidate priced by the paired-median harness (3 pairs of windows of
+    candidate priced by the paired-median harness (2 pairs of windows of
     10 predicts, each window ending in a synchronize) against the
     heuristic; prints each candidate's ratio and the stored winner;
 57. artifacts and bundles: a ``ModelRepository`` deploys wav2vec2 at
@@ -662,12 +669,37 @@ stream busy until the launch is enqueued, so it is the device's time:
     under ``$MXNET_HOME/models`` with a run-local checksum entry, loaded
     by ``resnet50_v1(pretrained=True, ctx=gpu, root=...)``: its logits
     bitwise the exported block's;
-73. report: one JSON line of kernels, then the device line last.
+73. the GPT-2-small LM (``tools/profile_resilience.py``: GPT-2's
+    dropout 0.1, bf16 AMP, hybridized, the fused Adam step captured, 8 x
+    1024 numpy-seeded tokens through ``DeviceFeed``, 24 steps in 2
+    epochs, step 11's gradient poisoned with an inf) uninterrupted, then
+    under ``AutoResume`` with asynchronous checkpoints every 8 steps
+    (keep 2) and a fault raised in ``step_fn`` at step 15: the resumed
+    run's parameters (a sha256 over their bytes), loss trace and loss
+    scale bitwise the uninterrupted run's, one skip and one restart,
+    K1's sm90 kernel 12 launches a forward (the steps and one capture
+    warm-up); the snapshot's device bytes, the step thread's capture ms
+    a save, the writer's s a save, ``ckpt_async_waits``, the restore s
+    and the step ms with and without checkpoints, beside the card's name
+    and power limit;
+74. the same job in a child process that SIGKILLs itself as step 14
+    begins (the write of step 8's checkpoint may be under way), then a
+    second child that resumes from what it left: its parameters, trace
+    and loss scale bitwise phase 73's uninterrupted run's, no ``.tmp-*``
+    left;
+75. ``DecoderBlockLM`` at GPT-2 small's widths, 8 streams through a
+    ``DynamicBatcher`` with ``state_checkpoint=`` on 16-token pages (one
+    bucket of 8 rows), closed after 20 tokens (mid-page), restored into
+    a fresh session on 8-token pages, 12 more tokens: every logit bitwise
+    an uninterrupted run's, 8 sessions resumed, K2 = 12 launches per
+    graph replay in each part;
+76. report: one JSON line of kernels, then the device line last.
 
 ``python3 chip_smoke.py --chain`` runs phases 1-2, phase 13's export and
 56-58 alone; ``--records`` runs phases 1-2 and 59-62 alone; ``--tail``
 runs phases 1-2 and 63-65 alone; ``--sparse`` runs phases 1 and 66-68
-alone and ``--onnx`` phases 1 and 69-72 (they build no kernel).
+alone, ``--onnx`` phases 1 and 69-72 (they build no kernel) and
+``--resilience`` phases 1-2 and 73-75.
 
 Each phase prints the seconds it took.
 
@@ -727,6 +759,7 @@ from mxnet_tpu_torch.tools import profile_records as prec  # noqa: E402
 from mxnet_tpu_torch.kernels import jpeg_decode as jpk  # noqa: E402
 from mxnet_tpu_torch.tools import profile_sparse as psp  # noqa: E402
 from mxnet_tpu_torch.tools import profile_onnx as po  # noqa: E402
+from mxnet_tpu_torch.tools import profile_resilience as prs  # noqa: E402
 
 SEED = 20240917
 # GPT-2 small (n_embd 768, n_head 12, n_layer 12, n_positions 1024,
@@ -5709,7 +5742,7 @@ def dist_nccl_phase(smi):
 # device trace is taken on a shorter traffic of 16 streams of
 # 16-48 tokens, which keeps it near 200,000 events. Phase 55 is phase
 # 30's bf16 NHWC hybridized ResNet-50 fed by DeviceFeed
-TRACE_TURNS = (0, 1, 1, 0, 0, 1)
+TRACE_TURNS = (0, 1, 1, 0)
 TRACE_SETTLE_S = 0.5
 TRACE_PASSES = 1
 TRACE_STREAMS, TRACE_MIN, TRACE_MAX = 16, 16, 48
@@ -6096,7 +6129,7 @@ DEPLOY_DECODE = dict(kind="decode", cfg=GPT2_SMALL, seed=SEED, rows=16,
                      buckets=[1, 2, 4, 8, 16], page_tokens=16,
                      budget=2 ** 28)
 DEPLOY_DECODE_STREAMS, DEPLOY_DECODE_STEPS = 4, 8
-TUNE_ITERS, TUNE_PAIRS, TUNE_BUDGET_MS = 10, 3, 120_000
+TUNE_ITERS, TUNE_PAIRS, TUNE_BUDGET_MS = 10, 2, 120_000
 FLEET_STREAMS, FLEET_STEPS, FLEET_DRAIN_AT = 16, 24, 12
 FLEET_TOL = 1e-5  # K2's split count follows the occupancy: not bitwise
 FLEET_LONE_STEPS = 16
@@ -7128,6 +7161,120 @@ def _onnx_only():
     return 0
 
 
+# -- slice 12: the resilience layer's checkpoints ------------------------------
+
+def _checkpoint_line(run):
+    return {k: run[k] for k in (
+        "snapshot_bytes", "capture_ms_per_save", "write_s_per_save",
+        "disk_bytes_per_save", "restore_s", "step_ms", "steps_kept")}
+
+
+def autoresume_lm_phase(smi):
+    phase("73 GPT-2-small LM under AutoResume")
+    plain, sup = prs.lm_runs(WORK["dir"])
+    cfg = prs.GPT2_SMALL_LM
+    out = {"card": smi, "config": cfg, "batch": [prs.BATCH, prs.SEQ],
+           "steps": prs.STEPS, "ckpt_every": prs.CKPT_EVERY,
+           "keep": prs.KEEP, "poisoned_step": prs.POISON_AT,
+           "fault_at": prs.FAULT_AT, "resumed_at": sup["resumed_at"],
+           "restarts": sup["restarts"], "steps_run": sup["steps_run"],
+           "step_ms_plain": plain["step_ms"],
+           "step_ms_checkpointed": sup["step_ms"],
+           "step_ms_by_step": [plain["step_ms_by_step"],
+                               sup["step_ms_by_step"]],
+           "snapshot_bytes": sup["snapshot_bytes"],
+           "capture_ms_per_save": sup["capture_ms_per_save"],
+           "capture_ms": sup["capture_ms"],
+           "write_s_per_save": sup["write_s_per_save"],
+           "disk_bytes_per_save": sup["disk_bytes_per_save"],
+           "ckpt_async_waits": sup["counters"]["ckpt_async_waits"],
+           "restore_s": sup["restore_s"], "counters": sup["counters"],
+           "loss_scale": sup["loss_scale"],
+           "skipped_steps": sup["skipped_steps"],
+           "wall_s": [plain["wall_s"], sup["wall_s"]],
+           "k1_sm90_launches": [plain["sm90_launches"],
+                                sup["sm90_launches"]],
+           "captures": [plain["captures"], sup["captures"]],
+           "bitwise": True}
+    print(f"  {cfg['num_layers']} layers, dropout {cfg['dropout']}, batch "
+          f"{prs.BATCH} x {prs.SEQ}, bf16 AMP, hybridized, fused Adam: "
+          f"{prs.STEPS} steps, the gradient of step {prs.POISON_AT} "
+          f"poisoned (a skip), a fault at step {prs.FAULT_AT} resumed from "
+          f"step {sup['resumed_at']}: parameters, the {len(sup['trace'])}-"
+          f"step loss trace and the loss scale {sup['loss_scale']} bitwise "
+          "the uninterrupted run's")
+    print(f"  snapshot {sup['snapshot_bytes']:,} bytes on the card, "
+          f"capture {sup['capture_ms_per_save']:.2f} ms a save on the step "
+          f"thread, the writer {sup['write_s_per_save']:.3f} s a save, "
+          f"ckpt_async_waits {out['ckpt_async_waits']}, restore "
+          f"{sup['restore_s']} s; step ms {plain['step_ms']:.2f} without "
+          f"checkpoints, {sup['step_ms']:.2f} with ({smi})")
+    print(f"  K1 sm90 launches {plain['sm90_launches']} and "
+          f"{sup['sm90_launches']} = {cfg['num_layers']} x (steps + the "
+          "capture's warm-up forward)")
+    print("  autoresume " + json.dumps(out))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return plain, out
+
+
+def sigkill_phase(smi, plain):
+    phase("74 SIGKILL during a checkpoint write, and a resuming process")
+    out = prs.sigkill_runs(WORK["dir"], plain)
+    out["card"] = smi
+    print(f"  the first child SIGKILLed as step {prs.KILL_AT} began; it "
+          f"left {out['left_by_kill']}; the second resumed at step "
+          f"{out['resumed_at']} (restore {out['restore_s']} s) and ended "
+          "bitwise the uninterrupted run's; no .tmp-* left")
+    print("  sigkill " + json.dumps(out))
+    return out
+
+
+def serving_checkpoint_phase(smi):
+    phase("75 paged decode serving closed mid-page and restored")
+    net = decode_net()
+    out = prs.serving_resume(net, WORK["dir"])
+    out["card"] = smi
+    if not out["bitwise"] or out["resumed_sessions"] != out["streams"]:
+        raise RuntimeError(f"the restored streams are not the "
+                           f"uninterrupted ones: {out}")
+    print(f"  {out['streams']} streams, {out['tokens_before']} tokens on "
+          f"{out['pages'][0]}-token pages (page offsets "
+          f"{out['mid_page_offsets']}), closed into a checkpoint, restored "
+          f"onto {out['pages'][1]}-token pages in {out['restore_s']:.3f} s, "
+          f"{out['tokens_after']} more tokens: every logit bitwise the "
+          "uninterrupted run's")
+    print(f"  K2 launches {out['k2_launches']} = "
+          f"{GPT2_SMALL['num_layers']} x graph replays "
+          f"({out['uninterrupted']['graph_replays']} + "
+          f"{out['before_close']['graph_replays']} + "
+          f"{out['after_restore']['graph_replays']})")
+    print("  serving checkpoint " + json.dumps(out))
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def resilience_phases(smi):
+    plain, lm = autoresume_lm_phase(smi)
+    kill = sigkill_phase(smi, plain)
+    serve = serving_checkpoint_phase(smi)
+    return {"lm": lm, "sigkill": kill, "serving": serve}
+
+
+def _resilience_only():
+    """``python3 chip_smoke.py --resilience``: phases 1-2 and 73-75
+    alone."""
+    t0 = time.perf_counter()
+    smi = device_phase()
+    build_phase()
+    resilience_phases(smi)
+    phase("done")
+    print(f"phases 73-75 in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def kernel_entry(name, source, replaces, launches, worst, row, shape, smi,
                  **extra):
     entry = {"name": name, "route": "cuda", "source": source,
@@ -7152,7 +7299,7 @@ def main():
     # driver's 1200 s, rather than holding the card to the limit
     faulthandler.dump_traceback_later(
         450 if sys.argv[1:] in (["--records"], ["--tail"], ["--sparse"],
-                                ["--onnx"])
+                                ["--onnx"], ["--resilience"])
         else 1150,
         exit=True)
     WORK["dir"] = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -7170,6 +7317,8 @@ def main():
             return _sparse_only()
         if sys.argv[1:] == ["--onnx"]:
             return _onnx_only()
+        if sys.argv[1:] == ["--resilience"]:
+            return _resilience_only()
         return _main()
     finally:
         shutil.rmtree(WORK["dir"], ignore_errors=True)
@@ -7278,6 +7427,7 @@ def _main():
     torch.cuda.empty_cache()
     sparse = sparse_phases(smi)
     interchange = onnx_phases(smi)
+    resil = resilience_phases(smi)
     k4_dist = {"resnet50_dist_sync_gloo_rank0": dist2[0]["k4_fwd"],
                "resnet50_dist_sync_gloo_rank1": dist2[1]["k4_fwd"],
                "resnet50_dist_device_sync_nccl": dist1["k4_fwd"]}
@@ -7302,14 +7452,17 @@ def _main():
             KERNEL, "mxnet_tpu_torch/csrc/decode_attention.cu",
             "mxnet_tpu/kernels/flash_attention.py:137",
             k2_launches + k2_paged_launches
-            + traced_dec["k2_launches_all_runs"], k2_worst, big,
+            + traced_dec["k2_launches_all_runs"]
+            + resil["serving"]["k2_launches"], k2_worst, big,
             f"B={big['B']} H={big['H']} S={big['S']} "
             f"D={big['D']} visible={big['visible']} fp32", smi,
             splits=big["splits"], by_batch=k2_rows,
             launches_by_path={"serving": k2_launches,
                               "paged_serving": k2_paged_launches,
                               "traced_serving":
-                                  traced_dec["k2_launches_all_runs"]}),
+                                  traced_dec["k2_launches_all_runs"],
+                              "paged_serving_checkpoint":
+                                  resil["serving"]["k2_launches"]}),
         # K1's headline numbers are the training shape's; the fusion
         # route's shape has its own row under "fusion_route". Its launches
         # are the mma.sync kernel's; the bf16 LM's go to the sm90 kernel
@@ -7332,7 +7485,8 @@ def _main():
         # K1 in bf16 at D = 64: the wgmma kernel the LM takes under AMP
         kernel_entry(
             FLASH_SM90_KERNEL, "mxnet_tpu_torch/csrc/flash_attention_sm90.cu",
-            "mxnet_tpu/kernels/flash_attention.py:48", sm90_launches + k1_hyb,
+            "mxnet_tpu/kernels/flash_attention.py:48",
+            sm90_launches + k1_hyb + sum(resil["lm"]["k1_sm90_launches"]),
             k1_bf16["max_abs_err"], k1_bf16,
             f"B={k1_bf16['B']} H={k1_bf16['H']} S_q={k1_bf16['S_q']} "
             f"S_k={k1_bf16['S_k']} D={k1_bf16['D']} causal bf16", smi,
@@ -7344,7 +7498,13 @@ def _main():
                 "training_bf16_hybrid_eager":
                     lm_hyb[False]["k1_sm90_launches"],
                 "training_bf16_hybridized":
-                    lm_hyb[True]["k1_sm90_launches"]},
+                    lm_hyb[True]["k1_sm90_launches"],
+                "training_bf16_autoresume_uninterrupted":
+                    resil["lm"]["k1_sm90_launches"][0],
+                "training_bf16_autoresume_resumed":
+                    resil["lm"]["k1_sm90_launches"][1]},
+            launches_in_the_resuming_child_process=resil["sigkill"][
+                "sm90_launches"],
             launches_per_replay=lm_hyb[True]["k1_launches_per_replay"]),
         kernel_entry(
             NORM_ACT_KERNEL, "mxnet_tpu_torch/csrc/norm_act.cu",
@@ -7532,7 +7692,7 @@ def _main():
         "kv_int8_decode": kv_int8, "batch_dot_routes": quant_k["batch_dot"],
         "dequant_gap_k4608": quant_k["dequant_gap_k4608"],
         "ops_worst": quant_k["ops_worst"]}))
-    phase("73 report")
+    phase("76 report")
     print(f"bf16 ResNet-50 headline layout: {head}")
     print("hybridized: " + json.dumps({
         "resnet50_bf16_nhwc_step_ms": [resnet_hyb[False]["mean_step_ms"],
@@ -7680,6 +7840,18 @@ def _main():
         "zoo_predict_ms": interchange["import"]["zoo_predict_ms"],
         "import_max_abs_err": interchange["import"]["max_abs_err"],
         "store_bitwise": interchange["store"]["bitwise"]}))
+    lm, kill, serve = resil["lm"], resil["sigkill"], resil["serving"]
+    print("resilience: " + json.dumps({
+        "card": smi, "snapshot_bytes": lm["snapshot_bytes"],
+        "capture_ms_per_save": lm["capture_ms_per_save"],
+        "write_s_per_save": lm["write_s_per_save"],
+        "ckpt_async_waits": lm["ckpt_async_waits"],
+        "restore_s": lm["restore_s"],
+        "step_ms": [lm["step_ms_plain"], lm["step_ms_checkpointed"]],
+        "sigkill_resumed_at": kill["resumed_at"],
+        "sigkill_restore_s": kill["restore_s"],
+        "serving_restore_s": serve["restore_s"],
+        "bitwise": [lm["bitwise"], serve["bitwise"]]}))
     print(f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

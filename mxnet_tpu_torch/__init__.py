@@ -148,6 +148,7 @@ from . import rtc
 from . import contrib
 from . import io
 from . import pipeline
+from . import resilience
 from . import metric
 from . import callback
 from . import model

@@ -300,17 +300,19 @@ KNOBS = {
         "wired", "resilience.faults",
         "seed for probabilistic fault clauses (default 0)"),
     "MXNET_CKPT_DIR": (
-        "unported", f"resilience.checkpoint ({_9B})",
-        "default CheckpointManager directory"),
+        "wired", "resilience.CheckpointManager",
+        "default CheckpointManager directory (else "
+        "$MXNET_HOME/checkpoints)"),
     "MXNET_CKPT_KEEP": (
-        "unported", f"resilience.checkpoint ({_9B})",
-        "keep-last-N checkpoint retention"),
+        "wired", "resilience.CheckpointManager",
+        "keep-last-N checkpoint retention (default 3; 0 keeps all)"),
     "MXNET_CKPT_ASYNC": (
-        "unported", f"resilience.checkpoint ({_9B})",
-        "async checkpoint serialization"),
+        "wired", "resilience.CheckpointManager",
+        "write checkpoints on a writer thread (default 1): the step "
+        "thread pays one batched device copy of the state"),
     "MXNET_RESUME_MAX_RESTARTS": (
-        "unported", f"resilience.AutoResume ({_9B})",
-        "restore-and-continue budget per AutoResume.run"),
+        "wired", "resilience.AutoResume",
+        "restore-and-continue budget per AutoResume.run (default 3)"),
     # -- sharding -----------------------------------------------------------
     "MXNET_SHARDING": (
         "unported", f"sharding ({_9B})", "rule-based sharding subsystem"),

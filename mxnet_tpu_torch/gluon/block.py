@@ -538,7 +538,10 @@ class CachedOp:
     aux states that forward updated (``grad_req="null"``: batch norm's
     running statistics) are restored, so N calls update them N times,
     as in the JAX package. The random generator of the device is
-    registered with each graph, so every replay draws fresh numbers.
+    registered with each graph, so every replay draws fresh numbers; the
+    capture's eager warm-up puts the generator back where it found it,
+    so the first replay starts at the stream position the call found,
+    whichever step captures.
     Launches are counted per replay (``_build.recording_launches`` /
     ``count_replay``). Nothing falls back: a forward that cannot be
     captured (a host sync such as ``asnumpy()``/``.item()``, a
@@ -748,6 +751,12 @@ class CachedOp:
             with torch.no_grad():
                 snap = [t.clone() for t in aux]
             drawn = _random.draws()
+            # the warm-up's draws are put back after the capture: the
+            # first replay starts at the position this call found,
+            # whenever the capture happens (a process resumed from a
+            # checkpoint captures at its resume step)
+            gen = _random.device_generator(dev)
+            rng = gen.get_state()
             side = torch.cuda.Stream(dev)
             side.wait_stream(cur)
             with torch.cuda.stream(side):
@@ -771,7 +780,6 @@ class CachedOp:
                     "MXNET_BACKWARD_DO_MIRROR=1 with a forward that draws "
                     "random numbers cannot be captured: the recompute in "
                     "the captured backward would draw other numbers")
-            gen = _random.device_generator(dev)
             graph = torch.cuda.CUDAGraph()
             graph.register_generator_state(gen)
             with _build.recording_launches() as frec:
@@ -793,6 +801,7 @@ class CachedOp:
                         grads = autograd._torch_grad(
                             [o for o, d in zip(static_out, out_diff) if d],
                             targets, gouts, retain_graph=False)
+            gen.set_state(rng)
         except Exception as e:
             raise self._capture_error(entry, e) from e
         finally:

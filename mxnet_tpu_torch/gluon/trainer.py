@@ -678,75 +678,160 @@ class Trainer:
 
     # -- checkpoints --------------------------------------------------------
 
+    def _state_capture(self, leaf):
+        """The optimizer's state tree and the counters around it: one walk
+        for :meth:`save_states` and the resilience ``CheckpointManager``
+        (the JAX package's shared walk, ``gluon/fused_step.py:172-190``).
+        ``leaf`` maps each state NDArray (a host copy, or a reference a
+        checkpoint copies on the device with everything else in one
+        batch). Where the fused step's device step state is current, its
+        tensors ride under ``"device"`` through ``leaf`` too, in place of
+        a sync, and :func:`state_resolve` folds them into the counters
+        once they are on the host. In-flight gradient speculation is
+        dropped first: nothing summed before this boundary crosses it."""
+        if self._states is None:
+            self._create_states()
+        self._abandon_speculation()
+        opt_ = self._optimizer
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        st = self._fused_state
+        payload = {
+            "num_update": opt_.num_update,
+            "begin_num_update": opt_.begin_num_update,
+            "index_update_count": dict(opt_._index_update_count),
+            "fused_skips": self._fused_skips_host,
+            "states": [_walk(s, leaf) for s in self._states],
+            "loss_scaler": None if scaler is None else {
+                "loss_scale": scaler._loss_scale,
+                "unskipped": scaler._unskipped,
+                "scale_factor": scaler._scale_factor,
+                "scale_window": scaler._scale_window},
+            "device": None if st is None or st["stale"] else
+            {k: leaf(NDArray(v)) for k, v in st["vals"].items()}}
+        return payload
+
+    def _state_restore(self, payload):
+        """Restore a :meth:`_state_capture` payload (after
+        :func:`state_resolve`) whose leaves are host arrays or CPU
+        tensors. States with the same layout are written in place, so a
+        captured fused step keeps reading them; the device step state is
+        re-seeded in place from the restored counters at the next step.
+        Keys a payload lacks (``save_states`` files) keep their
+        defaults."""
+        self._abandon_speculation()
+        if len(payload["states"]) != len(self._params):
+            raise MXNetError(f"states for {len(payload['states'])} "
+                             f"parameters, the trainer has "
+                             f"{len(self._params)}")
+        host = [_walk(s, _host_tensor) for s in payload["states"]]
+        if self._states is not None and \
+                [_fs.state_sig(s) for s in self._states] == \
+                [_host_sig(s) for s in host]:
+            with torch.no_grad():
+                for old, new in zip(
+                        _fs._leaves([_fs.state_data(s)
+                                     for s in self._states]),
+                        _fs._leaves(host)):
+                    old.copy_(new)
+        else:
+            self._states = [_walk(s, lambda t, d=p.data().data.device:
+                                  NDArray(t.to(d)))
+                            for s, p in zip(host, self._params)]
+        opt_ = self._optimizer
+        opt_.num_update = payload["num_update"]
+        opt_.begin_num_update = payload.get("begin_num_update",
+                                            payload["num_update"])
+        opt_._index_update_count = dict(payload.get("index_update_count",
+                                                    {}))
+        # the host is authoritative from here; what the device held is
+        # dropped before the restored values land
+        self._invalidate_fused_state()
+        if "fused_skips" in payload:
+            self._fused_skips_host = int(payload["fused_skips"])
+        scaler_state = payload.get("loss_scaler")
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        if scaler_state is not None and scaler is not None:
+            scaler._loss_scale = float(scaler_state["loss_scale"])
+            scaler._unskipped = int(scaler_state["unskipped"])
+            if "scale_factor" in scaler_state:
+                # the grow schedule rides along: a trainer made with other
+                # scaler settings replays the saved run's episode
+                scaler._scale_factor = float(scaler_state["scale_factor"])
+                scaler._scale_window = int(scaler_state["scale_window"])
+
     def save_states(self, fname):
         """Write the optimizer's state (moments, master weights, update
         counts) and the loss scaler's to ``fname`` (reference: trainer.py
         save_states); the device step state is synced first."""
-        if self._states is None:
-            self._create_states()
-        self._abandon_speculation()
         self._sync_fused_state()
-        opt_ = self._optimizer
-        payload = {"num_update": opt_.num_update,
-                   "index_update_count": dict(opt_._index_update_count),
-                   "states": [_dump(s) for s in self._states]}
-        scaler = getattr(self, "_amp_loss_scaler", None)
-        if scaler is not None:
-            payload["loss_scaler"] = {"loss_scale": scaler._loss_scale,
-                                      "unskipped": scaler._unskipped}
+        payload = self._state_capture(lambda s: s.asnumpy())
+        state_resolve(payload)
+        out = {"num_update": payload["num_update"],
+               "index_update_count": payload["index_update_count"],
+               "states": payload["states"]}
+        if payload["loss_scaler"] is not None:
+            out["loss_scaler"] = {
+                k: payload["loss_scaler"][k]
+                for k in ("loss_scale", "unskipped")}
         with open(fname, "wb") as f:
-            pickle.dump(payload, f)
+            pickle.dump(out, f)
 
     def load_states(self, fname):
         """Restore what :meth:`save_states` wrote. States that exist with
         the same layout are overwritten in place, so a captured fused
         step keeps its graph; the device step state is re-seeded from
         the restored counts at the next step."""
-        self._abandon_speculation()
         with open(fname, "rb") as f:
             payload = pickle.load(f)  # a file this trainer wrote
-        if len(payload["states"]) != len(self._params):
-            raise MXNetError(f"{fname}: states for {len(payload['states'])} "
-                             f"parameters, the trainer has "
-                             f"{len(self._params)}")
-        loaded = [_load(s, p.data().data.device)
-                  for s, p in zip(payload["states"], self._params)]
-        if self._states is not None and \
-                [_fs.state_sig(s) for s in self._states] == \
-                [_fs.state_sig(s) for s in loaded]:
-            with torch.no_grad():
-                for old, new in zip(
-                        _fs._leaves([_fs.state_data(s)
-                                     for s in self._states]),
-                        _fs._leaves([_fs.state_data(s) for s in loaded])):
-                    old.copy_(new)
-        else:
-            self._states = loaded
-        opt_ = self._optimizer
-        opt_.num_update = opt_.begin_num_update = payload["num_update"]
-        opt_._index_update_count = dict(payload.get("index_update_count",
-                                                    {}))
-        scaler_state = payload.get("loss_scaler")
-        scaler = getattr(self, "_amp_loss_scaler", None)
-        if scaler_state is not None and scaler is not None:
-            scaler._loss_scale = float(scaler_state["loss_scale"])
-            scaler._unskipped = int(scaler_state["unskipped"])
-        self._invalidate_fused_state()
+        try:
+            self._state_restore(payload)
+        except MXNetError as e:
+            raise MXNetError(f"{fname}: {e}") from e
 
 
-def _dump(state):
+def state_resolve(payload):
+    """Fold a :meth:`Trainer._state_capture` payload's device step state,
+    now on the host, into its counters, as ``Trainer._sync_fused_state``
+    folds it into a live trainer: the update count (the host's drifts by
+    the skipped steps), the loss scaler's scale and window count, and the
+    skip total. Returns the payload."""
+    dev = payload.pop("device", None)
+    if dev is None:
+        return payload
+    t = int(dev["t"])
+    payload["num_update"] = t
+    payload["index_update_count"] = {
+        k: t for k in payload["index_update_count"]}
+    if "scale" in dev:
+        if payload["loss_scaler"] is not None:
+            payload["loss_scaler"]["loss_scale"] = float(dev["scale"])
+            payload["loss_scaler"]["unskipped"] = int(dev["unskipped"])
+        payload["fused_skips"] = int(dev["skips"])
+    return payload
+
+
+def _walk(state, leaf):
+    """``leaf`` over a state tree's arrays (None and tuples kept)."""
     if state is None:
         return None
     if isinstance(state, tuple):
-        return tuple(_dump(s) for s in state)
-    return state.asnumpy()
+        return tuple(_walk(s, leaf) for s in state)
+    return leaf(state)
 
 
-def _load(state, device):
-    if state is None:
-        return None
-    if isinstance(state, tuple):
-        return tuple(_load(s, device) for s in state)
+def _host_tensor(x):
+    """A saved state leaf as a CPU tensor (numpy arrays through
+    ``host_tensor``, which carries bfloat16 bit for bit)."""
+    if isinstance(x, torch.Tensor):
+        return x
     from ..ndarray.ndarray import host_tensor
 
-    return NDArray(host_tensor(state).to(device))
+    return host_tensor(x)
+
+
+def _host_sig(state):
+    if state is None:
+        return None
+    if isinstance(state, tuple):
+        return tuple(_host_sig(s) for s in state)
+    return (tuple(state.shape), str(state.dtype))

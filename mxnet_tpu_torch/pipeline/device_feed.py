@@ -21,7 +21,11 @@ an ``io`` DataIter, a gluon ``DataLoader``, a plain iterable — and:
 - re-raises a source's exception in the consumer at ``next()``; and
   ``close()``/``reset()`` drain a worker blocked on the full queue;
 - with ``depth=0`` (or ``MXNET_DEVICE_PREFETCH=0``) stages inline on the
-  caller's thread and stream: no thread, no queue.
+  caller's thread and stream: no thread, no queue;
+- keeps the data cursor a checkpoint records: ``position`` is the epoch
+  offset of the next batch, and ``skip(n)`` moves a one-shot source past
+  ``n`` batches before the pass starts, without staging them
+  (``mxnet_tpu/pipeline/device_feed.py:168-197``).
 
 A leaf already on the device passes through; on a CPU ``device`` the
 leaves become host NDArrays. Under ``MXNET_TELEMETRY>=1`` the staging
@@ -104,6 +108,8 @@ class DeviceFeed:
         self._sync_it = None
         self._finished = False
         self._t_first = None
+        self._served = 0     # batches delivered this pass
+        self._skip_base = 0  # batches skip()-ed before this pass
         _count_set("prefetch_depth", self._depth)
 
     # -- staging ---------------------------------------------------------
@@ -205,6 +211,36 @@ class DeviceFeed:
         finally:
             self._put(ep, _END)
 
+    @property
+    def position(self):
+        """The epoch offset of the NEXT batch: the ``skip()``-ed prefix
+        plus the batches delivered this pass. A checkpoint's cursor, so it
+        stays absolute across a skip-based resume: a second crash in the
+        same epoch resumes at the true offset."""
+        return self._skip_base + self._served
+
+    def skip(self, n):
+        """Move the source past ``n`` batches without staging them (a
+        resume, before the pass starts); ``position`` counts them. Only a
+        one-shot source (``iter(src) is src``: a generator, an iterator)
+        can be skipped: a re-iterable one would rewind when the pass
+        starts, which raises instead."""
+        if n <= 0:
+            return self
+        if self._epoch is not None or self._sync_it is not None:
+            raise RuntimeError("DeviceFeed.skip() must run before "
+                               "iteration starts")
+        it = iter(self.source)
+        if it is not iter(self.source):
+            raise RuntimeError(
+                "DeviceFeed.skip() needs a one-shot source (iter(src) is "
+                "src); a re-iterable source would rewind when the feed "
+                "starts: slice the source instead")
+        for _ in range(n):
+            next(it)
+        self._skip_base += n
+        return self
+
     def _start(self):
         ep = _Epoch(self._depth)
         ep.thread = threading.Thread(target=self._worker, args=(ep,),
@@ -212,6 +248,7 @@ class DeviceFeed:
         self._epoch = ep
         self._finished = False
         self._t_first = None
+        self._served = 0
         ep.thread.start()
 
     # -- iteration -------------------------------------------------------
@@ -252,6 +289,7 @@ class DeviceFeed:
         else:
             _count("prefetch_hits")
         _count("prefetch_batches")
+        self._served += 1
         return self._hand_over(item)
 
     next = __next__
@@ -261,11 +299,13 @@ class DeviceFeed:
         if self._sync_it is None:
             self._sync_it = iter(self.source)
             self._t_first = time.perf_counter()
+            self._served = 0
         try:
             item = self._stage(next(self._sync_it), [])
         except StopIteration:
             self._end_pass()
             raise
+        self._served += 1
         return item
 
     def _end_pass(self):
@@ -285,6 +325,7 @@ class DeviceFeed:
         ep = self._epoch
         self._epoch = None
         self._sync_it = None
+        self._skip_base = 0
         if self._t_first is not None:
             _count("feed_active_s", time.perf_counter() - self._t_first)
             self._t_first = None

@@ -185,8 +185,10 @@ def pipeline_counters():
 
 
 def resilience_counters():
-    """Fault-tolerance counters: retry attempts and give-ups, circuit
-    breaker trips, injected-fault fires per point."""
+    """Fault-tolerance counters: checkpoint saves (async, waits, write
+    seconds, bytes), restores, corrupt checkpoints passed over and pruned
+    ones, AutoResume's caught faults and restarts, retry attempts and
+    give-ups, circuit breaker trips, injected-fault fires."""
     return _family("resilience")
 
 

@@ -79,6 +79,38 @@ def draws():
         return _DRAWS[0]
 
 
+def _capture_state():
+    """The stream's position: the global seed and every device
+    generator's state (a CUDA generator's is its seed and Philox offset,
+    16 bytes), as host uint8 arrays. No device work and no wait: a
+    CUDA generator keeps its offset on the host, and a replayed graph
+    has already advanced it when its replay was enqueued."""
+    with _LOCK:
+        gens = dict(_GENERATORS)
+        seed_ = _SEED[0]
+    return {"seed": seed_,
+            "generators": {str(dev): gen.get_state().numpy().copy()
+                           for dev, gen in gens.items()}}
+
+
+def _restore_state(state):
+    """Put the stream back where :func:`_capture_state` found it. Every
+    generator keeps its object, so a CUDA graph that registered it reads
+    the restored offset at its next replay (``set_state`` writes the
+    seed and offset in place; the graph-safe variants would swap the
+    state object the graphs hold). A generator made after the capture is
+    re-seeded, as if made fresh from the restored seed."""
+    saved = {torch.device(k): v for k, v in state["generators"].items()}
+    with _LOCK:
+        _SEED[0] = int(state["seed"])
+    for dev, arr in saved.items():
+        device_generator(dev).set_state(torch.from_numpy(arr.copy()))
+    with _LOCK:
+        fresh = [g for d, g in _GENERATORS.items() if d not in saved]
+    for gen in fresh:
+        gen.manual_seed(int(state["seed"]))
+
+
 # -- samplers (``mx.random.*``, also ``mx.nd.random.*``) ---------------------
 
 def _op(name, out=None, **kwargs):

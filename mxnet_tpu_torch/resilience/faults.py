@@ -33,6 +33,9 @@ call whether the seam raises. The seams:
                           a skipped write; the entry survives)
 ``autotune_measure``      one autotune candidate's measurement (the
                           sweep skips that candidate)
+``checkpoint_write``      ``CheckpointManager``'s write of one checkpoint
+                          (nothing becomes visible; on the writer thread
+                          it surfaces at the next ``save``/``wait``)
 ========================  ==============================================
 
 Clause keys, as in the reference: ``at=N`` fires on the Nth call (once);
@@ -88,6 +91,9 @@ FAULT_POINTS = {
     "autotune_measure": "autotune candidate measurement (a fire skips "
                         "that candidate)",
     "engine_push": "dependency-engine host-task push",
+    "checkpoint_write": "CheckpointManager's write of one checkpoint (a "
+                        "fire leaves no visible checkpoint; in async mode "
+                        "it surfaces at the next save/wait)",
 }
 
 

@@ -33,8 +33,12 @@ without executing (its session state stays put, so it can be retried).
 
 ``close()`` stops accepting queued work, drains every accepted request
 to its boundary and joins the workers; afterwards, or with
-``MXNET_SERVING=0``, ``submit`` runs inline. The session-state
-checkpoint at close comes with slice 9b.
+``MXNET_SERVING=0``, ``submit`` runs inline. A stateful batcher given a
+``state_checkpoint`` manager (a ``CheckpointManager`` built with
+``session_state=`` the session's store) then checkpoints the drained
+session states, so the streams resume in the next process or model
+version; a failed checkpoint is logged and the close still completes
+(``mxnet_tpu/serving/batcher.py:223-239,844-870``).
 
 Telemetry (``MXNET_TELEMETRY>=1``), with the JAX batcher's names: a
 request's ``serving.admission`` span on the submitting thread, then on
@@ -209,15 +213,21 @@ class DynamicBatcher:
         (default 1; a stateful one always has one step loop)
     admission : bool | None — SLO admission control (None reads
         ``MXNET_SERVING_ADMISSION``, default on)
+    state_checkpoint : CheckpointManager | None — stateful batchers only:
+        ``close()`` checkpoints the drained session states through it
     """
 
     def __init__(self, session, max_batch_size=None, max_latency_ms=None,
                  max_queue=None, timeout_ms=None, num_workers=None,
-                 admission=None):
+                 admission=None, state_checkpoint=None):
         from . import serving_enabled
 
         self.session = session
         self._stateful = bool(getattr(session, "stateful", False))
+        if state_checkpoint is not None and not self._stateful:
+            raise MXNetError("state_checkpoint= requires a stateful "
+                             "session (state_shapes= or state_store=)")
+        self._state_ckpt = state_checkpoint
         self._max_batch = int(max_batch_size or getenv(
             "MXNET_SERVING_MAX_BATCH", 32, int))
         sess_max = getattr(session, "max_batch", None)
@@ -705,8 +715,9 @@ class DynamicBatcher:
 
     def close(self):
         """Stop accepting queued work, run every accepted request to its
-        boundary, join the workers. Idempotent; later submits run
-        inline."""
+        boundary, join the workers, then (stateful, with a
+        ``state_checkpoint``) checkpoint the session states and wait for
+        the write. Idempotent; later submits run inline."""
         with self._lock:
             if self._closed:
                 return
@@ -717,6 +728,17 @@ class DynamicBatcher:
             t.join()
         self._workers = []
         self._drain_queue()  # what a racing submit slipped in
+        if self._stateful and self._state_ckpt is not None:
+            try:
+                self._state_ckpt.save(
+                    step=self.session.state_store.steps_total)
+                self._state_ckpt.wait()
+            except Exception:
+                # close() completes: a failed state checkpoint loses the
+                # streams (an availability loss), it does not block the
+                # shutdown
+                logging.exception(
+                    "serving: session-state checkpoint at close failed")
         METRICS.unregister_depth_probe(self._depth_token)
         if self._admission is not None:
             self._admission.close()

@@ -1412,6 +1412,105 @@ def test_hybridized_dropout_draws_fresh_masks_per_replay(cuda):
     assert ent.replays == 3
 
 
+def _resume_job(ckpt_dir, fault_at, amp_on):
+    """A hybridized MLP with dropout 0.5 trained 12 steps by the fused
+    step (Adam), under AutoResume with async checkpoints every 4 steps;
+    a fault at ``fault_at`` (None: never). Returns the parameters'
+    bytes, the trace and the restarts."""
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.resilience import (AutoResume, CheckpointManager,
+                                            InjectedFault)
+
+    ctx = mx.gpu(0)
+    mx.random.seed(5)
+    net = mx.gluon.nn.HybridSequential()
+    net.add(mx.gluon.nn.Dense(64, activation="relu", in_units=32),
+            mx.gluon.nn.Dropout(0.5), mx.gluon.nn.Dense(8, in_units=64))
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net.hybridize()
+    tr = gluon.Trainer(net.collect_params(), "adam", {"learning_rate": 0.01})
+    if amp_on:
+        amp.init("bfloat16")
+        amp.init_trainer(tr)
+    calls = {"n": 0}
+
+    def data(epoch):
+        rs = onp.random.RandomState(40 + epoch)
+        for _ in range(6):
+            yield rs.rand(16, 32).astype("f"), rs.rand(16, 8).astype("f")
+
+    def step_fn(batch):
+        calls["n"] += 1
+        if fault_at is not None and calls["n"] == fault_at + 1:
+            raise InjectedFault("fault")
+        x, y = nd.array(batch[0], ctx=ctx), nd.array(batch[1], ctx=ctx)
+        with autograd.record():
+            loss = ((net(x) - y) ** 2).mean()
+            if amp_on:
+                with amp.scale_loss(loss, tr) as scaled:
+                    scaled.backward()
+            else:
+                loss.backward()
+        tr.step(16)
+        return float(loss.asscalar())
+
+    mgr = CheckpointManager(ckpt_dir, trainer=tr, async_mode=True)
+    try:
+        sup = AutoResume(mgr, data, step_fn, epochs=2, ckpt_every=4)
+        trace = sup.run()
+    finally:
+        if amp_on:
+            amp.disable()
+    return ([p.data().data.detach().cpu().numpy().tobytes()
+             for p in net.collect_params().values()], trace, sup.restarts)
+
+
+@pytest.mark.parametrize("amp_on", [False, True], ids=["fp32", "bf16_amp"])
+def test_autoresume_on_the_card_resumes_the_dropout_stream(cuda, fused,
+                                                           tmp_path, amp_on):
+    """A hybridized block's graphs draw dropout from the registered
+    generator and the fused step's graph writes every parameter and
+    state in place: a fault at step 7 restored from the checkpoint at
+    step 4 (generator state set in place, states copied into their own
+    storage) replays to the uninterrupted run's parameters and trace,
+    bit for bit."""
+    ref = _resume_job(str(tmp_path / "ref"), None, amp_on)
+    got = _resume_job(str(tmp_path / "fault"), 7, amp_on)
+    assert ref[2] == 0 and got[2] == 1
+    assert got[0] == ref[0]
+    assert got[1] == ref[1]
+
+
+def test_capture_warmup_leaves_the_generator_where_it_was(cuda):
+    """The capture's eager warm-up draws, then puts the generator back:
+    the first replay's mask is the one an eager call at that point
+    draws, so a process that captures at its resume step draws the
+    uninterrupted stream."""
+    from mxnet_tpu_torch import random as mxrandom
+
+    def build(hybridize):
+        net = mx.gluon.nn.HybridSequential()
+        net.add(mx.gluon.nn.Dropout(0.5))
+        net.initialize(ctx=mx.gpu(0))
+        if hybridize:
+            net.hybridize()
+        return net
+
+    x = mx.nd.ones((64, 64), ctx=mx.gpu(0))
+    masks = []
+    for hybridize in (False, True):
+        mx.random.seed(3)
+        net = build(hybridize)
+        with mx.autograd.train_mode():
+            masks.append([net(x).data.clone() for _ in range(2)])
+        masks[-1].append(mxrandom.device_generator(
+            torch.device("cuda", 0)).get_state())
+    (e0, e1, es), (h0, h1, hs) = masks
+    assert torch.equal(e0, h0) and torch.equal(e1, h1)
+    assert torch.equal(es, hs)
+
+
 def test_hybridized_lm_counts_k1_per_replay_on_sm90(cuda):
     """A bf16 TransformerLM hybridized: K1 runs inside the captured
     forward, its launches counted per replay (one per layer per step,

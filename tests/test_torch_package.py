@@ -166,6 +166,13 @@ INTERCHANGE_MODULES = [
     "contrib/symbol.py"]
 
 
+# and those of the resilience layer's checkpoints
+RESILIENCE_MODULES = [
+    "resilience/checkpoint.py", "resilience/supervisor.py",
+    "pipeline/device_feed.py", "random.py", "gluon/trainer.py",
+    "tools/profile_resilience.py"]
+
+
 def test_no_module_imports_jax_or_the_jax_package():
     offenders = []
     files = list(_python_files())
@@ -175,7 +182,8 @@ def test_no_module_imports_jax_or_the_jax_package():
         set(RESNET_MODULES) | set(SERVING_MODULES) | \
         set(SYMBOLIC_TRAINING_MODULES) | set(GLUON_SURFACE_MODULES) | \
         set(DETECTION_MODULES) | set(QUANTIZATION_MODULES) | \
-        set(SPARSE_MODULES) | set(INTERCHANGE_MODULES) <= scanned
+        set(SPARSE_MODULES) | set(INTERCHANGE_MODULES) | \
+        set(RESILIENCE_MODULES) <= scanned
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -204,7 +204,9 @@ def test_knob_statuses_and_the_jax_names():
                  "MXNET_LOCK_CHECK", "MXNET_FUSED_STEP", "MXNET_SEED",
                  "MXNET_PROFILER_AUTOSTART", "MXNET_COMPILE_CACHE",
                  "MXNET_ARTIFACT_REMOTE", "MXNET_AUTOTUNE",
-                 "MXNET_FLEET_VNODES", "MXNET_SHAPE_BUCKETS"):
+                 "MXNET_FLEET_VNODES", "MXNET_SHAPE_BUCKETS",
+                 "MXNET_CKPT_DIR", "MXNET_CKPT_KEEP", "MXNET_CKPT_ASYNC",
+                 "MXNET_RESUME_MAX_RESTARTS"):
         assert env.KNOBS[knob][0] == "wired", knob
 
 

@@ -569,13 +569,8 @@ JAX_ONLY_KEYS = {
     # both steps sit on the JAX package's CountedLRUCache; the port's
     # ``fallbacks`` stays 0 (its step captures its graph or raises)
     "fused_step": set(),
-    # checkpoints and auto-resume, and the per-bucket serving breakers
-    # that demote a bucket: slice 9b
-    "resilience": {"ckpt_saves", "ckpt_async_saves", "ckpt_async_waits",
-                   "ckpt_write_s", "ckpt_bytes", "ckpt_restores",
-                   "ckpt_corrupt_skipped", "ckpt_pruned",
-                   "resume_faults_caught", "resume_restarts",
-                   "breaker_demotions"},
+    # the per-bucket serving breakers that demote a bucket: slice 9b
+    "resilience": {"breaker_demotions"},
     "pipeline": set(),
     "graph_opt": set(),
     "graph_verify": set(),
